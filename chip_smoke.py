@@ -8,32 +8,63 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. Device and build: the card's name and power limit (nvidia-smi), CUDA
    present, the kernels built from ``gasfm_tpu_torch/csrc`` with nvcc for
    sm_90a (build seconds and ptxas's register report).
-2. Each kernel against its plain PyTorch version on the card, on seeded
-   inputs at the flagship shapes of both bench scenes: max error against
-   the stated tolerance, median time over CUDA events, the plain version's
-   time, and the least time the card could take (bytes over 3.35 TB/s or
-   float32 operations over 67 TFLOP/s, whichever is larger).
-3. The slice: the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
+2. Each forward kernel against its plain PyTorch version on the card, on
+   seeded inputs at the flagship shapes of both bench scenes: max error
+   against the stated tolerance, median time over CUDA events, the plain
+   version's time, and the least time the card could take (bytes over 3.35
+   TB/s or float32 operations over 67 TFLOP/s, whichever is larger).
+3. Each backward kernel against autograd of its plain version on the card,
+   on seeded inputs and cotangents at both scenes' shapes: the dual core at
+   D = 32, the frontend at layer 0 (De = 2), the layer step in its interior,
+   first-layer and raw-prologue forms, the loss in its three equalization
+   modes. The max error of every input gradient, the backward kernels'
+   median time, the plain backward's time and the byte bound.
+4. Serving: the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
    32/64/1024/2048, seeded init) answers 3 requests per scene through
    ``TrainingSession.forward`` and ``.loss`` on the dense (128 views, 8192
    points) and power-law (133 views, 24,576 points) synthetic scenes. The
    launch counters are zeroed just before and read just after; the exact
-   counts per forward are checked. Outputs must be finite, the kernel path
-   must agree with the plain path on the card, and on a small scene with
-   the plain path on the CPU.
-4. A ``kernels`` JSON line, the nvidia-smi line, and the final
-   ``{"ok": true, "device": ...}`` line. The full record goes to
-   ``chiprun_out/chip_smoke.json``.
+   counts per request are checked (no backward launch, no residual write).
+   Outputs must be finite and agree with the plain path on the card.
+5. Training, the main path: ``TrainingSession.fused_step`` on each scene,
+   one warm-up step then 3 timed steps, at full width and depth, with the
+   flagship conf's loss (margin 1e-4, hinge weight 1, valid-only gradient
+   equalization) and optimizer (Adam, lr 1e-4, 2,500 warm-up steps,
+   exponential decay 0.1 over 35,000). Counters zeroed just before, read
+   just after; exact launches per step (forward: frontend 1, layer step 9,
+   dual 10, loss 1; backward: loss 1, layer step 9, frontend 1, dual 10).
+   Prints ms per step, edges/s, loss, our_repro, grad norm and peak device
+   memory. A twin of the model on the plain path, from the same weights,
+   must agree: every parameter gradient at the first step, the loss at
+   every step.
+6. A small scene (8 views, 600 points): the kernel path on the card against
+   the plain path on the CPU, forward and after 3 training steps.
+7. A ``kernels`` JSON line (all eight kernels, launches from the training
+   path), the nvidia-smi line, and the final ``{"ok": true, "device": ...}``
+   line. The full record goes to ``chiprun_out/chip_smoke.json``.
 
 Tolerances, all float32 with sums in another order than the plain version:
-per kernel |err| <= 1e-5 x scale + 1e-4 x |ref|; for the 9-layer forward
-and the loss |err| <= 1e-3 x scale + 1e-3 x |ref| (nine layers of flax-form
-LayerNorms amplify rounding on edges whose features nearly coincide).
+forward kernels |err| <= 1e-5 x scale + 1e-4 x |ref|; backward kernels, per
+input gradient, |err| <= 1e-4 x scale + 1e-3 x |ref| with scale the
+gradient's max |ref| (sums over up to 115k edges), except the layer-0
+frontend's d e, whose scale is at least 1 (over two features the
+LayerNorm's d e is a near-zero difference of O(1) terms); the 9-layer
+forward and the loss |err| <= 1e-3 x scale + 1e-3 x |ref| (nine layers of
+flax-form LayerNorms amplify rounding on edges whose features nearly
+coincide); the parameter gradients of the 9-layer model at the first step,
+per tensor, against the plain path run in float64 from the same weights:
+the kernel path's max |err| at most 4 x the plain float32 path's plus 1e-5
+x max |ref| plus 1e-7 x the model's largest gradient (some gradients are
+sums whose terms cancel exactly, zero in float64, rounding noise in float32
+on both paths); losses after
+Adam steps rtol 1e-3; parameters after 3 steps, card vs CPU, |err| <= 1e-6 +
+1e-5 x |ref| (three updates of at most ~lr = 4e-8 each).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,17 +77,28 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 F32_FLOPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
+BWD_RTOL, BWD_ATOL = 1e-3, 1e-4
 SLICE_RTOL, SLICE_ATOL = 1e-3, 1e-3
+GRAD_FACTOR, GRAD_RTOL64, GRAD_EPS64 = 4.0, 1e-5, 1e-7
 REQUESTS = 3
+TRAIN_STEPS = 3  # timed, after one warm-up step
 KERNELS = {  # name -> (source in the repo, the TPU kernel's pallas_call it replaces)
     "fused_dual_attend": ("gasfm_tpu_torch/csrc/fused_dual_attn.cu",
                           "gasfm_tpu/ops/pallas/fused_dual_attn.py:325"),
+    "fused_dual_attend_bwd": ("gasfm_tpu_torch/csrc/fused_dual_attn.cu",
+                              "gasfm_tpu/ops/pallas/fused_dual_attn.py:575"),
     "fused_frontend": ("gasfm_tpu_torch/csrc/fused_dual_attn.cu",
                        "gasfm_tpu/ops/pallas/fused_dual_attn.py:1023"),
+    "fused_frontend_bwd": ("gasfm_tpu_torch/csrc/fused_dual_attn.cu",
+                           "gasfm_tpu/ops/pallas/fused_dual_attn.py:1364"),
     "fused_layer_step": ("gasfm_tpu_torch/csrc/fused_layer_step.cu",
                          "gasfm_tpu/ops/pallas/fused_layer_step.py:689"),
+    "fused_layer_step_bwd": ("gasfm_tpu_torch/csrc/fused_layer_step.cu",
+                             "gasfm_tpu/ops/pallas/fused_layer_step.py:844"),
     "fused_esfm_terms": ("gasfm_tpu_torch/csrc/fused_loss.cu",
                          "gasfm_tpu/ops/pallas/fused_loss.py:253"),
+    "fused_esfm_terms_bwd": ("gasfm_tpu_torch/csrc/fused_loss.cu",
+                             "gasfm_tpu/ops/pallas/fused_loss.py:296"),
 }
 
 
@@ -87,12 +129,13 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def max_err(got, want, rtol, atol):
-    """(max |got - want|, within |err| <= atol * scale + rtol * |want|)."""
+def max_err(got, want, rtol, atol, floor=1.0):
+    """(max |got - want|, within |err| <= atol * scale + rtol * |want|) with
+    scale = max(floor, max |want|)."""
     got, want = got.double(), want.double()
     if got.shape != want.shape or not torch.isfinite(got).all():
         return float("inf"), False
-    scale = max(1.0, float(want.abs().max()))
+    scale = max(floor, float(want.abs().max()))
     err = (got - want).abs()
     return float(err.max()), bool((err <= atol * scale + rtol * want.abs()).all())
 
@@ -209,15 +252,8 @@ def kernel_phase(dev, scene_name, graph, model, record):
               lambda sa=sa, raw=raw: fls.fused_layer_step_plain(*sa, raw_prologue=raw),
               ("e_l", "e_norm_next", "out_pt", "out_cam"), io, flops, main)
 
-    # #7 loss terms, hinge on (the flagship loss) and off. Cameras near
-    # [I | (0, 0, 3)], a fifth of them flipped, and points in a unit box give
-    # depths of both signs, all well away from the margin.
-    P = torch.cat([torch.eye(3, device=dev) + rnd(m, 3, 3, scale=0.1),
-                   torch.tensor([[0.0], [0.0], [3.0]], device=dev) + rnd(m, 3, 1, scale=0.1)], dim=2)
-    P = (P * torch.where(torch.arange(m, device=dev) % 5 == 0, -1.0, 1.0)[:, None, None])
-    P = P.reshape(m, 12).contiguous()
-    X = torch.cat([torch.rand((n, 3), generator=gen, device=dev) * 2 - 1,
-                   torch.ones((n, 1), device=dev)], dim=1)
+    # #7 loss terms, hinge on (the flagship loss) and off.
+    P, X = loss_operands(rnd, gen, dev, m, n)
     for variant, hinge, main in (("hinge", True, True), ("no_hinge", False, False)):
         la = (P, X, graph, 1e-4, hinge, 1.0 if hinge else 0.0)
         check("fused_esfm_terms", variant, lambda la=la: (flo.fused_esfm_terms(*la),),
@@ -226,18 +262,222 @@ def kernel_phase(dev, scene_name, graph, model, record):
     return results
 
 
+def loss_operands(rnd, gen, dev, m, n):
+    """Cameras near [I | (0, 0, 3)], a fifth of them flipped, and points in a
+    unit box: depths of both signs, all well away from the margin."""
+    P = torch.cat([torch.eye(3, device=dev) + rnd(m, 3, 3, scale=0.1),
+                   torch.tensor([[0.0], [0.0], [3.0]], device=dev) + rnd(m, 3, 1, scale=0.1)], dim=2)
+    P = (P * torch.where(torch.arange(m, device=dev) % 5 == 0, -1.0, 1.0)[:, None, None])
+    X = torch.cat([torch.rand((n, 3), generator=gen, device=dev) * 2 - 1,
+                   torch.ones((n, 1), device=dev)], dim=1)
+    return P.reshape(m, 12).contiguous(), X
+
+
+def separated_pairs(rnd, gen, dev, E):
+    """(E, 2) edge rows whose two features differ by 0.5 to 2: the flax-form
+    LayerNorm over two features loses its digits where they nearly coincide,
+    and its backward multiplies that by 1/std."""
+    a = rnd(E, 1, scale=2.0)
+    gap = torch.rand((E, 1), generator=gen, device=dev) * 1.5 + 0.5
+    sign = torch.where(torch.rand((E, 1), generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    return torch.cat([a, a - sign * gap], dim=1)
+
+
 # ---------------------------------------------------------------------------
-# phase 3: the slice
+# phase 3: each backward kernel against autograd of its plain version
 # ---------------------------------------------------------------------------
+
+
+def backward_phase(dev, scene_name, graph, record):
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
+
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    H = 4
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
+    results = {}
+
+    def grads_of(fn, leaves, cots, keep=False):
+        """d leaf for each leaf of sum <outputs, cots> (None: unused output),
+        and with ``keep`` the arguments of ``autograd.grad`` on the recorded
+        graph, to time the backward alone."""
+        with torch.enable_grad():
+            ls = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+            outs = fn(**ls)
+            used = [(o, c) for o, c in zip(outs, cots) if c is not None]
+            args = ([o for o, _ in used], list(ls.values()), [c for _, c in used])
+            grads = torch.autograd.grad(*args, retain_graph=keep)
+        return grads, (args if keep else None)
+
+    def check(name, variant, kernel, plain, leaves, cots, bwd_kernel, io_bytes, flops, main,
+              floors=None):
+        """``floors``: per input, a lower bound of the scale its tolerance is
+        taken against (default: its gradient's own max |ref|)."""
+        got, _ = grads_of(kernel, leaves, cots)
+        want, args = grads_of(plain, leaves, cots, keep=True)
+        worst, ok, errs = 0.0, True, {}
+        for leaf, g, w in zip(leaves, got, want):
+            e, good = max_err(g, w, BWD_RTOL, BWD_ATOL, floor=(floors or {}).get(leaf, 1e-30))
+            errs[leaf] = e
+            worst, ok = max(worst, e / max(float(w.abs().max()), 1e-30)), ok and good
+            if not good:
+                print(f"  {name}[{variant}] d{leaf}: max err {e:.3e} (max |ref| "
+                      f"{float(w.abs().max()):.3e}) out of tolerance")
+        ms = cuda_ms(bwd_kernel)
+        with torch.enable_grad():
+            plain_ms = cuda_ms(lambda: torch.autograd.grad(*args, retain_graph=True))
+        b_ms, b_by = bound_ms(io_bytes, flops)
+        print(f"kernel {name}[{variant}] {scene_name}: max err / max |ref| over input grads "
+              f"{worst:.3e} (tol {BWD_ATOL:g} x max|ref| + {BWD_RTOL:g} x |ref|) "
+              f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        record.setdefault("backward_variants", []).append(dict(
+            scene=scene_name, name=name, variant=variant, max_abs_err=errs, ok=ok, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        entry = results.setdefault(name, dict(max_abs_err=0.0, ok=True))
+        entry["max_abs_err"] = max(entry["max_abs_err"], max(errs.values()))
+        entry["ok"] = entry["ok"] and ok
+        if main:
+            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, variant=variant)
+
+    # #2 dual core at D = 32.
+    D = 32
+    dual = dict(xl_p=rnd(E, D), xl_c=rnd(E, D), xr_p=rnd(n, D), xr_c=rnd(m, D),
+                att_p=rnd(D), att_c=rnd(D))
+    g_p, g_c = rnd(n, D), rnd(m, D)
+    op, oc, res, ins = fda.dual_attend_forward(*dual.values(), graph, H, residuals=True)
+    check("fused_dual_attend_bwd", "D32",
+          lambda **a: fda.fused_dual_attend(*a.values(), graph, H),
+          lambda **a: fda.fused_dual_attend_plain(*a.values(), graph, H),
+          dual, (g_p, g_c),
+          lambda: fda.fused_dual_attend_bwd(*ins, op, oc, *res, g_p, g_c, graph, H),
+          nbytes(*dual.values(), op, oc, *res, g_p, g_c, *csr, *dual.values()),
+          20.0 * E * 2 * D, True)
+
+    # #4 frontend at layer 0: De = 2, D = 4, separated feature pairs.
+    De, Dq = 2, 4
+    front = dict(e=separated_pairs(rnd, gen, dev, E), ln_scale=1.0 + rnd(De, scale=0.2),
+                 ln_bias=rnd(De, scale=0.1), wlp=rnd(Dq, De, scale=0.5), blp=rnd(Dq, scale=0.1),
+                 wlc=rnd(Dq, De, scale=0.5), blc=rnd(Dq, scale=0.1), xr_p=rnd(n, Dq),
+                 xr_c=rnd(m, Dq), att_p=rnd(Dq), att_c=rnd(Dq))
+    g_en, g_p4, g_c4 = rnd(E, De), rnd(n, Dq), rnd(m, Dq)
+    fa = tuple(front.values())
+    en0, xp0, xc0 = fda.frontend_prologue(*fa[:7])
+    op4, oc4, res4, ins4 = fda.dual_attend_forward(xp0, xc0, *fa[7:], graph, H, residuals=True)
+
+    def front_bwd():
+        d = fda.fused_dual_attend_bwd(*ins4, op4, oc4, *res4, g_p4, g_c4, graph, H)
+        return fda.fused_frontend_bwd(*fa[:3], fa[3], fa[5], d[0], d[1], g_en, en0)
+
+    check("fused_frontend_bwd", "De2_layer0",
+          lambda **a: fda.fused_frontend(*a.values(), graph, H),
+          lambda **a: fda.fused_frontend_plain(*a.values(), graph, H),
+          front, (g_en, g_p4, g_c4), front_bwd,
+          # reads: e, parameters, queries, outputs, residuals, cotangents
+          # (xl is recomputable from e); writes: de and every parameter's
+          # and query's gradient
+          nbytes(*fa, op4, oc4, *res4, g_en, g_p4, g_c4, *csr, *fa),
+          E * (30 * De + 8 * De * Dq + 40 * Dq), True,
+          # Over two features the LayerNorm's output is +-1/sqrt(1 + eps/var)
+          # whatever the input: d e is a near-zero difference of O(1) terms,
+          # whose rounding scales with those terms (~1), not with |d e|.
+          floors={"e": 1.0})
+
+    # #6 layer step: interior (skip2 = e0, residual), first-layer form, final raw.
+    e0 = separated_pairs(rnd, gen, dev, E)
+    for variant, d_in, has_res, raw, main in (("interior", 32, True, False, True),
+                                              ("first_layer", 2, False, False, False),
+                                              ("final_raw", 32, True, True, False)):
+        K = d_in + 2
+        step = dict(en=torch.relu(rnd(E, d_in)), skip2=e0)
+        if has_res:
+            step["res"] = rnd(E, 32)
+        step.update(w=rnd(32, K, scale=0.2), b=rnd(32, scale=0.1), ps=rnd(n, 32), pv=rnd(m, 32),
+                    pg=rnd(1, 32))
+        if not raw:
+            step.update(ln_scale=1.0 + rnd(32, scale=0.2), ln_bias=rnd(32, scale=0.1))
+        step.update(wlp=rnd(D, 32, scale=0.2), blp=rnd(D, scale=0.1), wlc=rnd(D, 32, scale=0.2),
+                    blc=rnd(D, scale=0.1), xr_p=rnd(n, D), xr_c=rnd(m, D), att_p=rnd(D),
+                    att_c=rnd(D))
+
+        def args_of(a, raw=raw, has_res=has_res):
+            return (a["en"], a["skip2"], a["res"] if has_res else None, a["w"], a["b"], a["ps"],
+                    a["pv"], a["pg"], a.get("ln_scale"), a.get("ln_bias"), a["wlp"], a["blp"],
+                    a["wlc"], a["blc"], a["xr_p"], a["xr_c"], a["att_p"], a["att_c"])
+
+        g_el, g_en, g_ps, g_cs = rnd(E, 32), (None if raw else rnd(E, 32)), rnd(n, D), rnd(m, D)
+        sa = args_of(step)
+        e_l, en_next, xp, xc = fls.layer_step_prologue(*sa[:14], graph, raw_prologue=raw)
+        ops, ocs, ress, inss = fda.dual_attend_forward(xp, xc, *sa[14:], graph, H, residuals=True)
+
+        def step_bwd(sa=sa, e_l=e_l, en_next=en_next, ops=ops, ocs=ocs, ress=ress, inss=inss,
+                     g_el=g_el, g_en=g_en, g_ps=g_ps, g_cs=g_cs, raw=raw):
+            d = fda.fused_dual_attend_bwd(*inss, ops, ocs, *ress, g_ps, g_cs, graph, H)
+            return fls.fused_layer_step_bwd(sa[0], sa[1], sa[3], e_l, en_next, sa[8], sa[9],
+                                            sa[10], sa[12], graph, d[0], d[1], g_en, g_el,
+                                            raw_prologue=raw)
+
+        check("fused_layer_step_bwd", variant,
+              lambda raw=raw, args_of=args_of, **a: fls.fused_layer_step(
+                  *args_of(a), graph, H, raw_prologue=raw),
+              lambda raw=raw, args_of=args_of, **a: fls.fused_layer_step_plain(
+                  *args_of(a), graph, H, raw_prologue=raw),
+              step, (g_el, g_en, g_ps, g_cs), step_bwd,
+              # reads: en, skip2, the saved e_l, weights, queries, outputs,
+              # residuals, cotangents; writes every input's gradient (res's
+              # is e_l's total cotangent)
+              nbytes(step["en"], step["skip2"], e_l, *sa[3:], ops, ocs, *ress, g_el, g_en,
+                     g_ps, g_cs, graph.pt_idx, graph.cam_idx, *csr, *step.values()),
+              E * (2 * 2 * K * 32 + 30 * 32 + 8 * 32 * D + 40 * D), main)
+
+    # #8 loss terms, hinge on, in the three equalization modes.
+    P, X = loss_operands(rnd, gen, dev, m, n)
+    coef = torch.full((1,), 1.0 / E, device=dev)
+    terms = flo.esfm_terms_forward(P, X, graph, 1e-4, True, 1.0)[0]
+    for mode, main in (("valid_only", True), ("all", False), ("none", False)):
+        count = terms[2:3] if mode == "valid_only" else terms[1:2]
+        check("fused_esfm_terms_bwd", mode,
+              lambda mode=mode, **a: (flo.fused_esfm_terms(
+                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
+              lambda mode=mode, **a: (flo.fused_esfm_terms_plain(
+                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
+              dict(P=P, X=X), (coef[0],),
+              lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
+                  P, X, graph, coef, count, 1e-4, True, 1.0, mode),
+              nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, *csr, P, X), 80.0 * E, main)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 4: serving
+# ---------------------------------------------------------------------------
+
+
+def per_step_launches(L, backward):
+    """Exact kernel launches of one forward + loss (and, with ``backward``,
+    of its backward) through an L-layer model."""
+    fwd = {"fused_frontend": 1, "fused_layer_step": L, "fused_dual_attend": L + 1,
+           "fused_esfm_terms": 1}
+    bwd = {"fused_esfm_terms_bwd": 1, "fused_layer_step_bwd": L, "fused_frontend_bwd": 1,
+           "fused_dual_attend_bwd": L + 1}
+    return {**fwd, **{k: v if backward else 0 for k, v in bwd.items()}}
 
 
 def slice_phase(dev, session, scenes, counters, record):
+    from gasfm_tpu_torch.ops.kernels.fused_dual_attn import fused_dual_attend
+
     L = len(session.model.equivariant_blocks)
-    per_request = {"fused_frontend": 1, "fused_layer_step": L, "fused_dual_attend": L + 1,
-                   "fused_esfm_terms": 1}
+    per_request = per_step_launches(L, backward=False)
     outputs = {}
     for fn in counters.values():
         fn.launches = 0
+    fused_dual_attend.residual_launches = 0
     for name, scene in scenes.items():
         before = {k: fn.launches for k, fn in counters.items()}
         times = []
@@ -263,7 +503,11 @@ def slice_phase(dev, session, scenes, counters, record):
             views=scene.graph.num_cams, points=scene.graph.num_pts, edges=E,
             ms_per_request=times, median_ms=ms, edges_per_s=E / ms * 1e3,
             loss=float(loss), launches=delta)
-    launches = {k: fn.launches for k, fn in counters.items()}  # read just after the main path
+    launches = {k: fn.launches for k, fn in counters.items()}  # read just after the path
+    if fused_dual_attend.residual_launches:
+        raise SmokeFailure(f"serving wrote softmax residuals in "
+                           f"{fused_dual_attend.residual_launches} dual launches")
+    print("serving: no backward launch and no residual write under no_grad")
 
     for name, scene in scenes.items():
         pred, loss = outputs[name]
@@ -285,6 +529,136 @@ def slice_phase(dev, session, scenes, counters, record):
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (tol {SLICE_ATOL:g} x scale + {SLICE_RTOL:g} x |ref|) ok")
         record["slice"][name]["kernel_vs_plain_max_abs_err"] = errs
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training, the main path
+# ---------------------------------------------------------------------------
+
+
+def float64_scene(scene):
+    """The scene with its float arrays in float64, for a float64 run of the
+    plain path."""
+    import dataclasses
+
+    return dataclasses.replace(scene, graph=dataclasses.replace(scene.graph,
+                                                                uv=scene.graph.uv.double()),
+                               Ns=scene.Ns.double(), Ns_inv=scene.Ns_inv.double())
+
+
+def param_grad_errors(names, got, plain, ref):
+    """Per parameter: (name, kernel path's max |err|, plain path's max |err|,
+    max |ref|, ok), both float32 paths against the float64 plain path. ok:
+    the kernel path's error is at most GRAD_FACTOR x the plain path's, plus
+    GRAD_RTOL64 x the tensor's max |ref|, plus GRAD_EPS64 x the largest
+    gradient of the model (G). Why the last: some gradients are sums over
+    many edges whose terms cancel exactly (a segment's softmax-logit
+    gradients sum to 0, so d xr of a point whose edges all take the same
+    LeakyReLU branch is 0, and with it the gradients of the query adapter
+    and lin_r); in float32 both paths return rounding noise of order
+    eps x the terms there, which no bound relative to the (zero) true value
+    can take."""
+    G = max(float(r.abs().max()) for r in ref)
+    out = []
+    for name, g, p, r in zip(names, got, plain, ref):
+        ek = float((g.double() - r).abs().max())
+        ep = float((p.double() - r).abs().max())
+        scale = float(r.abs().max())
+        ok = bool(torch.isfinite(g).all()) and \
+            ek <= GRAD_FACTOR * ep + GRAD_RTOL64 * scale + GRAD_EPS64 * G
+        out.append((name, ek, ep, scale, ok))
+    return out, G
+
+
+def train_phase(dev, scenes, counters, record):
+    import copy
+
+    from gasfm_tpu_torch.losses import ESFMLoss, FLAGSHIP_LOSS
+    from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+    from gasfm_tpu_torch.ops.kernels.fused_dual_attn import fused_dual_attend
+    from gasfm_tpu_torch.tools.profile_forward import FLAGSHIP
+    from gasfm_tpu_torch.train.loop import TrainingSession
+
+    model = GraphAttnSfMNet(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
+    twin = copy.deepcopy(model)
+    ref64 = copy.deepcopy(model).double()
+    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    plain = TrainingSession(twin, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    ref = TrainingSession(ref64, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    names = [k for k, p in model.named_parameters() if p.requires_grad]
+    per_step = per_step_launches(len(model.equivariant_blocks), backward=True)
+    for fn in counters.values():
+        fn.launches = 0
+    fused_dual_attend.residual_launches = 0
+    for name, scene in scenes.items():
+        before = {k: fn.launches for k, fn in counters.items()}
+        E = scene.graph.num_edges
+        # Step 1 (warm-up, not timed): the kernel path's and the plain twin's
+        # gradients from the same weights, each against the plain path in
+        # float64 (first scene: from the same weights too), then both update.
+        p_loss, _, p_grads = plain.loss_and_grads(scene, plain=True)
+        loss, _, grads = session.loss_and_grads(scene)
+        if ref is not None:
+            r_loss, _, r_grads = ref.loss_and_grads(float64_scene(scene), plain=True)
+            errs, G = param_grad_errors(names, grads, p_grads, r_grads)
+            bad = [t for t in errs if not t[-1]]
+            wk = max(errs, key=lambda t: t[1])
+            wp = max(errs, key=lambda t: t[2])
+            print(f"train {name}: step 1 parameter gradients ({len(errs)} tensors, largest "
+                  f"|grad| G = {G:.4g}) against the plain path in float64: max |err| kernel path "
+                  f"{wk[1]:.3e} ({wk[0]}, its max |ref| {wk[3]:.3e}), plain float32 path "
+                  f"{wp[2]:.3e} ({wp[0]}, its max |ref| {wp[3]:.3e}); loss float64 "
+                  f"{float(r_loss)!r}, kernel path {float(loss)!r}, plain path {float(p_loss)!r} "
+                  f"(tol kernel err <= {GRAD_FACTOR:g} x plain err + {GRAD_RTOL64:g} x max|ref| "
+                  f"+ {GRAD_EPS64:g} x G) {'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise SmokeFailure(f"{name}: parameter gradients out of tolerance: "
+                                   f"{[t[:4] for t in bad[:8]]}")
+            record.setdefault("train", {})[name] = dict(
+                step1_grad_vs_float64=[t[:4] for t in errs], step1_grad_G=G)
+            del r_grads, ref, ref64  # the float64 run covers the first scene only
+            ref = None
+        session.update(grads)
+        plain.update(p_grads)
+        losses, plain_losses = [float(loss)], [float(p_loss)]
+        del grads, p_grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, steps = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = session.fused_step(scene)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            steps.append([float(v) for v in out])
+        peak = torch.cuda.max_memory_allocated(dev)
+        delta = {k: fn.launches - before[k] for k, fn in counters.items()}
+        want = {k: (1 + TRAIN_STEPS) * v for k, v in per_step.items()}
+        if delta != want:
+            raise SmokeFailure(f"{name}: training launches {delta}, expected {want}")
+        for _ in range(TRAIN_STEPS):
+            plain_losses.append(float(plain.fused_step(scene, plain=True)[0]))
+        losses += [st[0] for st in steps]
+        for k, (a, b) in enumerate(zip(losses, plain_losses)):
+            if not all(map(math.isfinite, steps[-1])) or abs(a - b) > SLICE_RTOL * abs(b):
+                raise SmokeFailure(f"{name}: step {k + 1} loss {a!r} vs plain path {b!r}")
+        ms = statistics.median(times)
+        print(f"train {name}: {scene.graph.num_cams} views, {scene.graph.num_pts} points, {E} "
+              f"edges; ms/step {[round(t, 3) for t in times]} (median {ms:.3f} ms, "
+              f"{E / ms * 1e3:.4g} edges/s); (loss, our_repro, grad_norm) per step {steps}; "
+              f"peak device memory {peak / 2**20:.1f} MiB; launches over {1 + TRAIN_STEPS} "
+              f"steps {delta}")
+        print(f"train {name}: loss per step, kernel path {losses} vs plain path "
+              f"{plain_losses} (rtol {SLICE_RTOL:g}) ok")
+        record.setdefault("train", {}).setdefault(name, {}).update(
+            edges=E, ms_per_step=times, median_ms=ms, edges_per_s=E / ms * 1e3,
+            loss_repro_gradnorm=steps, peak_bytes=peak, launches=delta,
+            losses=losses, plain_losses=plain_losses)
+    launches = {k: fn.launches for k, fn in counters.items()}  # read just after the main path
+    if fused_dual_attend.residual_launches != launches["fused_dual_attend"]:
+        raise SmokeFailure("training: a dual launch under autograd wrote no residuals")
     return launches
 
 
@@ -316,6 +690,31 @@ def small_scene_check(dev, session, record):
           "the CPU, max abs err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + " ok")
     record["small_scene_card_vs_cpu_max_abs_err"] = errs
 
+    # Three training steps each from the same weights.
+    from gasfm_tpu_torch.losses import ESFMLoss, FLAGSHIP_LOSS
+
+    card = TrainingSession(copy.deepcopy(session.model), ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    cpu = TrainingSession(copy.deepcopy(session.model).cpu(), ESFMLoss(**FLAGSHIP_LOSS),
+                          device="cpu")
+    for step in range(3):
+        got = [float(v) for v in card.fused_step(scene)]
+        want = [float(v) for v in cpu.fused_step(want_scene)]
+        for key, a, b in zip(("loss", "our_repro", "grad_norm"), got, want):
+            if not math.isfinite(a) or abs(a - b) > SLICE_RTOL * abs(b):
+                raise SmokeFailure(f"small scene step {step + 1}: {key} card {a!r} vs CPU {b!r}")
+    worst, worst_name = 0.0, ""
+    for (name, a), b in zip(card.model.named_parameters(), cpu.model.parameters()):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        err = float((a - b).abs().max())
+        if not bool(((a - b).abs() <= 1e-6 + 1e-5 * b.abs()).all()):
+            raise SmokeFailure(f"small scene: {name} after 3 steps, card vs CPU max err {err:.3e}")
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"small scene: 3 training steps, card vs CPU: loss, our_repro, grad_norm per step "
+          f"within rtol {SLICE_RTOL:g}; parameters after 3 steps max abs err {worst:.3e} "
+          f"({worst_name}) (tol 1e-6 + 1e-5 x |ref|) ok")
+    record["small_scene_train_param_max_abs_err"] = worst
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -323,12 +722,12 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
-    from gasfm_tpu_torch.losses import ESFMLoss
+    from gasfm_tpu_torch.losses import ESFMLoss, FLAGSHIP_LOSS
     from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
     from gasfm_tpu_torch.ops.kernels import build
-    from gasfm_tpu_torch.ops.kernels.fused_dual_attn import fused_dual_attend, fused_frontend
-    from gasfm_tpu_torch.ops.kernels.fused_layer_step import fused_layer_step
-    from gasfm_tpu_torch.ops.kernels.fused_loss import fused_esfm_terms
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
     from gasfm_tpu_torch.tools.profile_forward import FLAGSHIP, SCENES
     from gasfm_tpu_torch.train.loop import TrainingSession
 
@@ -356,31 +755,44 @@ def main() -> int:
     t0 = time.perf_counter()
     datas = {k: generate_synthetic_scene(**kw) for k, kw in SCENES.items()}
     model = GraphAttnSfMNet(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
-    session = TrainingSession(model, ESFMLoss(1e-4, True, 1.0), device=dev)
+    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
     scenes = {k: d.to_scene_graph(device=dev) for k, d in datas.items()}
     print(f"setup: scenes and model in {time.perf_counter() - t0:.1f} s; "
           f"{sum(p.numel() for p in model.parameters())} parameters")
 
-    # ---- phase 2: kernels against their plain versions, at both scenes'
-    # shapes; the kernels line reports the dense scene's.
+    # ---- phase 2: forward kernels against their plain versions, at both
+    # scenes' shapes; the kernels line reports the dense scene's.
     with torch.no_grad():
         per_scene = {k: kernel_phase(dev, k, scenes[k].graph, session.model, record)
                      for k in scenes}
+    # ---- phase 3: backward kernels against autograd of their plain versions
+    for k in scenes:
+        for name, r in backward_phase(dev, k, scenes[k].graph, record).items():
+            per_scene[k][name] = r
     results = per_scene["dense"]
     bad = [(s, k) for s, r in per_scene.items() for k, v in r.items() if not v["ok"]]
     if bad:
         raise SmokeFailure(f"kernels out of tolerance: {bad}")
 
-    # ---- phase 3: the slice
-    counters = {"fused_dual_attend": fused_dual_attend, "fused_frontend": fused_frontend,
-                "fused_layer_step": fused_layer_step, "fused_esfm_terms": fused_esfm_terms}
-    launches = slice_phase(dev, session, scenes, counters, record)
+    counters = {"fused_dual_attend": fda.fused_dual_attend,
+                "fused_dual_attend_bwd": fda.fused_dual_attend_bwd,
+                "fused_frontend": fda.fused_frontend, "fused_frontend_bwd": fda.fused_frontend_bwd,
+                "fused_layer_step": fls.fused_layer_step,
+                "fused_layer_step_bwd": fls.fused_layer_step_bwd,
+                "fused_esfm_terms": flo.fused_esfm_terms,
+                "fused_esfm_terms_bwd": flo.fused_esfm_terms_bwd}
+    # ---- phase 4: serving (the first slice's path)
+    serving = slice_phase(dev, session, scenes, counters, record)
+    record["serving_launches"] = serving
+    # ---- phase 5: training (this slice's main path)
+    launches = train_phase(dev, scenes, counters, record)
     for name, count in launches.items():
         if count == 0:
             raise SmokeFailure(f"{name} was never launched on the main path")
+    # ---- phase 6: small scene, card vs CPU
     small_scene_check(dev, session, record)
 
-    # ---- phase 4: the record
+    # ---- phase 7: the record
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results[name]

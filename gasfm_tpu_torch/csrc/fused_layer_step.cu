@@ -1,9 +1,10 @@
 // Merged layer step prologue, for sm_90a: layer l's projection update fused
-// with layer l+1's frontend prologue. The wrapper runs the dual core
-// (fused_dual_attn.cu, gasfm_dual_attend) right after it.
+// with layer l+1's frontend prologue, forward and backward. The wrapper runs
+// the dual core (fused_dual_attn.cu, gasfm_dual_attend) right after the
+// forward, and its backward (gasfm_dual_attend_bwd) right before the backward.
 //
-// Replaces the TPU kernel of gasfm_tpu/ops/pallas/fused_layer_step.py
-// (_fwd_raw / _fwd_kernel, fused_layer_step). Per edge:
+// Replaces the TPU kernels of gasfm_tpu/ops/pallas/fused_layer_step.py
+// (_fwd_raw / _fwd_kernel, fused_layer_step; _bwd_raw / _bwd_body). Per edge:
 //
 //   e_l      = ([en | skip2] . W^T + c0 + ps[pt] + pv[cam]) / 4  (+ res)
 //   en_{l+1} = relu(LN_{l+1}(e_l))          (skipped under raw, en_{l+1} = e_l)
@@ -20,6 +21,21 @@
 // intermediate stays in registers, each stream is touched once as a
 // coalesced row per warp, the update's weights (<= 64 x 32) and the
 // frontend's weights sit in shared memory for the whole grid-stride sweep.
+//
+// Backward (gasfm_layer_step_bwd): one warp per point, over the point's
+// contiguous edges (grid-stride over points). Per edge it recomputes the
+// LayerNorm from the saved e_l, takes the dual core's d xl_p / d xl_c back
+// through the source linears and the LayerNorm (front_backward), adds e_l's
+// own cotangent, and writes d e_l (= d res), d en and d skip2 (d e_l / 4
+// through W). The point table's gradient d ps is the warp's sum over the
+// point's edges, in registers. Then, over the streams now in memory: d pv,
+// one block per camera over the camera CSR; the weight gradients d W / d b,
+// d wl / d bl as tiled outer sums (outer_sum_kernel, common.cuh) — kept out
+// of the per-edge kernel, whose per-lane sums of whole weight rows took 172
+// registers and one block per SM. Bytes again: per edge it reads e_l, en,
+// skip2, d xl_p, d xl_c and the two output cotangents and writes d e_l, d en,
+// d skip2; the outer sums read d xl_p, d xl_c, e_norm, d e_l, en, skip2 once
+// more. No atomics anywhere.
 #include "edge_prologue.cuh"
 
 namespace gasfm {
@@ -79,6 +95,83 @@ __global__ void __launch_bounds__(kStepWarps * 32) layer_step_prologue_kernel(
   }
 }
 
+// Warp per point, over the point's contiguous edges (grid-stride over points).
+// ln_partials: (gridDim.x, 2 * 32), this block's sums of d ln_scale and
+// d ln_bias.
+__global__ void __launch_bounds__(kStepWarps * 32) layer_step_bwd_kernel(
+    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
+    const float* __restrict__ w, const float* __restrict__ e_l,
+    const int* __restrict__ pt_ptr, int n_pts, int De, const float* __restrict__ lng,
+    const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
+    int Dp, const float* __restrict__ wlc, int Dc, const float* __restrict__ dxl_p,
+    const float* __restrict__ dxl_c, const float* __restrict__ den_next,
+    const float* __restrict__ de_l_ext, float* __restrict__ d_el,
+    float* __restrict__ den_out, float* __restrict__ dskip2, float* __restrict__ dps,
+    float* __restrict__ ln_partials) {
+  __shared__ FrontBackParams sp;
+  __shared__ float s_w[32 * 64];  // W (De, d_in + d2), torch layout
+  __shared__ float sbuf[2 * 32];
+  const int K = d_in + d2;
+  for (int i = threadIdx.x; i < De * K; i += blockDim.x) s_w[i] = w[i];
+  load_front_back_params(sp, lng, lnb, wlp, wlc, De, Dp, Dc, raw != 0);
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31;
+  const bool act = lane < De;
+  float acc[2] = {0.f, 0.f};  // d ln_scale, d ln_bias of this lane's feature
+  const int stride = gridDim.x * kStepWarps;
+  for (int pt = blockIdx.x * kStepWarps + (threadIdx.x >> 5); pt < n_pts; pt += stride) {
+    float dps_acc = 0.f;
+    const int end = pt_ptr[pt + 1];
+    for (int edge = pt_ptr[pt]; edge < end; ++edge) {
+      const float x = act ? e_l[(size_t)edge * De + lane] : 0.f;
+      const float dxp = lane < Dp ? dxl_p[(size_t)edge * Dp + lane] : 0.f;
+      const float dxc = lane < Dc ? dxl_c[(size_t)edge * Dc + lane] : 0.f;
+      const float dv = (den_next != nullptr && act) ? den_next[(size_t)edge * De + lane] : 0.f;
+      float d = front_backward(x, dxp, dxc, dv, De, Dp, Dc, raw != 0, sp, eps, lane, acc[0],
+                               acc[1]);
+      if (de_l_ext != nullptr && act) d += de_l_ext[(size_t)edge * De + lane];
+      if (act) d_el[(size_t)edge * De + lane] = d;
+      const float du = d * 0.25f;  // 0 at lanes >= De
+      dps_acc += du;
+      float o1 = 0.f, o2 = 0.f;  // d en[k] = sum_j du_j W[j, k]; d skip2 likewise
+      for (int j = 0; j < De; ++j) {
+        const float dj = __shfl_sync(GASFM_FULL_MASK, du, j);
+        if (lane < d_in) o1 = fmaf(dj, s_w[j * K + lane], o1);
+        if (lane < d2) o2 = fmaf(dj, s_w[j * K + d_in + lane], o2);
+      }
+      if (lane < d_in) den_out[(size_t)edge * d_in + lane] = o1;
+      if (dskip2 != nullptr && lane < d2) dskip2[(size_t)edge * d2 + lane] = o2;
+    }
+    if (act) dps[(size_t)pt * De + lane] = dps_acc;
+  }
+  block_partial(acc, sbuf, ln_partials + (size_t)blockIdx.x * 2 * 32);
+}
+
+// d pv[c] = sum over the camera's edges of d e_l / 4: one block per camera,
+// warps striding over its edge list, merged in a fixed warp order.
+__global__ void __launch_bounds__(kStepWarps * 32) camera_update_sum_kernel(
+    const float* __restrict__ d_el, const int* __restrict__ cam_ptr,
+    const int* __restrict__ cam_perm, int De, float* __restrict__ dpv) {
+  __shared__ float s[kStepWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int cam = blockIdx.x;
+  float acc = 0.f;
+  const int end = cam_ptr[cam + 1];
+  for (int i = cam_ptr[cam] + warp; i < end; i += kStepWarps) {
+    const int e = cam_perm[i];
+    if (lane < De) acc += d_el[(size_t)e * De + lane] * 0.25f;
+  }
+  s[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    float t = 0.f;
+    for (int w2 = 0; w2 < kStepWarps; ++w2) t += s[w2][lane];
+    if (lane < De) dpv[(size_t)cam * De + lane] = t;
+  }
+}
+
 }  // namespace gasfm
 
 extern "C" int gasfm_layer_step_prologue(
@@ -94,5 +187,39 @@ extern "C" int gasfm_layer_step_prologue(
         en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, lng, lnb,
         raw, eps, wlp, blp, Dp, wlc, blc, Dc, e_l, en_next, xl_p, xl_c);
   }
+  return (int)cudaGetLastError();
+}
+
+// v: (E, De) the normalized output en_next (e_l itself under raw). d_el: (E,
+// De) the total cotangent of e_l (returned as d res); den_out (E, d_in);
+// dskip2 (E, d2) or NULL; dps (n, De); dpv (m, De); den_next and de_l_ext
+// may be NULL (no cotangent). ln_partials (grid, 64) scratch, ln_sums (2,
+// 32): d ln_scale, d ln_bias. outer_partials (3, ogrid, kOuterRow) scratch;
+// outer_sums (3, kOuterRow): d wlp / d blp, d wlc / d blc, and d W / d b
+// (d W's columns: en's, then skip2's), each [a][b] (32 x 64) then bias[a].
+extern "C" int gasfm_layer_step_bwd(
+    const float* en, int d_in, const float* skip2, int d2, const float* w, const float* e_l,
+    const float* v, const int* pt_ptr, int n_pts, const int* cam_ptr, const int* cam_perm,
+    int n_cams, int E, int De, const float* lng, const float* lnb, int raw, float eps,
+    const float* wlp, int Dp, const float* wlc, int Dc, const float* dxl_p,
+    const float* dxl_c, const float* den_next, const float* de_l_ext, float* d_el,
+    float* den_out, float* dskip2, float* dps, float* dpv, float* ln_partials,
+    float* ln_sums, float* outer_partials, float* outer_sums, int grid, int ogrid,
+    void* stream) {
+  using namespace gasfm;
+  cudaStream_t s = (cudaStream_t)stream;
+  layer_step_bwd_kernel<<<grid, kStepWarps * 32, 0, s>>>(
+      en, d_in, skip2, d2, w, e_l, pt_ptr, n_pts, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc,
+      dxl_p, dxl_c, den_next, de_l_ext, d_el, den_out, dskip2, dps, ln_partials);
+  if (n_cams > 0) {
+    camera_update_sum_kernel<<<n_cams, kStepWarps * 32, 0, s>>>(d_el, cam_ptr, cam_perm, De,
+                                                                dpv);
+  }
+  launch_column_sum(ln_partials, grid, 2 * 32, ln_sums, s);
+  OuterJobs jobs{};
+  jobs.job[0] = OuterJob{dxl_p, Dp, 1.f, v, De, nullptr, 0};
+  jobs.job[1] = OuterJob{dxl_c, Dc, 1.f, v, De, nullptr, 0};
+  jobs.job[2] = OuterJob{d_el, De, 0.25f, en, d_in, skip2, d2};
+  launch_outer_sums(jobs, 3, E, ogrid, outer_partials, outer_sums, s);
   return (int)cudaGetLastError();
 }

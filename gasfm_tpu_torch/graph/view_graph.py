@@ -68,6 +68,7 @@ class SceneGraph:
 
     graph: ViewGraph
     Ns: torch.Tensor  # (m, 3, 3) normalization matrices (inv(K) if calibrated)
+    Ns_inv: torch.Tensor  # (m, 3, 3) their inverses (K if calibrated)
     Ps_gt: torch.Tensor  # (m, 3, 4) GT cameras
 
 
@@ -123,5 +124,7 @@ def build_scene_graph(
     return SceneGraph(
         graph=graph,
         Ns=torch.as_tensor(np.asarray(Ns, dtype=np.float32), device=device),
+        Ns_inv=torch.as_tensor(
+            np.linalg.inv(np.asarray(Ns, dtype=np.float64)).astype(np.float32), device=device),
         Ps_gt=torch.as_tensor(np.asarray(Ps_gt, dtype=np.float32), device=device),
     )

@@ -9,7 +9,10 @@ aggregation node. Per head,
     out_s   = sum_e softmax_seg(score)_e * xl_e        (0 for empty segments)
 
 Features are flat and head-major: ``xl`` (E, H*C), ``xr`` (S, H*C), ``att``
-(H*C,). Linear weights keep torch's (out, in) layout.
+(H*C,). Linear weights keep torch's (out, in) layout. The softmax's max
+shift is taken from detached logits, so it has exactly zero gradient (the
+JAX package's stop_gradient contract); the plain versions under autograd
+are then the reference gradient of every kernel.
 
 ``gatv2_attend_pool`` and ``gatv2_attend`` are plain PyTorch (the JAX
 package leaves the pools to XLA as well). ``gatv2_attend_dual``,
@@ -20,6 +23,8 @@ for the plain versions explicitly (the on-card comparison does).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -34,6 +39,19 @@ def layer_norm_relu(e: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, ep
     mean = e.mean(-1, keepdim=True)
     var = (e * e).mean(-1, keepdim=True) - mean * mean
     return torch.relu((e - mean) * torch.rsqrt(var + eps) * scale + bias)
+
+
+def softmax_shift(logits: torch.Tensor, seg_ids: Optional[torch.Tensor] = None,
+                  num_segments: Optional[int] = None) -> torch.Tensor:
+    """The stable softmax's shift: the max of the DETACHED logits per
+    segment (per column without ``seg_ids``), 0 where a segment is empty.
+    It carries no gradient, as the JAX package's stop_gradient contract has
+    it; the softmax is invariant to it."""
+    if seg_ids is None:
+        m = logits.detach().max(0).values
+    else:
+        m = segment_max(logits.detach(), seg_ids, num_segments)
+    return torch.where(torch.isfinite(m), m, torch.zeros_like(m))
 
 
 def gatv2_attend_pool(
@@ -51,8 +69,7 @@ def gatv2_attend_pool(
     g = torch.nn.functional.leaky_relu(xl + xr0.reshape(1, D), negative_slope)
     logits = (g * att).reshape(E, heads, C).sum(-1)  # (E, H)
     logits = logits.masked_fill(~row_mask[:, None], float("-inf"))
-    m = logits.max(0).values
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    m = softmax_shift(logits)
     p = torch.exp(logits - m).masked_fill(~row_mask[:, None], 0.0)
     den = p.sum(0)  # (H,)
     num = torch.einsum("eh,ehc->hc", p, xl.reshape(E, heads, C))
@@ -76,8 +93,7 @@ def gatv2_attend(
     C = D // heads
     g = torch.nn.functional.leaky_relu(xl + gather_segments(xr, seg_ids), negative_slope)
     logits = (g * att).reshape(E, heads, C).sum(-1)  # (E, H)
-    m = segment_max(logits, seg_ids, num_segments)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    m = softmax_shift(logits, seg_ids, num_segments)
     p = torch.exp(logits - gather_segments(m, seg_ids))  # (E, H)
     num = segment_sum((p[:, :, None] * xl.reshape(E, heads, C)).reshape(E, D), seg_ids, num_segments)
     den = segment_sum(p, seg_ids, num_segments)  # (S, H)

@@ -9,6 +9,11 @@ missing one, one nvcc process per source, all started together.
 A C entry point launches on the stream it is given (PyTorch's current
 stream), allocates nothing, and returns ``cudaGetLastError()``; the Python
 wrappers raise on a non-zero code (:func:`check`).
+
+Gradients: a wrapper whose inputs require grad (under ``torch.enable_grad``)
+goes through a ``torch.autograd.Function`` whose backward launches the
+backward kernel (:func:`needs_grad`); without grad it launches the forward
+kernel alone and keeps no residuals.
 """
 
 from __future__ import annotations
@@ -147,8 +152,19 @@ def cuda_i32(name: str, t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def grid_for(device: torch.device, items: int, warps_per_block: int) -> int:
+def grid_for(device: torch.device, items: int, warps_per_block: int, per_sm: int = 16) -> int:
     """Blocks for a grid-stride kernel with one warp per item: enough to
-    cover the items, at most 16 per SM."""
+    cover the items, at most ``per_sm`` per SM. The backward kernels keep
+    one partial row per block, so they ask for fewer (``per_sm=4``)."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-items // warps_per_block), 16 * sms))
+    return max(1, min(-(-items // warps_per_block), per_sm * sms))
+
+
+def needs_grad(*tensors) -> bool:
+    """True when autograd records: grad mode on and some input requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def f32_empty(shape, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=device)

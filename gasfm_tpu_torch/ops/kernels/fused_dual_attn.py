@@ -1,21 +1,33 @@
 """Dual GATv2 segment attention and the layer frontend: CUDA kernels for
-Hopper (``csrc/fused_dual_attn.cu``), their plain PyTorch versions, and
-their launch counters.
+Hopper (``csrc/fused_dual_attn.cu``), forward and backward, their plain
+PyTorch versions, and their launch counters.
 
 Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_dual_attn.py``:
 
 - ``fused_dual_attend``: ``fused_dual_attend`` / ``_dual_fwd_raw`` — both
-  per-layer aggregations (edges -> points, edges -> cameras) in one launch.
+  per-layer aggregations (edges -> points, edges -> cameras) in one launch;
+  its backward ``fused_dual_attend_bwd``: ``_dual_bwd_raw``.
 - ``fused_frontend``: ``fused_frontend`` / ``_front_fwd_raw`` — LayerNorm +
   ReLU (skipped under ``raw_prologue``) and the two GATv2 source linears per
   edge, then the dual core. Two launches: the per-edge prologue (counted
-  here) and the dual core (counted by ``fused_dual_attend``).
+  here) and the dual core (counted by ``fused_dual_attend``). Its backward
+  ``fused_frontend_bwd`` is ``_front_bwd_raw`` split the same way: the dual
+  core's backward (counted by ``fused_dual_attend_bwd``), then the
+  prologue's backward (counted here).
 
 What bounds them on the H100 is bytes over its 3.35 TB/s, not operations:
 per edge and feature the work is a few flops. The kernels read each edge
 row once, keep the online softmax in registers, and walk each segment's
 own edge list (point CSR; camera CSR through ``cam_perm``) instead of the
 TPU kernel's one-hot matmuls. See the CUDA source for the launch layout.
+
+Gradients: when an input requires grad, the wrappers run through
+``torch.autograd.Function``s. The dual core's forward then also writes each
+segment's per-head softmax max and denominator, which its backward reads;
+the frontend's backward recomputes the LayerNorm from its input. Without
+grad the wrappers launch the forward kernels alone and write no residuals.
+The plain version of each backward kernel is autograd through the forward's
+plain version.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper's ``launches`` attribute counts its kernel launches.
@@ -32,16 +44,24 @@ from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_r
 from gasfm_tpu_torch.ops.kernels import build as kb
 
 LN_EPS = 1e-5
+DUAL_WARPS = 16  # kDualWarps of csrc/fused_dual_attn.cu: points per point block
+FRONT_WARPS = 8  # kFrontWarps: edges per prologue block
+OUTER_ROW = 32 * 64 + 32  # kOuterRow of csrc/common.cuh: one outer-sum job's sums
 
-_DUAL_ARGS = (kb.P,) * 9 + (kb.I,) * 6 + (kb.F,) + (kb.P,) * 3
-_FRONT_ARGS = (kb.P, kb.I, kb.I, kb.P, kb.P, kb.I, kb.F, kb.P, kb.P, kb.I, kb.P, kb.P,
-               kb.I, kb.P, kb.P, kb.P, kb.I, kb.P)
+_P, _I, _F = kb.P, kb.I, kb.F
+_SIGNATURES = {
+    "gasfm_dual_attend": (_P,) * 9 + (_I,) * 6 + (_F,) + (_P,) * 7,
+    "gasfm_dual_attend_bwd": (_P,) * 17 + (_I,) * 6 + (_F,) + (_P,) * 7,
+    "gasfm_frontend_prologue": (_P, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I, _P, _P,
+                                _P, _I, _P),
+    "gasfm_frontend_prologue_bwd": (_P, _I, _I, _P, _P, _I, _F, _P, _I, _P, _I) + (_P,) * 9
+    + (_I, _I, _P),
+}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(symbol: str):
-    args = _DUAL_ARGS if symbol == "gasfm_dual_attend" else _FRONT_ARGS
-    return kb.bind(kb.load("fused_dual_attn"), symbol, args)
+    return kb.bind(kb.load("fused_dual_attn"), symbol, _SIGNATURES[symbol])
 
 
 def head_width(D: int, heads: int) -> int:
@@ -53,8 +73,19 @@ def head_width(D: int, heads: int) -> int:
     return C
 
 
+def outer_grid(device, E: int) -> int:
+    """Blocks per job of the outer-sum kernel: one per 32-edge tile, at most
+    two per SM (each writes one partial row of OUTER_ROW floats)."""
+    return kb.grid_for(device, -(-E // 32), 1, per_sm=2)
+
+
+def split_outer_sums(sums: torch.Tensor, Da: int, Db: int):
+    """One outer-sum job's result (OUTER_ROW,) as (out (Da, Db), bias (Da,))."""
+    return sums[:32 * 64].view(32, 64)[:Da, :Db], sums[32 * 64:32 * 64 + Da]
+
+
 # ---------------------------------------------------------------------------
-# dual core (#1)
+# dual core (#1, backward #2)
 # ---------------------------------------------------------------------------
 
 
@@ -66,13 +97,12 @@ def fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
     return out_p, out_c
 
 
-def fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
-                      slope=NEGATIVE_SLOPE):
-    """Both aggregations of a layer. xl_p (E, Dp) / xl_c (E, Dc): source
-    rows; xr_p (n, Dp) / xr_c (m, Dc): per-segment queries; att_p (Dp,) /
-    att_c (Dc,). Returns (out_pt (n, Dp), out_cam (m, Dc))."""
-    if xl_p.device.type == "cpu":
-        return fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
+def dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
+                        slope=NEGATIVE_SLOPE, residuals=False):
+    """Launch the dual core (CUDA tensors). Returns (out_p, out_c, res, ins):
+    ``res`` is (m_p, den_p (n, H), m_c, den_c (m, H)) — each segment's
+    per-head softmax max and denominator — when ``residuals``, else None;
+    ``ins`` the validated inputs."""
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
     Dp, Dc = xl_p.shape[1], xl_c.shape[1]
     Cp, Cc = head_width(Dp, heads), head_width(Dc, heads)
@@ -82,27 +112,101 @@ def fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
     xr_c = kb.cuda_f32("xr_c", xr_c, (m, Dc))
     att_p = kb.cuda_f32("att_p", att_p.reshape(-1), (Dp,))
     att_c = kb.cuda_f32("att_c", att_c.reshape(-1), (Dc,))
-    pt_ptr = kb.cuda_i32("pt_ptr", graph.pt_ptr)
-    cam_ptr = kb.cuda_i32("cam_ptr", graph.cam_ptr)
-    cam_perm = kb.cuda_i32("cam_perm", graph.cam_perm)
-    out_p = torch.empty((n, Dp), dtype=torch.float32, device=xl_p.device)
-    out_c = torch.empty((m, Dc), dtype=torch.float32, device=xl_p.device)
+    dev = xl_p.device
+    out_p, out_c = kb.f32_empty((n, Dp), dev), kb.f32_empty((m, Dc), dev)
+    res = None
+    if residuals:
+        res = (kb.f32_empty((n, heads), dev), kb.f32_empty((n, heads), dev),
+               kb.f32_empty((m, heads), dev), kb.f32_empty((m, heads), dev))
     p = kb.ptr
     code = _entry("gasfm_dual_attend")(
-        p(xl_p), p(xl_c), p(xr_p), p(xr_c), p(att_p), p(att_c), p(pt_ptr), p(cam_ptr),
-        p(cam_perm), n, m, Dp, Cp, Dc, Cc, float(slope), p(out_p), p(out_c),
-        kb.stream(xl_p.device),
+        p(xl_p), p(xl_c), p(xr_p), p(xr_c), p(att_p), p(att_c),
+        p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)), n, m, Dp, Cp, Dc, Cc, float(slope),
+        p(out_p), p(out_c), *(p(t) for t in (res or (None,) * 4)), kb.stream(dev),
     )
     kb.check(code, "fused_dual_attend")
     fused_dual_attend.launches += 1
+    fused_dual_attend.residual_launches += residuals
+    return out_p, out_c, res, (xl_p, xl_c, xr_p, xr_c, att_p, att_c)
+
+
+class _DualAttend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope):
+        out_p, out_c, res, ins = dual_attend_forward(
+            xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope, residuals=True)
+        ctx.save_for_backward(*ins, out_p, out_c, *res)
+        ctx.graph, ctx.heads, ctx.slope = graph, heads, slope
+        ctx.att_shapes = (att_p.shape, att_c.shape)
+        return out_p, out_c
+
+    @staticmethod
+    def backward(ctx, g_p, g_c):
+        saved = ctx.saved_tensors
+        dxl_p, dxl_c, dxr_p, dxr_c, datt_p, datt_c = fused_dual_attend_bwd(
+            *saved, g_p, g_c, ctx.graph, ctx.heads, ctx.slope)
+        return (dxl_p, dxl_c, dxr_p, dxr_c, datt_p.reshape(ctx.att_shapes[0]),
+                datt_c.reshape(ctx.att_shapes[1]), None, None, None)
+
+
+def fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
+                      slope=NEGATIVE_SLOPE):
+    """Both aggregations of a layer. xl_p (E, Dp) / xl_c (E, Dc): source
+    rows; xr_p (n, Dp) / xr_c (m, Dc): per-segment queries; att_p (Dp,) /
+    att_c (Dc,). Returns (out_pt (n, Dp), out_cam (m, Dc))."""
+    if xl_p.device.type == "cpu":
+        return fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
+    if kb.needs_grad(xl_p, xl_c, xr_p, xr_c, att_p, att_c):
+        return _DualAttend.apply(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
+    out_p, out_c, _, _ = dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph,
+                                             heads, slope)
     return out_p, out_c
 
 
 fused_dual_attend.launches = 0
+fused_dual_attend.residual_launches = 0  # launches that also wrote the max / den residuals
+
+
+def fused_dual_attend_bwd(xl_p, xl_c, xr_p, xr_c, att_p, att_c, out_p, out_c,
+                          m_p, den_p, m_c, den_c, g_p, g_c, graph, heads,
+                          slope=NEGATIVE_SLOPE):
+    """The dual core's backward kernel (CUDA tensors): the forward's inputs,
+    outputs and residuals (see :func:`dual_attend_forward`) and the outputs'
+    cotangents g_p (n, Dp), g_c (m, Dc). Returns (dxl_p, dxl_c, dxr_p,
+    dxr_c, datt_p (Dp,), datt_c (Dc,)). Its plain version is autograd
+    through :func:`fused_dual_attend_plain`."""
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    Dp, Dc = xl_p.shape[1], xl_c.shape[1]
+    Cp, Cc = head_width(Dp, heads), head_width(Dc, heads)
+    g_p = kb.cuda_f32("g_p", g_p, (n, Dp))
+    g_c = kb.cuda_f32("g_c", g_c, (m, Dc))
+    dev = xl_p.device
+    dxl_p, dxl_c = kb.f32_empty((E, Dp), dev), kb.f32_empty((E, Dc), dev)
+    dxr_p, dxr_c = kb.f32_empty((n, Dp), dev), kb.f32_empty((m, Dc), dev)
+    datt = kb.f32_empty((2, 32), dev)
+    partials = kb.f32_empty((-(-n // DUAL_WARPS) + m, 32), dev)
+    p = kb.ptr
+    ins = [kb.cuda_f32(name, t) for name, t in (
+        ("xl_p", xl_p), ("xl_c", xl_c), ("xr_p", xr_p), ("xr_c", xr_c), ("att_p", att_p),
+        ("att_c", att_c), ("out_p", out_p), ("out_c", out_c), ("m_p", m_p),
+        ("den_p", den_p), ("m_c", m_c), ("den_c", den_c))]
+    code = _entry("gasfm_dual_attend_bwd")(
+        *(p(t) for t in ins), p(g_p), p(g_c),
+        p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)), n, m, Dp, Cp, Dc, Cc, float(slope),
+        p(dxl_p), p(dxl_c), p(dxr_p), p(dxr_c), p(datt), p(partials), kb.stream(dev),
+    )
+    kb.check(code, "fused_dual_attend_bwd")
+    fused_dual_attend_bwd.launches += 1
+    return dxl_p, dxl_c, dxr_p, dxr_c, datt[0, :Dp], datt[1, :Dc]
+
+
+fused_dual_attend_bwd.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# layer frontend (#3)
+# layer frontend (#3, backward #4)
 # ---------------------------------------------------------------------------
 
 
@@ -118,19 +222,13 @@ def fused_frontend_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
     return en, out_p, out_c
 
 
-def fused_frontend(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
-                   att_p, att_c, graph, heads, eps=LN_EPS, raw_prologue=False,
-                   slope=NEGATIVE_SLOPE):
-    """e (E, De) raw edge features; ln_scale/ln_bias (De,) (ignored under
-    ``raw_prologue``); wlp (Dp, De), blp (Dp,), wlc (Dc, De), blc (Dc,) the
-    source linears in torch layout; the rest as in :func:`fused_dual_attend`.
-    Returns (e_norm = relu(LN(e)) or e under raw, out_pt, out_cam)."""
-    if e.device.type == "cpu":
-        return fused_frontend_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
-                                    att_p, att_c, graph, heads, eps, raw_prologue, slope)
+def frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
+                      raw_prologue=False):
+    """Launch the per-edge prologue (CUDA tensors). Returns (en, xl_p, xl_c);
+    under ``raw_prologue`` en is ``e``."""
     E, De = e.shape
     Dp, Dc = wlp.shape[0], wlc.shape[0]
-    if De > 32 or Dp > 32 or Dc > 32 or E != graph.num_edges:
+    if De > 32 or Dp > 32 or Dc > 32:
         raise ValueError(f"fused_frontend: widths De={De}, Dp={Dp}, Dc={Dc} must be <= 32")
     e = kb.cuda_f32("e", e, (E, De))
     if not raw_prologue:
@@ -142,19 +240,107 @@ def fused_frontend(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
     blc = kb.cuda_f32("blc", blc, (Dc,))
     dev = e.device
     en = e if raw_prologue else torch.empty_like(e)
-    xl_p = torch.empty((E, Dp), dtype=torch.float32, device=dev)
-    xl_c = torch.empty((E, Dc), dtype=torch.float32, device=dev)
+    xl_p, xl_c = kb.f32_empty((E, Dp), dev), kb.f32_empty((E, Dc), dev)
     p = kb.ptr
     code = _entry("gasfm_frontend_prologue")(
         p(e), E, De, p(None if raw_prologue else ln_scale), p(None if raw_prologue else ln_bias),
         int(raw_prologue), float(eps), p(wlp), p(blp), Dp, p(wlc), p(blc), Dc,
         p(None if raw_prologue else en), p(xl_p), p(xl_c),
-        kb.grid_for(dev, E, 8), kb.stream(dev),
+        kb.grid_for(dev, E, FRONT_WARPS), kb.stream(dev),
     )
     kb.check(code, "fused_frontend")
     fused_frontend.launches += 1
+    return en, xl_p, xl_c
+
+
+class _FrontendPrologue(torch.autograd.Function):
+    """The prologue under autograd: outputs (en, xl_p, xl_c), or (xl_p,
+    xl_c) under ``raw`` (en is then the input itself, outside the Function)."""
+
+    @staticmethod
+    def forward(ctx, e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw):
+        en, xl_p, xl_c = frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw)
+        ctx.save_for_backward(e, ln_scale, ln_bias, wlp, wlc, None if raw else en)
+        ctx.eps, ctx.raw = eps, raw
+        return (xl_p, xl_c) if raw else (en, xl_p, xl_c)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        e, ln_scale, ln_bias, wlp, wlc, en = ctx.saved_tensors
+        den, dxl_p, dxl_c = (None, *grads) if ctx.raw else grads
+        de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc = fused_frontend_bwd(
+            e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den, en, ctx.eps, ctx.raw)
+        return de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc, None, None
+
+
+def fused_frontend(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
+                   att_p, att_c, graph, heads, eps=LN_EPS, raw_prologue=False,
+                   slope=NEGATIVE_SLOPE):
+    """e (E, De) raw edge features; ln_scale/ln_bias (De,) (ignored under
+    ``raw_prologue``); wlp (Dp, De), blp (Dp,), wlc (Dc, De), blc (Dc,) the
+    source linears in torch layout; the rest as in :func:`fused_dual_attend`.
+    Returns (e_norm = relu(LN(e)) or e under raw, out_pt, out_cam)."""
+    if e.device.type == "cpu":
+        return fused_frontend_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
+                                    att_p, att_c, graph, heads, eps, raw_prologue, slope)
+    if e.shape[0] != graph.num_edges:
+        raise ValueError(f"fused_frontend: {e.shape[0]} edge rows for {graph.num_edges} edges")
+    if kb.needs_grad(e, ln_scale, ln_bias, wlp, blp, wlc, blc):
+        outs = _FrontendPrologue.apply(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps,
+                                       raw_prologue)
+        en, xl_p, xl_c = (e, *outs) if raw_prologue else outs
+    else:
+        en, xl_p, xl_c = frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps,
+                                           raw_prologue)
     out_p, out_c = fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
     return en, out_p, out_c
 
 
 fused_frontend.launches = 0
+
+
+def fused_frontend_bwd(e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den=None, en=None,
+                       eps=LN_EPS, raw_prologue=False):
+    """The prologue's backward kernel (CUDA tensors): e (E, De) the
+    prologue's input, the LayerNorm and source-linear weights, the
+    cotangents of xl_p (E, Dp) and xl_c (E, Dc) (the dual core's backward
+    gives them) and of e_norm (E, De, or None), and the forward's e_norm
+    (ignored under ``raw_prologue``, where it is e). Returns (de, dln_scale,
+    dln_bias, dwlp, dblp, dwlc, dblc); the LayerNorm's are None under
+    ``raw_prologue``. Its plain version is autograd through
+    :func:`fused_frontend_plain`."""
+    E, De = e.shape
+    Dp, Dc = wlp.shape[0], wlc.shape[0]
+    e = kb.cuda_f32("e", e, (E, De))
+    v = e if raw_prologue else kb.cuda_f32("en", en, (E, De))
+    if not raw_prologue:
+        ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
+        ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
+    wlp = kb.cuda_f32("wlp", wlp, (Dp, De))
+    wlc = kb.cuda_f32("wlc", wlc, (Dc, De))
+    dxl_p = kb.cuda_f32("dxl_p", dxl_p, (E, Dp))
+    dxl_c = kb.cuda_f32("dxl_c", dxl_c, (E, Dc))
+    if den is not None:
+        den = kb.cuda_f32("den", den, (E, De))
+    dev = e.device
+    grid, ogrid = kb.grid_for(dev, E, FRONT_WARPS, per_sm=4), outer_grid(dev, E)
+    de = kb.f32_empty((E, De), dev)
+    ln_partials, ln_sums = kb.f32_empty((grid, 64), dev), kb.f32_empty((2, 32), dev)
+    outer_partials = kb.f32_empty((2, ogrid, OUTER_ROW), dev)
+    outer_sums = kb.f32_empty((2, OUTER_ROW), dev)
+    p = kb.ptr
+    code = _entry("gasfm_frontend_prologue_bwd")(
+        p(e), E, De, p(None if raw_prologue else ln_scale), p(None if raw_prologue else ln_bias),
+        int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc, p(dxl_p), p(dxl_c), p(den), p(v),
+        p(de), p(ln_partials), p(ln_sums), p(outer_partials), p(outer_sums), grid, ogrid,
+        kb.stream(dev),
+    )
+    kb.check(code, "fused_frontend_bwd")
+    fused_frontend_bwd.launches += 1
+    dwlp, dblp = split_outer_sums(outer_sums[0], Dp, De)
+    dwlc, dblc = split_outer_sums(outer_sums[1], Dc, De)
+    dg, db = (None, None) if raw_prologue else (ln_sums[0, :De], ln_sums[1, :De])
+    return de, dg, db, dwlp, dblp, dwlc, dblc
+
+
+fused_frontend_bwd.launches = 0

@@ -1,23 +1,30 @@
 """Merged layer step: CUDA kernel for Hopper (``csrc/fused_layer_step.cu``),
-its plain PyTorch version, and its launch counter.
+forward and backward, its plain PyTorch version, and its launch counters.
 
-Replaces the TPU kernel of ``gasfm_tpu/ops/pallas/fused_layer_step.py``
-(``fused_layer_step`` / ``_fwd_raw``): layer l's deferred projection update
+Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_layer_step.py``
+(``fused_layer_step`` / ``_fwd_raw``; backward ``_bwd_raw`` / ``_bwd_body``):
+layer l's deferred projection update
 
     e_l = ([en | skip2] W^T + b + pg + ps[pt] + pv[cam]) / 4  (+ res)
 
 fused with layer l+1's frontend prologue (LayerNorm + ReLU, skipped under
 ``raw_prologue``, and the two GATv2 source linears), followed by the dual
 core. Two launches per call: the per-edge prologue (counted here) and the
-dual core (counted by ``fused_dual_attend``).
+dual core (counted by ``fused_dual_attend``). The backward mirrors it: the
+dual core's backward (counted by ``fused_dual_attend_bwd``), then
+``fused_layer_step_bwd`` (counted here; three launches inside: the
+point-major edge pass, the camera sums of d pv, the column sums of the
+weight gradients).
 
 What bounds it on the H100 is bytes over its 3.35 TB/s: about 0.9 KB of
 edge streams per edge against a few thousand flops. The prologue keeps e_l
 in registers between the update and the LayerNorm and touches each stream
-once; the update and frontend weights sit in shared memory.
+once; the update and frontend weights sit in shared memory. The backward
+recomputes the LayerNorm from the saved e_l, and sums every weight gradient
+in registers without atomics.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. ``fused_layer_step.launches`` counts the prologue launches.
+A CPU tensor runs the plain version (and autograd through it is the
+backward's plain version); a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -31,9 +38,14 @@ from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (
     LN_EPS,
+    OUTER_ROW,
     fused_dual_attend,
     fused_frontend_plain,
+    outer_grid,
+    split_outer_sums,
 )
+
+STEP_WARPS = 8  # kStepWarps of csrc/fused_layer_step.cu
 
 _ARGS = (
     kb.P, kb.I, kb.P, kb.I,  # en, d_in, skip2, d2
@@ -42,11 +54,20 @@ _ARGS = (
     kb.P, kb.P, kb.I, kb.P, kb.P, kb.I,  # wlp, blp, Dp, wlc, blc, Dc
     kb.P, kb.P, kb.P, kb.P, kb.I, kb.P,  # e_l, en_next, xl_p, xl_c, grid, stream
 )
+_BWD_ARGS = (
+    kb.P, kb.I, kb.P, kb.I, kb.P, kb.P, kb.P,  # en, d_in, skip2, d2, w, e_l, v
+    kb.P, kb.I, kb.P, kb.P, kb.I, kb.I, kb.I,  # pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, E, De
+    kb.P, kb.P, kb.I, kb.F, kb.P, kb.I, kb.P, kb.I,  # lng, lnb, raw, eps, wlp, Dp, wlc, Dc
+    kb.P, kb.P, kb.P, kb.P,  # dxl_p, dxl_c, den_next, de_l_ext
+    kb.P, kb.P, kb.P, kb.P, kb.P,  # d_el, den_out, dskip2, dps, dpv
+    kb.P, kb.P, kb.P, kb.P, kb.I, kb.I, kb.P,  # ln/outer partials and sums, grids, stream
+)
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    return kb.bind(kb.load("fused_layer_step"), "gasfm_layer_step_prologue", _ARGS)
+def _entry(symbol="gasfm_layer_step_prologue"):
+    args = {"gasfm_layer_step_prologue": _ARGS, "gasfm_layer_step_bwd": _BWD_ARGS}[symbol]
+    return kb.bind(kb.load("fused_layer_step"), symbol, args)
 
 
 def projection_update_plain(en, skip2, res, w, b, ps, pv, pg, graph):
@@ -68,19 +89,10 @@ def fused_layer_step_plain(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
     return e_l, en_next, out_p, out_c
 
 
-def fused_layer_step(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
-                     wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c, graph, heads,
-                     eps=LN_EPS, raw_prologue=False, slope=NEGATIVE_SLOPE):
-    """en (E, d_in) the previous layer's normalized stream; skip2 (E, d2) or
-    None; res (E, De) or None; w (De, d_in + d2) lin_proj's weight (columns
-    for en, then skip2); b (De,); ps (n, De), pv (m, De), pg (1, De) the
-    table linears; then the NEXT layer's frontend parameters as in
-    :func:`fused_frontend`. Returns (e_l, e_norm_next, out_pt, out_cam);
-    under ``raw_prologue`` e_norm_next is e_l."""
-    if en.device.type == "cpu":
-        return fused_layer_step_plain(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
-                                      wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c,
-                                      graph, heads, eps, raw_prologue, slope)
+def layer_step_prologue(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
+                        wlp, blp, wlc, blc, graph, eps=LN_EPS, raw_prologue=False):
+    """Launch the per-edge prologue (CUDA tensors). Returns (e_l, en_next,
+    xl_p, xl_c); under ``raw_prologue`` en_next is e_l."""
     E, d_in = en.shape
     n, m = graph.num_pts, graph.num_cams
     De = w.shape[0]
@@ -108,10 +120,9 @@ def fused_layer_step(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
     pt_idx = kb.cuda_i32("pt_idx", graph.pt_idx)
     cam_idx = kb.cuda_i32("cam_idx", graph.cam_idx)
     dev = en.device
-    e_l = torch.empty((E, De), dtype=torch.float32, device=dev)
+    e_l = kb.f32_empty((E, De), dev)
     en_next = e_l if raw_prologue else torch.empty_like(e_l)
-    xl_p = torch.empty((E, Dp), dtype=torch.float32, device=dev)
-    xl_c = torch.empty((E, Dc), dtype=torch.float32, device=dev)
+    xl_p, xl_c = kb.f32_empty((E, Dp), dev), kb.f32_empty((E, Dc), dev)
     p = kb.ptr
     ln_s, ln_b, en_out = (None, None, None) if raw_prologue else (ln_scale, ln_bias, en_next)
     code = _entry()(
@@ -122,8 +133,131 @@ def fused_layer_step(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
     )
     kb.check(code, "fused_layer_step")
     fused_layer_step.launches += 1
+    return e_l, en_next, xl_p, xl_c
+
+
+class _LayerStepPrologue(torch.autograd.Function):
+    """The prologue under autograd: outputs (e_l, en_next, xl_p, xl_c), or
+    (e_l, xl_p, xl_c) under ``raw`` (en_next is e_l, outside the Function)."""
+
+    @staticmethod
+    def forward(ctx, en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
+                wlp, blp, wlc, blc, graph, eps, raw):
+        e_l, en_next, xl_p, xl_c = layer_step_prologue(
+            en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias, wlp, blp, wlc, blc, graph,
+            eps, raw)
+        ctx.save_for_backward(en, skip2, w, e_l, None if raw else en_next, ln_scale, ln_bias,
+                              wlp, wlc)
+        ctx.graph, ctx.eps, ctx.raw, ctx.has_res = graph, eps, raw, res is not None
+        ctx.pg_shape = pg.shape
+        return (e_l, xl_p, xl_c) if raw else (e_l, en_next, xl_p, xl_c)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        en, skip2, w, e_l, en_next, ln_scale, ln_bias, wlp, wlc = ctx.saved_tensors
+        if ctx.raw:
+            de_l, dxl_p, dxl_c = grads
+            den_next = None
+        else:
+            de_l, den_next, dxl_p, dxl_c = grads
+        (den, dskip2, dres, dw, db, dps, dpv, dln_scale, dln_bias, dwlp, dblp, dwlc,
+         dblc) = fused_layer_step_bwd(en, skip2, w, e_l, en_next, ln_scale, ln_bias, wlp, wlc,
+                                      ctx.graph, dxl_p, dxl_c, den_next, de_l, ctx.eps, ctx.raw)
+        return (den, dskip2, dres if ctx.has_res else None, dw, db, dps, dpv,
+                db.reshape(ctx.pg_shape), dln_scale, dln_bias, dwlp, dblp, dwlc, dblc,
+                None, None, None)
+
+
+def fused_layer_step(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
+                     wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c, graph, heads,
+                     eps=LN_EPS, raw_prologue=False, slope=NEGATIVE_SLOPE):
+    """en (E, d_in) the previous layer's normalized stream; skip2 (E, d2) or
+    None; res (E, De) or None; w (De, d_in + d2) lin_proj's weight (columns
+    for en, then skip2); b (De,); ps (n, De), pv (m, De), pg (1, De) the
+    table linears; then the NEXT layer's frontend parameters as in
+    :func:`fused_frontend`. Returns (e_l, e_norm_next, out_pt, out_cam);
+    under ``raw_prologue`` e_norm_next is e_l."""
+    if en.device.type == "cpu":
+        return fused_layer_step_plain(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
+                                      wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c,
+                                      graph, heads, eps, raw_prologue, slope)
+    if kb.needs_grad(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias, wlp, blp, wlc, blc):
+        outs = _LayerStepPrologue.apply(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
+                                        wlp, blp, wlc, blc, graph, eps, raw_prologue)
+        e_l, en_next, xl_p, xl_c = (outs[0], *outs) if raw_prologue else outs
+    else:
+        e_l, en_next, xl_p, xl_c = layer_step_prologue(
+            en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias, wlp, blp, wlc, blc, graph,
+            eps, raw_prologue)
     out_p, out_c = fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
     return e_l, en_next, out_p, out_c
 
 
 fused_layer_step.launches = 0
+
+
+def fused_layer_step_bwd(en, skip2, w, e_l, en_next, ln_scale, ln_bias, wlp, wlc, graph,
+                         dxl_p, dxl_c, den_next=None, de_l=None, eps=LN_EPS,
+                         raw_prologue=False):
+    """The layer step prologue's backward kernel (CUDA tensors): the update's
+    inputs en (E, d_in), skip2 (E, d2) or None and weight w (De, d_in + d2),
+    the saved e_l and e_norm_next (E, De; the latter ignored under
+    ``raw_prologue``, where it is e_l), the next layer's LayerNorm and
+    source-linear weights, the cotangents of xl_p / xl_c (from the dual
+    core's backward), of e_norm_next (or None) and of e_l (or None). Returns
+    (den, dskip2, dres, dw, db, dps, dpv, dln_scale, dln_bias, dwlp, dblp,
+    dwlc, dblc): dres is the total cotangent of e_l, and d pg equals db. Its
+    plain version is autograd through :func:`fused_layer_step_plain`."""
+    E, d_in = en.shape
+    n, m = graph.num_pts, graph.num_cams
+    De = w.shape[0]
+    d2 = 0 if skip2 is None else skip2.shape[1]
+    Dp, Dc = wlp.shape[0], wlc.shape[0]
+    en = kb.cuda_f32("en", en, (E, d_in))
+    if skip2 is not None:
+        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
+    w = kb.cuda_f32("w", w, (De, d_in + d2))
+    e_l = kb.cuda_f32("e_l", e_l, (E, De))
+    v = e_l if raw_prologue else kb.cuda_f32("en_next", en_next, (E, De))
+    if not raw_prologue:
+        ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
+        ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
+    wlp = kb.cuda_f32("wlp", wlp, (Dp, De))
+    wlc = kb.cuda_f32("wlc", wlc, (Dc, De))
+    dxl_p = kb.cuda_f32("dxl_p", dxl_p, (E, Dp))
+    dxl_c = kb.cuda_f32("dxl_c", dxl_c, (E, Dc))
+    if den_next is not None:
+        den_next = kb.cuda_f32("den_next", den_next, (E, De))
+    if de_l is not None:
+        de_l = kb.cuda_f32("de_l", de_l, (E, De))
+    dev = en.device
+    grid, ogrid = kb.grid_for(dev, n, STEP_WARPS, per_sm=4), outer_grid(dev, E)
+    d_el = kb.f32_empty((E, De), dev)
+    den = kb.f32_empty((E, d_in), dev)
+    dskip2 = None if skip2 is None else kb.f32_empty((E, d2), dev)
+    dps, dpv = kb.f32_empty((n, De), dev), kb.f32_empty((m, De), dev)
+    ln_partials, ln_sums = kb.f32_empty((grid, 64), dev), kb.f32_empty((2, 32), dev)
+    outer_partials = kb.f32_empty((3, ogrid, OUTER_ROW), dev)
+    outer_sums = kb.f32_empty((3, OUTER_ROW), dev)
+    p = kb.ptr
+    ln_s, ln_b = (None, None) if raw_prologue else (ln_scale, ln_bias)
+    code = _entry("gasfm_layer_step_bwd")(
+        p(en), d_in, p(skip2), d2, p(w), p(e_l), p(v),
+        p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n, p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)), m, E, De,
+        p(ln_s), p(ln_b), int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc,
+        p(dxl_p), p(dxl_c), p(den_next), p(de_l),
+        p(d_el), p(den), p(dskip2), p(dps), p(dpv),
+        p(ln_partials), p(ln_sums), p(outer_partials), p(outer_sums), grid, ogrid,
+        kb.stream(dev),
+    )
+    kb.check(code, "fused_layer_step_bwd")
+    fused_layer_step_bwd.launches += 1
+    dwlp, dblp = split_outer_sums(outer_sums[0], Dp, De)
+    dwlc, dblc = split_outer_sums(outer_sums[1], Dc, De)
+    dw, db = split_outer_sums(outer_sums[2], De, d_in + d2)
+    dg, dbn = (None, None) if raw_prologue else (ln_sums[0, :De], ln_sums[1, :De])
+    return den, dskip2, d_el, dw, db, dps, dpv, dg, dbn, dwlp, dblp, dwlc, dblc
+
+
+fused_layer_step_bwd.launches = 0

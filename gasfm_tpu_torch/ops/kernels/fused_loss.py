@@ -1,20 +1,28 @@
-"""ESFM loss terms, forward: CUDA kernel for Hopper (``csrc/fused_loss.cu``),
-its plain PyTorch version, and its launch counter.
+"""ESFM loss terms: CUDA kernels for Hopper (``csrc/fused_loss.cu``),
+forward and backward, their plain PyTorch version, and their launch
+counters.
 
-Replaces the TPU kernel of ``gasfm_tpu/ops/pallas/fused_loss.py``
-(``fused_esfm_terms`` / ``_fwd_raw``): per edge the homogeneous projection
-``P[cam] . X[pt]``, the hinge or reprojection term, and three scalars — the
-sum of the terms, the number of edges and the number of edges whose depth
-passes the margin.
+Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_loss.py``
+(``fused_esfm_terms`` / ``_fwd_raw``; backward ``_bwd_raw``): per edge the
+homogeneous projection ``P[cam] . X[pt]``, the hinge or reprojection term,
+and three scalars — the sum of the terms, the number of edges and the
+number of edges whose depth passes the margin. The backward gives the
+cameras' and points' gradients with the reference's gradient-direction
+equalization (``eq_mode``: "none", "all", "valid_only"), which acts on the
+backward only.
 
-What bounds it on the H100 is bytes over its 3.35 TB/s: each edge gathers a
-48-byte camera row and a 16-byte point row and reads its observation and two
-ids, against ~40 flops. One thread per edge, nothing per edge written back,
-a fixed-order block tree and a second one-block pass over the block partials
-(two launches per call, counted once): deterministic, no float atomics.
+What bounds them on the H100 is bytes over its 3.35 TB/s: each edge gathers
+a 48-byte camera row and a 16-byte point row and reads its observation and
+two ids, against ~40 flops. Forward: one thread per edge, nothing per edge
+written back, a fixed-order block tree and a second one-block pass over the
+block partials (two launches per call, counted once). Backward: the two
+table gradients are segment sums, walked per point (warp) and per camera
+(block) without atomics. Deterministic throughout.
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. ``fused_esfm_terms.launches`` counts the calls that launched.
+A CPU tensor runs the plain version (autograd through it, with the
+equalization Function below, is the backward's plain version); a CUDA
+tensor launches the kernel or raises. ``launches`` counts the calls that
+launched.
 """
 
 from __future__ import annotations
@@ -26,22 +34,57 @@ import torch
 from gasfm_tpu_torch.ops.kernels import build as kb
 
 _THREADS = 256
+_BWD_WARPS = 8  # kLossBwdWarps of csrc/fused_loss.cu
+EQ_MODES = {"none": 0, "all": 1, "valid_only": 2}
 _ARGS = (kb.P,) * 5 + (kb.I, kb.F, kb.I, kb.F) + (kb.P,) * 3
+_BWD_ARGS = (kb.P,) * 8 + (kb.I, kb.I, kb.F, kb.I, kb.F, kb.I) + (kb.P,) * 5
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    return kb.bind(kb.load("fused_loss"), "gasfm_esfm_terms", _ARGS)
+def _entry(symbol="gasfm_esfm_terms"):
+    args = _ARGS if symbol == "gasfm_esfm_terms" else _BWD_ARGS
+    return kb.bind(kb.load("fused_loss"), symbol, args)
 
 
-def fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w):
+class EqualizeGrads(torch.autograd.Function):
+    """Identity on the per-edge projections (E, 3) whose backward normalizes
+    each row's cotangent and scales it by ``inv_count`` — the reference's
+    backward hook (``F.normalize(grad, dim=1) / count``), the JAX package's
+    ``_equalize_grads_all`` / ``_equalize_grads_valid_only``. Under
+    ``valid_only`` only rows with ``pos`` are normalized; the others keep
+    their cotangent. ``pos`` and ``inv_count`` carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, proj, pos, inv_count, valid_only):
+        ctx.save_for_backward(pos, inv_count)
+        ctx.valid_only = valid_only
+        return proj.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, inv_count = ctx.saved_tensors
+        norm = torch.linalg.vector_norm(g, dim=1, keepdim=True)
+        normalized = g / norm.clamp_min(1e-12) * inv_count
+        if ctx.valid_only:
+            normalized = torch.where(pos[:, None], normalized, g)
+        return normalized, None, None, None
+
+
+def fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode="none"):
     """Plain version. P_flat (m, 12) row-major cameras, Xt (n, 4) homogeneous
-    points. Returns (3,) = (sum of terms, #edges, #positive-depth edges)."""
+    points. Returns (3,) = (sum of terms, #edges, #positive-depth edges); the
+    counts carry no gradient."""
     P_e = P_flat[graph.cam_idx.long()].reshape(-1, 3, 4)
     X_e = Xt[graph.pt_idx.long()]
     proj = (P_e * X_e[:, None, :]).sum(-1)  # (E, 3)
-    depth = proj[:, 2]
+    depth = proj[:, 2].detach()
     pos = depth >= margin if hinge else depth.abs() >= margin
+    n_pos = pos.to(proj.dtype).sum()
+    if eq_mode != "none":
+        count = n_pos if eq_mode == "valid_only" else torch.tensor(
+            float(graph.num_edges), dtype=proj.dtype, device=proj.device)
+        proj = EqualizeGrads.apply(proj, pos, 1.0 / count.clamp_min(1.0), eq_mode == "valid_only")
+    depth = proj[:, 2]
     denom = torch.where(pos, depth, torch.ones_like(depth))
     r = proj[:, :2] / denom[:, None] - graph.uv
     sq = (r * r).sum(1)
@@ -49,30 +92,89 @@ def fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w):
     rnorm = torch.where(nz, torch.sqrt(torch.where(nz, sq, torch.ones_like(sq))), torch.zeros_like(sq))
     term = torch.where(pos, rnorm, (margin - depth) * hinge_w)
     n_edges = torch.tensor(float(graph.num_edges), dtype=term.dtype, device=term.device)
-    return torch.stack([term.sum(), n_edges, pos.to(term.dtype).sum()])
+    return torch.stack([term.sum(), n_edges, n_pos])
 
 
-def fused_esfm_terms(P_flat, Xt, graph, margin, hinge, hinge_w):
-    """The three ESFM loss scalars (see module docstring)."""
-    if P_flat.device.type == "cpu":
-        return fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w)
+def esfm_terms_forward(P_flat, Xt, graph, margin, hinge, hinge_w):
+    """Launch the forward kernel (CUDA tensors). Returns (terms (3,), P_flat,
+    Xt) with the validated operands."""
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
     P_flat = kb.cuda_f32("P_flat", P_flat, (m, 12))
     Xt = kb.cuda_f32("Xt", Xt, (n, 4))
-    if Xt.data_ptr() % 16:  # the kernel reads each point as one float4
+    if Xt.data_ptr() % 16:  # the kernels read each point as one float4
         Xt = Xt.clone()
     uv = kb.cuda_f32("uv", graph.uv, (E, 2))
     cam_idx = kb.cuda_i32("cam_idx", graph.cam_idx)
     pt_idx = kb.cuda_i32("pt_idx", graph.pt_idx)
     dev = P_flat.device
-    partials = torch.empty((max(1, -(-E // _THREADS)), 3), dtype=torch.float32, device=dev)
-    out = torch.empty((3,), dtype=torch.float32, device=dev)
+    partials = kb.f32_empty((max(1, -(-E // _THREADS)), 3), dev)
+    out = kb.f32_empty((3,), dev)
     p = kb.ptr
     code = _entry()(p(P_flat), p(Xt), p(uv), p(cam_idx), p(pt_idx), E, float(margin),
                     int(bool(hinge)), float(hinge_w), p(partials), p(out), kb.stream(dev))
     kb.check(code, "fused_esfm_terms")
     fused_esfm_terms.launches += 1
-    return out
+    return out, P_flat, Xt
+
+
+class _EsfmTerms(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode):
+        out, P_c, X_c = esfm_terms_forward(P_flat, Xt, graph, margin, hinge, hinge_w)
+        ctx.save_for_backward(P_c, X_c, out)
+        ctx.args = (graph, margin, hinge, hinge_w, eq_mode)
+        return out  # the counts' cotangents are ignored by the backward
+
+    @staticmethod
+    def backward(ctx, g_terms):
+        P_c, X_c, out = ctx.saved_tensors
+        graph, margin, hinge, hinge_w, eq_mode = ctx.args
+        count = out[2:3] if eq_mode == "valid_only" else out[1:2]
+        dP, dX = fused_esfm_terms_bwd(P_c, X_c, graph, g_terms[0:1], count, margin, hinge,
+                                      hinge_w, eq_mode)
+        return dP, dX, None, None, None, None, None
+
+
+def fused_esfm_terms(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode="none"):
+    """The three ESFM loss scalars (see module docstring); only the first
+    is differentiable, with the equalization ``eq_mode`` in its backward."""
+    if P_flat.device.type == "cpu":
+        return fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode)
+    if kb.needs_grad(P_flat, Xt):
+        return _EsfmTerms.apply(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode)
+    return esfm_terms_forward(P_flat, Xt, graph, margin, hinge, hinge_w)[0]
 
 
 fused_esfm_terms.launches = 0
+
+
+def fused_esfm_terms_bwd(P_flat, Xt, graph, coef, count, margin, hinge, hinge_w,
+                         eq_mode="none"):
+    """The loss terms' backward kernel (CUDA tensors): coef (1,) the
+    cotangent of the sum of terms; count (1,) the equalization count
+    (positive-depth edges for "valid_only", all edges for "all"; unused
+    under "none"), both read on the card. Returns (dP (m, 12), dX (n, 4)).
+    Its plain version is autograd through :func:`fused_esfm_terms_plain`."""
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    P_flat = kb.cuda_f32("P_flat", P_flat, (m, 12))
+    Xt = kb.cuda_f32("Xt", Xt, (n, 4))
+    if Xt.data_ptr() % 16:
+        Xt = Xt.clone()
+    coef = kb.cuda_f32("coef", coef.reshape(1), (1,))
+    count = kb.cuda_f32("count", count.reshape(1), (1,))
+    dev = P_flat.device
+    dP, dX = kb.f32_empty((m, 12), dev), kb.f32_empty((n, 4), dev)
+    p = kb.ptr
+    code = _entry("gasfm_esfm_terms_bwd")(
+        p(P_flat), p(Xt), p(kb.cuda_f32("uv", graph.uv, (E, 2))),
+        p(kb.cuda_i32("cam_idx", graph.cam_idx)), p(kb.cuda_i32("pt_idx", graph.pt_idx)),
+        p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)), n, m, float(margin), int(bool(hinge)),
+        float(hinge_w), EQ_MODES[eq_mode], p(coef), p(count), p(dP), p(dX), kb.stream(dev),
+    )
+    kb.check(code, "fused_esfm_terms_bwd")
+    fused_esfm_terms_bwd.launches += 1
+    return dP, dX
+
+
+fused_esfm_terms_bwd.launches = 0

@@ -36,8 +36,8 @@ def gather_segments(table: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
 def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Numerically stable softmax over each segment of per-edge logits
     ((E,) or (E, H)); edges of empty segments cannot exist, every weight of
-    a non-empty segment is finite."""
-    m = segment_max(logits, seg_ids, num_segments)
+    a non-empty segment is finite. The max shift carries no gradient."""
+    m = segment_max(logits.detach(), seg_ids, num_segments)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     p = torch.exp(logits - gather_segments(m, seg_ids))
     den = segment_sum(p, seg_ids, num_segments)

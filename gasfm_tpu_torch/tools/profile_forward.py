@@ -1,16 +1,19 @@
-"""Where a forward request's time goes on the card.
+"""Where a forward request's, or a training step's, time goes on the card.
 
-    python -m gasfm_tpu_torch.tools.profile_forward [--scene dense|powerlaw] [--requests 3]
+    python -m gasfm_tpu_torch.tools.profile_forward [--scene dense|powerlaw]
+        [--requests 3] [--train]
 
 Builds the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
 32/64/1024/2048, seeded init) and one of the two synthetic bench scenes,
-warms up with two requests, then traces ``--requests`` requests (forward +
-ESFM loss through ``TrainingSession``) with ``torch.profiler``. Prints the
-wall time per request, the device time per kernel name (top 15), the
-hand-written kernels' share, the number of kernel launches per request, and
-the device busy share: summed kernel time over wall time (one stream, so
-kernels never overlap). Writes the Chrome trace to
-``chiprun_out/profile_forward_<scene>.json``.
+warms up with two requests, then traces ``--requests`` requests with
+``torch.profiler``: forward + ESFM loss through ``TrainingSession``, or with
+``--train`` one ``TrainingSession.fused_step`` each (the flagship conf's
+loss and optimizer). Prints the wall time per request, the device time per
+kernel name (the port's own kernels, each with its launches and time per
+launch, then the top 15 of all), the hand-written kernels' share, the
+number of kernel launches per request, and the device busy share: summed
+kernel time over wall time (one stream, so kernels never overlap). Writes
+the Chrome trace to ``chiprun_out/profile_{forward,train}_<scene>.json``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
-from gasfm_tpu_torch.losses import ESFMLoss
+from gasfm_tpu_torch.losses import ESFMLoss, FLAGSHIP_LOSS
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.train.loop import TrainingSession
 from gasfm_tpu_torch.utils.device import resolve_device
@@ -46,17 +49,21 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--scene", choices=sorted(SCENES), default="dense")
     ap.add_argument("--requests", type=int, default=3)
+    ap.add_argument("--train", action="store_true", help="trace training steps")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     model = GraphAttnSfMNet(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
-    session = TrainingSession(model, ESFMLoss(1e-4, True, 1.0), device=dev)
+    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
     scene = generate_synthetic_scene(**SCENES[args.scene]).to_scene_graph(device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def request():
-        session.loss(session.forward(scene), scene)
+        if args.train:
+            session.fused_step(scene)
+        else:
+            session.loss(session.forward(scene), scene)
 
     for _ in range(2):
         request()
@@ -71,7 +78,9 @@ def main(argv=None) -> None:
 
     kernels = collections.defaultdict(lambda: [0, 0.0])
     for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA:
+        # user-annotation ranges (e.g. Optimizer.step) lie over the kernels
+        # they enclose: counting them would count those kernels twice
+        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
             k = kernels[evt.name]
             k[0] += 1
             k[1] += evt.time_range.elapsed_us()
@@ -80,17 +89,25 @@ def main(argv=None) -> None:
     launches = sum(c for c, _ in kernels.values())
     R = args.requests
     g = scene.graph
-    print(f"scene {args.scene}: {g.num_cams} views, {g.num_pts} points, {g.num_edges} edges; "
-          f"device {torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
+    mode = "train" if args.train else "forward"
+    print(f"scene {args.scene} ({mode}): {g.num_cams} views, {g.num_pts} points, "
+          f"{g.num_edges} edges; device "
+          f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     print(f"wall {wall_us / R / 1e3:.3f} ms/request; device kernel time "
           f"{total / R / 1e3:.3f} ms/request; device busy share {total / wall_us:.4f}; "
           f"{launches / R:.1f} kernel launches/request; hand-written kernels "
           f"{ours / R / 1e3:.3f} ms/request ({ours / max(total, 1e-9):.4f} of device time)")
+    print("the port's kernels:")
+    for name, (count, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
+        if "gasfm::" in name:
+            print(f"  {t / R / 1e3:9.4f} ms/request  {count / R:6.1f} launches/request  "
+                  f"{t / count / 1e3:.4f} ms/launch  {name[:100]}")
+    print("all kernels, top 15:")
     for name, (count, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"  {t / R / 1e3:9.4f} ms/request  {count / R:6.1f} launches/request  {name[:110]}")
     out = Path(__file__).resolve().parents[2] / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / f"profile_forward_{args.scene}.json"))
+    prof.export_chrome_trace(str(out / f"profile_{mode}_{args.scene}.json"))
 
 
 if __name__ == "__main__":

@@ -274,3 +274,273 @@ def test_fused_esfm_terms_matches_jax(graphs, hinge):
     (name, got, want), (_, got_count, want_count) = esfm_terms_pairs(graphs, hinge)
     assert_close(got, want, name)
     assert got_count == want_count  # counts are exact
+
+
+# ---------------------------------------------------------------------------
+# Backward: the port's plain versions under autograd (the reference gradient
+# of every backward kernel) against jax.vjp through the JAX package's
+# custom_vjp kernels, in interpret mode. Same inputs as above, seeded
+# cotangents on the real rows (zero on the JAX layout's padding); gradients
+# compared on real rows. Tolerance: atol 1e-5 x the reference's scale, rtol
+# 1e-4, as for the forward — except the De = 2 frontend's d e (see below).
+# ---------------------------------------------------------------------------
+
+
+def port_grads(fn, leaves, cots):
+    """{name: d leaf} of sum <fn(**leaves), cots> (None: output unused)."""
+    ls = {k: v.detach().clone().requires_grad_() for k, v in leaves.items()}
+    outs = fn(**ls)
+    used = [(o, c) for o, c in zip(outs, cots) if c is not None]
+    grads = torch.autograd.grad([o for o, _ in used], list(ls.values()),
+                                [torch.as_tensor(c) for _, c in used])
+    return dict(zip(ls, grads))
+
+
+def padded_rows(real, rows_cap):
+    out = np.zeros((rows_cap,) + real.shape[1:], np.float32)
+    out[: real.shape[0]] = real
+    return out
+
+
+def dual_attend_grad_pairs(graphs):
+    """[(gradient name, port, JAX)] for the dual core at D = 32."""
+    import jax
+
+    draw = Draw(graphs, seed=11)
+    jg, pg, mask = graphs
+    D = 32
+    C = D // HEADS
+    xl_p, xl_p_t = draw.edges(D)
+    xl_c, xl_c_t = draw.edges(D)
+    xr_p, xr_p_t = draw.pt_table(D)
+    xr_c, xr_c_t = draw.cam_table(D)
+    att_p, att_c = draw.arr(HEADS, C), draw.arr(HEADS, C)
+    g_p, g_c = draw.arr(pg.num_pts, D), draw.arr(pg.num_cams, D)
+
+    def f(xl_p, xr_p, att_p, xl_c, xr_c, att_c):
+        return jax_attend_dual(
+            xl_p.reshape(-1, HEADS, C), xr_p.reshape(-1, HEADS, C), att_p, jg.pt_idx,
+            jg.num_pts, jg.pt_segment_windows(), xl_c.reshape(-1, HEADS, C),
+            xr_c.reshape(-1, HEADS, C), att_c, jg.cam_idx, jg.num_cams, edge_mask=jg.edge_mask)
+
+    outs, vjp = jax.vjp(f, *map(jnp.asarray, (xl_p, xr_p, att_p, xl_c, xr_c, att_c)))
+    cots = (padded_rows(g_p, jg.num_pts).reshape(outs[0].shape),
+            padded_rows(g_c, jg.num_cams).reshape(outs[1].shape))
+    want = dict(zip(("xl_p", "xr_p", "att_p", "xl_c", "xr_c", "att_c"),
+                    map(np.asarray, vjp(tuple(map(jnp.asarray, cots))))))
+    got = port_grads(
+        lambda **a: fused_dual_attend(a["xl_p"], a["xl_c"], a["xr_p"], a["xr_c"], a["att_p"],
+                                      a["att_c"], pg, HEADS),
+        dict(xl_p=xl_p_t, xl_c=xl_c_t, xr_p=xr_p_t, xr_c=xr_c_t,
+             att_p=torch.from_numpy(att_p).reshape(-1), att_c=torch.from_numpy(att_c).reshape(-1)),
+        (g_p, g_c))
+    pairs = []
+    for side, n_rows in (("p", pg.num_pts), ("c", pg.num_cams)):
+        pairs += [(f"d xl_{side}", got[f"xl_{side}"], want[f"xl_{side}"][mask]),
+                  (f"d xr_{side}", got[f"xr_{side}"], want[f"xr_{side}"][:n_rows]),
+                  (f"d att_{side}", got[f"att_{side}"], want[f"att_{side}"].reshape(-1))]
+    return pairs
+
+
+def test_fused_dual_attend_grads_match_jax(graphs):
+    for name, got, want in dual_attend_grad_pairs(graphs):
+        assert_close(got, want, name)
+
+
+def jax_frontend_fn(jg, D, raw_prologue):
+    C = D // HEADS
+
+    def f(e, lng, lnb, wlp, blp, att_p, xr_p, wlc, blc, att_c, xr_c):
+        en, op, oc = jax_layer_frontend(
+            e, lng, lnb, 1e-5, wlp, blp, att_p, xr_p.reshape(-1, HEADS, C), jg.pt_idx,
+            jg.num_pts, jg.pt_segment_windows(), wlc, blc, att_c, xr_c.reshape(-1, HEADS, C),
+            jg.cam_idx, jg.num_cams, edge_mask=jg.edge_mask, raw_prologue=raw_prologue)
+        return en, op, oc
+
+    return f
+
+
+FRONT_KEYS = ("lng", "lnb", "wlp", "blp", "att_p", "xr_p", "wlc", "blc", "att_c", "xr_c")
+
+
+def param_grad_pairs(got, want, pg, raw_prologue):
+    """The frontend parameters' and queries' gradients: the port's torch
+    layouts against the JAX flax layouts, real rows."""
+    pairs = [("d xr_p", got["xr_p"], want["xr_p"][: pg.num_pts]),
+             ("d xr_c", got["xr_c"], want["xr_c"][: pg.num_cams])]
+    if not raw_prologue:
+        pairs += [("d ln_scale", got["ln_scale"], want["lng"]),
+                  ("d ln_bias", got["ln_bias"], want["lnb"])]
+    for side in ("p", "c"):
+        pairs += [(f"d wl{side}", got[f"wl{side}"].T, want[f"wl{side}"]),
+                  (f"d bl{side}", got[f"bl{side}"], want[f"bl{side}"]),
+                  (f"d att_{side}", got[f"att_{side}"], want[f"att_{side}"].reshape(-1))]
+    return pairs
+
+
+def frontend_grad_pairs(graphs, De, D, raw_prologue):
+    import jax
+
+    draw = Draw(graphs, seed=12)
+    jg, pg, mask = graphs
+    e, e_t = draw.ln_edges(De)
+    p = frontend_params(draw, De, D)
+    g_en, g_p, g_c = draw.arr(pg.num_edges, De), draw.arr(pg.num_pts, D), draw.arr(pg.num_cams, D)
+    f = jax_frontend_fn(jg, D, raw_prologue)
+    args = [jnp.asarray(e)] + [jnp.asarray(p[k]) for k in FRONT_KEYS]
+    outs, vjp = jax.vjp(f, *args)
+    g_en_pad = np.zeros(outs[0].shape, np.float32)
+    g_en_pad[mask] = g_en
+    cots = (g_en_pad, padded_rows(g_p, jg.num_pts).reshape(outs[1].shape),
+            padded_rows(g_c, jg.num_cams).reshape(outs[2].shape))
+    want = dict(zip(("e",) + FRONT_KEYS, map(np.asarray, vjp(tuple(map(jnp.asarray, cots))))))
+    t = {k: torch.from_numpy(v) for k, v in p.items() if not k.endswith("_t")}
+    leaves = dict(e=e_t, wlp=t["wlp"].T.contiguous(), blp=t["blp"], wlc=t["wlc"].T.contiguous(),
+                  blc=t["blc"], xr_p=p["xr_p_t"], xr_c=p["xr_c_t"],
+                  att_p=t["att_p"].reshape(-1), att_c=t["att_c"].reshape(-1))
+    if not raw_prologue:
+        leaves.update(ln_scale=t["lng"], ln_bias=t["lnb"])
+    got = port_grads(
+        lambda **a: fused_frontend(
+            a["e"], a.get("ln_scale"), a.get("ln_bias"), a["wlp"], a["blp"], a["wlc"], a["blc"],
+            a["xr_p"], a["xr_c"], a["att_p"], a["att_c"], pg, HEADS, eps=1e-5,
+            raw_prologue=raw_prologue),
+        leaves, (g_en, g_p, g_c))
+    return [("d e", got["e"], want["e"][mask])] + param_grad_pairs(got, want, pg, raw_prologue)
+
+
+@pytest.mark.parametrize("raw_prologue", [False, True])
+@pytest.mark.parametrize("De,D", [(2, 4), (32, 32)])
+def test_fused_frontend_grads_match_jax(graphs, De, D, raw_prologue):
+    for name, got, want in frontend_grad_pairs(graphs, De, D, raw_prologue):
+        if name == "d e" and De == 2 and not raw_prologue:
+            # Over two features the LayerNorm's output is +-1/sqrt(1 + eps/var)
+            # whatever the input, so d e is a near-zero difference of O(1)
+            # terms: its rounding scales with those terms (~1), not with |d e|.
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-5, err_msg=name)
+        else:
+            assert_close(got, want, name)
+
+
+def layer_step_grad_pairs(graphs, form):
+    import jax
+
+    draw = Draw(graphs, seed=13)
+    jg, pg, mask = graphs
+    De = D = 32
+    C = D // HEADS
+    d_in, d2 = (2, 2) if form == "first_layer" else (32, 2)
+    has_res = form != "first_layer"
+    raw = form == "raw_prologue"
+    chunk = jg.chunk
+    en, en_t = draw.edges(d_in)
+    skip2, skip2_t = draw.edges(d2)
+    res, res_t = draw.edges(De) if has_res else (None, None)
+    w_e, w_uv = draw.arr(d_in, De, scale=0.3), draw.arr(d2, De, scale=0.3)
+    b = draw.arr(De, scale=0.1)
+    ps, ps_t = draw.pt_table(De)
+    pv, pv_t = draw.cam_table(De)
+    pgl = draw.arr(1, De)
+    p = frontend_params(draw, De, D)
+    if raw:
+        p["lng"], p["lnb"] = np.ones(De, np.float32), np.zeros(De, np.float32)
+    E = pg.num_edges
+    g_el, g_en = draw.arr(E, De), draw.arr(E, De)
+    g_p, g_c = draw.arr(pg.num_pts, D), draw.arr(pg.num_cams, D)
+
+    upd_keys = ("en", "skip2") + (("res",) if has_res else ()) + (
+        "w_e", "b", "w_uv", "ps", "pv", "pg")
+
+    def f(*a):
+        u = dict(zip(upd_keys, a[: len(upd_keys)]))
+        fr = dict(zip(FRONT_KEYS, a[len(upd_keys):]))
+        pending = JaxPendingUpdate(
+            en=pack_edges(u["en"], chunk), skip2=pack_edges(u["skip2"], chunk),
+            res=pack_edges(u["res"], chunk) if has_res else None, w_e=u["w_e"], b=u["b"],
+            w_uv=u["w_uv"], ps=u["ps"], pv=u["pv"], pg=u["pg"])
+        e_prev, en_next, op, oc = jax_merged_frontend(
+            pending, fr["lng"], fr["lnb"], 1e-5, fr["wlp"], fr["blp"], fr["att_p"],
+            fr["xr_p"].reshape(-1, HEADS, C), jg.pt_idx, jg.num_pts, jg.pt_segment_windows(),
+            fr["wlc"], fr["blc"], fr["att_c"], fr["xr_c"].reshape(-1, HEADS, C), jg.cam_idx,
+            jg.num_cams, edge_mask=jg.edge_mask, raw_prologue=raw)
+        return unpack_edges(e_prev, chunk), unpack_edges(en_next, chunk), op, oc
+
+    upd = dict(en=en, skip2=skip2, res=res, w_e=w_e, b=b, w_uv=w_uv, ps=ps, pv=pv, pg=pgl)
+    args = [jnp.asarray(upd[k]) for k in upd_keys] + [jnp.asarray(p[k]) for k in FRONT_KEYS]
+    outs, vjp = jax.vjp(f, *args)
+
+    def edge_pad(real):
+        out = np.zeros(outs[0].shape, np.float32)
+        out[mask] = real
+        return out
+
+    cots = (edge_pad(g_el), edge_pad(g_en), padded_rows(g_p, jg.num_pts).reshape(outs[2].shape),
+            padded_rows(g_c, jg.num_cams).reshape(outs[3].shape))
+    want = dict(zip(upd_keys + FRONT_KEYS, map(np.asarray, vjp(tuple(map(jnp.asarray, cots))))))
+
+    t = {k: torch.from_numpy(v) for k, v in p.items() if not k.endswith("_t")}
+    leaves = dict(en=en_t, skip2=skip2_t, w=torch.from_numpy(np.concatenate([w_e, w_uv]).T.copy()),
+                  b=torch.from_numpy(b), ps=ps_t, pv=pv_t, pg=torch.from_numpy(pgl),
+                  wlp=t["wlp"].T.contiguous(), blp=t["blp"], wlc=t["wlc"].T.contiguous(),
+                  blc=t["blc"], xr_p=p["xr_p_t"], xr_c=p["xr_c_t"],
+                  att_p=t["att_p"].reshape(-1), att_c=t["att_c"].reshape(-1))
+    if has_res:
+        leaves["res"] = res_t
+    if not raw:
+        leaves.update(ln_scale=t["lng"], ln_bias=t["lnb"])
+    # Under raw_prologue the port's e_norm_next IS e_l: one tensor, both
+    # cotangents.
+    got = port_grads(
+        lambda **a: fused_layer_step(
+            a["en"], a["skip2"], a.get("res"), a["w"], a["b"], a["ps"], a["pv"], a["pg"],
+            a.get("ln_scale"), a.get("ln_bias"), a["wlp"], a["blp"], a["wlc"], a["blc"],
+            a["xr_p"], a["xr_c"], a["att_p"], a["att_c"], pg, HEADS, eps=1e-5, raw_prologue=raw),
+        leaves, (g_el + g_en, None, g_p, g_c) if raw else (g_el, g_en, g_p, g_c))
+    pairs = [(f"d {k}", got[k], want[k][mask])
+             for k in ("en", "skip2") + (("res",) if has_res else ())]
+    pairs += [("d w_e", got["w"][:, :d_in].T, want["w_e"]),
+              ("d w_uv", got["w"][:, d_in:].T, want["w_uv"]),
+              ("d b", got["b"], want["b"]), ("d pg", got["pg"], want["pg"]),
+              ("d ps", got["ps"], want["ps"][: pg.num_pts]),
+              ("d pv", got["pv"], want["pv"][: pg.num_cams])]
+    return pairs + param_grad_pairs(got, want, pg, raw)
+
+
+@pytest.mark.parametrize("form", LAYER_STEP_FORMS)
+def test_fused_layer_step_grads_match_jax(graphs, form):
+    for name, got, want in layer_step_grad_pairs(graphs, form):
+        assert_close(got, want, name)
+
+
+def esfm_terms_grad_pairs(graphs, eq_mode, hinge):
+    import jax
+
+    draw = Draw(graphs, seed=14)
+    jg, pg, mask = graphs
+    margin, hinge_w = 1e-4, 1.0 if hinge else 0.0
+    P, P_t = draw.cam_table(12)
+    X, X_t = draw.pt_table(4)
+    X[:, 3] = 1.0
+    X_t[:, 3] = 1.0
+    coef = 1.0 / pg.num_edges
+
+    def f(P, X):
+        return jax_esfm_terms(P, X, jg.uv, jg, margin, hinge, hinge_w, eq_mode, interpret=True)
+
+    (edge_sum, count), vjp = jax.vjp(f, jnp.asarray(P), jnp.asarray(X))
+    dP, dX = vjp((jnp.asarray(coef, jnp.float32), jnp.zeros_like(count)))
+    got = port_grads(
+        lambda **a: (fused_esfm_terms(a["P"], a["X"], pg, margin, hinge, hinge_w, eq_mode)[0],),
+        dict(P=P_t, X=X_t), (torch.tensor(coef, dtype=torch.float32),))
+    depth = np.einsum("ej,ej->e", P_t.numpy()[pg.cam_idx.long()][:, 8:12],
+                      X_t.numpy()[pg.pt_idx.long()])
+    assert 0 < (depth >= margin).sum() < pg.num_edges  # both branches taken
+    return [("d P", got["P"], np.asarray(dP)[: pg.num_cams]),
+            ("d X", got["X"], np.asarray(dX)[: pg.num_pts])]
+
+
+@pytest.mark.parametrize("hinge", [True, False])
+@pytest.mark.parametrize("eq_mode", ["none", "all", "valid_only"])
+def test_fused_esfm_terms_grads_match_jax(graphs, eq_mode, hinge):
+    for name, got, want in esfm_terms_grad_pairs(graphs, eq_mode, hinge):
+        assert_close(got, want, name)

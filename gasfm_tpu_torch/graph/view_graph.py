@@ -22,6 +22,7 @@ All of it is built once per scene on the host with numpy.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Union
 
 import numpy as np
@@ -60,6 +61,18 @@ class ViewGraph:
     @property
     def device(self) -> torch.device:
         return self.uv.device
+
+    @functools.cached_property
+    def pt_count(self) -> torch.Tensor:
+        """(n,) float32 edges per point, at least 1 (an empty segment's sum
+        is 0 and stays 0), from the CSR offsets; computed once."""
+        return (self.pt_ptr[1:] - self.pt_ptr[:-1]).clamp_min(1).to(torch.float32)
+
+    @functools.cached_property
+    def cam_count(self) -> torch.Tensor:
+        """(m,) float32 edges per camera, at least 1, from the CSR offsets;
+        computed once."""
+        return (self.cam_ptr[1:] - self.cam_ptr[:-1]).clamp_min(1).to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,6 +23,10 @@ from gasfm_tpu_torch.ops.kernels.fused_loss import fused_esfm_terms, fused_esfm_
 # The loss of confs/gasfm/optim_euc_gasfm.conf, as ESFMLoss's keyword arguments.
 FLAGSHIP_LOSS = dict(infinity_pts_margin=1e-4, hinge_loss=True, hinge_loss_weight=1.0,
                      pts_grad_equalization=True, normalize_grad_valid_only=True)
+# The loss of confs/dpesfm/learning_euc_noaug_dpesfm.conf (:112-120): equalization
+# over all edges.
+DPESFM_LOSS = dict(infinity_pts_margin=1e-4, hinge_loss=True, hinge_loss_weight=1.0,
+                   pts_grad_equalization=True, normalize_grad_valid_only=False)
 
 
 class ESFMLoss:

@@ -1,9 +1,9 @@
 """Weights carried across from the JAX package.
 
 ``params_from_jax`` maps the JAX package's flax parameters of
-``GraphAttnSfMNet`` (nested dicts of numpy arrays, with or without the
-top-level ``"params"`` key) onto the port's ``state_dict`` names, which are
-the reference checkpoint's. Conventions translated:
+``GraphAttnSfMNet`` or ``SetOfSetNet`` (nested dicts of numpy arrays, with
+or without the top-level ``"params"`` key) onto the port's ``state_dict``
+names, which are the reference checkpoint's. Conventions translated:
 
 - flax ``Dense`` kernels are (in, out); torch ``nn.Linear.weight`` is (out, in);
 - flax LayerNorm ``scale`` is torch ``weight``;
@@ -11,7 +11,10 @@ the reference checkpoint's. Conventions translated:
   ``lin_r.weight``; ``att`` (H, C) becomes (1, H, C);
 - ``MLPStack``'s ``TorchDense_k`` is the Sequential's index ``2k``;
 - the aggregators' ``query_adapter`` / ``proj_agg`` take the reference's
-  per-direction names.
+  per-direction names;
+- a set-of-sets block's ``layers_{j}`` is ``layers.{j}``, and its edge
+  linear ``layers_{j}/lin_proj`` is
+  ``layers.{j}.projection_feature_update.lin_proj``.
 
 Every flax leaf is mapped or the call raises; loading the result with
 ``load_state_dict(strict=True)`` then proves every port key was filled.
@@ -63,8 +66,10 @@ _IN_PARENT = {
 def _module_name(parent: str, name: str) -> str:
     if (parent, name) in _IN_PARENT:
         return _IN_PARENT[(parent, name)]
-    if name.startswith("equivariant_blocks_"):
-        return "equivariant_blocks." + name.rsplit("_", 1)[1]
+    if name.startswith(("equivariant_blocks_", "layers_")):
+        return name.rsplit("_", 1)[0] + "." + name.rsplit("_", 1)[1]
+    if name == "lin_proj" and parent.startswith("layers_"):
+        return "projection_feature_update.lin_proj"
     if name == "LayerNorm_0":
         return "0"
     if name.startswith("TorchDense_"):
@@ -87,7 +92,8 @@ def _torch_key(path: List[str]) -> Tuple[str, bool]:
 
 
 def params_from_jax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
-    """flax params of the JAX ``GraphAttnSfMNet`` -> the port's state_dict."""
+    """flax params of the JAX ``GraphAttnSfMNet`` or ``SetOfSetNet`` -> the
+    port's state_dict."""
     tree = tree.get("params", tree)
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 

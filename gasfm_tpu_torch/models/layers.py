@@ -13,6 +13,11 @@ kernel (``PendingUpdate``), and the final aggregation does so on the raw
 stream. Per-node work (query adapters, the aggregators' finish MLPs, the
 global pools, the table linears, the heads) is plain PyTorch.
 
+The DPESFM (set-of-sets) blocks at the end of the module take their point
+and camera means through the segment-sum kernel (``ops/segment.py``
+``segment_mean``) and combine the edge stream through the edge-combine
+kernel (``ops/edge_update.py``); their linears are plain ``nn.Linear``.
+
 Node-level LayerNorms are torch's ``nn.LayerNorm`` (one fused kernel, a
 two-pass variance); the JAX package's flax LayerNorm computes the same
 function as E[x^2] - mean^2, so the two round differently (the model parity
@@ -33,11 +38,13 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
+from gasfm_tpu_torch.ops.edge_update import edge_combine
 from gasfm_tpu_torch.ops.gatv2 import (
     gatv2_attend_pool,
     gatv2_layer_frontend,
     merged_layer_frontend,
 )
+from gasfm_tpu_torch.ops.segment import segment_mean
 
 LN_EPS = 1e-5  # the edge LayerNorm's epsilon (torch nn.LayerNorm's default)
 
@@ -436,6 +443,85 @@ class GraphAttnLayer(nn.Module):
         elif self.add_residual:
             res = raw
         return PendingUpdate(en, skip2, res, w, b, ps, pv, pg), s, v, g
+
+
+# ---------------------------------------------------------------------------
+# DPESFM (set-of-sets) blocks
+# ---------------------------------------------------------------------------
+
+
+def normalize_edge_features(x: torch.Tensor) -> torch.Tensor:
+    """Mean-centering over the edges (reference ``normalize_projection_features``
+    with no LayerNorm, layers.py:972-979): the port's graph holds valid edges
+    only, so the JAX package's masked mean is the plain column mean."""
+    return x - x.mean(0, keepdim=True)
+
+
+class SetOfSetGlobalFeatureUpdate(nn.Module):
+    """Per-point and per-view means (segment-sum kernel) and the global mean,
+    each through a linear. Reference layers.py:100-126."""
+
+    def __init__(self, d_in: int, d_out: int, output_global: bool = True):
+        super().__init__()
+        self.lin_scenepoint = TorchDense(d_in, d_out)
+        self.lin_view = TorchDense(d_in, d_out)
+        self.lin_global = TorchDense(d_in, d_out) if output_global else None
+
+    def forward(self, x_edges, graph, plain=False):
+        s = self.lin_scenepoint(segment_mean(x_edges, graph, "point", plain))
+        v = self.lin_view(segment_mean(x_edges, graph, "camera", plain))
+        if self.lin_global is None:
+            return s, v
+        return s, v, self.lin_global(x_edges.mean(0, keepdim=True))
+
+
+class SetOfSetLayer(nn.Module):
+    """Reference ``SetOfSetLayer`` (layers.py:87-97): the means' linears and
+    the edge linear, combined by the edge-combine kernel."""
+
+    def __init__(self, d_in: int, d_out: int):
+        super().__init__()
+        self.global_feature_update = SetOfSetGlobalFeatureUpdate(d_in, d_out)
+        self.projection_feature_update = ProjLayer(d_in, d_out)
+
+    def forward(self, x_edges, graph, plain=False):
+        s, v, g = self.global_feature_update(x_edges, graph, plain)
+        pe = self.projection_feature_update.lin_proj(x_edges)
+        return edge_combine(pe, s, v, g, graph, plain)
+
+
+class SetOfSetBlock(nn.Module):
+    """Reference ``SetOfSetBlock`` (code/models/SetOfSet.py:7-46):
+    ``block_size`` layers with mean-centering and ReLU between them, an
+    optional residual (through ``skip_projection`` when the widths differ),
+    and a final ReLU."""
+
+    def __init__(self, d_in: int, d_out: int, block_size: int, proj_feat_normalization: bool,
+                 add_skipconn_for_residual_blocks: bool):
+        super().__init__()
+        self.proj_feat_normalization = proj_feat_normalization
+        self.add_skip = add_skipconn_for_residual_blocks
+        self.layers = nn.ModuleList([SetOfSetLayer(d_in if j == 0 else d_out, d_out)
+                                     for j in range(block_size)])
+        self.skip_projection = (ProjLayer(d_in, d_out)
+                                if self.add_skip and d_in != d_out else None)
+
+    def forward(self, x_edges, graph, plain=False):
+        xl = x_edges
+        for j, layer in enumerate(self.layers):
+            xl = layer(xl, graph, plain)
+            if j < len(self.layers) - 1:
+                if self.proj_feat_normalization:
+                    xl = normalize_edge_features(xl)
+                xl = torch.relu(xl)
+        if self.add_skip:
+            x_skip = x_edges
+            if self.skip_projection is not None:
+                x_skip = self.skip_projection.lin_proj(x_skip)
+                if self.proj_feat_normalization:
+                    x_skip = normalize_edge_features(x_skip)
+            xl = x_skip + xl
+        return torch.relu(xl)
 
 
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:

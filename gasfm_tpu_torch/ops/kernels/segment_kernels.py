@@ -1,0 +1,159 @@
+"""CSR segment sum and row gather: CUDA kernels for Hopper
+(``csrc/segment.cu``), their plain PyTorch versions, and their launch
+counters.
+
+Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/segment_kernels.py``:
+``segment_sum`` the dense one-hot sum (``segment_sum_kernel`` /
+``_segment_sum_raw``, the camera side) and the windowed point sum
+(``windowed_segment_sum`` / ``_wseg_sum_raw``); ``gather_rows`` the dense
+and windowed gathers (``gather_rows_kernel`` / ``_gather_rows_raw``,
+``windowed_gather`` / ``_wgather_raw``). On the port's CSR graph a
+"side" names the segments: ``"point"`` walks the contiguous point runs
+(``pt_ptr``), ``"camera"`` walks ``cam_perm[cam_ptr[c]:cam_ptr[c+1]]``; the
+gather reads ``pt_idx`` or ``cam_idx``. Each is the other's backward, as in
+the JAX package (``_ss_bwd``, ``_gr_bwd``, ``_wss_bwd``, ``_wg_bwd``): under
+autograd the sum's backward launches the gather kernel and the gather's
+backward the sum kernel, each counted by its own counter.
+
+What bounds them on the H100 is bytes over its 3.35 TB/s (see the source).
+Rows are float32, 1 to 256 wide; sums are taken in a fixed order without
+atomics, so results are bitwise reproducible on a given card.
+
+A CPU tensor runs the plain version (``index_add_`` / indexing, the
+functions of ``ops/segment.py``); a CUDA tensor launches the kernel or
+raises. ``launches`` counts the calls that launched.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from gasfm_tpu_torch.ops.kernels import build as kb
+from gasfm_tpu_torch.ops.segment import gather_segments
+from gasfm_tpu_torch.ops.segment import segment_sum as index_segment_sum
+
+MAX_WIDTH = 256  # kSegMaxD of csrc/segment.cuh
+SIDES = ("point", "camera")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(symbol):
+    args = {"gasfm_segment_sum": (kb.P, kb.I, kb.P, kb.P, kb.I, kb.P, kb.P),
+            "gasfm_gather_rows": (kb.P, kb.I, kb.P, kb.I, kb.P, kb.P)}[symbol]
+    return kb.bind(kb.load("segment"), symbol, args)
+
+
+def side_ids(graph, side):
+    """(edge ids, number of segments) of ``side``."""
+    if side == "point":
+        return graph.pt_idx, graph.num_pts
+    if side == "camera":
+        return graph.cam_idx, graph.num_cams
+    raise ValueError(f"side must be one of {SIDES}, got {side!r}")
+
+
+def segment_sum_plain(data, graph, side):
+    """(S, D) sums of the (E, D) rows per segment of ``side``; empty
+    segments sum to 0."""
+    ids, S = side_ids(graph, side)
+    return index_segment_sum(data, ids, S)
+
+
+def gather_rows_plain(table, graph, side):
+    """(E, D) = table[ids] with the edge ids of ``side``."""
+    return gather_segments(table, side_ids(graph, side)[0])
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """The kernels read rows as 16-byte vectors where the width allows."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def _check_width(name, t, rows):
+    if t.dim() != 2 or not 1 <= t.shape[1] <= MAX_WIDTH or t.shape[0] != rows:
+        raise ValueError(f"{name}: expected ({rows}, D) with 1 <= D <= {MAX_WIDTH}, "
+                         f"got {tuple(t.shape)}")
+
+
+def segment_sum_forward(data, graph, side):
+    """Launch the segment-sum kernel (CUDA tensors)."""
+    _, S = side_ids(graph, side)
+    _check_width("data", data, graph.num_edges)
+    data = aligned(kb.cuda_f32("data", data))
+    D = data.shape[1]
+    if side == "point":
+        ptr, perm = kb.cuda_i32("pt_ptr", graph.pt_ptr), None
+    else:
+        ptr, perm = kb.cuda_i32("cam_ptr", graph.cam_ptr), kb.cuda_i32("cam_perm", graph.cam_perm)
+    out = kb.f32_empty((S, D), data.device)
+    p = kb.ptr
+    code = _entry("gasfm_segment_sum")(p(data), D, p(ptr), p(perm), S, p(out),
+                                       kb.stream(data.device))
+    kb.check(code, "segment_sum")
+    segment_sum.launches += 1
+    return out
+
+
+def gather_rows_forward(table, graph, side):
+    """Launch the row-gather kernel (CUDA tensors)."""
+    ids, S = side_ids(graph, side)
+    _check_width("table", table, S)
+    table = aligned(kb.cuda_f32("table", table))
+    ids = kb.cuda_i32("ids", ids)
+    E, D = ids.shape[0], table.shape[1]
+    out = kb.f32_empty((E, D), table.device)
+    p = kb.ptr
+    code = _entry("gasfm_gather_rows")(p(table), D, p(ids), E, p(out), kb.stream(table.device))
+    kb.check(code, "gather_rows")
+    gather_rows.launches += 1
+    return out
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, graph, side):
+        ctx.graph, ctx.side = graph, side
+        return segment_sum_forward(data, graph, side)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gather_rows_forward(g, ctx.graph, ctx.side), None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, graph, side):
+        ctx.graph, ctx.side = graph, side
+        return gather_rows_forward(table, graph, side)
+
+    @staticmethod
+    def backward(ctx, g):
+        return segment_sum_forward(g, ctx.graph, ctx.side), None, None
+
+
+def segment_sum(data, graph, side):
+    """(S, D) sums of the (E, D) rows of ``data`` per segment of ``side``
+    ("point" or "camera"); empty segments sum to 0."""
+    if data.device.type == "cpu":
+        return segment_sum_plain(data, graph, side)
+    if kb.needs_grad(data):
+        return _SegmentSum.apply(data, graph, side)
+    return segment_sum_forward(data, graph, side)
+
+
+segment_sum.launches = 0
+
+
+def gather_rows(table, graph, side):
+    """(E, D) rows ``table[ids]`` of the (S, D) table, with the edges' ids
+    of ``side`` ("point": ``pt_idx``, "camera": ``cam_idx``)."""
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, graph, side)
+    if kb.needs_grad(table):
+        return _GatherRows.apply(table, graph, side)
+    return gather_rows_forward(table, graph, side)
+
+
+gather_rows.launches = 0

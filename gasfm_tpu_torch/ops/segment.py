@@ -4,6 +4,10 @@ Counterpart of the JAX package's ops/segment.py, with its contract: an empty
 segment sums to 0, takes the caller's ``neutral`` under ``segment_max``, and
 gets softmax weight 0. The port's graph holds valid edges only, so there are
 no masked or padding edges to route away.
+
+``segment_mean`` is the dispatching mean over one side of the CSR graph:
+its sum goes through the segment-sum kernel (``ops/kernels/segment_kernels``)
+and its counts are the graph's CSR run lengths, so counting launches nothing.
 """
 
 from __future__ import annotations
@@ -43,3 +47,15 @@ def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor, num_segments: i
     den = segment_sum(p, seg_ids, num_segments)
     den_e = gather_segments(den, seg_ids)
     return torch.where(den_e > 0, p / den_e.clamp_min(1e-38), torch.zeros_like(p))
+
+
+def segment_mean(data: torch.Tensor, graph, side: str, plain: bool = False) -> torch.Tensor:
+    """(S, D) mean of the (E, D) rows per segment of ``side`` ("point" or
+    "camera"); an empty segment gives 0 (its sum is 0, its count taken as
+    1), as the JAX package's ``segment_mean``. ``plain=True`` runs the sum's
+    plain version whatever the device."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as k
+
+    s = (k.segment_sum_plain if plain else k.segment_sum)(data, graph, side)
+    count = graph.pt_count if side == "point" else graph.cam_count
+    return s / count.to(s.dtype)[:, None]

@@ -1,19 +1,20 @@
 """Where a forward request's, or a training step's, time goes on the card.
 
-    python -m gasfm_tpu_torch.tools.profile_forward [--scene dense|powerlaw]
-        [--requests 3] [--train]
+    python -m gasfm_tpu_torch.tools.profile_forward [--model gasfm|dpesfm]
+        [--scene dense|powerlaw] [--requests 3] [--train]
 
 Builds the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
-32/64/1024/2048, seeded init) and one of the two synthetic bench scenes,
-warms up with two requests, then traces ``--requests`` requests with
-``torch.profiler``: forward + ESFM loss through ``TrainingSession``, or with
-``--train`` one ``TrainingSession.fused_step`` each (the flagship conf's
-loss and optimizer). Prints the wall time per request, the device time per
+32/64/1024/2048, seeded init) or, with ``--model dpesfm``, the DPESFM
+SetOfSetNet (one block of 3 layers, 256 wide, seeded init), and one of the
+two synthetic bench scenes, warms up with two requests, then traces
+``--requests`` requests with ``torch.profiler``: forward + ESFM loss through
+``TrainingSession``, or with ``--train`` one ``TrainingSession.fused_step``
+each (the model's conf's loss and optimizer). Prints the wall time per request, the device time per
 kernel name (the port's own kernels, each with its launches and time per
 launch, then the top 15 of all), the hand-written kernels' share, the
 number of kernel launches per request, and the device busy share: summed
 kernel time over wall time (one stream, so kernels never overlap). Writes
-the Chrome trace to ``chiprun_out/profile_{forward,train}_<scene>.json``.
+the Chrome trace to ``chiprun_out/profile_<model>_{forward,train}_<scene>.json``.
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
-from gasfm_tpu_torch.losses import ESFMLoss, FLAGSHIP_LOSS
+from gasfm_tpu_torch.losses import DPESFM_LOSS, ESFMLoss, FLAGSHIP_LOSS
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
 from gasfm_tpu_torch.train.loop import TrainingSession
+from gasfm_tpu_torch.train.state import DPESFM_OPTIM, FLAGSHIP_OPTIM
 from gasfm_tpu_torch.utils.device import resolve_device
 
 # The flagship GASFM (confs/gasfm/optim_euc_gasfm.conf) and the two synthetic
@@ -39,14 +42,32 @@ from gasfm_tpu_torch.utils.device import resolve_device
 FLAGSHIP = dict(num_layers=9, n_heads=4, n_feat_proj=32, n_feat_scenepoint=64,
                 n_feat_view=1024, n_feat_global=2048, stateful_global_features=True,
                 add_skipconn_from_init_projfeat=True)
+# The DPESFM baseline of confs/dpesfm/learning_euc_noaug_dpesfm.conf (:44-66):
+# one block of three set-of-sets layers, 256 wide, quat heads with 2 hidden layers.
+DPESFM = dict(num_blocks=1, block_size=3, num_features=256, proj_feat_normalization=True,
+              add_skipconn_for_residual_blocks=False, pos_emb_n_freq=0,
+              rot_representation="quat", view_head_n_hidden_layers=2,
+              scenepoint_head_n_hidden_layers=2)
 SCENES = {
     "dense": dict(n_views=128, n_points=8192, visibility=0.2, seed=0),
     "powerlaw": dict(n_views=133, n_points=24576, track_length_dist="powerlaw", seed=0),
 }
 
 
+def build_session(model_name: str, device) -> TrainingSession:
+    """A seeded model of ``model_name`` ("gasfm" or "dpesfm") with its conf's
+    loss and optimizer."""
+    gen = torch.Generator().manual_seed(0)
+    if model_name == "dpesfm":
+        return TrainingSession(SetOfSetNet(**DPESFM, generator=gen), ESFMLoss(**DPESFM_LOSS),
+                               device=device, optim=DPESFM_OPTIM)
+    return TrainingSession(GraphAttnSfMNet(**FLAGSHIP, generator=gen),
+                           ESFMLoss(**FLAGSHIP_LOSS), device=device, optim=FLAGSHIP_OPTIM)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("gasfm", "dpesfm"), default="gasfm")
     ap.add_argument("--scene", choices=sorted(SCENES), default="dense")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--train", action="store_true", help="trace training steps")
@@ -54,8 +75,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    model = GraphAttnSfMNet(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
-    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    session = build_session(args.model, dev)
     scene = generate_synthetic_scene(**SCENES[args.scene]).to_scene_graph(device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
@@ -90,7 +110,7 @@ def main(argv=None) -> None:
     R = args.requests
     g = scene.graph
     mode = "train" if args.train else "forward"
-    print(f"scene {args.scene} ({mode}): {g.num_cams} views, {g.num_pts} points, "
+    print(f"{args.model}, scene {args.scene} ({mode}): {g.num_cams} views, {g.num_pts} points, "
           f"{g.num_edges} edges; device "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
     print(f"wall {wall_us / R / 1e3:.3f} ms/request; device kernel time "
@@ -107,7 +127,7 @@ def main(argv=None) -> None:
         print(f"  {t / R / 1e3:9.4f} ms/request  {count / R:6.1f} launches/request  {name[:110]}")
     out = Path(__file__).resolve().parents[2] / "chiprun_out"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / f"profile_{mode}_{args.scene}.json"))
+    prof.export_chrome_trace(str(out / f"profile_{args.model}_{mode}_{args.scene}.json"))
 
 
 if __name__ == "__main__":

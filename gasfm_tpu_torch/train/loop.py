@@ -20,17 +20,19 @@ import torch
 from gasfm_tpu_torch.eval.metrics import core_errors_device
 from gasfm_tpu_torch.losses import ESFMLoss
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
 from gasfm_tpu_torch.train.state import FLAGSHIP_OPTIM, build_optimizer, global_norm
 from gasfm_tpu_torch.utils.device import resolve_device
 
 
 class TrainingSession:
-    """Holds a model, its loss and its optimizer on one device (``cuda``
+    """Holds a model (GASFM's ``GraphAttnSfMNet`` or DPESFM's
+    ``SetOfSetNet``), its loss and its optimizer on one device (``cuda``
     unless the caller passes ``device="cpu"``; raises when CUDA is asked for
     and absent). ``optim``: :func:`~gasfm_tpu_torch.train.state.build_optimizer`'s
     keyword arguments, the flagship conf's by default."""
 
-    def __init__(self, model: GraphAttnSfMNet, loss_func: ESFMLoss,
+    def __init__(self, model: Union[GraphAttnSfMNet, SetOfSetNet], loss_func: ESFMLoss,
                  device: Optional[Union[str, torch.device]] = None,
                  optim: Optional[dict] = None):
         self.device = resolve_device(device)
@@ -87,9 +89,10 @@ class TrainingSession:
         """One training step on ``scene``: updates the model's parameters and
         the optimizer state in place and returns (loss, our_repro,
         grad_norm) as 0-d tensors on the device, without synchronising.
-        ``our_repro`` is that of the predictions the loss was taken on."""
+        ``our_repro`` is that of the predictions the loss was taken on.
+        ``plain=True`` runs the kernels' plain versions throughout."""
         loss, pred, grads = self.loss_and_grads(scene, plain=plain)
         grad_norm = self.update(grads)
         with torch.no_grad():
-            repro = core_errors_device(pred, scene)["our_repro"]
+            repro = core_errors_device(pred, scene, plain=plain)["our_repro"]
         return loss, repro, grad_norm

@@ -6,7 +6,8 @@ package's train/state.py (reference: torch.optim.Adam with default betas and
 eps, train.py:437; clipping by global norm or by value before the update,
 train.py:141-151). Until the port reads confs, the builder takes the conf's
 values as keyword arguments; ``FLAGSHIP_OPTIM`` holds those of
-``confs/gasfm/optim_euc_gasfm.conf``.
+``confs/gasfm/optim_euc_gasfm.conf``, ``DPESFM_OPTIM`` those of
+``confs/dpesfm/learning_euc_noaug_dpesfm.conf``.
 
 Two counters, as in the JAX package: the schedule's count advances on every
 batch (:meth:`Optimizer.advance_schedule` for a batch without an update),
@@ -27,6 +28,9 @@ from gasfm_tpu_torch.train.schedules import build_lr_schedule
 
 FLAGSHIP_OPTIM = dict(lr=1e-4, main_scheduler="exponential", lr_warmup_n_steps=2500,
                       exp_n_steps=35000, exp_gamma_after_n_steps=0.1, grad_clip_mode=None)
+# The optimizer of confs/dpesfm/learning_euc_noaug_dpesfm.conf (:67-79, :117).
+DPESFM_OPTIM = dict(lr=1e-3, main_scheduler="multistep", lr_warmup_n_steps=0,
+                    multistep_milestones=[60000], multistep_gamma=0.5, grad_clip_mode=None)
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -28,6 +28,9 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
+for new in ("ops.kernels.segment_kernels", "ops.kernels.fused_update", "ops.edge_update",
+            "models.set_of_set"):
+    assert "gasfm_tpu_torch." + new in names, new
 """
 
 
@@ -73,3 +76,30 @@ def test_kernel_wrappers_raise_on_cuda_operands_they_cannot_take():
         build.cuda_f32("x", torch.zeros(3))
     with pytest.raises(TypeError, match="int32 CUDA tensor"):
         build.cuda_i32("ids", torch.zeros(3, dtype=torch.int32))
+
+
+def test_new_kernel_wrappers_raise_on_operands_they_cannot_take():
+    """The segment-sum, gather and edge-combine launchers check their
+    operands before any launch: a width above 256 or an unknown side is a
+    ValueError, a tensor that is not on a CUDA device a TypeError — never a
+    quiet plain-version fallback."""
+    from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+    from gasfm_tpu_torch.ops.kernels import fused_update as fu
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    graph = generate_synthetic_scene(n_views=6, n_points=60, seed=0).to_scene_graph(
+        device="cpu").graph
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    with pytest.raises(ValueError, match="1 <= D <= 256"):
+        sk.segment_sum_forward(torch.zeros(E, 257), graph, "point")
+    with pytest.raises(ValueError, match="side must be one of"):
+        sk.segment_sum(torch.zeros(E, 4), graph, "global")
+    with pytest.raises(TypeError, match="float32 CUDA tensor"):
+        sk.segment_sum_forward(torch.zeros(E, 4), graph, "camera")
+    with pytest.raises(TypeError, match="float32 CUDA tensor"):
+        sk.gather_rows_forward(torch.zeros(n, 4), graph, "point")
+    with pytest.raises(ValueError, match="width 257"):
+        fu.edge_combine_forward(torch.zeros(E, 257), torch.zeros(n, 257), torch.zeros(m, 257),
+                                torch.zeros(1, 257), graph)
+    with pytest.raises(TypeError, match="float32 CUDA tensor"):
+        fu.fused_edge_combine_bwd(torch.zeros(E, 8), graph)

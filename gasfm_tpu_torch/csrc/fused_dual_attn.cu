@@ -18,7 +18,8 @@
 // the MXU) — the edges of a point are contiguous in the point-major layout
 // and the edges of a camera are listed by the camera CSR, so each segment is
 // a loop over its own rows, read once, with the online softmax (m, den, num)
-// in registers. Query rows are loaded once per segment.
+// in registers. Query rows are loaded once per segment. The per-direction
+// device code is attend.cuh's, shared with the single-direction kernel.
 //   - Point side: one warp per point (14 edges per point on the dense bench
 //     scene, 3 on the power-law one); lane = feature, head = lane / C.
 //   - Camera side: one block per camera (up to ~1,300 edges); its warps
@@ -33,6 +34,7 @@
 // sums over all edges go through per-block partials and a fixed-order
 // column sum (common.cuh).
 // No float atomics anywhere: results are bitwise reproducible run to run.
+#include "attend.cuh"
 #include "edge_prologue.cuh"
 
 namespace gasfm {
@@ -50,61 +52,17 @@ __global__ void __launch_bounds__(NWARPS * 32) dual_attend_kernel(
     float slope, int n_pt_blocks, float* __restrict__ out_p,
     float* __restrict__ out_c, float* __restrict__ m_p, float* __restrict__ den_p,
     float* __restrict__ m_c, float* __restrict__ den_c) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
   if ((int)blockIdx.x < n_pt_blocks) {
     // ---- point side: warp per point, its edges are contiguous.
-    const int pt = blockIdx.x * NWARPS + warp;
-    if (pt >= n_pts) return;
-    const bool act = lane < Dp;
-    const float xr = act ? xr_p[(size_t)pt * Dp + lane] : 0.f;
-    const float at = act ? att_p[lane] : 0.f;
-    Online s;
-    s.init();
-    const int end = pt_ptr[pt + 1];
-    for (int e = pt_ptr[pt]; e < end; ++e) {
-      const float x = act ? xl_p[(size_t)e * Dp + lane] : 0.f;
-      s.push(group_sum(leaky_relu(x + xr, slope) * at, Cp), x);
-    }
-    if (act) out_p[(size_t)pt * Dp + lane] = s.finish();
-    if (m_p != nullptr && act && (lane & (Cp - 1)) == 0) {  // residuals (autograd only)
-      const int H = Dp / Cp;
-      m_p[(size_t)pt * H + lane / Cp] = s.m;
-      den_p[(size_t)pt * H + lane / Cp] = s.den;
+    const int pt = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+    if (pt < n_pts) {
+      attend_segment_warp(xl_p, xr_p, att_p, pt_ptr, pt, Dp, Cp, slope, out_p, m_p, den_p);
     }
     return;
   }
-
   // ---- camera side: block per camera, warps stride over its edge list.
-  __shared__ float sm[NWARPS][32], sd[NWARPS][32], sn[NWARPS][32];
-  const int cam = blockIdx.x - n_pt_blocks;
-  const bool act = lane < Dc;
-  const float xr = act ? xr_c[(size_t)cam * Dc + lane] : 0.f;
-  const float at = act ? att_c[lane] : 0.f;
-  Online s;
-  s.init();
-  const int end = cam_ptr[cam + 1];
-  for (int i = cam_ptr[cam] + warp; i < end; i += NWARPS) {
-    const int e = cam_perm[i];
-    const float x = act ? xl_c[(size_t)e * Dc + lane] : 0.f;
-    s.push(group_sum(leaky_relu(x + xr, slope) * at, Cc), x);
-  }
-  sm[warp][lane] = s.m;
-  sd[warp][lane] = s.den;
-  sn[warp][lane] = s.num;
-  __syncthreads();
-  if (warp == 0) {
-    Online t;
-    t.init();
-    for (int w = 0; w < NWARPS; ++w) t.merge(sm[w][lane], sd[w][lane], sn[w][lane]);
-    if (act) out_c[(size_t)cam * Dc + lane] = t.finish();
-    if (m_c != nullptr && act && (lane & (Cc - 1)) == 0) {
-      const int H = Dc / Cc;
-      m_c[(size_t)cam * H + lane / Cc] = t.m;
-      den_c[(size_t)cam * H + lane / Cc] = t.den;
-    }
-  }
+  attend_segment_block<NWARPS>(xl_c, xr_c, att_c, cam_ptr, cam_perm, blockIdx.x - n_pt_blocks,
+                               Dc, Cc, slope, out_c, m_c, den_c);
 }
 
 // Warp per edge (grid-stride): en = relu(LN(e)) unless raw, then the two
@@ -131,53 +89,8 @@ __global__ void __launch_bounds__(kFrontWarps * 32) frontend_prologue_kernel(
   }
 }
 
-// ---- backward of the dual core ------------------------------------------------
+// ---- backward of the dual core (attend.cuh) -------------------------------------
 //
-// Per segment s and head h the forward gives out = sum_e alpha_e xl_e with
-// alpha_e = exp(l_e - m_s) / den_s. With g = d out (this lane's feature):
-//   d xl_e  = alpha_e g + dz_e,  dz_e = dl_e att leaky'(z_e),  z_e = xl_e + xr_s
-//   dl_e    = alpha_e * sum_{c in h} g_c (xl_e,c - out_c)
-//   d xr_s  = sum_e dz_e,        d att = sum_e dl_e leaky(z_e)
-// The shift m carries no gradient (softmax shift invariance): it is read from
-// the forward's residuals, never differentiated.
-struct DualBwdLane {
-  float xr, at, g, o, mx, inv_den;
-};
-
-__device__ __forceinline__ DualBwdLane dual_bwd_lane(
-    const float* __restrict__ xr, const float* __restrict__ att,
-    const float* __restrict__ out, const float* __restrict__ gout,
-    const float* __restrict__ mrow, const float* __restrict__ drow, int seg, int D,
-    int C, int lane) {
-  DualBwdLane r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (lane < D) {
-    const int H = D / C;
-    r.xr = xr[(size_t)seg * D + lane];
-    r.at = att[lane];
-    r.g = gout[(size_t)seg * D + lane];
-    r.o = out[(size_t)seg * D + lane];
-    r.mx = mrow[(size_t)seg * H + lane / C];
-    const float dn = drow[(size_t)seg * H + lane / C];
-    r.inv_den = dn > 0.f ? 1.f / dn : 0.f;
-  }
-  return r;
-}
-
-// One edge of a segment: writes d xl, adds to the lane's d xr and d att sums.
-__device__ __forceinline__ void dual_bwd_edge(const DualBwdLane& q, float x, int C,
-                                              float slope, bool act, float* __restrict__ dxl,
-                                              float& dxr, float& datt) {
-  const float z = x + q.xr;
-  const float gz = leaky_relu(z, slope);
-  const float logit = group_sum(gz * q.at, C);
-  const float alpha = expf(fminf(logit - q.mx, 0.f)) * q.inv_den;
-  const float dl = alpha * group_sum(q.g * (x - q.o), C);
-  const float dz = dl * q.at * (z >= 0.f ? 1.f : slope);
-  if (act) *dxl = fmaf(alpha, q.g, dz);
-  dxr += dz;
-  datt = fmaf(dl, gz, datt);
-}
-
 // Grid: n_pt_blocks point blocks (warp per point), then one block per camera.
 // partials: (grid, 32), one d att row per block (point blocks: d att_p,
 // camera blocks: d att_c), summed by column_sum_kernel.
@@ -194,47 +107,20 @@ __global__ void __launch_bounds__(NWARPS * 32) dual_attend_bwd_kernel(
     const int* __restrict__ cam_perm, int n_pts, int Dp, int Cp, int Dc, int Cc,
     float slope, int n_pt_blocks, float* __restrict__ dxl_p, float* __restrict__ dxl_c,
     float* __restrict__ dxr_p, float* __restrict__ dxr_c, float* __restrict__ partials) {
-  __shared__ float sbuf[NWARPS][32];
-  __shared__ float sdxr[NWARPS][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  __shared__ float sbuf[32];
   float acc[1] = {0.f};  // this lane's d att over the block's edges
-
   if ((int)blockIdx.x < n_pt_blocks) {
-    const int pt = blockIdx.x * NWARPS + warp;
+    const int pt = blockIdx.x * NWARPS + (threadIdx.x >> 5);
     if (pt < n_pts) {
-      const bool act = lane < Dp;
-      const DualBwdLane q = dual_bwd_lane(xr_p, att_p, out_p, g_p, m_p, den_p, pt, Dp, Cp, lane);
-      float dxr = 0.f;
-      const int end = pt_ptr[pt + 1];
-      for (int e = pt_ptr[pt]; e < end; ++e) {
-        const float x = act ? xl_p[(size_t)e * Dp + lane] : 0.f;
-        dual_bwd_edge(q, x, Cp, slope, act, dxl_p + (size_t)e * Dp + lane, dxr, acc[0]);
-      }
-      if (act) dxr_p[(size_t)pt * Dp + lane] = dxr;
+      attend_bwd_segment_warp(xl_p, xr_p, att_p, out_p, m_p, den_p, g_p, pt_ptr, pt, Dp, Cp,
+                              slope, dxl_p, dxr_p, acc[0]);
     }
-    block_partial(acc, &sbuf[0][0], partials + (size_t)blockIdx.x * 32);
-    return;
+  } else {
+    attend_bwd_segment_block<NWARPS>(xl_c, xr_c, att_c, out_c, m_c, den_c, g_c, cam_ptr,
+                                     cam_perm, blockIdx.x - n_pt_blocks, Dc, Cc, slope, dxl_c,
+                                     dxr_c, acc[0]);
   }
-
-  const int cam = blockIdx.x - n_pt_blocks;
-  const bool act = lane < Dc;
-  const DualBwdLane q = dual_bwd_lane(xr_c, att_c, out_c, g_c, m_c, den_c, cam, Dc, Cc, lane);
-  float dxr = 0.f;
-  const int end = cam_ptr[cam + 1];
-  for (int i = cam_ptr[cam] + warp; i < end; i += NWARPS) {
-    const int e = cam_perm[i];
-    const float x = act ? xl_c[(size_t)e * Dc + lane] : 0.f;
-    dual_bwd_edge(q, x, Cc, slope, act, dxl_c + (size_t)e * Dc + lane, dxr, acc[0]);
-  }
-  sdxr[warp][lane] = dxr;
-  __syncthreads();
-  if (warp == 0) {
-    float t = 0.f;
-    for (int w = 0; w < NWARPS; ++w) t += sdxr[w][lane];
-    if (act) dxr_c[(size_t)cam * Dc + lane] = t;
-  }
-  block_partial(acc, &sbuf[0][0], partials + (size_t)blockIdx.x * 32);
+  block_partial(acc, sbuf, partials + (size_t)blockIdx.x * 32);
 }
 
 // ---- backward of the frontend prologue ------------------------------------------

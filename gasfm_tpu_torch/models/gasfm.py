@@ -7,11 +7,23 @@ attention rounds with stateful global features and the init-embedding skip,
 a final global update without the global stream, then the view and
 scenepoint heads.
 
-The edge stream always takes the merged-kernel path of the JAX package's
-packed layout (``GASFM_PACKED=1``, ``GASFM_MERGED=1``, final aggregation on
-the raw stream): per forward one frontend call (layer 0) and ``num_layers``
-layer-step calls. Configurations that path does not cover (no edge
-LayerNorm, a projection-update MLP, the depth head, a head disabled) raise
+The edge stream takes the path the JAX package's model code takes for the
+scene (``gasfm_tpu/models/gasfm.py:93-100``), decided per graph at forward
+time, so one model serves small and large scenes:
+
+- merged — with ``use_norm_proj_update``, no projection-update MLP and at
+  most ``DENSE_MAX_SEGMENTS`` (1024) cameras — the path of its packed
+  layout (``GASFM_PACKED=1``, ``GASFM_MERGED=1``, final aggregation on the
+  raw stream): per forward one frontend call (layer 0) and ``num_layers``
+  layer-step calls;
+- unfused otherwise: every layer and the final aggregation run the
+  composite layer (``models/layers.py``), whose aggregations take the dual
+  kernel up to 1024 cameras, and above it the single-direction kernel for
+  the points and the composite of gathers, segment max and segment sums for
+  the cameras.
+
+The packed layout's other gates (its chunk and window shapes) are TPU
+layout devices and do not apply. The depth head and a disabled head raise
 ``NotImplementedError``; they come with later slices.
 """
 
@@ -34,6 +46,7 @@ from gasfm_tpu_torch.models.layers import (
     MLPStack,
     init_parameters,
 )
+from gasfm_tpu_torch.utils.constants import DENSE_MAX_SEGMENTS
 
 
 class GraphAttnSfMNet(nn.Module):
@@ -70,11 +83,11 @@ class GraphAttnSfMNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if not use_norm_proj_update or n_hidden_layers_proj_update or depth_head_enabled \
-                or not (view_head_enabled and scenepoint_head_enabled):
+        if depth_head_enabled or not (view_head_enabled and scenepoint_head_enabled):
             raise NotImplementedError(
-                "the port's GASFM forward covers use_norm_proj_update, no projection-update "
-                "MLP, no depth head, and both view and scenepoint heads")
+                "the port's GASFM forward covers no depth head and both view and scenepoint heads")
+        self.use_norm_proj_update = use_norm_proj_update
+        self.n_hidden_layers_proj_update = n_hidden_layers_proj_update
         self.calibrated = calibrated
         self.rot_representation = rot_representation
         self.normalize_output = normalize_output
@@ -98,7 +111,9 @@ class GraphAttnSfMNet(nn.Module):
             GraphAttnLayer(
                 d_emb if i == 0 else n_feat_proj, n_feat_proj,
                 n_feat_scenepoint, n_feat_view, n_feat_global,
+                use_norm_proj_update=use_norm_proj_update,
                 add_residual_skipconn_proj_update=add_residual_skipconn_proj_update,
+                n_hidden_layers_proj_update=n_hidden_layers_proj_update,
                 n_feat_skipconn_init_projfeat_in=(
                     d_emb if (i > 0 and add_skipconn_from_init_projfeat) else None),
                 stateful=False if i == 0 else stateful_global_features,
@@ -119,10 +134,17 @@ class GraphAttnSfMNet(nn.Module):
         if generator is not None:
             init_parameters(self, generator)
 
+    def merged_path(self, graph) -> bool:
+        """Whether ``graph`` runs the merged path (the JAX package's packed
+        layout gates, models/gasfm.py:93-100), else the unfused one."""
+        return (self.use_norm_proj_update and self.n_hidden_layers_proj_update == 0
+                and graph.num_cams <= DENSE_MAX_SEGMENTS)
+
     def forward(self, graph, plain: bool = False) -> Dict[str, torch.Tensor]:
         """Predicted normalized cameras ``Ps_norm`` (m, 3, 4) and homogeneous
         points ``pts3D`` (4, n) for one scene graph. ``plain=True`` runs the
         kernels' plain PyTorch versions whatever the device."""
+        merged = self.merged_path(graph)
         e = self.embed(graph.uv)
         skip_init = e if self.add_skipconn_from_init_projfeat else None
         s = v = g = None
@@ -132,7 +154,7 @@ class GraphAttnSfMNet(nn.Module):
                 prev_scenepoint_features=s if self.stateful else None,
                 prev_view_features=v if self.stateful else None,
                 prev_global_features=g if self.stateful else None,
-                skipconn_init_projfeat=skip_init, plain=plain,
+                skipconn_init_projfeat=skip_init, merged=merged, plain=plain,
             )
         n_input, m_input, _, _, _ = self.final_global_update(
             e, graph,

@@ -6,12 +6,22 @@ JAX package; module and parameter attribute names follow the reference
 as tests/torch_oracle.py reproduces it), so a port ``state_dict()`` maps onto
 the flax tree with the JAX package's reference-checkpoint converter.
 
-The edge-stream path is always the merged one of the JAX package's packed
-layout: layer 0 runs the frontend kernel and defers its projection update;
-every later layer materializes the previous update inside its layer-step
-kernel (``PendingUpdate``), and the final aggregation does so on the raw
-stream. Per-node work (query adapters, the aggregators' finish MLPs, the
-global pools, the table linears, the heads) is plain PyTorch.
+The edge stream takes one of the JAX package's two GASFM paths, as the
+model chooses per scene (``models/gasfm.py``):
+
+- merged (its packed layout): layer 0 runs the frontend kernel and defers
+  its projection update; every later layer materializes the previous update
+  inside its layer-step kernel (``PendingUpdate``), and the final
+  aggregation does so on the raw stream;
+- unfused (its composite layer, ``gasfm_tpu/models/layers.py:919-929,
+  996-1017``): the edge prologue (flax-form LayerNorm + ReLU, or ReLU alone
+  without ``use_norm_proj_update``), the source linears and both
+  aggregations (``ops/gatv2.py``, gated on the scene's camera count), then
+  the materialized update ``lin_proj([e | skip])`` + the edge-combine kernel
+  (+ the projection-update MLP), then the residual.
+
+Per-node work (query adapters, the aggregators' finish MLPs, the global
+pools, the table linears, the heads) is plain PyTorch.
 
 The DPESFM (set-of-sets) blocks at the end of the module take their point
 and camera means through the segment-sum kernel (``ops/segment.py``
@@ -40,6 +50,7 @@ from torch import nn
 
 from gasfm_tpu_torch.ops.edge_update import edge_combine
 from gasfm_tpu_torch.ops.gatv2 import (
+    gatv2_attend_dual,
     gatv2_attend_pool,
     gatv2_layer_frontend,
     merged_layer_frontend,
@@ -265,8 +276,9 @@ class GlobalBroadcastUpdate(nn.Module):
 
 
 class GraphAttnGlobalFeatureUpdate(nn.Module):
-    """The two edge aggregators (one frontend or layer-step kernel call),
-    the global pools and the optional global broadcasts. Reference
+    """The two edge aggregators (a frontend or layer-step kernel call, or
+    the source linears and ``gatv2_attend_dual``), the global pools and the
+    optional global broadcasts. Reference
     ``GraphAttnSfMGlobalFeatureUpdate`` (layers.py:723-870)."""
 
     def __init__(self, n_feat_proj_in: int, n_feat_scenepoint_out: int, n_feat_view_out: int,
@@ -307,9 +319,11 @@ class GraphAttnGlobalFeatureUpdate(nn.Module):
                 prev_global_features=None, ln=None, plain=False):
         """``x_edges``: the raw (E, De) stream, or the previous layer's
         :class:`PendingUpdate`. ``ln``: this layer's (scale, bias) edge
-        LayerNorm, or None for the final aggregation on the raw stream.
-        Returns (s, v, g, e_norm, e_prev): e_prev is the materialized
-        previous update when ``x_edges`` was pending, else None."""
+        LayerNorm, or None for an aggregation of the stream as it is (the
+        final aggregation; an unfused layer without ``use_norm_proj_update``,
+        whose ReLU the caller applied). Returns (s, v, g, e_norm, e_prev):
+        e_prev is the materialized previous update when ``x_edges`` was
+        pending, else None; e_norm is ``x_edges`` itself without ``ln``."""
         agg_p, agg_c = self.proj2scenepoint, self.proj2view
         conv_p, conv_c = agg_p.graph_conv, agg_c.graph_conv
         ln_scale, ln_bias = ln if ln is not None else (None, None)
@@ -324,9 +338,12 @@ class GraphAttnGlobalFeatureUpdate(nn.Module):
         if isinstance(x_edges, PendingUpdate):
             e_prev, en, out_p, out_c = merged_layer_frontend(
                 x_edges, *args, raw_prologue=ln is None, plain=plain)
-        else:
-            en, out_p, out_c = gatv2_layer_frontend(
-                x_edges, *args, raw_prologue=ln is None, plain=plain)
+        elif ln is not None:
+            en, out_p, out_c = gatv2_layer_frontend(x_edges, *args, plain=plain)
+        else:  # the JAX package's prepare + gatv2_attend_dual
+            en = x_edges
+            out_p, out_c = gatv2_attend_dual(conv_p.lin_l(en), conv_c.lin_l(en), *args[7:],
+                                             plain=plain)
         s = agg_p.finish(out_p, prev_scenepoint_features)
         v = agg_c.finish(out_c, prev_view_features)
         g = None
@@ -340,13 +357,16 @@ class GraphAttnGlobalFeatureUpdate(nn.Module):
 
 
 class ProjectionFeatureUpdate(nn.Module):
-    """The gather-broadcast edge update's parameters,
-    ``(lin_proj(e) + lin_s(s)[pt] + lin_v(v)[cam] + lin_g(g)) / 4``; the
-    per-edge part runs deferred in the next layer-step kernel. Reference
+    """The gather-broadcast edge update,
+    ``(lin_proj(e) + lin_s(s)[pt] + lin_v(v)[cam] + lin_g(g)) / 4`` then,
+    with ``n_hidden_layers``, ReLU and an MLP of that many linears. On the
+    merged path its per-edge part runs deferred in the next layer-step
+    kernel (``tables``); on the unfused path ``forward`` materializes it
+    through the edge-combine kernel. Reference
     ``GraphAttnSfMProjectionFeatureUpdate`` (layers.py:873-956)."""
 
     def __init__(self, n_feat_proj_in: int, n_feat_scenepoint_in: int, n_feat_view_in: int,
-                 n_feat_global_in: int, n_feat_proj_out: int):
+                 n_feat_global_in: int, n_feat_proj_out: int, n_hidden_layers: int = 0):
         super().__init__()
         self.scenepoint_norm_layer = nn.LayerNorm(n_feat_scenepoint_in)
         self.view_norm_layer = nn.LayerNorm(n_feat_view_in)
@@ -355,12 +375,19 @@ class ProjectionFeatureUpdate(nn.Module):
         self.lin_scenepoint = TorchDense(n_feat_scenepoint_in, n_feat_proj_out, bias=False)
         self.lin_view = TorchDense(n_feat_view_in, n_feat_proj_out, bias=False)
         self.lin_global = TorchDense(n_feat_global_in, n_feat_proj_out, bias=False)
+        self.mlp = (MLPStack([n_feat_proj_out] * (n_hidden_layers + 1))
+                    if n_hidden_layers > 0 else None)
 
     def tables(self, s, v, g):
         """(ps (n, De), pv (m, De), pg (1, De)): the table linears."""
         return (self.lin_scenepoint(torch.relu(self.scenepoint_norm_layer(s))),
                 self.lin_view(torch.relu(self.view_norm_layer(v))),
                 self.lin_global(torch.relu(self.global_norm_layer(g))))
+
+    def forward(self, s, v, g, x_edges, graph, plain=False):
+        """The materialized (E, De) update of the (E, d_in) stream."""
+        e = edge_combine(self.lin_proj(x_edges), *self.tables(s, v, g), graph, plain)
+        return e if self.mlp is None else self.mlp(torch.relu(e))
 
 
 class ProjLayer(nn.Module):
@@ -373,16 +400,21 @@ class ProjLayer(nn.Module):
 
 class GraphAttnLayer(nn.Module):
     """One GASFM message-passing round. Reference ``GraphAttnSfMLayer``
-    (layers.py:150-263): LN + ReLU on the edge stream -> global feature
-    update -> optional init-embedding concat -> edge update -> residual
-    (through a projected skip when the widths differ).
+    (layers.py:150-263): LN + ReLU on the edge stream (ReLU alone without
+    ``use_norm_proj_update``) -> global feature update -> optional
+    init-embedding concat -> edge update -> residual (through a projected
+    skip when the widths differ).
 
-    ``forward`` returns this layer's update deferred (:class:`PendingUpdate`)
-    with the new node features; the next layer step materializes it. When
-    the widths differ (the first layer), the width-adapting residual rides
-    the update's skip2 slot: skip2 = relu(LN_res(raw)) with weight columns
-    4 * W_skip and bias + 4 * b_skip, which the update's /4 cancels — the
-    JAX package's first-layer deferral (models/layers.py:954-994)."""
+    ``forward(merged=True)`` returns this layer's update deferred
+    (:class:`PendingUpdate`) with the new node features; the next layer step
+    materializes it. When the widths differ (the first layer), the
+    width-adapting residual rides the update's skip2 slot: skip2 =
+    relu(LN_res(raw)) with weight columns 4 * W_skip and bias + 4 * b_skip,
+    which the update's /4 cancels — the JAX package's first-layer deferral
+    (models/layers.py:954-994). ``forward(merged=False)`` is the JAX
+    package's unfused layer (models/layers.py:919-929, 996-1017): it returns
+    the materialized (E, De) stream, with the projected skip applied after
+    the update. Both take the same parameters."""
 
     def __init__(self, n_feat_proj_in: int, n_feat_proj_out: int, n_feat_scenepoint_hidden: int,
                  n_feat_view_hidden: int, n_feat_global_hidden: int,
@@ -390,17 +422,21 @@ class GraphAttnLayer(nn.Module):
                  n_feat_proj2view_agg: Optional[int] = None,
                  n_feat_scenepoint2global_agg: Optional[int] = None,
                  n_feat_view2global_agg: Optional[int] = None,
+                 use_norm_proj_update: bool = True,
                  add_residual_skipconn_proj_update: bool = True,
                  n_feat_skipconn_init_projfeat_in: Optional[int] = None,
                  n_heads: int = 1, stateful: bool = True,
                  global2view_and_global2scenepoint_enabled: bool = True,
                  n_hidden_layers_scenepoint_update: int = 0,
                  n_hidden_layers_view_update: int = 0,
-                 n_hidden_layers_global_update: int = 0):
+                 n_hidden_layers_global_update: int = 0,
+                 n_hidden_layers_proj_update: int = 0):
         super().__init__()
+        self.use_norm = use_norm_proj_update
         self.add_residual = add_residual_skipconn_proj_update
         self.n_skip_in = n_feat_skipconn_init_projfeat_in or 0
-        self.prev_projfeat_norm_layer = nn.LayerNorm(n_feat_proj_in)
+        if use_norm_proj_update:
+            self.prev_projfeat_norm_layer = nn.LayerNorm(n_feat_proj_in)
         self.global_feature_update = GraphAttnGlobalFeatureUpdate(
             n_feat_proj_in, n_feat_scenepoint_hidden, n_feat_view_hidden,
             n_feat_global_out=n_feat_global_hidden,
@@ -415,20 +451,24 @@ class GraphAttnLayer(nn.Module):
             n_hidden_layers_global_update=n_hidden_layers_global_update)
         self.projection_feature_update = ProjectionFeatureUpdate(
             n_feat_proj_in + self.n_skip_in, n_feat_scenepoint_hidden, n_feat_view_hidden,
-            n_feat_global_hidden, n_feat_proj_out)
+            n_feat_global_hidden, n_feat_proj_out, n_hidden_layers_proj_update)
         self.skip_projection = None
         if add_residual_skipconn_proj_update and n_feat_proj_in != n_feat_proj_out:
             if self.n_skip_in:
                 raise NotImplementedError("a width-changing layer with an init skip")
-            self.residual_skipconn_proj_norm_layer = nn.LayerNorm(n_feat_proj_in)
+            if use_norm_proj_update:
+                self.residual_skipconn_proj_norm_layer = nn.LayerNorm(n_feat_proj_in)
             self.skip_projection = ProjLayer(n_feat_proj_in, n_feat_proj_out)
 
     def forward(self, x_edges, graph, prev_scenepoint_features=None, prev_view_features=None,
-                prev_global_features=None, skipconn_init_projfeat=None, plain=False):
+                prev_global_features=None, skipconn_init_projfeat=None, merged=True,
+                plain=False):
+        nodes = (prev_scenepoint_features, prev_view_features, prev_global_features)
+        if not merged:
+            return self._unfused(x_edges, graph, nodes, skipconn_init_projfeat, plain)
         norm = self.prev_projfeat_norm_layer
         s, v, g, en, e_prev = self.global_feature_update(
-            x_edges, graph, prev_scenepoint_features, prev_view_features,
-            prev_global_features, ln=(norm.weight, norm.bias), plain=plain)
+            x_edges, graph, *nodes, ln=(norm.weight, norm.bias), plain=plain)
         raw = x_edges if e_prev is None else e_prev  # this layer's input stream
         update = self.projection_feature_update
         ps, pv, pg = update.tables(s, v, g)
@@ -443,6 +483,26 @@ class GraphAttnLayer(nn.Module):
         elif self.add_residual:
             res = raw
         return PendingUpdate(en, skip2, res, w, b, ps, pv, pg), s, v, g
+
+    def _unfused(self, raw, graph, nodes, skip_init, plain):
+        gfu = self.global_feature_update
+        if self.use_norm:
+            norm = self.prev_projfeat_norm_layer
+            s, v, g, x, _ = gfu(raw, graph, *nodes, ln=(norm.weight, norm.bias), plain=plain)
+        else:  # reference layers.py:228-234: ReLU only, no normalization
+            x = torch.relu(raw)
+            s, v, g, _, _ = gfu(x, graph, *nodes, ln=None, plain=plain)
+        if self.n_skip_in:
+            x = torch.cat([x, skip_init], dim=1)
+        e = self.projection_feature_update(s, v, g, x, graph, plain)
+        if self.add_residual:
+            x_skip = raw
+            if self.skip_projection is not None:
+                if self.use_norm:
+                    x_skip = torch.relu(self.residual_skipconn_proj_norm_layer(x_skip))
+                x_skip = self.skip_projection.lin_proj(x_skip)
+            e = x_skip + e
+        return e, s, v, g
 
 
 # ---------------------------------------------------------------------------

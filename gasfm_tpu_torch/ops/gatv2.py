@@ -15,11 +15,19 @@ JAX package's stop_gradient contract); the plain versions under autograd
 are then the reference gradient of every kernel.
 
 ``gatv2_attend_pool`` and ``gatv2_attend`` are plain PyTorch (the JAX
-package leaves the pools to XLA as well). ``gatv2_attend_dual``,
-``gatv2_layer_frontend`` and ``merged_layer_frontend`` dispatch to the
-kernel wrappers of ``ops/kernels``, which launch the CUDA kernels for CUDA
-tensors and run their plain versions for CPU tensors; ``plain=True`` asks
-for the plain versions explicitly (the on-card comparison does).
+package leaves the pools to XLA as well). ``gatv2_attend_side``,
+``gatv2_attend_composite``, ``gatv2_attend_dual``, ``gatv2_layer_frontend``
+and ``merged_layer_frontend`` dispatch to the kernel wrappers of
+``ops/kernels``, which launch the CUDA kernels for CUDA tensors and run their
+plain versions for CPU tensors; ``plain=True`` asks for the plain versions
+explicitly (the on-card comparison does).
+
+The JAX package's gate on the scene carries over: with at most
+``DENSE_MAX_SEGMENTS`` (1024) cameras both aggregations of a layer run in
+the dual kernel (and the frontend kernel fuses its prologue); above it the
+point direction runs in the single-direction kernel and the camera
+direction as the composite of gathers, a segment max and segment sums
+(``gasfm_tpu/ops/gatv2.py:146-214, 249-296, 361-439``).
 """
 
 from __future__ import annotations
@@ -27,8 +35,15 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from gasfm_tpu_torch.ops.segment import gather_segments, segment_max, segment_sum
+from gasfm_tpu_torch.ops.segment import (
+    csr_segment_max,
+    gather_segments,
+    segment_max,
+    segment_sum,
+)
+from gasfm_tpu_torch.utils.constants import DENSE_MAX_SEGMENTS
 
 NEGATIVE_SLOPE = 0.2
 
@@ -39,6 +54,14 @@ def layer_norm_relu(e: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, ep
     mean = e.mean(-1, keepdim=True)
     var = (e * e).mean(-1, keepdim=True) - mean * mean
     return torch.relu((e - mean) * torch.rsqrt(var + eps) * scale + bias)
+
+
+def leaky_relu(z: torch.Tensor, negative_slope: float = NEGATIVE_SLOPE) -> torch.Tensor:
+    """LeakyReLU as the JAX package writes it, ``where(z >= 0, z, slope *
+    z)``: its derivative at z = 0 is 1, as in the kernels, where torch's
+    ``leaky_relu`` takes the slope there. Exact zeros do occur: a stateless
+    layer's zero query bias over rows that the ReLU prologue zeroed."""
+    return torch.where(z >= 0, z, negative_slope * z)
 
 
 def softmax_shift(logits: torch.Tensor, seg_ids: Optional[torch.Tensor] = None,
@@ -66,7 +89,7 @@ def gatv2_attend_pool(
     view->global and point->global pools). Returns (1, H*C)."""
     E, D = xl.shape
     C = D // heads
-    g = torch.nn.functional.leaky_relu(xl + xr0.reshape(1, D), negative_slope)
+    g = leaky_relu(xl + xr0.reshape(1, D), negative_slope)
     logits = (g * att).reshape(E, heads, C).sum(-1)  # (E, H)
     logits = logits.masked_fill(~row_mask[:, None], float("-inf"))
     m = softmax_shift(logits)
@@ -91,7 +114,7 @@ def gatv2_attend(
     the numerators and one for the denominators, then ``num / den``."""
     E, D = xl.shape
     C = D // heads
-    g = torch.nn.functional.leaky_relu(xl + gather_segments(xr, seg_ids), negative_slope)
+    g = leaky_relu(xl + gather_segments(xr, seg_ids), negative_slope)
     logits = (g * att).reshape(E, heads, C).sum(-1)  # (E, H)
     m = softmax_shift(logits, seg_ids, num_segments)
     p = torch.exp(logits - gather_segments(m, seg_ids))  # (E, H)
@@ -101,9 +124,53 @@ def gatv2_attend(
     return (num.reshape(num_segments, heads, C) / den[:, :, None]).reshape(num_segments, D)
 
 
+def gatv2_attend_side(xl, xr, att, graph, side, heads, plain=False):
+    """(S, H*C) attention of the (E, H*C) rows ``xl`` over the segments of
+    ``side`` ("point" or "camera"): the single-direction kernel
+    (``ops/kernels/fused_attn.py``)."""
+    from gasfm_tpu_torch.ops.kernels import fused_attn as k
+
+    fn = k.fused_attend_plain if plain else k.fused_attend
+    return fn(xl, xr, att, graph, side, heads)
+
+
+def gatv2_attend_composite(xl, xr, att, graph, side, heads, plain=False,
+                           negative_slope=NEGATIVE_SLOPE):
+    """The same function as :func:`gatv2_attend_side` as the JAX package's
+    composite computes it (``gasfm_tpu/ops/gatv2.py:186-214``): the queries
+    gathered to the edges, the logits, their per-segment max (detached, the
+    softmax shift), the shifted exponentials, and one segment sum of
+    ``[p * xl | p]`` (E, H*C + H) for the numerators and denominators —
+    through the row-gather, segment-max and segment-sum kernels. The JAX
+    package's cap on the shifted logits acts on masked edges only; the
+    port's graph has none."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as k
+
+    gather = k.gather_rows_plain if plain else k.gather_rows
+    seg_sum = k.segment_sum_plain if plain else k.segment_sum
+    E, D = xl.shape
+    C = D // heads
+    g = leaky_relu(xl + gather(xr, graph, side), negative_slope)
+    logits = (g * att.reshape(D)).reshape(E, heads, C).sum(-1)  # (E, H)
+    m = csr_segment_max(logits.detach(), graph, side, plain=plain)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - gather(m, graph, side))  # (E, H)
+    weighted = (p[:, :, None] * xl.reshape(E, heads, C)).reshape(E, D)
+    sums = seg_sum(torch.cat([weighted, p], dim=1), graph, side)  # (S, D + H)
+    S = sums.shape[0]
+    den = sums[:, D:]
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return (sums[:, :D].reshape(S, heads, C) / den[:, :, None]).reshape(S, D)
+
+
 def gatv2_attend_dual(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, plain=False):
-    """Both per-layer aggregations (edges -> points, edges -> cameras) in
-    one pass: the dual-attend kernel (``ops/kernels/fused_dual_attn.py``)."""
+    """Both per-layer aggregations (edges -> points, edges -> cameras). With
+    at most DENSE_MAX_SEGMENTS cameras: one pass, the dual-attend kernel
+    (``ops/kernels/fused_dual_attn.py``). Above: the points through the
+    single-direction kernel, the cameras through the composite."""
+    if graph.num_cams > DENSE_MAX_SEGMENTS:
+        return (gatv2_attend_side(xl_p, xr_p, att_p, graph, "point", heads, plain),
+                gatv2_attend_composite(xl_c, xr_c, att_c, graph, "camera", heads, plain))
     from gasfm_tpu_torch.ops.kernels import fused_dual_attn as k
 
     fn = k.fused_dual_attend_plain if plain else k.fused_dual_attend
@@ -116,7 +183,14 @@ def gatv2_layer_frontend(e, ln_scale, ln_bias, eps, wlp, blp, wlc, blc,
     """LN + ReLU (skipped under ``raw_prologue``) + both GATv2 source
     linears + both aggregations: the frontend kernel. Returns
     (e_norm, out_pt (n, Dp), out_cam (m, Dc)); under ``raw_prologue`` e_norm
-    is ``e`` itself."""
+    is ``e`` itself. Above DENSE_MAX_SEGMENTS cameras, the JAX package's
+    composite instead: the flax-form LayerNorm + ReLU and the linears in
+    PyTorch, then :func:`gatv2_attend_dual`."""
+    if graph.num_cams > DENSE_MAX_SEGMENTS:
+        en = e if raw_prologue else layer_norm_relu(e, ln_scale, ln_bias, eps)
+        out_p, out_c = gatv2_attend_dual(F.linear(en, wlp, blp), F.linear(en, wlc, blc),
+                                         xr_p, xr_c, att_p, att_c, graph, heads, plain)
+        return en, out_p, out_c
     from gasfm_tpu_torch.ops.kernels import fused_dual_attn as k
 
     fn = k.fused_frontend_plain if plain else k.fused_frontend

@@ -1,11 +1,13 @@
-"""CSR segment sum and row gather: CUDA kernels for Hopper
+"""CSR segment sum, segment max and row gather: CUDA kernels for Hopper
 (``csrc/segment.cu``), their plain PyTorch versions, and their launch
 counters.
 
 Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/segment_kernels.py``:
 ``segment_sum`` the dense one-hot sum (``segment_sum_kernel`` /
 ``_segment_sum_raw``, the camera side) and the windowed point sum
-(``windowed_segment_sum`` / ``_wseg_sum_raw``); ``gather_rows`` the dense
+(``windowed_segment_sum`` / ``_wseg_sum_raw``); ``segment_max`` the dense
+and windowed maxes (``segment_max_kernel`` / ``_segment_max_raw``,
+``windowed_segment_max`` / ``_wseg_max_raw``); ``gather_rows`` the dense
 and windowed gathers (``gather_rows_kernel`` / ``_gather_rows_raw``,
 ``windowed_gather`` / ``_wgather_raw``). On the port's CSR graph a
 "side" names the segments: ``"point"`` walks the contiguous point runs
@@ -13,11 +15,13 @@ and windowed gathers (``gather_rows_kernel`` / ``_gather_rows_raw``,
 gather reads ``pt_idx`` or ``cam_idx``. Each is the other's backward, as in
 the JAX package (``_ss_bwd``, ``_gr_bwd``, ``_wss_bwd``, ``_wg_bwd``): under
 autograd the sum's backward launches the gather kernel and the gather's
-backward the sum kernel, each counted by its own counter.
+backward the sum kernel, each counted by its own counter. The max has no
+backward: its callers take the max of detached logits (the softmax shift).
 
 What bounds them on the H100 is bytes over its 3.35 TB/s (see the source).
-Rows are float32, 1 to 256 wide; sums are taken in a fixed order without
-atomics, so results are bitwise reproducible on a given card.
+Rows are float32, 1 to 256 wide (1 to 8 for the max); sums are taken in a
+fixed order without atomics, so results are bitwise reproducible on a given
+card, and a max is exact, so it is bitwise the plain version's.
 
 A CPU tensor runs the plain version (``index_add_`` / indexing, the
 functions of ``ops/segment.py``); a CUDA tensor launches the kernel or
@@ -32,15 +36,18 @@ import torch
 
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.segment import gather_segments
+from gasfm_tpu_torch.ops.segment import segment_max as index_segment_max
 from gasfm_tpu_torch.ops.segment import segment_sum as index_segment_sum
 
 MAX_WIDTH = 256  # kSegMaxD of csrc/segment.cuh
+MAX_MAX_WIDTH = 8  # kSegMaxCols of csrc/segment.cu: the widest row the max takes
 SIDES = ("point", "camera")
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(symbol):
     args = {"gasfm_segment_sum": (kb.P, kb.I, kb.P, kb.P, kb.I, kb.P, kb.P),
+            "gasfm_segment_max": (kb.P, kb.I, kb.P, kb.P, kb.I, kb.F, kb.P, kb.P),
             "gasfm_gather_rows": (kb.P, kb.I, kb.P, kb.I, kb.P, kb.P)}[symbol]
     return kb.bind(kb.load("segment"), symbol, args)
 
@@ -52,6 +59,16 @@ def side_ids(graph, side):
     if side == "camera":
         return graph.cam_idx, graph.num_cams
     raise ValueError(f"side must be one of {SIDES}, got {side!r}")
+
+
+def side_csr(graph, side):
+    """(CSR offsets, permutation or None) of ``side``, as int32 CUDA
+    tensors: the point runs ``pt_ptr``, or the camera lists ``cam_perm``
+    with offsets ``cam_ptr``."""
+    if side == "point":
+        return kb.cuda_i32("pt_ptr", graph.pt_ptr), None
+    side_ids(graph, side)  # raises for an unknown side
+    return kb.cuda_i32("cam_ptr", graph.cam_ptr), kb.cuda_i32("cam_perm", graph.cam_perm)
 
 
 def segment_sum_plain(data, graph, side):
@@ -83,10 +100,7 @@ def segment_sum_forward(data, graph, side):
     _check_width("data", data, graph.num_edges)
     data = aligned(kb.cuda_f32("data", data))
     D = data.shape[1]
-    if side == "point":
-        ptr, perm = kb.cuda_i32("pt_ptr", graph.pt_ptr), None
-    else:
-        ptr, perm = kb.cuda_i32("cam_ptr", graph.cam_ptr), kb.cuda_i32("cam_perm", graph.cam_perm)
+    ptr, perm = side_csr(graph, side)
     out = kb.f32_empty((S, D), data.device)
     p = kb.ptr
     code = _entry("gasfm_segment_sum")(p(data), D, p(ptr), p(perm), S, p(out),
@@ -157,3 +171,38 @@ def gather_rows(table, graph, side):
 
 
 gather_rows.launches = 0
+
+
+def segment_max_plain(data, graph, side, neutral=float("-inf")):
+    """(S, D) maxima of the (E, D) rows per segment of ``side``; empty
+    segments give ``neutral``."""
+    ids, S = side_ids(graph, side)
+    return index_segment_max(data, ids, S, neutral)
+
+
+def segment_max(data, graph, side, neutral=float("-inf")):
+    """(S, D) maxima of the (E, D) rows of ``data`` (1 <= D <= 8) per
+    segment of ``side`` ("point" or "camera"); empty segments give
+    ``neutral``. No gradient: pass detached data."""
+    if data.device.type == "cpu":
+        return segment_max_plain(data, graph, side, neutral)
+    if kb.needs_grad(data):
+        raise ValueError("segment_max has no backward: pass detached data")
+    _, S = side_ids(graph, side)
+    E = graph.num_edges
+    if data.dim() != 2 or not 1 <= data.shape[1] <= MAX_MAX_WIDTH or data.shape[0] != E:
+        raise ValueError(f"data: expected ({E}, D) with 1 <= D <= {MAX_MAX_WIDTH}, "
+                         f"got {tuple(data.shape)}")
+    data = kb.cuda_f32("data", data)
+    D = data.shape[1]
+    ptr, perm = side_csr(graph, side)
+    out = kb.f32_empty((S, D), data.device)
+    p = kb.ptr
+    code = _entry("gasfm_segment_max")(p(data), D, p(ptr), p(perm), S, float(neutral), p(out),
+                                       kb.stream(data.device))
+    kb.check(code, "segment_max")
+    segment_max.launches += 1
+    return out
+
+
+segment_max.launches = 0

@@ -5,9 +5,14 @@ segment sums to 0, takes the caller's ``neutral`` under ``segment_max``, and
 gets softmax weight 0. The port's graph holds valid edges only, so there are
 no masked or padding edges to route away.
 
-``segment_mean`` is the dispatching mean over one side of the CSR graph:
-its sum goes through the segment-sum kernel (``ops/kernels/segment_kernels``)
-and its counts are the graph's CSR run lengths, so counting launches nothing.
+The functions that take ``seg_ids`` are plain PyTorch. Those that take
+``(graph, side)`` — ``segment_mean``, ``csr_segment_max`` and
+``csr_segment_softmax`` — dispatch over one side of the CSR graph ("point"
+or "camera") to the kernels of ``ops/kernels/segment_kernels`` (segment sum,
+segment max, row gather), which launch for CUDA tensors and run their plain
+versions for CPU tensors; ``plain=True`` asks for the plain versions
+whatever the device. The mean's counts are the graph's CSR run lengths, so
+counting launches nothing.
 """
 
 from __future__ import annotations
@@ -59,3 +64,30 @@ def segment_mean(data: torch.Tensor, graph, side: str, plain: bool = False) -> t
     s = (k.segment_sum_plain if plain else k.segment_sum)(data, graph, side)
     count = graph.pt_count if side == "point" else graph.cam_count
     return s / count.to(s.dtype)[:, None]
+
+
+def csr_segment_max(data: torch.Tensor, graph, side: str, neutral: float = float("-inf"),
+                    plain: bool = False) -> torch.Tensor:
+    """Max per segment of ``side`` of the (E,) or (E, d <= 8) rows (the
+    segment-max kernel); empty segments yield ``neutral``. No gradient."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as k
+
+    rows = data[:, None] if data.dim() == 1 else data
+    out = (k.segment_max_plain if plain else k.segment_max)(rows, graph, side, neutral)
+    return out[:, 0] if data.dim() == 1 else out
+
+
+def csr_segment_softmax(logits: torch.Tensor, graph, side: str, plain: bool = False) -> torch.Tensor:
+    """:func:`segment_softmax` over the segments of ``side``, through the
+    segment-max, row-gather and segment-sum kernels."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as k
+
+    gather = k.gather_rows_plain if plain else k.gather_rows
+    seg_sum = k.segment_sum_plain if plain else k.segment_sum
+    rows = logits[:, None] if logits.dim() == 1 else logits
+    m = csr_segment_max(rows.detach(), graph, side, plain=plain)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(rows - gather(m, graph, side))
+    den_e = gather(seg_sum(p, graph, side), graph, side)
+    w = torch.where(den_e > 0, p / den_e.clamp_min(1e-38), torch.zeros_like(p))
+    return w[:, 0] if logits.dim() == 1 else w

@@ -1,12 +1,14 @@
 """Where a forward request's, or a training step's, time goes on the card.
 
     python -m gasfm_tpu_torch.tools.profile_forward [--model gasfm|dpesfm]
-        [--scene dense|powerlaw] [--requests 3] [--train]
+        [--scene dense|powerlaw|wide] [--requests 3] [--train]
 
 Builds the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
 32/64/1024/2048, seeded init) or, with ``--model dpesfm``, the DPESFM
 SetOfSetNet (one block of 3 layers, 256 wide, seeded init), and one of the
-two synthetic bench scenes, warms up with two requests, then traces
+synthetic scenes (the two bench scenes, on which GASFM takes its merged
+path, or ``wide``, 1280 views, on which it takes the unfused one), warms up
+with two requests, then traces
 ``--requests`` requests with ``torch.profiler``: forward + ESFM loss through
 ``TrainingSession``, or with ``--train`` one ``TrainingSession.fused_step``
 each (the model's conf's loss and optimizer). Prints the wall time per request, the device time per
@@ -36,9 +38,11 @@ from gasfm_tpu_torch.train.loop import TrainingSession
 from gasfm_tpu_torch.train.state import DPESFM_OPTIM, FLAGSHIP_OPTIM
 from gasfm_tpu_torch.utils.device import resolve_device
 
-# The flagship GASFM (confs/gasfm/optim_euc_gasfm.conf) and the two synthetic
-# bench scenes of the JAX package's bench.py: dense (~116k edges, 14 edges
-# per point) and power-law track lengths (~70k edges, 3 edges per point).
+# The flagship GASFM (confs/gasfm/optim_euc_gasfm.conf) and the synthetic
+# scenes: the two bench scenes of the JAX package's bench.py, dense (~116k
+# edges, 14 edges per point) and power-law track lengths (~70k edges, 3 edges
+# per point); and "wide", power-law tracks over 1280 views, more cameras than
+# the 1024 of the merged path (a 1DSfM-scale collection's camera count).
 FLAGSHIP = dict(num_layers=9, n_heads=4, n_feat_proj=32, n_feat_scenepoint=64,
                 n_feat_view=1024, n_feat_global=2048, stateful_global_features=True,
                 add_skipconn_from_init_projfeat=True)
@@ -51,6 +55,7 @@ DPESFM = dict(num_blocks=1, block_size=3, num_features=256, proj_feat_normalizat
 SCENES = {
     "dense": dict(n_views=128, n_points=8192, visibility=0.2, seed=0),
     "powerlaw": dict(n_views=133, n_points=24576, track_length_dist="powerlaw", seed=0),
+    "wide": dict(n_views=1280, n_points=16384, track_length_dist="powerlaw", seed=0),
 }
 
 

@@ -1,0 +1,191 @@
+"""The port's single-direction attention and segment max (their plain
+PyTorch versions, which is what a CPU tensor runs) against the JAX
+package's Pallas kernels in interpret mode.
+
+- The attention against ``fused_attend_h`` (``ops/pallas/fused_attn.py``),
+  reached through the JAX ``gatv2_attend``: the point side windowed, the
+  camera side dense, with H = 1 and 4 at D = 32; values and ``jax.vjp``
+  gradients of xl, xr and att. The port's composite form
+  (``gatv2_attend_composite``, the camera direction above 1024 cameras)
+  against the same.
+- The segment max against ``windowed_segment_max`` (point side) and
+  ``segment_max_kernel`` (camera side), reached through the JAX
+  ``segment_max``: D = 1, 4 and 8, the default neutral and a caller's;
+  and the CSR ``csr_segment_softmax`` against the JAX ``segment_softmax``.
+
+The scene is tests/test_torch_port_segment_kernels.py's (9 views, 700
+points, ten points and one camera left unobserved, so both sides have empty
+segments), with its inputs drawn per real edge with numpy and scattered
+into both layouts. A spy on the JAX kernel modules checks that each Pallas
+kernel was reached.
+
+Tolerances. Attention: |err| <= 1e-5 x the reference's scale + 1e-4 x |ref|
+(float32 softmax sums in another order: an online softmax over windows
+against shifted exponentials summed by ``index_add_``), gradients the same
+against their own scale. The max is exact: bitwise. The softmax: rtol 1e-5,
+atol 1e-7.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from gasfm_tpu.ops import gatv2 as jax_gatv2
+from gasfm_tpu.ops import segment as jseg
+from gasfm_tpu.ops.pallas import fused_attn as jax_fused_attn
+from gasfm_tpu.ops.pallas import segment_kernels as jax_segment_kernels
+
+from gasfm_tpu_torch.ops.gatv2 import gatv2_attend_composite
+from gasfm_tpu_torch.ops.kernels.fused_attn import fused_attend
+from gasfm_tpu_torch.ops.kernels.segment_kernels import segment_max
+from gasfm_tpu_torch.ops.segment import csr_segment_softmax
+
+from test_torch_port_segment_kernels import (  # noqa: F401 (fixtures)
+    EMPTY_CAMERA,
+    EMPTY_POINTS,
+    Draw,
+    _interpret_mode,
+    assert_close,
+    jax_ids,
+    rows_of,
+    scenes,
+)
+
+JAX_MAX = {"point": "windowed_segment_max", "camera": "segment_max_kernel"}
+
+
+@pytest.fixture
+def spy(monkeypatch):
+    calls = {}
+    for mod, names in ((jax_fused_attn, ("fused_attend_h",)),
+                       (jax_segment_kernels, tuple(JAX_MAX.values()))):
+        for name in names:
+            def counted(*a, _fn=getattr(mod, name), _name=name, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+            monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def empty_rows(side):
+    return list(EMPTY_POINTS) if side == "point" else [EMPTY_CAMERA]
+
+
+def attend_inputs(draw, side, heads, D=32):
+    xl, jxl = draw.edges(D)
+    xr, jxr = draw.table(side, D)
+    att = draw.rng.standard_normal(D).astype(np.float32)
+    cot, jcot = draw.table(side, D)
+    return (xl, xr, att, cot), (jxl, jxr, att, jcot)
+
+
+def jax_attend(draw, side, heads, jins):
+    """JAX gatv2_attend (through fused_attend_h) and jax.vjp of it."""
+    jxl, jxr, att, jcot = jins
+    D = jxl.shape[1]
+    C = D // heads
+    ids, S, window = jax_ids(draw.jg, side)
+
+    def fn(xl, xr, a):
+        out = jax_gatv2.gatv2_attend(
+            xl.reshape(-1, heads, C), xr.reshape(-1, heads, C), a.reshape(heads, C), ids, S,
+            edge_mask=draw.jg.edge_mask, indices_are_sorted=side == "point", window=window)
+        return out.reshape(-1, D)
+
+    want, vjp = jax.vjp(fn, jnp.asarray(jxl), jnp.asarray(jxr), jnp.asarray(att))
+    return np.asarray(want), [np.asarray(g) for g in vjp(jnp.asarray(jcot))]
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
+@pytest.mark.parametrize("heads", [1, 4])
+def test_fused_attend_matches_jax_kernel(scenes, spy, side, heads):
+    draw = Draw(scenes, seed=30 + heads)
+    (xl, xr, att, cot), jins = attend_inputs(draw, side, heads)
+    want, (want_dxl, want_dxr, want_datt) = jax_attend(draw, side, heads, jins)
+    assert spy.get("fused_attend_h", 0) >= 1
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (xl, xr, att)]
+    got = fused_attend(*leaves, draw.pg, side, heads)
+    dxl, dxr, datt = torch.autograd.grad(got, leaves, torch.from_numpy(cot))
+    S = rows_of(side, draw)
+    assert_close(got.detach().numpy(), want[:S], "out")
+    assert (got.detach()[empty_rows(side)] == 0).all()
+    assert_close(dxl.numpy(), want_dxl[draw.mask], "d xl")
+    assert_close(dxr.numpy(), want_dxr[:S], "d xr")
+    assert_close(datt.numpy(), want_datt, "d att")
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
+def test_composite_attention_matches_jax_kernel(scenes, spy, side):
+    """The composite form the port runs for the cameras above 1024 (its
+    gather, segment-max and segment-sum plain versions here) computes the
+    kernel's function: values and gradients."""
+    heads = 4
+    draw = Draw(scenes, seed=40)
+    (xl, xr, att, cot), jins = attend_inputs(draw, side, heads)
+    want, (want_dxl, want_dxr, want_datt) = jax_attend(draw, side, heads, jins)
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (xl, xr, att)]
+    got = gatv2_attend_composite(*leaves, draw.pg, side, heads)
+    dxl, dxr, datt = torch.autograd.grad(got, leaves, torch.from_numpy(cot))
+    S = rows_of(side, draw)
+    assert_close(got.detach().numpy(), want[:S], "out")
+    assert_close(dxl.numpy(), want_dxl[draw.mask], "d xl")
+    assert_close(dxr.numpy(), want_dxr[:S], "d xr")
+    assert_close(datt.numpy(), want_datt, "d att")
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
+@pytest.mark.parametrize("D", [1, 4, 8])
+@pytest.mark.parametrize("neutral", [-np.inf, -7.5])
+def test_segment_max_matches_jax_kernels_bitwise(scenes, spy, side, D, neutral):
+    draw = Draw(scenes, seed=50 + D)
+    data, jdata = draw.edges(D)
+    ids, S, window = jax_ids(draw.jg, side)
+    want = np.asarray(jseg.segment_max(jnp.asarray(jdata), ids, S, draw.jg.edge_mask,
+                                       side == "point", neutral, window=window))
+    assert spy.get(JAX_MAX[side], 0) >= 1
+    got = segment_max(torch.from_numpy(data), draw.pg, side, neutral).numpy()
+    np.testing.assert_array_equal(got, want[:rows_of(side, draw)])
+    assert (got[empty_rows(side)] == neutral).all()
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
+def test_csr_segment_softmax_matches_jax(scenes, side):
+    draw = Draw(scenes, seed=60)
+    data, jdata = draw.edges(4)
+    ids, S, window = jax_ids(draw.jg, side)
+    want = np.asarray(jseg.segment_softmax(jnp.asarray(jdata), ids, S, draw.jg.edge_mask,
+                                           side == "point", window=window))
+    got = csr_segment_softmax(torch.from_numpy(data), draw.pg, side).numpy()
+    np.testing.assert_allclose(got, want[draw.mask], rtol=1e-5, atol=1e-7)
+    flat = csr_segment_softmax(torch.from_numpy(data[:, 0]), draw.pg, side).numpy()
+    np.testing.assert_array_equal(flat, got[:, 0])
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
+def test_leaky_relu_derivative_at_zero_matches_jax(scenes, spy, side):
+    """Exact zeros reach the LeakyReLU (a stateless layer's zero query bias
+    over source rows that the ReLU prologue zeroed): its derivative there
+    is 1 in the JAX package (``where(z >= 0, ...)``) and in the kernels,
+    and so in the plain version. A tenth of the rows and every query are 0
+    here; torch's own leaky_relu (slope at 0) would part from JAX by the
+    whole softmax-gradient term of those rows."""
+    heads = 4
+    draw = Draw(scenes, seed=70)
+    (xl, xr, att, cot), (jxl, jxr, jatt, jcot) = attend_inputs(draw, side, heads)
+    zero = np.arange(xl.shape[0]) % 10 == 0
+    xl[zero] = 0.0
+    jxl[draw.mask] = xl
+    xr[:] = 0.0
+    jxr[:] = 0.0
+    want, (want_dxl, want_dxr, want_datt) = jax_attend(draw, side, heads, (jxl, jxr, jatt, jcot))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (xl, xr, att)]
+    got = fused_attend(*leaves, draw.pg, side, heads)
+    dxl, dxr, datt = torch.autograd.grad(got, leaves, torch.from_numpy(cot))
+    S = rows_of(side, draw)
+    assert_close(got.detach().numpy(), want[:S], "out")
+    assert_close(dxl.numpy(), want_dxl[draw.mask], "d xl")
+    assert_close(dxr.numpy(), want_dxr[:S], "d xr")
+    assert_close(datt.numpy(), want_datt, "d att")

@@ -29,7 +29,7 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
 for new in ("ops.kernels.segment_kernels", "ops.kernels.fused_update", "ops.edge_update",
-            "models.set_of_set"):
+            "models.set_of_set", "ops.kernels.fused_attn"):
     assert "gasfm_tpu_torch." + new in names, new
 """
 

@@ -30,6 +30,11 @@ Phases, each printing its own lines; any failure exits non-zero:
    on both sides at D = 32, forward and backward, and the segment max on
    both sides at D = 1, 4 and 8, on the graph and on a copy with empty
    segments, bitwise, also timed against ``scatter_reduce_`` (amax).
+3d. The standalone projection update (the depth path's layer L-2) on both
+   bench scenes at De = 32: with the 2-wide skip2 and the residual, with
+   neither, and at d2 = 0 with the residual; its backward against autograd
+   of the plain version, every input's gradient. No single PyTorch call
+   computes it (no library time).
 4. GASFM serving: the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
    32/64/1024/2048, seeded init) answers 3 requests per scene through
    ``TrainingSession.forward`` and ``.loss`` on the dense (128 views, 8192
@@ -69,11 +74,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    no backward), training 1 + 3 steps per scene (per step also edge-combine
    backward 3, gather 6 for the means' backward plus 3 for our_repro, loss
    backward 1), the small scene card vs CPU.
-10. A ``kernels`` JSON line (all fifteen kernels; launches from the training
-   path that runs each: GASFM's merged path for the first eight, DPESFM for
-   the segment sum, gather and edge combine, the wide scene's unfused path
-   for the attention and the segment max, whose times are the wide scene's),
-   the nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
+10-11. The depth flagship: the same GASFM with the conf's depth head (128
+   wide, 2 hidden layers) and no view or scenepoint head, DirectDepthLoss
+   (L1) on the scenes' GT depths (host DLT triangulation, its seconds
+   printed). Serving, 3 requests per merged scene; per request frontend 2
+   (layers 0 and 8), layer step 7, dual 9, projection update 1 (layer 7),
+   edge combine 1 (layer 8, 128 wide), no loss kernel. Training through
+   ``loss_and_grads`` + ``update`` (the JAX package's loop for a depth-only
+   model), 1 + 3 steps per scene; per step also frontend backward 2, layer
+   step backward 7, dual backward 9, projection-update backward 1,
+   edge-combine backward 1. s_pred (the mean predicted depth, whose inverse
+   scales the loss) is printed, the depth models seeded where it is not
+   small (``DEPTH_SEEDS``); the step-1 gradient rule takes the largest
+   error of 3 plain float32 runs as its yardstick, and also allows, per
+   tensor, the most its L1 ties can move it (the edges whose sign differs
+   from the float64 run's, counted and printed).
+12. DPESFM with the depth head on the dense scene: serving (per request
+   segment sum 6, edge combine 3) and training 1 + 3 steps (per step also
+   edge-combine backward 3, gather 4), as above.
+13. A ``kernels`` JSON line (all seventeen kernels; launches from the
+   training path that runs each: GASFM's merged path for the first eight,
+   DPESFM for the segment sum, gather and edge combine, the wide scene's
+   unfused path for the attention and the segment max, whose times are the
+   wide scene's, the depth flagship for the projection update), the
+   nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
    The full record goes to ``chiprun_out/chip_smoke.json``.
 
 Tolerances, all float32 with sums in another order than the plain version:
@@ -127,6 +151,17 @@ GRAD_FACTOR, GRAD_RTOL64, GRAD_EPS64 = 4.0, 1e-5, 1e-7
 GRAD_EPS64_WIDE = 5e-7
 REQUESTS = 3
 TRAIN_STEPS = 3  # timed, after one warm-up step
+# Weight seeds of the depth models: the depth loss and every gradient scale
+# with 1 / s_pred, the mean predicted depth at init, which sits near 0 at
+# seed 0 for both models and costs float32 digits there; at these seeds it
+# does not (PERF.md, the depth head's findings). Each phase prints it.
+DEPTH_SEEDS = {"gasfm": 2, "dpesfm": 7}
+# The depth phases' step-1 rule takes the largest error of this many plain
+# float32 runs as its yardstick: the plain path's atomic sums move its error
+# run to run, by several times on some LayerNorm biases of the depth flagship,
+# enough to fail a rule held to one run (PERF.md). The phase prints the
+# spread where it matters most.
+DEPTH_PLAIN_RUNS = 3
 SEG = "gasfm_tpu/ops/pallas/segment_kernels.py"
 # name -> (source in the repo, the TPU kernels' pallas_call it replaces, the
 # training path whose launches the kernels line reports; the "wide" path's
@@ -159,6 +194,10 @@ KERNELS = {
     "fused_attend_bwd": ("gasfm_tpu_torch/csrc/fused_attn.cu",
                          "gasfm_tpu/ops/pallas/fused_attn.py:524", "wide"),
     "segment_max": ("gasfm_tpu_torch/csrc/segment.cu", f"{SEG}:182, {SEG}:387", "wide"),
+    "projection_update": ("gasfm_tpu_torch/csrc/fused_proj_update.cu",
+                          "gasfm_tpu/ops/pallas/fused_proj_update.py:291", "gasfm-depth"),
+    "projection_update_bwd": ("gasfm_tpu_torch/csrc/fused_proj_update.cu",
+                              "gasfm_tpu/ops/pallas/fused_proj_update.py:364", "gasfm-depth"),
 }
 MERGED_SCENES = ("dense", "powerlaw")  # at most 1024 cameras: the merged GASFM path
 
@@ -711,6 +750,65 @@ def unfused_kernel_phase(dev, scene_name, graph, record):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: the projection update (the depth path's layer L-2)
+# ---------------------------------------------------------------------------
+
+
+def projection_update_phase(dev, scene_name, graph, record):
+    """The standalone projection update at the depth flagship's layer L-2
+    shapes (en (E, 32), W (32, 32 + d2)): with skip2 (the 2-wide init skip)
+    and the residual, the main variant; with neither; at d2 = 0 with the
+    residual. Forward against the plain version, backward (every input's
+    gradient) against autograd of the plain version."""
+    from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
+
+    gen = torch.Generator(device=dev).manual_seed(8642)
+    E, n, m, De = graph.num_edges, graph.num_pts, graph.num_cams, 32
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    results = {}
+    idx = (graph.pt_idx, graph.cam_idx)
+    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
+    for variant, d2, has_res, main in (("skip2_res", 2, True, True), ("bare", 0, False, False),
+                                       ("res_only", 0, True, False)):
+        K = De + d2
+        ins = dict(en=torch.relu(rnd(E, De)))
+        if d2:
+            ins["skip2"] = rnd(E, d2)
+        if has_res:
+            ins["res"] = rnd(E, De)
+        ins.update(w=rnd(De, K, scale=0.2), b=rnd(De, scale=0.1), ps=rnd(n, De), pv=rnd(m, De),
+                   pg=rnd(1, De))
+
+        def kern(**a):
+            return (fpu.projection_update(a["en"], a.get("skip2"), a.get("res"), a["w"], a["b"],
+                                          a["ps"], a["pv"], a["pg"], graph),)
+
+        def plain(**a):
+            return (fpu.projection_update_plain(a["en"], a.get("skip2"), a.get("res"), a["w"],
+                                                a["b"], a["ps"], a["pv"], a["pg"], graph),)
+
+        # reads every input and the edge ids once, writes e
+        forward_check(results, record, scene_name, "projection_update", variant,
+                      lambda: kern(**ins), lambda: plain(**ins), ("e",),
+                      nbytes(*ins.values(), *idx) + 4 * E * De,
+                      float(E * (2 * K * De + 6 * De)), main)
+        g = rnd(E, De)
+        backward_check(
+            results, record, scene_name, "projection_update_bwd", variant, kern, plain, ins, (g,),
+            lambda g=g, ins=ins: fpu.projection_update_bwd(g, ins["en"], ins.get("skip2"),
+                                                           ins["w"], graph),
+            # reads g, en, skip2, W and the CSR; writes d en, d skip2, d W,
+            # d b (= d pg), d ps, d pv (d res is g, no kernel work)
+            nbytes(g, ins["en"], ins.get("skip2"), ins["w"], *csr, ins["en"], ins.get("skip2"),
+                   ins["w"], ins["b"], ins["ps"], ins["pv"]),
+            float(E * (4 * K * De + 3 * De)), main)
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 4: serving
 # ---------------------------------------------------------------------------
 
@@ -758,9 +856,27 @@ def dpesfm_step_launches(model, backward):
     gather for every sum whose input carries gradient — all but the first
     layer's, whose input is the raw uv."""
     layers = sum(len(blk.layers) for blk in model.equivariant_blocks)
-    fwd = {"segment_sum": 2 * layers + 2, "fused_edge_combine": layers, "fused_esfm_terms": 1}
-    bwd = {"fused_edge_combine_bwd": layers, "gather_rows": 2 * (layers - 1) + 2,
-           "fused_esfm_terms_bwd": 1}
+    # with the depth head: no final update, and the depth loss has no kernel
+    final, loss = (0, 0) if model.depth_head_enabled else (2, 1)
+    fwd = {"segment_sum": 2 * layers + final, "fused_edge_combine": layers,
+           "fused_esfm_terms": loss}
+    bwd = {"fused_edge_combine_bwd": layers, "gather_rows": 2 * (layers - 1) + final,
+           "fused_esfm_terms_bwd": loss}
+    return {**fwd, **{k: v if backward else 0 for k, v in bwd.items()}}
+
+
+def depth_step_launches(L, backward):
+    """Exact kernel launches of one forward + depth loss (and, with
+    ``backward``, of its backward) through an L-layer GASFM with the depth
+    head (L >= 3, the depth width not n_feat_proj), merged path: the
+    frontend at layer 0 and at the unfused, widening layer L-1; the layer
+    step at layers 1 to L-2, each with its dual core, as the frontends;
+    layer L-2's own update through the projection update; layer L-1's
+    through the edge combine. No final aggregation and no loss kernel."""
+    fwd = {"fused_frontend": 2, "fused_layer_step": L - 2, "fused_dual_attend": L,
+           "projection_update": 1, "fused_edge_combine": 1}
+    bwd = {"fused_frontend_bwd": 2, "fused_layer_step_bwd": L - 2, "fused_dual_attend_bwd": L,
+           "projection_update_bwd": 1, "fused_edge_combine_bwd": 1}
     return {**fwd, **{k: v if backward else 0 for k, v in bwd.items()}}
 
 
@@ -812,12 +928,16 @@ def slice_phase(dev, session, scenes, counters, record, per_request, label):
         ref = session.forward(scene, plain=True)
         ref_loss = session.loss(ref, scene, plain=True)
         g = scene.graph
-        if pred["Ps_norm"].shape != (g.num_cams, 3, 4) or pred["pts3D"].shape != (4, g.num_pts):
+        shapes = {"Ps_norm": (g.num_cams, 3, 4), "pts3D": (4, g.num_pts),
+                  "depths": (g.num_edges,)}
+        if {k: tuple(v.shape) for k, v in pred.items()} != {k: shapes[k] for k in pred}:
             raise SmokeFailure(f"{name}: output shapes {[tuple(v.shape) for v in pred.values()]}")
+        if "depths" in pred:
+            print(f"{label} {name}: mean predicted depth s_pred {float(pred['depths'].mean()):.6g} "
+                  f"(the depth loss scales with 1 / s_pred)")
         errs = {}
-        for key, got, want in (("Ps_norm", pred["Ps_norm"], ref["Ps_norm"]),
-                               ("pts3D", pred["pts3D"], ref["pts3D"]),
-                               ("loss", loss.reshape(1), ref_loss.reshape(1))):
+        for key, got, want in ((*((k, pred[k], ref[k]) for k in pred),
+                                ("loss", loss.reshape(1), ref_loss.reshape(1)))):
             err, ok = max_err(got, want, SLICE_RTOL, SLICE_ATOL)
             errs[key] = err
             if not ok:
@@ -840,14 +960,18 @@ def float64_scene(scene):
     plain path."""
     import dataclasses
 
-    return dataclasses.replace(scene, graph=dataclasses.replace(scene.graph,
-                                                                uv=scene.graph.uv.double()),
-                               Ns=scene.Ns.double(), Ns_inv=scene.Ns_inv.double())
+    return dataclasses.replace(
+        scene, graph=dataclasses.replace(scene.graph, uv=scene.graph.uv.double()),
+        Ns=scene.Ns.double(), Ns_inv=scene.Ns_inv.double(),
+        gt_depths=None if scene.gt_depths is None else scene.gt_depths.double())
 
 
-def param_grad_errors(names, got, plain, ref, eps64=GRAD_EPS64):
+def param_grad_errors(names, got, plain, ref, eps64=GRAD_EPS64, ties=None, more_plain=()):
     """Per parameter: (name, kernel path's max |err|, plain path's max |err|,
-    max |ref|, ok), both float32 paths against the float64 plain path. ok:
+    max |ref|, the plain path's smallest max |err|, ok), both float32 paths
+    against the float64 plain path (the plain path's errors over ``plain``
+    and ``more_plain``, further runs of it, whose atomic sums differ run to
+    run). ok:
     the kernel path's error is at most GRAD_FACTOR x the plain path's, plus
     GRAD_RTOL64 x the tensor's max |ref|, plus ``eps64`` (GRAD_EPS64) x the
     largest gradient of the model (G). Why the last: some gradients are sums over
@@ -856,39 +980,90 @@ def param_grad_errors(names, got, plain, ref, eps64=GRAD_EPS64):
     LeakyReLU branch is 0, and with it the gradients of the query adapter
     and lin_r); in float32 both paths return rounding noise of order
     eps x the terms there, which no bound relative to the (zero) true value
-    can take."""
+    can take. ``ties``: per parameter, the most that the depth loss's L1
+    ties can move it (:func:`depth_ties`), added to the bound."""
     G = max(float(r.abs().max()) for r in ref)
     out = []
-    for name, g, p, r in zip(names, got, plain, ref):
+    for k, (name, g, r) in enumerate(zip(names, got, ref)):
         ek = float((g.double() - r).abs().max())
-        ep = float((p.double() - r).abs().max())
+        eps = [float((p[k].double() - r).abs().max()) for p in (plain, *more_plain)]
+        ep = max(eps)
         scale = float(r.abs().max())
         ok = bool(torch.isfinite(g).all()) and \
-            ek <= GRAD_FACTOR * ep + GRAD_RTOL64 * scale + eps64 * G
-        out.append((name, ek, ep, scale, ok))
+            ek <= GRAD_FACTOR * ep + GRAD_RTOL64 * scale + eps64 * G + (ties[k] if ties else 0.0)
+        out.append((name, ek, ep, scale, min(eps), ok))
     return out, G
 
 
+def depth_ties(ref_session, scene64, pred32, pred64):
+    """The depth loss's L1 ties between a float32 path and the float64 run:
+    the edges where the sign of d / s_pred - d_gt / s_gt differs between
+    ``pred32`` and ``pred64``, each a flip of that edge's term in the step-1
+    gradient. Returns (their number, the smallest |d / s_pred - d_gt / s_gt|
+    of the float64 run, per parameter the most the flips can move its
+    gradient: max |the float64 gradient of (2 / E) x the sum of |d / s_pred -
+    d_gt / s_gt| over the flipped edges|)."""
+    gt = scene64.gt_depths
+    s_gt = gt.mean()
+    s_gt = torch.where(s_gt == 0, torch.ones_like(s_gt), s_gt)
+
+    def residual(d):
+        d = d.double()
+        return d / d.mean() - gt / s_gt
+
+    r64 = residual(pred64["depths"])
+    flips = torch.sign(residual(pred32["depths"])) != torch.sign(r64)
+    n = int(flips.sum())
+    params = ref_session.params
+    if n == 0:
+        return 0, float(r64.abs().min()), [0.0] * len(params)
+    with torch.enable_grad():
+        r = residual(ref_session.model(scene64.graph, plain=True)["depths"])
+        moved = torch.autograd.grad((2.0 / r.shape[0]) * r[flips].abs().sum(), params,
+                                    allow_unused=True)
+    return n, float(r64.abs().min()), [0.0 if g is None else float(g.abs().max()) for g in moved]
+
+
+def make_loss(loss_kw):
+    """The loss of a conf's keyword arguments: the depth loss's or ESFM's."""
+    from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss
+
+    return DirectDepthLoss(**loss_kw) if "cost_fcn" in loss_kw else ESFMLoss(**loss_kw)
+
+
 def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, label,
-                eps64=GRAD_EPS64):
+                eps64=GRAD_EPS64, plain_runs=1):
     """Training, a main path: ``fused_step`` 1 + TRAIN_STEPS steps per scene
     of ``model`` with its conf's loss (``loss_kw``) and optimizer, counters
     zeroed just before and read just after, exact launches checked (the
     warm-up step takes no our_repro, each timed step one); step-1 gradients
-    against float64, losses against a plain twin."""
+    against float64, losses against a plain twin. A depth-head model steps
+    through ``loss_and_grads`` + ``update`` (no our_repro), as the JAX
+    package's loop trains it; its step-1 rule also allows for the L1 ties
+    (:func:`depth_ties`). ``plain_runs``: the plain float32 runs whose
+    largest error is the rule's yardstick."""
     import copy
 
-    from gasfm_tpu_torch.losses import ESFMLoss
     from gasfm_tpu_torch.ops.kernels.fused_attn import fused_attend
     from gasfm_tpu_torch.ops.kernels.fused_dual_attn import fused_dual_attend
     from gasfm_tpu_torch.train.loop import TrainingSession
 
     twin = copy.deepcopy(model)
     ref64 = copy.deepcopy(model).double()
-    session = TrainingSession(model, ESFMLoss(**loss_kw), device=dev, optim=optim)
-    plain = TrainingSession(twin, ESFMLoss(**loss_kw), device=dev, optim=optim)
-    ref = TrainingSession(ref64, ESFMLoss(**loss_kw), device=dev, optim=optim)
+    session = TrainingSession(model, make_loss(loss_kw), device=dev, optim=optim)
+    plain = TrainingSession(twin, make_loss(loss_kw), device=dev, optim=optim)
+    ref = TrainingSession(ref64, make_loss(loss_kw), device=dev, optim=optim)
     names = [k for k, p in model.named_parameters() if p.requires_grad]
+    depth = model.depth_head_enabled
+    repro = {} if depth else REPRO_LAUNCHES
+
+    def step(sess, scene, plain_path=False):
+        """One timed step: (loss, our_repro, grad_norm), or (loss,
+        grad_norm) for a depth model."""
+        if not depth:
+            return sess.fused_step(scene, plain=plain_path)
+        loss_, _, grads_ = sess.loss_and_grads(scene, plain=plain_path)
+        return loss_, sess.update(grads_)
     for fn in counters.values():
         fn.launches = 0
     fused_dual_attend.residual_launches = fused_attend.residual_launches = 0
@@ -899,26 +1074,48 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
         # gradients from the same weights, each against the plain path in
         # float64 (first scene: from the same weights too), then both update.
         p_loss, _, p_grads = plain.loss_and_grads(scene, plain=True)
-        loss, _, grads = session.loss_and_grads(scene)
+        loss, pred, grads = session.loss_and_grads(scene)
+        if depth:
+            print(f"{label} {name}: step 1 mean predicted depth s_pred "
+                  f"{float(pred['depths'].mean()):.6g} (the loss and every gradient scale with "
+                  f"1 / s_pred)")
         if ref is not None:
-            r_loss, _, r_grads = ref.loss_and_grads(float64_scene(scene), plain=True)
-            errs, G = param_grad_errors(names, grads, p_grads, r_grads, eps64)
+            scene64 = float64_scene(scene)
+            r_loss, r_pred, r_grads = ref.loss_and_grads(scene64, plain=True)
+            ties, tie_note = None, ""
+            if depth:
+                n_flip, gap, ties = depth_ties(ref, scene64, pred, r_pred)
+                tie_note = (f"; L1 ties: {n_flip} edges flip sign against float64 (nearest "
+                            f"tie {gap:.3e}), their most on any gradient {max(ties):.3e}, "
+                            "added to the bound")
+                record.setdefault(label, {})[f"{name}_ties"] = dict(flips=n_flip, nearest=gap,
+                                                                    most=max(ties))
+            more = [plain.loss_and_grads(scene, plain=True)[2] for _ in range(plain_runs - 1)]
+            errs, G = param_grad_errors(names, grads, p_grads, r_grads, eps64, ties, more)
+            del more
             bad = [t for t in errs if not t[-1]]
             wk = max(errs, key=lambda t: t[1])
             wp = max(errs, key=lambda t: t[2])
+            if plain_runs > 1:  # where one plain run's error would bound it most tightly
+                tight = max(errs, key=lambda t: t[1] / (GRAD_FACTOR * t[4] + GRAD_RTOL64 * t[3]
+                                                        + eps64 * G))
+                tie_note += (f"; the plain path's error moves run to run, {tight[4]:.3e} to "
+                             f"{tight[2]:.3e} over {plain_runs} runs on {tight[0]} (kernel path "
+                             f"{tight[1]:.3e})")
             print(f"{label} {name}: step 1 parameter gradients ({len(errs)} tensors, largest "
                   f"|grad| G = {G:.4g}) against the plain path in float64: max |err| kernel path "
                   f"{wk[1]:.3e} ({wk[0]}, its max |ref| {wk[3]:.3e}), plain float32 path "
-                  f"{wp[2]:.3e} ({wp[0]}, its max |ref| {wp[3]:.3e}); loss float64 "
+                  f"{wp[2]:.3e} ({wp[0]}, its max |ref| {wp[3]:.3e}"
+                  f"{f'; the largest of {plain_runs} runs' if plain_runs > 1 else ''}); loss float64 "
                   f"{float(r_loss)!r}, kernel path {float(loss)!r}, plain path {float(p_loss)!r} "
                   f"(tol kernel err <= {GRAD_FACTOR:g} x plain err + {GRAD_RTOL64:g} x max|ref| "
-                  f"+ {eps64:g} x G) {'ok' if not bad else 'FAIL'}")
+                  f"+ {eps64:g} x G){tie_note} {'ok' if not bad else 'FAIL'}")
             if bad:
                 raise SmokeFailure(f"{label} {name}: parameter gradients out of tolerance: "
                                    f"{[t[:4] for t in bad[:8]]}")
             record.setdefault(label, {})[name] = dict(
                 step1_grad_vs_float64=[t[:4] for t in errs], step1_grad_G=G)
-            del r_grads, ref, ref64  # the float64 run covers the first scene only
+            del r_grads, r_pred, ref, ref64  # the float64 run covers the first scene only
             ref = None
         session.update(grads)
         plain.update(p_grads)
@@ -930,18 +1127,18 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
         for _ in range(TRAIN_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = session.fused_step(scene)
+            out = step(session, scene)
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
             steps.append([float(v) for v in out])
         peak = torch.cuda.max_memory_allocated(dev)
         delta = {k: fn.launches - before[k] for k, fn in counters.items()}
-        want = {k: (1 + TRAIN_STEPS) * per_step.get(k, 0) + TRAIN_STEPS * REPRO_LAUNCHES.get(k, 0)
+        want = {k: (1 + TRAIN_STEPS) * per_step.get(k, 0) + TRAIN_STEPS * repro.get(k, 0)
                 for k in counters}
         if delta != want:
             raise SmokeFailure(f"{label} {name}: training launches {delta}, expected {want}")
         for _ in range(TRAIN_STEPS):
-            plain_losses.append(float(plain.fused_step(scene, plain=True)[0]))
+            plain_losses.append(float(step(plain, scene, plain_path=True)[0]))
         losses += [st[0] for st in steps]
         for k, (a, b) in enumerate(zip(losses, plain_losses)):
             if not all(map(math.isfinite, steps[-1])) or abs(a - b) > SLICE_RTOL * abs(b):
@@ -949,7 +1146,8 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
         ms = statistics.median(times)
         print(f"{label} {name}: {scene.graph.num_cams} views, {scene.graph.num_pts} points, {E} "
               f"edges; ms/step {[round(t, 3) for t in times]} (median {ms:.3f} ms, "
-              f"{E / ms * 1e3:.4g} edges/s); (loss, our_repro, grad_norm) per step {steps}; "
+              f"{E / ms * 1e3:.4g} edges/s); "
+              f"({'loss, grad_norm' if depth else 'loss, our_repro, grad_norm'}) per step {steps}; "
               f"peak device memory {peak / 2**20:.1f} MiB; launches over {1 + TRAIN_STEPS} "
               f"steps {({k: v for k, v in delta.items() if v})}")
         print(f"{label} {name}: loss per step, kernel path {losses} vs plain path "
@@ -1117,8 +1315,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    from gasfm_tpu_torch.data.scene import SceneData
     from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
-    from gasfm_tpu_torch.losses import DPESFM_LOSS, ESFMLoss, FLAGSHIP_LOSS
+    from gasfm_tpu_torch.losses import (DEPTH_LOSS, DPESFM_LOSS, FLAGSHIP_LOSS, DirectDepthLoss,
+                                        ESFMLoss)
     from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
     from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
     from gasfm_tpu_torch.ops.kernels import build
@@ -1126,9 +1326,11 @@ def main() -> int:
     from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
     from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
     from gasfm_tpu_torch.ops.kernels import fused_loss as flo
+    from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
     from gasfm_tpu_torch.ops.kernels import fused_update as fu
     from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
-    from gasfm_tpu_torch.tools.profile_forward import DPESFM, FLAGSHIP, SCENES
+    from gasfm_tpu_torch.tools.profile_forward import (DPESFM, DPESFM_DEPTH, FLAGSHIP,
+                                                       FLAGSHIP_DEPTH, SCENES)
     from gasfm_tpu_torch.train.loop import TrainingSession
     from gasfm_tpu_torch.train.state import DPESFM_OPTIM, FLAGSHIP_OPTIM
 
@@ -1153,10 +1355,20 @@ def main() -> int:
                     print(f"  ptxas {name}: {line.strip()}")
     record["build_s"] = build_s
 
-    # ---- scenes and model
+    # ---- scenes (with their GT depths for the depth phases; the ESFM loss
+    # ignores them) and model
     t0 = time.perf_counter()
-    scenes = {k: generate_synthetic_scene(**SCENES[k]).to_scene_graph(device=dev)
-              for k in MERGED_SCENES}
+    scenes = {}
+    for k in MERGED_SCENES:
+        data = generate_synthetic_scene(**SCENES[k])
+        t1 = time.perf_counter()
+        data = SceneData(data.M, data.Ns, data.y, data.scene_name, calibrated=True,
+                         store_depth_targets=True)
+        tracks = data.valid_pts.sum(axis=0)
+        print(f"setup: {k} scene's GT depths (host DLT triangulation in float64, tracks of up to "
+              f"{int(tracks.max())} cameras) in {time.perf_counter() - t1:.1f} s")
+        record.setdefault("triangulation_s", {})[k] = time.perf_counter() - t1
+        scenes[k] = data.to_scene_graph(device=dev)
     model = GraphAttnSfMNet(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
     session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
     print(f"setup: scenes and model in {time.perf_counter() - t0:.1f} s; "
@@ -1193,6 +1405,9 @@ def main() -> int:
         per_scene["wide"] = {}
         for k, sc in (("dense", scenes["dense"]), ("wide", wide["wide"])):
             per_scene[k].update(unfused_kernel_phase(dev, k, sc.graph, record))
+    # ---- phase 3d: the projection update and its backward, both scenes
+    for k in scenes:
+        per_scene[k].update(projection_update_phase(dev, k, scenes[k].graph, record))
     bad = [(s, k) for s, r in per_scene.items() for k, v in r.items() if not v["ok"]]
     if bad:
         raise SmokeFailure(f"kernels out of tolerance: {bad}")
@@ -1208,7 +1423,8 @@ def main() -> int:
                 "fused_edge_combine": fu.fused_edge_combine,
                 "fused_edge_combine_bwd": fu.fused_edge_combine_bwd,
                 "fused_attend": fat.fused_attend, "fused_attend_bwd": fat.fused_attend_bwd,
-                "segment_max": sk.segment_max}
+                "segment_max": sk.segment_max, "projection_update": fpu.projection_update,
+                "projection_update_bwd": fpu.projection_update_bwd}
     L = len(model.equivariant_blocks)
     # ---- phase 4: GASFM serving
     record["serving_launches"] = slice_phase(dev, session, scenes, counters, record,
@@ -1251,11 +1467,46 @@ def main() -> int:
     # ---- phase 9: DPESFM small scene, card vs CPU
     small_scene_check(dev, dp_session, record, DPESFM_LOSS, DPESFM_OPTIM, "dpesfm",
                       adam_bound=True)
+
+    # ---- phase 10: the depth flagship (the conf's depth head, DirectDepthLoss
+    # L1) serves both merged scenes
+    def depth_gen(model):
+        return torch.Generator().manual_seed(DEPTH_SEEDS[model])
+
+    depth_model = GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=depth_gen("gasfm"))
+    depth_session = TrainingSession(depth_model, DirectDepthLoss(**DEPTH_LOSS), device=dev)
+    print(f"GASFM with the depth head: {sum(p.numel() for p in depth_model.parameters())} "
+          f"parameters; per-layer plan (merged, defer) on the dense scene "
+          f"{depth_model.layer_plan(scenes['dense'].graph)}")
+    record["depth_serving_launches"] = slice_phase(
+        dev, depth_session, scenes, counters, record, depth_step_launches(L, backward=False),
+        "depth_slice")
+    # ---- phase 11: its training (a main path), loss_and_grads + update
+    paths["gasfm-depth"] = train_phase(
+        dev, scenes, counters, record,
+        GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=depth_gen("gasfm")),
+        DEPTH_LOSS, FLAGSHIP_OPTIM, depth_step_launches(L, backward=True), "depth_train",
+        plain_runs=DEPTH_PLAIN_RUNS)
+    # ---- phase 12: DPESFM with the depth head, dense scene: serving, training
+    dense = {"dense": scenes["dense"]}
+    dpd_model = SetOfSetNet(**DPESFM_DEPTH, generator=depth_gen("dpesfm"))
+    dpd_session = TrainingSession(dpd_model, DirectDepthLoss(**DEPTH_LOSS), device=dev,
+                                  optim=DPESFM_OPTIM)
+    print(f"DPESFM with the depth head: {sum(p.numel() for p in dpd_model.parameters())} "
+          "parameters")
+    record["dpesfm_depth_serving_launches"] = slice_phase(
+        dev, dpd_session, dense, counters, record,
+        dpesfm_step_launches(dpd_model, backward=False), "dpesfm_depth_slice")
+    paths["dpesfm-depth"] = train_phase(
+        dev, dense, counters, record,
+        SetOfSetNet(**DPESFM_DEPTH, generator=depth_gen("dpesfm")), DEPTH_LOSS,
+        DPESFM_OPTIM, dpesfm_step_launches(dpd_model, backward=True), "dpesfm_depth_train",
+        plain_runs=DEPTH_PLAIN_RUNS)
     for name, (_, _, path) in KERNELS.items():
         if paths[path][name] == 0:
             raise SmokeFailure(f"{name} was never launched on the {path} training path")
 
-    # ---- phase 10: the record
+    # ---- phase 13: the record
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():
         r = per_scene["wide" if path == "wide" else "dense"][name]

@@ -36,7 +36,12 @@
 // skip2, d xl_p, d xl_c and the two output cotangents and writes d e_l, d en,
 // d skip2; the outer sums read d xl_p, d xl_c, e_norm, d e_l, en, skip2 once
 // more. No atomics anywhere.
+//
+// The update's per-edge code, forward and backward, and the camera sums of
+// d pv live in proj_update.cuh, shared with the standalone projection-update
+// kernel (fused_proj_update.cu).
 #include "edge_prologue.cuh"
+#include "proj_update.cuh"
 
 namespace gasfm {
 
@@ -55,39 +60,19 @@ __global__ void __launch_bounds__(kStepWarps * 32) layer_step_prologue_kernel(
     float* __restrict__ e_l, float* __restrict__ en_next,
     float* __restrict__ xl_p, float* __restrict__ xl_c) {
   __shared__ FrontParams sp;
-  __shared__ float s_w[64 * 32];  // update weights transposed to (d_in + d2, De)
-  __shared__ float s_c0[32];
-  const int K = d_in + d2;
-  for (int i = threadIdx.x; i < De * K; i += blockDim.x) s_w[(i % K) * De + i / K] = w[i];
-  for (int i = threadIdx.x; i < De; i += blockDim.x) s_c0[i] = b[i] + pg[i];
+  __shared__ UpdateParams su;
+  load_update_params(su, w, b, pg, De, d_in + d2);
   load_front_params(sp, lng, lnb, wlp, blp, wlc, blc, De, Dp, Dc, raw != 0);
   __syncthreads();
 
   const int lane = threadIdx.x & 31;
-  const bool act = lane < De;
   const int stride = gridDim.x * kStepWarps;
   for (int edge = blockIdx.x * kStepWarps + (threadIdx.x >> 5); edge < E; edge += stride) {
-    const float a = lane < d_in ? en[(size_t)edge * d_in + lane] : 0.f;
-    const float s = lane < d2 ? skip2[(size_t)edge * d2 + lane] : 0.f;
-    float acc = 0.f;
-    for (int k = 0; k < d_in; ++k) {
-      const float ak = __shfl_sync(GASFM_FULL_MASK, a, k);
-      if (act) acc = fmaf(ak, s_w[k * De + lane], acc);
-    }
-    for (int k = 0; k < d2; ++k) {
-      const float sk = __shfl_sync(GASFM_FULL_MASK, s, k);
-      if (act) acc = fmaf(sk, s_w[(d_in + k) * De + lane], acc);
-    }
-    float x = 0.f;
-    if (act) {
-      const int p = pt_idx[edge];
-      const int c = cam_idx[edge];
-      x = ((acc + s_c0[lane]) + (ps[(size_t)p * De + lane] + pv[(size_t)c * De + lane])) * 0.25f;
-      if (res != nullptr) x += res[(size_t)edge * De + lane];
-      e_l[(size_t)edge * De + lane] = x;
-    }
+    const float x = update_forward(su, edge, lane, en, d_in, skip2, d2, res, ps, pv, pt_idx,
+                                   cam_idx, De);
+    if (lane < De) e_l[(size_t)edge * De + lane] = x;
     const float v = front_norm(x, De, raw != 0, sp, eps, lane);
-    if (!raw && act) en_next[(size_t)edge * De + lane] = v;
+    if (!raw && lane < De) en_next[(size_t)edge * De + lane] = v;
     float yp, yc;
     front_linears(v, De, Dp, Dc, sp, lane, yp, yc);
     if (lane < Dp) xl_p[(size_t)edge * Dp + lane] = yp;
@@ -109,10 +94,9 @@ __global__ void __launch_bounds__(kStepWarps * 32) layer_step_bwd_kernel(
     float* __restrict__ den_out, float* __restrict__ dskip2, float* __restrict__ dps,
     float* __restrict__ ln_partials) {
   __shared__ FrontBackParams sp;
-  __shared__ float s_w[32 * 64];  // W (De, d_in + d2), torch layout
+  __shared__ float s_w[32 * kUpdateMaxK];  // W (De, d_in + d2), torch layout
   __shared__ float sbuf[2 * 32];
-  const int K = d_in + d2;
-  for (int i = threadIdx.x; i < De * K; i += blockDim.x) s_w[i] = w[i];
+  load_update_weights(s_w, w, De, d_in + d2);
   load_front_back_params(sp, lng, lnb, wlp, wlc, De, Dp, Dc, raw != 0);
   __syncthreads();
 
@@ -134,42 +118,11 @@ __global__ void __launch_bounds__(kStepWarps * 32) layer_step_bwd_kernel(
       if (act) d_el[(size_t)edge * De + lane] = d;
       const float du = d * 0.25f;  // 0 at lanes >= De
       dps_acc += du;
-      float o1 = 0.f, o2 = 0.f;  // d en[k] = sum_j du_j W[j, k]; d skip2 likewise
-      for (int j = 0; j < De; ++j) {
-        const float dj = __shfl_sync(GASFM_FULL_MASK, du, j);
-        if (lane < d_in) o1 = fmaf(dj, s_w[j * K + lane], o1);
-        if (lane < d2) o2 = fmaf(dj, s_w[j * K + d_in + lane], o2);
-      }
-      if (lane < d_in) den_out[(size_t)edge * d_in + lane] = o1;
-      if (dskip2 != nullptr && lane < d2) dskip2[(size_t)edge * d2 + lane] = o2;
+      update_backward(du, edge, lane, s_w, De, d_in, d2, den_out, dskip2);
     }
     if (act) dps[(size_t)pt * De + lane] = dps_acc;
   }
   block_partial(acc, sbuf, ln_partials + (size_t)blockIdx.x * 2 * 32);
-}
-
-// d pv[c] = sum over the camera's edges of d e_l / 4: one block per camera,
-// warps striding over its edge list, merged in a fixed warp order.
-__global__ void __launch_bounds__(kStepWarps * 32) camera_update_sum_kernel(
-    const float* __restrict__ d_el, const int* __restrict__ cam_ptr,
-    const int* __restrict__ cam_perm, int De, float* __restrict__ dpv) {
-  __shared__ float s[kStepWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int cam = blockIdx.x;
-  float acc = 0.f;
-  const int end = cam_ptr[cam + 1];
-  for (int i = cam_ptr[cam] + warp; i < end; i += kStepWarps) {
-    const int e = cam_perm[i];
-    if (lane < De) acc += d_el[(size_t)e * De + lane] * 0.25f;
-  }
-  s[warp][lane] = acc;
-  __syncthreads();
-  if (warp == 0) {
-    float t = 0.f;
-    for (int w2 = 0; w2 < kStepWarps; ++w2) t += s[w2][lane];
-    if (lane < De) dpv[(size_t)cam * De + lane] = t;
-  }
 }
 
 }  // namespace gasfm
@@ -211,10 +164,7 @@ extern "C" int gasfm_layer_step_bwd(
   layer_step_bwd_kernel<<<grid, kStepWarps * 32, 0, s>>>(
       en, d_in, skip2, d2, w, e_l, pt_ptr, n_pts, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc,
       dxl_p, dxl_c, den_next, de_l_ext, d_el, den_out, dskip2, dps, ln_partials);
-  if (n_cams > 0) {
-    camera_update_sum_kernel<<<n_cams, kStepWarps * 32, 0, s>>>(d_el, cam_ptr, cam_perm, De,
-                                                                dpv);
-  }
+  launch_camera_update_sums(d_el, cam_ptr, cam_perm, n_cams, De, dpv, s);
   launch_column_sum(ln_partials, grid, 2 * 32, ln_sums, s);
   OuterJobs jobs{};
   jobs.job[0] = OuterJob{dxl_p, Dp, 1.f, v, De, nullptr, 0};

@@ -1,8 +1,10 @@
 """Host-side scene container (numpy) and its conversion to a device scene.
 
-The subset of the JAX package's data/scene.py that the forward slice needs:
+The subset of the JAX package's data/scene.py that the port's slices need:
 the (2m, n) measurement matrix, per-view normalization matrices Ns
-(= inv(K) when calibrated), GT cameras and the validity mask.
+(= inv(K) when calibrated), GT cameras, the validity mask, and optional GT
+depths from host DLT triangulation in float64 with the JAX package's (and
+the reference's, SceneData.py:57-132) invariant asserts.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from gasfm_tpu_torch.geometry.np_geo import get_M_valid_points, normalize_M
+from gasfm_tpu_torch.geometry.triangulation import n_view_triangulation
 
 
 class SceneData:
@@ -23,17 +26,48 @@ class SceneData:
         Ps_gt: np.ndarray,
         scene_name: str,
         calibrated: bool = False,
+        store_depth_targets: bool = False,
+        depths: Optional[np.ndarray] = None,
     ):
         self.scene_name = scene_name
         self.calibrated = calibrated
+        self.store_depth_targets = store_depth_targets
         self.M = np.asarray(M, dtype=np.float32)
         self.Ns = np.asarray(Ns, dtype=np.float32)
         self.y = np.asarray(Ps_gt, dtype=np.float32)  # GT cameras ("y" as in reference)
-        assert self.M.shape[0] == 2 * self.y.shape[0]
+        n_images = self.y.shape[0]
+        assert self.M.shape[0] == 2 * n_images
         self.valid_pts = get_M_valid_points(self.M)  # (m, n)
         self.norm_M = normalize_M(self.M, self.Ns, self.valid_pts)  # (m, n, 2)
+        self.depths = None  # (m, n) GT depths with store_depth_targets
+        if store_depth_targets:
+            self.depths = (np.asarray(depths, dtype=np.float32) if depths is not None
+                           else self._triangulated_depths())
+            assert self.depths.shape == (n_images, self.M.shape[1])
+
+    def _triangulated_depths(self) -> np.ndarray:
+        """(m, n) depths of the GT points, triangulated from the GT cameras in
+        float64, in each camera's calibrated frame."""
+        if not self.calibrated:
+            raise NotImplementedError("depth targets of an uncalibrated scene (the JAX "
+                                      "package and the reference have none either)")
+        K_inv = self.Ns.astype(np.float64)
+        Ps = self.y.astype(np.float64)
+        X = n_view_triangulation(Ps, self.M.astype(np.float64), Ns=K_inv)  # (4, n)
+        valid_scenepoint = self.valid_pts.any(axis=0)
+        assert np.all(np.isfinite(X[:, valid_scenepoint]))
+        assert np.allclose(X[3, valid_scenepoint], 1.0)
+        assert np.allclose(K_inv[:, 2, :], np.array([0.0, 0.0, 1.0])[None, None, :])
+        R = K_inv @ Ps[:, :, :3]
+        assert np.allclose(np.linalg.norm(R, axis=2), 1.0, atol=1e-4)
+        depths = (K_inv @ Ps @ X)[:, 2, :]
+        vi, vj = np.nonzero(self.valid_pts)
+        assert np.all(np.isfinite(depths[vi, vj]))
+        assert np.all(depths[vi, vj] > 0), "negative GT depths at valid points"
+        return depths.astype(np.float32)
 
     def to_scene_graph(self, device: Optional[Union[str, torch.device]] = None):
         from gasfm_tpu_torch.graph.view_graph import build_scene_graph
 
-        return build_scene_graph(self.M, self.Ns, self.y, device=device)
+        return build_scene_graph(self.M, self.Ns, self.y, device=device,
+                                 gt_depths_dense=self.depths)

@@ -36,6 +36,7 @@ def generate_synthetic_scene(
     seed: int = 0,
     calibrated: bool = True,
     scene_name: Optional[str] = None,
+    store_depth_targets: bool = False,
     focal: float = 1000.0,
     principal: float = 500.0,
     radius: float = 6.0,
@@ -147,4 +148,5 @@ def generate_synthetic_scene(
         Ps,
         scene_name,
         calibrated=calibrated,
+        store_depth_targets=store_depth_targets,
     )

@@ -1,12 +1,13 @@
 """Host-side (NumPy) measurement-matrix helpers.
 
 A copy of the parts of the JAX package's geometry/np_geo.py that the graph
-construction and the synthetic scene generator need.
+construction, the synthetic scene generator and the GT-depth triangulation
+need.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -31,6 +32,20 @@ def get_M_valid_points(M: np.ndarray) -> np.ndarray:
     valid = np.abs(M).sum(axis=2) != 0
     valid[:, valid.sum(axis=0) < MIN_N_VIEWS_PER_POINT] = False
     return valid
+
+
+def normalize_points_cams(Ps: np.ndarray, xs: np.ndarray,
+                          Ns: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Normalize cameras and 2D points with per-view matrices N (zero
+    homogeneous coordinates taken as 1 before the division)."""
+    m, n, d = xs.shape
+    xs3 = np.concatenate([xs, np.ones((m, n, 1))], axis=2) if d == 2 else xs
+    norm_P = Ns @ Ps
+    pts = (Ns @ xs3.transpose(0, 2, 1)).transpose(0, 2, 1)  # (m, n, 3)
+    w = pts[:, :, -1]
+    w = np.where(w == 0, 1.0, w)
+    pts = pts / w[:, :, None]
+    return norm_P, pts[:, :, :2]
 
 
 def normalize_M(M: np.ndarray, Ns: np.ndarray, valid_points: Optional[np.ndarray] = None) -> np.ndarray:

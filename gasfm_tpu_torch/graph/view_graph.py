@@ -83,6 +83,7 @@ class SceneGraph:
     Ns: torch.Tensor  # (m, 3, 3) normalization matrices (inv(K) if calibrated)
     Ns_inv: torch.Tensor  # (m, 3, 3) their inverses (K if calibrated)
     Ps_gt: torch.Tensor  # (m, 3, 4) GT cameras
+    gt_depths: Optional[torch.Tensor] = None  # (E,) float32 GT depth per edge, or None
 
 
 def build_view_graph(
@@ -131,13 +132,24 @@ def build_scene_graph(
     Ns: np.ndarray,
     Ps_gt: np.ndarray,
     device: Optional[Union[str, torch.device]] = None,
+    gt_depths_dense: Optional[np.ndarray] = None,
 ) -> SceneGraph:
+    """The graph and the camera-side arrays; with ``gt_depths_dense`` (m, n)
+    also each edge's GT depth ``depths[cam, pt]``, in the graph's edge order
+    (as the JAX package's build_scene_graph picks them, view_graph.py:379-395;
+    the port's graph holds valid edges only)."""
     device = resolve_device(device)
     graph = build_view_graph(M, Ns, device=device)
+    gt_depths = None
+    if gt_depths_dense is not None:
+        picked = np.asarray(gt_depths_dense, dtype=np.float32)[
+            graph.cam_idx.cpu().numpy(), graph.pt_idx.cpu().numpy()]
+        gt_depths = torch.as_tensor(picked, device=device)
     return SceneGraph(
         graph=graph,
         Ns=torch.as_tensor(np.asarray(Ns, dtype=np.float32), device=device),
         Ns_inv=torch.as_tensor(
             np.linalg.inv(np.asarray(Ns, dtype=np.float64)).astype(np.float32), device=device),
         Ps_gt=torch.as_tensor(np.asarray(Ps_gt, dtype=np.float32), device=device),
+        gt_depths=gt_depths,
     )

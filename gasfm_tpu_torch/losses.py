@@ -10,6 +10,12 @@ loss_functions.py:100-110) acts on the backward only: with
 ``pts_grad_equalization`` each edge's projection cotangent is normalized and
 divided by the number of edges, or, with ``normalize_grad_valid_only``,
 only the positive-depth edges' are, divided by their number.
+
+``DirectDepthLoss`` is the depth head's supervised loss (reference
+loss_functions.py:24-66, the JAX package's losses.py:303-333): L1 or L2
+between the predicted and the GT per-edge depths, each divided by its mean
+over the edges. The JAX package computes it in XLA with no Pallas kernel;
+here it is plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -27,6 +33,10 @@ FLAGSHIP_LOSS = dict(infinity_pts_margin=1e-4, hinge_loss=True, hinge_loss_weigh
 # over all edges.
 DPESFM_LOSS = dict(infinity_pts_margin=1e-4, hinge_loss=True, hinge_loss_weight=1.0,
                    pts_grad_equalization=True, normalize_grad_valid_only=False)
+
+
+# The depth loss of confs/synth/optim_synth_depth_gasfm.conf (:64-67).
+DEPTH_LOSS = dict(cost_fcn="L1")
 
 
 class ESFMLoss:
@@ -52,3 +62,32 @@ class ESFMLoss:
                    graph, self.infinity_pts_margin, self.hinge_loss, self.hinge_loss_weight,
                    self.eq_mode)
         return terms[0] / terms[1].clamp_min(1.0)
+
+
+class DirectDepthLoss:
+    """Mean over the edges of ``|d / s_pred - d_gt / s_gt|`` (L1) or its
+    square (L2), with ``s_pred`` the mean predicted depth and ``s_gt`` the
+    mean GT depth (1 where that is 0). Needs ``scene.gt_depths`` (a scene
+    built with depth targets). Calibrated scenes only, as in the JAX
+    package. ``plain`` is accepted for the session's interface; the loss has
+    no kernel."""
+
+    def __init__(self, cost_fcn: str = "L1", calibrated: bool = True):
+        if cost_fcn not in ("L1", "L2"):
+            raise ValueError(f"DirectDepthLoss: cost_fcn {cost_fcn!r}, expected 'L1' or 'L2'")
+        if not calibrated:
+            raise NotImplementedError("DirectDepthLoss of an uncalibrated scene (the JAX "
+                                      "package and the reference have none either)")
+        self.cost_fcn = cost_fcn
+
+    def __call__(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:
+        if scene.gt_depths is None:
+            raise ValueError("DirectDepthLoss needs a scene built with depth targets "
+                             "(SceneData(store_depth_targets=True))")
+        d_pred, d_gt = pred["depths"], scene.gt_depths.to(pred["depths"].dtype)
+        n = max(d_pred.shape[0], 1)
+        s_pred = d_pred.sum() / n
+        s_gt = d_gt.sum() / n
+        diff = d_pred / s_pred - d_gt / torch.where(s_gt == 0, torch.ones_like(s_gt), s_gt)
+        per_edge = diff.abs() if self.cost_fcn == "L1" else diff * diff
+        return per_edge.sum() / n

@@ -4,18 +4,28 @@ Counterpart of the JAX package's models/gasfm.py (reference
 ``GraphAttnSfMNet``, code/models/graph_attn_sfm.py:8-185). Four feature
 streams (per-edge projection, per-point, per-view, global), ``num_layers``
 attention rounds with stateful global features and the init-embedding skip,
-a final global update without the global stream, then the view and
-scenepoint heads.
+then either a final global update without the global stream and the view
+and scenepoint heads, or (``depth_head_enabled``) a per-edge depth MLP on the
+last layer's stream, which that layer widens to ``depth_head_n_feat``.
 
 The edge stream takes the path the JAX package's model code takes for the
-scene (``gasfm_tpu/models/gasfm.py:93-100``), decided per graph at forward
+scene (``gasfm_tpu/models/gasfm.py:93-160``), decided per graph at forward
 time, so one model serves small and large scenes:
 
-- merged — with ``use_norm_proj_update``, no projection-update MLP and at
-  most ``DENSE_MAX_SEGMENTS`` (1024) cameras — the path of its packed
-  layout (``GASFM_PACKED=1``, ``GASFM_MERGED=1``, final aggregation on the
-  raw stream): per forward one frontend call (layer 0) and ``num_layers``
-  layer-step calls;
+- merged — with ``use_norm_proj_update``, no projection-update MLP, an edge
+  stream of at most 32 features and at most ``DENSE_MAX_SEGMENTS`` (1024)
+  cameras — the path of its packed layout (``GASFM_PACKED=1``,
+  ``GASFM_MERGED=1``), layer by layer as its plan has it: a layer is merged
+  unless it is the first or changes the stream's width; a merged layer (and
+  the first, when its successor is merged) defers its update into the next
+  layer-step kernel when its successor is merged too, or when it is the last
+  and the final aggregation runs on the raw stream (no depth head); another
+  merged layer materializes its update through the projection-update
+  kernel; every other layer runs unfused. The flagship without the depth
+  head: one frontend call (layer 0) and ``num_layers`` layer-step calls per
+  forward. With it: the frontend at layers 0 and L-1, the layer step at
+  layers 1 to L-2, the projection update at L-2, the unfused, widening
+  update (edge combine) at L-1;
 - unfused otherwise: every layer and the final aggregation run the
   composite layer (``models/layers.py``), whose aggregations take the dual
   kernel up to 1024 cameras, and above it the single-direction kernel for
@@ -23,18 +33,21 @@ time, so one model serves small and large scenes:
   the cameras.
 
 The packed layout's other gates (its chunk and window shapes) are TPU
-layout devices and do not apply. The depth head and a disabled head raise
-``NotImplementedError``; they come with later slices.
+layout devices and do not apply. Head combinations that no loss of the JAX
+package accepts (``gasfm_tpu/losses.py:344-359``) raise
+``NotImplementedError``: the depth head beside another head, or exactly one
+of the view and scenepoint heads.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from gasfm_tpu_torch.models.heads import (
+    check_heads,
     decode_scenepoint_outputs,
     decode_view_outputs,
     view_head_out_channels,
@@ -76,6 +89,8 @@ class GraphAttnSfMNet(nn.Module):
         stateful_global_features: bool = True,
         global2view_and_global2scenepoint_enabled: bool = False,
         depth_head_enabled: bool = False,
+        depth_head_n_feat: int = 128,
+        depth_head_n_hidden_layers: int = 2,
         view_head_enabled: bool = True,
         view_head_n_hidden_layers: int = 2,
         scenepoint_head_enabled: bool = True,
@@ -83,9 +98,11 @@ class GraphAttnSfMNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if depth_head_enabled or not (view_head_enabled and scenepoint_head_enabled):
-            raise NotImplementedError(
-                "the port's GASFM forward covers no depth head and both view and scenepoint heads")
+        check_heads(depth_head_enabled, view_head_enabled, scenepoint_head_enabled)
+        self.num_layers = num_layers
+        self.n_feat_proj = n_feat_proj
+        self.depth_head_enabled = depth_head_enabled
+        self.depth_head_n_feat = depth_head_n_feat
         self.use_norm_proj_update = use_norm_proj_update
         self.n_hidden_layers_proj_update = n_hidden_layers_proj_update
         self.calibrated = calibrated
@@ -109,7 +126,7 @@ class GraphAttnSfMNet(nn.Module):
         )
         self.equivariant_blocks = nn.ModuleList([
             GraphAttnLayer(
-                d_emb if i == 0 else n_feat_proj, n_feat_proj,
+                d_emb if i == 0 else n_feat_proj, self.proj_out(i),
                 n_feat_scenepoint, n_feat_view, n_feat_global,
                 use_norm_proj_update=use_norm_proj_update,
                 add_residual_skipconn_proj_update=add_residual_skipconn_proj_update,
@@ -121,41 +138,76 @@ class GraphAttnSfMNet(nn.Module):
             )
             for i in range(num_layers)
         ])
-        self.final_global_update = GraphAttnGlobalFeatureUpdate(
-            n_feat_proj, n_feat_scenepoint, n_feat_view, n_feat_global_out=n_feat_global,
-            output_global=False, stateful=stateful_global_features, **common)
-        out_ch = view_head_out_channels(calibrated, rot_representation)
-        self.view_head = MLPStack([n_feat_view] * (1 + view_head_n_hidden_layers) + [out_ch])
-        self.scenepoint_head = MLPStack(
-            [n_feat_scenepoint] * (1 + scenepoint_head_n_hidden_layers) + [3])
+        if depth_head_enabled:
+            self.depth_head = MLPStack(
+                [depth_head_n_feat] * (1 + depth_head_n_hidden_layers) + [1])
+        else:
+            self.final_global_update = GraphAttnGlobalFeatureUpdate(
+                n_feat_proj, n_feat_scenepoint, n_feat_view, n_feat_global_out=n_feat_global,
+                output_global=False, stateful=stateful_global_features, **common)
+            out_ch = view_head_out_channels(calibrated, rot_representation)
+            self.view_head = MLPStack([n_feat_view] * (1 + view_head_n_hidden_layers) + [out_ch])
+            self.scenepoint_head = MLPStack(
+                [n_feat_scenepoint] * (1 + scenepoint_head_n_hidden_layers) + [3])
         # float32 whatever torch's default dtype is: the slice runs in f32
         # end to end, and the kernels take float32 only.
         self.to(torch.float32)
         if generator is not None:
             init_parameters(self, generator)
 
+    def proj_out(self, i: int) -> int:
+        """Layer i's output width: the depth head's for the last layer."""
+        last = i == self.num_layers - 1
+        return self.depth_head_n_feat if self.depth_head_enabled and last else self.n_feat_proj
+
     def merged_path(self, graph) -> bool:
         """Whether ``graph`` runs the merged path (the JAX package's packed
-        layout gates, models/gasfm.py:93-100), else the unfused one."""
+        layout gates, models/gasfm.py:93-100, with the kernels' stream width
+        of at most 32 for its D = 32), else the unfused one."""
         return (self.use_norm_proj_update and self.n_hidden_layers_proj_update == 0
-                and graph.num_cams <= DENSE_MAX_SEGMENTS)
+                and self.n_feat_proj <= 32 and graph.num_cams <= DENSE_MAX_SEGMENTS)
+
+    def layer_plan(self, graph) -> List[Tuple[bool, bool]]:
+        """(merged, defer) per layer: the JAX package's per-layer plan
+        (models/gasfm.py:110-160) with :meth:`merged_path` for its
+        ``use_packed``. A merged layer runs the frontend or layer-step
+        kernel; it defers its update into the next layer step, or
+        materializes it through the projection-update kernel."""
+        L, D = self.num_layers, self.n_feat_proj
+        use_packed = self.merged_path(graph)
+        final_raw = use_packed and L > 1 and not self.depth_head_enabled
+        plan = []
+        for i in range(L):
+            first, last = i == 0, i == L - 1
+            layer_packed = use_packed and not first and self.proj_out(i) == D
+            next_packed = use_packed and not last and self.proj_out(i + 1) == D
+            # the first layer defers its update (and its width adapter, in the
+            # skip2 slot) when the update kernel takes its widths
+            defer_first = (first and next_packed and self.proj_out(i) == D
+                           and self.embed.d_out <= 32)
+            defer = (layer_packed and (next_packed or (last and final_raw))) or defer_first
+            plan.append((layer_packed or defer_first, defer))
+        return plan
 
     def forward(self, graph, plain: bool = False) -> Dict[str, torch.Tensor]:
         """Predicted normalized cameras ``Ps_norm`` (m, 3, 4) and homogeneous
-        points ``pts3D`` (4, n) for one scene graph. ``plain=True`` runs the
-        kernels' plain PyTorch versions whatever the device."""
-        merged = self.merged_path(graph)
+        points ``pts3D`` (4, n) for one scene graph, or with the depth head
+        the per-edge ``depths`` (E,) in the graph's (point-major) edge order.
+        ``plain=True`` runs the kernels' plain PyTorch versions whatever the
+        device."""
         e = self.embed(graph.uv)
         skip_init = e if self.add_skipconn_from_init_projfeat else None
         s = v = g = None
-        for blk in self.equivariant_blocks:
+        for blk, (merged, defer) in zip(self.equivariant_blocks, self.layer_plan(graph)):
             e, s, v, g = blk(
                 e, graph,
                 prev_scenepoint_features=s if self.stateful else None,
                 prev_view_features=v if self.stateful else None,
                 prev_global_features=g if self.stateful else None,
-                skipconn_init_projfeat=skip_init, merged=merged, plain=plain,
+                skipconn_init_projfeat=skip_init, merged=merged, defer=defer, plain=plain,
             )
+        if self.depth_head_enabled:
+            return {"depths": self.depth_head(e)[:, 0]}
         n_input, m_input, _, _, _ = self.final_global_update(
             e, graph,
             prev_scenepoint_features=s if self.stateful else None,

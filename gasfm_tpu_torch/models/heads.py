@@ -1,4 +1,5 @@
-"""Output heads decode: camera matrices and homogeneous 3D points.
+"""Output heads decode: camera matrices and homogeneous 3D points; which
+heads a model may have.
 
 Counterpart of the JAX package's models/heads.py (reference ``BaseNet``,
 code/models/baseNet.py:8-92). The port's graphs hold real cameras only, so
@@ -16,6 +17,19 @@ from gasfm_tpu_torch.geometry.rotations import (
     quaternion_to_matrix,
     rotation_6d_to_matrix,
 )
+
+
+def check_heads(depth_head_enabled: bool, view_head_enabled: bool,
+                scenepoint_head_enabled: bool) -> None:
+    """Raise ``NotImplementedError`` for a head combination that no loss of
+    the JAX package accepts (``gasfm_tpu/losses.py:344-359``:
+    ``DirectDepthLoss`` takes the depth head alone, the other losses both
+    explicit heads and no depth head)."""
+    explicit = (view_head_enabled, scenepoint_head_enabled)
+    if explicit not in ((False, False), (True, True)) or depth_head_enabled == all(explicit):
+        raise NotImplementedError(
+            "heads: the depth head alone, or the view and scenepoint heads together; no loss "
+            "accepts another combination (gasfm_tpu/losses.py:344-359)")
 
 
 def view_head_out_channels(calibrated: bool, rot_representation: str) -> int:

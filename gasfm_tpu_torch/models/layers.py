@@ -12,7 +12,9 @@ model chooses per scene (``models/gasfm.py``):
 - merged (its packed layout): layer 0 runs the frontend kernel and defers
   its projection update; every later layer materializes the previous update
   inside its layer-step kernel (``PendingUpdate``), and the final
-  aggregation does so on the raw stream;
+  aggregation does so on the raw stream; a merged layer whose successor is
+  not merged (with the depth head, layer L-2) materializes its own update
+  through the projection-update kernel;
 - unfused (its composite layer, ``gasfm_tpu/models/layers.py:919-929,
   996-1017``): the edge prologue (flax-form LayerNorm + ReLU, or ReLU alone
   without ``use_norm_proj_update``), the source linears and both
@@ -48,7 +50,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
-from gasfm_tpu_torch.ops.edge_update import edge_combine
+from gasfm_tpu_torch.ops.edge_update import edge_combine, projection_update
 from gasfm_tpu_torch.ops.gatv2 import (
     gatv2_attend_dual,
     gatv2_attend_pool,
@@ -405,16 +407,22 @@ class GraphAttnLayer(nn.Module):
     init-embedding concat -> edge update -> residual (through a projected
     skip when the widths differ).
 
-    ``forward(merged=True)`` returns this layer's update deferred
+    ``forward(merged=True)`` runs the frontend through the frontend or
+    layer-step kernel and returns this layer's update deferred
     (:class:`PendingUpdate`) with the new node features; the next layer step
     materializes it. When the widths differ (the first layer), the
     width-adapting residual rides the update's skip2 slot: skip2 =
     relu(LN_res(raw)) with weight columns 4 * W_skip and bias + 4 * b_skip,
     which the update's /4 cancels — the JAX package's first-layer deferral
-    (models/layers.py:954-994). ``forward(merged=False)`` is the JAX
-    package's unfused layer (models/layers.py:919-929, 996-1017): it returns
-    the materialized (E, De) stream, with the projected skip applied after
-    the update. Both take the same parameters."""
+    (models/layers.py:954-994). With ``defer=False`` it materializes the
+    update itself through the projection-update kernel, skip2 the init skip
+    and the layer's input stream the residual — the JAX package's packed
+    layer whose successor is not packed (models/layers.py:932-952).
+    ``forward(merged=False)`` is the JAX package's unfused layer
+    (models/layers.py:919-929, 996-1017): it returns the materialized (E, De)
+    stream, with the projected skip applied after the update (also when the
+    layer widens the stream and concatenates the init skip, as the depth
+    head's last layer does). All take the same parameters."""
 
     def __init__(self, n_feat_proj_in: int, n_feat_proj_out: int, n_feat_scenepoint_hidden: int,
                  n_feat_view_hidden: int, n_feat_global_hidden: int,
@@ -454,18 +462,18 @@ class GraphAttnLayer(nn.Module):
             n_feat_global_hidden, n_feat_proj_out, n_hidden_layers_proj_update)
         self.skip_projection = None
         if add_residual_skipconn_proj_update and n_feat_proj_in != n_feat_proj_out:
-            if self.n_skip_in:
-                raise NotImplementedError("a width-changing layer with an init skip")
             if use_norm_proj_update:
                 self.residual_skipconn_proj_norm_layer = nn.LayerNorm(n_feat_proj_in)
             self.skip_projection = ProjLayer(n_feat_proj_in, n_feat_proj_out)
 
     def forward(self, x_edges, graph, prev_scenepoint_features=None, prev_view_features=None,
                 prev_global_features=None, skipconn_init_projfeat=None, merged=True,
-                plain=False):
+                defer=True, plain=False):
         nodes = (prev_scenepoint_features, prev_view_features, prev_global_features)
         if not merged:
             return self._unfused(x_edges, graph, nodes, skipconn_init_projfeat, plain)
+        # the update's one skip2 slot holds the init skip or the width adapter
+        assert not (self.n_skip_in and self.skip_projection is not None)
         norm = self.prev_projfeat_norm_layer
         s, v, g, en, e_prev = self.global_feature_update(
             x_edges, graph, *nodes, ln=(norm.weight, norm.bias), plain=plain)
@@ -482,7 +490,10 @@ class GraphAttnLayer(nn.Module):
             b = b + 4.0 * lin.bias
         elif self.add_residual:
             res = raw
-        return PendingUpdate(en, skip2, res, w, b, ps, pv, pg), s, v, g
+        pending = PendingUpdate(en, skip2, res, w, b, ps, pv, pg)
+        if defer:
+            return pending, s, v, g
+        return projection_update(pending, graph, plain), s, v, g
 
     def _unfused(self, raw, graph, nodes, skip_init, plain):
         gfu = self.global_feature_update

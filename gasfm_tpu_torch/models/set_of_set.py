@@ -3,13 +3,15 @@
 Counterpart of the JAX package's models/set_of_set.py (reference
 ``SetOfSetNet``, code/models/SetOfSet.py:49-142): the embedding (the raw
 uv, or its positional embedding), ``num_blocks`` residual blocks of
-segment-mean layers, a final global update without the global stream, ReLU,
-then the view and scenepoint heads. Per forward, each layer launches two
-segment sums (its point and camera means) and one edge combine, and the
-final update two more segment sums.
+segment-mean layers, then a final global update without the global stream,
+ReLU, and the view and scenepoint heads, or (``depth_head_enabled``) a
+per-edge depth MLP on the last block's stream, which that block narrows to
+``depth_head_n_feat`` (reference SetOfSet.py:53-84). Per forward, each layer
+launches two segment sums (its point and camera means) and one edge
+combine, and the final update two more segment sums.
 
-Configurations this port does not cover yet raise ``NotImplementedError``:
-the depth head, and a disabled view or scenepoint head.
+Head combinations that no loss of the JAX package accepts raise
+``NotImplementedError`` (``models/heads.py`` ``check_heads``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from torch import nn
 
 from gasfm_tpu_torch.models.heads import (
+    check_heads,
     decode_scenepoint_outputs,
     decode_view_outputs,
     view_head_out_channels,
@@ -46,6 +49,8 @@ class SetOfSetNet(nn.Module):
         add_skipconn_for_residual_blocks: bool = True,
         pos_emb_n_freq: int = 0,
         depth_head_enabled: bool = False,
+        depth_head_n_feat: int = 128,
+        depth_head_n_hidden_layers: int = 2,
         view_head_enabled: bool = True,
         view_head_n_hidden_layers: int = 2,
         scenepoint_head_enabled: bool = True,
@@ -53,37 +58,45 @@ class SetOfSetNet(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if depth_head_enabled or not (view_head_enabled and scenepoint_head_enabled):
-            raise NotImplementedError(
-                "the port's DPESFM forward covers no depth head and both view and "
-                "scenepoint heads")
+        check_heads(depth_head_enabled, view_head_enabled, scenepoint_head_enabled)
+        self.depth_head_enabled = depth_head_enabled
         self.calibrated = calibrated
         self.rot_representation = rot_representation
         self.normalize_output = normalize_output
 
         self.embed = EmbeddingLayer(pos_emb_n_freq, 2, post_embed_proj_dim=None)
         self.equivariant_blocks = nn.ModuleList([
-            SetOfSetBlock(self.embed.d_out if i == 0 else num_features, num_features,
+            SetOfSetBlock(self.embed.d_out if i == 0 else num_features,
+                          (depth_head_n_feat if depth_head_enabled and i == num_blocks - 1
+                           else num_features),
                           block_size, proj_feat_normalization, add_skipconn_for_residual_blocks)
             for i in range(num_blocks)
         ])
-        self.final_global_update = SetOfSetGlobalFeatureUpdate(
-            num_features, num_features, output_global=False)
-        out_ch = view_head_out_channels(calibrated, rot_representation)
-        self.view_head = MLPStack([num_features] * (1 + view_head_n_hidden_layers) + [out_ch])
-        self.scenepoint_head = MLPStack(
-            [num_features] * (1 + scenepoint_head_n_hidden_layers) + [3])
+        if depth_head_enabled:
+            self.depth_head = MLPStack(
+                [depth_head_n_feat] * (1 + depth_head_n_hidden_layers) + [1])
+        else:
+            self.final_global_update = SetOfSetGlobalFeatureUpdate(
+                num_features, num_features, output_global=False)
+            out_ch = view_head_out_channels(calibrated, rot_representation)
+            self.view_head = MLPStack([num_features] * (1 + view_head_n_hidden_layers) + [out_ch])
+            self.scenepoint_head = MLPStack(
+                [num_features] * (1 + scenepoint_head_n_hidden_layers) + [3])
         self.to(torch.float32)  # the kernels take float32 only
         if generator is not None:
             init_parameters(self, generator)
 
     def forward(self, graph, plain: bool = False) -> Dict[str, torch.Tensor]:
         """Predicted normalized cameras ``Ps_norm`` (m, 3, 4) and homogeneous
-        points ``pts3D`` (4, n) for one scene graph. ``plain=True`` runs the
-        kernels' plain PyTorch versions whatever the device."""
+        points ``pts3D`` (4, n) for one scene graph, or with the depth head
+        the per-edge ``depths`` (E,) in the graph's edge order.
+        ``plain=True`` runs the kernels' plain PyTorch versions whatever the
+        device."""
         e = self.embed(graph.uv)
         for blk in self.equivariant_blocks:
             e = blk(e, graph, plain)
+        if self.depth_head_enabled:
+            return {"depths": self.depth_head(e)[:, 0]}
         n_input, m_input = self.final_global_update(e, graph, plain)
         m_out = self.view_head(torch.relu(m_input))
         n_out = self.scenepoint_head(torch.relu(n_input)).T  # (3, n)

@@ -32,7 +32,6 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE
 from gasfm_tpu_torch.ops.kernels import build as kb
@@ -44,6 +43,7 @@ from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (
     outer_grid,
     split_outer_sums,
 )
+from gasfm_tpu_torch.ops.kernels.fused_proj_update import projection_update_plain
 
 STEP_WARPS = 8  # kStepWarps of csrc/fused_layer_step.cu
 
@@ -68,14 +68,6 @@ _BWD_ARGS = (
 def _entry(symbol="gasfm_layer_step_prologue"):
     args = {"gasfm_layer_step_prologue": _ARGS, "gasfm_layer_step_bwd": _BWD_ARGS}[symbol]
     return kb.bind(kb.load("fused_layer_step"), symbol, args)
-
-
-def projection_update_plain(en, skip2, res, w, b, ps, pv, pg, graph):
-    """e_l of the deferred projection update, in plain PyTorch."""
-    x = en if skip2 is None else torch.cat([en, skip2], dim=1)
-    gathered = ps[graph.pt_idx.long()] + pv[graph.cam_idx.long()]
-    e_l = (F.linear(x, w) + (b + pg.reshape(-1)) + gathered) * 0.25
-    return e_l if res is None else e_l + res
 
 
 def fused_layer_step_plain(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,

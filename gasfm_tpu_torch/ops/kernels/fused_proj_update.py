@@ -1,0 +1,163 @@
+"""The standalone projection update: CUDA kernels for Hopper
+(``csrc/fused_proj_update.cu``), forward and backward, their plain PyTorch
+version, and their launch counters.
+
+Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_proj_update.py``
+(``packed_edge_update`` / ``_fwd_raw``; backward ``_bwd_raw``): a GASFM
+layer's projection update, materialized,
+
+    e = ([en | skip2] W^T + b + pg + ps[pt] + pv[cam]) / 4  (+ res)
+
+with en (E, d_in), skip2 (E, d2) or None, res (E, De) or None, W (De, d_in +
+d2) in torch's layout (columns for en, then skip2), b (De,), ps (n, De), pv
+(m, De), pg (1, De); d_in, d2, De <= 32 and d_in + d2 <= 64. The model runs
+it on a merged-path layer whose successor is not merged (the depth head's
+layer L-2), where the update cannot defer into the next layer-step kernel.
+The layer-step kernel runs the same device code as its first half
+(``csrc/proj_update.cuh``).
+
+The backward gives d en = (g / 4) W[:, :d_in], d skip2 = (g / 4) W[:, d_in:],
+d W the outer sums of g / 4 with [en | skip2], d b = d pg the column sum of
+g / 4, d ps and d pv the point and camera sums of g / 4 (0 for a point or
+camera without edges), and d res = g (no kernel work). Four launches inside
+one call, counted once by ``projection_update_bwd``.
+
+What bounds both on the H100 is bytes over its 3.35 TB/s (see the source).
+No float atomics; results are bitwise reproducible on a given card.
+
+A CPU tensor runs the plain version (autograd through it is the backward's
+plain version); a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from gasfm_tpu_torch.ops.kernels import build as kb
+from gasfm_tpu_torch.ops.kernels.fused_dual_attn import OUTER_ROW, outer_grid, split_outer_sums
+
+UPDATE_WARPS = 8  # kUpdateWarps of csrc/fused_proj_update.cu
+
+_ARGS = {
+    # en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, out, grid, stream
+    "gasfm_proj_update": (kb.P, kb.I, kb.P, kb.I) + (kb.P,) * 8 + (kb.I, kb.I, kb.P, kb.I, kb.P),
+    # g, en, d_in, skip2, d2, w, pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, E, De,
+    # den, dskip2, dps, dpv, outer partials and sums, grid, ogrid, stream
+    "gasfm_proj_update_bwd": (kb.P, kb.P, kb.I, kb.P, kb.I, kb.P, kb.P, kb.I, kb.P, kb.P)
+    + (kb.I,) * 3 + (kb.P,) * 6 + (kb.I, kb.I, kb.P),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(symbol):
+    return kb.bind(kb.load("fused_proj_update"), symbol, _ARGS[symbol])
+
+
+def projection_update_plain(en, skip2, res, w, b, ps, pv, pg, graph):
+    """e of the projection update, in plain PyTorch."""
+    x = en if skip2 is None else torch.cat([en, skip2], dim=1)
+    gathered = ps[graph.pt_idx.long()] + pv[graph.cam_idx.long()]
+    e = (F.linear(x, w) + (b + pg.reshape(-1)) + gathered) * 0.25
+    return e if res is None else e + res
+
+
+def _widths(en, skip2, w):
+    d_in = en.shape[1]
+    d2 = 0 if skip2 is None else skip2.shape[1]
+    De = w.shape[0]
+    if max(d_in, d2, De) > 32 or d_in + d2 > 64:
+        raise ValueError(f"projection_update: widths d_in {d_in}, d2 {d2}, De {De}; the "
+                         "kernel takes d_in, d2, De <= 32 and d_in + d2 <= 64")
+    return d_in, d2, De
+
+
+def projection_update_forward(en, skip2, res, w, b, ps, pv, pg, graph):
+    """Launch the forward kernel (CUDA tensors): e (E, De)."""
+    d_in, d2, De = _widths(en, skip2, w)
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    en = kb.cuda_f32("en", en, (E, d_in))
+    if skip2 is not None:
+        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
+    if res is not None:
+        res = kb.cuda_f32("res", res, (E, De))
+    w = kb.cuda_f32("w", w, (De, d_in + d2))
+    b = kb.cuda_f32("b", b, (De,))
+    pg = kb.cuda_f32("pg", pg.reshape(-1), (De,))
+    ps = kb.cuda_f32("ps", ps, (n, De))
+    pv = kb.cuda_f32("pv", pv, (m, De))
+    dev = en.device
+    out = kb.f32_empty((E, De), dev)
+    p = kb.ptr
+    code = _entry("gasfm_proj_update")(
+        p(en), d_in, p(skip2), d2, p(res), p(w), p(b), p(pg), p(ps), p(pv),
+        p(kb.cuda_i32("pt_idx", graph.pt_idx)), p(kb.cuda_i32("cam_idx", graph.cam_idx)),
+        E, De, p(out), kb.grid_for(dev, E, UPDATE_WARPS), kb.stream(dev))
+    kb.check(code, "projection_update")
+    projection_update.launches += 1
+    return out
+
+
+class _ProjectionUpdate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, en, skip2, res, w, b, ps, pv, pg, graph):
+        ctx.save_for_backward(en, skip2, w)
+        ctx.graph, ctx.has_res, ctx.pg_shape = graph, res is not None, pg.shape
+        return projection_update_forward(en, skip2, res, w, b, ps, pv, pg, graph)
+
+    @staticmethod
+    def backward(ctx, g):
+        en, skip2, w = ctx.saved_tensors
+        den, dskip2, dw, db, dps, dpv = projection_update_bwd(g, en, skip2, w, ctx.graph)
+        return (den, dskip2, g if ctx.has_res else None, dw, db, dps, dpv,
+                db.reshape(ctx.pg_shape), None)
+
+
+def projection_update(en, skip2, res, w, b, ps, pv, pg, graph):
+    """The projection update e (E, De) over the graph's edges (module
+    docstring)."""
+    if en.device.type == "cpu":
+        return projection_update_plain(en, skip2, res, w, b, ps, pv, pg, graph)
+    if kb.needs_grad(en, skip2, res, w, b, ps, pv, pg):
+        return _ProjectionUpdate.apply(en, skip2, res, w, b, ps, pv, pg, graph)
+    return projection_update_forward(en, skip2, res, w, b, ps, pv, pg, graph)
+
+
+projection_update.launches = 0
+
+
+def projection_update_bwd(g, en, skip2, w, graph):
+    """The backward kernel (CUDA tensors): from the cotangent g (E, De) of e
+    and the forward's en, skip2 (or None) and w, (d en, d skip2 (or None),
+    d w (De, d_in + d2), d b (De,), d ps (n, De), d pv (m, De)); d pg is d b,
+    and d res is g. Its plain version is autograd through
+    :func:`projection_update_plain`."""
+    d_in, d2, De = _widths(en, skip2, w)
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    g = kb.cuda_f32("g", g, (E, De))
+    en = kb.cuda_f32("en", en, (E, d_in))
+    if skip2 is not None:
+        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
+    w = kb.cuda_f32("w", w, (De, d_in + d2))
+    dev = g.device
+    grid, ogrid = kb.grid_for(dev, n, UPDATE_WARPS, per_sm=4), outer_grid(dev, E)
+    den = kb.f32_empty((E, d_in), dev)
+    dskip2 = None if skip2 is None else kb.f32_empty((E, d2), dev)
+    dps, dpv = kb.f32_empty((n, De), dev), kb.f32_empty((m, De), dev)
+    outer_partials, outer_sums = kb.f32_empty((ogrid, OUTER_ROW), dev), kb.f32_empty(
+        (OUTER_ROW,), dev)
+    p = kb.ptr
+    code = _entry("gasfm_proj_update_bwd")(
+        p(g), p(en), d_in, p(skip2), d2, p(w), p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n,
+        p(kb.cuda_i32("cam_ptr", graph.cam_ptr)), p(kb.cuda_i32("cam_perm", graph.cam_perm)), m,
+        E, De, p(den), p(dskip2), p(dps), p(dpv), p(outer_partials), p(outer_sums), grid, ogrid,
+        kb.stream(dev))
+    kb.check(code, "projection_update_bwd")
+    projection_update_bwd.launches += 1
+    dw, db = split_outer_sums(outer_sums, De, d_in + d2)
+    return den, dskip2, dw, db, dps, dpv
+
+
+projection_update_bwd.launches = 0

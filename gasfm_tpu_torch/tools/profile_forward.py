@@ -1,17 +1,22 @@
 """Where a forward request's, or a training step's, time goes on the card.
 
-    python -m gasfm_tpu_torch.tools.profile_forward [--model gasfm|dpesfm]
+    python -m gasfm_tpu_torch.tools.profile_forward
+        [--model gasfm|dpesfm|gasfm-depth|dpesfm-depth]
         [--scene dense|powerlaw|wide] [--requests 3] [--train]
 
 Builds the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
 32/64/1024/2048, seeded init) or, with ``--model dpesfm``, the DPESFM
-SetOfSetNet (one block of 3 layers, 256 wide, seeded init), and one of the
-synthetic scenes (the two bench scenes, on which GASFM takes its merged
-path, or ``wide``, 1280 views, on which it takes the unfused one), warms up
-with two requests, then traces
-``--requests`` requests with ``torch.profiler``: forward + ESFM loss through
-``TrainingSession``, or with ``--train`` one ``TrainingSession.fused_step``
-each (the model's conf's loss and optimizer). Prints the wall time per request, the device time per
+SetOfSetNet (one block of 3 layers, 256 wide, seeded init); the ``-depth``
+models are the same with the conf's depth head (128 wide, 2 hidden layers)
+in place of the view and scenepoint heads, and ``DirectDepthLoss`` (L1) on
+the scene's triangulated GT depths. Then one of the synthetic scenes (the
+two bench scenes, on which GASFM takes its merged path, or ``wide``, 1280
+views, on which it takes the unfused one), two warm-up requests, then
+``--requests`` requests traced with ``torch.profiler``: forward + loss
+through ``TrainingSession``, or with ``--train`` one training step each
+(``TrainingSession.fused_step``; for a depth model ``loss_and_grads`` +
+``update``, the JAX package's loop for it), with the model's conf's loss and
+optimizer. Prints the wall time per request, the device time per
 kernel name (the port's own kernels, each with its launches and time per
 launch, then the top 15 of all), the hand-written kernels' share, the
 number of kernel launches per request, and the device busy share: summed
@@ -31,7 +36,13 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
-from gasfm_tpu_torch.losses import DPESFM_LOSS, ESFMLoss, FLAGSHIP_LOSS
+from gasfm_tpu_torch.losses import (
+    DEPTH_LOSS,
+    DPESFM_LOSS,
+    FLAGSHIP_LOSS,
+    DirectDepthLoss,
+    ESFMLoss,
+)
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
 from gasfm_tpu_torch.train.loop import TrainingSession
@@ -52,6 +63,14 @@ DPESFM = dict(num_blocks=1, block_size=3, num_features=256, proj_feat_normalizat
               add_skipconn_for_residual_blocks=False, pos_emb_n_freq=0,
               rot_representation="quat", view_head_n_hidden_layers=2,
               scenepoint_head_n_hidden_layers=2)
+# The conf's depth head (confs/gasfm/optim_euc_gasfm.conf:27-31, and the same
+# block of the DPESFM conf, :52-56) switched on, the view and scenepoint heads
+# off (confs/synth/optim_synth_depth_gasfm.conf:38-40): DirectDepthLoss only.
+DEPTH_HEAD = dict(depth_head_enabled=True, depth_head_n_feat=128, depth_head_n_hidden_layers=2,
+                  view_head_enabled=False, scenepoint_head_enabled=False)
+FLAGSHIP_DEPTH = dict(FLAGSHIP, **DEPTH_HEAD)
+DPESFM_DEPTH = dict(DPESFM, **DEPTH_HEAD)
+MODELS = ("gasfm", "dpesfm", "gasfm-depth", "dpesfm-depth")
 SCENES = {
     "dense": dict(n_views=128, n_points=8192, visibility=0.2, seed=0),
     "powerlaw": dict(n_views=133, n_points=24576, track_length_dist="powerlaw", seed=0),
@@ -60,19 +79,34 @@ SCENES = {
 
 
 def build_session(model_name: str, device) -> TrainingSession:
-    """A seeded model of ``model_name`` ("gasfm" or "dpesfm") with its conf's
+    """A seeded model of ``model_name`` (one of ``MODELS``) with its conf's
     loss and optimizer."""
     gen = torch.Generator().manual_seed(0)
     if model_name == "dpesfm":
         return TrainingSession(SetOfSetNet(**DPESFM, generator=gen), ESFMLoss(**DPESFM_LOSS),
                                device=device, optim=DPESFM_OPTIM)
+    if model_name == "dpesfm-depth":
+        return TrainingSession(SetOfSetNet(**DPESFM_DEPTH, generator=gen),
+                               DirectDepthLoss(**DEPTH_LOSS), device=device, optim=DPESFM_OPTIM)
+    if model_name == "gasfm-depth":
+        return TrainingSession(GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=gen),
+                               DirectDepthLoss(**DEPTH_LOSS), device=device, optim=FLAGSHIP_OPTIM)
     return TrainingSession(GraphAttnSfMNet(**FLAGSHIP, generator=gen),
                            ESFMLoss(**FLAGSHIP_LOSS), device=device, optim=FLAGSHIP_OPTIM)
 
 
+def train_step(session: TrainingSession, scene) -> None:
+    """One training step as the JAX package's loop takes it: the fused step
+    with our_repro, or for a depth model loss_and_grads + update."""
+    if session.model.depth_head_enabled:
+        session.update(session.loss_and_grads(scene)[2])
+    else:
+        session.fused_step(scene)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("gasfm", "dpesfm"), default="gasfm")
+    ap.add_argument("--model", choices=MODELS, default="gasfm")
     ap.add_argument("--scene", choices=sorted(SCENES), default="dense")
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--train", action="store_true", help="trace training steps")
@@ -81,12 +115,14 @@ def main(argv=None) -> None:
 
     dev = resolve_device(args.device)
     session = build_session(args.model, dev)
-    scene = generate_synthetic_scene(**SCENES[args.scene]).to_scene_graph(device=dev)
+    scene = generate_synthetic_scene(
+        **SCENES[args.scene], store_depth_targets=session.model.depth_head_enabled
+    ).to_scene_graph(device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def request():
         if args.train:
-            session.fused_step(scene)
+            train_step(session, scene)
         else:
             session.loss(session.forward(scene), scene)
 

@@ -7,6 +7,11 @@ Counterpart of ``TrainingSession`` in the JAX package's train/loop.py
 forward, ESFM loss, backward, global gradient norm, Adam with the per-batch
 LR schedule, and the on-device ``our_repro`` of the step's predictions.
 
+A model with the depth head (and ``DirectDepthLoss``) has no cameras or
+points to take ``our_repro`` of: it trains through ``loss_and_grads`` +
+``update``, as the JAX package's ``epoch_train`` does for it
+(train/loop.py:443, :495-527), and ``fused_step`` raises.
+
 Where the JAX package returns new parameters and optimizer state, the port
 updates the model's parameters and its optimizer state in place.
 """
@@ -18,7 +23,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import torch
 
 from gasfm_tpu_torch.eval.metrics import core_errors_device
-from gasfm_tpu_torch.losses import ESFMLoss
+from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
 from gasfm_tpu_torch.train.state import FLAGSHIP_OPTIM, build_optimizer, global_norm
@@ -32,7 +37,8 @@ class TrainingSession:
     and absent). ``optim``: :func:`~gasfm_tpu_torch.train.state.build_optimizer`'s
     keyword arguments, the flagship conf's by default."""
 
-    def __init__(self, model: Union[GraphAttnSfMNet, SetOfSetNet], loss_func: ESFMLoss,
+    def __init__(self, model: Union[GraphAttnSfMNet, SetOfSetNet],
+                 loss_func: Union[ESFMLoss, DirectDepthLoss],
                  device: Optional[Union[str, torch.device]] = None,
                  optim: Optional[dict] = None):
         self.device = resolve_device(device)
@@ -43,7 +49,8 @@ class TrainingSession:
 
     @torch.no_grad()
     def forward(self, scene, plain: bool = False) -> Dict[str, torch.Tensor]:
-        """Predicted ``Ps_norm`` (m, 3, 4) and ``pts3D`` (4, n) for a
+        """Predicted ``Ps_norm`` (m, 3, 4) and ``pts3D`` (4, n), or with the
+        depth head ``depths`` (E,), for a
         :class:`~gasfm_tpu_torch.graph.view_graph.SceneGraph` on this
         session's device. ``plain=True`` runs the kernels' plain versions
         (for comparing the two on the card)."""
@@ -90,7 +97,12 @@ class TrainingSession:
         the optimizer state in place and returns (loss, our_repro,
         grad_norm) as 0-d tensors on the device, without synchronising.
         ``our_repro`` is that of the predictions the loss was taken on.
-        ``plain=True`` runs the kernels' plain versions throughout."""
+        ``plain=True`` runs the kernels' plain versions throughout. Needs a
+        model with the view and scenepoint heads."""
+        if self.model.depth_head_enabled:
+            raise ValueError("fused_step takes our_repro of the view and scenepoint heads' "
+                             "predictions; a depth-head model trains through loss_and_grads "
+                             "and update")
         loss, pred, grads = self.loss_and_grads(scene, plain=plain)
         grad_norm = self.update(grads)
         with torch.no_grad():

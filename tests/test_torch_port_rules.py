@@ -29,7 +29,8 @@ print(len(names), bad)
 assert not bad, bad
 assert len(names) >= 20, names
 for new in ("ops.kernels.segment_kernels", "ops.kernels.fused_update", "ops.edge_update",
-            "models.set_of_set", "ops.kernels.fused_attn"):
+            "models.set_of_set", "ops.kernels.fused_attn", "ops.kernels.fused_proj_update",
+            "geometry.triangulation"):
     assert "gasfm_tpu_torch." + new in names, new
 """
 
@@ -103,3 +104,30 @@ def test_new_kernel_wrappers_raise_on_operands_they_cannot_take():
                                 torch.zeros(1, 257), graph)
     with pytest.raises(TypeError, match="float32 CUDA tensor"):
         fu.fused_edge_combine_bwd(torch.zeros(E, 8), graph)
+
+
+def test_projection_update_launchers_raise_on_operands_they_cannot_take():
+    """The projection update's launchers, forward and backward, check the
+    widths the kernel takes (d_in, d2, De <= 32, d_in + d2 <= 64) and the
+    operands' device before any launch."""
+    from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+    from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
+
+    graph = generate_synthetic_scene(n_views=6, n_points=60, seed=0).to_scene_graph(
+        device="cpu").graph
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+
+    def args(d_in, d2, De):
+        return (torch.zeros(E, d_in), torch.zeros(E, d2) if d2 else None, None,
+                torch.zeros(De, d_in + d2), torch.zeros(De), torch.zeros(n, De),
+                torch.zeros(m, De), torch.zeros(1, De), graph)
+
+    with pytest.raises(ValueError, match="d_in, d2, De <= 32"):
+        fpu.projection_update_forward(*args(33, 2, 32))
+    with pytest.raises(ValueError, match="d_in, d2, De <= 32"):
+        fpu.projection_update_forward(*args(32, 2, 64))
+    with pytest.raises(TypeError, match="float32 CUDA tensor"):
+        fpu.projection_update_forward(*args(32, 2, 32))
+    with pytest.raises(TypeError, match="float32 CUDA tensor"):
+        fpu.projection_update_bwd(torch.zeros(E, 32), torch.zeros(E, 32), None,
+                                  torch.zeros(32, 32), graph)

@@ -11,19 +11,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    register report).
 2. Each GASFM forward kernel against its plain PyTorch version on the card,
    on seeded inputs at the flagship shapes of both bench scenes: max error
-   against the stated tolerance, median time over CUDA events, the plain
-   version's time, and the least time the card could take (bytes over 3.35
-   TB/s or float32 operations over 67 TFLOP/s, whichever is larger).
+   against the stated tolerance; two times of the kernel, per call (the
+   median over CUDA events around one call, the host's launch path
+   included) and in a burst (events around 100 back-to-back calls after a
+   warm-up, divided by 100: the device's time wherever the host keeps
+   ahead); the plain version's time, and the least time the card could
+   take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
+   whichever is larger).
 3. Each GASFM backward kernel against autograd of its plain version on the
    card, on seeded inputs and cotangents at both scenes' shapes: the dual
    core at D = 32, the frontend at layer 0 (De = 2), the layer step in its
    interior, first-layer and raw-prologue forms, the loss in its three
    equalization modes. The max error of every input gradient, the backward
-   kernels' median time, the plain backward's time and the byte bound.
+   kernels' per-call and burst times, the plain backward's time and the
+   bound. The layer step's backward (#6) is timed alone (the dual core's
+   backward ahead of it precomputed), its bound counted for the whole
+   function (weight gradients included), and two of its launches must
+   agree bitwise; its three forms also run on a graph built for its tiles
+   of 32 edges: one point's edges span four tiles, 57 points and one
+   camera have no edges, and E is not a multiple of 32.
 3b. The DPESFM path's kernels at both scenes' shapes: the segment sum and
    the row gather on both sides (point, camera) at D = 2 and D = 256, also
-   timed against the one PyTorch call of the same function (``index_add_``,
-   ``index_select``); the edge combine at D = 256 and its backward against
+   timed per call and in a burst against the one PyTorch call of the same
+   function (``index_add_``, ``index_select``; the gather's 8 variants
+   bitwise equal to the plain version, two launches bitwise equal, and at
+   D = 256 on the point side the host's microseconds per call split by the
+   wrapper's steps); the edge combine at D = 256 and its backward against
    autograd of its plain version.
 3c. The kernels GASFM's unfused path adds, on the dense scene and the wide
    one (1280 views, 16,384 power-law points): the single-direction attention
@@ -92,8 +105,9 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. DPESFM with the depth head on the dense scene: serving (per request
    segment sum 6, edge combine 3) and training 1 + 3 steps (per step also
    edge-combine backward 3, gather 4), as above.
-13. A ``kernels`` JSON line (all seventeen kernels; launches from the
-   training path that runs each: GASFM's merged path for the first eight,
+13. A ``kernels`` JSON line (all seventeen kernels, each with its per-call
+   ``ms`` and its burst ``burst_ms``; launches from the training path that
+   runs each: GASFM's merged path for the first eight,
    DPESFM for the segment sum, gather and edge combine, the wide scene's
    unfused path for the attention and the segment max, whose times are the
    wide scene's, the depth flagship for the projection update), the
@@ -150,6 +164,7 @@ GRAD_FACTOR, GRAD_RTOL64, GRAD_EPS64 = 4.0, 1e-5, 1e-7
 # atomic sums' order (6e-10 to 1.9e-7 absolute on one of them).
 GRAD_EPS64_WIDE = 5e-7
 REQUESTS = 3
+BURST = 100  # back-to-back calls per burst measurement
 TRAIN_STEPS = 3  # timed, after one warm-up step
 # Weight seeds of the depth models: the depth loss and every gradient scale
 # with 1 / s_pred, the mean predicted depth at init, which sits near 0 at
@@ -214,7 +229,8 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps=20, warmup=3) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events around each call)."""
+    """Median milliseconds of ``fn`` on the card (CUDA events around each
+    call): the per-call time, the host's launch path included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -227,6 +243,22 @@ def cuda_ms(fn, reps=20, warmup=3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def burst_ms(fn, reps=BURST, warmup=5) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` back-to-back calls
+    between two CUDA events, after a warm-up: the device's time per call
+    wherever the host enqueues faster than the device runs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def max_err(got, want, rtol, atol, floor=1.0):
@@ -260,12 +292,20 @@ def nbytes(*tensors) -> int:
 # ---------------------------------------------------------------------------
 
 
+def same_twice(fn, first):
+    """Whether a second call of ``fn`` returns ``first`` bitwise (the
+    kernels sum in a fixed order, without atomics)."""
+    return all(torch.equal(a, b) for a, b in zip(first, fn()) if a is not None)
+
+
 def forward_check(results, record, scene_name, name, variant, kernel, plain, outs, io_bytes,
-                  flops, main, library=None, exact=False):
+                  flops, main, library=None, exact=False, twice=False):
     """Run ``kernel`` and ``plain`` (each returning a tuple of outputs named
-    ``outs``), compare (bitwise with ``exact``), time both (and ``library``,
-    one PyTorch call of the same function, where there is one), and record
-    the variant; ``main`` variants give the kernels line its numbers."""
+    ``outs``), compare (bitwise with ``exact``; with ``twice`` also a second
+    launch against the first, bitwise), time both per call and the kernel
+    in a burst (and ``library``, one PyTorch call of the same function,
+    where there is one, both ways), and record the variant; ``main``
+    variants give the kernels line its numbers."""
     got, want = kernel(), plain()
     worst, ok, ref = 0.0, True, 0.0
     for o, g, w in zip(outs, got, want):
@@ -274,24 +314,30 @@ def forward_check(results, record, scene_name, name, variant, kernel, plain, out
         worst, ok, ref = max(worst, e), ok and good, max(ref, float(w.abs().max()))
         if not good:
             print(f"  {name}[{variant}] {o}: max err {e:.3e} out of tolerance")
-    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-    lib_ms = None if library is None else cuda_ms(library)
+    if twice and not same_twice(kernel, got):
+        ok = False
+        print(f"  {name}[{variant}]: two launches differ")
+    ms, plain_ms, burst = cuda_ms(kernel), cuda_ms(plain), burst_ms(kernel)
+    lib_ms = lib_burst = None
+    if library is not None:
+        lib_ms, lib_burst = cuda_ms(library), burst_ms(library)
     b_ms, b_by = bound_ms(io_bytes, flops)
-    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms (burst {lib_burst:.4f} ms)"
     tol = "bitwise" if exact else f"tol {KERNEL_ATOL:g} x scale + {KERNEL_RTOL:g} x |ref|"
     print(f"kernel {name}[{variant}] {scene_name}: max_abs_err {worst:.3e} (max |ref| {ref:.4g}) "
-          f"({tol}) "
-          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"({tol}{'; two launches bitwise equal' if twice and ok else ''}) "
+          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (burst {burst:.4f} ms), plain {plain_ms:.4f} ms"
+          f"{lib}, bound {b_ms:.4f} ms ({b_by})")
     record.setdefault("kernel_variants", []).append(dict(
         scene=scene_name, name=name, variant=variant, max_abs_err=worst, max_abs_ref=ref, ok=ok,
-        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        ms=ms, burst_ms=burst, plain_ms=plain_ms, library_ms=lib_ms, library_burst_ms=lib_burst,
+        bound_ms=b_ms, bound_by=b_by))
     entry = results.setdefault(name, dict(max_abs_err=0.0, ok=True))
     entry["max_abs_err"] = max(entry["max_abs_err"], worst)
     entry["ok"] = entry["ok"] and ok
     if main:
-        entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                     variant=variant)
+        entry.update(ms=ms, burst_ms=burst, plain_ms=plain_ms, library_ms=lib_ms,
+                     library_burst_ms=lib_burst, bound_ms=b_ms, bound_by=b_by, variant=variant)
 
 
 def kernel_phase(dev, scene_name, graph, model, record):
@@ -421,11 +467,13 @@ def grads_of(fn, leaves, cots, keep=False):
 
 
 def backward_check(results, record, scene_name, name, variant, kernel, plain, leaves, cots,
-                   bwd_kernel, io_bytes, flops, main, floors=None):
+                   bwd_kernel, io_bytes, flops, main, floors=None, twice=False):
     """The gradients of ``kernel`` (its backward kernel under autograd)
-    against autograd of ``plain``, per input; times ``bwd_kernel`` and the
-    plain backward. ``floors``: per input, a lower bound of the scale its
-    tolerance is taken against (default: its gradient's own max |ref|)."""
+    against autograd of ``plain``, per input; times ``bwd_kernel`` per call
+    and in a burst, and the plain backward. ``floors``: per input, a lower
+    bound of the scale its tolerance is taken against (default: its
+    gradient's own max |ref|). ``twice``: two launches of ``bwd_kernel``
+    must agree bitwise."""
     got, _ = grads_of(kernel, leaves, cots)
     want, args = grads_of(plain, leaves, cots, keep=True)
     worst, ok, errs = 0.0, True, {}
@@ -436,22 +484,27 @@ def backward_check(results, record, scene_name, name, variant, kernel, plain, le
         if not good:
             print(f"  {name}[{variant}] d{leaf}: max err {e:.3e} (max |ref| "
                   f"{float(w.abs().max()):.3e}) out of tolerance")
-    ms = cuda_ms(bwd_kernel)
+    if twice and not same_twice(bwd_kernel, bwd_kernel()):
+        ok = False
+        print(f"  {name}[{variant}]: two launches differ")
+    ms, burst = cuda_ms(bwd_kernel), burst_ms(bwd_kernel)
     with torch.enable_grad():
         plain_ms = cuda_ms(lambda: torch.autograd.grad(*args, retain_graph=True))
     b_ms, b_by = bound_ms(io_bytes, flops)
     print(f"kernel {name}[{variant}] {scene_name}: max err / max |ref| over input grads "
-          f"{worst:.3e} (tol {BWD_ATOL:g} x max|ref| + {BWD_RTOL:g} x |ref|) "
-          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"{worst:.3e} (tol {BWD_ATOL:g} x max|ref| + {BWD_RTOL:g} x |ref|"
+          f"{'; two launches bitwise equal' if twice and ok else ''}) "
+          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (burst {burst:.4f} ms), plain backward "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     record.setdefault("backward_variants", []).append(dict(
         scene=scene_name, name=name, variant=variant, max_abs_err=errs, ok=ok, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        burst_ms=burst, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
     entry = results.setdefault(name, dict(max_abs_err=0.0, ok=True))
     entry["max_abs_err"] = max(entry["max_abs_err"], max(errs.values()))
     entry["ok"] = entry["ok"] and ok
     if main:
-        entry.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, variant=variant)
+        entry.update(ms=ms, burst_ms=burst, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     variant=variant)
 
 
 def backward_phase(dev, scene_name, graph, record):
@@ -516,10 +569,42 @@ def backward_phase(dev, scene_name, graph, record):
           floors={"e": 1.0})
 
     # #6 layer step: interior (skip2 = e0, residual), first-layer form, final raw.
+    layer_step_bwd_checks(check, rnd, gen, dev, graph, H, main=True)
+
+    # #8 loss terms, hinge on, in the three equalization modes.
+    P, X = loss_operands(rnd, gen, dev, m, n)
+    coef = torch.full((1,), 1.0 / E, device=dev)
+    terms = flo.esfm_terms_forward(P, X, graph, 1e-4, True, 1.0)[0]
+    for mode, main in (("valid_only", True), ("all", False), ("none", False)):
+        count = terms[2:3] if mode == "valid_only" else terms[1:2]
+        check("fused_esfm_terms_bwd", mode,
+              lambda mode=mode, **a: (flo.fused_esfm_terms(
+                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
+              lambda mode=mode, **a: (flo.fused_esfm_terms_plain(
+                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
+              dict(P=P, X=X), (coef[0],),
+              lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
+                  P, X, graph, coef, count, 1e-4, True, 1.0, mode),
+              nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, *csr, P, X), 80.0 * E, main)
+    return results
+
+
+def layer_step_bwd_checks(check, rnd, gen, dev, graph, H, main):
+    """The layer step's backward (#6) in its interior (skip2 = e0, the
+    residual), first-layer (d_in = 2) and raw-prologue forms at D = 32: every
+    input's gradient through the layer step and its dual core against
+    autograd of the plain version; #6 alone timed (its cotangents of xl_p and
+    xl_c precomputed by the dual core's backward) and launched twice,
+    bitwise."""
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+
+    E, n, m, D = graph.num_edges, graph.num_pts, graph.num_cams, 32
+    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
     e0 = separated_pairs(rnd, gen, dev, E)
-    for variant, d_in, has_res, raw, main in (("interior", 32, True, False, True),
-                                              ("first_layer", 2, False, False, False),
-                                              ("final_raw", 32, True, True, False)):
+    for variant, d_in, has_res, raw, main_v in (("interior", 32, True, False, main),
+                                                ("first_layer", 2, False, False, False),
+                                                ("final_raw", 32, True, True, False)):
         K = d_in + 2
         step = dict(en=torch.relu(rnd(E, d_in)), skip2=e0)
         if has_res:
@@ -539,44 +624,90 @@ def backward_phase(dev, scene_name, graph, record):
 
         g_el, g_en, g_ps, g_cs = rnd(E, 32), (None if raw else rnd(E, 32)), rnd(n, D), rnd(m, D)
         sa = args_of(step)
-        e_l, en_next, xp, xc = fls.layer_step_prologue(*sa[:14], graph, raw_prologue=raw)
+        e_l, _, xp, xc = fls.layer_step_prologue(*sa[:14], graph, raw_prologue=raw)
         ops, ocs, ress, inss = fda.dual_attend_forward(xp, xc, *sa[14:], graph, H, residuals=True)
+        dxp, dxc = fda.fused_dual_attend_bwd(*inss, ops, ocs, *ress, g_ps, g_cs, graph, H)[:2]
+        bwd_in = (sa[0], sa[1], sa[3], e_l, sa[8], sa[9], sa[10], sa[12])
 
-        def step_bwd(sa=sa, e_l=e_l, en_next=en_next, ops=ops, ocs=ocs, ress=ress, inss=inss,
-                     g_el=g_el, g_en=g_en, g_ps=g_ps, g_cs=g_cs, raw=raw):
-            d = fda.fused_dual_attend_bwd(*inss, ops, ocs, *ress, g_ps, g_cs, graph, H)
-            return fls.fused_layer_step_bwd(sa[0], sa[1], sa[3], e_l, en_next, sa[8], sa[9],
-                                            sa[10], sa[12], graph, d[0], d[1], g_en, g_el,
+        def step_bwd(bwd_in=bwd_in, dxp=dxp, dxc=dxc, g_el=g_el, g_en=g_en, raw=raw):
+            return fls.fused_layer_step_bwd(*bwd_in, graph, dxp, dxc, g_en, g_el,
                                             raw_prologue=raw)
 
+        grads = [t for t in (step["en"], step["skip2"], *sa[3:14]) if t is not None]
         check("fused_layer_step_bwd", variant,
               lambda raw=raw, args_of=args_of, **a: fls.fused_layer_step(
                   *args_of(a), graph, H, raw_prologue=raw),
               lambda raw=raw, args_of=args_of, **a: fls.fused_layer_step_plain(
                   *args_of(a), graph, H, raw_prologue=raw),
               step, (g_el, g_en, g_ps, g_cs), step_bwd,
-              # reads: en, skip2, the saved e_l, weights, queries, outputs,
-              # residuals, cotangents; writes every input's gradient (res's
-              # is e_l's total cotangent)
-              nbytes(step["en"], step["skip2"], e_l, *sa[3:], ops, ocs, *ress, g_el, g_en,
-                     g_ps, g_cs, graph.pt_idx, graph.cam_idx, *csr, *step.values()),
-              E * (2 * 2 * K * 32 + 30 * 32 + 8 * 32 * D + 40 * D), main)
+              # #6 alone, the whole function: reads en, skip2, the saved
+              # e_l, W and the next layer's LayerNorm and source linears,
+              # the cotangents of xl_p, xl_c, e_norm_next and e_l, the
+              # CSR; writes d e_l (once, also d res), d en, d skip2, d ps,
+              # d pv and every weight gradient (W, b = pg, LayerNorm, both
+              # linears)
+              nbytes(*bwd_in, dxp, dxc, g_en, g_el, *csr, e_l, *grads),
+              E * (2 * 2 * 2 * D * 32 + 2 * 2 * K * 32 + 40 * 32), main_v, twice=True)
 
-    # #8 loss terms, hinge on, in the three equalization modes.
-    P, X = loss_operands(rnd, gen, dev, m, n)
-    coef = torch.full((1,), 1.0 / E, device=dev)
-    terms = flo.esfm_terms_forward(P, X, graph, 1e-4, True, 1.0)[0]
-    for mode, main in (("valid_only", True), ("all", False), ("none", False)):
-        count = terms[2:3] if mode == "valid_only" else terms[1:2]
-        check("fused_esfm_terms_bwd", mode,
-              lambda mode=mode, **a: (flo.fused_esfm_terms(
-                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
-              lambda mode=mode, **a: (flo.fused_esfm_terms_plain(
-                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
-              dict(P=P, X=X), (coef[0],),
-              lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
-                  P, X, graph, coef, count, 1e-4, True, 1.0, mode),
-              nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, *csr, P, X), 80.0 * E, main)
+
+def tile_boundary_graph(dev, seed=11):
+    """A graph for the layer-step backward's tiles of 32 edges: point 0 seen
+    by 99 of the 100 cameras (its edges span four tiles), every 7th point
+    and camera 5 without edges, the others on 1 to 5 cameras, and E not a
+    multiple of 32."""
+    import numpy as np
+
+    from gasfm_tpu_torch.graph.view_graph import ViewGraph
+
+    rng = np.random.default_rng(seed)
+    m, n = 100, 400
+    cams = np.array([c for c in range(m) if c != 5])
+    pts, cids = [], []
+    for p in range(n):
+        if p % 7 == 0 and p > 0:
+            continue
+        seen = cams if p == 0 else np.sort(rng.choice(cams, rng.integers(1, 6), replace=False))
+        pts += [p] * len(seen)
+        cids += list(seen)
+    if len(pts) % 32 == 0:
+        pts, cids = pts[:-1], cids[:-1]
+    pt_idx, cam_idx = np.array(pts), np.array(cids)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    def offsets(ids, S):
+        return t(np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=S))]))
+
+    E = len(pts)
+    return ViewGraph(
+        uv=torch.as_tensor(rng.standard_normal((E, 2)), dtype=torch.float32, device=dev),
+        cam_idx=t(cam_idx), pt_idx=t(pt_idx), pt_ptr=offsets(pt_idx, n),
+        cam_perm=t(np.argsort(cam_idx, kind="stable")), cam_ptr=offsets(cam_idx, m),
+        cam_valid=torch.ones(m, dtype=torch.bool, device=dev),
+        pt_valid=torch.ones(n, dtype=torch.bool, device=dev))
+
+
+def tile_boundary_phase(dev, record):
+    """The layer step's backward (#6) in its three forms on
+    :func:`tile_boundary_graph`."""
+    graph = tile_boundary_graph(dev)
+    gen = torch.Generator(device=dev).manual_seed(9753)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    counts = (graph.pt_ptr[1:] - graph.pt_ptr[:-1]).tolist()
+    print(f"tile-boundary graph: {graph.num_cams} views, {graph.num_pts} points, "
+          f"{graph.num_edges} edges (E mod 32 = {graph.num_edges % 32}); point 0 has "
+          f"{counts[0]} edges, {counts.count(0)} points and "
+          f"{int((graph.cam_ptr[1:] == graph.cam_ptr[:-1]).sum())} camera have none")
+    results = {}
+
+    def check(*args, **kw):
+        backward_check(results, record, "tile_edges", *args, **kw)
+
+    layer_step_bwd_checks(check, rnd, gen, dev, graph, 4, main=False)
     return results
 
 
@@ -618,8 +749,10 @@ def dpesfm_kernel_phase(dev, scene_name, graph, record):
                 results, record, scene_name, "gather_rows", f"{side}_D{D}",
                 lambda t=table, side=side: (sk.gather_rows(t, graph, side),),
                 lambda t=table, side=side: (sk.gather_rows_plain(t, graph, side),), ("out",),
-                nbytes(table, ids[side].int()) + 4 * E * D, 0.0, main,
+                nbytes(table, ids[side].int()) + 4 * E * D, 0.0, main, exact=True, twice=True,
                 library=lambda t=table, side=side: torch.index_select(t, 0, ids[side]))
+            if main:
+                gather_host_parts(table, graph, side, scene_name, record)
 
     D = 256
     pe, ps, pv, pg = rnd(E, D), rnd(n, D), rnd(m, D), rnd(1, D)
@@ -644,21 +777,65 @@ def dpesfm_kernel_phase(dev, scene_name, graph, record):
         if not good:
             print(f"  fused_edge_combine_bwd d{leaf}: max err {e:.3e} out of tolerance")
     ms = cuda_ms(lambda: fu.fused_edge_combine_bwd(g, graph))
+    burst = burst_ms(lambda: fu.fused_edge_combine_bwd(g, graph))
     with torch.enable_grad():
         plain_ms = cuda_ms(lambda: torch.autograd.grad(*args, retain_graph=True))
     b_ms, b_by = bound_ms(nbytes(g, graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
                           + 4 * (E + n + m + 1) * D, 3.0 * E * D)
     print(f"kernel fused_edge_combine_bwd[D256] {scene_name}: max err / max |ref| over the four "
           f"gradients {worst:.3e} (tol {BWD_ATOL:g} x max|ref| + {BWD_RTOL:g} x |ref|) "
-          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms, plain backward {plain_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (burst {burst:.4f} ms), plain backward "
+          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     record.setdefault("backward_variants", []).append(dict(
         scene=scene_name, name="fused_edge_combine_bwd", variant="D256", max_abs_err=errs, ok=ok,
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        ms=ms, burst_ms=burst, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
     results["fused_edge_combine_bwd"] = dict(
-        max_abs_err=max(errs.values()), ok=ok, ms=ms, plain_ms=plain_ms, library_ms=None,
-        bound_ms=b_ms, bound_by=b_by, variant="D256")
+        max_abs_err=max(errs.values()), ok=ok, ms=ms, burst_ms=burst, plain_ms=plain_ms,
+        library_ms=None, bound_ms=b_ms, bound_by=b_by, variant="D256")
     return results
+
+
+def gather_host_parts(table, graph, side, scene_name, record, reps=200):
+    """Where the host's microseconds of one gather call go: the wrapper's
+    steps (``segment_kernels.gather_rows_forward``) timed apart on the host
+    clock, each over ``reps`` calls (fewer launches than CUDA's queue
+    holds, so the host never waits on the device), against the whole call."""
+    from gasfm_tpu_torch.ops.kernels import build as kb
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    dev = table.device
+    ids, S = sk.side_ids(graph, side)
+    E, D = ids.shape[0], table.shape[1]
+    entry = sk._entry("gasfm_gather_rows")
+    out = torch.empty((E, D), dtype=torch.float32, device=dev)
+
+    def checks():
+        sk.side_ids(graph, side)
+        sk._check_width("table", table, S)
+        kb.aligned(kb.cuda_f32("table", table))
+        kb.cuda_i32("ids", ids)
+
+    parts = {
+        "checks": checks,
+        "alloc": lambda: table.new_empty((E, D)),
+        "stream": lambda: kb.stream(table.device),
+        "launch": lambda: entry(table.data_ptr(), D, ids.data_ptr(), E, out.data_ptr(),
+                                kb.stream(table.device)),
+        "whole_call": lambda: sk.gather_rows_forward(table, graph, side),
+    }
+    us = {}
+    for k, fn in parts.items():
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us[k] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    print(f"gather_rows[{side}_D{D}] {scene_name}: host microseconds per call, by part: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    record.setdefault("gather_host_us", {})[scene_name] = us
 
 
 # ---------------------------------------------------------------------------
@@ -1394,6 +1571,9 @@ def main() -> int:
     for k in scenes:
         for name, r in backward_phase(dev, k, scenes[k].graph, record).items():
             per_scene[k][name] = r
+    # ... and the layer step's backward on a graph whose segments cross its
+    # edge tiles, with empty segments and a ragged last tile
+    per_scene["tile_edges"] = tile_boundary_phase(dev, record)
     # ---- phase 3b: the DPESFM path's kernels (segment sum, gather, edge
     # combine and its backward) against their plain versions
     with torch.no_grad():
@@ -1513,8 +1693,8 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[path][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r.get("library_ms")))
+            burst_ms=r["burst_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r.get("library_ms")))
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases ok in {record['seconds']:.1f} s")

@@ -101,9 +101,12 @@ __device__ __forceinline__ void block_partial(const float (&acc)[N], float* sbuf
 }
 
 constexpr int kSumGroups = 8;  // row groups per column in column_sum_kernel
+constexpr int kSumUnroll = 8;  // rows whose loads are in flight together
 
 // out[c] = sum over rows r of partials[r * cols + c], in a fixed order: block
 // of 32 columns x 8 row groups (rows r = g mod 8), then the groups in order.
+// Each thread loads kSumUnroll of its rows before adding them in row order,
+// so the sum is the plain loop's, without a load's latency per row.
 __global__ void __launch_bounds__(kSumGroups * 32) column_sum_kernel(
     const float* __restrict__ partials, int rows, int cols, float* __restrict__ out) {
   __shared__ float s[kSumGroups][32];
@@ -112,7 +115,15 @@ __global__ void __launch_bounds__(kSumGroups * 32) column_sum_kernel(
   const int col = blockIdx.x * 32 + lane;
   float acc = 0.f;
   if (col < cols) {
-    for (int r = grp; r < rows; r += kSumGroups) acc += partials[(size_t)r * cols + col];
+    int r = grp;
+    for (; r + (kSumUnroll - 1) * kSumGroups < rows; r += kSumUnroll * kSumGroups) {
+      float v[kSumUnroll];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) v[u] = partials[(size_t)(r + u * kSumGroups) * cols + col];
+#pragma unroll
+      for (int u = 0; u < kSumUnroll; ++u) acc += v[u];
+    }
+    for (; r < rows; r += kSumGroups) acc += partials[(size_t)r * cols + col];
   }
   s[grp][lane] = acc;
   __syncthreads();

@@ -22,26 +22,30 @@
 // coalesced row per warp, the update's weights (<= 64 x 32) and the
 // frontend's weights sit in shared memory for the whole grid-stride sweep.
 //
-// Backward (gasfm_layer_step_bwd): one warp per point, over the point's
-// contiguous edges (grid-stride over points). Per edge it recomputes the
-// LayerNorm from the saved e_l, takes the dual core's d xl_p / d xl_c back
-// through the source linears and the LayerNorm (front_backward), adds e_l's
-// own cotangent, and writes d e_l (= d res), d en and d skip2 (d e_l / 4
-// through W). The point table's gradient d ps is the warp's sum over the
-// point's edges, in registers. Then, over the streams now in memory: d pv,
-// one block per camera over the camera CSR; the weight gradients d W / d b,
-// d wl / d bl as tiled outer sums (outer_sum_kernel, common.cuh) — kept out
-// of the per-edge kernel, whose per-lane sums of whole weight rows took 172
-// registers and one block per SM. Bytes again: per edge it reads e_l, en,
-// skip2, d xl_p, d xl_c and the two output cotangents and writes d e_l, d en,
-// d skip2; the outer sums read d xl_p, d xl_c, e_norm, d e_l, en, skip2 once
-// more. No atomics anywhere.
+// Backward (gasfm_layer_step_bwd), four launches: the edge-tile kernel
+// (edge_tile.cuh), one column sum of its partial rows, and the point and
+// camera segment sums of d_el / 4 (segment.cuh) for d ps and d pv. What bounds
+// it on the H100 is bytes again (~0.6 KB per edge: e_l, en, skip2, d xl_p,
+// d xl_c and the two output cotangents read once, d e_l, d en and d skip2
+// written once, d e_l read twice more by the sums) against ~6.5k float32 FMAs
+// per edge, which the CUDA cores take in a third of the bytes' time if the
+// products keep them fed. The first design gave each point one warp with
+// lane j holding feature j: every product was a chain of shuffles and shared
+// loads (~116 dependent steps per edge), a warp waited on its point's edges
+// one at a time (133 on the longest power-law point), and the weight
+// gradients took a second pass over the streams (outer_sum_kernel) plus
+// separate camera and LayerNorm sums: 7 launches, ~0.46 / ~0.68 ms per call
+// on the two bench scenes. Now the work is split by edges, not by points:
+// tiles of 32 edges staged in shared memory with 16-byte loads, every
+// product register-tiled, every weight gradient in registers across a
+// block's tiles, each sum in a fixed order without atomics.
 //
-// The update's per-edge code, forward and backward, and the camera sums of
-// d pv live in proj_update.cuh, shared with the standalone projection-update
-// kernel (fused_proj_update.cu).
+// The update's per-edge forward lives in proj_update.cuh, shared with the
+// standalone projection-update kernel (fused_proj_update.cu).
 #include "edge_prologue.cuh"
+#include "edge_tile.cuh"
 #include "proj_update.cuh"
+#include "segment.cuh"
 
 namespace gasfm {
 
@@ -80,51 +84,6 @@ __global__ void __launch_bounds__(kStepWarps * 32) layer_step_prologue_kernel(
   }
 }
 
-// Warp per point, over the point's contiguous edges (grid-stride over points).
-// ln_partials: (gridDim.x, 2 * 32), this block's sums of d ln_scale and
-// d ln_bias.
-__global__ void __launch_bounds__(kStepWarps * 32) layer_step_bwd_kernel(
-    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
-    const float* __restrict__ w, const float* __restrict__ e_l,
-    const int* __restrict__ pt_ptr, int n_pts, int De, const float* __restrict__ lng,
-    const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
-    int Dp, const float* __restrict__ wlc, int Dc, const float* __restrict__ dxl_p,
-    const float* __restrict__ dxl_c, const float* __restrict__ den_next,
-    const float* __restrict__ de_l_ext, float* __restrict__ d_el,
-    float* __restrict__ den_out, float* __restrict__ dskip2, float* __restrict__ dps,
-    float* __restrict__ ln_partials) {
-  __shared__ FrontBackParams sp;
-  __shared__ float s_w[32 * kUpdateMaxK];  // W (De, d_in + d2), torch layout
-  __shared__ float sbuf[2 * 32];
-  load_update_weights(s_w, w, De, d_in + d2);
-  load_front_back_params(sp, lng, lnb, wlp, wlc, De, Dp, Dc, raw != 0);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const bool act = lane < De;
-  float acc[2] = {0.f, 0.f};  // d ln_scale, d ln_bias of this lane's feature
-  const int stride = gridDim.x * kStepWarps;
-  for (int pt = blockIdx.x * kStepWarps + (threadIdx.x >> 5); pt < n_pts; pt += stride) {
-    float dps_acc = 0.f;
-    const int end = pt_ptr[pt + 1];
-    for (int edge = pt_ptr[pt]; edge < end; ++edge) {
-      const float x = act ? e_l[(size_t)edge * De + lane] : 0.f;
-      const float dxp = lane < Dp ? dxl_p[(size_t)edge * Dp + lane] : 0.f;
-      const float dxc = lane < Dc ? dxl_c[(size_t)edge * Dc + lane] : 0.f;
-      const float dv = (den_next != nullptr && act) ? den_next[(size_t)edge * De + lane] : 0.f;
-      float d = front_backward(x, dxp, dxc, dv, De, Dp, Dc, raw != 0, sp, eps, lane, acc[0],
-                               acc[1]);
-      if (de_l_ext != nullptr && act) d += de_l_ext[(size_t)edge * De + lane];
-      if (act) d_el[(size_t)edge * De + lane] = d;
-      const float du = d * 0.25f;  // 0 at lanes >= De
-      dps_acc += du;
-      update_backward(du, edge, lane, s_w, De, d_in, d2, den_out, dskip2);
-    }
-    if (act) dps[(size_t)pt * De + lane] = dps_acc;
-  }
-  block_partial(acc, sbuf, ln_partials + (size_t)blockIdx.x * 2 * 32);
-}
-
 }  // namespace gasfm
 
 extern "C" int gasfm_layer_step_prologue(
@@ -143,33 +102,28 @@ extern "C" int gasfm_layer_step_prologue(
   return (int)cudaGetLastError();
 }
 
-// v: (E, De) the normalized output en_next (e_l itself under raw). d_el: (E,
-// De) the total cotangent of e_l (returned as d res); den_out (E, d_in);
-// dskip2 (E, d2) or NULL; dps (n, De); dpv (m, De); den_next and de_l_ext
-// may be NULL (no cotangent). ln_partials (grid, 64) scratch, ln_sums (2,
-// 32): d ln_scale, d ln_bias. outer_partials (3, ogrid, kOuterRow) scratch;
-// outer_sums (3, kOuterRow): d wlp / d blp, d wlc / d blc, and d W / d b
-// (d W's columns: en's, then skip2's), each [a][b] (32 x 64) then bias[a].
+// d_el (E, De): the total cotangent of e_l (returned as d res); den_out (E,
+// d_in); dskip2 (E, d2) or NULL; dps (n, De); dpv (m, De); den_next and
+// de_l_ext may be NULL (no cotangent). partials (grid, row) scratch, sums
+// (row,): the weight gradients, laid out as StepRow (edge_tile.cuh) says.
+// grid: the tile kernel's blocks, at most kTileBlocksPerSm per SM.
 extern "C" int gasfm_layer_step_bwd(
     const float* en, int d_in, const float* skip2, int d2, const float* w, const float* e_l,
-    const float* v, const int* pt_ptr, int n_pts, const int* cam_ptr, const int* cam_perm,
-    int n_cams, int E, int De, const float* lng, const float* lnb, int raw, float eps,
-    const float* wlp, int Dp, const float* wlc, int Dc, const float* dxl_p,
-    const float* dxl_c, const float* den_next, const float* de_l_ext, float* d_el,
-    float* den_out, float* dskip2, float* dps, float* dpv, float* ln_partials,
-    float* ln_sums, float* outer_partials, float* outer_sums, int grid, int ogrid,
-    void* stream) {
+    const int* pt_ptr, int n_pts, const int* cam_ptr, const int* cam_perm, int n_cams, int E,
+    int De, const float* lng, const float* lnb, int raw, float eps, const float* wlp, int Dp,
+    const float* wlc, int Dc, const float* dxl_p, const float* dxl_c, const float* den_next,
+    const float* de_l_ext, float* d_el, float* den_out, float* dskip2, float* dps, float* dpv,
+    float* partials, float* sums, int grid, void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
-  layer_step_bwd_kernel<<<grid, kStepWarps * 32, 0, s>>>(
-      en, d_in, skip2, d2, w, e_l, pt_ptr, n_pts, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc,
-      dxl_p, dxl_c, den_next, de_l_ext, d_el, den_out, dskip2, dps, ln_partials);
-  launch_camera_update_sums(d_el, cam_ptr, cam_perm, n_cams, De, dpv, s);
-  launch_column_sum(ln_partials, grid, 2 * 32, ln_sums, s);
-  OuterJobs jobs{};
-  jobs.job[0] = OuterJob{dxl_p, Dp, 1.f, v, De, nullptr, 0};
-  jobs.job[1] = OuterJob{dxl_c, Dc, 1.f, v, De, nullptr, 0};
-  jobs.job[2] = OuterJob{d_el, De, 0.25f, en, d_in, skip2, d2};
-  launch_outer_sums(jobs, 3, E, ogrid, outer_partials, outer_sums, s);
+  const int rows = E > 0 ? grid : 0;
+  if (rows > 0) {
+    layer_step_bwd_tile_kernel<<<rows, kTileThreads, 0, s>>>(
+        en, d_in, skip2, d2, w, e_l, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c,
+        den_next, de_l_ext, d_el, den_out, dskip2, partials);
+  }
+  launch_column_sum(partials, rows, StepRow(De, d_in + d2, Dp, Dc).len, sums, s);
+  segment_sum(d_el, De, pt_ptr, nullptr, n_pts, 0.25f, dps, s);
+  segment_sum(d_el, De, cam_ptr, cam_perm, n_cams, 0.25f, dpv, s);
   return (int)cudaGetLastError();
 }

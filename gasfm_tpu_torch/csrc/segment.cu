@@ -25,41 +25,88 @@
 // row groups so narrow rows keep every lane busy, a warp per point (the
 // point segments are short: ~14 and ~3 edges on the two bench scenes) and a
 // block of 32 warps per camera (the camera segments are few and long), each
-// sum in registers and merged in a fixed order. The gather writes E x D and
-// reads each table row once per edge (the tables are small enough to stay in
-// the 50 MB L2): one thread per output vector, consecutive threads on
-// consecutive addresses.
+// sum in registers and merged in a fixed order.
+//
+// The gather writes E x D and reads each table row once per edge (the
+// tables, at most 25 MB on the bench scenes, stay in the 50 MB L2): at D =
+// 256 ~127 MB, the same ~38 us. Its first design gave one thread to each
+// 16-byte vector, with a 64-bit division per vector and ids[e] reloaded for
+// every vector of the row, and lost to index_select on the power-law scene.
+// Now it uses the sums' row groups (W lanes per row: two float4 per lane at
+// D = 256, one float2 per lane and row at D = 2): a warp takes 32
+// consecutive edges, loads their 32 ids in one coalesced access, and hands
+// each row group its id by a shuffle; all index arithmetic is 32-bit (the
+// wrapper holds E x D and S x D below 2^31); four rows' loads are issued
+// before their stores (4 KB in flight per warp at D = 256), and the E x D
+// output is written with streaming stores (__stcs) so it does not push the
+// table out of L2.
 #include "segment.cuh"
 
 namespace gasfm {
 
-constexpr int kGatherThreads = 256;
+// Warps per block: two for rows of 64 floats or more, so the blocks (each
+// writing 32 rows per warp) spread evenly over the SMs; eight for narrower
+// rows, whose blocks are cheap to fill and many.
+constexpr int kGatherWarpsWide = 2, kGatherWarpsNarrow = 8;
+constexpr int kGatherUnroll = 4;  // row steps whose loads are in flight together
 
-// out[e] = table[ids[e]], Dv vectors per row.
+__device__ __forceinline__ void stcs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void stcs(float2* p, float2 v) { __stcs(p, v); }
+__device__ __forceinline__ void stcs(float4* p, float4 v) { __stcs(p, v); }
+
+// out[e] = table[ids[e]], Dv vectors of VEC floats per row. Warp w takes the
+// 32 edges [32 w, 32 w + 32), kGatherUnroll row steps at a time: each row
+// group loads kGatherUnroll rows, then stores them.
 template <int VEC>
-__global__ void __launch_bounds__(kGatherThreads) gather_rows_kernel(
-    const float* __restrict__ table, int Dv, const int* __restrict__ ids, long long total,
+__global__ void __launch_bounds__(kGatherWarpsNarrow * 32) gather_rows_kernel(
+    const float* __restrict__ table, int Dv, const int* __restrict__ ids, int E,
     float* __restrict__ out) {
   using T = typename VecT<VEC>::T;
+  constexpr int KMAX = 8 / VEC;  // vector columns per lane (D <= 256)
   const T* tab = reinterpret_cast<const T*>(table);
   T* o = reinterpret_cast<T*>(out);
-  for (long long i = (long long)blockIdx.x * kGatherThreads + threadIdx.x; i < total;
-       i += (long long)gridDim.x * kGatherThreads) {
-    const long long e = i / Dv;
-    const int c = (int)(i - e * Dv);
-    o[i] = tab[(size_t)ids[e] * Dv + c];
+  const int lane = threadIdx.x & 31;
+  const int W = row_lanes(Dv), R = 32 / W, sub = lane / W, col = lane % W;
+  const int e0 = (blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 32;
+  if (e0 >= E) return;
+  const int my_id = e0 + lane < E ? ids[e0 + lane] : 0;
+  const int rows = min(32, E - e0);
+  for (int r0 = 0; r0 < rows; r0 += R * kGatherUnroll) {
+    T v[kGatherUnroll][KMAX];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int r = r0 + u * R + sub;
+      const int id = __shfl_sync(GASFM_FULL_MASK, my_id, r & 31);
+      if (r >= rows) continue;
+      const T* src = tab + id * Dv;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        const int c = col + W * k;
+        if (c < Dv) v[u][k] = src[c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const int r = r0 + u * R + sub;
+      if (r >= rows) continue;
+      T* dst = o + (e0 + r) * Dv;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) {
+        const int c = col + W * k;
+        if (c < Dv) stcs(dst + c, v[u][k]);
+      }
+    }
   }
 }
 
 template <int VEC>
 void launch_gather(const float* table, int D, const int* ids, int E, float* out,
                    cudaStream_t s) {
-  const int Dv = D / VEC;
-  const long long total = (long long)E * Dv;
-  if (total <= 0) return;
-  const long long want = (total + kGatherThreads - 1) / kGatherThreads;
-  const int grid = (int)(want < (1LL << 20) ? want : (1LL << 20));
-  gather_rows_kernel<VEC><<<grid, kGatherThreads, 0, s>>>(table, Dv, ids, total, out);
+  if (E <= 0) return;
+  const int warps = (E + 31) / 32;
+  const int per_block = D >= 64 ? kGatherWarpsWide : kGatherWarpsNarrow;
+  gather_rows_kernel<VEC><<<(warps + per_block - 1) / per_block, per_block * 32, 0, s>>>(
+      table, D / VEC, ids, E, out);
 }
 
 // ---- segment max ----------------------------------------------------------------
@@ -162,6 +209,8 @@ extern "C" int gasfm_gather_rows(const float* table, int D, const int* ids, int 
   cudaStream_t s = (cudaStream_t)stream;
   if (D % 4 == 0) {
     launch_gather<4>(table, D, ids, E, out, s);
+  } else if (D % 2 == 0) {
+    launch_gather<2>(table, D, ids, E, out, s);
   } else {
     launch_gather<1>(table, D, ids, E, out, s);
   }

@@ -29,6 +29,10 @@ struct VecT<1> {
   using T = float;
 };
 template <>
+struct VecT<2> {
+  using T = float2;
+};
+template <>
 struct VecT<4> {
   using T = float4;
 };
@@ -164,10 +168,16 @@ __global__ void __launch_bounds__(kCamWarps * 32) segment_sum_permuted_kernel(
   const int warp = threadIdx.x >> 5;
   RowSum<VEC> rs;
   rs.init(D);
-  const int end = ptr[c + 1];
-  for (int i = ptr[c] + warp * rs.R + rs.sub; i < end; i += kCamWarps * rs.R) {
-    rs.add_row(rows, perm[i]);
+  const int end = ptr[c + 1], stride = kCamWarps * rs.R;
+  int i = ptr[c] + warp * rs.R + rs.sub;
+  for (; i + 3 * stride < end; i += 4 * stride) {  // four rows' ids, then their rows, in order
+    int e[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) e[u] = perm[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) rs.add_row(rows, e[u]);
   }
+  for (; i < end; i += stride) rs.add_row(rows, perm[i]);
   rs.merge_groups();
   rs.store_shared(part[warp]);
   __syncthreads();

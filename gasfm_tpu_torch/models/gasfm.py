@@ -162,10 +162,10 @@ class GraphAttnSfMNet(nn.Module):
 
     def merged_path(self, graph) -> bool:
         """Whether ``graph`` runs the merged path (the JAX package's packed
-        layout gates, models/gasfm.py:93-100, with the kernels' stream width
-        of at most 32 for its D = 32), else the unfused one."""
+        layout gates, models/gasfm.py:93-100, with its ``packable`` width
+        of exactly 32, ops/pallas/packing.py:63-70), else the unfused one."""
         return (self.use_norm_proj_update and self.n_hidden_layers_proj_update == 0
-                and self.n_feat_proj <= 32 and graph.num_cams <= DENSE_MAX_SEGMENTS)
+                and self.n_feat_proj == 32 and graph.num_cams <= DENSE_MAX_SEGMENTS)
 
     def layer_plan(self, graph) -> List[Tuple[bool, bool]]:
         """(merged, defer) per layer: the JAX package's per-layer plan

@@ -19,6 +19,7 @@ kernel alone and keeps no residuals.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -120,13 +121,16 @@ I = ctypes.c_int
 F = ctypes.c_float
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """Device pointer of a tensor (NULL for None)."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t):
+    """Device pointer of a tensor as an int (None, NULL, for None): the
+    ``c_void_p`` argtypes take a plain int, with no object made per call."""
+    return None if t is None else t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw handle (an int),
+    without making a ``torch.cuda.Stream`` object per call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, what: str) -> None:
@@ -137,7 +141,7 @@ def check(code: int, what: str) -> None:
 def cuda_f32(name: str, t: torch.Tensor, shape=None) -> torch.Tensor:
     """Validate a kernel operand: a float32 tensor on a CUDA device, of the
     given shape (None entries free); returns it contiguous."""
-    if t.dtype != torch.float32 or t.device.type != "cuda":
+    if t.dtype != torch.float32 or not t.is_cuda:
         raise TypeError(f"{name}: expected a float32 CUDA tensor, got {t.dtype} on {t.device}")
     if shape is not None and (
         t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape))
@@ -146,9 +150,15 @@ def cuda_f32(name: str, t: torch.Tensor, shape=None) -> torch.Tensor:
     return t.contiguous()
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied where its data does not start on 16 bytes: the kernels
+    read rows as 16-byte vectors where the width allows."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def cuda_i32(name: str, t: torch.Tensor) -> torch.Tensor:
     """Validate an index operand: an int32 CUDA tensor; returns it contiguous."""
-    if t.dtype != torch.int32 or t.device.type != "cuda":
+    if t.dtype != torch.int32 or not t.is_cuda:
         raise TypeError(f"{name}: expected an int32 CUDA tensor, got {t.dtype} on {t.device}")
     return t.contiguous()
 
@@ -157,8 +167,12 @@ def grid_for(device: torch.device, items: int, warps_per_block: int, per_sm: int
     """Blocks for a grid-stride kernel with one warp per item: enough to
     cover the items, at most ``per_sm`` per SM. The backward kernels keep
     one partial row per block, so they ask for fewer (``per_sm=4``)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-items // warps_per_block), per_sm * sms))
+    return max(1, min(-(-items // warps_per_block), per_sm * sm_count(device.index)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def needs_grad(*tensors) -> bool:

@@ -12,16 +12,17 @@ fused with layer l+1's frontend prologue (LayerNorm + ReLU, skipped under
 core. Two launches per call: the per-edge prologue (counted here) and the
 dual core (counted by ``fused_dual_attend``). The backward mirrors it: the
 dual core's backward (counted by ``fused_dual_attend_bwd``), then
-``fused_layer_step_bwd`` (counted here; three launches inside: the
-point-major edge pass, the camera sums of d pv, the column sums of the
-weight gradients).
+``fused_layer_step_bwd`` (counted here; four launches inside: the edge-tile
+kernel, one column sum of its per-block partial rows of the weight
+gradients, and the point and camera segment sums of d e_l / 4).
 
 What bounds it on the H100 is bytes over its 3.35 TB/s: about 0.9 KB of
 edge streams per edge against a few thousand flops. The prologue keeps e_l
 in registers between the update and the LayerNorm and touches each stream
 once; the update and frontend weights sit in shared memory. The backward
-recomputes the LayerNorm from the saved e_l, and sums every weight gradient
-in registers without atomics.
+takes tiles of 32 edges, recomputes the LayerNorm and its output from the
+saved e_l, runs its small products register-tiled on the CUDA cores in
+float32, and sums every weight gradient in registers without atomics.
 
 A CPU tensor runs the plain version (and autograd through it is the
 backward's plain version); a CUDA tensor launches the kernel or raises.
@@ -37,15 +38,13 @@ from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (
     LN_EPS,
-    OUTER_ROW,
     fused_dual_attend,
     fused_frontend_plain,
-    outer_grid,
-    split_outer_sums,
 )
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import projection_update_plain
 
-STEP_WARPS = 8  # kStepWarps of csrc/fused_layer_step.cu
+TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile of the backward
+TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: its persistent blocks per SM
 
 _ARGS = (
     kb.P, kb.I, kb.P, kb.I,  # en, d_in, skip2, d2
@@ -55,12 +54,12 @@ _ARGS = (
     kb.P, kb.P, kb.P, kb.P, kb.I, kb.P,  # e_l, en_next, xl_p, xl_c, grid, stream
 )
 _BWD_ARGS = (
-    kb.P, kb.I, kb.P, kb.I, kb.P, kb.P, kb.P,  # en, d_in, skip2, d2, w, e_l, v
+    kb.P, kb.I, kb.P, kb.I, kb.P, kb.P,  # en, d_in, skip2, d2, w, e_l
     kb.P, kb.I, kb.P, kb.P, kb.I, kb.I, kb.I,  # pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, E, De
     kb.P, kb.P, kb.I, kb.F, kb.P, kb.I, kb.P, kb.I,  # lng, lnb, raw, eps, wlp, Dp, wlc, Dc
     kb.P, kb.P, kb.P, kb.P,  # dxl_p, dxl_c, den_next, de_l_ext
     kb.P, kb.P, kb.P, kb.P, kb.P,  # d_el, den_out, dskip2, dps, dpv
-    kb.P, kb.P, kb.P, kb.P, kb.I, kb.I, kb.P,  # ln/outer partials and sums, grids, stream
+    kb.P, kb.P, kb.I, kb.P,  # partials, sums, grid, stream
 )
 
 
@@ -138,23 +137,22 @@ class _LayerStepPrologue(torch.autograd.Function):
         e_l, en_next, xl_p, xl_c = layer_step_prologue(
             en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias, wlp, blp, wlc, blc, graph,
             eps, raw)
-        ctx.save_for_backward(en, skip2, w, e_l, None if raw else en_next, ln_scale, ln_bias,
-                              wlp, wlc)
+        ctx.save_for_backward(en, skip2, w, e_l, ln_scale, ln_bias, wlp, wlc)
         ctx.graph, ctx.eps, ctx.raw, ctx.has_res = graph, eps, raw, res is not None
         ctx.pg_shape = pg.shape
         return (e_l, xl_p, xl_c) if raw else (e_l, en_next, xl_p, xl_c)
 
     @staticmethod
     def backward(ctx, *grads):
-        en, skip2, w, e_l, en_next, ln_scale, ln_bias, wlp, wlc = ctx.saved_tensors
+        en, skip2, w, e_l, ln_scale, ln_bias, wlp, wlc = ctx.saved_tensors
         if ctx.raw:
             de_l, dxl_p, dxl_c = grads
             den_next = None
         else:
             de_l, den_next, dxl_p, dxl_c = grads
         (den, dskip2, dres, dw, db, dps, dpv, dln_scale, dln_bias, dwlp, dblp, dwlc,
-         dblc) = fused_layer_step_bwd(en, skip2, w, e_l, en_next, ln_scale, ln_bias, wlp, wlc,
-                                      ctx.graph, dxl_p, dxl_c, den_next, de_l, ctx.eps, ctx.raw)
+         dblc) = fused_layer_step_bwd(en, skip2, w, e_l, ln_scale, ln_bias, wlp, wlc, ctx.graph,
+                                      dxl_p, dxl_c, den_next, de_l, ctx.eps, ctx.raw)
         return (den, dskip2, dres if ctx.has_res else None, dw, db, dps, dpv,
                 db.reshape(ctx.pg_shape), dln_scale, dln_bias, dwlp, dblp, dwlc, dblc,
                 None, None, None)
@@ -188,67 +186,83 @@ def fused_layer_step(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
 fused_layer_step.launches = 0
 
 
-def fused_layer_step_bwd(en, skip2, w, e_l, en_next, ln_scale, ln_bias, wlp, wlc, graph,
+def step_sums_len(De, K, Dp, Dc):
+    """Floats in the backward's partial row of weight gradients (``StepRow``
+    of csrc/edge_tile.cuh) for the update's W (De, K) and the source
+    linears (Dp, De), (Dc, De)."""
+    return (Dp + Dc) * (De + 1) + De * (K + 1) + 2 * De
+
+
+def split_step_sums(sums, De, K, Dp, Dc):
+    """The backward's summed partial row (``step_sums_len`` floats) as
+    (d wlp (Dp, De), d blp, d wlc (Dc, De), d blc, d w (De, K), d b,
+    d ln_scale, d ln_bias), views in the row's order."""
+    dwlp, dblp, dwlc, dblc, dw, db, dg, dbn = torch.split(
+        sums, (Dp * De, Dp, Dc * De, Dc, De * K, De, De, De))
+    return dwlp.view(Dp, De), dblp, dwlc.view(Dc, De), dblc, dw.view(De, K), db, dg, dbn
+
+
+def fused_layer_step_bwd(en, skip2, w, e_l, ln_scale, ln_bias, wlp, wlc, graph,
                          dxl_p, dxl_c, den_next=None, de_l=None, eps=LN_EPS,
                          raw_prologue=False):
     """The layer step prologue's backward kernel (CUDA tensors): the update's
     inputs en (E, d_in), skip2 (E, d2) or None and weight w (De, d_in + d2),
-    the saved e_l and e_norm_next (E, De; the latter ignored under
-    ``raw_prologue``, where it is e_l), the next layer's LayerNorm and
-    source-linear weights, the cotangents of xl_p / xl_c (from the dual
-    core's backward), of e_norm_next (or None) and of e_l (or None). Returns
-    (den, dskip2, dres, dw, db, dps, dpv, dln_scale, dln_bias, dwlp, dblp,
-    dwlc, dblc): dres is the total cotangent of e_l, and d pg equals db. Its
-    plain version is autograd through :func:`fused_layer_step_plain`."""
+    the saved e_l (E, De; the kernel recomputes the LayerNorm's output from
+    it), the next layer's LayerNorm and source-linear weights, the cotangents
+    of xl_p / xl_c (from the dual core's backward), of e_norm_next (or None)
+    and of e_l (or None). Returns (den, dskip2, dres, dw, db, dps, dpv,
+    dln_scale, dln_bias, dwlp, dblp, dwlc, dblc): dres is the total
+    cotangent of e_l, and d pg equals db. Its plain version is autograd
+    through :func:`fused_layer_step_plain`."""
     E, d_in = en.shape
     n, m = graph.num_pts, graph.num_cams
     De = w.shape[0]
     d2 = 0 if skip2 is None else skip2.shape[1]
+    K = d_in + d2
     Dp, Dc = wlp.shape[0], wlc.shape[0]
-    en = kb.cuda_f32("en", en, (E, d_in))
+    if max(d_in, d2, De, Dp, Dc) > 32 or E != graph.num_edges:
+        raise ValueError("fused_layer_step_bwd: every width must be <= 32")
+    al = kb.aligned
+    en = al(kb.cuda_f32("en", en, (E, d_in)))
     if skip2 is not None:
-        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
-    w = kb.cuda_f32("w", w, (De, d_in + d2))
-    e_l = kb.cuda_f32("e_l", e_l, (E, De))
-    v = e_l if raw_prologue else kb.cuda_f32("en_next", en_next, (E, De))
+        skip2 = al(kb.cuda_f32("skip2", skip2, (E, d2)))
+    w = kb.cuda_f32("w", w, (De, K))
+    e_l = al(kb.cuda_f32("e_l", e_l, (E, De)))
     if not raw_prologue:
         ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
         ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
     wlp = kb.cuda_f32("wlp", wlp, (Dp, De))
     wlc = kb.cuda_f32("wlc", wlc, (Dc, De))
-    dxl_p = kb.cuda_f32("dxl_p", dxl_p, (E, Dp))
-    dxl_c = kb.cuda_f32("dxl_c", dxl_c, (E, Dc))
+    dxl_p = al(kb.cuda_f32("dxl_p", dxl_p, (E, Dp)))
+    dxl_c = al(kb.cuda_f32("dxl_c", dxl_c, (E, Dc)))
     if den_next is not None:
-        den_next = kb.cuda_f32("den_next", den_next, (E, De))
+        den_next = al(kb.cuda_f32("den_next", den_next, (E, De)))
     if de_l is not None:
-        de_l = kb.cuda_f32("de_l", de_l, (E, De))
+        de_l = al(kb.cuda_f32("de_l", de_l, (E, De)))
     dev = en.device
-    grid, ogrid = kb.grid_for(dev, n, STEP_WARPS, per_sm=4), outer_grid(dev, E)
+    grid = kb.grid_for(dev, -(-E // TILE_ROWS), 1, per_sm=TILE_BLOCKS_PER_SM)
+    row = step_sums_len(De, K, Dp, Dc)
     d_el = kb.f32_empty((E, De), dev)
     den = kb.f32_empty((E, d_in), dev)
     dskip2 = None if skip2 is None else kb.f32_empty((E, d2), dev)
     dps, dpv = kb.f32_empty((n, De), dev), kb.f32_empty((m, De), dev)
-    ln_partials, ln_sums = kb.f32_empty((grid, 64), dev), kb.f32_empty((2, 32), dev)
-    outer_partials = kb.f32_empty((3, ogrid, OUTER_ROW), dev)
-    outer_sums = kb.f32_empty((3, OUTER_ROW), dev)
+    partials, sums = kb.f32_empty((grid, row), dev), kb.f32_empty((row,), dev)
     p = kb.ptr
     ln_s, ln_b = (None, None) if raw_prologue else (ln_scale, ln_bias)
     code = _entry("gasfm_layer_step_bwd")(
-        p(en), d_in, p(skip2), d2, p(w), p(e_l), p(v),
+        p(en), d_in, p(skip2), d2, p(w), p(e_l),
         p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n, p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
         p(kb.cuda_i32("cam_perm", graph.cam_perm)), m, E, De,
         p(ln_s), p(ln_b), int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc,
         p(dxl_p), p(dxl_c), p(den_next), p(de_l),
-        p(d_el), p(den), p(dskip2), p(dps), p(dpv),
-        p(ln_partials), p(ln_sums), p(outer_partials), p(outer_sums), grid, ogrid,
+        p(d_el), p(den), p(dskip2), p(dps), p(dpv), p(partials), p(sums), grid,
         kb.stream(dev),
     )
     kb.check(code, "fused_layer_step_bwd")
     fused_layer_step_bwd.launches += 1
-    dwlp, dblp = split_outer_sums(outer_sums[0], Dp, De)
-    dwlc, dblc = split_outer_sums(outer_sums[1], Dc, De)
-    dw, db = split_outer_sums(outer_sums[2], De, d_in + d2)
-    dg, dbn = (None, None) if raw_prologue else (ln_sums[0, :De], ln_sums[1, :De])
+    dwlp, dblp, dwlc, dblc, dw, db, dg, dbn = split_step_sums(sums, De, K, Dp, Dc)
+    if raw_prologue:
+        dg = dbn = None
     return den, dskip2, d_el, dw, db, dps, dpv, dg, dbn, dwlp, dblp, dwlc, dblc
 
 

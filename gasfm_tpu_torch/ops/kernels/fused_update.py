@@ -29,7 +29,7 @@ import functools
 import torch
 
 from gasfm_tpu_torch.ops.kernels import build as kb
-from gasfm_tpu_torch.ops.kernels.segment_kernels import MAX_WIDTH, aligned
+from gasfm_tpu_torch.ops.kernels.segment_kernels import MAX_WIDTH
 from gasfm_tpu_torch.ops.segment import gather_segments
 
 _SEG_WARPS = 8  # kSegWarps of csrc/segment.cuh
@@ -55,10 +55,10 @@ def edge_combine_forward(pe, ps, pv, pg, graph):
     D = pe.shape[-1]
     if not 1 <= D <= MAX_WIDTH:
         raise ValueError(f"fused_edge_combine: width {D} not in [1, {MAX_WIDTH}]")
-    pe = aligned(kb.cuda_f32("pe", pe, (E, D)))
-    ps = aligned(kb.cuda_f32("ps", ps, (n, D)))
-    pv = aligned(kb.cuda_f32("pv", pv, (m, D)))
-    pg = aligned(kb.cuda_f32("pg", pg.reshape(1, D), (1, D)))
+    pe = kb.aligned(kb.cuda_f32("pe", pe, (E, D)))
+    ps = kb.aligned(kb.cuda_f32("ps", ps, (n, D)))
+    pv = kb.aligned(kb.cuda_f32("pv", pv, (m, D)))
+    pg = kb.aligned(kb.cuda_f32("pg", pg.reshape(1, D), (1, D)))
     dev = pe.device
     out = kb.f32_empty((E, D), dev)
     p = kb.ptr
@@ -102,7 +102,7 @@ def fused_edge_combine_bwd(g, graph):
     D = g.shape[-1]
     if not 1 <= D <= MAX_WIDTH:
         raise ValueError(f"fused_edge_combine_bwd: width {D} not in [1, {MAX_WIDTH}]")
-    g = aligned(kb.cuda_f32("g", g, (E, D)))
+    g = kb.aligned(kb.cuda_f32("g", g, (E, D)))
     dev = g.device
     grid = kb.grid_for(dev, n, _SEG_WARPS, per_sm=4)
     dpe, dps = kb.f32_empty((E, D), dev), kb.f32_empty((n, D), dev)

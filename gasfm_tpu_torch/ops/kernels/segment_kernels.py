@@ -83,11 +83,6 @@ def gather_rows_plain(table, graph, side):
     return gather_segments(table, side_ids(graph, side)[0])
 
 
-def aligned(t: torch.Tensor) -> torch.Tensor:
-    """The kernels read rows as 16-byte vectors where the width allows."""
-    return t.clone() if t.data_ptr() % 16 else t
-
-
 def _check_width(name, t, rows):
     if t.dim() != 2 or not 1 <= t.shape[1] <= MAX_WIDTH or t.shape[0] != rows:
         raise ValueError(f"{name}: expected ({rows}, D) with 1 <= D <= {MAX_WIDTH}, "
@@ -98,7 +93,7 @@ def segment_sum_forward(data, graph, side):
     """Launch the segment-sum kernel (CUDA tensors)."""
     _, S = side_ids(graph, side)
     _check_width("data", data, graph.num_edges)
-    data = aligned(kb.cuda_f32("data", data))
+    data = kb.aligned(kb.cuda_f32("data", data))
     D = data.shape[1]
     ptr, perm = side_csr(graph, side)
     out = kb.f32_empty((S, D), data.device)
@@ -111,15 +106,18 @@ def segment_sum_forward(data, graph, side):
 
 
 def gather_rows_forward(table, graph, side):
-    """Launch the row-gather kernel (CUDA tensors)."""
+    """Launch the row-gather kernel (CUDA tensors). The kernel indexes in
+    32 bits: E x D and S x D must stay below 2^31."""
     ids, S = side_ids(graph, side)
     _check_width("table", table, S)
-    table = aligned(kb.cuda_f32("table", table))
+    table = kb.aligned(kb.cuda_f32("table", table))
     ids = kb.cuda_i32("ids", ids)
     E, D = ids.shape[0], table.shape[1]
-    out = kb.f32_empty((E, D), table.device)
-    p = kb.ptr
-    code = _entry("gasfm_gather_rows")(p(table), D, p(ids), E, p(out), kb.stream(table.device))
+    if max(E, S) * D >= 2**31:
+        raise ValueError(f"gather_rows: {max(E, S)} x {D} rows exceed 32-bit indexing")
+    out = table.new_empty((E, D))  # float32 on the table's card, fewer arguments to parse
+    code = _entry("gasfm_gather_rows")(table.data_ptr(), D, ids.data_ptr(), E, out.data_ptr(),
+                                       kb.stream(table.device))
     kb.check(code, "gather_rows")
     gather_rows.launches += 1
     return out
@@ -163,7 +161,7 @@ segment_sum.launches = 0
 def gather_rows(table, graph, side):
     """(E, D) rows ``table[ids]`` of the (S, D) table, with the edges' ids
     of ``side`` ("point": ``pt_idx``, "camera": ``cam_idx``)."""
-    if table.device.type == "cpu":
+    if table.is_cpu:
         return gather_rows_plain(table, graph, side)
     if kb.needs_grad(table):
         return _GatherRows.apply(table, graph, side)

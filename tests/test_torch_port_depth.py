@@ -17,10 +17,9 @@ the CPU.
   ``projection_update`` and one ``fused_layer_step``), layer 2 runs unfused
   and widens the stream to 64 with the init skip; ``synth_depth``, the
   widths of confs/synth/optim_synth_depth_gasfm.conf (n_feat_proj 16, 3
-  layers, depth 32) on its own scene (10 views, 100 points), which the JAX
-  package runs unfused throughout (16 is not packable) while the port's
-  merged gate takes streams of up to 32 features, so there the port reaches
-  its projection update where the JAX package does not; ``no_norm_depth``,
+  layers, depth 32) on its own scene (10 views, 100 points), which both
+  packages run unfused throughout (the merged path takes exactly 32
+  features, the JAX package's ``packable`` width); ``no_norm_depth``,
   ``depth3`` without ``use_norm_proj_update`` (unfused everywhere, the last
   layer's ``skip_projection`` without its LayerNorm); ``dpesfm_depth``, the
   DPESFM conf's structure at width 32 with a 16-wide depth head. Compared:
@@ -349,15 +348,17 @@ def test_paths_match_jax(runs):
     """The JAX side's kernel entries (a spy, one trace of the forward and
     its gradient) and the port's wrappers on one forward + backward: the
     standalone update runs once in ``depth3`` in both packages and never
-    elsewhere in the JAX package; the port's counts follow its plan."""
+    elsewhere; at n_feat_proj = 16 (``synth_depth``) both packages take the
+    same entries, the frontend per layer and no layer step or update, as
+    neither packs a 16-wide stream."""
     name, jc, pc = runs["name"], runs["jax_calls"], runs["port_calls"]
     if name == "depth3":
         assert jc == {"fused_frontend": 2, "fused_layer_step": 1, "packed_edge_update": 1}
         assert pc == {"fused_frontend": 2, "fused_layer_step": 1, "projection_update": 1,
                       "fused_edge_combine": 1}
-    elif name == "synth_depth":  # not packable in the JAX package; merged in the port
-        assert jc.get("packed_edge_update", 0) == jc.get("fused_layer_step", 0) == 0
-        assert pc["projection_update"] == 1 and pc["fused_layer_step"] == 1
+    elif name == "synth_depth":  # each layer's frontend, then its unfused update
+        assert jc == {"fused_frontend": 3}
+        assert pc == {"fused_frontend": 3, "fused_edge_combine": 3}
     elif name == "no_norm_depth":
         assert jc.get("packed_edge_update", 0) == jc.get("fused_frontend", 0) == 0
         assert pc == {"fused_edge_combine": 3}
@@ -469,14 +470,18 @@ def test_depth_layer_residual_layernorm_matches_flax_form():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("num_layers,depth_feat", [(2, 64), (3, 32), (4, 64), (4, 32)])
-def test_layer_plan_matches_jax(monkeypatch, num_layers, depth_feat):
-    """Which kernel entry each package takes per forward, over layer counts
-    and depth widths (the JAX side traced with ``jax.eval_shape``): with 2
-    layers nothing is packed and the standalone update never runs; with the
-    depth width equal to n_feat_proj every layer but the first is packed and
-    the LAST layer runs the standalone update."""
-    widths = dict(DEPTH3, num_layers=num_layers, depth_head_n_feat=depth_feat)
+@pytest.mark.parametrize("num_layers,depth_feat,n_feat_proj",
+                         [(2, 64, 32), (3, 32, 32), (4, 64, 32), (4, 32, 32), (3, 32, 16),
+                          (4, 16, 16)])
+def test_layer_plan_matches_jax(monkeypatch, num_layers, depth_feat, n_feat_proj):
+    """Which kernel entry each package takes per forward, over layer counts,
+    depth widths and both shipped stream widths (the JAX side traced with
+    ``jax.eval_shape``): with 2 layers nothing is packed and the standalone
+    update never runs; with the depth width equal to n_feat_proj every layer
+    but the first is packed and the LAST layer runs the standalone update;
+    at n_feat_proj = 16 nothing is packed in either package."""
+    widths = dict(DEPTH3, num_layers=num_layers, depth_head_n_feat=depth_feat,
+                  n_feat_proj=n_feat_proj)
     data = jax_synthetic_scene(store_depth_targets=True, **SMALL)
     jax_calls, port_calls = {}, {}
     spy(monkeypatch, jax_calls, JAX_KERNELS)
@@ -492,14 +497,16 @@ def test_layer_plan_matches_jax(monkeypatch, num_layers, depth_feat):
     with torch.no_grad():
         model(pscene.graph)
     L = num_layers
-    packed_tail = depth_feat == widths["n_feat_proj"]
-    want_update = int(L >= 3 or packed_tail)
+    packable = n_feat_proj == 32
+    packed_tail = depth_feat == n_feat_proj
+    want_update = int(packable and (L >= 3 or packed_tail))
     assert jax_calls.get("packed_edge_update", 0) == port_calls.get("projection_update", 0) \
         == want_update
     assert jax_calls.get("fused_layer_step", 0) == port_calls.get("fused_layer_step", 0) \
-        == (L - 1 if packed_tail else max(L - 2, 0))
+        == (0 if not packable else L - 1 if packed_tail else max(L - 2, 0))
     plan = model.layer_plan(pscene.graph)
-    assert [defer for _, defer in plan].count(False) == (1 if packed_tail else 2 if L >= 3 else L)
+    assert [defer for _, defer in plan].count(False) == \
+        (L if not packable else 1 if packed_tail else 2 if L >= 3 else L)
 
 
 def test_gt_depths_match_jax_scene_data():

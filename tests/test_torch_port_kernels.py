@@ -544,3 +544,24 @@ def esfm_terms_grad_pairs(graphs, eq_mode, hinge):
 def test_fused_esfm_terms_grads_match_jax(graphs, eq_mode, hinge):
     for name, got, want in esfm_terms_grad_pairs(graphs, eq_mode, hinge):
         assert_close(got, want, name)
+
+
+@pytest.mark.parametrize("De,K,Dp,Dc", [(32, 34, 32, 32), (32, 4, 32, 32), (5, 7, 3, 6)])
+def test_layer_step_bwd_partial_row_splits_into_the_weight_gradients(De, K, Dp, Dc):
+    """The layer step's backward writes its weight gradients as one row per
+    block (``StepRow``, csrc/edge_tile.cuh: d wlp (Dp, De), d blp, d wlc
+    (Dc, De), d blc, d w (De, K), d b, d ln_scale, d ln_bias) and sums the
+    rows; ``split_step_sums`` hands back each gradient from a row built by
+    hand in that order, as views of it."""
+    from gasfm_tpu_torch.ops.kernels.fused_layer_step import split_step_sums, step_sums_len
+
+    gen = torch.Generator().manual_seed(De * K)
+    want = [torch.randn(shape, generator=gen) for shape in
+            ((Dp, De), (Dp,), (Dc, De), (Dc,), (De, K), (De,), (De,), (De,))]
+    row = torch.cat([t.reshape(-1) for t in want])
+    assert row.numel() == step_sums_len(De, K, Dp, Dc)
+    got = split_step_sums(row, De, K, Dp, Dc)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w) and g.data_ptr() >= row.data_ptr()
+    assert got[4][De - 1, K - 1] == row[(Dp + Dc) * (De + 1) + De * K - 1]

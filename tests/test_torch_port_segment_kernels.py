@@ -234,3 +234,45 @@ def test_core_errors_device_matches_jax_through_the_plain_gather(scenes, spy):
     got = core_errors_device(pred, pscene, plain=True)["our_repro"]
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
     assert float(core_errors_device(pred, pscene)["our_repro"]) == float(got)
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
+@pytest.mark.parametrize("D", [1, 2, 256])
+def test_gather_rows_runs_its_plain_version_for_a_cpu_table(scenes, side, D):
+    """A CPU table takes the plain version, with or without autograd: the
+    rows ``table[ids]`` bitwise, in the graph's edge order, and the
+    gradient the segment sum of the cotangent (a sum in another order:
+    the module's tolerance)."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    draw = Draw(scenes, seed=30 + D)
+    table = torch.from_numpy(draw.table(side, D)[0])
+    ids = (draw.pg.pt_idx if side == "point" else draw.pg.cam_idx).long()
+    launched = sk.gather_rows.launches
+    got = gather_rows(table, draw.pg, side)
+    assert got.shape == (draw.pg.num_edges, D) and torch.equal(got, table[ids])
+    leaf = table.clone().requires_grad_()
+    cot = torch.from_numpy(draw.edges(D)[0])
+    (d,) = torch.autograd.grad(gather_rows(leaf, draw.pg, side), leaf, cot)
+    assert_close(d.numpy(), seg.segment_sum(cot, ids, rows_of(side, draw)).numpy(), "d table")
+    assert sk.gather_rows.launches == launched
+
+
+def test_gather_rows_launcher_checks_its_operands_before_any_launch(scenes):
+    """The launcher raises on an unknown side, a table of the wrong row
+    count or of a width outside 1..256, and a table that is not a float32
+    CUDA tensor; it never runs the plain version instead."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    pg = scenes[1].graph
+    n, m = pg.num_pts, pg.num_cams
+    with pytest.raises(ValueError, match="side must be one of"):
+        sk.gather_rows(torch.zeros(n, 4), pg, "edge")
+    with pytest.raises(ValueError, match=rf"expected \({m}, D\)"):
+        sk.gather_rows_forward(torch.zeros(n, 4), pg, "camera")
+    for width in (0, 257):
+        with pytest.raises(ValueError, match="1 <= D <= 256"):
+            sk.gather_rows_forward(torch.zeros(n, width), pg, "point")
+    for bad in (torch.zeros(n, 4), torch.zeros(n, 4, dtype=torch.float64)):
+        with pytest.raises(TypeError, match="float32 CUDA tensor"):
+            sk.gather_rows_forward(bad, pg, "point")

@@ -40,9 +40,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    autograd of its plain version.
 3c. The kernels GASFM's unfused path adds, on the dense scene and the wide
    one (1280 views, 16,384 power-law points): the single-direction attention
-   on both sides at D = 32, forward and backward, and the segment max on
-   both sides at D = 1, 4 and 8, on the graph and on a copy with empty
-   segments, bitwise, also timed against ``scatter_reduce_`` (amax).
+   on both sides at D = 32, forward (and its max and denominator residuals
+   against the plain logits') and backward, each launched twice bitwise, on
+   the wide scene also on a copy with empty segments and on a hub graph
+   (the wide scene plus a point seen by all 1280 cameras and points of
+   exactly L - 1, L, L + 1 and 2L edges, L the point side's split length;
+   there also at (D, H) = (16, 4), (32, 1), (8, 8), (12, 6) and (6, 3)),
+   with #13's and #14's device times per call on the wide and hub graphs
+   (the hub graph must cost less than 1.5x the wide one); and the segment
+   max on both sides at D = 1, 4 and 8, on the graph and on a copy with
+   empty segments, bitwise, also timed against ``scatter_reduce_`` (amax).
 3d. The standalone projection update (the depth path's layer L-2) on both
    bench scenes at De = 32: with the 2-wide skip2 and the residual, with
    neither, and at d2 = 0 with the residual; its backward against autograd
@@ -843,6 +850,13 @@ def gather_host_parts(table, graph, side, scene_name, record, reps=200):
 # ---------------------------------------------------------------------------
 
 
+def csr_offsets(ids, S):
+    """(S + 1,) int32 CSR offsets of the sorted (or counted) segment ids."""
+    ptr = torch.zeros(S + 1, dtype=torch.int32, device=ids.device)
+    ptr[1:] = torch.cumsum(torch.bincount(ids.long(), minlength=S), 0)
+    return ptr
+
+
 def graph_with_empty_segments(graph):
     """``graph`` without the edges of every 50th point and of camera 1,
     whose segments are then empty (as a point column with no valid entry
@@ -851,28 +865,146 @@ def graph_with_empty_segments(graph):
 
     keep = (graph.pt_idx % 50 != 0) & (graph.cam_idx != 1)
     pt_idx, cam_idx = graph.pt_idx[keep], graph.cam_idx[keep]
-
-    def offsets(ids, S):
-        ptr = torch.zeros(S + 1, dtype=torch.int32, device=ids.device)
-        ptr[1:] = torch.cumsum(torch.bincount(ids.long(), minlength=S), 0)
-        return ptr
-
     return dataclasses.replace(
         graph, uv=graph.uv[keep], cam_idx=cam_idx, pt_idx=pt_idx,
-        pt_ptr=offsets(pt_idx, graph.num_pts), cam_ptr=offsets(cam_idx, graph.num_cams),
+        pt_ptr=csr_offsets(pt_idx, graph.num_pts), cam_ptr=csr_offsets(cam_idx, graph.num_cams),
         cam_perm=torch.argsort(cam_idx, stable=True).to(torch.int32))
+
+
+def hub_graph(graph, seed=13):
+    """``graph`` plus five points after its own: one seen by every camera
+    (a hub), and four seen by exactly L - 1, L, L + 1 and 2L cameras, L the
+    point-side attention's split length (``ATTEND_CHUNK``): a short point at
+    and below it, a long one of a ragged and of two whole chunks."""
+    import dataclasses
+
+    from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK as L
+
+    gen = torch.Generator().manual_seed(seed)
+    m, n, dev = graph.num_cams, graph.num_pts, graph.device
+    degrees = (m, L - 1, L, L + 1, 2 * L)
+    cams = [torch.sort(torch.randperm(m, generator=gen)[:d]).values for d in degrees]
+    pt_idx = torch.cat([graph.pt_idx.cpu()] + [torch.full((d,), n + j, dtype=torch.int32)
+                                                for j, d in enumerate(degrees)])
+    cam_idx = torch.cat([graph.cam_idx.cpu()] + [c.to(torch.int32) for c in cams])
+    pt_idx, cam_idx = pt_idx.to(dev), cam_idx.to(dev)
+    uv = torch.randn((sum(degrees), 2), generator=gen).to(dev)
+    seen = torch.ones(len(degrees), dtype=torch.bool, device=dev)
+    return dataclasses.replace(
+        graph, uv=torch.cat([graph.uv, uv]), cam_idx=cam_idx, pt_idx=pt_idx,
+        pt_ptr=csr_offsets(pt_idx, n + len(degrees)), cam_ptr=csr_offsets(cam_idx, m),
+        cam_perm=torch.argsort(cam_idx, stable=True).to(torch.int32),
+        pt_valid=torch.cat([graph.pt_valid, seen]))
+
+
+def attend_residuals_plain(xl, xr, att, graph, side, heads):
+    """Each segment's per-head softmax max and denominator (the residuals
+    the attention forward writes under autograd), from the plain logits:
+    (m, den), each (S, H), m set to 0 where den is 0 (an empty segment,
+    whose max the kernel leaves at -inf)."""
+    from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, leaky_relu
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    ids, S = sk.side_ids(graph, side)
+    ids = ids.long()
+    z = leaky_relu(xl + xr[ids], NEGATIVE_SLOPE) * att
+    logits = z.reshape(z.shape[0], heads, -1).sum(-1)
+    m = sk.segment_max_plain(logits, graph, side)
+    den = torch.zeros((S, heads), device=xl.device).index_add_(0, ids, torch.exp(logits - m[ids]))
+    return m.masked_fill(den == 0, 0.0), den
+
+
+def attention_checks(results, record, scene_name, graph, label, rnd, main_point,
+                     shapes=((32, 4),)):
+    """The single-direction attention on both sides of ``graph`` at each
+    (D, H) of ``shapes`` (D = 32, H = 4: an interior layer's aggregation):
+    the forward (twice, bitwise), its residuals (max and denominator)
+    against the plain logits', the backward (twice, bitwise) against
+    autograd of the plain forward."""
+    from gasfm_tpu_torch.ops.kernels import fused_attn as fat
+
+    E = graph.num_edges
+    csr = {"point": (graph.pt_ptr,), "camera": (graph.cam_ptr, graph.cam_perm)}
+    for (D, H), side in ((shape, side) for shape in shapes for side in ("point", "camera")):
+        S = graph.num_pts if side == "point" else graph.num_cams
+        main = main_point and side == "point" and (D, H) == (32, 4)
+        ins = dict(xl=rnd(E, D), xr=rnd(S, D), att=rnd(D))
+
+        def kern(side=side, H=H, **a):
+            return (fat.fused_attend(a["xl"], a["xr"], a["att"], graph, side, H),)
+
+        def plain(side=side, H=H, **a):
+            return (fat.fused_attend_plain(a["xl"], a["xr"], a["att"], graph, side, H),)
+
+        def kern_res(side=side, H=H):
+            _, (m, den), _ = fat.attend_forward(*ins.values(), graph, side, H, residuals=True)
+            return m.masked_fill(den == 0, 0.0), den
+
+        variant = f"{side}_D{D}{'' if H == 4 else f'_H{H}'}{label}"
+        forward_check(results, record, scene_name, "fused_attend", variant,
+                      lambda: kern(**ins), lambda: plain(**ins), ("out",),
+                      nbytes(*ins.values(), *csr[side]) + 4 * S * D, 10.0 * E * D, main,
+                      twice=True)
+        forward_check(results, record, scene_name, "fused_attend", f"{variant}_residuals",
+                      kern_res, lambda side=side, H=H: attend_residuals_plain(
+                          *ins.values(), graph, side, H), ("m", "den"),
+                      nbytes(*ins.values(), *csr[side]) + 4 * (S * D + 2 * S * H),
+                      10.0 * E * D, False, twice=True)
+        g = rnd(S, D)
+        out, res, saved = fat.attend_forward(*ins.values(), graph, side, H, residuals=True)
+        backward_check(
+            results, record, scene_name, "fused_attend_bwd", variant, kern, plain, ins,
+            (g,), lambda side=side, H=H, out=out, res=res, saved=saved, g=g: fat.fused_attend_bwd(
+                *saved, out, *res, g, graph, side, H),
+            # reads: xl, xr, att, the output, residuals and cotangent, the
+            # CSR; writes d xl, d xr, d att
+            nbytes(*ins.values(), out, *res, g, *csr[side], *ins.values()), 20.0 * E * D, main,
+            twice=True)
+
+
+def attention_device_times(graphs, rnd, record):
+    """#13 (the forward with residuals) and #14 (the backward from them) on
+    the point side at D = 32, H = 4: device time per call from profiler
+    windows (``tools/kernel_device_time``). The hub graph adds a point of
+    every camera's edge to the wide one; with at most ATTEND_CHUNK edges
+    per warp it must cost less than 1.5x the wide graph."""
+    from gasfm_tpu_torch.ops.kernels import fused_attn as fat
+    from gasfm_tpu_torch.tools.kernel_device_time import device_ms_per_call
+
+    times = {}
+    for label, graph in graphs.items():
+        H, D, S = 4, 32, graph.num_pts
+        xl, xr, att, g = rnd(graph.num_edges, D), rnd(S, D), rnd(D), rnd(S, D)
+        out, res, saved = fat.attend_forward(xl, xr, att, graph, "point", H, residuals=True)
+        fwd = device_ms_per_call(
+            lambda: fat.attend_forward(xl, xr, att, graph, "point", H, residuals=True), 20)
+        bwd = device_ms_per_call(
+            lambda: fat.fused_attend_bwd(*saved, out, *res, g, graph, "point", H), 20)
+        times[label] = dict(fused_attend=fwd[0], fused_attend_bwd=bwd[0],
+                            fused_attend_launches=fwd[1], fused_attend_bwd_launches=bwd[1])
+    ratios = {k: times["hub"][k] / times["wide"][k] for k in ("fused_attend", "fused_attend_bwd")}
+    ok = all(r < 1.5 for r in ratios.values())
+    print(f"attention device time per call, point side, D = 32, H = 4: wide graph #13 "
+          f"{times['wide']['fused_attend']:.4f} ms, #14 {times['wide']['fused_attend_bwd']:.4f} "
+          f"ms; hub graph #13 {times['hub']['fused_attend']:.4f} ms, #14 "
+          f"{times['hub']['fused_attend_bwd']:.4f} ms; hub / wide {ratios['fused_attend']:.3f}, "
+          f"{ratios['fused_attend_bwd']:.3f} (below 1.5: {'ok' if ok else 'FAIL'}); launches "
+          f"per call {times['wide']['fused_attend_launches']}, "
+          f"{times['wide']['fused_attend_bwd_launches']}")
+    record["attention_device_times"] = dict(times, ratios=ratios, ok=ok)
+    return ok
 
 
 def unfused_kernel_phase(dev, scene_name, graph, record):
     """The kernels the unfused path adds: the single-direction attention
-    forward and backward on both sides at D = 32, H = 4 (an interior
-    layer's aggregation), the backward against autograd of the plain
-    forward; the segment max on both sides at D = 1, 4 (the logits of 4
+    forward and backward on both sides (:func:`attention_checks`), on the
+    wide scene also on a copy with empty segments and on
+    :func:`hub_graph`, with #13's and #14's device times on the wide and
+    hub graphs; the segment max on both sides at D = 1, 4 (the logits of 4
     heads: the camera composite's) and 8, on the scene's graph and on a copy
     with empty segments, bitwise, also timed against ``scatter_reduce_``
     (amax). The main variants are the main path's: the attention on the
     point side, the max on the camera side at D = 4."""
-    from gasfm_tpu_torch.ops.kernels import fused_attn as fat
     from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 
     gen = torch.Generator(device=dev).manual_seed(1357)
@@ -881,30 +1013,21 @@ def unfused_kernel_phase(dev, scene_name, graph, record):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
     results = {}
-    E, H, D = graph.num_edges, 4, 32
-    csr = {"point": (graph.pt_ptr,), "camera": (graph.cam_ptr, graph.cam_perm)}
-    for side, S in (("point", graph.num_pts), ("camera", graph.num_cams)):
-        main = side == "point"
-        ins = dict(xl=rnd(E, D), xr=rnd(S, D), att=rnd(D))
-
-        def kern(side=side, **a):
-            return (fat.fused_attend(a["xl"], a["xr"], a["att"], graph, side, H),)
-
-        def plain(side=side, **a):
-            return (fat.fused_attend_plain(a["xl"], a["xr"], a["att"], graph, side, H),)
-
-        forward_check(results, record, scene_name, "fused_attend", f"{side}_D{D}",
-                      lambda: kern(**ins), lambda: plain(**ins), ("out",),
-                      nbytes(*ins.values(), *csr[side]) + 4 * S * D, 10.0 * E * D, main)
-        g = rnd(S, D)
-        out, res, saved = fat.attend_forward(*ins.values(), graph, side, H, residuals=True)
-        backward_check(
-            results, record, scene_name, "fused_attend_bwd", f"{side}_D{D}", kern, plain, ins,
-            (g,), lambda side=side, out=out, res=res, saved=saved, g=g: fat.fused_attend_bwd(
-                *saved, out, *res, g, graph, side, H),
-            # reads: xl, xr, att, the output, residuals and cotangent, the
-            # CSR; writes d xl, d xr, d att
-            nbytes(*ins.values(), out, *res, g, *csr[side], *ins.values()), 20.0 * E * D, main)
+    attention_checks(results, record, scene_name, graph, "", rnd, True)
+    if scene_name == "wide":
+        hub = hub_graph(graph)
+        counts = (hub.pt_ptr[1:] - hub.pt_ptr[:-1])[-5:].tolist()
+        print(f"hub graph: the wide scene plus points of {counts} edges "
+              f"({hub.num_edges} edges)")
+        attention_checks(results, record, scene_name, graph_with_empty_segments(graph), "_empty",
+                         rnd, False)
+        attention_checks(results, record, scene_name, hub, "_hub", rnd, False)
+        # the other head widths the kernels take: C = 4 (D < 32), 32, 1 and 2
+        # (features of several heads on one lane), and D not a multiple of 4
+        attention_checks(results, record, scene_name, hub, "_hub", rnd, False,
+                         shapes=((16, 4), (32, 1), (8, 8), (12, 6), (6, 3)))
+        if not attention_device_times({"wide": graph, "hub": hub}, rnd, record):
+            results["fused_attend"]["ok"] = False
 
     neutral = -7.5  # a caller's neutral: empty segments must give it
     for label, gr in (("", graph), ("_empty", graph_with_empty_segments(graph))):

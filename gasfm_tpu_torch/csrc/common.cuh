@@ -69,6 +69,40 @@ struct Online {
   }
 };
 
+// Features c0 .. c0 + 3 of row e of the (E, D) stream `src` (0 past D, for
+// an invalid row, or for src == NULL): one 16-byte load when D is a multiple
+// of 4 (the caller keeps the stream 16-byte aligned). Rows held 4 features
+// per lane, 8 lanes per 32-wide row.
+__device__ __forceinline__ void load_row4(const float* __restrict__ src, int D, int e, int c0,
+                                          bool valid, float (&v)[4]) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (src == nullptr || !valid || c0 >= D) return;
+  const float* p = src + (size_t)e * D + c0;
+  if ((D & 3) == 0) {
+    const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (c0 + q < D) v[q] = p[q];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_row4(float* __restrict__ dst, int D, int e, int c0,
+                                           bool valid, const float (&v)[4]) {
+  if (dst == nullptr || !valid || c0 >= D) return;
+  float* p = dst + (size_t)e * D + c0;
+  if ((D & 3) == 0) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (c0 + q < D) p[q] = v[q];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Deterministic cross-edge sums of the backward kernels. A sum over all edges
 // (a weight or bias gradient) is kept per lane in registers by each warp,

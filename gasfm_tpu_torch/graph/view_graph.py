@@ -74,6 +74,62 @@ class ViewGraph:
         computed once."""
         return (self.cam_ptr[1:] - self.cam_ptr[:-1]).clamp_min(1).to(torch.float32)
 
+    def pt_chunks(self, rows: int) -> "SegmentChunks":
+        """The points split by length at ``rows`` edges (:func:`split_segments`),
+        built on the host once per graph and ``rows``: the point-side
+        attention kernels take it on every call."""
+        cache = self.__dict__.setdefault("_pt_chunks", {})
+        if rows not in cache:
+            cache[rows] = split_segments(self.pt_ptr.cpu().numpy(), rows, self.device)
+        return cache[rows]
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentChunks:
+    """Segments of a CSR split by length. A segment of at most ``rows``
+    edges (empty ones too) is short and stands alone; a longer one is long
+    and is cut into chunks of ``rows`` edges, the last one ragged.
+
+    ``long_seg`` (n_long,) lists the long segments in order, ``long_ptr``
+    (n_long + 1,) their CSR offsets into the chunks; chunk k belongs to
+    segment ``chunk_seg[k]`` and starts at edge ``chunk_begin[k]``.
+    ``table`` holds the four, int32, on the graph's device, laid out
+    [chunk_seg | chunk_begin | long_seg | long_ptr] for the kernels."""
+
+    rows: int
+    long_seg: np.ndarray
+    long_ptr: np.ndarray
+    chunk_seg: np.ndarray
+    chunk_begin: np.ndarray
+    table: torch.Tensor
+
+    @property
+    def n_long(self) -> int:
+        return self.long_seg.shape[0]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.chunk_seg.shape[0]
+
+
+def split_segments(ptr: np.ndarray, rows: int, device=None) -> SegmentChunks:
+    """Split the segments of the CSR offsets ``ptr`` (S + 1,) at ``rows``
+    edges (see :class:`SegmentChunks`)."""
+    ptr = np.asarray(ptr, dtype=np.int64)
+    deg = ptr[1:] - ptr[:-1]
+    long_seg = np.flatnonzero(deg > rows)
+    per = -(-deg[long_seg] // rows)
+    long_ptr = np.zeros(long_seg.shape[0] + 1, dtype=np.int64)
+    np.cumsum(per, out=long_ptr[1:])
+    chunk_seg = np.repeat(long_seg, per)
+    within = np.arange(chunk_seg.shape[0]) - np.repeat(long_ptr[:-1], per)
+    chunk_begin = ptr[chunk_seg] + rows * within
+    parts = dict(chunk_seg=chunk_seg, chunk_begin=chunk_begin, long_seg=long_seg,
+                 long_ptr=long_ptr)
+    table = torch.as_tensor(np.concatenate(list(parts.values())).astype(np.int32), device=device)
+    return SegmentChunks(rows=rows, table=table,
+                         **{k: v.astype(np.int32) for k, v in parts.items()})
+
 
 @dataclasses.dataclass(frozen=True)
 class SceneGraph:

@@ -10,10 +10,15 @@ with the segments' queries ``xr`` (S, D) and the attention vector ``att``
 d xr, d att). The JAX package runs them where the dual kernel does not
 apply: on a scene of more than 1024 cameras, its point direction
 (``gasfm_tpu/ops/gatv2.py:146-184``). Here a "side" names the segments:
-``"point"`` walks the contiguous point runs, a warp per point; ``"camera"``
-walks the camera CSR, a block per camera (the device code of the dual
-kernel's two directions, ``csrc/attend.cuh``). Both take D = H * C <= 32
-with C a power of two.
+``"point"`` walks the contiguous point runs, and no warp walks more than
+``ATTEND_CHUNK`` edges of one point: a point of up to that many edges is
+short, and a warp walks four short points at once (8 lanes each); a longer
+point is cut into chunks of ``ATTEND_CHUNK`` edges, a warp each, whose
+partial results a second launch merges in chunk order (the split is built
+once per graph on the host, ``ViewGraph.pt_chunks``); ``"camera"`` walks the
+camera CSR, a block per camera (the device code of the dual kernel's camera
+direction, ``csrc/attend.cuh``). Both take D = H * C <= 32 with C a power
+of two.
 
 What bounds them on the H100 is bytes over its 3.35 TB/s: each edge row is
 read once, the online softmax stays in registers.
@@ -41,18 +46,35 @@ from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import head_width
 from gasfm_tpu_torch.ops.kernels.segment_kernels import side_csr, side_ids
 
-ATTEND_WARPS = 16  # kAttendWarps of csrc/fused_attn.cu: points per point block
+# of csrc/fused_attn.cu: kAttendChunk, the most edges of one point a warp
+# walks; kQuad, short points per warp; kPointWarps, warps per point-side
+# block; kPointBwdBlocksPerSm, the point-side backward's blocks per SM (one
+# d att partial row each)
+ATTEND_CHUNK = 32
+QUAD = 4
+POINT_WARPS = 8
+POINT_BWD_BLOCKS_PER_SM = 4
 
 _P, _I, _F = kb.P, kb.I, kb.F
 _SIGNATURES = {
-    "gasfm_attend": (_P,) * 5 + (_I,) * 3 + (_F,) + (_P,) * 4,
-    "gasfm_attend_bwd": (_P,) * 9 + (_I,) * 3 + (_F,) + (_P,) * 5,
+    "gasfm_attend": (_P,) * 6 + (_I,) * 5 + (_F,) + (_P,) * 5,
+    "gasfm_attend_bwd": (_P,) * 10 + (_I,) * 5 + (_F,) + (_P,) * 5 + (_I, _P),
 }
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(symbol: str):
     return kb.bind(kb.load("fused_attn"), symbol, _SIGNATURES[symbol])
+
+
+def point_split(graph, side):
+    """(split table, long points, chunks) of the point side's split at
+    ``ATTEND_CHUNK`` edges (``ViewGraph.pt_chunks``, built once per graph);
+    (None, 0, 0) on the camera side."""
+    if side != "point":
+        return None, 0, 0
+    split = graph.pt_chunks(ATTEND_CHUNK)
+    return kb.cuda_i32("pt_chunks", split.table), split.n_long, split.n_chunks
 
 
 def fused_attend_plain(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE):
@@ -69,17 +91,19 @@ def attend_forward(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE, residu
     _, S = side_ids(graph, side)
     E, D = graph.num_edges, xl.shape[1]
     C = head_width(D, heads)
-    xl = kb.cuda_f32("xl", xl, (E, D))
-    xr = kb.cuda_f32("xr", xr, (S, D))
-    att = kb.cuda_f32("att", att.reshape(-1), (D,))
+    xl = kb.aligned(kb.cuda_f32("xl", xl, (E, D)))
+    xr = kb.aligned(kb.cuda_f32("xr", xr, (S, D)))
+    att = kb.aligned(kb.cuda_f32("att", att.reshape(-1), (D,)))
     ptr, perm = side_csr(graph, side)
+    split, n_long, n_chunks = point_split(graph, side)
     dev = xl.device
     out = kb.f32_empty((S, D), dev)
     res = (kb.f32_empty((S, heads), dev), kb.f32_empty((S, heads), dev)) if residuals else None
+    part = kb.f32_empty((n_chunks, 96), dev) if n_chunks else None
     p = kb.ptr
     code = _entry("gasfm_attend")(
-        p(xl), p(xr), p(att), p(ptr), p(perm), S, D, C, float(slope), p(out),
-        *(p(t) for t in (res or (None, None))), kb.stream(dev))
+        p(xl), p(xr), p(att), p(ptr), p(perm), p(split), n_long, n_chunks, S, D, C,
+        float(slope), p(out), *(p(t) for t in (res or (None, None))), p(part), kb.stream(dev))
     kb.check(code, "fused_attend")
     fused_attend.launches += 1
     fused_attend.residual_launches += residuals
@@ -126,19 +150,25 @@ def fused_attend_bwd(xl, xr, att, out, m, den, g, graph, side, heads, slope=NEGA
     _, S = side_ids(graph, side)
     E, D = graph.num_edges, xl.shape[1]
     C = head_width(D, heads)
-    ins = [kb.cuda_f32(name, t, shape) for name, t, shape in (
+    ins = [kb.aligned(kb.cuda_f32(name, t, shape)) for name, t, shape in (
         ("xl", xl, (E, D)), ("xr", xr, (S, D)), ("att", att.reshape(-1), (D,)),
         ("out", out, (S, D)), ("m", m, (S, heads)), ("den", den, (S, heads)),
         ("g", g, (S, D)))]
     ptr, perm = side_csr(graph, side)
+    split, n_long, n_chunks = point_split(graph, side)
     dev = ins[0].device
     dxl, dxr, datt = kb.f32_empty((E, D), dev), kb.f32_empty((S, D), dev), kb.f32_empty((32,), dev)
-    grid = -(-S // ATTEND_WARPS) if perm is None else S
+    if perm is None:  # quads and chunks strided over resident blocks, one d att row each
+        grid = kb.grid_for(dev, -(-S // QUAD) + n_chunks, POINT_WARPS,
+                           per_sm=POINT_BWD_BLOCKS_PER_SM)
+    else:  # a block per camera
+        grid = S
     partials = kb.f32_empty((max(grid, 1), 32), dev)
+    dxr_part = kb.f32_empty((n_chunks, 32), dev) if n_chunks else None
     p = kb.ptr
     code = _entry("gasfm_attend_bwd")(
-        *(p(t) for t in ins), p(ptr), p(perm), S, D, C, float(slope), p(dxl), p(dxr), p(datt),
-        p(partials), kb.stream(dev))
+        *(p(t) for t in ins), p(ptr), p(perm), p(split), n_long, n_chunks, S, D, C,
+        float(slope), p(dxl), p(dxr), p(datt), p(dxr_part), p(partials), grid, kb.stream(dev))
     kb.check(code, "fused_attend_bwd")
     fused_attend_bwd.launches += 1
     return dxl, dxr, datt[:D]

@@ -1,5 +1,6 @@
-"""Device time per call of the layer step's backward (#6) and of the row
-gather (#16/#20), from ``torch.profiler``, on both bench scenes.
+"""Device time per call of the layer step's backward (#6), the row gather
+(#16/#20) and the point side's single-direction attention (#13, #14), from
+``torch.profiler``, on both bench scenes and the wide one.
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
 
@@ -10,9 +11,11 @@ is counted whole. The layer step's backward runs at the flagship's interior
 shapes (en (E, 32), skip2 (E, 2), W (32, 34), both source linears 32 x 32,
 cotangents of xl_p, xl_c, e_norm_next and e_l; the dual core's backward is
 not in the window); the gather on both sides at D = 256 and D = 2, beside
-``index_select`` on the same table and ids. Prints one line per
-measurement with each kernel's launches and device time per call, and
-writes them as JSON to ``--out`` (default
+``index_select`` on the same table and ids; the attention on the point side
+at D = 32, H = 4 (an interior layer of the flagship on the unfused path),
+the forward with its residuals (as under autograd) and the backward from
+them. Prints one line per measurement with each kernel's launches and
+device time per call, and writes them as JSON to ``--out`` (default
 ``chiprun_out/kernel_device_time.json``).
 
 It imports whichever ``gasfm_tpu_torch`` is first on the path, so one call
@@ -37,6 +40,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+from gasfm_tpu_torch.ops.kernels import fused_attn as fat
 from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
 from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 from gasfm_tpu_torch.tools.profile_forward import SCENES
@@ -86,6 +90,20 @@ def layer_step_bwd_call(graph, dev):
     return lambda: fls.fused_layer_step_bwd(**kw)
 
 
+def attend_calls(graph, dev, heads=4, D=32):
+    """#13 (the forward with residuals) and #14 (the backward from them) on
+    the point side, through the wrapper calls the parent trees have too."""
+    gen = torch.Generator(device=dev).manual_seed(1357)
+    S = graph.num_pts
+    xl, xr, att, g = (torch.randn(shape, generator=gen, device=dev)
+                      for shape in ((graph.num_edges, D), (S, D), (D,), (S, D)))
+    out, res, saved = fat.attend_forward(xl, xr, att, graph, "point", heads, residuals=True)
+    return [("fused_attend", f"point_D{D}_H{heads}", lambda: fat.attend_forward(
+                xl, xr, att, graph, "point", heads, residuals=True)),
+            ("fused_attend_bwd", f"point_D{D}_H{heads}", lambda: fat.fused_attend_bwd(
+                *saved, out, *res, g, graph, "point", heads))]
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=20)
@@ -99,10 +117,11 @@ def main(argv=None) -> None:
     print(f"device: {smi}; package {Path(fls.__file__).resolve().parents[2]}")
     out = []
     with torch.no_grad():
-        for scene_name in ("dense", "powerlaw"):
+        for scene_name in ("dense", "powerlaw", "wide"):
             graph = generate_synthetic_scene(**SCENES[scene_name]).to_scene_graph(device=dev).graph
             gen = torch.Generator(device=dev).manual_seed(2468)
-            cases = [("fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev))]
+            cases = attend_calls(graph, dev)
+            cases.append(("fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev)))
             for D in (256, 2):
                 for side in ("point", "camera"):
                     ids, S = sk.side_ids(graph, side)

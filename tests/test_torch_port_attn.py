@@ -8,6 +8,13 @@ package's Pallas kernels in interpret mode.
   gradients of xl, xr and att. The port's composite form
   (``gatv2_attend_composite``, the camera direction above 1024 cameras)
   against the same.
+- A hub point: on a 300-view scene one point is seen by every view, so its
+  edges span several chunks of the JAX kernel (the graph built at chunk
+  128) and several of the port's splits (``ATTEND_CHUNK`` edges); the
+  attention and its gradients against ``fused_attend_h`` there, and the
+  host-side split itself (``split_segments``, ``ViewGraph.pt_chunks``):
+  every segment short or long, the long ones in order and cut into
+  chunks that tile their edges, empty segments and degrees L, L + 1, kL.
 - The segment max against ``windowed_segment_max`` (point side) and
   ``segment_max_kernel`` (camera side), reached through the JAX
   ``segment_max``: D = 1, 4 and 8, the default neutral and a caller's;
@@ -26,6 +33,8 @@ against their own scale. The max is exact: bitwise. The softmax: rtol 1e-5,
 atol 1e-7.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -33,13 +42,16 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from gasfm_tpu.data.synthetic import generate_synthetic_scene as jax_synthetic_scene
+from gasfm_tpu.graph.view_graph import build_scene_graph as jax_build_scene_graph
 from gasfm_tpu.ops import gatv2 as jax_gatv2
 from gasfm_tpu.ops import segment as jseg
 from gasfm_tpu.ops.pallas import fused_attn as jax_fused_attn
 from gasfm_tpu.ops.pallas import segment_kernels as jax_segment_kernels
 
+from gasfm_tpu_torch.graph.view_graph import build_scene_graph, split_segments
 from gasfm_tpu_torch.ops.gatv2 import gatv2_attend_composite
-from gasfm_tpu_torch.ops.kernels.fused_attn import fused_attend
+from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK, fused_attend
 from gasfm_tpu_torch.ops.kernels.segment_kernels import segment_max
 from gasfm_tpu_torch.ops.segment import csr_segment_softmax
 
@@ -55,6 +67,10 @@ from test_torch_port_segment_kernels import (  # noqa: F401 (fixtures)
 )
 
 JAX_MAX = {"point": "windowed_segment_max", "camera": "segment_max_kernel"}
+HUB_SCENE = dict(n_views=300, n_points=400, track_length_dist="powerlaw", seed=0)
+HUB = 7  # the point every view sees
+HUB_CHUNK = 128  # the JAX graph's edge chunk: the hub's 300 edges span at least three
+L = ATTEND_CHUNK  # the port's split length
 
 
 @pytest.fixture
@@ -189,3 +205,79 @@ def test_leaky_relu_derivative_at_zero_matches_jax(scenes, spy, side):
     assert_close(dxl.numpy(), want_dxl[draw.mask], "d xl")
     assert_close(dxr.numpy(), want_dxr[:S], "d xr")
     assert_close(datt.numpy(), want_datt, "d att")
+
+
+@pytest.fixture(scope="module")
+def hub_scenes():
+    """HUB_SCENE with point HUB observed in every view (~2.7k edges)."""
+    data = jax_synthetic_scene(**HUB_SCENE)
+    M = data.M.copy()
+    M[:, HUB] = np.random.default_rng(5).uniform(400.0, 600.0, M.shape[0])
+    jscene = jax_build_scene_graph(M, data.Ns, data.y, chunk=HUB_CHUNK)
+    pscene = build_scene_graph(M, data.Ns, data.y, device="cpu")
+    jg, pg = jscene.graph, pscene.graph
+    mask = np.asarray(jg.edge_mask)
+    assert mask.sum() == pg.num_edges
+    assert np.array_equal(np.asarray(jg.pt_idx)[mask], pg.pt_idx.numpy())
+    assert np.array_equal(np.asarray(jg.cam_idx)[mask], pg.cam_idx.numpy())
+    assert jg.chunk == HUB_CHUNK and jg.pt_segment_windows() is not None
+    return jscene, pscene, mask
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_fused_attend_hub_point_matches_jax_kernel(hub_scenes, spy, heads):
+    draw = Draw(hub_scenes, seed=80 + heads)
+    degree = int(draw.pg.pt_ptr[HUB + 1] - draw.pg.pt_ptr[HUB])
+    assert degree == HUB_SCENE["n_views"]
+    assert degree >= 2 * HUB_CHUNK and degree > 4 * L
+    assert HUB in draw.pg.pt_chunks(L).long_seg
+    (xl, xr, att, cot), jins = attend_inputs(draw, "point", heads)
+    want, (want_dxl, want_dxr, want_datt) = jax_attend(draw, "point", heads, jins)
+    assert spy.get("fused_attend_h", 0) >= 1
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (xl, xr, att)]
+    got = fused_attend(*leaves, draw.pg, "point", heads)
+    dxl, dxr, datt = torch.autograd.grad(got, leaves, torch.from_numpy(cot))
+    S = rows_of("point", draw)
+    assert_close(got.detach().numpy(), want[:S], "out")
+    assert_close(dxl.numpy(), want_dxl[draw.mask], "d xl")
+    assert_close(dxr.numpy(), want_dxr[:S], "d xr")
+    assert_close(datt.numpy(), want_datt, "d att")
+
+
+
+@pytest.mark.parametrize("degrees", [
+    [], [0, 0, 0], [1, 2, 3], [L - 1, L, L + 1], [0, 2 * L, 0, 3 * L + 5, L],
+    [300, 0, L + 1, 7, 2 * L + 1, 2 * L, 0],
+])
+def test_split_segments_tiles_every_long_segment(degrees):
+    deg = np.asarray(degrees, dtype=np.int64)
+    ptr = np.concatenate([[0], np.cumsum(deg)])
+    sp = split_segments(ptr, L)
+    # every segment is short (at most L edges, empty ones too) or long, and
+    # the long ones are listed once each, in order
+    np.testing.assert_array_equal(sp.long_seg, np.flatnonzero(deg > L))
+    assert sp.n_long == int((deg > L).sum())
+    assert sp.n_chunks == int(sum(-(-d // L) for d in deg if d > L))
+    assert sp.long_ptr[0] == 0 and sp.long_ptr[-1] == sp.n_chunks
+    for i, s in enumerate(sp.long_seg):
+        ks = np.arange(sp.long_ptr[i], sp.long_ptr[i + 1])
+        assert (sp.chunk_seg[ks] == s).all()
+        begin = sp.chunk_begin[ks]
+        end = np.minimum(begin + L, ptr[s + 1])
+        # the chunks tile the segment's edges in order, each 1 to L of them
+        assert begin[0] == ptr[s] and end[-1] == ptr[s + 1]
+        np.testing.assert_array_equal(begin[1:], end[:-1])
+        assert ((end - begin >= 1) & (end - begin <= L)).all()
+    want = np.concatenate([sp.chunk_seg, sp.chunk_begin, sp.long_seg, sp.long_ptr])
+    np.testing.assert_array_equal(sp.table.numpy(), want)
+    assert sp.table.dtype == torch.int32
+
+
+def test_pt_chunks_built_once_per_graph(scenes):
+    graph = scenes[1].graph
+    split = graph.pt_chunks(L)
+    assert graph.pt_chunks(L) is split
+    np.testing.assert_array_equal(split.table.numpy(),
+                                  split_segments(graph.pt_ptr.numpy(), L).table.numpy())
+    other = dataclasses.replace(graph, pt_ptr=graph.pt_ptr.clone())
+    assert other.pt_chunks(L) is not split

@@ -65,6 +65,7 @@ import optax
 from gasfm_tpu.data.synthetic import generate_synthetic_scene as jax_synthetic_scene
 from gasfm_tpu.eval.metrics import core_errors_device as jax_core_errors
 from gasfm_tpu.graph.view_graph import build_scene_graph as jax_build_scene_graph
+from gasfm_tpu.graph.view_graph import build_view_graph as jax_build_view_graph
 from gasfm_tpu.losses import ESFMLoss as JaxESFMLoss
 from gasfm_tpu.models.convert import convert_reference_state_dict
 from gasfm_tpu.models.gasfm import GraphAttnSfMNet as JaxGraphAttnSfMNet
@@ -75,7 +76,7 @@ from gasfm_tpu.ops.segment import set_kernel_mode
 from gasfm_tpu.train.state import build_optimizer as jax_build_optimizer
 
 from gasfm_tpu_torch.eval.metrics import core_errors_device
-from gasfm_tpu_torch.graph.view_graph import build_scene_graph
+from gasfm_tpu_torch.graph.view_graph import build_scene_graph, build_view_graph
 from gasfm_tpu_torch.losses import ESFMLoss, FLAGSHIP_LOSS
 from gasfm_tpu_torch.models.convert import params_from_jax
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
@@ -302,3 +303,20 @@ def test_one_model_takes_each_scenes_path(monkeypatch):
         pred = session.forward(scene)
         assert calls == want
         assert torch.isfinite(pred["Ps_norm"]).all() and torch.isfinite(pred["pts3D"]).all()
+
+
+@pytest.mark.parametrize("m", [1000, 1017, 1024, 1025])
+def test_camera_gate_agrees_with_jax_padded_count(m):
+    """The JAX package's 1024-camera gate reads its padded camera count
+    (``num_cams`` is ``cam_mask.shape[0]``), the port's ``merged_path`` the
+    real one. Under the default caps the padding is
+    ``min(bucket_size(m, ...), round_up(m, 128))``, so the padded count is at
+    most 1024 exactly when m is: on a scene of m cameras (16 points, each in
+    every view) the two gates agree."""
+    rng = np.random.default_rng(m)
+    M = rng.uniform(100.0, 900.0, (2 * m, 16)).astype(np.float32)
+    Ns = np.tile(np.eye(3, dtype=np.float32), (m, 1, 1))
+    jax_gate = jax_build_view_graph(M, Ns).num_cams <= 1024
+    assert jax_gate == (m <= 1024)
+    model = port_model(dict(FLAGSHIP_SHAPE, num_layers=2))
+    assert model.merged_path(build_view_graph(M, Ns, device="cpu")) == jax_gate

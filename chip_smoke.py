@@ -17,7 +17,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    warm-up, divided by 100: the device's time wherever the host keeps
    ahead); the plain version's time, and the least time the card could
    take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   whichever is larger).
+   whichever is larger). The layer step's prologue (#5), the kernel its
+   wrapper launches before the dual core, is also held alone against its
+   plain version in each form and launched twice, bitwise; the kernels
+   line takes its numbers from the interior form.
 3. Each GASFM backward kernel against autograd of its plain version on the
    card, on seeded inputs and cotangents at both scenes' shapes: the dual
    core at D = 32, the frontend at layer 0 (De = 2), the layer step in its
@@ -29,7 +32,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    function (weight gradients included), and two of its launches must
    agree bitwise; its three forms also run on a graph built for its tiles
    of 32 edges: one point's edges span four tiles, 57 points and one
-   camera have no edges, and E is not a multiple of 32.
+   camera have no edges, and E is not a multiple of 32; so does #5's, at
+   the flagship's width and at De = Dp = Dc = 8. The dual core's backward
+   (#2) is launched twice, bitwise, and also runs on graphs that stress its
+   split of both CSRs at 32 edges: the dense scene with empty segments, the
+   dense scene plus a camera over all 8,192 points, and the power-law
+   scene plus cameras of exactly 31, 32, 33 and 64 edges and a point of
+   133 (there also at (D, H) = (16, 4), (32, 1), (8, 8), (12, 6)); its
+   device time per call on the hub-camera graph must be at most 1.5x the
+   dense scene's.
 3b. The DPESFM path's kernels at both scenes' shapes: the segment sum and
    the row gather on both sides (point, camera) at D = 2 and D = 256, also
    timed per call and in a burst against the one PyTorch call of the same
@@ -135,7 +146,10 @@ the plain path run in float64 from the same weights: the kernel path's max
 |err| at most 4 x the plain float32 path's plus 1e-5 x max |ref| plus 1e-7
 x the model's largest gradient, 5e-7 x on the wide scene (some gradients
 are sums whose terms cancel exactly, zero in float64, rounding noise in
-float32 on both paths); losses
+float32 on both paths), plus the most that the ties move the tensor: the
+branches the kernel path took otherwise than float64 (ReLU inputs within
+a rounding of 0; the ESFM loss's margin test, the depth loss's L1 sign),
+its float64 gradient taken along them against float64's own; losses
 after Adam steps rtol 1e-3; parameters after 3 steps, card vs CPU, |err|
 <= 1e-6 + 1e-5 x |ref|, for DPESFM plus twice the sum of the three
 learning rates (its mean-centering leaves the earlier layers' gradients as
@@ -147,6 +161,8 @@ and CPU, held against the CPU's in float64 by the rule above.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import math
 import statistics
@@ -422,7 +438,10 @@ def kernel_phase(dev, scene_name, graph, model, record):
         check("fused_layer_step", variant,
               lambda sa=sa, raw=raw: fls.fused_layer_step(*sa, raw_prologue=raw),
               lambda sa=sa, raw=raw: fls.fused_layer_step_plain(*sa, raw_prologue=raw),
-              ("e_l", "e_norm_next", "out_pt", "out_cam"), io, flops, main)
+              ("e_l", "e_norm_next", "out_pt", "out_cam"), io, flops, False)
+        # #5 alone, the kernel the wrapper launches before the dual core: the
+        # kernels line's numbers come from the interior form
+        prologue_check(results, record, scene_name, variant, graph, sa[:14], raw, main)
 
     # #7 loss terms, hinge on (the flagship loss) and off.
     P, X = loss_operands(rnd, gen, dev, m, n)
@@ -432,6 +451,27 @@ def kernel_phase(dev, scene_name, graph, model, record):
               lambda la=la: (flo.fused_esfm_terms_plain(*la),), ("terms",),
               nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx) + 12, 40.0 * E, main)
     return results
+
+
+def prologue_check(results, record, scene_name, variant, graph, pa, raw, main):
+    """The layer step's prologue (#5) alone, ``layer_step_prologue`` on the
+    14 operands ``pa``, against its plain version, every output, and two
+    launches bitwise. Its bound counts what a call moves: en, skip2, res,
+    the tables ps and pv and the parameters read once, the two edge
+    indices, and e_l, e_norm_next (not under raw), xl_p and xl_c written
+    once."""
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+
+    E = graph.num_edges
+    w, wlp, wlc = pa[3], pa[10], pa[12]
+    De, K, Dp, Dc = w.shape[0], w.shape[1], wlp.shape[0], wlc.shape[0]
+    io = nbytes(*pa[:8], *(() if raw else pa[8:10]), *pa[10:14], graph.pt_idx, graph.cam_idx) \
+        + 4 * E * (De * (1 if raw else 2) + Dp + Dc)
+    flops = E * (2.0 * De * (K + Dp + Dc) + 12 * De)
+    forward_check(results, record, scene_name, "fused_layer_step", f"prologue_{variant}",
+                  lambda: fls.layer_step_prologue(*pa, graph, raw_prologue=raw),
+                  lambda: fls.layer_step_prologue_plain(*pa, graph, raw_prologue=raw),
+                  ("e_l", "e_norm_next", "xl_p", "xl_c"), io, flops, main, twice=True)
 
 
 def loss_operands(rnd, gen, dev, m, n):
@@ -533,18 +573,7 @@ def backward_phase(dev, scene_name, graph, record):
         backward_check(results, record, scene_name, *args, **kw)
 
     # #2 dual core at D = 32.
-    D = 32
-    dual = dict(xl_p=rnd(E, D), xl_c=rnd(E, D), xr_p=rnd(n, D), xr_c=rnd(m, D),
-                att_p=rnd(D), att_c=rnd(D))
-    g_p, g_c = rnd(n, D), rnd(m, D)
-    op, oc, res, ins = fda.dual_attend_forward(*dual.values(), graph, H, residuals=True)
-    check("fused_dual_attend_bwd", "D32",
-          lambda **a: fda.fused_dual_attend(*a.values(), graph, H),
-          lambda **a: fda.fused_dual_attend_plain(*a.values(), graph, H),
-          dual, (g_p, g_c),
-          lambda: fda.fused_dual_attend_bwd(*ins, op, oc, *res, g_p, g_c, graph, H),
-          nbytes(*dual.values(), op, oc, *res, g_p, g_c, *csr, *dual.values()),
-          20.0 * E * 2 * D, True)
+    dual_bwd_check(results, record, scene_name, graph, rnd, 32, H, main=True)
 
     # #4 frontend at layer 0: De = 2, D = 4, separated feature pairs.
     De, Dq = 2, 4
@@ -593,6 +622,74 @@ def backward_phase(dev, scene_name, graph, record):
               lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
                   P, X, graph, coef, count, 1e-4, True, 1.0, mode),
               nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, *csr, P, X), 80.0 * E, main)
+    return results
+
+
+def dual_bwd_check(results, record, scene_name, graph, rnd, D, H, main=False):
+    """The dual core's backward (#2) at width D with H heads: every input's
+    gradient through the dual core against autograd of its plain version,
+    #2 alone timed from the forward's residuals and launched twice,
+    bitwise."""
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
+    dual = dict(xl_p=rnd(E, D), xl_c=rnd(E, D), xr_p=rnd(n, D), xr_c=rnd(m, D),
+                att_p=rnd(D), att_c=rnd(D))
+    g_p, g_c = rnd(n, D), rnd(m, D)
+    op, oc, res, ins = fda.dual_attend_forward(*dual.values(), graph, H, residuals=True)
+    backward_check(
+        results, record, scene_name, "fused_dual_attend_bwd",
+        f"D{D}" + ("" if H == 4 else f"_H{H}"),
+        lambda **a: fda.fused_dual_attend(*a.values(), graph, H),
+        lambda **a: fda.fused_dual_attend_plain(*a.values(), graph, H),
+        dual, (g_p, g_c),
+        lambda: fda.fused_dual_attend_bwd(*ins, op, oc, *res, g_p, g_c, graph, H),
+        # reads the inputs, outputs, residuals and cotangents and the CSR;
+        # writes every input's gradient
+        nbytes(*dual.values(), op, oc, *res, g_p, g_c, *csr, *dual.values()),
+        20.0 * E * 2 * D, main, twice=True)
+
+
+def dual_bwd_graph_phase(dev, scenes, record):
+    """#2 on the graphs that stress its split: the dense scene without every
+    50th point and camera 1 (empty segments), the dense scene plus a camera
+    over all its points (the hub camera, 8,192 edges), the power-law scene
+    plus cameras of exactly L - 1, L, L + 1 and 2L edges and a point of 133
+    (L = 32, the split length; there also at (D, H) = (16, 4), (32, 1), (8,
+    8), (12, 6)); and its device time per call on the dense and hub-camera
+    graphs (profiler windows): the hub camera must cost at most 1.5x the
+    dense scene."""
+    from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
+                                                    hub_camera_graph)
+    from gasfm_tpu_torch.tools.kernel_device_time import device_ms_per_call, dual_bwd_call
+
+    gen = torch.Generator(device=dev).manual_seed(8080)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    dense, powerlaw = scenes["dense"].graph, scenes["powerlaw"].graph
+    graphs = {"dense_empty": graph_with_empty_segments(dense),
+              "hub_camera": hub_camera_graph(dense), "degrees": degree_graph(powerlaw)}
+    degs = (graphs["degrees"].cam_ptr[1:] - graphs["degrees"].cam_ptr[:-1])[-4:].tolist()
+    print(f"dual backward graphs: hub camera {graphs['hub_camera'].num_edges} edges (its camera "
+          f"{dense.num_pts}); degrees graph cameras of {degs} edges and a point of "
+          f"{int(graphs['degrees'].pt_ptr[-1] - graphs['degrees'].pt_ptr[-2])}")
+    results = {}
+    for label, graph in graphs.items():
+        dual_bwd_check(results, record, label, graph, rnd, 32, 4)
+    for D, H in ((16, 4), (32, 1), (8, 8), (12, 6)):
+        dual_bwd_check(results, record, "degrees", graphs["degrees"], rnd, D, H)
+    times = {label: device_ms_per_call(dual_bwd_call(graph, dev), 20)[0]
+             for label, graph in (("dense", dense), ("hub_camera", graphs["hub_camera"]))}
+    ratio = times["hub_camera"] / times["dense"]
+    ok = ratio <= 1.5
+    print(f"dual backward device time per call, D = 32, H = 4: dense {times['dense']:.4f} ms, "
+          f"hub camera {times['hub_camera']:.4f} ms, ratio {ratio:.3f} (at most 1.5: "
+          f"{'ok' if ok else 'FAIL'})")
+    record["dual_bwd_device_times"] = dict(times, ratio=ratio, ok=ok)
+    results["fused_dual_attend_bwd"]["ok"] = results["fused_dual_attend_bwd"]["ok"] and ok
     return results
 
 
@@ -657,47 +754,11 @@ def layer_step_bwd_checks(check, rnd, gen, dev, graph, H, main):
               E * (2 * 2 * 2 * D * 32 + 2 * 2 * K * 32 + 40 * 32), main_v, twice=True)
 
 
-def tile_boundary_graph(dev, seed=11):
-    """A graph for the layer-step backward's tiles of 32 edges: point 0 seen
-    by 99 of the 100 cameras (its edges span four tiles), every 7th point
-    and camera 5 without edges, the others on 1 to 5 cameras, and E not a
-    multiple of 32."""
-    import numpy as np
-
-    from gasfm_tpu_torch.graph.view_graph import ViewGraph
-
-    rng = np.random.default_rng(seed)
-    m, n = 100, 400
-    cams = np.array([c for c in range(m) if c != 5])
-    pts, cids = [], []
-    for p in range(n):
-        if p % 7 == 0 and p > 0:
-            continue
-        seen = cams if p == 0 else np.sort(rng.choice(cams, rng.integers(1, 6), replace=False))
-        pts += [p] * len(seen)
-        cids += list(seen)
-    if len(pts) % 32 == 0:
-        pts, cids = pts[:-1], cids[:-1]
-    pt_idx, cam_idx = np.array(pts), np.array(cids)
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
-
-    def offsets(ids, S):
-        return t(np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=S))]))
-
-    E = len(pts)
-    return ViewGraph(
-        uv=torch.as_tensor(rng.standard_normal((E, 2)), dtype=torch.float32, device=dev),
-        cam_idx=t(cam_idx), pt_idx=t(pt_idx), pt_ptr=offsets(pt_idx, n),
-        cam_perm=t(np.argsort(cam_idx, kind="stable")), cam_ptr=offsets(cam_idx, m),
-        cam_valid=torch.ones(m, dtype=torch.bool, device=dev),
-        pt_valid=torch.ones(n, dtype=torch.bool, device=dev))
-
-
 def tile_boundary_phase(dev, record):
-    """The layer step's backward (#6) in its three forms on
-    :func:`tile_boundary_graph`."""
+    """The layer step's backward (#6) and its prologue (#5) in their three
+    forms on :func:`tile_boundary_graph`."""
+    from gasfm_tpu_torch.graph.check_graphs import tile_boundary_graph
+
     graph = tile_boundary_graph(dev)
     gen = torch.Generator(device=dev).manual_seed(9753)
 
@@ -715,6 +776,19 @@ def tile_boundary_phase(dev, record):
         backward_check(results, record, "tile_edges", *args, **kw)
 
     layer_step_bwd_checks(check, rnd, gen, dev, graph, 4, main=False)
+    # #5 alone in its three forms (d2 = 2), at the flagship's width and at a
+    # narrow one (De = Dp = Dc = 8)
+    n, m = graph.num_pts, graph.num_cams
+    for De in (32, 8):
+        for form, d_in, has_res, raw in (("skip_and_res", De, True, False),
+                                         ("first_layer", 2, False, False),
+                                         ("raw_prologue", De, True, True)):
+            pa = (torch.relu(rnd(graph.num_edges, d_in)), rnd(graph.num_edges, 2),
+                  rnd(graph.num_edges, De) if has_res else None, rnd(De, d_in + 2, scale=0.2),
+                  rnd(De, scale=0.1), rnd(n, De), rnd(m, De), rnd(1, De),
+                  1.0 + rnd(De, scale=0.2), rnd(De, scale=0.1), rnd(De, De, scale=0.2),
+                  rnd(De, scale=0.1), rnd(De, De, scale=0.2), rnd(De, scale=0.1))
+            prologue_check(results, record, "tile_edges", f"{form}_De{De}", graph, pa, raw, False)
     return results
 
 
@@ -850,51 +924,20 @@ def gather_host_parts(table, graph, side, scene_name, record, reps=200):
 # ---------------------------------------------------------------------------
 
 
-def csr_offsets(ids, S):
-    """(S + 1,) int32 CSR offsets of the sorted (or counted) segment ids."""
-    ptr = torch.zeros(S + 1, dtype=torch.int32, device=ids.device)
-    ptr[1:] = torch.cumsum(torch.bincount(ids.long(), minlength=S), 0)
-    return ptr
-
-
-def graph_with_empty_segments(graph):
-    """``graph`` without the edges of every 50th point and of camera 1,
-    whose segments are then empty (as a point column with no valid entry
-    is)."""
-    import dataclasses
-
-    keep = (graph.pt_idx % 50 != 0) & (graph.cam_idx != 1)
-    pt_idx, cam_idx = graph.pt_idx[keep], graph.cam_idx[keep]
-    return dataclasses.replace(
-        graph, uv=graph.uv[keep], cam_idx=cam_idx, pt_idx=pt_idx,
-        pt_ptr=csr_offsets(pt_idx, graph.num_pts), cam_ptr=csr_offsets(cam_idx, graph.num_cams),
-        cam_perm=torch.argsort(cam_idx, stable=True).to(torch.int32))
-
-
 def hub_graph(graph, seed=13):
     """``graph`` plus five points after its own: one seen by every camera
     (a hub), and four seen by exactly L - 1, L, L + 1 and 2L cameras, L the
     point-side attention's split length (``ATTEND_CHUNK``): a short point at
     and below it, a long one of a ragged and of two whole chunks."""
-    import dataclasses
-
     from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK as L
+    from gasfm_tpu_torch.graph.check_graphs import graph_with_edges
 
     gen = torch.Generator().manual_seed(seed)
-    m, n, dev = graph.num_cams, graph.num_pts, graph.device
+    m, n = graph.num_cams, graph.num_pts
     degrees = (m, L - 1, L, L + 1, 2 * L)
     cams = [torch.sort(torch.randperm(m, generator=gen)[:d]).values for d in degrees]
-    pt_idx = torch.cat([graph.pt_idx.cpu()] + [torch.full((d,), n + j, dtype=torch.int32)
-                                                for j, d in enumerate(degrees)])
-    cam_idx = torch.cat([graph.cam_idx.cpu()] + [c.to(torch.int32) for c in cams])
-    pt_idx, cam_idx = pt_idx.to(dev), cam_idx.to(dev)
-    uv = torch.randn((sum(degrees), 2), generator=gen).to(dev)
-    seen = torch.ones(len(degrees), dtype=torch.bool, device=dev)
-    return dataclasses.replace(
-        graph, uv=torch.cat([graph.uv, uv]), cam_idx=cam_idx, pt_idx=pt_idx,
-        pt_ptr=csr_offsets(pt_idx, n + len(degrees)), cam_ptr=csr_offsets(cam_idx, m),
-        cam_perm=torch.argsort(cam_idx, stable=True).to(torch.int32),
-        pt_valid=torch.cat([graph.pt_valid, seen]))
+    pts = [torch.full((d,), n + j) for j, d in enumerate(degrees)]
+    return graph_with_edges(graph, torch.cat(pts), torch.cat(cams), n + len(degrees), m)
 
 
 def attend_residuals_plain(xl, xr, att, graph, side, heads):
@@ -1006,6 +1049,7 @@ def unfused_kernel_phase(dev, scene_name, graph, record):
     (amax). The main variants are the main path's: the attention on the
     point side, the max on the camera side at D = 4."""
     from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+    from gasfm_tpu_torch.graph.check_graphs import graph_with_empty_segments
 
     gen = torch.Generator(device=dev).manual_seed(1357)
 
@@ -1280,8 +1324,8 @@ def param_grad_errors(names, got, plain, ref, eps64=GRAD_EPS64, ties=None, more_
     LeakyReLU branch is 0, and with it the gradients of the query adapter
     and lin_r); in float32 both paths return rounding noise of order
     eps x the terms there, which no bound relative to the (zero) true value
-    can take. ``ties``: per parameter, the most that the depth loss's L1
-    ties can move it (:func:`depth_ties`), added to the bound."""
+    can take. ``ties``: per parameter, the most that the ties move it
+    (:func:`branch_ties`), added to the bound."""
     G = max(float(r.abs().max()) for r in ref)
     out = []
     for k, (name, g, r) in enumerate(zip(names, got, ref)):
@@ -1324,6 +1368,142 @@ def depth_ties(ref_session, scene64, pred32, pred64):
     return n, float(r64.abs().min()), [0.0 if g is None else float(g.abs().max()) for g in moved]
 
 
+class ActivationBranches:
+    """Which way each ReLU and each GATv2 LeakyReLU of a forward went,
+    element by element: every ``torch.relu`` call (``nn.ReLU``'s too) and
+    every call of ``ops.gatv2.leaky_relu`` (the attention's PyTorch parts) is
+    keyed by its innermost call site in the port and its occurrence there.
+    Under :meth:`watch`: ``"record"`` keeps the kernel path's branches (z >
+    0 for a ReLU, z >= 0 for the LeakyReLU); ``"compare"``, on the float64
+    run, keeps per key the elements whose branch differs (``flips``: their
+    mask and the largest |float64 input| among them); ``"force"`` makes the
+    keys with flips take the kernel path's branches. The activations that
+    the CUDA kernels apply inside themselves are not seen."""
+
+    def __init__(self):
+        self.signs, self.flips = {}, {}
+
+    @contextlib.contextmanager
+    def watch(self, mode):
+        from gasfm_tpu_torch.ops import gatv2
+
+        relu, leaky, count = torch.relu, gatv2.leaky_relu, collections.Counter()
+
+        def watched(x, branch, act, other):
+            f = sys._getframe(2)
+            while f is not None and "gasfm_tpu_torch" not in f.f_code.co_filename:
+                f = f.f_back
+            site = "?" if f is None else \
+                f"{f.f_code.co_filename.rsplit('gasfm_tpu_torch', 1)[-1]}:{f.f_lineno}"
+            count[site] += 1
+            key = (site, count[site])
+            if mode == "record":
+                self.signs[key] = branch(x.detach())
+            elif mode == "compare":
+                kept = self.signs.get(key)
+                if kept is not None and kept.shape == x.shape:
+                    d = branch(x.detach()) != kept
+                    if bool(d.any()):
+                        self.flips[key] = (d, float(x.detach()[d].abs().max()))
+            elif key in self.flips:
+                return torch.where(self.signs[key], x, other(x))
+            return act()
+
+        def watched_relu(x, *args, **kw):
+            return watched(x, lambda z: z > 0, lambda: relu(x, *args, **kw), torch.zeros_like)
+
+        def watched_leaky(z, negative_slope=gatv2.NEGATIVE_SLOPE):
+            return watched(z, lambda v: v >= 0, lambda: leaky(z, negative_slope),
+                           lambda v: negative_slope * v)
+
+        torch.relu, gatv2.leaky_relu = watched_relu, watched_leaky
+        try:
+            yield
+        finally:
+            torch.relu, gatv2.leaky_relu = relu, leaky
+
+
+def branch_ties(ref_session, scene64, pred32, pred64, grads64, acts):
+    """The branches that a float32 path (``pred32``; its activations in
+    ``acts``, an :class:`ActivationBranches` compared with the float64
+    run's) took otherwise than the float64 run (``pred64``, ``grads64``):
+    ReLUs and LeakyReLUs whose input sits within a rounding of 0, and the
+    loss's own ties. Each is a jump in the step-1
+    gradient that no rounding bound takes. The ESFM loss's tie is its
+    margin test (an edge's term swaps between its reprojection error and
+    its hinge, and under the valid-only equalization the count that
+    divides every normalized cotangent moves); the depth loss's, its L1
+    (:func:`depth_ties`). Returns (a summary, per parameter the most the
+    ties move its gradient): with activation or margin flips, max |the float64
+    gradient taken along the float32 path's branches minus the float64
+    run's|, plus the L1 ties' part. The ESFM loss is restated here with the
+    margin test as an argument (``fused_esfm_terms_plain``'s arithmetic),
+    and held to the loss itself on the same forward."""
+    from gasfm_tpu_torch.losses import ESFMLoss
+    from gasfm_tpu_torch.ops.kernels.fused_loss import EqualizeGrads
+
+    loss, graph, params = ref_session.loss_func, scene64.graph, ref_session.params
+    n_act = sum(int(d.sum()) for d, _ in acts.flips.values())
+    info = dict(act_flips=n_act, act_sites=sorted({k[0] for k in acts.flips}),
+                act_far=max((v for _, v in acts.flips.values()), default=0.0))
+    if isinstance(loss, ESFMLoss):
+        cam, pt = graph.cam_idx.long(), graph.pt_idx.long()
+        margin, E = loss.infinity_pts_margin, graph.num_edges
+
+        def projections(pred):
+            P = pred["Ps_norm"].reshape(graph.num_cams, 12)[cam].reshape(-1, 3, 4)
+            return (P * pred["pts3D"].T[pt][:, None, :]).sum(-1)  # (E, 3)
+
+        def passes(depth):
+            return depth >= margin if loss.hinge_loss else depth.abs() >= margin
+
+        def masked_loss(proj, pos):
+            if loss.eq_mode != "none":
+                count = pos.sum().to(proj.dtype) if loss.eq_mode == "valid_only" else \
+                    torch.tensor(float(E), dtype=proj.dtype, device=proj.device)
+                proj = EqualizeGrads.apply(proj, pos, 1.0 / count.clamp_min(1.0),
+                                           loss.eq_mode == "valid_only")
+            depth = proj[:, 2]
+            r = proj[:, :2] / torch.where(pos, depth, torch.ones_like(depth))[:, None] - graph.uv
+            sq = (r * r).sum(1)
+            nz = sq > 0
+            rnorm = torch.where(nz, torch.sqrt(torch.where(nz, sq, torch.ones_like(sq))),
+                                torch.zeros_like(sq))
+            term = torch.where(pos, rnorm, (margin - depth) * loss.hinge_loss_weight)
+            return term.sum() / max(E, 1)
+
+        with torch.no_grad():
+            depth64 = projections(pred64)[:, 2]
+            pos32 = passes(projections(pred32)[:, 2])
+        n_loss = int((pos32 != passes(depth64)).sum())
+        info.update(loss_tie="margin", loss_flips=n_loss,
+                    loss_nearest=float((depth64 - margin).abs().min()))
+        l1 = [0.0] * len(params)
+    else:
+        n_l1, nearest, l1 = depth_ties(ref_session, scene64, pred32, pred64)
+        info.update(loss_tie="L1", loss_flips=n_l1, loss_nearest=nearest)
+        n_loss = 0  # the L1 ties' part is l1
+    jump = [0.0] * len(params)
+    if n_act or n_loss:
+        with torch.enable_grad(), acts.watch("force"):
+            pred = ref_session.model(graph, plain=True)
+            if isinstance(loss, ESFMLoss):
+                proj = projections(pred)
+                own = float(masked_loss(proj, passes(proj[:, 2].detach())).detach())
+                want = float(loss(pred, scene64, True).detach())
+                if abs(own - want) > 1e-12 * max(abs(want), 1.0):
+                    raise SmokeFailure(f"branch_ties: the restated ESFM loss {own!r} is not "
+                                       f"the loss's {want!r}")
+                taken = masked_loss(proj, pos32)
+            else:
+                taken = loss(pred, scene64, plain=True)
+            along = torch.autograd.grad(taken, params, allow_unused=True)
+        jump = [0.0 if g is None else float((g - r).abs().max()) for g, r in zip(along, grads64)]
+    ties = [a + b for a, b in zip(jump, l1)]
+    info["most"] = max(ties)
+    return info, ties
+
+
 def make_loss(loss_kw):
     """The loss of a conf's keyword arguments: the depth loss's or ESFM's."""
     from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss
@@ -1339,8 +1519,9 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
     warm-up step takes no our_repro, each timed step one); step-1 gradients
     against float64, losses against a plain twin. A depth-head model steps
     through ``loss_and_grads`` + ``update`` (no our_repro), as the JAX
-    package's loop trains it; its step-1 rule also allows for the L1 ties
-    (:func:`depth_ties`). ``plain_runs``: the plain float32 runs whose
+    package's loop trains it. The step-1 rule also allows, per tensor, for
+    the branches that the kernel path took otherwise than float64: ReLU
+    ties and the loss's (:func:`branch_ties`). ``plain_runs``: the plain float32 runs whose
     largest error is the rule's yardstick."""
     import copy
 
@@ -1374,25 +1555,34 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
         # gradients from the same weights, each against the plain path in
         # float64 (first scene: from the same weights too), then both update.
         p_loss, _, p_grads = plain.loss_and_grads(scene, plain=True)
-        loss, pred, grads = session.loss_and_grads(scene)
+        acts = ActivationBranches()
+        with acts.watch("record") if ref is not None else contextlib.nullcontext():
+            loss, pred, grads = session.loss_and_grads(scene)
         if depth:
             print(f"{label} {name}: step 1 mean predicted depth s_pred "
                   f"{float(pred['depths'].mean()):.6g} (the loss and every gradient scale with "
                   f"1 / s_pred)")
         if ref is not None:
             scene64 = float64_scene(scene)
-            r_loss, r_pred, r_grads = ref.loss_and_grads(scene64, plain=True)
-            ties, tie_note = None, ""
-            if depth:
-                n_flip, gap, ties = depth_ties(ref, scene64, pred, r_pred)
-                tie_note = (f"; L1 ties: {n_flip} edges flip sign against float64 (nearest "
-                            f"tie {gap:.3e}), their most on any gradient {max(ties):.3e}, "
-                            "added to the bound")
-                record.setdefault(label, {})[f"{name}_ties"] = dict(flips=n_flip, nearest=gap,
-                                                                    most=max(ties))
+            with acts.watch("compare"):
+                r_loss, r_pred, r_grads = ref.loss_and_grads(scene64, plain=True)
+            tie, ties = branch_ties(ref, scene64, pred, r_pred, r_grads, acts)
+            del acts
+            n_flip = tie["act_flips"] + tie["loss_flips"]
+            tie_note = (f"; ties: {tie['act_flips']} (Leaky)ReLU inputs change branch against "
+                        f"float64 (at {tie['act_sites']}, |float64 input| at most "
+                        f"{tie['act_far']:.3e}), "
+                        f"{tie['loss_flips']} edges take the other branch of the loss's "
+                        f"{tie['loss_tie']} (nearest tie {tie['loss_nearest']:.3e}); their most "
+                        f"on any gradient {tie['most']:.3e}, added to the bound")
+            record.setdefault(label, {})[f"{name}_ties"] = tie
             more = [plain.loss_and_grads(scene, plain=True)[2] for _ in range(plain_runs - 1)]
             errs, G = param_grad_errors(names, grads, p_grads, r_grads, eps64, ties, more)
             del more
+            if n_flip:  # where the ties move a gradient most
+                k = max(range(len(ties)), key=ties.__getitem__)
+                tie_note += (f" (on {errs[k][0]}: kernel path {errs[k][1]:.3e}, plain path "
+                             f"{errs[k][2]:.3e})")
             bad = [t for t in errs if not t[-1]]
             wk = max(errs, key=lambda t: t[1])
             wp = max(errs, key=lambda t: t[2])
@@ -1694,8 +1884,10 @@ def main() -> int:
     for k in scenes:
         for name, r in backward_phase(dev, k, scenes[k].graph, record).items():
             per_scene[k][name] = r
-    # ... and the layer step's backward on a graph whose segments cross its
-    # edge tiles, with empty segments and a ragged last tile
+    # ... the dual core's backward on graphs that stress its split, and the
+    # layer step on a graph whose segments cross its edge tiles, with empty
+    # segments and a ragged last tile
+    per_scene["dual_graphs"] = dual_bwd_graph_phase(dev, scenes, record)
     per_scene["tile_edges"] = tile_boundary_phase(dev, record)
     # ---- phase 3b: the DPESFM path's kernels (segment sum, gather, edge
     # combine and its backward) against their plain versions

@@ -1,6 +1,8 @@
 // One direction of GATv2 segment attention, forward and backward, as device
-// code (sm_90a, float32): shared by fused_dual_attn.cu (both directions in
-// one launch) and fused_attn.cu (one direction per launch).
+// code (sm_90a, float32): the dual core's forward (fused_dual_attn.cu, both
+// directions in one launch), the single-direction kernel's camera side
+// (fused_attn.cu), and the per-edge backward formulas that the split walkers
+// of attend_split.cuh run.
 //
 // Per segment s and head h, over the segment's edges e:
 //   l_e = att_h . LeakyReLU(xl_e + xr_s),  alpha = softmax_s(l),
@@ -155,20 +157,6 @@ __device__ __forceinline__ void attend_bwd_walk(const AttendBwdLane& q,
     const float x = act ? xl[(size_t)e * D + lane] : 0.f;
     attend_bwd_edge(q, x, C, slope, act, dxl + (size_t)e * D + lane, dxr, datt);
   }
-}
-
-// Backward, one warp over segment `seg`'s contiguous rows: d xl of its rows,
-// its d xr row; adds this lane's d att over them to `datt`.
-__device__ __forceinline__ void attend_bwd_segment_warp(
-    const float* __restrict__ xl, const float* __restrict__ xr, const float* __restrict__ att,
-    const float* __restrict__ out, const float* __restrict__ m, const float* __restrict__ den,
-    const float* __restrict__ g, const int* __restrict__ ptr, int seg, int D, int C,
-    float slope, float* __restrict__ dxl, float* __restrict__ dxr, float& datt) {
-  const int lane = threadIdx.x & 31;
-  const AttendBwdLane q = attend_bwd_lane(xr, att, out, g, m, den, seg, D, C, lane);
-  float acc = 0.f;
-  attend_bwd_walk(q, xl, nullptr, ptr[seg], ptr[seg + 1], 1, D, C, slope, lane, dxl, acc, datt);
-  if (lane < D) dxr[(size_t)seg * D + lane] = acc;
 }
 
 // Backward, a block of NWARPS warps over segment `seg`'s rows perm[ptr[seg]

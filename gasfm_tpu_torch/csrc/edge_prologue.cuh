@@ -1,5 +1,5 @@
-// The per-edge frontend prologue shared by the frontend kernel
-// (fused_dual_attn.cu) and the layer-step kernel (fused_layer_step.cu):
+// The per-edge frontend prologue of the frontend kernel (fused_dual_attn.cu;
+// the layer step's forward takes the edge tiles of edge_tile.cuh instead):
 // flax-form LayerNorm (var = E[x^2] - mean^2) + ReLU over the De <= 32
 // features of an edge, then the two GATv2 source linears (De -> Dp, De -> Dc,
 // both <= 32) with their weights in shared memory.
@@ -69,8 +69,8 @@ __device__ __forceinline__ void front_linears(float v, int De, int Dp, int Dc,
 }
 
 // ---------------------------------------------------------------------------
-// Backward of the prologue (LayerNorm + ReLU + the two source linears), shared
-// by the frontend's and the layer step's backward kernels.
+// Backward of the prologue (LayerNorm + ReLU + the two source linears), of the
+// frontend's backward kernel.
 // ---------------------------------------------------------------------------
 
 // Backward copy of the parameters, weights in torch's (out, in) layout: lane j

@@ -1,24 +1,26 @@
-// Edge-tile backward of a per-edge prologue, for sm_90a: the layer step's
-// backward (fused_layer_step.cu, gasfm_layer_step_bwd) runs it, and the
-// frontend's (#4) and the projection update's (#10) backwards can take up the
-// same tile layout.
+// Edge tiles of a per-edge prologue, for sm_90a: the layer step's forward
+// (#5) and backward (#6) (fused_layer_step.cu, gasfm_layer_step_prologue and
+// gasfm_layer_step_bwd) run them; the frontend's (#3/#4) and the projection
+// update's (#9/#10) kernels can take up the same tile layout.
 //
-// The per-edge work of these backwards is a few small dense products (the
-// two GATv2 source linears' transpose, the update's weight W, and the weight
-// gradients as sums of outer products over all edges) around a LayerNorm.
-// The first design gave each point one warp, lane j feature j, and ran every
-// product as a shuffle + shared load + FMA chain per edge (~116 dependent
-// steps per edge), with the weight gradients in a second pass over the
-// streams. Here a block takes tiles of kTileRows edges in a fixed order
-// (persistent, kTileBlocksPerSm blocks per SM), stages each tile's rows in
-// shared memory with 16-byte loads, and runs every product register-tiled:
-// a thread owns a 2 x 4 (or 1 x 4) output tile and reads each shared operand
-// once per four to eight FMAs, warps broadcasting the operands they share.
-// The weight gradients stay in registers across all of the block's tiles,
-// each entry owned by one thread, and the block writes them as one partial
-// row; column_sum_kernel (common.cuh) sums the rows in a fixed order. No
-// float atomics, no TF32: float32 FMAs on the CUDA cores, bitwise
-// reproducible on a given card.
+// The per-edge work of these prologues is a few small dense products (the
+// update's weight W, the two GATv2 source linears and their transposes, the
+// weight gradients as sums of outer products over all edges) around a
+// LayerNorm. The first designs gave each edge (forward) or each point
+// (backward) one warp, lane j feature j, and ran every product as a shuffle +
+// shared load + FMA chain per edge (~80 dependent steps per edge forward,
+// ~116 backward), with the backward's weight gradients in a second pass over
+// the streams. Here a block takes tiles of kTileRows edges in a fixed order
+// (persistent, a few blocks per SM, the weights loaded into shared memory
+// once per block), stages each tile's rows in shared memory with 16-byte
+// loads, and runs every product register-tiled: a thread owns a 2 x 4 (or
+// 1 x 4) output tile and reads each shared operand once per four to eight
+// FMAs, warps broadcasting the operands they share. The backward's weight
+// gradients stay in registers across all of the block's tiles, each entry
+// owned by one thread, and the block writes them as one partial row;
+// column_sum_kernel (common.cuh) sums the rows in a fixed order. No float
+// atomics, no TF32: float32 FMAs on the CUDA cores, bitwise reproducible on a
+// given card.
 #pragma once
 
 #include "common.cuh"
@@ -53,6 +55,52 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride, int col0,
     for (int i = threadIdx.x; i < kTileRows * D; i += kTileThreads) {
       const int r = i / D, c = i - r * D;
       dst[r * stride + col0 + c] = r < rows ? __ldcs(s1 + i) : 0.f;
+    }
+  }
+}
+
+// Hopper's asynchronous global -> shared copies (cp.async): `bytes` (16 or
+// 4) copied when `valid`, else zeros written (the source size 0; `src` must
+// still be a valid address). A thread's copies complete in commit groups.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(float* dst, const float* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 16 : 0));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(valid ? 4 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's commit groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// stage_rows with asynchronous copies: the caller commits, waits and
+// synchronises before it reads the rows.
+__device__ __forceinline__ void stage_rows_async(float* dst, int stride, int col0,
+                                                 const float* __restrict__ src, int D, int e0,
+                                                 int E) {
+  if (src == nullptr || D == 0) return;
+  const int rows = min(kTileRows, E - e0);
+  if ((D & 3) == 0 && (col0 & 3) == 0) {
+    const int dv = D >> 2;
+    const float* s0 = src + (size_t)e0 * D;
+    for (int i = threadIdx.x; i < kTileRows * dv; i += kTileThreads) {
+      const int r = i / dv, c = i - r * dv;
+      cp_async<16>(dst + r * stride + col0 + 4 * c, r < rows ? s0 + 4 * i : src, r < rows);
+    }
+  } else {
+    const float* s1 = src + (size_t)e0 * D;
+    for (int i = threadIdx.x; i < kTileRows * D; i += kTileThreads) {
+      const int r = i / D, c = i - r * D;
+      cp_async<4>(dst + r * stride + col0 + c, r < rows ? s1 + i : src, r < rows);
     }
   }
 }
@@ -354,6 +402,259 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
     for (int r = 0; r < kTileRows; ++r) t += red[(r * 8 + (c >> 2)) * 8 + which * 4 + (c & 3)];
     if (c < De) row[(which == 0 ? L.g : L.bn) + c] = t;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The layer step's forward tile kernel (#5). Per edge, with a = [en | skip2]
+// (K = d_in + d2 columns) and c0 = b + pg:
+//
+//   phase A: e_l = (a W^T + c0 + ps[pt] + pv[cam]) / 4  (+ res)
+//   phase B: v = relu(LN(e_l)), flax form (var = E[x^2] - mean^2); v = e_l
+//            under raw
+//   phase C: [xl_p | xl_c] = v [Wlp ; Wlc]^T + [blp | blc]
+//
+// Phases A and B: thread (edge r1, features c1 .. c1 + 3), the LayerNorm's
+// sums by row_sum32 over the row's 8 lanes. Phase C: thread (edges ra, ra +
+// 1, outputs 4 og .. 4 og + 3 of the 64-wide [xl_p | xl_c], each side
+// zero-padded to 32). Each phase's products are its own device code, so the
+// standalone frontend (#3: phases B and C) and projection update (#9: phase
+// A) can take them up. Widths: d_in, d2, De, Dp, Dc <= 32, K <= 64.
+//
+// The tiles are double-buffered: while tile t computes, tile t + grid's [en
+// | skip2] rows are in flight into the other buffer (cp.async) and its res
+// and gathered table rows into registers, from indices loaded one tile
+// earlier still (on the H100 ~10% faster than loading each tile when it
+// starts).
+// ---------------------------------------------------------------------------
+
+constexpr int kStepFwdBlocksPerSm = 3;  // persistent blocks per SM
+
+struct StepFwdSmem {
+  float a[2][kTileRows][kTileWide];  // [en | skip2] of the tile, zero past K (double-buffered)
+  float v[kTileRows][kTileNarrow];   // v of the tile, zero past De
+  float wt[64][32];                  // W^T (K, De), zero-padded
+  float wf[32][64];                  // [Wlp ; Wlc]^T: column o < 32 feeds xl_p, o >= 32 xl_c
+  float bf[64];                      // [blp | blc], zero-padded likewise
+  float c0[32], g[32], b[32];        // b + pg; the LayerNorm's scale and bias
+};
+
+// The rows of one edge that phase A reads outside the staged tile: its
+// gathered table rows and its residual (features c1 .. c1 + 3).
+struct StepEdgeRows {
+  float ps[4], pv[4], res[4];
+};
+
+// Features c0 .. c0 + 3 of row `row` of a (rows, D) table, read through the
+// cache (a table's rows repeat across edges), 0 past D or for !valid.
+__device__ __forceinline__ void gather_row4(const float* __restrict__ src, int D, int row,
+                                            int c0, bool valid, float (&v)[4]) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (!valid || c0 >= D) return;
+  const float* p = src + (size_t)row * D + c0;
+  if ((D & 3) == 0) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (c0 + q < D) v[q] = __ldg(p + q);
+    }
+  }
+}
+
+__device__ __forceinline__ void load_step_rows(StepEdgeRows& r, const float* __restrict__ ps,
+                                               const float* __restrict__ pv,
+                                               const float* __restrict__ res, int De, int e,
+                                               int p, int c, int c1, bool valid) {
+  gather_row4(ps, De, p, c1, valid, r.ps);
+  gather_row4(pv, De, c, c1, valid, r.pv);
+  load_row4(res, De, e, c1, valid, r.res);
+}
+
+// Phase A for edge row `arow` (KP = K rounded up to 4, the staged row zero
+// past K): features c1 .. c1 + 3 of e_l, 0 past De. The sum over k runs in
+// order, as the per-edge kernels' did.
+__device__ __forceinline__ void step_update4(const StepFwdSmem& s, const float* arow, int KP,
+                                             int De, int c1, const StepEdgeRows& r,
+                                             float (&x)[4]) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < KP; k += 4) {
+    const float4 a4 = *reinterpret_cast<const float4*>(arow + k);
+    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 wk = *reinterpret_cast<const float4*>(&s.wt[k + u][c1]);
+      acc[0] = fmaf(av[u], wk.x, acc[0]);
+      acc[1] = fmaf(av[u], wk.y, acc[1]);
+      acc[2] = fmaf(av[u], wk.z, acc[2]);
+      acc[3] = fmaf(av[u], wk.w, acc[3]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = c1 + q;
+    x[q] = c < De ? ((acc[q] + s.c0[c]) + (r.ps[q] + r.pv[q])) * 0.25f + r.res[q] : 0.f;
+  }
+}
+
+// Phase B: v = relu(LN(x)) over the De features of a row held 4 per lane by
+// 8 lanes (0 past De). Every lane of the warp calls it.
+__device__ __forceinline__ void step_norm4(const StepFwdSmem& s, const float (&x)[4], int De,
+                                           int c1, float inv, float eps, float (&v)[4]) {
+  float sq[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) sq[q] = x[q] * x[q];
+  const float mean = row_sum32(x) * inv;
+  const float var = row_sum32(sq) * inv - mean * mean;
+  const float rstd = rsqrtf(var + eps);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int c = c1 + q;
+    v[q] = c < De ? fmaxf((x[q] - mean) * rstd * s.g[c] + s.b[c], 0.f) : 0.f;
+  }
+}
+
+// Phase C: outputs 4 og .. 4 og + 3 of [xl_p | xl_c] for edges ra, ra + 1 of
+// the tile (DP = De rounded up to 4; v zero past De). The sum over k runs in
+// order, then the bias, as the per-edge kernels' did.
+__device__ __forceinline__ void step_linears4(const StepFwdSmem& s, int ra, int og, int DP,
+                                              float (&o)[2][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[h][q] = 0.f;
+  }
+  for (int k = 0; k < DP; k += 4) {
+    const float4 v0 = *reinterpret_cast<const float4*>(&s.v[ra][k]);
+    const float4 v1 = *reinterpret_cast<const float4*>(&s.v[ra + 1][k]);
+    const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 wk = *reinterpret_cast<const float4*>(&s.wf[k + u][4 * og]);
+      o[0][0] = fmaf(a0[u], wk.x, o[0][0]);
+      o[0][1] = fmaf(a0[u], wk.y, o[0][1]);
+      o[0][2] = fmaf(a0[u], wk.z, o[0][2]);
+      o[0][3] = fmaf(a0[u], wk.w, o[0][3]);
+      o[1][0] = fmaf(a1[u], wk.x, o[1][0]);
+      o[1][1] = fmaf(a1[u], wk.y, o[1][1]);
+      o[1][2] = fmaf(a1[u], wk.z, o[1][2]);
+      o[1][3] = fmaf(a1[u], wk.w, o[1][3]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) o[h][q] += s.bf[4 * og + q];
+  }
+}
+
+__global__ void __launch_bounds__(kTileThreads, kStepFwdBlocksPerSm) layer_step_fwd_tile_kernel(
+    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
+    const float* __restrict__ res, const float* __restrict__ w, const float* __restrict__ b,
+    const float* __restrict__ pg, const float* __restrict__ ps, const float* __restrict__ pv,
+    const int* __restrict__ pt_idx, const int* __restrict__ cam_idx, int E, int De,
+    const float* __restrict__ lng, const float* __restrict__ lnb, int raw, float eps,
+    const float* __restrict__ wlp, const float* __restrict__ blp, int Dp,
+    const float* __restrict__ wlc, const float* __restrict__ blc, int Dc,
+    float* __restrict__ e_l, float* __restrict__ en_next, float* __restrict__ xl_p,
+    float* __restrict__ xl_c) {
+  __shared__ __align__(16) StepFwdSmem s;
+  const int tid = threadIdx.x;
+  const int K = d_in + d2, KP = (K + 3) & ~3, DP = (De + 3) & ~3;
+
+  // The weights, once per block. Consecutive threads store consecutive
+  // words (no bank conflicts); the transposing reads come from L2.
+  for (int i = tid; i < 64 * 32; i += kTileThreads) {
+    const int k = i >> 5, j = i & 31;
+    s.wt[k][j] = (k < K && j < De) ? w[j * K + k] : 0.f;
+  }
+  for (int i = tid; i < 32 * 64; i += kTileThreads) {
+    const int k = i >> 6, o = i & 63;
+    float x = 0.f;
+    if (k < De && o < Dp) x = wlp[o * De + k];
+    if (k < De && o >= 32 && o - 32 < Dc) x = wlc[(o - 32) * De + k];
+    s.wf[k][o] = x;
+  }
+  if (tid < 64) {
+    s.bf[tid] = tid < 32 ? (tid < Dp ? blp[tid] : 0.f) : (tid - 32 < Dc ? blc[tid - 32] : 0.f);
+  }
+  if (tid < 32) {
+    s.c0[tid] = tid < De ? b[tid] + pg[tid] : 0.f;
+    s.g[tid] = (!raw && tid < De) ? lng[tid] : 0.f;
+    s.b[tid] = (!raw && tid < De) ? lnb[tid] : 0.f;
+  }
+  for (int i = tid; i < 2 * kTileRows * kTileWide; i += kTileThreads) {
+    if (i % kTileWide >= K) (&s.a[0][0][0])[i] = 0.f;  // never staged: the pad past K
+  }
+
+  const int r1 = tid >> 3, c1 = 4 * (tid & 7);   // phases A and B
+  const int og = tid & 15, ra = 2 * (tid >> 4);  // phase C
+  float* const out_c = og < 8 ? xl_p : xl_c;
+  const int Dout = og < 8 ? Dp : Dc, col = 4 * (og & 7);
+  const float inv = 1.f / (float)De;
+  const int stride = gridDim.x * kTileRows;
+
+  StepEdgeRows cur, nxt;
+  int np = 0, nc = 0;  // the next tile's indices, loaded a tile ahead
+  int e0 = blockIdx.x * kTileRows;
+  if (e0 < E) {
+    const int e = e0 + r1;
+    const bool valid = e < E;
+    load_step_rows(cur, ps, pv, res, De, e, valid ? pt_idx[e] : 0, valid ? cam_idx[e] : 0, c1,
+                   valid);
+    stage_rows_async(&s.a[0][0][0], kTileWide, 0, en, d_in, e0, E);
+    stage_rows_async(&s.a[0][0][0], kTileWide, d_in, skip2, d2, e0, E);
+    cp_async_commit();
+    const int e2 = e0 + stride + r1;
+    if (e2 < E) {
+      np = pt_idx[e2];
+      nc = cam_idx[e2];
+    }
+  }
+  for (int it = 0; e0 < E; e0 += stride, ++it) {
+    const int e1 = e0 + r1;
+    const bool valid = e1 < E;
+    const int buf = it & 1;
+    // The other buffer was last read in the previous tile's phase A, which a
+    // barrier since has closed.
+    const int f0 = e0 + stride;
+    if (f0 < E) {
+      const int f = f0 + r1;
+      load_step_rows(nxt, ps, pv, res, De, f, np, nc, c1, f < E);
+      stage_rows_async(&s.a[buf ^ 1][0][0], kTileWide, 0, en, d_in, f0, E);
+      stage_rows_async(&s.a[buf ^ 1][0][0], kTileWide, d_in, skip2, d2, f0, E);
+      const int f2 = f + stride;
+      np = f2 < E ? pt_idx[f2] : 0;
+      nc = f2 < E ? cam_idx[f2] : 0;
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of this tile have landed
+    __syncthreads();     // everyone's (and the weights); the previous tile's phase C is done
+
+    // ---- phases A and B: e_l, v
+    float x[4], v[4];
+    step_update4(s, &s.a[buf][r1][0], KP, De, c1, cur, x);
+    store_row4(e_l, De, e1, c1, valid, x);
+    if (raw) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = x[q];
+    } else {
+      step_norm4(s, x, De, c1, inv, eps, v);
+      store_row4(en_next, De, e1, c1, valid, v);
+    }
+    *reinterpret_cast<float4*>(&s.v[r1][c1]) = make_float4(v[0], v[1], v[2], v[3]);
+    __syncthreads();
+
+    // ---- phase C: xl_p, xl_c, stored through L2, where the dual core,
+    // launched next, finds them (streaming stores cost it ~5%)
+    float o[2][4];
+    step_linears4(s, ra, og, DP, o);
+    store_row4(out_c, Dout, e0 + ra, col, e0 + ra < E, o[0]);
+    store_row4(out_c, Dout, e0 + ra + 1, col, e0 + ra + 1 < E, o[1]);
+    cur = nxt;
+  }
+  cp_async_wait<0>();
 }
 
 }  // namespace gasfm

@@ -19,22 +19,34 @@
 // and the edges of a camera are listed by the camera CSR, so each segment is
 // a loop over its own rows, read once, with the online softmax (m, den, num)
 // in registers. Query rows are loaded once per segment. The per-direction
-// device code is attend.cuh's, shared with the single-direction kernel.
-//   - Point side: one warp per point (14 edges per point on the dense bench
-//     scene, 3 on the power-law one); lane = feature, head = lane / C.
-//   - Camera side: one block per camera (up to ~1,300 edges); its warps
-//     stride over the camera's edge list and merge their (m, den, num)
-//     triples in shared memory in a fixed order.
+// device code is attend.cuh's (the forward) and attend_split.cuh's (the
+// backward), shared with the single-direction kernel.
+//   - Forward, point side: one warp per point (14 edges per point on the
+//     dense bench scene, 3 on the power-law one); lane = feature, head =
+//     lane / C.
+//   - Forward, camera side: one block per camera (up to ~1,300 edges); its
+//     warps stride over the camera's edge list and merge their (m, den,
+//     num) triples in shared memory in a fixed order.
 // Under autograd the forward also writes each segment's per-head max and
 // denominator (n, H) / (m, H), so the backward reads them instead of
-// recomputing the softmax (one more pass over xl). The backward walks the
-// same segments: per edge it recomputes the logit from xl and the query,
-// writes d xl, and keeps the query's and the attention vector's gradients in
-// registers; the segment sums (d xr) need no atomics, the attention-vector
-// sums over all edges go through per-block partials and a fixed-order
-// column sum (common.cuh).
+// recomputing the softmax (one more pass over xl). The backward (#2) walks
+// split segments (attend_split.cuh, the point-side code of the
+// single-direction kernel, fused_attn.cu): the first design walked a point
+// per warp and a camera per 16-warp block, one edge row per DRAM latency, so
+// the longest point (133 edges on the power-law scene) and the cameras'
+// blocks, scheduled last, set the launch's length. Both CSRs come split at
+// kAttendChunk edges once per graph on the host (ViewGraph.pt_chunks,
+// cam_chunks): four short points to a warp (8 lanes of 4 features, 16-byte
+// loads), a warp per 32-edge chunk of a long point or camera and per short
+// camera, its rows laid out the same way, 4 at a time, 8 in flight (a
+// camera's permutation entries read by one coalesced load). Per edge it recomputes the logit from xl
+// and the query and writes d xl; a chunk writes a partial d xr row, and a
+// second launch merges each long segment's partials in chunk order, points
+// and cameras together. The attention vectors' gradients are per-block
+// partial rows of both sides, [d att_p | d att_c], and one fixed-order
+// column sum (common.cuh): three launches.
 // No float atomics anywhere: results are bitwise reproducible run to run.
-#include "attend.cuh"
+#include "attend_split.cuh"
 #include "edge_prologue.cuh"
 
 namespace gasfm {
@@ -89,38 +101,98 @@ __global__ void __launch_bounds__(kFrontWarps * 32) frontend_prologue_kernel(
   }
 }
 
-// ---- backward of the dual core (attend.cuh) -------------------------------------
-//
-// Grid: n_pt_blocks point blocks (warp per point), then one block per camera.
-// partials: (grid, 32), one d att row per block (point blocks: d att_p,
-// camera blocks: d att_c), summed by column_sum_kernel.
-template <int NWARPS>
-__global__ void __launch_bounds__(NWARPS * 32) dual_attend_bwd_kernel(
-    const float* __restrict__ xl_p, const float* __restrict__ xl_c,
-    const float* __restrict__ xr_p, const float* __restrict__ xr_c,
-    const float* __restrict__ att_p, const float* __restrict__ att_c,
-    const float* __restrict__ out_p, const float* __restrict__ out_c,
-    const float* __restrict__ m_p, const float* __restrict__ den_p,
-    const float* __restrict__ m_c, const float* __restrict__ den_c,
-    const float* __restrict__ g_p, const float* __restrict__ g_c,
-    const int* __restrict__ pt_ptr, const int* __restrict__ cam_ptr,
-    const int* __restrict__ cam_perm, int n_pts, int Dp, int Cp, int Dc, int Cc,
-    float slope, int n_pt_blocks, float* __restrict__ dxl_p, float* __restrict__ dxl_c,
-    float* __restrict__ dxr_p, float* __restrict__ dxr_c, float* __restrict__ partials) {
-  __shared__ float sbuf[32];
-  float acc[1] = {0.f};  // this lane's d att over the block's edges
-  if ((int)blockIdx.x < n_pt_blocks) {
-    const int pt = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-    if (pt < n_pts) {
-      attend_bwd_segment_warp(xl_p, xr_p, att_p, out_p, m_p, den_p, g_p, pt_ptr, pt, Dp, Cp,
-                              slope, dxl_p, dxr_p, acc[0]);
-    }
-  } else {
-    attend_bwd_segment_block<NWARPS>(xl_c, xr_c, att_c, out_c, m_c, den_c, g_c, cam_ptr,
-                                     cam_perm, blockIdx.x - n_pt_blocks, Dc, Cc, slope, dxl_c,
-                                     dxr_c, acc[0]);
+// ---- backward of the dual core (attend_split.cuh) --------------------------------
+
+constexpr int kDualBwdWarps = 8;        // warps per block of the backward's launches
+constexpr int kDualBwdBlocksPerSm = 3;  // resident blocks per SM of its main launch
+constexpr int kMergeUnroll = 16;        // partial rows in flight per merging warp
+
+// One direction's operands of the backward; perm is the camera CSR's, NULL
+// on the point side.
+struct DualSide {
+  const float *xl, *xr, *att, *out, *m, *den, *g;
+  const int *ptr, *perm;
+  int n_seg, D, C;
+  float *dxl, *dxr, *dxr_part;
+};
+
+// Chunk k of a long segment, as a quad of rows (attend_bwd_rows4): its rows'
+// d xl and its d xr partial row; adds this lane's d att to acc4.
+template <int NH, bool PERM>
+__device__ __forceinline__ void dual_bwd_chunk(const DualSide& sd, const SegmentSplit& sp, int k,
+                                               float slope, float (&acc4)[4]) {
+  int seg, begin, end;
+  chunk_rows(sd.ptr, sp, k, seg, begin, end);
+  float sum[4];
+  attend_bwd_rows4<NH, PERM>(sd.xl, sd.xr, sd.att, sd.out, sd.m, sd.den, sd.g, sd.perm, seg,
+                             begin, end, sd.D, sd.C, slope, sd.dxl, sum, acc4);
+  const int lane = threadIdx.x & 31;
+  if (lane < 8) {
+    *reinterpret_cast<float4*>(sd.dxr_part + (size_t)k * 32 + 4 * lane) =
+        make_float4(sum[0], sum[1], sum[2], sum[3]);
   }
-  block_partial(acc, sbuf, partials + (size_t)blockIdx.x * 32);
+}
+
+// Main launch: warps stride over the units (a fixed assignment for a given
+// grid) in the order long camera chunks, long point chunks, cameras (a warp
+// walks a camera of at most kAttendChunk edges and writes its d xr row; a
+// longer one's warp has nothing to do), point quads. The long walkers start
+// first, the short ones fill the tail. Every unit is laid out as a quad: 8
+// lanes of 4 features per row, 4 rows (or 4 short points) at a time. NHP /
+// NHC: the head slots of a lane's 4 features on the point / camera side.
+// partials: (gridDim.x, 64), one row per block, [d att_p | d att_c].
+template <int NWARPS, int NHP, int NHC>
+__global__ void __launch_bounds__(NWARPS * 32, kDualBwdBlocksPerSm) dual_attend_bwd_kernel(
+    DualSide pt, SegmentSplit spp, DualSide cam, SegmentSplit spc, int n_quads, float slope,
+    float* __restrict__ partials) {
+  __shared__ float sbuf[2 * 32];
+  const int lane = threadIdx.x & 31;
+  float acc4p[4] = {0.f, 0.f, 0.f, 0.f};  // this lane's d att_p, features c0 .. c0 + 3
+  float acc4c[4] = {0.f, 0.f, 0.f, 0.f};  // and d att_c
+  const int u1 = spc.n_chunks, u2 = u1 + spp.n_chunks, u3 = u2 + cam.n_seg;
+  const int n_units = u3 + n_quads;
+  for (int u = blockIdx.x * NWARPS + (threadIdx.x >> 5); u < n_units; u += gridDim.x * NWARPS) {
+    if (u < u1) {
+      dual_bwd_chunk<NHC, true>(cam, spc, u, slope, acc4c);
+    } else if (u < u2) {
+      dual_bwd_chunk<NHP, false>(pt, spp, u - u1, slope, acc4p);
+    } else if (u < u3) {
+      const int c = u - u2, begin = cam.ptr[c], end = cam.ptr[c + 1];
+      if (end - begin > kAttendChunk) continue;  // long: its chunks and the merge
+      float sum[4];
+      attend_bwd_rows4<NHC, true>(cam.xl, cam.xr, cam.att, cam.out, cam.m, cam.den, cam.g,
+                                  cam.perm, c, begin, end, cam.D, cam.C, slope, cam.dxl, sum,
+                                  acc4c);
+      store_row4(cam.dxr, cam.D, c, 4 * lane, lane < 8, sum);
+    } else {
+      attend_bwd_quad<NHP>(pt.xl, pt.xr, pt.att, pt.out, pt.m, pt.den, pt.g, pt.ptr, pt.n_seg,
+                           u - u3, pt.D, pt.C, slope, pt.dxl, pt.dxr, acc4p);
+    }
+  }
+  float acc[2] = {quad_datt_lane(acc4p), quad_datt_lane(acc4c)};
+  block_partial(acc, sbuf, partials + (size_t)blockIdx.x * 64);
+}
+
+// Second launch: a warp per long segment, the cameras' first, sums its
+// chunks' d xr partial rows in chunk order.
+template <int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32) dual_bwd_merge_kernel(DualSide pt,
+                                                                     SegmentSplit spp,
+                                                                     DualSide cam,
+                                                                     SegmentSplit spc) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  const bool is_cam = i < spc.n_long;
+  const int j = is_cam ? i : i - spc.n_long;
+  if (!is_cam && j >= spp.n_long) return;
+  // pick the side's fields one by one: a reference to either parameter
+  // struct would copy both to the stack
+  const int* long_ptr = is_cam ? spc.long_ptr : spp.long_ptr;
+  const int seg = (is_cam ? spc.long_seg : spp.long_seg)[j];
+  const int D = is_cam ? cam.D : pt.D;
+  const float t = sum_rows_in_order<kMergeUnroll>(is_cam ? cam.dxr_part : pt.dxr_part,
+                                                  long_ptr[j], long_ptr[j + 1], lane);
+  if (lane < D) (is_cam ? cam.dxr : pt.dxr)[(size_t)seg * D + lane] = t;
 }
 
 // ---- backward of the frontend prologue ------------------------------------------
@@ -186,28 +258,45 @@ extern "C" int gasfm_frontend_prologue(
   return (int)cudaGetLastError();
 }
 
-// partials: (n_pt_blocks + n_cams, 32) scratch; datt: (2, 32), row 0 d att_p
-// (first Dp columns), row 1 d att_c (first Dc columns).
+// split_p / split_c: the point and camera splits at kAttendChunk edges
+// (ViewGraph.pt_chunks / cam_chunks; layout SegmentSplit); dxr_part_p
+// (n_chunks_p, 32), dxr_part_c (n_chunks_c, 32) and partials (grid, 64)
+// scratch, grid the main launch's blocks (at most kDualBwdBlocksPerSm per
+// SM); datt: (2, 32), row 0 d att_p (first Dp columns), row 1 d att_c (first
+// Dc columns). The point side's (n, Dp) and (E, Dp) streams are read and
+// written as 16-byte vectors when Dp % 4 == 0 and must then be 16-byte
+// aligned.
 extern "C" int gasfm_dual_attend_bwd(
     const float* xl_p, const float* xl_c, const float* xr_p, const float* xr_c,
     const float* att_p, const float* att_c, const float* out_p, const float* out_c,
     const float* m_p, const float* den_p, const float* m_c, const float* den_c,
     const float* g_p, const float* g_c, const int* pt_ptr, const int* cam_ptr,
-    const int* cam_perm, int n_pts, int n_cams, int Dp, int Cp, int Dc, int Cc, float slope,
-    float* dxl_p, float* dxl_c, float* dxr_p, float* dxr_c, float* datt, float* partials,
-    void* stream) {
+    const int* cam_perm, const int* split_p, int n_long_p, int n_chunks_p, const int* split_c,
+    int n_long_c, int n_chunks_c, int n_pts, int n_cams, int Dp, int Cp, int Dc, int Cc,
+    float slope, float* dxl_p, float* dxl_c, float* dxr_p, float* dxr_c, float* datt,
+    float* dxr_part_p, float* dxr_part_c, float* partials, int grid, void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
-  const int n_pt_blocks = (n_pts + kDualWarps - 1) / kDualWarps;
-  const int grid = n_pt_blocks + n_cams;
+  const DualSide pt{xl_p, xr_p, att_p, out_p, m_p, den_p, g_p, pt_ptr, nullptr,
+                    n_pts, Dp, Cp, dxl_p, dxr_p, dxr_part_p};
+  const DualSide cam{xl_c, xr_c, att_c, out_c, m_c, den_c, g_c, cam_ptr, cam_perm,
+                     n_cams, Dc, Cc, dxl_c, dxr_c, dxr_part_c};
+  const SegmentSplit spp(split_p, n_long_p, n_chunks_p), spc(split_c, n_long_c, n_chunks_c);
   if (grid > 0) {
-    dual_attend_bwd_kernel<kDualWarps><<<grid, kDualWarps * 32, 0, s>>>(
-        xl_p, xl_c, xr_p, xr_c, att_p, att_c, out_p, out_c, m_p, den_p, m_c, den_c, g_p,
-        g_c, pt_ptr, cam_ptr, cam_perm, n_pts, Dp, Cp, Dc, Cc, slope, n_pt_blocks, dxl_p,
-        dxl_c, dxr_p, dxr_c, partials);
+    by_heads(Cp, [&](auto np) {
+      by_heads(Cc, [&](auto nc) {
+        dual_attend_bwd_kernel<kDualBwdWarps, decltype(np)::value, decltype(nc)::value>
+            <<<grid, kDualBwdWarps * 32, 0, s>>>(pt, spp, cam, spc, blocks_of(n_pts, kQuad),
+                                                 slope, partials);
+      });
+    });
   }
-  launch_column_sum(partials, n_pt_blocks, 32, datt, s);
-  launch_column_sum(partials + (size_t)n_pt_blocks * 32, n_cams, 32, datt + 32, s);
+  const int n_long = n_long_p + n_long_c;
+  if (n_long > 0) {
+    dual_bwd_merge_kernel<kDualBwdWarps>
+        <<<blocks_of(n_long, kDualBwdWarps), kDualBwdWarps * 32, 0, s>>>(pt, spp, cam, spc);
+  }
+  launch_column_sum(partials, grid, 64, datt, s);
   return (int)cudaGetLastError();
 }
 

@@ -14,13 +14,23 @@
 // width-adapting residual rides the skip2 slot (skip2 = relu(LN_res(uv)),
 // W's skip columns = 4 * W_skip, c0 += 4 * b_skip), as in the JAX package.
 //
-// What bounds it on the H100: bytes. Per edge it reads en, skip2, res and
-// the two gathered table rows (ps[pt], pv[cam]) and writes e_l, en_{l+1},
-// xl_p and xl_c — about 0.9 KB per edge at the flagship widths — against
-// ~2.5 kflop of fma, far below the float32 rate. Design against it: every
-// intermediate stays in registers, each stream is touched once as a
-// coalesced row per warp, the update's weights (<= 64 x 32) and the
-// frontend's weights sit in shared memory for the whole grid-stride sweep.
+// What bounds it on the H100: bytes. At the flagship's interior widths
+// (d_in = De = Dp = Dc = 32, d2 = 2, with res) a call reads per edge en (128
+// bytes), skip2 (8), res (128) and the two indices (8), and writes e_l,
+// en_{l+1}, xl_p and xl_c (4 x 128): 784 bytes per edge, plus the tables ps
+// and pv once (128 bytes per point and per camera) and the weights, against
+// ~3.1k float32 FMAs per edge (W 34 x 32, the two linears 2 x 32 x 32),
+// ~0.4 of the bytes' time at 67 TFLOP/s. The first design gave each edge one
+// warp, lane j feature j: every product a chain of shuffles, shared loads and
+// FMAs (~80 dependent steps per edge), its loads two levels deep (the
+// indices, then the table rows), and 2,112 blocks each reloading ~17 KB of
+// weights with a transposing store that put all 32 lanes on one bank. Now
+// the forward runs the edge tiles of edge_tile.cuh
+// (layer_step_fwd_tile_kernel): persistent blocks load the weights once with
+// conflict-free stores and walk 32-edge tiles, each tile's [en | skip2] rows
+// staged with 16-byte copies, every product register-tiled, the LayerNorm's
+// sums over the 8 lanes of a row, and the next tile's rows in flight
+// (cp.async) while a tile computes.
 //
 // Backward (gasfm_layer_step_bwd), four launches: the edge-tile kernel
 // (edge_tile.cuh), one column sum of its partial rows, and the point and
@@ -40,52 +50,16 @@
 // product register-tiled, every weight gradient in registers across a
 // block's tiles, each sum in a fixed order without atomics.
 //
-// The update's per-edge forward lives in proj_update.cuh, shared with the
-// standalone projection-update kernel (fused_proj_update.cu).
-#include "edge_prologue.cuh"
+// The standalone projection update (#9, fused_proj_update.cu) and the
+// frontend (#3, fused_dual_attn.cu) keep their per-edge code
+// (proj_update.cuh, edge_prologue.cuh); the tile forward's phases are device
+// functions they can take up.
 #include "edge_tile.cuh"
-#include "proj_update.cuh"
 #include "segment.cuh"
 
-namespace gasfm {
-
-constexpr int kStepWarps = 8;
-
-__global__ void __launch_bounds__(kStepWarps * 32) layer_step_prologue_kernel(
-    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
-    const float* __restrict__ res, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ pg,
-    const float* __restrict__ ps,
-    const float* __restrict__ pv, const int* __restrict__ pt_idx,
-    const int* __restrict__ cam_idx, int E, int De,
-    const float* __restrict__ lng, const float* __restrict__ lnb, int raw, float eps,
-    const float* __restrict__ wlp, const float* __restrict__ blp, int Dp,
-    const float* __restrict__ wlc, const float* __restrict__ blc, int Dc,
-    float* __restrict__ e_l, float* __restrict__ en_next,
-    float* __restrict__ xl_p, float* __restrict__ xl_c) {
-  __shared__ FrontParams sp;
-  __shared__ UpdateParams su;
-  load_update_params(su, w, b, pg, De, d_in + d2);
-  load_front_params(sp, lng, lnb, wlp, blp, wlc, blc, De, Dp, Dc, raw != 0);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kStepWarps;
-  for (int edge = blockIdx.x * kStepWarps + (threadIdx.x >> 5); edge < E; edge += stride) {
-    const float x = update_forward(su, edge, lane, en, d_in, skip2, d2, res, ps, pv, pt_idx,
-                                   cam_idx, De);
-    if (lane < De) e_l[(size_t)edge * De + lane] = x;
-    const float v = front_norm(x, De, raw != 0, sp, eps, lane);
-    if (!raw && lane < De) en_next[(size_t)edge * De + lane] = v;
-    float yp, yc;
-    front_linears(v, De, Dp, Dc, sp, lane, yp, yc);
-    if (lane < Dp) xl_p[(size_t)edge * Dp + lane] = yp;
-    if (lane < Dc) xl_c[(size_t)edge * Dc + lane] = yc;
-  }
-}
-
-}  // namespace gasfm
-
+// grid: the tile kernel's blocks, at most kStepFwdBlocksPerSm per SM. en,
+// skip2, res, ps, pv and the outputs are read and written as 16-byte vectors
+// where their widths allow and must then be 16-byte aligned.
 extern "C" int gasfm_layer_step_prologue(
     const float* en, int d_in, const float* skip2, int d2, const float* res,
     const float* w, const float* b, const float* pg, const float* ps, const float* pv,
@@ -95,7 +69,7 @@ extern "C" int gasfm_layer_step_prologue(
     float* en_next, float* xl_p, float* xl_c, int grid, void* stream) {
   using namespace gasfm;
   if (E > 0) {
-    layer_step_prologue_kernel<<<grid, kStepWarps * 32, 0, (cudaStream_t)stream>>>(
+    layer_step_fwd_tile_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
         en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, lng, lnb,
         raw, eps, wlp, blp, Dp, wlc, blc, Dc, e_l, en_next, xl_p, xl_c);
   }

@@ -12,9 +12,10 @@
 // on lane-packed streams (4 edges per 128-lane row) with block-diagonal
 // weights, one-hot matmul gathers of the point window and the camera table,
 // and table gradients resident across the sequential grid. None of that
-// carries over: here a warp owns an edge row (proj_update.cuh, the device
-// code the layer-step kernel runs as the first half of its prologue), the
-// gathers are direct loads, and the table gradients are CSR segment sums.
+// carries over: here a warp owns an edge row (proj_update.cuh; the layer
+// step's forward ran the same code until it took the edge tiles of
+// edge_tile.cuh), the gathers are direct loads, and the table gradients are
+// CSR segment sums.
 //
 // What bounds it on the H100: bytes over 3.35 TB/s. The forward reads en,
 // skip2 and res and the two gathered table rows per edge and writes e, about

@@ -1,8 +1,6 @@
-// The projection update's per-edge device code: its forward, shared by the
-// layer-step kernel (fused_layer_step.cu, whose prologue runs it before the
-// next layer's frontend) and the standalone projection-update kernel
-// (fused_proj_update.cu), and the standalone kernel's backward (the layer
-// step's backward takes the edge tiles of edge_tile.cuh instead):
+// The projection update's per-edge device code, forward and backward, of the
+// standalone projection-update kernel (fused_proj_update.cu; the layer
+// step's forward and backward take the edge tiles of edge_tile.cuh instead):
 //
 //   e = ([en | skip2] . W^T + b + pg + ps[pt] + pv[cam]) / 4  (+ res)
 //

@@ -78,9 +78,18 @@ class ViewGraph:
         """The points split by length at ``rows`` edges (:func:`split_segments`),
         built on the host once per graph and ``rows``: the point-side
         attention kernels take it on every call."""
-        cache = self.__dict__.setdefault("_pt_chunks", {})
+        return self._chunks("pt", self.pt_ptr, rows)
+
+    def cam_chunks(self, rows: int) -> "SegmentChunks":
+        """The cameras split likewise over ``cam_ptr``: a chunk's
+        ``chunk_begin`` indexes ``cam_perm``. Built once per graph and
+        ``rows`` for the dual attention's backward."""
+        return self._chunks("cam", self.cam_ptr, rows)
+
+    def _chunks(self, side: str, ptr: torch.Tensor, rows: int) -> "SegmentChunks":
+        cache = self.__dict__.setdefault(f"_{side}_chunks", {})
         if rows not in cache:
-            cache[rows] = split_segments(self.pt_ptr.cpu().numpy(), rows, self.device)
+            cache[rows] = split_segments(ptr.cpu().numpy(), rows, self.device)
         return cache[rows]
 
 

@@ -19,7 +19,11 @@ What bounds them on the H100 is bytes over its 3.35 TB/s, not operations:
 per edge and feature the work is a few flops. The kernels read each edge
 row once, keep the online softmax in registers, and walk each segment's
 own edge list (point CSR; camera CSR through ``cam_perm``) instead of the
-TPU kernel's one-hot matmuls. See the CUDA source for the launch layout.
+TPU kernel's one-hot matmuls. The dual core's backward walks both CSRs
+split at ``SPLIT_ROWS`` edges (``ViewGraph.pt_chunks`` / ``cam_chunks``,
+built once per graph on the host), so that no warp walks more than that
+many edges of one point or camera. See the CUDA source for the launch
+layout.
 
 Gradients: when an input requires grad, the wrappers run through
 ``torch.autograd.Function``s. The dual core's forward then also writes each
@@ -44,14 +48,17 @@ from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_r
 from gasfm_tpu_torch.ops.kernels import build as kb
 
 LN_EPS = 1e-5
-DUAL_WARPS = 16  # kDualWarps of csrc/fused_dual_attn.cu: points per point block
+SPLIT_ROWS = 32  # kAttendChunk of csrc/attend_split.cuh: the backward's split length
+DUAL_BWD_WARPS = 8  # kDualBwdWarps of csrc/fused_dual_attn.cu: warps per backward block
+DUAL_BWD_BLOCKS_PER_SM = 3  # kDualBwdBlocksPerSm: its resident blocks per SM
 FRONT_WARPS = 8  # kFrontWarps: edges per prologue block
 OUTER_ROW = 32 * 64 + 32  # kOuterRow of csrc/common.cuh: one outer-sum job's sums
 
 _P, _I, _F = kb.P, kb.I, kb.F
 _SIGNATURES = {
     "gasfm_dual_attend": (_P,) * 9 + (_I,) * 6 + (_F,) + (_P,) * 7,
-    "gasfm_dual_attend_bwd": (_P,) * 17 + (_I,) * 6 + (_F,) + (_P,) * 7,
+    "gasfm_dual_attend_bwd": (_P,) * 18 + (_I, _I, _P) + (_I,) * 8 + (_F,) + (_P,) * 8
+    + (_I, _P),
     "gasfm_frontend_prologue": (_P, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I, _P, _P,
                                 _P, _I, _P),
     "gasfm_frontend_prologue_bwd": (_P, _I, _I, _P, _P, _I, _F, _P, _I, _P, _I) + (_P,) * 9
@@ -181,21 +188,31 @@ def fused_dual_attend_bwd(xl_p, xl_c, xr_p, xr_c, att_p, att_c, out_p, out_c,
     Cp, Cc = head_width(Dp, heads), head_width(Dc, heads)
     g_p = kb.cuda_f32("g_p", g_p, (n, Dp))
     g_c = kb.cuda_f32("g_c", g_c, (m, Dc))
-    dev = xl_p.device
+    ins = [kb.aligned(kb.cuda_f32(name, t)) for name, t in (
+        ("xl_p", xl_p), ("xl_c", xl_c), ("xr_p", xr_p), ("xr_c", xr_c), ("att_p", att_p),
+        ("att_c", att_c), ("out_p", out_p), ("out_c", out_c), ("m_p", m_p),
+        ("den_p", den_p), ("m_c", m_c), ("den_c", den_c), ("g_p", g_p), ("g_c", g_c))]
+    dev = ins[0].device
+    sp, sc = graph.pt_chunks(SPLIT_ROWS), graph.cam_chunks(SPLIT_ROWS)
+    # units of the main launch: long camera and point chunks, cameras, point quads
+    units = sc.n_chunks + sp.n_chunks + m + -(-n // 4)
+    grid = kb.grid_for(dev, units, DUAL_BWD_WARPS, per_sm=DUAL_BWD_BLOCKS_PER_SM)
     dxl_p, dxl_c = kb.f32_empty((E, Dp), dev), kb.f32_empty((E, Dc), dev)
     dxr_p, dxr_c = kb.f32_empty((n, Dp), dev), kb.f32_empty((m, Dc), dev)
     datt = kb.f32_empty((2, 32), dev)
-    partials = kb.f32_empty((-(-n // DUAL_WARPS) + m, 32), dev)
+    partials = kb.f32_empty((grid, 64), dev)
+    dxr_part_p = kb.f32_empty((sp.n_chunks, 32), dev) if sp.n_chunks else None
+    dxr_part_c = kb.f32_empty((sc.n_chunks, 32), dev) if sc.n_chunks else None
     p = kb.ptr
-    ins = [kb.cuda_f32(name, t) for name, t in (
-        ("xl_p", xl_p), ("xl_c", xl_c), ("xr_p", xr_p), ("xr_c", xr_c), ("att_p", att_p),
-        ("att_c", att_c), ("out_p", out_p), ("out_c", out_c), ("m_p", m_p),
-        ("den_p", den_p), ("m_c", m_c), ("den_c", den_c))]
     code = _entry("gasfm_dual_attend_bwd")(
-        *(p(t) for t in ins), p(g_p), p(g_c),
+        *(p(t) for t in ins),
         p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
-        p(kb.cuda_i32("cam_perm", graph.cam_perm)), n, m, Dp, Cp, Dc, Cc, float(slope),
-        p(dxl_p), p(dxl_c), p(dxr_p), p(dxr_c), p(datt), p(partials), kb.stream(dev),
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)),
+        p(kb.cuda_i32("pt_chunks", sp.table)), sp.n_long, sp.n_chunks,
+        p(kb.cuda_i32("cam_chunks", sc.table)), sc.n_long, sc.n_chunks,
+        n, m, Dp, Cp, Dc, Cc, float(slope),
+        p(dxl_p), p(dxl_c), p(dxr_p), p(dxr_c), p(datt), p(dxr_part_p), p(dxr_part_c),
+        p(partials), grid, kb.stream(dev),
     )
     kb.check(code, "fused_dual_attend_bwd")
     fused_dual_attend_bwd.launches += 1

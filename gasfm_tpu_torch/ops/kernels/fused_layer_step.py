@@ -16,13 +16,15 @@ dual core's backward (counted by ``fused_dual_attend_bwd``), then
 kernel, one column sum of its per-block partial rows of the weight
 gradients, and the point and camera segment sums of d e_l / 4).
 
-What bounds it on the H100 is bytes over its 3.35 TB/s: about 0.9 KB of
-edge streams per edge against a few thousand flops. The prologue keeps e_l
-in registers between the update and the LayerNorm and touches each stream
-once; the update and frontend weights sit in shared memory. The backward
-takes tiles of 32 edges, recomputes the LayerNorm and its output from the
-saved e_l, runs its small products register-tiled on the CUDA cores in
-float32, and sums every weight gradient in registers without atomics.
+What bounds it on the H100 is bytes over its 3.35 TB/s: 784 bytes of edge
+streams per edge at the flagship's interior widths against ~3.1k float32
+FMAs. Both directions take tiles of 32 edges in persistent blocks that hold
+the weights in shared memory (``csrc/edge_tile.cuh``) and run the small
+products register-tiled on the CUDA cores in float32. The forward keeps e_l
+in registers between the update and the LayerNorm, touches each stream
+once, and has the next tile's rows in flight while a tile computes; the
+backward recomputes the LayerNorm and its output from the saved e_l and
+sums every weight gradient in registers without atomics.
 
 A CPU tensor runs the plain version (and autograd through it is the
 backward's plain version); a CUDA tensor launches the kernel or raises.
@@ -33,18 +35,20 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.nn.functional as F
 
-from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE
+from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, layer_norm_relu
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (
     LN_EPS,
     fused_dual_attend,
-    fused_frontend_plain,
+    fused_dual_attend_plain,
 )
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import projection_update_plain
 
-TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile of the backward
-TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: its persistent blocks per SM
+TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile
+TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: the backward's persistent blocks per SM
+FWD_BLOCKS_PER_SM = 3  # kStepFwdBlocksPerSm: the forward's
 
 _ARGS = (
     kb.P, kb.I, kb.P, kb.I,  # en, d_in, skip2, d2
@@ -69,14 +73,25 @@ def _entry(symbol="gasfm_layer_step_prologue"):
     return kb.bind(kb.load("fused_layer_step"), symbol, args)
 
 
+def layer_step_prologue_plain(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
+                              wlp, blp, wlc, blc, graph, eps=LN_EPS, raw_prologue=False):
+    """Plain version of :func:`layer_step_prologue`: the update, the next
+    layer's LayerNorm + ReLU (not under ``raw_prologue``) and its two source
+    linears. Returns (e_l, en_next, xl_p, xl_c)."""
+    e_l = projection_update_plain(en, skip2, res, w, b, ps, pv, pg, graph)
+    en_next = e_l if raw_prologue else layer_norm_relu(e_l, ln_scale, ln_bias, eps)
+    return e_l, en_next, F.linear(en_next, wlp, blp), F.linear(en_next, wlc, blc)
+
+
 def fused_layer_step_plain(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
                            wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c, graph, heads,
                            eps=LN_EPS, raw_prologue=False, slope=NEGATIVE_SLOPE):
-    """Plain version: the update, then the frontend on e_l."""
-    e_l = projection_update_plain(en, skip2, res, w, b, ps, pv, pg, graph)
-    en_next, out_p, out_c = fused_frontend_plain(
-        e_l, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c,
-        graph, heads, eps, raw_prologue, slope)
+    """Plain version: the prologue, then the dual core."""
+    e_l, en_next, xl_p, xl_c = layer_step_prologue_plain(
+        en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias, wlp, blp, wlc, blc, graph, eps,
+        raw_prologue)
+    out_p, out_c = fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
+                                           slope)
     return e_l, en_next, out_p, out_c
 
 
@@ -91,16 +106,17 @@ def layer_step_prologue(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
     Dp, Dc = wlp.shape[0], wlc.shape[0]
     if max(d_in, d2, De, Dp, Dc) > 32 or E != graph.num_edges:
         raise ValueError("fused_layer_step: every width must be <= 32")
-    en = kb.cuda_f32("en", en, (E, d_in))
+    al = kb.aligned
+    en = al(kb.cuda_f32("en", en, (E, d_in)))
     if skip2 is not None:
-        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
+        skip2 = al(kb.cuda_f32("skip2", skip2, (E, d2)))
     if res is not None:
-        res = kb.cuda_f32("res", res, (E, De))
+        res = al(kb.cuda_f32("res", res, (E, De)))
     w = kb.cuda_f32("w", w, (De, d_in + d2))
     b = kb.cuda_f32("b", b, (De,))
     pg = kb.cuda_f32("pg", pg.reshape(-1), (De,))
-    ps = kb.cuda_f32("ps", ps, (n, De))
-    pv = kb.cuda_f32("pv", pv, (m, De))
+    ps = al(kb.cuda_f32("ps", ps, (n, De)))
+    pv = al(kb.cuda_f32("pv", pv, (m, De)))
     if not raw_prologue:
         ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
         ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
@@ -120,7 +136,7 @@ def layer_step_prologue(en, skip2, res, w, b, ps, pv, pg, ln_scale, ln_bias,
         p(en), d_in, p(skip2), d2, p(res), p(w), p(b), p(pg), p(ps), p(pv),
         p(pt_idx), p(cam_idx), E, De, p(ln_s), p(ln_b), int(raw_prologue), float(eps),
         p(wlp), p(blp), Dp, p(wlc), p(blc), Dc, p(e_l), p(en_out), p(xl_p), p(xl_c),
-        kb.grid_for(dev, E, 8), kb.stream(dev),
+        kb.grid_for(dev, -(-E // TILE_ROWS), 1, per_sm=FWD_BLOCKS_PER_SM), kb.stream(dev),
     )
     kb.check(code, "fused_layer_step")
     fused_layer_step.launches += 1

@@ -1,35 +1,49 @@
-"""Device time per call of the layer step's backward (#6), the row gather
-(#16/#20) and the point side's single-direction attention (#13, #14), from
-``torch.profiler``, on both bench scenes and the wide one.
+"""Device time per call of the layer step's forward (#5) and backward (#6),
+the dual core's backward (#2), the row gather (#16/#20), the point side's
+single-direction attention (#13, #14), the frontend's prologue (#3) and the
+projection update (#9), from ``torch.profiler``, on both bench scenes and
+the wide one, and of #5 and #2 on the kernel-check graphs of
+``chip_smoke.py`` (``graph/check_graphs.py``).
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
 
 Each measurement profiles ``--calls`` back-to-back calls of one function
 and nothing else, after a warm-up, and divides the summed device time of
 every kernel in the window by the calls: so a function of several launches
-is counted whole. The layer step's backward runs at the flagship's interior
-shapes (en (E, 32), skip2 (E, 2), W (32, 34), both source linears 32 x 32,
-cotangents of xl_p, xl_c, e_norm_next and e_l; the dual core's backward is
-not in the window); the gather on both sides at D = 256 and D = 2, beside
+is counted whole. Each row also carries a digest of the function's outputs
+(SHA-1 of their bytes), so two trees' rows show whether they compute the
+same bits. The layer step runs at the flagship's interior shapes (en (E,
+32), skip2 (E, 2), res (E, 32), W (32, 34), both source linears 32 x 32):
+the forward's prologue alone (``layer_step_prologue``, the dual core not in
+the window), the backward from cotangents of xl_p, xl_c,
+e_norm_next and e_l (the dual core's backward not in the window); the dual
+core's backward (``fused_dual_attend_bwd``, all its launches) at D = 32, H
+= 4 from the forward's residuals (and on the degree graph at four more (D,
+H)); the gather on both sides at D = 256 and D = 2, beside
 ``index_select`` on the same table and ids; the attention on the point side
 at D = 32, H = 4 (an interior layer of the flagship on the unfused path),
 the forward with its residuals (as under autograd) and the backward from
-them. Prints one line per measurement with each kernel's launches and
+them; the frontend's prologue at De = 32; the projection update with skip2
+and res. Prints one line per measurement with each kernel's launches and
 device time per call, and writes them as JSON to ``--out`` (default
 ``chiprun_out/kernel_device_time.json``).
 
 It imports whichever ``gasfm_tpu_torch`` is first on the path, so one call
 on the card can measure a parent tree and this one in turns: run it by
 path from the other tree's root, ``PYTHONPATH=. python
-<this tree>/gasfm_tpu_torch/tools/kernel_device_time.py``. The layer step's backward took
-the saved ``en_next`` as an argument before it recomputed it; the script
-passes it where the signature asks for it.
+<this tree>/gasfm_tpu_torch/tools/kernel_device_time.py``; it calls only
+entry points whose names and signatures the parent trees share, and takes
+its graphs from ``gasfm_tpu_torch/graph/check_graphs.py``, which a tree
+older than that module gets as a copy of this tree's. The layer
+step's backward took the saved ``en_next`` as an argument before it
+recomputed it; the script passes it where the signature asks for it.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import hashlib
 import inspect
 import json
 import subprocess
@@ -40,8 +54,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
+                                                hub_camera_graph, tile_boundary_graph)
 from gasfm_tpu_torch.ops.kernels import fused_attn as fat
+from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
 from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
 from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 from gasfm_tpu_torch.tools.profile_forward import SCENES
 
@@ -67,27 +85,90 @@ def device_ms_per_call(fn, calls):
                                  for k, (n, us) in names.items()}
 
 
-def layer_step_bwd_call(graph, dev):
-    """#6 at the flagship's interior shapes, its cotangents precomputed."""
-    gen = torch.Generator(device=dev).manual_seed(4321)
-    E, n, m, D = graph.num_edges, graph.num_pts, graph.num_cams, 32
+def digest(out) -> str:
+    """SHA-1 (16 hex digits) of the bytes of every tensor in ``out``."""
+    h = hashlib.sha1()
+    todo = [out]
+    while todo:
+        x = todo.pop(0)
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        elif isinstance(x, (tuple, list)):
+            todo[:0] = list(x)
+    return h.hexdigest()[:16]
+
+
+# ---- the calls ----------------------------------------------------------------
+
+
+def step_operands(graph, dev, De=32, d_in=32, d2=2, res=True, seed=4321):
+    """The layer step's operands at an interior layer's shapes (De wide, the
+    next layer's source linears De -> De), seeded: a dict of en, skip2, res,
+    w, b, ps, pv, pg, ln_scale, ln_bias, wlp, blp, wlc, blc."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
-    en, skip2, res = torch.relu(rnd(E, D)), rnd(E, 2), rnd(E, D)
-    w, b = rnd(D, D + 2, scale=0.2), rnd(D, scale=0.1)
-    ps, pv, pg = rnd(n, D), rnd(m, D), rnd(1, D)
-    ln_scale, ln_bias = 1.0 + rnd(D, scale=0.2), rnd(D, scale=0.1)
-    wlp, blp, wlc, blc = rnd(D, D, scale=0.2), rnd(D, scale=0.1), rnd(D, D, scale=0.2), rnd(D)
-    e_l, en_next, _, _ = fls.layer_step_prologue(en, skip2, res, w, b, ps, pv, pg, ln_scale,
-                                                 ln_bias, wlp, blp, wlc, blc, graph)
-    kw = dict(en=en, skip2=skip2, w=w, e_l=e_l, ln_scale=ln_scale, ln_bias=ln_bias, wlp=wlp,
-              wlc=wlc, graph=graph, dxl_p=rnd(E, D), dxl_c=rnd(E, D), den_next=rnd(E, D),
-              de_l=rnd(E, D))
+    return dict(en=torch.relu(rnd(E, d_in)), skip2=rnd(E, d2) if d2 else None,
+                res=rnd(E, De) if res else None, w=rnd(De, d_in + d2, scale=0.2),
+                b=rnd(De, scale=0.1), ps=rnd(n, De), pv=rnd(m, De), pg=rnd(1, De),
+                ln_scale=1.0 + rnd(De, scale=0.2), ln_bias=rnd(De, scale=0.1),
+                wlp=rnd(De, De, scale=0.2), blp=rnd(De, scale=0.1), wlc=rnd(De, De, scale=0.2),
+                blc=rnd(De))
+
+
+def layer_step_prologue_call(graph, dev, **shape):
+    """#5 alone, the interior form by default."""
+    ops = step_operands(graph, dev, **shape)
+    return lambda: fls.layer_step_prologue(*ops.values(), graph)
+
+
+def layer_step_bwd_call(graph, dev):
+    """#6 at the flagship's interior shapes, its cotangents precomputed."""
+    ops = step_operands(graph, dev)
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    E, D = graph.num_edges, 32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    e_l, en_next, _, _ = fls.layer_step_prologue(*ops.values(), graph)
+    kw = dict(en=ops["en"], skip2=ops["skip2"], w=ops["w"], e_l=e_l, ln_scale=ops["ln_scale"],
+              ln_bias=ops["ln_bias"], wlp=ops["wlp"], wlc=ops["wlc"], graph=graph,
+              dxl_p=rnd(E, D), dxl_c=rnd(E, D), den_next=rnd(E, D), de_l=rnd(E, D))
     if "en_next" in inspect.signature(fls.fused_layer_step_bwd).parameters:
         kw["en_next"] = en_next
     return lambda: fls.fused_layer_step_bwd(**kw)
+
+
+def dual_bwd_call(graph, dev, D=32, heads=4, seed=2):
+    """#2 from the forward's residuals (as under autograd), both sides D
+    wide with ``heads`` heads, its cotangents seeded."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    xl_p, xl_c, xr_p, xr_c, att_p, att_c, g_p, g_c = (
+        torch.randn(shape, generator=gen, device=dev)
+        for shape in ((E, D), (E, D), (n, D), (m, D), (D,), (D,), (n, D), (m, D)))
+    out_p, out_c, res, ins = fda.dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c,
+                                                     graph, heads, residuals=True)
+    return lambda: fda.fused_dual_attend_bwd(*ins, out_p, out_c, *res, g_p, g_c, graph, heads)
+
+
+def frontend_call(graph, dev, De=32):
+    """#3's per-edge prologue at De = 32 (LayerNorm, source linears 32 x 32)."""
+    ops = step_operands(graph, dev, De=De)
+    e = ops["en"]
+    return lambda: fda.frontend_prologue(e, *(ops[k] for k in (
+        "ln_scale", "ln_bias", "wlp", "blp", "wlc", "blc")))
+
+
+def projection_update_call(graph, dev):
+    """#9 with the 2-wide skip2 and the residual, De = 32."""
+    ops = step_operands(graph, dev)
+    return lambda: fpu.projection_update(*(ops[k] for k in (
+        "en", "skip2", "res", "w", "b", "ps", "pv", "pg")), graph)
 
 
 def attend_calls(graph, dev, heads=4, D=32):
@@ -116,12 +197,29 @@ def main(argv=None) -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"device: {smi}; package {Path(fls.__file__).resolve().parents[2]}")
     out = []
+
+    def measure(label, name, variant, fn):
+        ms, names = device_ms_per_call(fn, args.calls)
+        dig = digest(fn())
+        print(f"{label} {name}[{variant}]: device {ms:.4f} ms per call; digest {dig}; per call "
+              f"(launches, device ms) by kernel {names}", flush=True)
+        out.append(dict(scene=label, name=name, variant=variant, device_ms_per_call=ms,
+                        launches_per_call=names, digest=dig))
+
     with torch.no_grad():
+        graphs = {}
         for scene_name in ("dense", "powerlaw", "wide"):
             graph = generate_synthetic_scene(**SCENES[scene_name]).to_scene_graph(device=dev).graph
+            graphs[scene_name] = graph
             gen = torch.Generator(device=dev).manual_seed(2468)
             cases = attend_calls(graph, dev)
             cases.append(("fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev)))
+            if scene_name != "wide":  # the merged path's kernels
+                cases.append(("layer_step_prologue", "interior",
+                              layer_step_prologue_call(graph, dev)))
+                cases.append(("fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev)))
+                cases.append(("frontend_prologue", "De32", frontend_call(graph, dev)))
+                cases.append(("projection_update", "skip2_res", projection_update_call(graph, dev)))
             for D in (256, 2):
                 for side in ("point", "camera"):
                     ids, S = sk.side_ids(graph, side)
@@ -132,11 +230,21 @@ def main(argv=None) -> None:
                     cases.append(("index_select", f"{side}_D{D}",
                                   lambda t=table, i=ids64: torch.index_select(t, 0, i)))
             for name, variant, fn in cases:
-                ms, names = device_ms_per_call(fn, args.calls)
-                print(f"{scene_name} {name}[{variant}]: device {ms:.4f} ms per call; per call "
-                      f"(launches, device ms) by kernel {names}")
-                out.append(dict(scene=scene_name, name=name, variant=variant,
-                                device_ms_per_call=ms, launches_per_call=names))
+                measure(scene_name, name, variant, fn)
+        # the kernel-check graphs of chip_smoke.py
+        extra = {"dense_empty": graph_with_empty_segments(graphs["dense"]),
+                 "hub_camera": hub_camera_graph(graphs["dense"]),
+                 "degrees": degree_graph(graphs["powerlaw"])}
+        for label, graph in extra.items():
+            measure(label, "fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev))
+        for D, H in ((16, 4), (32, 1), (8, 8), (12, 6)):
+            measure("degrees", "fused_dual_attend_bwd", f"D{D}_H{H}",
+                    dual_bwd_call(extra["degrees"], dev, D=D, heads=H))
+        tiles = tile_boundary_graph(dev)
+        measure("tile_edges", "layer_step_prologue", "interior",
+                layer_step_prologue_call(tiles, dev))
+        measure("tile_edges", "layer_step_prologue", "narrow_De8",
+                layer_step_prologue_call(tiles, dev, De=8, d_in=8))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(device=smi, rows=out), indent=1))
 

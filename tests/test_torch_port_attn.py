@@ -12,9 +12,10 @@ package's Pallas kernels in interpret mode.
   edges span several chunks of the JAX kernel (the graph built at chunk
   128) and several of the port's splits (``ATTEND_CHUNK`` edges); the
   attention and its gradients against ``fused_attend_h`` there, and the
-  host-side split itself (``split_segments``, ``ViewGraph.pt_chunks``):
-  every segment short or long, the long ones in order and cut into
-  chunks that tile their edges, empty segments and degrees L, L + 1, kL.
+  host-side split itself (``split_segments``, ``ViewGraph.pt_chunks`` and
+  ``cam_chunks``, the latter over the camera permutation's rows): every
+  segment short or long, the long ones in order and cut into chunks that
+  tile their edges, empty segments and degrees L, L + 1, kL.
 - The segment max against ``windowed_segment_max`` (point side) and
   ``segment_max_kernel`` (camera side), reached through the JAX
   ``segment_max``: D = 1, 4 and 8, the default neutral and a caller's;
@@ -49,7 +50,7 @@ from gasfm_tpu.ops import segment as jseg
 from gasfm_tpu.ops.pallas import fused_attn as jax_fused_attn
 from gasfm_tpu.ops.pallas import segment_kernels as jax_segment_kernels
 
-from gasfm_tpu_torch.graph.view_graph import build_scene_graph, split_segments
+from gasfm_tpu_torch.graph.view_graph import ViewGraph, build_scene_graph, split_segments
 from gasfm_tpu_torch.ops.gatv2 import gatv2_attend_composite
 from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK, fused_attend
 from gasfm_tpu_torch.ops.kernels.segment_kernels import segment_max
@@ -245,14 +246,49 @@ def test_fused_attend_hub_point_matches_jax_kernel(hub_scenes, spy, heads):
 
 
 
+def graph_of_degrees(degrees, side):
+    """A port ViewGraph whose ``side`` segments have ``degrees`` edges: on
+    the point side the edges run point by point, each on one of three
+    cameras; on the camera side each edge has a point of its own and the
+    cameras' edges come in a seeded shuffle, so ``cam_perm`` is not sorted."""
+    deg = np.asarray(degrees, dtype=np.int64)
+    ids = np.repeat(np.arange(deg.shape[0]), deg)
+    E = ids.shape[0]
+    if side == "point":
+        pt_idx, cam_idx, n, m = ids, np.arange(E) % 3, deg.shape[0], 3
+    else:
+        pt_idx, cam_idx = np.arange(E), np.random.default_rng(3).permutation(ids)
+        n, m = E, deg.shape[0]
+
+    def t(a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+    def offsets(ids, S):
+        return t(np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=S))]))
+
+    return ViewGraph(uv=torch.zeros((E, 2)), cam_idx=t(cam_idx), pt_idx=t(pt_idx),
+                     pt_ptr=offsets(pt_idx, n), cam_perm=t(np.argsort(cam_idx, kind="stable")),
+                     cam_ptr=offsets(cam_idx, m), cam_valid=torch.ones(m, dtype=torch.bool),
+                     pt_valid=torch.ones(n, dtype=torch.bool))
+
+
+def side_chunks(graph, side):
+    """(the side's split at L, its CSR offsets as numpy)."""
+    if side == "point":
+        return graph.pt_chunks(L), graph.pt_ptr.numpy()
+    return graph.cam_chunks(L), graph.cam_ptr.numpy()
+
+
+@pytest.mark.parametrize("side", ["point", "camera"])
 @pytest.mark.parametrize("degrees", [
     [], [0, 0, 0], [1, 2, 3], [L - 1, L, L + 1], [0, 2 * L, 0, 3 * L + 5, L],
     [300, 0, L + 1, 7, 2 * L + 1, 2 * L, 0],
 ])
-def test_split_segments_tiles_every_long_segment(degrees):
+def test_split_segments_tiles_every_long_segment(degrees, side):
     deg = np.asarray(degrees, dtype=np.int64)
-    ptr = np.concatenate([[0], np.cumsum(deg)])
-    sp = split_segments(ptr, L)
+    graph = graph_of_degrees(degrees, side)
+    sp, ptr = side_chunks(graph, side)
+    np.testing.assert_array_equal(ptr, np.concatenate([[0], np.cumsum(deg)]))
     # every segment is short (at most L edges, empty ones too) or long, and
     # the long ones are listed once each, in order
     np.testing.assert_array_equal(sp.long_seg, np.flatnonzero(deg > L))
@@ -264,20 +300,75 @@ def test_split_segments_tiles_every_long_segment(degrees):
         assert (sp.chunk_seg[ks] == s).all()
         begin = sp.chunk_begin[ks]
         end = np.minimum(begin + L, ptr[s + 1])
-        # the chunks tile the segment's edges in order, each 1 to L of them
+        # the chunks tile the segment's CSR rows in order, each 1 to L of them
         assert begin[0] == ptr[s] and end[-1] == ptr[s + 1]
         np.testing.assert_array_equal(begin[1:], end[:-1])
         assert ((end - begin >= 1) & (end - begin <= L)).all()
+        if side == "camera":  # the rows are cam_perm's entries: the camera's edges
+            rows = graph.cam_perm.numpy()[ptr[s]:ptr[s + 1]]
+            assert (graph.cam_idx.numpy()[rows] == s).all()
     want = np.concatenate([sp.chunk_seg, sp.chunk_begin, sp.long_seg, sp.long_ptr])
     np.testing.assert_array_equal(sp.table.numpy(), want)
+    np.testing.assert_array_equal(sp.table.numpy(), split_segments(ptr, L).table.numpy())
     assert sp.table.dtype == torch.int32
 
 
-def test_pt_chunks_built_once_per_graph(scenes):
+@pytest.mark.parametrize("side", ["point", "camera"])
+def test_pt_chunks_built_once_per_graph(scenes, side):
     graph = scenes[1].graph
-    split = graph.pt_chunks(L)
-    assert graph.pt_chunks(L) is split
-    np.testing.assert_array_equal(split.table.numpy(),
-                                  split_segments(graph.pt_ptr.numpy(), L).table.numpy())
-    other = dataclasses.replace(graph, pt_ptr=graph.pt_ptr.clone())
-    assert other.pt_chunks(L) is not split
+    split, ptr = side_chunks(graph, side)
+    assert side_chunks(graph, side)[0] is split
+    np.testing.assert_array_equal(split.table.numpy(), split_segments(ptr, L).table.numpy())
+    field = "pt_ptr" if side == "point" else "cam_ptr"
+    other = dataclasses.replace(graph, **{field: getattr(graph, field).clone()})
+    assert side_chunks(other, side)[0] is not split
+
+
+@pytest.fixture(scope="module")
+def powerlaw_graph():
+    from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+    from gasfm_tpu_torch.tools.profile_forward import SCENES
+
+    return generate_synthetic_scene(**SCENES["powerlaw"]).to_scene_graph(device="cpu").graph
+
+
+@pytest.mark.parametrize("builder", ["hub_camera", "degrees", "empty", "tile_boundary"])
+def test_kernel_check_graphs_are_port_graphs(powerlaw_graph, builder):
+    """The graphs that chip_smoke.py runs the dual core's backward and the
+    layer step on (graph/check_graphs.py) keep the port's
+    layout, edges by (point, camera) with both CSRs consistent, and have
+    the segments they promise: a camera over every point; cameras of
+    exactly L - 1, L, L + 1 and 2L edges and a point of 133; empty points
+    and an empty camera; a point over four 32-edge tiles and E not a
+    multiple of 32."""
+    from gasfm_tpu_torch.graph import check_graphs as cg
+
+    g = powerlaw_graph
+    graph = {"hub_camera": lambda: cg.hub_camera_graph(g), "degrees": lambda: cg.degree_graph(g),
+             "empty": lambda: cg.graph_with_empty_segments(g),
+             "tile_boundary": lambda: cg.tile_boundary_graph("cpu")}[builder]()
+    pt, cam = graph.pt_idx.long(), graph.cam_idx.long()
+    n, m = graph.num_pts, graph.num_cams
+    key = pt * m + cam
+    assert (key[1:] > key[:-1]).all()  # point-major, each (point, camera) once
+    np.testing.assert_array_equal(graph.pt_ptr.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(pt.numpy(), minlength=n))]))
+    np.testing.assert_array_equal(graph.cam_ptr.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(cam.numpy(), minlength=m))]))
+    perm = graph.cam_perm.long()
+    assert (cam[perm][1:] >= cam[perm][:-1]).all()
+    assert sorted(perm.tolist()) == list(range(graph.num_edges))
+    pdeg = (graph.pt_ptr[1:] - graph.pt_ptr[:-1]).tolist()
+    cdeg = (graph.cam_ptr[1:] - graph.cam_ptr[:-1]).tolist()
+    assert graph.pt_valid.shape[0] == n and graph.cam_valid.shape[0] == m
+    if builder == "hub_camera":
+        assert m == g.num_cams + 1 and cdeg[-1] == n == g.num_pts
+        assert graph.num_edges == g.num_edges + n
+    elif builder == "degrees":
+        assert cdeg[-4:] == [L - 1, L, L + 1, 2 * L] and pdeg[-1] == 133
+        assert graph.num_edges == g.num_edges + 5 * L + 133
+    elif builder == "empty":
+        assert all(pdeg[p] == 0 for p in range(0, n, 50)) and cdeg[1] == 0
+    else:
+        assert pdeg[0] > 3 * 32 and cdeg[5] == 0 and 0 in pdeg
+        assert graph.num_edges % 32 != 0

@@ -347,6 +347,53 @@ def test_fused_dual_attend_grads_match_jax(graphs):
         assert_close(got, want, name)
 
 
+HUB_POINT, HUB_CAM = 5, 3  # of hub_graphs: a point every view sees, a camera most points do
+
+
+@pytest.fixture(scope="module")
+def hub_graphs():
+    """A 40-view scene in which point HUB_POINT is seen by every view and
+    camera HUB_CAM sees nine points in ten: on the port's side both are long
+    segments, cut into several 32-edge chunks by the dual core's backward."""
+    data = jax_synthetic_scene(n_views=40, n_points=400, visibility=0.3, seed=4)
+    M = data.M.copy()
+    rng = np.random.default_rng(6)
+    M[:, HUB_POINT] = rng.uniform(400.0, 600.0, M.shape[0])
+    seen = rng.random(M.shape[1]) < 0.9
+    M[2 * HUB_CAM:2 * HUB_CAM + 2, seen] = rng.uniform(400.0, 600.0, (2, int(seen.sum())))
+    jg = jax_build_view_graph(M, data.Ns)
+    pg = build_view_graph(M, data.Ns, device="cpu")
+    mask = np.asarray(jg.edge_mask)
+    assert mask.sum() == pg.num_edges
+    return jg, pg, mask
+
+
+def test_fused_dual_attend_grads_match_jax_hub(hub_graphs, monkeypatch):
+    """The plain backward (what the card's #2 is held to) against the JAX
+    dual kernel's backward ``_dual_bwd_raw`` in interpret mode, where a
+    point and a camera span several of the port's 32-edge chunks."""
+    from gasfm_tpu.ops.pallas import fused_dual_attn as jax_fda
+
+    from gasfm_tpu_torch.ops.kernels.fused_dual_attn import SPLIT_ROWS
+
+    calls = []
+
+    def spy(*a, _fn=jax_fda._dual_bwd_raw, **k):
+        calls.append(1)
+        return _fn(*a, **k)
+
+    monkeypatch.setattr(jax_fda, "_dual_bwd_raw", spy)
+    _, pg, _ = hub_graphs
+    n_views, n_points = pg.num_cams, pg.num_pts
+    assert int(pg.pt_ptr[HUB_POINT + 1] - pg.pt_ptr[HUB_POINT]) == n_views > SPLIT_ROWS
+    assert int(pg.cam_ptr[HUB_CAM + 1] - pg.cam_ptr[HUB_CAM]) >= 0.8 * n_points
+    assert HUB_POINT in pg.pt_chunks(SPLIT_ROWS).long_seg
+    assert HUB_CAM in pg.cam_chunks(SPLIT_ROWS).long_seg
+    for name, got, want in dual_attend_grad_pairs(hub_graphs):
+        assert_close(got, want, name)
+    assert calls  # the JAX kernel's backward was reached
+
+
 def jax_frontend_fn(jg, D, raw_prologue):
     C = D // HEADS
 

@@ -302,3 +302,167 @@ def test_our_repro_matches_jax_core_errors():
     got = core_errors_device({"Ps_norm": torch.from_numpy(Ps), "pts3D": torch.from_numpy(pts)},
                              scene)["our_repro"]
     np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+
+@pytest.fixture(scope="module")
+def tie_runs():
+    """The 4-layer model's plain forward in float32 with chip_smoke.py's
+    activation branches recorded, and in float64 compared with them."""
+    import copy
+
+    from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+
+    cs = _chip_smoke()
+    scene = generate_synthetic_scene(n_views=8, n_points=600, visibility=0.5,
+                                     seed=9).to_scene_graph(device="cpu")
+    model = GraphAttnSfMNet(**FLAGSHIP_SHAPE, generator=torch.Generator().manual_seed(0))
+    ref64 = copy.deepcopy(model).double()
+    scene64 = cs.float64_scene(scene)
+    acts = cs.ActivationBranches()
+    with torch.no_grad():
+        with acts.watch("record"):
+            pred32 = model(scene.graph, plain=True)
+        with acts.watch("compare"):
+            pred64 = ref64(scene64.graph, plain=True)
+    return dict(cs=cs, scene=scene, scene64=scene64, model=model, ref64=ref64, pred32=pred32,
+                pred64=pred64, acts=acts)
+
+
+def test_margin_tie_allowance_is_the_float64_jump_of_the_flipped_edge(tie_runs):
+    """chip_smoke.py's step-1 rule allows, per parameter, the most that the
+    branches the kernel path took otherwise than float64 move its gradient
+    (``branch_ties``); the ESFM loss's branch is its margin test. With the
+    margin set between one edge's float32 and float64 depth, so that
+    exactly that edge flips, the allowance must be the difference of the
+    float64 gradients of ``ESFMLoss`` at that margin and at one just past
+    the edge's float64 depth (which moves that edge alone across it; the
+    margin enters no gradient otherwise), to 1e-9 of the largest; with no
+    flip it is 0."""
+    t = tie_runs
+    cs, g, scene64, ref64 = t["cs"], t["scene"].graph, t["scene64"], t["ref64"]
+    assert not t["acts"].flips  # no activation sits within a rounding of 0 here
+    cam, pt = g.cam_idx.long(), g.pt_idx.long()
+
+    def depth(pred):
+        P = pred["Ps_norm"].reshape(g.num_cams, 12)[cam].reshape(-1, 3, 4)
+        return (P[:, 2] * pred["pts3D"].T[pt]).sum(-1).double().numpy()
+
+    d32, d64 = depth(t["pred32"]), depth(t["pred64"])
+    both = np.concatenate([d32, d64])
+    for j in np.argsort(-np.abs(d32 - d64)):
+        margin = 0.5 * (d32[j] + d64[j])
+        past = np.nextafter(d64[j], np.inf) if d64[j] >= margin else d64[j]
+        lo, hi = min(margin, past), max(margin, past)
+        if d64[j] > 1e-3 and ((both >= lo) & (both <= hi)).sum() == 1 + (lo <= d32[j] <= hi):
+            break  # only edge j's depths lie between the two margins
+    else:
+        pytest.fail("no edge whose float32 and float64 depths straddle a margin alone")
+
+    def session(m):
+        loss = ESFMLoss(**{**FLAGSHIP_LOSS, "infinity_pts_margin": float(m)})
+        return TrainingSession(ref64, loss, device="cpu")
+
+    at = session(margin).loss_and_grads(scene64, plain=True)[2]
+    want = [float((a - b).abs().max())
+            for a, b in zip(session(past).loss_and_grads(scene64, plain=True)[2], at)]
+    info, ties = cs.branch_ties(session(margin), scene64, t["pred32"], t["pred64"], at, t["acts"])
+    assert (info["act_flips"], info["loss_flips"]) == (0, 1)
+    assert info["loss_nearest"] == float(np.abs(d64 - margin).min())
+    assert max(want) > 0
+    np.testing.assert_allclose(ties, want, rtol=0, atol=1e-9 * max(want))
+    assert cs.branch_ties(session(margin), scene64, t["pred64"], t["pred64"], at,
+                          t["acts"])[1] == [0.0] * len(at)
+
+
+
+@pytest.mark.parametrize("kind", ["relu", "leaky_relu"])
+def test_activation_tie_allowance_is_the_float64_jump_of_the_flipped_element(tie_runs, kind,
+                                                                            monkeypatch):
+    """``branch_ties``'s activation branches: an activation recorded in
+    float32 (the view head's first hidden ReLU; the first LeakyReLU of the
+    single-segment pools, ``ops.gatv2.leaky_relu``) is given the other
+    branch on the element whose float64 input lies nearest 0, as if the
+    float32 path had rounded it across. ``ActivationBranches`` must find
+    that element in the float64 run, and the allowance must be the
+    difference of the float64 gradients with and without that element
+    taking the float32 branch, the latter forced here by other means (a
+    forward hook on the ReLU module; a wrapper of ``leaky_relu`` at its
+    first call), to 1e-9 of the largest."""
+    from gasfm_tpu_torch.ops import gatv2
+
+    t = tie_runs
+    cs, scene64, model, ref64 = t["cs"], t["scene64"], t["model"], t["ref64"]
+    seen, force, calls = {}, {}, []
+    if kind == "relu":
+        first = [k for k, m in model.view_head.named_children() if isinstance(m, torch.nn.ReLU)][0]
+
+        def keep(tag):
+            return lambda mod, inp, out: seen.__setitem__(tag, inp[0].detach())
+
+        def forced(mod, inp, out):
+            return torch.where(force["mask"], inp[0], torch.zeros_like(inp[0])) \
+                if "mask" in force else out
+
+        hooks = [getattr(model.view_head, first).register_forward_hook(keep(torch.float32)),
+                 getattr(ref64.view_head, first).register_forward_hook(keep(torch.float64)),
+                 getattr(ref64.view_head, first).register_forward_hook(forced)]
+        branch = (lambda z: z > 0)
+    else:
+        leaky = gatv2.leaky_relu
+
+        def first_call(z, negative_slope=gatv2.NEGATIVE_SLOPE):
+            calls.append(None)
+            if len(calls) > 1:
+                return leaky(z, negative_slope)
+            seen.setdefault(z.dtype, z.detach())
+            if "mask" in force:
+                return torch.where(force["mask"], z, negative_slope * z)
+            return leaky(z, negative_slope)
+
+        monkeypatch.setattr(gatv2, "leaky_relu", first_call)
+        hooks = []
+        branch = (lambda z: z >= 0)
+    acts = cs.ActivationBranches()
+    with torch.no_grad():
+        with acts.watch("record"):
+            model(t["scene"].graph, plain=True)
+        calls.clear()
+        with acts.watch("compare"):
+            ref64(scene64.graph, plain=True)
+    assert not acts.flips
+    z32, z64 = seen[torch.float32], seen[torch.float64]
+    keys = [k for k, b in acts.signs.items() if b.shape == z32.shape and torch.equal(b, branch(z32))]
+    assert len(keys) == 1, keys
+    e = int(z64.abs().argmin())
+    taken = acts.signs[keys[0]].clone()
+    taken.view(-1)[e] = ~taken.view(-1)[e]
+    acts.signs[keys[0]] = taken
+    with torch.no_grad(), acts.watch("compare"):
+        pred64 = ref64(scene64.graph, plain=True)
+    session = TrainingSession(ref64, ESFMLoss(**FLAGSHIP_LOSS), device="cpu")
+    at = session.loss_and_grads(scene64, plain=True)[2]
+    info, ties = cs.branch_ties(session, scene64, pred64, pred64, at, acts)
+    assert (info["act_flips"], info["loss_flips"]) == (1, 0)
+    assert info["act_far"] == float(z64.abs().min())
+    force["mask"] = taken
+    calls.clear()
+    try:
+        along = session.loss_and_grads(scene64, plain=True)[2]
+    finally:
+        for h in hooks:
+            h.remove()
+    want = [float((a - b).abs().max()) for a, b in zip(along, at)]
+    assert max(want) > 0
+    np.testing.assert_allclose(ties, want, rtol=0, atol=1e-9 * max(want))

@@ -17,10 +17,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    warm-up, divided by 100: the device's time wherever the host keeps
    ahead); the plain version's time, and the least time the card could
    take (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s,
-   whichever is larger). The layer step's prologue (#5), the kernel its
-   wrapper launches before the dual core, is also held alone against its
-   plain version in each form and launched twice, bitwise; the kernels
-   line takes its numbers from the interior form.
+   whichever is larger). The dual core (#1) is launched twice, bitwise,
+   without residuals and with them (each side's per-head max and
+   denominator against the plain logits'). The layer step's prologue
+   (#5), the kernel its wrapper launches before the dual core, is also
+   held alone against its plain version in each form and launched twice,
+   bitwise; the kernels line takes its numbers from the interior form.
 3. Each GASFM backward kernel against autograd of its plain version on the
    card, on seeded inputs and cotangents at both scenes' shapes: the dual
    core at D = 32, the frontend at layer 0 (De = 2), the layer step in its
@@ -34,21 +36,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    of 32 edges: one point's edges span four tiles, 57 points and one
    camera have no edges, and E is not a multiple of 32; so does #5's, at
    the flagship's width and at De = Dp = Dc = 8. The dual core's backward
-   (#2) is launched twice, bitwise, and also runs on graphs that stress its
-   split of both CSRs at 32 edges: the dense scene with empty segments, the
-   dense scene plus a camera over all 8,192 points, and the power-law
-   scene plus cameras of exactly 31, 32, 33 and 64 edges and a point of
-   133 (there also at (D, H) = (16, 4), (32, 1), (8, 8), (12, 6)); its
-   device time per call on the hub-camera graph must be at most 1.5x the
-   dense scene's.
-3b. The DPESFM path's kernels at both scenes' shapes: the segment sum and
-   the row gather on both sides (point, camera) at D = 2 and D = 256, also
-   timed per call and in a burst against the one PyTorch call of the same
-   function (``index_add_``, ``index_select``; the gather's 8 variants
-   bitwise equal to the plain version, two launches bitwise equal, and at
-   D = 256 on the point side the host's microseconds per call split by the
-   wrapper's steps); the edge combine at D = 256 and its backward against
-   autograd of its plain version.
+   (#2) is launched twice, bitwise; it and the forward (#1, twice, with
+   and without residuals) also run on graphs that stress their split of
+   both CSRs at 32 edges: the dense scene with empty segments, the dense
+   scene plus a camera over all 8,192 points, and the power-law scene plus
+   cameras of exactly 31, 32, 33 and 64 edges and a point of 133 (there
+   also at (D, H) = (16, 4), (32, 1), (8, 8), (12, 6)); the device time
+   per call of each on the hub-camera graph must be at most 1.5x the dense
+   scene's.
+3b. The DPESFM path's kernels at both scenes' shapes: the segment sum on
+   both sides (point, camera) at D = 2, 4, 32 and 256 and the row gather at
+   D = 2 and 256, each launched twice (bitwise equal), also timed per call
+   and in a burst against the one PyTorch call of the same function
+   (``index_add_``, ``index_select``; the gather's 8 variants bitwise equal
+   to the plain version, and at D = 256 on the point side the host's
+   microseconds per call split by the wrapper's steps); the edge combine at
+   D = 256 and its backward against autograd of its plain version. The
+   segment sum also runs, both sides at D = 2, 4, 32 and 256, twice,
+   bitwise, on the wide scene and on graphs that stress its split (a
+   segment of more than 64 rows takes a block, one of more than 2048 rows
+   several, merged by a second launch): the dense scene plus a camera over
+   all its 8,192 points, the power-law scene plus cameras of 31-64 edges and
+   a point of 133, the wide scene plus a point in all 1280 views and points
+   of 63, 64, 65 and 128 edges, and 4,500 cameras with a point on all of
+   them (on the point side a hub of three parts); its device time per call
+   on each of the first three, both sides at D = 32 and 256, must be at
+   most 1.5x its base scene's.
 3c. The kernels GASFM's unfused path adds, on the dense scene and the wide
    one (1280 views, 16,384 power-law points): the single-direction attention
    on both sides at D = 32, forward (and its max and denominator residuals
@@ -363,6 +376,39 @@ def forward_check(results, record, scene_name, name, variant, kernel, plain, out
                      library_burst_ms=lib_burst, bound_ms=b_ms, bound_by=b_by, variant=variant)
 
 
+def dual_forward_checks(results, record, scene_name, graph, ins, H, main=False):
+    """#1 on ``ins`` (xl_p, xl_c, xr_p, xr_c, att_p, att_c) with H heads,
+    against its plain version: without residuals (as a request calls it;
+    the kernels line's numbers with ``main``) and with them (as under
+    autograd: also each side's per-head max and denominator against the
+    plain logits'), each launched twice, bitwise."""
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    D = ins[0].shape[1]
+    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
+    # each input and the CSR read once, each output written once
+    io = nbytes(*ins, *csr) + 4 * (n + m) * D
+    tag = f"D{D}" + ("" if H == 4 else f"_H{H}")
+    forward_check(results, record, scene_name, "fused_dual_attend", tag,
+                  lambda: fda.fused_dual_attend(*ins, graph, H),
+                  lambda: fda.fused_dual_attend_plain(*ins, graph, H), ("out_pt", "out_cam"),
+                  io, 10.0 * E * 2 * D, main, twice=True)
+
+    def kern():
+        op, oc, (mp, dp, mc, dc), _ = fda.dual_attend_forward(*ins, graph, H, residuals=True)
+        return op, oc, mp.masked_fill(dp == 0, 0.0), dp, mc.masked_fill(dc == 0, 0.0), dc
+
+    def plain():
+        return (*fda.fused_dual_attend_plain(*ins, graph, H),
+                *attend_residuals_plain(ins[0], ins[2], ins[4], graph, "point", H),
+                *attend_residuals_plain(ins[1], ins[3], ins[5], graph, "camera", H))
+
+    forward_check(results, record, scene_name, "fused_dual_attend", f"{tag}_residuals", kern,
+                  plain, ("out_pt", "out_cam", "m_pt", "den_pt", "m_cam", "den_cam"),
+                  io + 4 * 2 * (n + m) * H, 10.0 * E * 2 * D, False, twice=True)
+
+
 def kernel_phase(dev, scene_name, graph, model, record):
     from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
     from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
@@ -381,15 +427,13 @@ def kernel_phase(dev, scene_name, graph, model, record):
     def check(*args):
         forward_check(results, record, scene_name, *args)
 
-    # #1 dual core at an interior layer's shapes (D = 32 both sides).
+    # #1 dual core at an interior layer's shapes (D = 32 both sides), without
+    # residuals (serving) and with them (under autograd)
     D = 32
     xl_p, xl_c, xr_p, xr_c = rnd(E, D), rnd(E, D), rnd(n, D), rnd(m, D)
     att_p, att_c = rnd(D), rnd(D)
-    args = (xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, H)
-    check("fused_dual_attend", "D32", lambda: fda.fused_dual_attend(*args),
-          lambda: fda.fused_dual_attend_plain(*args), ("out_pt", "out_cam"),
-          nbytes(xl_p, xl_c, xr_p, xr_c, att_p, att_c, *csr) + 4 * (n + m) * D,
-          10.0 * E * 2 * D, True)
+    dual_forward_checks(results, record, scene_name, graph, (xl_p, xl_c, xr_p, xr_c, att_p, att_c),
+                        H, main=True)
 
     # #3 frontend: layer 0 of the model itself (De = 2, the embedded uv,
     # D = 4), then De = 32 with LN and raw (random parameters).
@@ -652,44 +696,59 @@ def dual_bwd_check(results, record, scene_name, graph, rnd, D, H, main=False):
 
 
 def dual_bwd_graph_phase(dev, scenes, record):
-    """#2 on the graphs that stress its split: the dense scene without every
-    50th point and camera 1 (empty segments), the dense scene plus a camera
-    over all its points (the hub camera, 8,192 edges), the power-law scene
-    plus cameras of exactly L - 1, L, L + 1 and 2L edges and a point of 133
-    (L = 32, the split length; there also at (D, H) = (16, 4), (32, 1), (8,
-    8), (12, 6)); and its device time per call on the dense and hub-camera
-    graphs (profiler windows): the hub camera must cost at most 1.5x the
-    dense scene."""
+    """#1 and #2 on the graphs that stress their split: the dense scene
+    without every 50th point and camera 1 (empty segments), the dense scene
+    plus a camera over all its points (the hub camera, 8,192 edges), the
+    power-law scene plus cameras of exactly L - 1, L, L + 1 and 2L edges and
+    a point of 133 (L = 32, the split length; there also at (D, H) = (16,
+    4), (32, 1), (8, 8), (12, 6)); and the device time per call of each on
+    the dense and hub-camera graphs (profiler windows; #1 with its
+    residuals, as under autograd): the hub camera must cost at most 1.5x
+    the dense scene."""
     from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
                                                     hub_camera_graph)
-    from gasfm_tpu_torch.tools.kernel_device_time import device_ms_per_call, dual_bwd_call
+    from gasfm_tpu_torch.tools.kernel_device_time import (device_ms_per_call, dual_bwd_call,
+                                                          dual_fwd_call)
 
     gen = torch.Generator(device=dev).manual_seed(8080)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
 
+    def dual_ins(graph, D):
+        E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+        return rnd(E, D), rnd(E, D), rnd(n, D), rnd(m, D), rnd(D), rnd(D)
+
     dense, powerlaw = scenes["dense"].graph, scenes["powerlaw"].graph
     graphs = {"dense_empty": graph_with_empty_segments(dense),
               "hub_camera": hub_camera_graph(dense), "degrees": degree_graph(powerlaw)}
     degs = (graphs["degrees"].cam_ptr[1:] - graphs["degrees"].cam_ptr[:-1])[-4:].tolist()
-    print(f"dual backward graphs: hub camera {graphs['hub_camera'].num_edges} edges (its camera "
+    print(f"dual core graphs: hub camera {graphs['hub_camera'].num_edges} edges (its camera "
           f"{dense.num_pts}); degrees graph cameras of {degs} edges and a point of "
           f"{int(graphs['degrees'].pt_ptr[-1] - graphs['degrees'].pt_ptr[-2])}")
     results = {}
+    with torch.no_grad():
+        for label, graph in graphs.items():
+            dual_forward_checks(results, record, label, graph, dual_ins(graph, 32), 4)
+        for D, H in ((16, 4), (32, 1), (8, 8), (12, 6)):
+            dual_forward_checks(results, record, "degrees", graphs["degrees"],
+                                dual_ins(graphs["degrees"], D), H)
     for label, graph in graphs.items():
         dual_bwd_check(results, record, label, graph, rnd, 32, 4)
     for D, H in ((16, 4), (32, 1), (8, 8), (12, 6)):
         dual_bwd_check(results, record, "degrees", graphs["degrees"], rnd, D, H)
-    times = {label: device_ms_per_call(dual_bwd_call(graph, dev), 20)[0]
-             for label, graph in (("dense", dense), ("hub_camera", graphs["hub_camera"]))}
-    ratio = times["hub_camera"] / times["dense"]
-    ok = ratio <= 1.5
-    print(f"dual backward device time per call, D = 32, H = 4: dense {times['dense']:.4f} ms, "
-          f"hub camera {times['hub_camera']:.4f} ms, ratio {ratio:.3f} (at most 1.5: "
-          f"{'ok' if ok else 'FAIL'})")
-    record["dual_bwd_device_times"] = dict(times, ratio=ratio, ok=ok)
-    results["fused_dual_attend_bwd"]["ok"] = results["fused_dual_attend_bwd"]["ok"] and ok
+    for name, call in (("fused_dual_attend", dual_fwd_call),
+                       ("fused_dual_attend_bwd", dual_bwd_call)):
+        times = {label: device_ms_per_call(call(graph, dev), 20)[0]
+                 for label, graph in (("dense", dense), ("hub_camera", graphs["hub_camera"]))}
+        ratio = times["hub_camera"] / times["dense"]
+        ok = ratio <= 1.5
+        print(f"{name} device time per call, D = 32, H = 4: dense {times['dense']:.4f} ms, "
+              f"hub camera {times['hub_camera']:.4f} ms, ratio {ratio:.3f} (at most 1.5: "
+              f"{'ok' if ok else 'FAIL'})")
+        key = "dual_fwd_device_times" if name == "fused_dual_attend" else "dual_bwd_device_times"
+        record[key] = dict(times, ratio=ratio, ok=ok)
+        results[name]["ok"] = results[name]["ok"] and ok
     return results
 
 
@@ -797,12 +856,32 @@ def tile_boundary_phase(dev, record):
 # ---------------------------------------------------------------------------
 
 
+def segment_sum_check(results, record, scene_name, graph, side, x, main=False):
+    """The segment sum of ``x`` over ``side`` against its plain version,
+    launched twice, bitwise, and timed beside ``index_add_`` on the same
+    data."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    ids, S = sk.side_ids(graph, side)
+    ids = ids.long()
+    csr = (graph.pt_ptr,) if side == "point" else (graph.cam_ptr, graph.cam_perm)
+    E, D = x.shape
+    acc = torch.zeros(S, D, device=x.device)
+    forward_check(
+        results, record, scene_name, "segment_sum", f"{side}_D{D}",
+        lambda: (sk.segment_sum(x, graph, side),), lambda: (sk.segment_sum_plain(x, graph, side),),
+        ("out",), nbytes(x, *csr) + 4 * S * D, float(E * D), main, twice=True,
+        library=lambda: acc.index_add_(0, ids, x))
+
+
 def dpesfm_kernel_phase(dev, scene_name, graph, record):
-    """segment_sum and gather_rows on both sides at D = 2 (the uv stream of
-    DPESFM's first layer) and D = 256 (every later stream), against their
-    plain versions and the one PyTorch call that computes the same function
-    (``index_add_``, ``index_select``); the edge combine and its backward at
-    D = 256 (the backward against autograd of the plain forward)."""
+    """segment_sum on both sides at D = 2 (the uv stream of DPESFM's first
+    layer), 4 and 32 (the unfused GASFM layer's camera denominators and
+    numerators) and 256 (every later DPESFM stream), twice, bitwise, and
+    gather_rows at D = 2 and 256, against their plain versions and the one
+    PyTorch call that computes the same function (``index_add_``,
+    ``index_select``); the edge combine and its backward at D = 256 (the
+    backward against autograd of the plain forward)."""
     from gasfm_tpu_torch.ops.kernels import fused_update as fu
     from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 
@@ -814,18 +893,13 @@ def dpesfm_kernel_phase(dev, scene_name, graph, record):
 
     results = {}
     ids = {"point": graph.pt_idx.long(), "camera": graph.cam_idx.long()}
-    csr = {"point": (graph.pt_ptr,), "camera": (graph.cam_ptr, graph.cam_perm)}
-    for D in (256, 2):
+    for D in (256, 32, 4, 2):
         for side, S in (("point", n), ("camera", m)):
             main = D == 256 and side == "point"
-            x, table = rnd(E, D), rnd(S, D)
-            acc = torch.zeros(S, D, device=dev)
-            forward_check(
-                results, record, scene_name, "segment_sum", f"{side}_D{D}",
-                lambda x=x, side=side: (sk.segment_sum(x, graph, side),),
-                lambda x=x, side=side: (sk.segment_sum_plain(x, graph, side),), ("out",),
-                nbytes(x, *csr[side]) + 4 * S * D, float(E * D), main,
-                library=lambda x=x, acc=acc, side=side: acc.index_add_(0, ids[side], x))
+            segment_sum_check(results, record, scene_name, graph, side, rnd(E, D), main)
+            if D not in (256, 2):
+                continue
+            table = rnd(S, D)
             forward_check(
                 results, record, scene_name, "gather_rows", f"{side}_D{D}",
                 lambda t=table, side=side: (sk.gather_rows(t, graph, side),),
@@ -873,6 +947,56 @@ def dpesfm_kernel_phase(dev, scene_name, graph, record):
     results["fused_edge_combine_bwd"] = dict(
         max_abs_err=max(errs.values()), ok=ok, ms=ms, burst_ms=burst, plain_ms=plain_ms,
         library_ms=None, bound_ms=b_ms, bound_by=b_by, variant="D256")
+    return results
+
+
+def segment_sum_graph_phase(dev, scenes, wide, record):
+    """The segment sum on both sides at D = 2, 4, 32 and 256 on the wide
+    scene and on graphs that stress its split (the dense scene plus a camera
+    over all its points, a hub of four parts; the power-law scene plus
+    cameras of 31, 32, 33 and 64 edges and a point of 133; the wide scene
+    plus a point in every view and points of L - 1, L, L + 1 and 2L edges, L
+    = 64 the longest short segment; 4,500 cameras and a point on all of
+    them, a point-side hub of three parts), against its plain version,
+    twice, bitwise; and its device time per call on each of the first three
+    graphs against its base scene at D = 32 and 256: at most 1.5x."""
+    from gasfm_tpu_torch.graph.check_graphs import (degree_graph, hub_camera_graph,
+                                                    hub_parts_graph, hub_point_graph)
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+    from gasfm_tpu_torch.tools.kernel_device_time import device_ms_per_call
+
+    gen = torch.Generator(device=dev).manual_seed(3579)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    base = {"dense": scenes["dense"].graph, "powerlaw": scenes["powerlaw"].graph, "wide": wide}
+    hubs = {"hub_camera": ("dense", hub_camera_graph(base["dense"])),
+            "degrees": ("powerlaw", degree_graph(base["powerlaw"])),
+            "hub_point": ("wide", hub_point_graph(base["wide"], sk.SUM_ROWS))}  # 63-128 edges
+    results = {}
+    checked = [("wide", wide)] + [(k, g) for k, (_, g) in hubs.items()]
+    for label, graph in checked + [("hub_parts", hub_parts_graph(dev))]:
+        for D in (256, 32, 4, 2):
+            for side in ("point", "camera"):
+                segment_sum_check(results, record, label, graph, side, rnd(graph.num_edges, D))
+    times, ok = {}, True
+    for label, (base_label, graph) in hubs.items():
+        for D in (256, 32):
+            for side in ("point", "camera"):
+                t = {}
+                for name, gr in ((label, graph), (base_label, base[base_label])):
+                    x = rnd(gr.num_edges, D)
+                    t[name] = device_ms_per_call(lambda x=x, gr=gr: sk.segment_sum(x, gr, side),
+                                                 20)[0]
+                ratio = t[label] / t[base_label]
+                ok = ok and ratio <= 1.5
+                times[f"{label}_{side}_D{D}"] = dict(t, ratio=ratio)
+                print(f"segment_sum device time per call, {side} side, D = {D}: {label} "
+                      f"{t[label]:.4f} ms, {base_label} {t[base_label]:.4f} ms, ratio "
+                      f"{ratio:.3f} (at most 1.5: {'ok' if ratio <= 1.5 else 'FAIL'})")
+    record["segment_sum_device_times"] = dict(times, ok=ok)
+    results["segment_sum"]["ok"] = results["segment_sum"]["ok"] and ok
     return results
 
 
@@ -925,19 +1049,13 @@ def gather_host_parts(table, graph, side, scene_name, record, reps=200):
 
 
 def hub_graph(graph, seed=13):
-    """``graph`` plus five points after its own: one seen by every camera
-    (a hub), and four seen by exactly L - 1, L, L + 1 and 2L cameras, L the
-    point-side attention's split length (``ATTEND_CHUNK``): a short point at
-    and below it, a long one of a ragged and of two whole chunks."""
-    from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK as L
-    from gasfm_tpu_torch.graph.check_graphs import graph_with_edges
+    """``graph`` plus a point seen by every camera (a hub) and points of
+    exactly L - 1, L, L + 1 and 2L edges, L the point-side attention's split
+    length (``ATTEND_CHUNK``; ``check_graphs.hub_point_graph``)."""
+    from gasfm_tpu_torch.graph.check_graphs import hub_point_graph
+    from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK
 
-    gen = torch.Generator().manual_seed(seed)
-    m, n = graph.num_cams, graph.num_pts
-    degrees = (m, L - 1, L, L + 1, 2 * L)
-    cams = [torch.sort(torch.randperm(m, generator=gen)[:d]).values for d in degrees]
-    pts = [torch.full((d,), n + j) for j, d in enumerate(degrees)]
-    return graph_with_edges(graph, torch.cat(pts), torch.cat(cams), n + len(degrees), m)
+    return hub_point_graph(graph, ATTEND_CHUNK, seed)
 
 
 def attend_residuals_plain(xl, xr, att, graph, side, heads):
@@ -1894,6 +2012,9 @@ def main() -> int:
     with torch.no_grad():
         for k in scenes:
             per_scene[k].update(dpesfm_kernel_phase(dev, k, scenes[k].graph, record))
+        # ... and the segment sum on the wide scene and the graphs that stress
+        # its split
+        per_scene["sum_graphs"] = segment_sum_graph_phase(dev, scenes, wg, record)
     # ---- phase 3c: the unfused path's kernels (single-direction attention,
     # segment max) on the dense and wide scenes
     with torch.no_grad():

@@ -1,8 +1,8 @@
 // One direction of GATv2 segment attention, forward and backward, as device
-// code (sm_90a, float32): the dual core's forward (fused_dual_attn.cu, both
-// directions in one launch), the single-direction kernel's camera side
-// (fused_attn.cu), and the per-edge backward formulas that the split walkers
-// of attend_split.cuh run.
+// code (sm_90a, float32): the single-direction kernel's camera side
+// (fused_attn.cu; the JAX package never takes it), the online softmax and
+// residual store that the split walkers of attend_split.cuh share, and the
+// per-edge backward formulas they run.
 //
 // Per segment s and head h, over the segment's edges e:
 //   l_e = att_h . LeakyReLU(xl_e + xr_s),  alpha = softmax_s(l),
@@ -10,13 +10,14 @@
 // Lane j of a warp holds feature j of a D-wide row (D <= 32), head j / C
 // (C a power of two); per-head sums are lane shuffles (common.cuh). The
 // online softmax (m, den, num) stays in registers, each edge row is read
-// once. A segment is walked one of two ways:
-//   - a warp per segment over its contiguous rows [ptr[s], ptr[s+1]): the
-//     point CSR, whose segments are short (~3-14 edges);
-//   - a block of NWARPS warps per segment over perm[ptr[s] .. ptr[s+1]): the
-//     camera CSR, whose segments are long (~40-1,300 edges); warp w takes
-//     every NWARPS-th edge from the w-th, and the warps' partial triples (or
-//     d xr sums) merge in shared memory in warp order.
+// once. The camera side here is a block of NWARPS warps per segment over
+// perm[ptr[s] .. ptr[s+1]): warp w takes every NWARPS-th edge from the
+// w-th, and the warps' partial triples (or d xr sums) merge in shared
+// memory in warp order. Its bound is the byte bound of attend_split.cuh's
+// walkers, but a camera's block walks its ~40-1,300 edges one DRAM latency
+// per row per warp, and a hub camera sets the launch's length: the dual
+// core (fused_dual_attn.cu) walks both CSRs split instead, and so would
+// this side if a path took it.
 // No float atomics: results are bitwise reproducible on a given card.
 #pragma once
 
@@ -53,19 +54,6 @@ __device__ __forceinline__ void attend_store(const Online& s, int seg, int D, in
     m[(size_t)seg * H + lane / C] = s.m;
     den[(size_t)seg * H + lane / C] = s.den;
   }
-}
-
-// Forward, one warp over segment `seg`'s contiguous rows.
-__device__ __forceinline__ void attend_segment_warp(
-    const float* __restrict__ xl, const float* __restrict__ xr, const float* __restrict__ att,
-    const int* __restrict__ ptr, int seg, int D, int C, float slope, float* __restrict__ out,
-    float* __restrict__ m, float* __restrict__ den) {
-  const int lane = threadIdx.x & 31;
-  const bool act = lane < D;
-  const float q = act ? xr[(size_t)seg * D + lane] : 0.f;
-  const float at = act ? att[lane] : 0.f;
-  const Online s = attend_walk(xl, nullptr, ptr[seg], ptr[seg + 1], 1, D, C, q, at, slope, lane);
-  attend_store(s, seg, D, C, lane, out, m, den);
 }
 
 // Forward, a block of NWARPS warps over segment `seg`'s rows perm[ptr[seg]

@@ -1,6 +1,6 @@
 // Segment attention on split segments, as device code (sm_90a, float32):
 // shared by fused_attn.cu (#13/#14, the point side) and fused_dual_attn.cu
-// (the dual core's backward #2, both sides).
+// (the dual core's forward #1 and backward #2, both sides).
 //
 // Segment degrees are power-law (a point of one scene has up to 670 edges, a
 // camera up to ~1,300), and a warp that walks a whole segment serially, a
@@ -13,11 +13,11 @@
 //     lane); a segment of at most kAttendChunk edges (an empty one too) is
 //     short and is walked here, a longer one's lanes idle;
 //   - a chunk: kAttendChunk rows (the last one ragged) of a long segment
-//     (the split's chunk list), a lane per feature (#13/#14) or laid out as
-//     a quad of rows, 8 lanes of 4 features, 4 rows at a time (the dual
-//     core's backward); its rows are contiguous or listed by a permutation
-//     (the camera CSR), whose entries the warp reads with one coalesced
-//     load.
+//     (the split's chunk list), or a short camera: a lane per feature on
+//     contiguous rows (#13/#14), or laid out as a quad of rows, 8 lanes of
+//     4 features, 4 rows at a time (the dual core), its rows contiguous or
+//     listed by a permutation (the camera CSR), whose entries the warp reads
+//     with one coalesced load.
 // Each walker loads several rows (kQuadUnroll per segment of a quad,
 // kChunkUnroll per chunk) before it runs their logits, so that many loads
 // are in flight. A chunk writes a partial (the online triple forward, the d
@@ -37,26 +37,6 @@ constexpr int kQuad = 4;                 // short segments per warp
 constexpr int kQuadUnroll = 4;           // rows per segment whose loads issue together
 constexpr int kChunkUnroll = 8;          // rows per chunk whose loads issue together
 constexpr int kTriple = 3 * 32;          // floats of one forward partial: m, den, num per lane
-
-// The split of ViewGraph.pt_chunks or cam_chunks (split_segments), one int32
-// table: [chunk_seg (n_chunks) | chunk_begin (n_chunks) | long_seg (n_long) |
-// long_ptr (n_long + 1)]. chunk_begin indexes the CSR's rows: the edges of a
-// point, the camera permutation's entries of a camera.
-struct SegmentSplit {
-  const int* chunk_seg;
-  const int* chunk_begin;
-  const int* long_seg;
-  const int* long_ptr;
-  int n_long, n_chunks;
-
-  __host__ __device__ SegmentSplit(const int* table, int nl, int nc)
-      : chunk_seg(table),
-        chunk_begin(table + nc),
-        long_seg(table + 2 * nc),
-        long_ptr(table + 2 * nc + nl),
-        n_long(nl),
-        n_chunks(nc) {}
-};
 
 // A quad's lane: point kQuad * u + (lane / 8), features c0 .. c0 + 3 with
 // c0 = 4 * (lane % 8). `rows` is the point's edge count if it is this quad's
@@ -99,6 +79,30 @@ __device__ __forceinline__ void quad_head_sums(const float (&v)[4], int C, float
     float t = (v[0] + v[1]) + (v[2] + v[3]);
     for (int off = C >> 3; off > 0; off >>= 1) t += __shfl_xor_sync(GASFM_FULL_MASK, t, off);
     l[0] = t;
+  }
+}
+
+// Write segment `seg`'s output features c0 .. c0 + 3 from their online
+// triples and, when m != NULL, the per-head max and denominator of each head
+// that starts on this lane's features.
+template <int NH>
+__device__ __forceinline__ void store_quad(const Online (&s)[4], int seg, int c0, int D, int C,
+                                           float* __restrict__ out, float* __restrict__ m,
+                                           float* __restrict__ den) {
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o[j] = s[j].finish();
+  store_row4(out, D, seg, c0, true, o);
+  if (m != nullptr) {
+    const int H = D / C;
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const int f = c0 + h * 4 / NH;  // the head's first feature on this lane
+      if (f < D && f % C == 0) {
+        m[(size_t)seg * H + f / C] = s[h * 4 / NH].m;
+        den[(size_t)seg * H + f / C] = s[h * 4 / NH].den;
+      }
+    }
   }
 }
 
@@ -157,22 +161,7 @@ __device__ __forceinline__ void attend_quad(
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[j].merge(bm[j * NH / 4], bden[j * NH / 4], bnum[j]);
   }
-  if (!ql.mine) return;
-  float o[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) o[j] = s[j].finish();
-  store_row4(out, D, ql.seg, ql.c0, true, o);
-  if (m != nullptr) {
-    const int H = D / C;
-#pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      const int f = ql.c0 + h * 4 / NH;  // the head's first feature on this lane
-      if (f < D && f % C == 0) {
-        m[(size_t)ql.seg * H + f / C] = s[h * 4 / NH].m;
-        den[(size_t)ql.seg * H + f / C] = s[h * 4 / NH].den;
-      }
-    }
-  }
+  if (ql.mine) store_quad<NH>(s, ql.seg, ql.c0, D, C, out, m, den);
 }
 
 // The online softmax of one warp over the contiguous rows [begin, end) of a
@@ -212,6 +201,110 @@ __device__ __forceinline__ Online attend_rows(const float* __restrict__ xl, int 
     s.merge(bm, bden, bnum);
   }
   return s;
+}
+
+// The forward of rows [begin, end) of one segment `seg` (at most
+// kAttendChunk; with PERM the edges perm[begin .. end), read by one
+// coalesced load and handed round by shuffles), laid out as a quad: the
+// warp's 4 lane groups take rows 4i + group, 8 lanes of 4 features each,
+// kChunkUnroll rows in flight; each group runs the online softmax of its
+// rows, batch by batch as attend_rows does, and the groups' triples merge
+// by a butterfly. Returns in lanes 0-7 the triples of features c0 .. c0 + 3
+// over all the rows. Every lane of the warp must call it.
+template <int NH, bool PERM>
+__device__ __forceinline__ void attend_rows4(const float* __restrict__ xl,
+                                             const float* __restrict__ xr,
+                                             const float* __restrict__ att,
+                                             const int* __restrict__ perm, int seg, int begin,
+                                             int end, int D, int C, float slope,
+                                             Online (&s)[4]) {
+  constexpr int kSteps = kChunkUnroll / kQuad;  // rows per lane group in flight
+  const int lane = threadIdx.x & 31, grp = lane >> 3, c0 = 4 * (lane & 7);
+  float q[4], at[4];
+  load_row4(xr, D, seg, c0, true, q);
+  load_row4(att, D, 0, c0, true, at);
+  int mine = 0;
+  if constexpr (PERM) mine = begin + lane < end ? __ldg(perm + begin + lane) : 0;
+  const int n = end - begin;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s[j].init();
+  for (int i0 = 0; i0 < n; i0 += kChunkUnroll) {
+    float x[kSteps][4], l[kSteps][NH], bm[NH];
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) {
+      const int r = i0 + kQuad * t + grp;
+      int e = begin + r;
+      if constexpr (PERM) e = __shfl_sync(GASFM_FULL_MASK, mine, r & 31);
+      load_row4(xl, D, e, c0, r < n, x[t]);
+    }
+#pragma unroll
+    for (int h = 0; h < NH; ++h) bm[h] = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) {
+      if (i0 + kQuad * t < n) {  // the same on every lane: the shuffles see the whole warp
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[j] = leaky_relu(x[t][j] + q[j], slope) * at[j];
+        quad_head_sums<NH>(v, C, l[t]);
+        if (i0 + kQuad * t + grp < n) {
+#pragma unroll
+          for (int h = 0; h < NH; ++h) bm[h] = fmaxf(bm[h], l[t][h]);
+        }
+      }
+    }
+    float bden[NH], bnum[4];
+#pragma unroll
+    for (int h = 0; h < NH; ++h) bden[h] = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bnum[j] = 0.f;
+#pragma unroll
+    for (int t = 0; t < kSteps; ++t) {
+      if (i0 + kQuad * t + grp < n) {
+#pragma unroll
+        for (int h = 0; h < NH; ++h) {
+          const float p = expf(l[t][h] - bm[h]);
+          bden[h] += p;
+#pragma unroll
+          for (int j = h * 4 / NH; j < (h + 1) * 4 / NH; ++j) bnum[j] = fmaf(p, x[t][j], bnum[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[j].merge(bm[j * NH / 4], bden[j * NH / 4], bnum[j]);
+  }
+#pragma unroll
+  for (int off = 8; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float om = __shfl_xor_sync(GASFM_FULL_MASK, s[j].m, off);
+      const float od = __shfl_xor_sync(GASFM_FULL_MASK, s[j].den, off);
+      const float on = __shfl_xor_sync(GASFM_FULL_MASK, s[j].num, off);
+      s[j].merge(om, od, on);
+    }
+  }
+}
+
+// The triples part[k0 .. k1) (row stride kTriple: m, den, num per lane)
+// merged in chunk order, kChunkUnroll rows loaded ahead: lane `lane`'s.
+__device__ __forceinline__ Online merge_triples(const float* __restrict__ part, int k0, int k1,
+                                                int lane) {
+  Online t;
+  t.init();
+  for (; k0 < k1; k0 += kChunkUnroll) {
+    float pm[kChunkUnroll], pd[kChunkUnroll], pn[kChunkUnroll];
+#pragma unroll
+    for (int r = 0; r < kChunkUnroll; ++r) {
+      const float* p = part + (size_t)min(k0 + r, k1 - 1) * kTriple;
+      pm[r] = p[lane];
+      pd[r] = p[32 + lane];
+      pn[r] = p[64 + lane];
+    }
+#pragma unroll
+    for (int r = 0; r < kChunkUnroll; ++r) {
+      if (k0 + r < k1) t.merge(pm[r], pd[r], pn[r]);
+    }
+  }
+  return t;
 }
 
 // Chunk k's segment and rows [begin, end).
@@ -476,8 +569,6 @@ __device__ __forceinline__ float sum_rows_in_order(const float* __restrict__ par
   return t;
 }
 
-
-inline int blocks_of(int items, int per_block) { return (items + per_block - 1) / per_block; }
 
 // Call f with std::integral_constant<int, NH>, NH the heads of a quad lane's
 // 4 features: 4 / C for C < 4, else 1.

@@ -103,6 +103,30 @@ __device__ __forceinline__ void store_row4(float* __restrict__ dst, int D, int e
   }
 }
 
+// A CSR split by length (ViewGraph.pt_chunks or cam_chunks, split_segments):
+// a segment of more than the split length is long and comes cut into chunks
+// of that many rows, the last one ragged. One int32 table: [chunk_seg
+// (n_chunks) | chunk_begin (n_chunks) | long_seg (n_long) | long_ptr (n_long
+// + 1)]. chunk_begin indexes the CSR's rows: the edges of a point, the camera
+// permutation's entries of a camera.
+struct SegmentSplit {
+  const int* chunk_seg;
+  const int* chunk_begin;
+  const int* long_seg;
+  const int* long_ptr;
+  int n_long, n_chunks;
+
+  __host__ __device__ SegmentSplit(const int* table, int nl, int nc)
+      : chunk_seg(table),
+        chunk_begin(table + nc),
+        long_seg(table + 2 * nc),
+        long_ptr(table + 2 * nc + nl),
+        n_long(nl),
+        n_chunks(nc) {}
+};
+
+inline int blocks_of(int items, int per_block) { return (items + per_block - 1) / per_block; }
+
 // ---------------------------------------------------------------------------
 // Deterministic cross-edge sums of the backward kernels. A sum over all edges
 // (a weight or bias gradient) is kept per lane in registers by each warp,

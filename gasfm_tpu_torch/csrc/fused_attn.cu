@@ -106,23 +106,7 @@ __global__ void __launch_bounds__(NWARPS * 32) attend_merge_kernel(
   const int lane = threadIdx.x & 31;
   const int i = blockIdx.x * NWARPS + (threadIdx.x >> 5);
   if (i >= sp.n_long) return;
-  const int k1 = sp.long_ptr[i + 1];
-  Online t;
-  t.init();
-  for (int k0 = sp.long_ptr[i]; k0 < k1; k0 += kChunkUnroll) {
-    float pm[kChunkUnroll], pd[kChunkUnroll], pn[kChunkUnroll];
-#pragma unroll
-    for (int r = 0; r < kChunkUnroll; ++r) {
-      const float* p = part + (size_t)min(k0 + r, k1 - 1) * kTriple;
-      pm[r] = p[lane];
-      pd[r] = p[32 + lane];
-      pn[r] = p[64 + lane];
-    }
-#pragma unroll
-    for (int r = 0; r < kChunkUnroll; ++r) {
-      if (k0 + r < k1) t.merge(pm[r], pd[r], pn[r]);
-    }
-  }
+  const Online t = merge_triples(part, sp.long_ptr[i], sp.long_ptr[i + 1], lane);
   attend_store(t, sp.long_seg[i], D, C, lane, out, m, den);
 }
 

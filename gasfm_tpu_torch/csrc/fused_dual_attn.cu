@@ -18,63 +18,138 @@
 // the MXU) — the edges of a point are contiguous in the point-major layout
 // and the edges of a camera are listed by the camera CSR, so each segment is
 // a loop over its own rows, read once, with the online softmax (m, den, num)
-// in registers. Query rows are loaded once per segment. The per-direction
-// device code is attend.cuh's (the forward) and attend_split.cuh's (the
-// backward), shared with the single-direction kernel.
-//   - Forward, point side: one warp per point (14 edges per point on the
-//     dense bench scene, 3 on the power-law one); lane = feature, head =
-//     lane / C.
-//   - Forward, camera side: one block per camera (up to ~1,300 edges); its
-//     warps stride over the camera's edge list and merge their (m, den,
-//     num) triples in shared memory in a fixed order.
+// in registers. Degrees are power-law, and a warp that walks a whole segment
+// serially makes the longest one the launch's length: the first forward
+// walked a point per warp (one row per DRAM latency; the power-law scene's
+// point of 133 edges) and a camera per 16-warp block, scheduled after every
+// point block, 8.7x / 10.3x the byte bound on the two bench scenes. Both
+// CSRs now come split at kAttendChunk edges once per graph on the host
+// (ViewGraph.pt_chunks, cam_chunks), in both directions of the core
+// (attend_split.cuh, shared with the single-direction kernel, fused_attn.cu):
+//   - Forward: warps take the long cameras' and points' 32-edge chunks
+//     first, then the short cameras, then quads of four short points (8
+//     lanes of 4 features, 16-byte loads). A chunk or short camera is laid
+//     out as a quad of rows, 8 lanes of 4 features per row, 4 rows at a
+//     time, 8 in flight, a camera's permutation entries read by one
+//     coalesced load; a chunk writes its online triple, and a second launch
+//     (a block per long segment, its warps on contiguous runs of chunks,
+//     merged in order) writes each long segment's output and residuals.
+//     Two launches.
 // Under autograd the forward also writes each segment's per-head max and
 // denominator (n, H) / (m, H), so the backward reads them instead of
-// recomputing the softmax (one more pass over xl). The backward (#2) walks
-// split segments (attend_split.cuh, the point-side code of the
-// single-direction kernel, fused_attn.cu): the first design walked a point
-// per warp and a camera per 16-warp block, one edge row per DRAM latency, so
-// the longest point (133 edges on the power-law scene) and the cameras'
-// blocks, scheduled last, set the launch's length. Both CSRs come split at
-// kAttendChunk edges once per graph on the host (ViewGraph.pt_chunks,
-// cam_chunks): four short points to a warp (8 lanes of 4 features, 16-byte
-// loads), a warp per 32-edge chunk of a long point or camera and per short
-// camera, its rows laid out the same way, 4 at a time, 8 in flight (a
-// camera's permutation entries read by one coalesced load). Per edge it recomputes the logit from xl
-// and the query and writes d xl; a chunk writes a partial d xr row, and a
-// second launch merges each long segment's partials in chunk order, points
-// and cameras together. The attention vectors' gradients are per-block
-// partial rows of both sides, [d att_p | d att_c], and one fixed-order
-// column sum (common.cuh): three launches.
+// recomputing the softmax (one more pass over xl); m is the max over all
+// of a segment's chunks. Without residuals only out_p and out_c are
+// written.
+//   - Backward (#2): the same split and unit order. Per edge it recomputes
+// the logit from xl and the query and writes d xl; a chunk writes a partial
+// d xr row, and a second launch merges each long segment's partials in
+// chunk order, points and cameras together. The attention vectors'
+// gradients are per-block partial rows of both sides, [d att_p | d att_c],
+// and one fixed-order column sum (common.cuh): three launches.
 // No float atomics anywhere: results are bitwise reproducible run to run.
 #include "attend_split.cuh"
 #include "edge_prologue.cuh"
 
 namespace gasfm {
 
-constexpr int kDualWarps = 16;   // warps per block of the dual core
+constexpr int kDualWarps = 8;    // warps per block of the dual core's forward launches
 constexpr int kFrontWarps = 8;   // warps per block of the prologue
 
-template <int NWARPS>
-__global__ void __launch_bounds__(NWARPS * 32) dual_attend_kernel(
-    const float* __restrict__ xl_p, const float* __restrict__ xl_c,
-    const float* __restrict__ xr_p, const float* __restrict__ xr_c,
-    const float* __restrict__ att_p, const float* __restrict__ att_c,
-    const int* __restrict__ pt_ptr, const int* __restrict__ cam_ptr,
-    const int* __restrict__ cam_perm, int n_pts, int Dp, int Cp, int Dc, int Cc,
-    float slope, int n_pt_blocks, float* __restrict__ out_p,
-    float* __restrict__ out_c, float* __restrict__ m_p, float* __restrict__ den_p,
-    float* __restrict__ m_c, float* __restrict__ den_c) {
-  if ((int)blockIdx.x < n_pt_blocks) {
-    // ---- point side: warp per point, its edges are contiguous.
-    const int pt = blockIdx.x * NWARPS + (threadIdx.x >> 5);
-    if (pt < n_pts) {
-      attend_segment_warp(xl_p, xr_p, att_p, pt_ptr, pt, Dp, Cp, slope, out_p, m_p, den_p);
-    }
+// One direction's operands of the forward; perm is the camera CSR's, NULL
+// on the point side; m and den NULL without residuals.
+struct DualFwdSide {
+  const float *xl, *xr, *att;
+  const int *ptr, *perm;
+  int n_seg, D, C;
+  float *out, *m, *den, *part;
+};
+
+// Rows [begin, end) of segment `seg` (at most kAttendChunk: a chunk or a
+// short segment) of one side, walked as a quad of rows (attend_rows4): a
+// chunk's online triple to its row of part (`chunk` >= 0), a short
+// segment's output and residuals to out, m, den.
+template <int NH, bool PERM>
+__device__ __forceinline__ void dual_fwd_rows(const DualFwdSide& sd, int seg, int begin,
+                                              int end, int chunk, float slope) {
+  const int lane = threadIdx.x & 31;
+  Online s[4];
+  attend_rows4<NH, PERM>(sd.xl, sd.xr, sd.att, sd.perm, seg, begin, end, sd.D, sd.C, slope, s);
+  if (lane >= 8) return;
+  const int c0 = 4 * lane;
+  if (chunk < 0) {
+    store_quad<NH>(s, seg, c0, sd.D, sd.C, sd.out, sd.m, sd.den);
     return;
   }
-  // ---- camera side: block per camera, warps stride over its edge list.
-  attend_segment_block<NWARPS>(xl_c, xr_c, att_c, cam_ptr, cam_perm, blockIdx.x - n_pt_blocks,
-                               Dc, Cc, slope, out_c, m_c, den_c);
+  float* p = sd.part + (size_t)chunk * kTriple;
+  *reinterpret_cast<float4*>(p + c0) = make_float4(s[0].m, s[1].m, s[2].m, s[3].m);
+  *reinterpret_cast<float4*>(p + 32 + c0) = make_float4(s[0].den, s[1].den, s[2].den, s[3].den);
+  *reinterpret_cast<float4*>(p + 64 + c0) = make_float4(s[0].num, s[1].num, s[2].num, s[3].num);
+}
+
+// Main launch, a unit per warp, in the order long camera chunks, long point
+// chunks, cameras (a warp walks a camera of at most kAttendChunk edges; a
+// longer one's warp has nothing to do), point quads (attend_quad: four
+// short points, 8 lanes of 4 features each). The long walkers start first,
+// the short ones fill the tail. NHP / NHC: the head slots of a quad lane's 4
+// features on the point / camera side.
+template <int NWARPS, int NHP, int NHC>
+__global__ void __launch_bounds__(NWARPS * 32) dual_attend_kernel(
+    DualFwdSide pt, SegmentSplit spp, DualFwdSide cam, SegmentSplit spc, int n_quads,
+    float slope) {
+  const int u = blockIdx.x * NWARPS + (threadIdx.x >> 5);
+  const int u1 = spc.n_chunks, u2 = u1 + spp.n_chunks, u3 = u2 + cam.n_seg;
+  int seg, begin, end;
+  if (u < u1) {
+    chunk_rows(cam.ptr, spc, u, seg, begin, end);
+    dual_fwd_rows<NHC, true>(cam, seg, begin, end, u, slope);
+  } else if (u < u2) {
+    chunk_rows(pt.ptr, spp, u - u1, seg, begin, end);
+    dual_fwd_rows<NHP, false>(pt, seg, begin, end, u - u1, slope);
+  } else if (u < u3) {
+    seg = u - u2, begin = cam.ptr[seg], end = cam.ptr[seg + 1];
+    if (end - begin > kAttendChunk) return;  // long: its chunks and the merge
+    dual_fwd_rows<NHC, true>(cam, seg, begin, end, -1, slope);
+  } else if (u - u3 < n_quads) {
+    attend_quad<NHP>(pt.xl, pt.xr, pt.att, pt.ptr, pt.n_seg, u - u3, pt.D, pt.C, slope, pt.out,
+                     pt.m, pt.den);
+  }
+}
+
+// Second launch: a block per long segment, the cameras' first. Warp w
+// merges the triples of its share of the segment's chunks (a contiguous
+// run, the w-th of NWARPS) in chunk order, then warp 0 merges the warps'
+// triples in warp order and writes the segment's output and residuals: a
+// hub segment costs NWARPS short runs. m is the max over every chunk, the
+// segment's exact max, as the backward's exp(min(logit - m, 0)) needs.
+template <int NWARPS>
+__global__ void __launch_bounds__(NWARPS * 32) dual_attend_merge_kernel(DualFwdSide pt,
+                                                                        SegmentSplit spp,
+                                                                        DualFwdSide cam,
+                                                                        SegmentSplit spc) {
+  __shared__ float sm[NWARPS][32], sd[NWARPS][32], sn[NWARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool is_cam = (int)blockIdx.x < spc.n_long;
+  const int j = is_cam ? blockIdx.x : blockIdx.x - spc.n_long;
+  // pick the side's fields one by one: a reference to either parameter
+  // struct would copy both to the stack
+  const int* long_ptr = is_cam ? spc.long_ptr : spp.long_ptr;
+  const int k0 = long_ptr[j], n = long_ptr[j + 1] - k0, per = (n + NWARPS - 1) / NWARPS;
+  const Online t = merge_triples(is_cam ? cam.part : pt.part, k0 + min(n, warp * per),
+                                 k0 + min(n, (warp + 1) * per), lane);
+  sm[warp][lane] = t.m;
+  sd[warp][lane] = t.den;
+  sn[warp][lane] = t.num;
+  __syncthreads();
+  if (warp != 0) return;
+  Online r;
+  r.init();
+  for (int w = 0; w < NWARPS; ++w) r.merge(sm[w][lane], sd[w][lane], sn[w][lane]);
+  const int seg = (is_cam ? spc.long_seg : spp.long_seg)[j];
+  if (is_cam) {
+    attend_store(r, seg, cam.D, cam.C, lane, cam.out, cam.m, cam.den);
+  } else {
+    attend_store(r, seg, pt.D, pt.C, lane, pt.out, pt.m, pt.den);
+  }
 }
 
 // Warp per edge (grid-stride): en = relu(LN(e)) unless raw, then the two
@@ -228,19 +303,40 @@ __global__ void __launch_bounds__(kFrontWarps * 32) frontend_prologue_bwd_kernel
 
 }  // namespace gasfm
 
+// split_p / split_c: the point and camera splits at kAttendChunk edges
+// (ViewGraph.pt_chunks / cam_chunks; layout SegmentSplit); part_p
+// (n_chunks_p, kTriple) and part_c (n_chunks_c, kTriple) scratch. m_p,
+// den_p, m_c, den_c: the residuals (n, H) / (m, H), or all NULL (not
+// written). The (E, D) and (S, D) streams are read as
+// 16-byte vectors when D % 4 == 0 and must then be 16-byte aligned.
 extern "C" int gasfm_dual_attend(
     const float* xl_p, const float* xl_c, const float* xr_p, const float* xr_c,
     const float* att_p, const float* att_c, const int* pt_ptr, const int* cam_ptr,
-    const int* cam_perm, int n_pts, int n_cams, int Dp, int Cp, int Dc, int Cc,
+    const int* cam_perm, const int* split_p, int n_long_p, int n_chunks_p, const int* split_c,
+    int n_long_c, int n_chunks_c, int n_pts, int n_cams, int Dp, int Cp, int Dc, int Cc,
     float slope, float* out_p, float* out_c, float* m_p, float* den_p, float* m_c,
-    float* den_c, void* stream) {
+    float* den_c, float* part_p, float* part_c, void* stream) {
   using namespace gasfm;
-  const int n_pt_blocks = (n_pts + kDualWarps - 1) / kDualWarps;
-  const int grid = n_pt_blocks + n_cams;
-  if (grid > 0) {
-    dual_attend_kernel<kDualWarps><<<grid, kDualWarps * 32, 0, (cudaStream_t)stream>>>(
-        xl_p, xl_c, xr_p, xr_c, att_p, att_c, pt_ptr, cam_ptr, cam_perm, n_pts,
-        Dp, Cp, Dc, Cc, slope, n_pt_blocks, out_p, out_c, m_p, den_p, m_c, den_c);
+  cudaStream_t s = (cudaStream_t)stream;
+  const DualFwdSide pt{xl_p, xr_p, att_p, pt_ptr, nullptr, n_pts, Dp, Cp,
+                       out_p, m_p, den_p, part_p};
+  const DualFwdSide cam{xl_c, xr_c, att_c, cam_ptr, cam_perm, n_cams, Dc, Cc,
+                        out_c, m_c, den_c, part_c};
+  const SegmentSplit spp(split_p, n_long_p, n_chunks_p), spc(split_c, n_long_c, n_chunks_c);
+  const int n_quads = blocks_of(n_pts, kQuad);
+  const int units = n_chunks_c + n_chunks_p + n_cams + n_quads;
+  if (units > 0) {
+    by_heads(Cp, [&](auto np) {
+      by_heads(Cc, [&](auto nc) {
+        dual_attend_kernel<kDualWarps, decltype(np)::value, decltype(nc)::value>
+            <<<blocks_of(units, kDualWarps), kDualWarps * 32, 0, s>>>(pt, spp, cam, spc,
+                                                                       n_quads, slope);
+      });
+    });
+  }
+  if (n_long_p + n_long_c > 0) {
+    dual_attend_merge_kernel<kDualWarps>
+        <<<n_long_p + n_long_c, kDualWarps * 32, 0, s>>>(pt, spp, cam, spc);
   }
   return (int)cudaGetLastError();
 }

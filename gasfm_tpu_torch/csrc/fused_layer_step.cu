@@ -34,7 +34,8 @@
 //
 // Backward (gasfm_layer_step_bwd), four launches: the edge-tile kernel
 // (edge_tile.cuh), one column sum of its partial rows, and the point and
-// camera segment sums of d_el / 4 (segment.cuh) for d ps and d pv. What bounds
+// camera segment sums of d_el / 4 (segment.cuh, #15/#18's, each with a merge
+// launch where a hub exists) for d ps and d pv. What bounds
 // it on the H100 is bytes again (~0.6 KB per edge: e_l, en, skip2, d xl_p,
 // d xl_c and the two output cotangents read once, d e_l, d en and d skip2
 // written once, d e_l read twice more by the sums) against ~6.5k float32 FMAs
@@ -80,10 +81,15 @@ extern "C" int gasfm_layer_step_prologue(
 // d_in); dskip2 (E, d2) or NULL; dps (n, De); dpv (m, De); den_next and
 // de_l_ext may be NULL (no cotangent). partials (grid, row) scratch, sums
 // (row,): the weight gradients, laid out as StepRow (edge_tile.cuh) says.
-// grid: the tile kernel's blocks, at most kTileBlocksPerSm per SM.
+// grid: the tile kernel's blocks, at most kTileBlocksPerSm per SM. split_p /
+// split_c: both CSRs split as the segment sum takes them (segment.cuh;
+// ViewGraph.pt_chunks / cam_chunks, layout SegmentSplit); part_p
+// (n_chunks_p, De) and part_c (n_chunks_c, De) their scratch.
 extern "C" int gasfm_layer_step_bwd(
     const float* en, int d_in, const float* skip2, int d2, const float* w, const float* e_l,
-    const int* pt_ptr, int n_pts, const int* cam_ptr, const int* cam_perm, int n_cams, int E,
+    const int* pt_ptr, int n_pts, const int* cam_ptr, const int* cam_perm, int n_cams,
+    const int* split_p, int n_long_p, int n_chunks_p, const int* split_c, int n_long_c,
+    int n_chunks_c, float* part_p, float* part_c, int E,
     int De, const float* lng, const float* lnb, int raw, float eps, const float* wlp, int Dp,
     const float* wlc, int Dc, const float* dxl_p, const float* dxl_c, const float* den_next,
     const float* de_l_ext, float* d_el, float* den_out, float* dskip2, float* dps, float* dpv,
@@ -97,7 +103,9 @@ extern "C" int gasfm_layer_step_bwd(
         den_next, de_l_ext, d_el, den_out, dskip2, partials);
   }
   launch_column_sum(partials, rows, StepRow(De, d_in + d2, Dp, Dc).len, sums, s);
-  segment_sum(d_el, De, pt_ptr, nullptr, n_pts, 0.25f, dps, s);
-  segment_sum(d_el, De, cam_ptr, cam_perm, n_cams, 0.25f, dpv, s);
+  segment_sum(d_el, De, pt_ptr, nullptr, E, SegmentSplit(split_p, n_long_p, n_chunks_p), n_pts,
+              0.25f, dps, part_p, s);
+  segment_sum(d_el, De, cam_ptr, cam_perm, E, SegmentSplit(split_c, n_long_c, n_chunks_c),
+              n_cams, 0.25f, dpv, part_c, s);
   return (int)cudaGetLastError();
 }

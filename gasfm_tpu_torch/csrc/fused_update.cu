@@ -24,8 +24,10 @@
 // into one partial row; every edge is in exactly one point segment, so the
 // column sum of those partial rows (column_sum_kernel, common.cuh) is d pg
 // = sum over edges of g / 4 — no second pass over g. The camera sums d pv
-// read g a second time through the camera CSR (a block per camera). Three
-// launches per call, no float atomics: bitwise reproducible on a given card.
+// read g a second time through the camera CSR: the segment sum of
+// segment.cu (#15/#18), with its merge launch where a camera is a hub.
+// Three launches per call (four with a hub), no float atomics: bitwise
+// reproducible on a given card.
 #include "segment.cuh"
 
 namespace gasfm {
@@ -113,13 +115,13 @@ void launch_edge_combine(const float* pe, const float* ps, const float* pv, cons
 }
 
 template <int VEC>
-void launch_edge_combine_bwd(const float* g, int D, const int* pt_ptr, int n_pts,
-                             const int* cam_ptr, const int* cam_perm, int n_cams, int grid,
-                             float* dpe, float* dps, float* dpv, float* dpg, float* partials,
-                             cudaStream_t s) {
+void launch_edge_combine_bwd(const float* g, int D, int E, const int* pt_ptr, int n_pts,
+                             const int* cam_ptr, const int* cam_perm, const SegmentSplit& spc,
+                             int n_cams, int grid, float* dpe, float* dps, float* dpv,
+                             float* dpg, float* partials, float* cam_part, cudaStream_t s) {
   edge_combine_bwd_point_kernel<VEC><<<grid, kSegWarps * 32, 0, s>>>(g, D, pt_ptr, n_pts, dpe,
                                                                      dps, partials);
-  launch_segment_sum<VEC>(g, D, cam_ptr, cam_perm, n_cams, 0.25f, dpv, s);
+  segment_sum(g, D, cam_ptr, cam_perm, E, spc, n_cams, 0.25f, dpv, cam_part, s);
   launch_column_sum(partials, grid, D, dpg, s);
 }
 
@@ -142,19 +144,24 @@ extern "C" int gasfm_edge_combine(const float* pe, const float* ps, const float*
 
 // From the cotangent g (E, D): dpe (E, D) = g / 4; dps (n, D) and dpv (m, D)
 // its point and camera CSR sums / 4; dpg (D,) its column sum / 4 (through
-// partials, (grid, D) scratch, grid >= 1 blocks of the point pass).
-extern "C" int gasfm_edge_combine_bwd(const float* g, int D, const int* pt_ptr, int n_pts,
-                                      const int* cam_ptr, const int* cam_perm, int n_cams,
-                                      int grid, float* dpe, float* dps, float* dpv, float* dpg,
-                                      float* partials, void* stream) {
+// partials, (grid, D) scratch, grid >= 1 blocks of the point pass). The
+// camera sums take the cameras' split (cam_split, n_long_c, n_chunks_c; the
+// segment sum's, segment.cuh) and cam_part, (n_chunks_c, D) scratch.
+extern "C" int gasfm_edge_combine_bwd(const float* g, int D, int E, const int* pt_ptr, int n_pts,
+                                      const int* cam_ptr, const int* cam_perm,
+                                      const int* cam_split, int n_long_c, int n_chunks_c,
+                                      int n_cams, int grid, float* dpe, float* dps, float* dpv,
+                                      float* dpg, float* partials, float* cam_part,
+                                      void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
+  const SegmentSplit spc(cam_split, n_long_c, n_chunks_c);
   if (D % 4 == 0) {
-    launch_edge_combine_bwd<4>(g, D, pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, grid, dpe, dps,
-                               dpv, dpg, partials, s);
+    launch_edge_combine_bwd<4>(g, D, E, pt_ptr, n_pts, cam_ptr, cam_perm, spc, n_cams, grid, dpe,
+                               dps, dpv, dpg, partials, cam_part, s);
   } else {
-    launch_edge_combine_bwd<1>(g, D, pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, grid, dpe, dps,
-                               dpv, dpg, partials, s);
+    launch_edge_combine_bwd<1>(g, D, E, pt_ptr, n_pts, cam_ptr, cam_perm, spc, n_cams, grid, dpe,
+                               dps, dpv, dpg, partials, cam_part, s);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,8 @@
 // Replaces the TPU kernels of gasfm_tpu/ops/pallas/segment_kernels.py:
 //   - gasfm_segment_sum <- _segment_sum_raw (segment_sum_kernel, the dense
 //     one-hot sum used for the cameras) and _wseg_sum_raw
-//     (windowed_segment_sum, the point-window sum);
+//     (windowed_segment_sum, the point-window sum), on split segments
+//     (segment.cuh);
 //   - gasfm_segment_max <- _segment_max_raw (segment_max_kernel, dense) and
 //     _wseg_max_raw (windowed_segment_max): the per-segment max of the
 //     softmax shifts, (E, d <= 8) -> (S, d), empty segments -> neutral. No
@@ -21,11 +22,11 @@
 // What bounds them on the H100: bytes over 3.35 TB/s. A segment sum reads
 // its E x D input once and writes S x D (plus the offsets and, on the camera
 // side, the permutation): ~127 MB at D = 256 on the dense bench scene, ~38
-// us. The design against it (segment.cuh): 16-byte loads where D % 4 == 0,
-// row groups so narrow rows keep every lane busy, a warp per point (the
-// point segments are short: ~14 and ~3 edges on the two bench scenes) and a
-// block of 32 warps per camera (the camera segments are few and long), each
-// sum in registers and merged in a fixed order.
+// us. Its design against that is segment.cuh's: both CSRs split by length
+// once per graph on the host (a point per warp and a camera per 32-warp
+// block before), short segments several to a warp with rows' loads in
+// flight, long ones a block each, a hub cut into parts whose partial rows a
+// second launch adds in part order.
 //
 // The gather writes E x D and reads each table row once per edge (the
 // tables, at most 25 MB on the bench scenes, stay in the 50 MB L2): at D =
@@ -176,11 +177,19 @@ __global__ void __launch_bounds__(kSegWarps * 32) segment_max_permuted_kernel(
 
 // out (n_seg, D) = per-segment sums of data (E, D): the rows ptr[s] ..
 // ptr[s+1] (perm == NULL, the point CSR) or perm[ptr[s]] .. (the camera
-// CSR). Empty segments give 0. 1 <= D <= 256; 16-byte aligned rows when
-// D % 4 == 0.
-extern "C" int gasfm_segment_sum(const float* data, int D, const int* ptr, const int* perm,
-                                 int n_seg, float* out, void* stream) {
-  gasfm::segment_sum(data, D, ptr, perm, n_seg, 1.f, out, (cudaStream_t)stream);
+// CSR). `split`: the segments of more than kSumRows rows (n_long of them)
+// cut into n_chunks parts of kSumPartRows rows (ViewGraph.pt_chunks /
+// cam_chunks, layout SegmentSplit); part: (n_chunks, D) scratch, written
+// only for a hub's parts (NULL where no segment has several). Empty
+// segments give 0.
+// 1 <= D <= 256; data, out and part aligned to 16 bytes when D % 4 == 0 (8
+// when D % 4 == 2).
+extern "C" int gasfm_segment_sum(const float* data, int D, int E, const int* ptr,
+                                 const int* perm, const int* split, int n_long, int n_chunks,
+                                 int n_seg, float* out, float* part, void* stream) {
+  using namespace gasfm;
+  segment_sum(data, D, ptr, perm, E, SegmentSplit(split, n_long, n_chunks), n_seg, 1.f, out,
+              part, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

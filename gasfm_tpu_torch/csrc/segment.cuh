@@ -1,26 +1,49 @@
-// Wide-row CSR segment sums and row gathers (sm_90a, float32), shared by
-// segment.cu and fused_update.cu.
+// Wide-row CSR segment sums (sm_90a, float32), shared by segment.cu (#15/#18),
+// fused_update.cu (#12's camera sums and, through RowSum, its point pass) and
+// fused_layer_step.cu (#6's two sums), and the vector helpers of segment.cu's
+// gather.
 //
 // Unlike the narrow streams of the other kernels (one lane per feature,
 // D <= 32, common.cuh), these rows are 1 to 256 floats wide. A row is read
 // as VEC-float vectors (VEC = 4, one 16-byte load per lane, when D % 4 == 0;
-// else VEC = 1): Dv = D / VEC vectors per row. A warp splits into R = 32 / W
-// row groups of W lanes (W the smallest power of two >= Dv, at most 32);
-// group r takes rows r, r + R, r + 2R, ... of a segment and lane (lane % W)
-// the vector columns lane % W + W * k. At D = 256 a lane holds two float4
-// columns of one row; at D = 2 sixteen rows are in flight per warp, so the
-// narrow layer-0 stream does not leave 30 of 32 lanes idle. The row groups
-// merge by a butterfly (fixed order), so every sum is bitwise reproducible
-// on a given card; no float atomics.
+// VEC = 2 when D % 4 == 2; else 1): Dv = D / VEC vectors per row, W lanes
+// per row (the smallest power of two >= Dv, at most 32), lane (lane % W)
+// on vector columns lane % W + W * k. At D = 256 a lane holds two float4
+// columns of a row; at D = 2 or 4 a row is one lane's.
+//
+// What bounds the sum on the H100: bytes, its E x D input read once and S x
+// D written (~127 MB at D = 256 on the dense bench scene, 0.038 ms at
+// 3.35 TB/s); at D <= 32 the input is a few MB and a call is its launch and
+// a few DRAM latencies. The first design walked a point per warp and a
+// camera per block of 32 warps: a point's rows one at a time, no loads
+// issued ahead, so the power-law scene's point of 133 edges was 133
+// dependent 1 KB rows (3.1x the bound), a hub point of 1,280 edges 0.57 ms;
+// 1,280 blocks of 1,024 threads for the wide scene's cameras of ~37 edges,
+// most of their warps without a row; a hub camera's 8,192 rows on one
+// block. Now (segment_sum_kernel) the segments are split by length once per
+// graph on the host: a short one (at most kSumRows rows) takes a lane group
+// of G = max(8, 4W) lanes, 32 / G of them to a warp, so the narrow streams
+// (D = 2, 4) keep their lanes busy, with several rows' loads issued ahead;
+// at D > 64 (a row per warp step) a short camera takes 4 warps, and on the
+// point side a warp streams the rows of kSumRun consecutive points. A long
+// one takes a block of 32 warps, as the
+// bench scenes' cameras (64-1,317 rows) did before, but a hub's rows come
+// cut into parts of kSumPartRows, a block each, whose partial rows a second
+// launch adds in part order: no block walks more than kSumPartRows rows,
+// and a call is one launch unless a hub exists. Every sum is in a fixed
+// order, with no float atomics: bitwise reproducible on a given card.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace gasfm {
 
 constexpr int kSegMaxD = 256;  // widest row the kernels take
-constexpr int kSegWarps = 8;   // warps per block, point side (warp per segment)
-constexpr int kCamWarps = 32;  // warps per block, camera side (block per segment)
+constexpr int kSegWarps = 8;   // warps per block of the segment max and #12's point pass
+
+inline int seg_blocks(int n_seg) { return (n_seg + kSegWarps - 1) / kSegWarps; }
 
 template <int VEC>
 struct VecT;
@@ -38,8 +61,13 @@ struct VecT<4> {
 };
 
 __device__ __forceinline__ void vzero(float& a) { a = 0.f; }
+__device__ __forceinline__ void vzero(float2& a) { a = make_float2(0.f, 0.f); }
 __device__ __forceinline__ void vzero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
 __device__ __forceinline__ void vadd(float& a, float b) { a += b; }
+__device__ __forceinline__ void vadd(float2& a, const float2 b) {
+  a.x += b.x;
+  a.y += b.y;
+}
 __device__ __forceinline__ void vadd(float4& a, const float4 b) {
   a.x += b.x;
   a.y += b.y;
@@ -47,11 +75,18 @@ __device__ __forceinline__ void vadd(float4& a, const float4 b) {
   a.w += b.w;
 }
 __device__ __forceinline__ float vscale(float a, float s) { return a * s; }
+__device__ __forceinline__ float2 vscale(const float2 a, float s) {
+  return make_float2(a.x * s, a.y * s);
+}
 __device__ __forceinline__ float4 vscale(const float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
 __device__ __forceinline__ float vshfl_xor(float a, int off) {
   return __shfl_xor_sync(GASFM_FULL_MASK, a, off);
+}
+__device__ __forceinline__ float2 vshfl_xor(const float2 a, int off) {
+  return make_float2(__shfl_xor_sync(GASFM_FULL_MASK, a.x, off),
+                     __shfl_xor_sync(GASFM_FULL_MASK, a.y, off));
 }
 __device__ __forceinline__ float4 vshfl_xor(const float4 a, int off) {
   return make_float4(__shfl_xor_sync(GASFM_FULL_MASK, a.x, off),
@@ -61,14 +96,15 @@ __device__ __forceinline__ float4 vshfl_xor(const float4 a, int off) {
 }
 
 // Lanes per row: the smallest power of two >= dv, at most 32.
-__device__ __forceinline__ int row_lanes(int dv) {
+__host__ __device__ __forceinline__ int row_lanes(int dv) {
   int w = 1;
   while (w < dv && w < 32) w <<= 1;
   return w;
 }
 
-// Per-lane accumulator of a warp walking one segment's rows: KMAX vector
-// columns (8 floats, whatever VEC: D <= 256).
+// Per-lane accumulator of a warp walking one segment's rows, R = 32 / W row
+// groups (#12's point pass, fused_update.cu): KMAX vector columns (8 floats,
+// whatever VEC: D <= 256).
 template <int VEC>
 struct RowSum {
   using T = typename VecT<VEC>::T;
@@ -89,16 +125,6 @@ struct RowSum {
   __device__ __forceinline__ void clear() {
 #pragma unroll
     for (int k = 0; k < KMAX; ++k) vzero(acc[k]);
-  }
-
-  // Add row `e` of `data` (this lane's columns).
-  __device__ __forceinline__ void add_row(const T* __restrict__ data, int e) {
-    const T* row = data + (size_t)e * Dv;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int c = col + W * k;
-      if (c < Dv) vadd(acc[k], row[c]);
-    }
   }
 
   // Merge the R row groups: afterwards every lane holds its columns' sum.
@@ -131,87 +157,427 @@ struct RowSum {
   }
 };
 
-// Point side: out[s] = scale * sum of data rows [ptr[s], ptr[s+1]) — the
-// segment's rows are contiguous. One warp per segment, warps stride over the
-// segments (grid-stride).
+// ---- the CSR segment sum ----------------------------------------------------------
+//
+// out[s] = scale * sum of the rows of segment s (rows ptr[s] .. ptr[s+1], or
+// perm[ptr[s]] .. on the camera side). A segment of at most kSumRows rows is
+// short: a lane group sums it alone (at D > 64 a few warps). A longer one is
+// long: a block of
+// kSumBlockWarps warps sums it, its warps striding over its rows, and merges
+// them in shared memory; a long segment of more than kSumPartRows rows (a
+// hub) comes cut into parts of that many rows, one block each, whose partial
+// rows a second launch adds in part order. The long segments and their parts
+// come from the host, split once per graph (ViewGraph.pt_chunks /
+// cam_chunks with rows = kSumPartRows, long_above = kSumRows). One launch
+// unless a hub exists; every sum in a fixed order, bitwise reproducible.
+
+constexpr int kSumRows = 64;         // the longest short segment
+constexpr int kSumGroup = 8;         // short segments per block at W = 32, 4 warps each
+constexpr int kSumPartRows = 2048;   // rows of a long segment per block
+constexpr int kSumBlockWarps = 32;   // warps per block of the main launch
+constexpr int kSumMergeWarps = 8;    // warps per block of the hubs' merge
+constexpr int kSumLoads = 8;         // vectors per lane whose loads are in flight together
+constexpr int kSumRun = 4;           // points per warp on the point side at W = 32
+
+// The layout for rows of Dv VEC-float vectors with W lanes per row
+// (row_lanes(Dv)): a short segment takes G lanes, NG = G / W row groups
+// (G = max(8, 4W), at most 32: NG x U >= 32 rows in flight at W <= 16), so P
+// = 32 / G short segments share a warp (up to four at D <= 16: a warp with
+// 30 idle lanes at D = 2 otherwise); a lane holds K vector columns of a row
+// (K > 1 only at W = 32: D > 64 with VEC = 4) and issues the loads of U
+// rows before it adds them.
+template <int VEC, int W>
+struct SumLayout {
+  static constexpr int G = W >= 8 ? 32 : (4 * W > 8 ? 4 * W : 8);
+  static constexpr int P = 32 / G;
+  static constexpr int NG = G / W;
+  static constexpr int K = W == 32 ? 8 / VEC : 1;
+  static constexpr int U = kSumLoads / K > 0 ? kSumLoads / K : 1;
+};
+
+// The rows of `run` consecutive segments s0 .. s0 + run - 1 of the point
+// CSR as one stream (W = 32: a row per warp step, K vector columns per
+// lane), U rows' loads issued before they are added, whatever segments
+// they belong to; a segment's sum times scale is written when the stream
+// crosses its end (an empty one's: 0). A long segment's rows are skipped:
+// its block sums them. Every branch is the same on every lane.
+template <int VEC, int K, int U>
+__device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __restrict__ rows,
+                                              int Dv, const int* __restrict__ ptr, int n_seg,
+                                              int s0, int run, float scale,
+                                              typename VecT<VEC>::T* __restrict__ out) {
+  using T = typename VecT<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  const int nr = min(run, n_seg - s0);
+  const int pj = lane <= nr ? ptr[s0 + lane] : 0;  // lanes 0 .. nr: the run's offsets
+  const int nxt = __shfl_down_sync(GASFM_FULL_MASK, pj, 1);
+  const unsigned longs = __ballot_sync(GASFM_FULL_MASK, lane < nr && nxt - pj > kSumRows);
+  T acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) vzero(acc[k]);
+  auto flush = [&](int c) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int col = lane + 32 * k;
+      if (col < Dv) out[(size_t)(s0 + c) * Dv + col] = vscale(acc[k], scale);
+      vzero(acc[k]);
+    }
+  };
+  int c = 0;
+  while (c < nr) {
+    if ((longs >> c) & 1u) {
+      ++c;
+      continue;
+    }
+    const unsigned ahead = longs >> c;
+    const int stop = ahead ? c + __ffs(ahead) - 1 : nr;  // the next long segment, or the end
+    const int lim = __shfl_sync(GASFM_FULL_MASK, pj, stop);
+    int next = __shfl_sync(GASFM_FULL_MASK, pj, c + 1);  // where segment c ends
+    for (int r = __shfl_sync(GASFM_FULL_MASK, pj, c); r < lim; r += U) {
+      T v[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int col = lane + 32 * k;
+          vzero(v[u][k]);
+          if (r + u < lim && col < Dv) v[u][k] = __ldg(rows + (size_t)(r + u) * Dv + col);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (r + u < lim) {
+          while (r + u >= next) {
+            flush(c);
+            ++c;
+            next = __shfl_sync(GASFM_FULL_MASK, pj, c + 1);
+          }
+#pragma unroll
+          for (int k = 0; k < K; ++k) vadd(acc[k], v[u][k]);
+        }
+      }
+    }
+    while (c < stop) {  // the segment that holds the last rows, and empty ones after it
+      flush(c);
+      ++c;
+    }
+  }
+}
+
+// The rows [begin, end) of one segment walked by the nw warps gw = 0 .. nw
+// - 1 of a group, a row per W lanes (NG = 32 / W row groups per warp): warp
+// gw's row groups take rows gw * NG + g, then every nw * NG-th, U at a time,
+// the next U rows' permutation entries loaded while these rows are in
+// flight; returns this lane's K columns summed over its rows, the row
+// groups merged by a butterfly. end = min(begin + cap, *end_at); the first
+// entries load before it is known: a row past it (below n_rows) loads an
+// entry that is never used.
+template <int VEC, int W>
+__device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restrict__ rows,
+                                            int Dv, const int* __restrict__ perm, int n_rows,
+                                            int begin, const int* __restrict__ end_at, int cap,
+                                            int gw, int nw,
+                                            typename VecT<VEC>::T (&acc)[SumLayout<VEC, W>::K]) {
+  using T = typename VecT<VEC>::T;
+  constexpr int NG = 32 / W, K = SumLayout<VEC, W>::K;
+  constexpr int U = K == 1 ? 4 : (8 / K > 0 ? 8 / K : 1);
+  const int lane = threadIdx.x & 31, g = lane / W, col = lane % W;
+  const int stride = nw * NG;
+  int i = begin + gw * NG + g;
+  int e[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int r = i + u * stride;
+    e[u] = perm == nullptr ? r : (r < n_rows ? __ldg(perm + r) : 0);
+  }
+  const int end = min(begin + cap, *end_at);
+#pragma unroll
+  for (int c = 0; c < K; ++c) vzero(acc[c]);
+  for (; i < end; i += U * stride) {
+    T v[U][K];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        vzero(v[u][c]);
+        if (i + u * stride < end && col + W * c < Dv) {
+          v[u][c] = rows[(size_t)e[u] * Dv + col + W * c];
+        }
+      }
+    }
+    int en[U];  // the next U rows' entries, while these rows load
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = i + (U + u) * stride;
+      en[u] = perm == nullptr ? r : (r < end ? __ldg(perm + r) : 0);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (i + u * stride < end) vadd(acc[c], v[u][c]);
+      }
+      e[u] = en[u];
+    }
+  }
+#pragma unroll
+  for (int off = W; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) vadd(acc[c], vshfl_xor(acc[c], off));
+  }
+}
+
+// Each warp's sums (lanes of row group 0) to its row of `sw`, then a block
+// barrier. Every thread of the block must call it.
+template <int VEC, int W>
+__device__ __forceinline__ void sum_to_shared(
+    const typename VecT<VEC>::T (&acc)[SumLayout<VEC, W>::K], int Dv, float (*sw)[kSegMaxD]) {
+  using T = typename VecT<VEC>::T;
+  const int lane = threadIdx.x & 31;
+  if (lane < W) {
+#pragma unroll
+    for (int c = 0; c < SumLayout<VEC, W>::K; ++c) {
+      if (lane + W * c < Dv) reinterpret_cast<T*>(sw[threadIdx.x >> 5])[lane + W * c] = acc[c];
+    }
+  }
+  __syncthreads();
+}
+
+// Main launch, blocks of kSumBlockWarps warps, in this order:
+//   - [0, sp.n_chunks): part k of a long segment (sp: the parts), its rows
+//     walked by all the block's warps (sum_strided), their sums added in
+//     warp order: a segment of one part writes its sum times scale, a hub's
+//     part its partial row, unscaled, to part[k];
+//   - then the short segments. At W = 32 (D > 64 with VEC = 4) kSumGroup of
+//     them per block, 32 / kSumGroup warps each, the same way (a warp per
+//     segment left a 64-row segment of 1 KB rows a chain of 16 DRAM
+//     latencies); on the point side a warp per run of `run` consecutive
+//     points instead (sum_point_run: the power-law scene's ~3-row points).
+//     At W < 32, P to a warp, G lanes each: a lane group takes rows g, g +
+//     NG, ..., U at a time (their permutation entries, then their rows), and
+//     the NG groups merge by a butterfly.
+// A short segment's sum times scale goes to out (an empty one's: 0); a long
+// one is skipped there. At W < 32 (rows of 1-16 vectors) the launch bounds
+// ask for two blocks per SM, which caps the kernel at 32 registers: ptxas
+// then spills 20-32 bytes per thread at VEC = 4 and 8 at VEC = 2, W = 2 or 4
+// (a cap of one block per SM is not measured against it).
+template <int VEC, int W>
+__global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 ? 1 : 2) segment_sum_kernel(
+    const float* __restrict__ data, int Dv, const int* __restrict__ ptr,
+    const int* __restrict__ perm, int n_rows, SegmentSplit sp, int n_seg, int run, float scale,
+    float* __restrict__ out, float* __restrict__ part) {
+  using L = SumLayout<VEC, W>;
+  using T = typename VecT<VEC>::T;
+  __shared__ __align__(16) float sw[kSumBlockWarps][kSegMaxD];
+  const T* rows = reinterpret_cast<const T*>(data);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int D = Dv * VEC;
+  if ((int)blockIdx.x < sp.n_chunks) {
+    const int k = blockIdx.x, seg = sp.chunk_seg[k];
+    T acc[L::K];
+    sum_strided<VEC, W>(rows, Dv, perm, n_rows, sp.chunk_begin[k], ptr + seg + 1, kSumPartRows,
+                        warp, kSumBlockWarps, acc);
+    sum_to_shared<VEC, W>(acc, Dv, sw);
+    const bool whole = ptr[seg + 1] - ptr[seg] <= kSumPartRows;
+    float* dst = whole ? out + (size_t)seg * D : part + (size_t)k * D;
+    const float f = whole ? scale : 1.f;
+    for (int j = threadIdx.x; j < D; j += kSumBlockWarps * 32) {
+      float t = 0.f;
+      for (int w = 0; w < kSumBlockWarps; ++w) t += sw[w][j];
+      dst[j] = t * f;
+    }
+    return;
+  }
+  const int b = blockIdx.x - sp.n_chunks;
+  if constexpr (W == 32) {
+    if (run > 0) {
+      const int s0 = (b * kSumBlockWarps + warp) * run;
+      if (s0 < n_seg) {
+        sum_point_run<VEC, L::K, L::U>(rows, Dv, ptr, n_seg, s0, run, scale,
+                                       reinterpret_cast<T*>(out));
+      }
+      return;
+    }
+    constexpr int kPer = kSumBlockWarps / kSumGroup;  // warps per short segment
+    const int q = b * kSumGroup + warp / kPer;
+    int begin = 0;
+    const int* end_at = ptr;  // an empty walk where there is no short segment
+    if (q < n_seg && ptr[q + 1] - ptr[q] <= kSumRows) begin = ptr[q], end_at = ptr + q + 1;
+    T acc[L::K];
+    sum_strided<VEC, W>(rows, Dv, perm, n_rows, begin, end_at, kSumPartRows, warp % kPer, kPer,
+                        acc);
+    sum_to_shared<VEC, W>(acc, Dv, sw);
+    for (int o = threadIdx.x; o < kSumGroup * D; o += kSumBlockWarps * 32) {
+      const int j = o / D, f = o - j * D, s = b * kSumGroup + j;
+      if (s >= n_seg || ptr[s + 1] - ptr[s] > kSumRows) continue;  // none, or long
+      float t = 0.f;
+      for (int w = j * kPer; w < (j + 1) * kPer; ++w) t += sw[w][f];
+      out[(size_t)s * D + f] = t * scale;
+    }
+    return;
+  }
+  const int q = (b * kSumBlockWarps + warp) * L::P + lane / L::G;
+  const int g = (lane % L::G) / W, col = lane % W;
+  int seg = -1, begin = 0, end = 0;  // seg < 0: nothing to write
+  if (q < n_seg) {
+    seg = q;
+    begin = ptr[q];
+    end = ptr[q + 1];
+    if (end - begin > kSumRows) seg = -1, end = begin;  // long: its block sums it
+  }
+  T acc[L::K];
+#pragma unroll
+  for (int k = 0; k < L::K; ++k) vzero(acc[k]);
+  for (int i = begin + g; i < end; i += L::NG * L::U) {
+    int e[L::U];
+#pragma unroll
+    for (int u = 0; u < L::U; ++u) {
+      const int r = i + u * L::NG;
+      e[u] = r < end ? (perm == nullptr ? r : __ldg(perm + r)) : -1;
+    }
+    T v[L::U][L::K];
+#pragma unroll
+    for (int u = 0; u < L::U; ++u) {
+#pragma unroll
+      for (int k = 0; k < L::K; ++k) {
+        const int c = col + W * k;
+        vzero(v[u][k]);
+        if (e[u] >= 0 && c < Dv) v[u][k] = __ldg(rows + (size_t)e[u] * Dv + c);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < L::U; ++u) {
+#pragma unroll
+      for (int k = 0; k < L::K; ++k) {
+        if (e[u] >= 0) vadd(acc[k], v[u][k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int off = W; off < L::G; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < L::K; ++k) vadd(acc[k], vshfl_xor(acc[k], off));
+  }
+  if (g != 0 || seg < 0) return;
+  T* dst = reinterpret_cast<T*>(out) + (size_t)seg * Dv;
+#pragma unroll
+  for (int k = 0; k < L::K; ++k) {
+    const int c = col + W * k;
+    if (c < Dv) dst[c] = vscale(acc[k], scale);
+  }
+}
+
+// Second launch, only where a hub exists: a block per long segment (one of
+// a single part has nothing to do). Warp w adds the partial rows of its
+// share of the hub's parts (a contiguous run, the w-th of kSumMergeWarps)
+// in part order, U rows loaded ahead; the warps' rows are then added in
+// warp order and the sum times scale written. Lane j holds vector columns
+// j, j + 32, ... (K of them).
 template <int VEC>
-__global__ void __launch_bounds__(kSegWarps * 32) segment_sum_contiguous_kernel(
-    const float* __restrict__ data, int D, const int* __restrict__ ptr, int n_seg, float scale,
+__global__ void __launch_bounds__(kSumMergeWarps * 32) segment_sum_merge_kernel(
+    const float* __restrict__ part, int Dv, SegmentSplit sp, float scale,
     float* __restrict__ out) {
   using T = typename VecT<VEC>::T;
-  const T* rows = reinterpret_cast<const T*>(data);
-  RowSum<VEC> rs;
-  rs.init(D);
-  const int warp = threadIdx.x >> 5;
-  for (int s = blockIdx.x * kSegWarps + warp; s < n_seg; s += gridDim.x * kSegWarps) {
-    rs.clear();
-    const int end = ptr[s + 1];
-    for (int e = ptr[s] + rs.sub; e < end; e += rs.R) rs.add_row(rows, e);
-    rs.merge_groups();
-    rs.store(reinterpret_cast<T*>(out), s, scale);
-  }
-}
-
-// Camera side: out[c] = scale * sum of data rows perm[ptr[c] .. ptr[c+1]).
-// Camera segments are few and long (128-133 cameras of ~500-900 edges on
-// the bench scenes), so one block of kCamWarps warps per camera: the warps
-// stride over the camera's edge list, then their partial rows are summed in
-// warp order in shared memory.
-template <int VEC>
-__global__ void __launch_bounds__(kCamWarps * 32) segment_sum_permuted_kernel(
-    const float* __restrict__ data, int D, const int* __restrict__ ptr,
-    const int* __restrict__ perm, float scale, float* __restrict__ out) {
-  using T = typename VecT<VEC>::T;
-  __shared__ __align__(16) float part[kCamWarps][kSegMaxD];
-  const T* rows = reinterpret_cast<const T*>(data);
-  const int c = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  RowSum<VEC> rs;
-  rs.init(D);
-  const int end = ptr[c + 1], stride = kCamWarps * rs.R;
-  int i = ptr[c] + warp * rs.R + rs.sub;
-  for (; i + 3 * stride < end; i += 4 * stride) {  // four rows' ids, then their rows, in order
-    int e[4];
+  constexpr int K = 8 / VEC;
+  constexpr int U = kSumLoads / K;
+  __shared__ __align__(16) float sw[kSumMergeWarps][kSegMaxD];
+  const T* rows = reinterpret_cast<const T*>(part);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i = blockIdx.x;
+  const int k_begin = sp.long_ptr[i], n = sp.long_ptr[i + 1] - k_begin;
+  if (n <= 1) return;
+  const int per = (n + kSumMergeWarps - 1) / kSumMergeWarps;
+  const int k0 = k_begin + min(n, warp * per), k1 = k_begin + min(n, (warp + 1) * per);
+  T acc[K];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) e[u] = perm[i + u * stride];
+  for (int k = 0; k < K; ++k) vzero(acc[k]);
+  for (int r0 = k0; r0 < k1; r0 += U) {
+    T v[U][K];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) rs.add_row(rows, e[u]);
+    for (int u = 0; u < U; ++u) {
+      const int r = min(r0 + u, k1 - 1);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int c = lane + 32 * k;
+        vzero(v[u][k]);
+        if (c < Dv) v[u][k] = rows[(size_t)r * Dv + c];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (r0 + u < k1) vadd(acc[k], v[u][k]);
+      }
+    }
   }
-  for (; i < end; i += stride) rs.add_row(rows, perm[i]);
-  rs.merge_groups();
-  rs.store_shared(part[warp]);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int c = lane + 32 * k;
+    if (c < Dv) reinterpret_cast<T*>(sw[warp])[c] = acc[k];
+  }
   __syncthreads();
-  for (int f = threadIdx.x; f < D; f += kCamWarps * 32) {
+  const int D = Dv * VEC;
+  float* dst = out + (size_t)sp.long_seg[i] * D;
+  for (int f = threadIdx.x; f < D; f += kSumMergeWarps * 32) {
     float t = 0.f;
-    for (int w = 0; w < kCamWarps; ++w) t += part[w][f];
-    out[(size_t)c * D + f] = t * scale;
+    for (int w = 0; w < kSumMergeWarps; ++w) t += sw[w][f];
+    dst[f] = t * scale;
   }
 }
-
-inline int seg_blocks(int n_seg) { return (n_seg + kSegWarps - 1) / kSegWarps; }
 
 template <int VEC>
 inline void launch_segment_sum(const float* data, int D, const int* ptr, const int* perm,
-                               int n_seg, float scale, float* out, cudaStream_t s) {
-  if (n_seg <= 0) return;
-  if (perm == nullptr) {
-    segment_sum_contiguous_kernel<VEC><<<seg_blocks(n_seg), kSegWarps * 32, 0, s>>>(
-        data, D, ptr, n_seg, scale, out);
-  } else {
-    segment_sum_permuted_kernel<VEC><<<n_seg, kCamWarps * 32, 0, s>>>(data, D, ptr, perm,
-                                                                      scale, out);
+                               int n_rows, const SegmentSplit& sp, int n_seg, float scale,
+                               float* out, float* part, cudaStream_t s) {
+  const int Dv = D / VEC;
+  auto main_launch = [&](auto w) {
+    constexpr int Wc = decltype(w)::value;
+    const int run = Wc == 32 && perm == nullptr ? kSumRun : 0;
+    int short_blocks = 0;  // none when every segment is long
+    if (n_seg > sp.n_long) {
+      if (Wc == 32 && run == 0) {
+        short_blocks = blocks_of(n_seg, kSumGroup);
+      } else {
+        const int pieces = run > 0 ? blocks_of(n_seg, run) : n_seg;
+        short_blocks = blocks_of(blocks_of(pieces, SumLayout<VEC, Wc>::P), kSumBlockWarps);
+      }
+    }
+    const int grid = sp.n_chunks + short_blocks;
+    if (grid > 0) {
+      segment_sum_kernel<VEC, Wc><<<grid, kSumBlockWarps * 32, 0, s>>>(
+          data, Dv, ptr, perm, n_rows, sp, n_seg, run, scale, out, part);
+    }
+  };
+  switch (row_lanes(Dv)) {
+    case 1: main_launch(std::integral_constant<int, 1>{}); break;
+    case 2: main_launch(std::integral_constant<int, 2>{}); break;
+    case 4: main_launch(std::integral_constant<int, 4>{}); break;
+    case 8: main_launch(std::integral_constant<int, 8>{}); break;
+    case 16: main_launch(std::integral_constant<int, 16>{}); break;
+    default: main_launch(std::integral_constant<int, 32>{}); break;
+  }
+  if (sp.n_chunks > sp.n_long) {  // a hub: its parts' partial rows
+    segment_sum_merge_kernel<VEC><<<sp.n_long, kSumMergeWarps * 32, 0, s>>>(part, Dv, sp, scale,
+                                                                            out);
   }
 }
 
-// Contiguous (perm == NULL) or permuted segment sum of D-wide rows, vector
-// width chosen from D (the caller guarantees 16-byte aligned rows when D %
-// 4 == 0).
-inline void segment_sum(const float* data, int D, const int* ptr, const int* perm, int n_seg,
-                        float scale, float* out, cudaStream_t s) {
+// The segment sum of D-wide rows (1 <= D <= kSegMaxD) over the CSR (ptr,
+// perm) of n_rows rows; sp: its long segments (more than kSumRows rows) cut
+// into parts of kSumPartRows rows; part: (sp.n_chunks, D) scratch, read and
+// written only where a segment has several parts. Rows are read as
+// 16-byte vectors when D % 4 == 0 (8-byte when D % 4 == 2): data, part and
+// out must then be aligned to them.
+inline void segment_sum(const float* data, int D, const int* ptr, const int* perm, int n_rows,
+                        const SegmentSplit& sp, int n_seg, float scale, float* out, float* part,
+                        cudaStream_t s) {
   if (D % 4 == 0) {
-    launch_segment_sum<4>(data, D, ptr, perm, n_seg, scale, out, s);
+    launch_segment_sum<4>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, s);
+  } else if (D % 2 == 0) {
+    launch_segment_sum<2>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, s);
   } else {
-    launch_segment_sum<1>(data, D, ptr, perm, n_seg, scale, out, s);
+    launch_segment_sum<1>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, s);
   }
 }
 

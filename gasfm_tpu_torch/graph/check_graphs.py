@@ -1,5 +1,5 @@
 """The graphs on which ``chip_smoke.py`` holds the attention, the dual
-core's backward and the layer step's edge tiles against their plain
+core, the segment sum and the layer step's edge tiles against their plain
 versions, and on which ``tools/kernel_device_time.py`` times them: each is a
 bench scene's graph with segments added or emptied at the lengths where the
 kernels split their work, or a small graph of its own.
@@ -11,8 +11,13 @@ kernels split their work, or a small graph of its own.
 - :func:`hub_camera_graph`: plus one camera that sees every point;
 - :func:`degree_graph`: plus cameras of 31, 32, 33 and 64 edges and a
   point of 133;
+- :func:`hub_point_graph`: plus a point seen by every camera and points of
+  L - 1, L, L + 1 and 2L edges (L = 32, the split length);
 - :func:`tile_boundary_graph`: a point over four 32-edge tiles, empty
-  points and an empty camera, E not a multiple of 32.
+  points and an empty camera, E not a multiple of 32;
+- :func:`hub_parts_graph`: 4,500 cameras, each point on 1 to 5 of them,
+  and one point on all: a point of more rows than the segment sum's part
+  (2,048), cut into three parts.
 
 They keep ``ViewGraph``'s layout (edges by point, then camera; both CSRs
 and ``cam_perm`` consistent): ``tests/test_torch_port_attn.py`` checks it.
@@ -91,6 +96,20 @@ def degree_graph(graph, seed=17):
     return graph_with_edges(graph, torch.cat(pts), torch.cat(cams), n + 1, m + 4)
 
 
+def hub_point_graph(graph, L=32, seed=13):
+    """``graph`` plus five points after its own: one seen by every camera
+    (a hub; on the wide scene 1,280 edges), and four seen by exactly L - 1,
+    L, L + 1 and 2L cameras, L the split length of the attention and the
+    segment sum: a short point at and below it, a long one of a ragged and
+    of two whole chunks."""
+    gen = torch.Generator().manual_seed(seed)
+    m, n = graph.num_cams, graph.num_pts
+    degrees = (m, L - 1, L, L + 1, 2 * L)
+    cams = [torch.sort(torch.randperm(m, generator=gen)[:d]).values for d in degrees]
+    pts = [torch.full((d,), n + j) for j, d in enumerate(degrees)]
+    return graph_with_edges(graph, torch.cat(pts), torch.cat(cams), n + len(degrees), m)
+
+
 def tile_boundary_graph(dev, seed=11):
     """A graph for the layer step's tiles of 32 edges: point 0 seen by 99 of
     the 100 cameras (its edges span four tiles), every 7th point and camera
@@ -108,7 +127,27 @@ def tile_boundary_graph(dev, seed=11):
         cids += list(seen)
     if len(pts) % 32 == 0:
         pts, cids = pts[:-1], cids[:-1]
-    pt_idx, cam_idx = np.array(pts), np.array(cids)
+    return graph_of_edges(np.array(pts), np.array(cids), n, m, dev, rng)
+
+
+def hub_parts_graph(dev, m=4500, n=8192, seed=19):
+    """A graph of m cameras whose point 0 is seen by all of them and every
+    other point by 1 to 5 random ones: with m = 4,500 the hub point's rows
+    are three parts of the segment sum (2,048, 2,048 and 404 rows), merged
+    by its second launch, as a camera's rows are on the hub-camera graph."""
+    rng = np.random.default_rng(seed)
+    pts, cids = [np.zeros(m, dtype=np.int64)], [np.arange(m)]
+    for p in range(1, n):
+        seen = np.sort(rng.choice(m, rng.integers(1, 6), replace=False))
+        pts.append(np.full(seen.shape[0], p))
+        cids.append(seen)
+    return graph_of_edges(np.concatenate(pts), np.concatenate(cids), n, m, dev, rng)
+
+
+def graph_of_edges(pt_idx, cam_idx, n, m, dev, rng):
+    """The ViewGraph of the edges (pt_idx, cam_idx), numpy arrays already in
+    the port's edge order (by point, then camera), every point and camera
+    valid, uv drawn from ``rng``."""
 
     def t(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
@@ -116,7 +155,7 @@ def tile_boundary_graph(dev, seed=11):
     def offsets(ids, S):
         return t(np.concatenate([[0], np.cumsum(np.bincount(ids, minlength=S))]))
 
-    E = len(pts)
+    E = pt_idx.shape[0]
     return ViewGraph(
         uv=torch.as_tensor(rng.standard_normal((E, 2)), dtype=torch.float32, device=dev),
         cam_idx=t(cam_idx), pt_idx=t(pt_idx), pt_ptr=offsets(pt_idx, n),

@@ -74,29 +74,33 @@ class ViewGraph:
         computed once."""
         return (self.cam_ptr[1:] - self.cam_ptr[:-1]).clamp_min(1).to(torch.float32)
 
-    def pt_chunks(self, rows: int) -> "SegmentChunks":
-        """The points split by length at ``rows`` edges (:func:`split_segments`),
-        built on the host once per graph and ``rows``: the point-side
-        attention kernels take it on every call."""
-        return self._chunks("pt", self.pt_ptr, rows)
+    def pt_chunks(self, rows: int, long_above: Optional[int] = None) -> "SegmentChunks":
+        """The points split by length at ``rows`` edges (:func:`split_segments`;
+        those of more than ``long_above`` edges, ``rows`` by default, are
+        long), built on the host once per graph and arguments: the point-side
+        kernels take it on every call."""
+        return self._chunks("pt", self.pt_ptr, rows, long_above)
 
-    def cam_chunks(self, rows: int) -> "SegmentChunks":
+    def cam_chunks(self, rows: int, long_above: Optional[int] = None) -> "SegmentChunks":
         """The cameras split likewise over ``cam_ptr``: a chunk's
         ``chunk_begin`` indexes ``cam_perm``. Built once per graph and
-        ``rows`` for the dual attention's backward."""
-        return self._chunks("cam", self.cam_ptr, rows)
+        arguments for the dual attention and the segment sum."""
+        return self._chunks("cam", self.cam_ptr, rows, long_above)
 
-    def _chunks(self, side: str, ptr: torch.Tensor, rows: int) -> "SegmentChunks":
+    def _chunks(self, side: str, ptr: torch.Tensor, rows: int,
+                long_above: Optional[int]) -> "SegmentChunks":
         cache = self.__dict__.setdefault(f"_{side}_chunks", {})
-        if rows not in cache:
-            cache[rows] = split_segments(ptr.cpu().numpy(), rows, self.device)
-        return cache[rows]
+        key = (rows, rows if long_above is None else long_above)
+        if key not in cache:
+            cache[key] = split_segments(ptr.cpu().numpy(), rows, self.device, key[1])
+        return cache[key]
 
 
 @dataclasses.dataclass(frozen=True)
 class SegmentChunks:
-    """Segments of a CSR split by length. A segment of at most ``rows``
-    edges (empty ones too) is short and stands alone; a longer one is long
+    """Segments of a CSR split by length. A segment of at most
+    ``long_above`` edges (an argument of :func:`split_segments`, ``rows`` by
+    default; empty ones too) is short and stands alone; a longer one is long
     and is cut into chunks of ``rows`` edges, the last one ragged.
 
     ``long_seg`` (n_long,) lists the long segments in order, ``long_ptr``
@@ -121,12 +125,15 @@ class SegmentChunks:
         return self.chunk_seg.shape[0]
 
 
-def split_segments(ptr: np.ndarray, rows: int, device=None) -> SegmentChunks:
-    """Split the segments of the CSR offsets ``ptr`` (S + 1,) at ``rows``
-    edges (see :class:`SegmentChunks`)."""
+def split_segments(ptr: np.ndarray, rows: int, device=None,
+                   long_above: Optional[int] = None) -> SegmentChunks:
+    """Split the segments of the CSR offsets ``ptr`` (S + 1,): those of more
+    than ``long_above`` edges (default ``rows``) are long and cut into
+    chunks of ``rows`` edges (see :class:`SegmentChunks`)."""
+    long_above = rows if long_above is None else long_above
     ptr = np.asarray(ptr, dtype=np.int64)
     deg = ptr[1:] - ptr[:-1]
-    long_seg = np.flatnonzero(deg > rows)
+    long_seg = np.flatnonzero(deg > long_above)
     per = -(-deg[long_seg] // rows)
     long_ptr = np.zeros(long_seg.shape[0] + 1, dtype=np.int64)
     np.cumsum(per, out=long_ptr[1:])

@@ -19,11 +19,11 @@ What bounds them on the H100 is bytes over its 3.35 TB/s, not operations:
 per edge and feature the work is a few flops. The kernels read each edge
 row once, keep the online softmax in registers, and walk each segment's
 own edge list (point CSR; camera CSR through ``cam_perm``) instead of the
-TPU kernel's one-hot matmuls. The dual core's backward walks both CSRs
-split at ``SPLIT_ROWS`` edges (``ViewGraph.pt_chunks`` / ``cam_chunks``,
-built once per graph on the host), so that no warp walks more than that
-many edges of one point or camera. See the CUDA source for the launch
-layout.
+TPU kernel's one-hot matmuls. The dual core's forward and backward walk
+both CSRs split at ``SPLIT_ROWS`` edges (``ViewGraph.pt_chunks`` /
+``cam_chunks``, built once per graph on the host), so that no warp walks
+more than that many edges of one point or camera; a second launch merges
+each long segment's chunks. See the CUDA source for the launch layout.
 
 Gradients: when an input requires grad, the wrappers run through
 ``torch.autograd.Function``s. The dual core's forward then also writes each
@@ -48,7 +48,8 @@ from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_r
 from gasfm_tpu_torch.ops.kernels import build as kb
 
 LN_EPS = 1e-5
-SPLIT_ROWS = 32  # kAttendChunk of csrc/attend_split.cuh: the backward's split length
+SPLIT_ROWS = 32  # kAttendChunk of csrc/attend_split.cuh: the dual core's split length
+TRIPLE = 96  # kTriple of csrc/attend_split.cuh: floats of a chunk's online triple
 DUAL_BWD_WARPS = 8  # kDualBwdWarps of csrc/fused_dual_attn.cu: warps per backward block
 DUAL_BWD_BLOCKS_PER_SM = 3  # kDualBwdBlocksPerSm: its resident blocks per SM
 FRONT_WARPS = 8  # kFrontWarps: edges per prologue block
@@ -56,7 +57,7 @@ OUTER_ROW = 32 * 64 + 32  # kOuterRow of csrc/common.cuh: one outer-sum job's su
 
 _P, _I, _F = kb.P, kb.I, kb.F
 _SIGNATURES = {
-    "gasfm_dual_attend": (_P,) * 9 + (_I,) * 6 + (_F,) + (_P,) * 7,
+    "gasfm_dual_attend": (_P,) * 9 + (_P, _I, _I) * 2 + (_I,) * 6 + (_F,) + (_P,) * 9,
     "gasfm_dual_attend_bwd": (_P,) * 18 + (_I, _I, _P) + (_I,) * 8 + (_F,) + (_P,) * 8
     + (_I, _P),
     "gasfm_frontend_prologue": (_P, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I, _P, _P,
@@ -109,28 +110,37 @@ def dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
     """Launch the dual core (CUDA tensors). Returns (out_p, out_c, res, ins):
     ``res`` is (m_p, den_p (n, H), m_c, den_c (m, H)) — each segment's
     per-head softmax max and denominator — when ``residuals``, else None;
-    ``ins`` the validated inputs."""
+    ``ins`` the validated inputs. Both CSRs are walked split at SPLIT_ROWS
+    edges (``graph.pt_chunks`` / ``cam_chunks``, built once per graph)."""
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
     Dp, Dc = xl_p.shape[1], xl_c.shape[1]
     Cp, Cc = head_width(Dp, heads), head_width(Dc, heads)
-    xl_p = kb.cuda_f32("xl_p", xl_p, (E, Dp))
-    xl_c = kb.cuda_f32("xl_c", xl_c, (E, Dc))
-    xr_p = kb.cuda_f32("xr_p", xr_p, (n, Dp))
-    xr_c = kb.cuda_f32("xr_c", xr_c, (m, Dc))
-    att_p = kb.cuda_f32("att_p", att_p.reshape(-1), (Dp,))
-    att_c = kb.cuda_f32("att_c", att_c.reshape(-1), (Dc,))
+    al = kb.aligned
+    xl_p = al(kb.cuda_f32("xl_p", xl_p, (E, Dp)))
+    xl_c = al(kb.cuda_f32("xl_c", xl_c, (E, Dc)))
+    xr_p = al(kb.cuda_f32("xr_p", xr_p, (n, Dp)))
+    xr_c = al(kb.cuda_f32("xr_c", xr_c, (m, Dc)))
+    att_p = al(kb.cuda_f32("att_p", att_p.reshape(-1), (Dp,)))
+    att_c = al(kb.cuda_f32("att_c", att_c.reshape(-1), (Dc,)))
     dev = xl_p.device
     out_p, out_c = kb.f32_empty((n, Dp), dev), kb.f32_empty((m, Dc), dev)
     res = None
     if residuals:
         res = (kb.f32_empty((n, heads), dev), kb.f32_empty((n, heads), dev),
                kb.f32_empty((m, heads), dev), kb.f32_empty((m, heads), dev))
+    sp, sc = graph.pt_chunks(SPLIT_ROWS), graph.cam_chunks(SPLIT_ROWS)
+    part_p = kb.f32_empty((sp.n_chunks, TRIPLE), dev) if sp.n_chunks else None
+    part_c = kb.f32_empty((sc.n_chunks, TRIPLE), dev) if sc.n_chunks else None
     p = kb.ptr
     code = _entry("gasfm_dual_attend")(
         p(xl_p), p(xl_c), p(xr_p), p(xr_c), p(att_p), p(att_c),
         p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
-        p(kb.cuda_i32("cam_perm", graph.cam_perm)), n, m, Dp, Cp, Dc, Cc, float(slope),
-        p(out_p), p(out_c), *(p(t) for t in (res or (None,) * 4)), kb.stream(dev),
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)),
+        p(kb.cuda_i32("pt_chunks", sp.table)), sp.n_long, sp.n_chunks,
+        p(kb.cuda_i32("cam_chunks", sc.table)), sc.n_long, sc.n_chunks,
+        n, m, Dp, Cp, Dc, Cc, float(slope),
+        p(out_p), p(out_c), *(p(t) for t in (res or (None,) * 4)), p(part_p), p(part_c),
+        kb.stream(dev),
     )
     kb.check(code, "fused_dual_attend")
     fused_dual_attend.launches += 1

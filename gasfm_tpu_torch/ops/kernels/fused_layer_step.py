@@ -14,7 +14,8 @@ dual core (counted by ``fused_dual_attend``). The backward mirrors it: the
 dual core's backward (counted by ``fused_dual_attend_bwd``), then
 ``fused_layer_step_bwd`` (counted here; four launches inside: the edge-tile
 kernel, one column sum of its per-block partial rows of the weight
-gradients, and the point and camera segment sums of d e_l / 4).
+gradients, and the point and camera segment sums of d e_l / 4, the segment
+sum's kernel, with its merge launch where a hub exists).
 
 What bounds it on the H100 is bytes over its 3.35 TB/s: 784 bytes of edge
 streams per edge at the flagship's interior widths against ~3.1k float32
@@ -45,6 +46,7 @@ from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (
     fused_dual_attend_plain,
 )
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import projection_update_plain
+from gasfm_tpu_torch.ops.kernels.segment_kernels import sum_split
 
 TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile
 TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: the backward's persistent blocks per SM
@@ -59,7 +61,9 @@ _ARGS = (
 )
 _BWD_ARGS = (
     kb.P, kb.I, kb.P, kb.I, kb.P, kb.P,  # en, d_in, skip2, d2, w, e_l
-    kb.P, kb.I, kb.P, kb.P, kb.I, kb.I, kb.I,  # pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, E, De
+    kb.P, kb.I, kb.P, kb.P, kb.I,  # pt_ptr, n_pts, cam_ptr, cam_perm, n_cams
+    kb.P, kb.I, kb.I, kb.P, kb.I, kb.I, kb.P, kb.P,  # the sums' splits and their scratch
+    kb.I, kb.I,  # E, De
     kb.P, kb.P, kb.I, kb.F, kb.P, kb.I, kb.P, kb.I,  # lng, lnb, raw, eps, wlp, Dp, wlc, Dc
     kb.P, kb.P, kb.P, kb.P,  # dxl_p, dxl_c, den_next, de_l_ext
     kb.P, kb.P, kb.P, kb.P, kb.P,  # d_el, den_out, dskip2, dps, dpv
@@ -263,12 +267,16 @@ def fused_layer_step_bwd(en, skip2, w, e_l, ln_scale, ln_bias, wlp, wlc, graph,
     dskip2 = None if skip2 is None else kb.f32_empty((E, d2), dev)
     dps, dpv = kb.f32_empty((n, De), dev), kb.f32_empty((m, De), dev)
     partials, sums = kb.f32_empty((grid, row), dev), kb.f32_empty((row,), dev)
+    split_p, n_long_p, n_chunks_p, part_p = sum_split(graph, "point", De, dev)
+    split_c, n_long_c, n_chunks_c, part_c = sum_split(graph, "camera", De, dev)
     p = kb.ptr
     ln_s, ln_b = (None, None) if raw_prologue else (ln_scale, ln_bias)
     code = _entry("gasfm_layer_step_bwd")(
         p(en), d_in, p(skip2), d2, p(w), p(e_l),
         p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n, p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
-        p(kb.cuda_i32("cam_perm", graph.cam_perm)), m, E, De,
+        p(kb.cuda_i32("cam_perm", graph.cam_perm)), m,
+        p(split_p), n_long_p, n_chunks_p, p(split_c), n_long_c, n_chunks_c, p(part_p),
+        p(part_c), E, De,
         p(ln_s), p(ln_b), int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc,
         p(dxl_p), p(dxl_c), p(den_next), p(de_l),
         p(d_el), p(den), p(dskip2), p(dps), p(dpv), p(partials), p(sums), grid,

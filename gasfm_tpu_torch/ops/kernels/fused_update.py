@@ -9,7 +9,8 @@ Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_update.py``
 
 with pe (E, D), ps (n, D), pv (m, D) and pg (1, D), D from 1 to 256. The
 backward gives d pe = g / 4, d ps and d pv the point and camera CSR sums of
-g / 4, and d pg its column sum (three launches inside one call, counted
+g / 4 (the cameras' through the segment sum's kernel), and d pg its column
+sum (three launches inside one call, four where a camera is a hub, counted
 once by ``fused_edge_combine_bwd``).
 
 What bounds them on the H100 is bytes over its 3.35 TB/s: the forward
@@ -29,7 +30,7 @@ import functools
 import torch
 
 from gasfm_tpu_torch.ops.kernels import build as kb
-from gasfm_tpu_torch.ops.kernels.segment_kernels import MAX_WIDTH
+from gasfm_tpu_torch.ops.kernels.segment_kernels import MAX_WIDTH, sum_split
 from gasfm_tpu_torch.ops.segment import gather_segments
 
 _SEG_WARPS = 8  # kSegWarps of csrc/segment.cuh
@@ -38,8 +39,8 @@ _SEG_WARPS = 8  # kSegWarps of csrc/segment.cuh
 @functools.lru_cache(maxsize=None)
 def _entry(symbol):
     args = {"gasfm_edge_combine": (kb.P,) * 6 + (kb.I, kb.I, kb.P, kb.P),
-            "gasfm_edge_combine_bwd": (kb.P, kb.I, kb.P, kb.I, kb.P, kb.P, kb.I, kb.I)
-            + (kb.P,) * 6}[symbol]
+            "gasfm_edge_combine_bwd": (kb.P, kb.I, kb.I, kb.P, kb.I, kb.P, kb.P, kb.P, kb.I,
+                                       kb.I, kb.I, kb.I) + (kb.P,) * 7}[symbol]
     return kb.bind(kb.load("fused_update"), symbol, args)
 
 
@@ -108,11 +109,13 @@ def fused_edge_combine_bwd(g, graph):
     dpe, dps = kb.f32_empty((E, D), dev), kb.f32_empty((n, D), dev)
     dpv, dpg = kb.f32_empty((m, D), dev), kb.f32_empty((D,), dev)
     partials = kb.f32_empty((grid, D), dev)
+    split, n_long, n_chunks, cam_part = sum_split(graph, "camera", D, dev)
     p = kb.ptr
     code = _entry("gasfm_edge_combine_bwd")(
-        p(g), D, p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n,
-        p(kb.cuda_i32("cam_ptr", graph.cam_ptr)), p(kb.cuda_i32("cam_perm", graph.cam_perm)), m,
-        grid, p(dpe), p(dps), p(dpv), p(dpg), p(partials), kb.stream(dev))
+        p(g), D, E, p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n,
+        p(kb.cuda_i32("cam_ptr", graph.cam_ptr)), p(kb.cuda_i32("cam_perm", graph.cam_perm)),
+        p(split), n_long, n_chunks, m, grid, p(dpe), p(dps), p(dpv), p(dpg), p(partials),
+        p(cam_part), kb.stream(dev))
     kb.check(code, "fused_edge_combine_bwd")
     fused_edge_combine_bwd.launches += 1
     return dpe, dps, dpv, dpg

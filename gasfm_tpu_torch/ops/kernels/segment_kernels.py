@@ -19,6 +19,11 @@ backward the sum kernel, each counted by its own counter. The max has no
 backward: its callers take the max of detached logits (the softmax shift).
 
 What bounds them on the H100 is bytes over its 3.35 TB/s (see the source).
+The sum walks both CSRs split by length (``ViewGraph.pt_chunks`` /
+``cam_chunks``, built once per graph on the host): short segments (at most
+``SUM_ROWS`` rows) several to a warp (at D > 64 several warps to one),
+longer ones a block each (cut into parts of ``SUM_PART_ROWS`` rows, merged
+by a second launch, where a hub has more).
 Rows are float32, 1 to 256 wide (1 to 8 for the max); sums are taken in a
 fixed order without atomics, so results are bitwise reproducible on a given
 card, and a max is exact, so it is bitwise the plain version's.
@@ -40,13 +45,16 @@ from gasfm_tpu_torch.ops.segment import segment_max as index_segment_max
 from gasfm_tpu_torch.ops.segment import segment_sum as index_segment_sum
 
 MAX_WIDTH = 256  # kSegMaxD of csrc/segment.cuh
+SUM_ROWS = 64  # kSumRows of csrc/segment.cuh: the longest segment a lane group sums alone
+SUM_PART_ROWS = 2048  # kSumPartRows: the rows of a long segment one block sums
 MAX_MAX_WIDTH = 8  # kSegMaxCols of csrc/segment.cu: the widest row the max takes
 SIDES = ("point", "camera")
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(symbol):
-    args = {"gasfm_segment_sum": (kb.P, kb.I, kb.P, kb.P, kb.I, kb.P, kb.P),
+    args = {"gasfm_segment_sum": (kb.P, kb.I, kb.I, kb.P, kb.P, kb.P, kb.I, kb.I, kb.I, kb.P,
+                                  kb.P, kb.P),
             "gasfm_segment_max": (kb.P, kb.I, kb.P, kb.P, kb.I, kb.F, kb.P, kb.P),
             "gasfm_gather_rows": (kb.P, kb.I, kb.P, kb.I, kb.P, kb.P)}[symbol]
     return kb.bind(kb.load("segment"), symbol, args)
@@ -69,6 +77,19 @@ def side_csr(graph, side):
         return kb.cuda_i32("pt_ptr", graph.pt_ptr), None
     side_ids(graph, side)  # raises for an unknown side
     return kb.cuda_i32("cam_ptr", graph.cam_ptr), kb.cuda_i32("cam_perm", graph.cam_perm)
+
+
+def sum_split(graph, side, D, device):
+    """The segment sum's split of ``side`` as the C entries take it: its
+    segments of more than SUM_ROWS rows, cut into parts of SUM_PART_ROWS
+    (built once per graph: ``pt_chunks`` / ``cam_chunks``); (table, n_long,
+    n_chunks, partial-row scratch (n_chunks, D), None unless a segment has
+    several parts)."""
+    side_ids(graph, side)  # raises for an unknown side
+    chunks = graph.pt_chunks if side == "point" else graph.cam_chunks
+    sp = chunks(SUM_PART_ROWS, SUM_ROWS)
+    part = kb.f32_empty((sp.n_chunks, D), device) if sp.n_chunks > sp.n_long else None
+    return kb.cuda_i32(f"{side}_chunks", sp.table), sp.n_long, sp.n_chunks, part
 
 
 def segment_sum_plain(data, graph, side):
@@ -96,9 +117,11 @@ def segment_sum_forward(data, graph, side):
     data = kb.aligned(kb.cuda_f32("data", data))
     D = data.shape[1]
     ptr, perm = side_csr(graph, side)
+    split, n_long, n_chunks, part = sum_split(graph, side, D, data.device)
     out = kb.f32_empty((S, D), data.device)
     p = kb.ptr
-    code = _entry("gasfm_segment_sum")(p(data), D, p(ptr), p(perm), S, p(out),
+    code = _entry("gasfm_segment_sum")(p(data), D, graph.num_edges, p(ptr), p(perm), p(split),
+                                       n_long, n_chunks, S, p(out), p(part),
                                        kb.stream(data.device))
     kb.check(code, "segment_sum")
     segment_sum.launches += 1

@@ -1,8 +1,9 @@
 """Device time per call of the layer step's forward (#5) and backward (#6),
-the dual core's backward (#2), the row gather (#16/#20), the point side's
-single-direction attention (#13, #14), the frontend's prologue (#3) and the
-projection update (#9), from ``torch.profiler``, on both bench scenes and
-the wide one, and of #5 and #2 on the kernel-check graphs of
+the dual core's forward (#1) and backward (#2), the segment sum
+(#15/#18), the edge combine's backward (#12), the row gather (#16/#20),
+the point side's single-direction attention (#13, #14), the frontend's
+prologue (#3) and the projection update (#9), from ``torch.profiler``, on both bench scenes and the wide
+one, and of #5, #1, #2 and the segment sum on the kernel-check graphs of
 ``chip_smoke.py`` (``graph/check_graphs.py``).
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
@@ -17,9 +18,14 @@ same bits. The layer step runs at the flagship's interior shapes (en (E,
 the forward's prologue alone (``layer_step_prologue``, the dual core not in
 the window), the backward from cotangents of xl_p, xl_c,
 e_norm_next and e_l (the dual core's backward not in the window); the dual
-core's backward (``fused_dual_attend_bwd``, all its launches) at D = 32, H
-= 4 from the forward's residuals (and on the degree graph at four more (D,
-H)); the gather on both sides at D = 256 and D = 2, beside
+core's forward (``dual_attend_forward``, all its launches) at D = 32, H =
+4, with its residuals and without; its backward
+(``fused_dual_attend_bwd``, all its launches) at D = 32, H = 4 from the
+forward's residuals (and on the degree graph at four more (D, H)); the
+segment sum on both sides at D = 256, 32 and 4 (256 and 32 on the hub
+graphs), beside ``index_add_`` on the same data; the edge combine's
+backward (``fused_edge_combine_bwd``, all its launches: the point pass,
+the camera sums, the column sum) at D = 256; the gather on both sides at D = 256 and D = 2, beside
 ``index_select`` on the same table and ids; the attention on the point side
 at D = 32, H = 4 (an interior layer of the flagship on the unfused path),
 the forward with its residuals (as under autograd) and the backward from
@@ -55,11 +61,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
 from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
-                                                hub_camera_graph, tile_boundary_graph)
+                                                hub_camera_graph, hub_point_graph,
+                                                tile_boundary_graph)
 from gasfm_tpu_torch.ops.kernels import fused_attn as fat
 from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
 from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
 from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
+from gasfm_tpu_torch.ops.kernels import fused_update as fu
 from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 from gasfm_tpu_torch.tools.profile_forward import SCENES
 
@@ -143,6 +151,34 @@ def layer_step_bwd_call(graph, dev):
     return lambda: fls.fused_layer_step_bwd(**kw)
 
 
+def dual_fwd_call(graph, dev, D=32, heads=4, residuals=True, seed=3):
+    """#1 (all its launches), both sides D wide with ``heads`` heads, with
+    its residuals (as under autograd) or without (as a request calls it)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    ins = [torch.randn(shape, generator=gen, device=dev)
+           for shape in ((E, D), (E, D), (n, D), (m, D), (D,), (D,))]
+    return lambda: fda.dual_attend_forward(*ins, graph, heads, residuals=residuals)
+
+
+def segment_sum_calls(graph, dev, widths=(256, 32, 4), seed=2468):
+    """The segment sum on both sides at each width, each beside
+    ``index_add_`` on the same data (the one PyTorch call of the same
+    function)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for D in widths:
+        for side in ("point", "camera"):
+            ids, S = sk.side_ids(graph, side)
+            x = torch.randn((graph.num_edges, D), generator=gen, device=dev)
+            acc, ids64 = torch.zeros((S, D), device=dev), ids.long()
+            cases.append(("segment_sum", f"{side}_D{D}",
+                          lambda x=x, s=side: sk.segment_sum(x, graph, s)))
+            cases.append(("index_add_", f"{side}_D{D}",
+                          lambda x=x, a=acc, i=ids64: a.index_add_(0, i, x)))
+    return cases
+
+
 def dual_bwd_call(graph, dev, D=32, heads=4, seed=2):
     """#2 from the forward's residuals (as under autograd), both sides D
     wide with ``heads`` heads, its cotangents seeded."""
@@ -214,7 +250,14 @@ def main(argv=None) -> None:
             gen = torch.Generator(device=dev).manual_seed(2468)
             cases = attend_calls(graph, dev)
             cases.append(("fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev)))
+            cases += segment_sum_calls(graph, dev)
+            g256 = torch.randn((graph.num_edges, 256), generator=gen, device=dev)
+            cases.append(("fused_edge_combine_bwd", "D256",
+                          lambda g=g256: fu.fused_edge_combine_bwd(g, graph)))
             if scene_name != "wide":  # the merged path's kernels
+                for resid in (True, False):
+                    cases.append(("fused_dual_attend", "D32_H4" + ("_residuals" if resid else ""),
+                                  dual_fwd_call(graph, dev, residuals=resid)))
                 cases.append(("layer_step_prologue", "interior",
                               layer_step_prologue_call(graph, dev)))
                 cases.append(("fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev)))
@@ -235,8 +278,16 @@ def main(argv=None) -> None:
         extra = {"dense_empty": graph_with_empty_segments(graphs["dense"]),
                  "hub_camera": hub_camera_graph(graphs["dense"]),
                  "degrees": degree_graph(graphs["powerlaw"])}
+        extra["hub_point"] = hub_point_graph(graphs["wide"])
         for label, graph in extra.items():
-            measure(label, "fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev))
+            if label != "hub_point":
+                for resid in (True, False):
+                    measure(label, "fused_dual_attend", "D32_H4" + ("_residuals" if resid else ""),
+                            dual_fwd_call(graph, dev, residuals=resid))
+                measure(label, "fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev))
+            if label != "dense_empty":
+                for name, variant, fn in segment_sum_calls(graph, dev, widths=(256, 32)):
+                    measure(label, name, variant, fn)
         for D, H in ((16, 4), (32, 1), (8, 8), (12, 6)):
             measure("degrees", "fused_dual_attend_bwd", f"D{D}_H{H}",
                     dual_bwd_call(extra["degrees"], dev, D=D, heads=H))

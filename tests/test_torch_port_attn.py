@@ -332,7 +332,8 @@ def powerlaw_graph():
     return generate_synthetic_scene(**SCENES["powerlaw"]).to_scene_graph(device="cpu").graph
 
 
-@pytest.mark.parametrize("builder", ["hub_camera", "degrees", "empty", "tile_boundary"])
+@pytest.mark.parametrize("builder", ["hub_camera", "degrees", "empty", "tile_boundary",
+                                     "hub_parts"])
 def test_kernel_check_graphs_are_port_graphs(powerlaw_graph, builder):
     """The graphs that chip_smoke.py runs the dual core's backward and the
     layer step on (graph/check_graphs.py) keep the port's
@@ -340,13 +341,14 @@ def test_kernel_check_graphs_are_port_graphs(powerlaw_graph, builder):
     the segments they promise: a camera over every point; cameras of
     exactly L - 1, L, L + 1 and 2L edges and a point of 133; empty points
     and an empty camera; a point over four 32-edge tiles and E not a
-    multiple of 32."""
+    multiple of 32; a point over all of 4,500 cameras."""
     from gasfm_tpu_torch.graph import check_graphs as cg
 
     g = powerlaw_graph
     graph = {"hub_camera": lambda: cg.hub_camera_graph(g), "degrees": lambda: cg.degree_graph(g),
              "empty": lambda: cg.graph_with_empty_segments(g),
-             "tile_boundary": lambda: cg.tile_boundary_graph("cpu")}[builder]()
+             "tile_boundary": lambda: cg.tile_boundary_graph("cpu"),
+             "hub_parts": lambda: cg.hub_parts_graph("cpu")}[builder]()
     pt, cam = graph.pt_idx.long(), graph.cam_idx.long()
     n, m = graph.num_pts, graph.num_cams
     key = pt * m + cam
@@ -367,6 +369,8 @@ def test_kernel_check_graphs_are_port_graphs(powerlaw_graph, builder):
     elif builder == "degrees":
         assert cdeg[-4:] == [L - 1, L, L + 1, 2 * L] and pdeg[-1] == 133
         assert graph.num_edges == g.num_edges + 5 * L + 133
+    elif builder == "hub_parts":
+        assert m == 4500 and pdeg[0] == m and all(1 <= d <= 5 for d in pdeg[1:])
     elif builder == "empty":
         assert all(pdeg[p] == 0 for p in range(0, n, 50)) and cdeg[1] == 0
     else:

@@ -51,8 +51,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    (``index_add_``, ``index_select``; the gather's 8 variants bitwise equal
    to the plain version, and at D = 256 on the point side the host's
    microseconds per call split by the wrapper's steps); the edge combine at
-   D = 256 and its backward against autograd of its plain version. The
-   segment sum also runs, both sides at D = 2, 4, 32 and 256, twice,
+   D = 256 and its backward (#12) at D = 2, 4, 32 and 256 against autograd
+   of its plain version (d pe bitwise), twice, bitwise. #12 also runs at
+   those widths, twice, bitwise, on the wide scene, the wide scene plus a
+   point in all 1280 views and points of 63-128 edges, 4,500 cameras with a
+   point on all (its point walk's merge launch), the power-law scene plus
+   cameras of 31-64 edges and a point of 133, and the dense scene with
+   empty segments; its device time per call at D = 256 on the hub-point
+   graph must be at most 1.5x the wide scene's (printed beside the parent
+   design's). The segment sum also runs, both sides at D = 2, 4, 32 and 256, twice,
    bitwise, on the wide scene and on graphs that stress its split (a
    segment of more than 64 rows takes a block, one of more than 2048 rows
    several, merged by a second launch): the dense scene plus a camera over
@@ -76,9 +83,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    empty segments, bitwise, also timed against ``scatter_reduce_`` (amax).
 3d. The standalone projection update (the depth path's layer L-2) on both
    bench scenes at De = 32: with the 2-wide skip2 and the residual, with
-   neither, and at d2 = 0 with the residual; its backward against autograd
-   of the plain version, every input's gradient. No single PyTorch call
-   computes it (no library time).
+   neither, and at d2 = 0 with the residual; its backward (#10) against
+   autograd of the plain version, every input's gradient, twice, bitwise.
+   The same three forms also run on the tile-boundary graph, the power-law
+   scene plus cameras of 31-64 edges and a point of 133, the wide scene
+   plus a point in all 1280 views, and the dense scene with empty segments.
+   No single PyTorch call computes it (no library time).
 4. GASFM serving: the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
    32/64/1024/2048, seeded init) answers 3 requests per scene through
    ``TrainingSession.forward`` and ``.loss`` on the dense (128 views, 8192
@@ -880,8 +890,9 @@ def dpesfm_kernel_phase(dev, scene_name, graph, record):
     numerators) and 256 (every later DPESFM stream), twice, bitwise, and
     gather_rows at D = 2 and 256, against their plain versions and the one
     PyTorch call that computes the same function (``index_add_``,
-    ``index_select``); the edge combine and its backward at D = 256 (the
-    backward against autograd of the plain forward)."""
+    ``index_select``); the edge combine at D = 256 and its backward at D =
+    2, 4, 32 and 256 (against autograd of the plain forward, twice
+    bitwise)."""
     from gasfm_tpu_torch.ops.kernels import fused_update as fu
     from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 
@@ -917,36 +928,106 @@ def dpesfm_kernel_phase(dev, scene_name, graph, record):
                   nbytes(pe, ps, pv, pg, graph.pt_idx, graph.cam_idx) + 4 * E * D,
                   4.0 * E * D, True)
 
-    # backward: the kernel against autograd of the plain forward
-    g = rnd(E, D)
+    for D in (256, 32, 4, 2):
+        edge_combine_bwd_check(results, record, scene_name, graph, rnd(E, D), main=D == 256)
+    return results
+
+
+# the wide scene's #12 at D = 256 when its point pass gave each point a warp
+# (PERF.md's findings: kernel_device_time, NVIDIA H100 80GB HBM3, 700 W)
+EDGE_COMBINE_BWD_WIDE_PARENT_MS = 0.6327
+
+
+def edge_combine_bwd_check(results, record, scene_name, graph, g, main=False):
+    """#12 from the cotangent g against autograd of the plain edge combine,
+    each gradient within tolerance, d pe bitwise (g / 4), two launches
+    bitwise equal; timed per call and in a burst beside the plain
+    backward."""
+    from gasfm_tpu_torch.ops.kernels import fused_update as fu
+
+    E, D = g.shape
+    n, m = graph.num_pts, graph.num_cams
     got = fu.fused_edge_combine_bwd(g, graph)
     with torch.enable_grad():
-        leaves = [t.detach().requires_grad_() for t in (pe, ps, pv, pg)]
+        leaves = [torch.zeros(shape, device=g.device, requires_grad=True)
+                  for shape in ((E, D), (n, D), (m, D), (1, D))]
         args = ([fu.fused_edge_combine_plain(*leaves, graph)], leaves, [g])
         want = torch.autograd.grad(*args, retain_graph=True)
     worst, ok, errs = 0.0, True, {}
     for leaf, a, b in zip(("pe", "ps", "pv", "pg"), got, want):
         e, good = max_err(a, b.reshape(a.shape), BWD_RTOL, BWD_ATOL, floor=1e-30)
+        good = good and (leaf != "pe" or e == 0.0)
         errs[leaf] = e
         worst, ok = max(worst, e / max(float(b.abs().max()), 1e-30)), ok and good
         if not good:
-            print(f"  fused_edge_combine_bwd d{leaf}: max err {e:.3e} out of tolerance")
+            print(f"  fused_edge_combine_bwd[D{D}] {scene_name} d{leaf}: max err {e:.3e} out of "
+                  "tolerance")
+    if not same_twice(lambda: fu.fused_edge_combine_bwd(g, graph), got):
+        ok = False
+        print(f"  fused_edge_combine_bwd[D{D}] {scene_name}: two launches differ")
     ms = cuda_ms(lambda: fu.fused_edge_combine_bwd(g, graph))
     burst = burst_ms(lambda: fu.fused_edge_combine_bwd(g, graph))
     with torch.enable_grad():
         plain_ms = cuda_ms(lambda: torch.autograd.grad(*args, retain_graph=True))
+    # reads g and the CSR once; writes d pe, d ps, d pv, d pg
     b_ms, b_by = bound_ms(nbytes(g, graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
                           + 4 * (E + n + m + 1) * D, 3.0 * E * D)
-    print(f"kernel fused_edge_combine_bwd[D256] {scene_name}: max err / max |ref| over the four "
-          f"gradients {worst:.3e} (tol {BWD_ATOL:g} x max|ref| + {BWD_RTOL:g} x |ref|) "
-          f"{'ok' if ok else 'FAIL'}; {ms:.4f} ms (burst {burst:.4f} ms), plain backward "
-          f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    print(f"kernel fused_edge_combine_bwd[D{D}] {scene_name}: max err / max |ref| over the four "
+          f"gradients {worst:.3e} (tol {BWD_ATOL:g} x max|ref| + {BWD_RTOL:g} x |ref|; d pe "
+          f"bitwise; two launches bitwise equal) {'ok' if ok else 'FAIL'}; {ms:.4f} ms (burst "
+          f"{burst:.4f} ms), plain backward {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     record.setdefault("backward_variants", []).append(dict(
-        scene=scene_name, name="fused_edge_combine_bwd", variant="D256", max_abs_err=errs, ok=ok,
-        ms=ms, burst_ms=burst, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-    results["fused_edge_combine_bwd"] = dict(
-        max_abs_err=max(errs.values()), ok=ok, ms=ms, burst_ms=burst, plain_ms=plain_ms,
-        library_ms=None, bound_ms=b_ms, bound_by=b_by, variant="D256")
+        scene=scene_name, name="fused_edge_combine_bwd", variant=f"D{D}", max_abs_err=errs,
+        ok=ok, ms=ms, burst_ms=burst, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    entry = results.setdefault("fused_edge_combine_bwd", dict(max_abs_err=0.0, ok=True))
+    entry["max_abs_err"] = max(entry["max_abs_err"], max(errs.values()))
+    entry["ok"] = entry["ok"] and ok
+    if main:
+        entry.update(ms=ms, burst_ms=burst, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                     bound_by=b_by, variant=f"D{D}")
+
+
+def edge_combine_bwd_graph_phase(dev, scenes, wide, record):
+    """#12 at D = 2, 4, 32 and 256 on the wide scene and on graphs that
+    stress its point walk (the wide scene plus a point in all 1280 views and
+    points of 63, 64, 65 and 128 edges; 4,500 cameras with a point on all,
+    cut into three parts; the power-law scene plus cameras of 31-64 edges
+    and a point of 133; the dense scene with empty segments), each against
+    autograd of its plain version, twice bitwise; and its device time per
+    call at D = 256 on the wide scene (beside the parent's) and on the
+    hub-point graph: at most 1.5x the wide scene's."""
+    from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
+                                                    hub_parts_graph, hub_point_graph)
+    from gasfm_tpu_torch.ops.kernels import fused_update as fu
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+    from gasfm_tpu_torch.tools.kernel_device_time import device_ms_per_call
+
+    gen = torch.Generator(device=dev).manual_seed(4680)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    graphs = {"wide": wide, "hub_point": hub_point_graph(wide, sk.SUM_ROWS),
+              "hub_parts": hub_parts_graph(dev), "degrees": degree_graph(scenes["powerlaw"].graph),
+              "dense_empty": graph_with_empty_segments(scenes["dense"].graph)}
+    results = {}
+    for label, graph in graphs.items():
+        for D in (256, 32, 4, 2):
+            edge_combine_bwd_check(results, record, label, graph, rnd(graph.num_edges, D))
+    times = {}
+    for label in ("wide", "hub_point"):
+        g = rnd(graphs[label].num_edges, 256)
+        times[label] = device_ms_per_call(
+            lambda g=g, gr=graphs[label]: fu.fused_edge_combine_bwd(g, gr), 20)[0]
+    ratio = times["hub_point"] / times["wide"]
+    ok = ratio <= 1.5
+    print(f"fused_edge_combine_bwd device time per call, D = 256: wide {times['wide']:.4f} ms "
+          f"(parent {EDGE_COMBINE_BWD_WIDE_PARENT_MS} ms, PERF.md), hub point "
+          f"{times['hub_point']:.4f} ms, ratio {ratio:.3f} (at most 1.5: "
+          f"{'ok' if ok else 'FAIL'})")
+    record["edge_combine_bwd_device_times"] = dict(times, ratio=ratio, ok=ok,
+                                                   wide_parent=EDGE_COMBINE_BWD_WIDE_PARENT_MS)
+    results["fused_edge_combine_bwd"]["ok"] = results["fused_edge_combine_bwd"]["ok"] and ok
     return results
 
 
@@ -1216,12 +1297,13 @@ def unfused_kernel_phase(dev, scene_name, graph, record):
 # ---------------------------------------------------------------------------
 
 
-def projection_update_phase(dev, scene_name, graph, record):
+def projection_update_phase(dev, scene_name, graph, record, main=True):
     """The standalone projection update at the depth flagship's layer L-2
     shapes (en (E, 32), W (32, 32 + d2)): with skip2 (the 2-wide init skip)
-    and the residual, the main variant; with neither; at d2 = 0 with the
-    residual. Forward against the plain version, backward (every input's
-    gradient) against autograd of the plain version."""
+    and the residual, the main variant (with ``main``); with neither; at d2
+    = 0 with the residual. Forward against the plain version, backward
+    (every input's gradient) against autograd of the plain version, its two
+    launches bitwise equal."""
     from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
 
     gen = torch.Generator(device=dev).manual_seed(8642)
@@ -1233,8 +1315,8 @@ def projection_update_phase(dev, scene_name, graph, record):
     results = {}
     idx = (graph.pt_idx, graph.cam_idx)
     csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
-    for variant, d2, has_res, main in (("skip2_res", 2, True, True), ("bare", 0, False, False),
-                                       ("res_only", 0, True, False)):
+    for variant, d2, has_res, main_v in (("skip2_res", 2, True, main), ("bare", 0, False, False),
+                                         ("res_only", 0, True, False)):
         K = De + d2
         ins = dict(en=torch.relu(rnd(E, De)))
         if d2:
@@ -1256,7 +1338,7 @@ def projection_update_phase(dev, scene_name, graph, record):
         forward_check(results, record, scene_name, "projection_update", variant,
                       lambda: kern(**ins), lambda: plain(**ins), ("e",),
                       nbytes(*ins.values(), *idx) + 4 * E * De,
-                      float(E * (2 * K * De + 6 * De)), main)
+                      float(E * (2 * K * De + 6 * De)), main_v)
         g = rnd(E, De)
         backward_check(
             results, record, scene_name, "projection_update_bwd", variant, kern, plain, ins, (g,),
@@ -1266,7 +1348,7 @@ def projection_update_phase(dev, scene_name, graph, record):
             # d b (= d pg), d ps, d pv (d res is g, no kernel work)
             nbytes(g, ins["en"], ins.get("skip2"), ins["w"], *csr, ins["en"], ins.get("skip2"),
                    ins["w"], ins["b"], ins["ps"], ins["pv"]),
-            float(E * (4 * K * De + 3 * De)), main)
+            float(E * (4 * K * De + 3 * De)), main_v, twice=True)
     return results
 
 
@@ -2013,17 +2095,28 @@ def main() -> int:
         for k in scenes:
             per_scene[k].update(dpesfm_kernel_phase(dev, k, scenes[k].graph, record))
         # ... and the segment sum on the wide scene and the graphs that stress
-        # its split
+        # its split, and the edge combine's backward on those of its point walk
         per_scene["sum_graphs"] = segment_sum_graph_phase(dev, scenes, wg, record)
+        per_scene["combine_graphs"] = edge_combine_bwd_graph_phase(dev, scenes, wg, record)
     # ---- phase 3c: the unfused path's kernels (single-direction attention,
     # segment max) on the dense and wide scenes
     with torch.no_grad():
         per_scene["wide"] = {}
         for k, sc in (("dense", scenes["dense"]), ("wide", wide["wide"])):
             per_scene[k].update(unfused_kernel_phase(dev, k, sc.graph, record))
-    # ---- phase 3d: the projection update and its backward, both scenes
+    # ---- phase 3d: the projection update and its backward, both scenes, and
+    # on graphs that stress the backward's edge tiles and sums (a ragged last
+    # tile, empty points and camera, a hub point, cameras of 31-64 edges)
     for k in scenes:
         per_scene[k].update(projection_update_phase(dev, k, scenes[k].graph, record))
+    from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
+                                                    hub_point_graph, tile_boundary_graph)
+    update_graphs = {"tile_edges": tile_boundary_graph(dev),
+                     "degrees": degree_graph(scenes["powerlaw"].graph),
+                     "hub_point": hub_point_graph(wg, sk.SUM_ROWS),
+                     "dense_empty": graph_with_empty_segments(scenes["dense"].graph)}
+    for k, graph in update_graphs.items():
+        per_scene[f"update_{k}"] = projection_update_phase(dev, k, graph, record, main=False)
     bad = [(s, k) for s, r in per_scene.items() for k, v in r.items() if not v["ok"]]
     if bad:
         raise SmokeFailure(f"kernels out of tolerance: {bad}")

@@ -1,7 +1,9 @@
 // Edge tiles of a per-edge prologue, for sm_90a: the layer step's forward
 // (#5) and backward (#6) (fused_layer_step.cu, gasfm_layer_step_prologue and
-// gasfm_layer_step_bwd) run them; the frontend's (#3/#4) and the projection
-// update's (#9/#10) kernels can take up the same tile layout.
+// gasfm_layer_step_bwd) and the projection update's backward (#10,
+// fused_proj_update.cu, gasfm_proj_update_bwd) run them; the frontend's
+// (#3/#4) and the projection update's forward (#9) can take up the same
+// tile layout.
 //
 // The per-edge work of these prologues is a few small dense products (the
 // update's weight W, the two GATv2 source linears and their transposes, the
@@ -119,6 +121,119 @@ __device__ __forceinline__ float row_sum32(const float (&s)[4]) {
 }
 
 // ---------------------------------------------------------------------------
+// The projection update's backward on a tile, phases 2 and 4 of the layer
+// step's backward (layer_step_bwd_tile_kernel) and the whole per-edge work
+// of the standalone update's (proj_update_bwd_tile_kernel). With du = d e /
+// 4 of the tile's edges (32 rows, zero past De and past E), a = [en |
+// skip2] (K = d_in + d2 columns) and W (De, K):
+//
+//   phase 2: [d en | d skip2] = du . W, written out;
+//   phase 4: d W += du^T a and d b += the column sums of du, in registers
+//            across all of a block's tiles.
+//
+// Phase 2 takes the first 16 ncg threads (ncg = ceil(K / 4)), each two
+// edges and four columns; phase 4 the last 16 ncg, each two du features and
+// four columns, so the two phases share the warps out.
+// ---------------------------------------------------------------------------
+
+struct UpdateBwdRoles {
+  bool on2, on4;
+  int rg2, k2;  // phase 2: edges 2 rg2, 2 rg2 + 1, columns k2 .. k2 + 3
+  int j4, k4;   // phase 4: du features j4, j4 + 1, columns k4 .. k4 + 3
+  __device__ __forceinline__ UpdateBwdRoles(int tid, int K) {
+    const int ncg = (K + 3) >> 2;
+    on2 = tid < 16 * ncg;
+    rg2 = on2 ? tid / ncg : 0;
+    k2 = 4 * (tid - rg2 * ncg);
+    const int t4 = kTileThreads - 1 - tid;
+    on4 = t4 < 16 * ncg;
+    const int rg4 = on4 ? t4 / ncg : 0;
+    j4 = 2 * rg4;
+    k4 = 4 * (t4 - rg4 * ncg);
+  }
+};
+
+// Phase 2 for the tile at e0: the sum over j < De in order.
+__device__ __forceinline__ void update_bwd_inputs(const float (*du)[kTileNarrow],
+                                                  const float (*w)[kTileWide], int De, int d_in,
+                                                  int d2, int rg2, int k2, int e0, int E,
+                                                  float* __restrict__ den_out,
+                                                  float* __restrict__ dskip2) {
+  const int K = d_in + d2;
+  float o[2][4] = {};
+  const int ra = 2 * rg2;
+  for (int j = 0; j < De; ++j) {
+    const float a0 = du[ra][j], a1 = du[ra + 1][j];
+    const float4 wj = *reinterpret_cast<const float4*>(&w[j][k2]);
+    o[0][0] = fmaf(a0, wj.x, o[0][0]);
+    o[0][1] = fmaf(a0, wj.y, o[0][1]);
+    o[0][2] = fmaf(a0, wj.z, o[0][2]);
+    o[0][3] = fmaf(a0, wj.w, o[0][3]);
+    o[1][0] = fmaf(a1, wj.x, o[1][0]);
+    o[1][1] = fmaf(a1, wj.y, o[1][1]);
+    o[1][2] = fmaf(a1, wj.z, o[1][2]);
+    o[1][3] = fmaf(a1, wj.w, o[1][3]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int e = e0 + ra + h;
+    if (e >= E) continue;
+    if ((d_in & 3) == 0 && k2 + 3 < d_in) {
+      *reinterpret_cast<float4*>(den_out + (size_t)e * d_in + k2) =
+          make_float4(o[h][0], o[h][1], o[h][2], o[h][3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int k = k2 + q;
+        if (k < d_in) {
+          den_out[(size_t)e * d_in + k] = o[h][q];
+        } else if (k < K) {
+          dskip2[(size_t)e * d2 + (k - d_in)] = o[h][q];
+        }
+      }
+    }
+  }
+}
+
+// Phase 4 for one tile: the sums over its 32 rows in order.
+__device__ __forceinline__ void update_bwd_weights(const float (*du)[kTileNarrow],
+                                                   const float (*a)[kTileWide], int j4, int k4,
+                                                   float (&acc)[2][4], float (&bias)[2]) {
+  for (int r = 0; r < kTileRows; ++r) {
+    const float2 d = *reinterpret_cast<const float2*>(&du[r][j4]);
+    const float4 av = *reinterpret_cast<const float4*>(&a[r][k4]);
+    acc[0][0] = fmaf(d.x, av.x, acc[0][0]);
+    acc[0][1] = fmaf(d.x, av.y, acc[0][1]);
+    acc[0][2] = fmaf(d.x, av.z, acc[0][2]);
+    acc[0][3] = fmaf(d.x, av.w, acc[0][3]);
+    acc[1][0] = fmaf(d.y, av.x, acc[1][0]);
+    acc[1][1] = fmaf(d.y, av.y, acc[1][1]);
+    acc[1][2] = fmaf(d.y, av.z, acc[1][2]);
+    acc[1][3] = fmaf(d.y, av.w, acc[1][3]);
+    bias[0] += d.x;
+    bias[1] += d.y;
+  }
+}
+
+// Phase 4's sums to a block's partial row: d W (De, K) at dw, d b at db.
+__device__ __forceinline__ void store_update_weight_grads(float* __restrict__ dw,
+                                                          float* __restrict__ db, int De, int K,
+                                                          int j4, int k4,
+                                                          const float (&acc)[2][4],
+                                                          const float (&bias)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = j4 + h;
+    if (j >= De) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (k4 + q < K) dw[j * K + k4 + q] = acc[h][q];
+    }
+    if (k4 == 0) db[j] = bias[h];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // The layer step's backward tile kernel. Per edge, with x = e_l (De), the
 // next layer's prologue v = relu(LN(x)) (v = x under raw) and its source
 // linears xl_p = v Wlp^T + blp, xl_c = v Wlc^T + blc, and the update
@@ -174,7 +289,6 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
   __shared__ __align__(16) StepTileSmem s;
   const int tid = threadIdx.x;
   const int K = d_in + d2, KF = Dp + Dc;
-  const int ncg = (K + 3) >> 2;  // 4-column groups of [en | skip2]
 
   for (int i = tid; i < 64 * 32; i += kTileThreads) {
     const int r = i >> 5, c = i & 31;
@@ -200,15 +314,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
   // features j3 .. j3 + 3.
   const int i3 = 2 * (tid >> 3), j3 = 4 * (tid & 7);
   float acc3[2][4] = {}, bias3[2] = {0.f, 0.f};
-  // Phase 2 (d en, d skip2): edges 2 rg2, 2 rg2 + 1, columns 4 cg2 .. of
-  // [en | skip2]; the first 16 ncg threads.
-  const bool on2 = tid < 16 * ncg;
-  const int rg2 = on2 ? tid / ncg : 0, k2 = 4 * (tid - rg2 * ncg);
-  // Phase 4 (d W, d b): du features j4, j4 + 1, columns k4 .. k4 + 3; the
-  // last 16 ncg threads, so phases 2 and 4 share the warps out.
-  const int t4 = kTileThreads - 1 - tid;
-  const bool on4 = t4 < 16 * ncg;
-  const int rg4 = on4 ? t4 / ncg : 0, j4 = 2 * rg4, k4 = 4 * (t4 - rg4 * ncg);
+  // Phases 2 and 4 (d en, d skip2; d W, d b): the update's backward.
+  const UpdateBwdRoles ro(tid, K);
   float acc4[2][4] = {}, bias4[2] = {0.f, 0.f};
   const float inv = 1.f / (float)De;
 
@@ -292,40 +399,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
     __syncthreads();
 
     // ---- phase 2: [d en | d skip2] = du . W, written out
-    if (on2) {
-      float o[2][4] = {};
-      const int ra = 2 * rg2;
-      for (int j = 0; j < De; ++j) {
-        const float a0 = s.du[ra][j], a1 = s.du[ra + 1][j];
-        const float4 wj = *reinterpret_cast<const float4*>(&s.w[j][k2]);
-        o[0][0] = fmaf(a0, wj.x, o[0][0]);
-        o[0][1] = fmaf(a0, wj.y, o[0][1]);
-        o[0][2] = fmaf(a0, wj.z, o[0][2]);
-        o[0][3] = fmaf(a0, wj.w, o[0][3]);
-        o[1][0] = fmaf(a1, wj.x, o[1][0]);
-        o[1][1] = fmaf(a1, wj.y, o[1][1]);
-        o[1][2] = fmaf(a1, wj.z, o[1][2]);
-        o[1][3] = fmaf(a1, wj.w, o[1][3]);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int e = e0 + ra + h;
-        if (e >= E) continue;
-        if ((d_in & 3) == 0 && k2 + 3 < d_in) {
-          *reinterpret_cast<float4*>(den_out + (size_t)e * d_in + k2) =
-              make_float4(o[h][0], o[h][1], o[h][2], o[h][3]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const int k = k2 + q;
-            if (k < d_in) {
-              den_out[(size_t)e * d_in + k] = o[h][q];
-            } else if (k < K) {
-              dskip2[(size_t)e * d2 + (k - d_in)] = o[h][q];
-            }
-          }
-        }
-      }
+    if (ro.on2) {
+      update_bwd_inputs(s.du, s.w, De, d_in, d2, ro.rg2, ro.k2, e0, E, den_out, dskip2);
     }
     // ---- phase 3: d Wlp / d Wlc += dx^T v, their biases
     for (int r = 0; r < kTileRows; ++r) {
@@ -343,22 +418,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
       bias3[1] += d.y;
     }
     // ---- phase 4: d W += du^T [en | skip2], d b
-    if (on4) {
-      for (int r = 0; r < kTileRows; ++r) {
-        const float2 d = *reinterpret_cast<const float2*>(&s.du[r][j4]);
-        const float4 av = *reinterpret_cast<const float4*>(&s.a[r][k4]);
-        acc4[0][0] = fmaf(d.x, av.x, acc4[0][0]);
-        acc4[0][1] = fmaf(d.x, av.y, acc4[0][1]);
-        acc4[0][2] = fmaf(d.x, av.z, acc4[0][2]);
-        acc4[0][3] = fmaf(d.x, av.w, acc4[0][3]);
-        acc4[1][0] = fmaf(d.y, av.x, acc4[1][0]);
-        acc4[1][1] = fmaf(d.y, av.y, acc4[1][1]);
-        acc4[1][2] = fmaf(d.y, av.z, acc4[1][2]);
-        acc4[1][3] = fmaf(d.y, av.w, acc4[1][3]);
-        bias4[0] += d.x;
-        bias4[1] += d.y;
-      }
-    }
+    if (ro.on4) update_bwd_weights(s.du, s.a, ro.j4, ro.k4, acc4, bias4);
   }
 
   // ---- this block's partial row
@@ -375,17 +435,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
     }
     if (j3 == 0) row[i < Dp ? L.blp + i : L.blc + (i - Dp)] = bias3[h];
   }
-  if (on4) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int j = j4 + h;
-      if (j >= De) continue;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (k4 + q < K) row[L.w + j * K + k4 + q] = acc4[h][q];
-      }
-      if (k4 == 0) row[L.b + j] = bias4[h];
-    }
+  if (ro.on4) {
+    store_update_weight_grads(row + L.w, row + L.b, De, K, ro.j4, ro.k4, acc4, bias4);
   }
   // d ln_scale, d ln_bias: the 32 edge slots' sums, merged in slot order.
   __syncthreads();
@@ -402,6 +453,76 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
     for (int r = 0; r < kTileRows; ++r) t += red[(r * 8 + (c >> 2)) * 8 + which * 4 + (c & 3)];
     if (c < De) row[(which == 0 ? L.g : L.bn) + c] = t;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The standalone projection update's backward tile kernel (#10): from the
+// cotangent g of e = ([en | skip2] W^T + ...) / 4 (+ res), du = g / 4 and
+// phases 2 and 4 above on every tile. Persistent blocks load W once and
+// take tiles tile = block, block + grid, ...; each tile's [en | skip2] rows
+// are staged by cp.async into the buffer the previous tile did not use, and
+// its g rows (one float4 per thread) loaded into registers, both a tile
+// ahead. Each block writes one partial row, d W (De, K) then d b (De):
+// column_sum_kernel sums the rows in block order. d ps and d pv are the
+// caller's (the segment sums of g at scale 1/4). Widths: De, d_in, d2 <=
+// 32, K = d_in + d2 <= 64.
+// ---------------------------------------------------------------------------
+
+struct UpdateBwdSmem {
+  float a[2][kTileRows][kTileWide];  // [en | skip2] (double-buffered)
+  float du[kTileRows][kTileNarrow];  // g / 4, zero past De and past E
+  float w[32][kTileWide];            // W (De, K)
+};
+
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) proj_update_bwd_tile_kernel(
+    const float* __restrict__ g, const float* __restrict__ en, int d_in,
+    const float* __restrict__ skip2, int d2, const float* __restrict__ w, int E, int De,
+    float* __restrict__ den_out, float* __restrict__ dskip2, float* __restrict__ partials) {
+  __shared__ __align__(16) UpdateBwdSmem s;
+  const int tid = threadIdx.x;
+  const int K = d_in + d2;
+  for (int i = tid; i < De * K; i += kTileThreads) {
+    const int j = i / K;
+    s.w[j][i - j * K] = w[i];
+  }
+  const UpdateBwdRoles ro(tid, K);
+  const int r1 = tid >> 3, c1 = 4 * (tid & 7);  // this thread's g: edge r1, features c1 ..
+  float acc[2][4] = {}, bias[2] = {0.f, 0.f};
+  const int stride = gridDim.x * kTileRows;
+
+  float cur[4], nxt[4] = {0.f, 0.f, 0.f, 0.f};
+  int e0 = blockIdx.x * kTileRows;
+  if (e0 < E) {
+    load_row4(g, De, e0 + r1, c1, e0 + r1 < E, cur);
+    stage_rows_async(&s.a[0][0][0], kTileWide, 0, en, d_in, e0, E);
+    stage_rows_async(&s.a[0][0][0], kTileWide, d_in, skip2, d2, e0, E);
+    cp_async_commit();
+  }
+  for (int it = 0; e0 < E; e0 += stride, ++it) {
+    const int buf = it & 1;
+    __syncthreads();  // the previous tile's phases are done with du and a[buf ^ 1]
+    const int f0 = e0 + stride;
+    if (f0 < E) {
+      load_row4(g, De, f0 + r1, c1, f0 + r1 < E, nxt);
+      stage_rows_async(&s.a[buf ^ 1][0][0], kTileWide, 0, en, d_in, f0, E);
+      stage_rows_async(&s.a[buf ^ 1][0][0], kTileWide, d_in, skip2, d2, f0, E);
+    }
+    cp_async_commit();
+    *reinterpret_cast<float4*>(&s.du[r1][c1]) =
+        make_float4(cur[0] * 0.25f, cur[1] * 0.25f, cur[2] * 0.25f, cur[3] * 0.25f);
+    cp_async_wait<1>();  // this thread's copies of this tile have landed
+    __syncthreads();     // everyone's, and du (and the weights)
+    if (ro.on2) {
+      update_bwd_inputs(s.du, s.w, De, d_in, d2, ro.rg2, ro.k2, e0, E, den_out, dskip2);
+    }
+    if (ro.on4) update_bwd_weights(s.du, s.a[buf], ro.j4, ro.k4, acc, bias);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) cur[q] = nxt[q];
+  }
+  cp_async_wait<0>();
+  float* row = partials + (size_t)blockIdx.x * (De * K + De);
+  if (ro.on4) store_update_weight_grads(row, row + De * K, De, K, ro.j4, ro.k4, acc, bias);
 }
 
 

@@ -12,21 +12,32 @@
 // on lane-packed streams (4 edges per 128-lane row) with block-diagonal
 // weights, one-hot matmul gathers of the point window and the camera table,
 // and table gradients resident across the sequential grid. None of that
-// carries over: here a warp owns an edge row (proj_update.cuh; the layer
-// step's forward ran the same code until it took the edge tiles of
-// edge_tile.cuh), the gathers are direct loads, and the table gradients are
-// CSR segment sums.
+// carries over: here the forward gives a warp an edge row (proj_update.cuh;
+// the layer step's forward ran the same code until it took the edge tiles
+// of edge_tile.cuh), the backward takes the edge tiles, the gathers are
+// direct loads, and the table gradients are CSR segment sums.
 //
 // What bounds it on the H100: bytes over 3.35 TB/s. The forward reads en,
 // skip2 and res and the two gathered table rows per edge and writes e, about
 // 0.65 KB per edge at De = 32, d2 = 2, against ~2 * 34 * 32 flops; the
 // weights (<= 64 x 32) sit in shared memory for the whole grid-stride sweep.
-// The backward reads g once per edge in a warp per point (d en, d skip2 and
-// the point sums d ps, in registers), g again through the camera CSR (d pv, a
-// block per camera), and g, en and skip2 once more for the tiled outer sums of
-// d W and d b (outer_sum_kernel, common.cuh); d res = g is the wrapper's, with
-// no kernel work. No float atomics: bitwise reproducible on a given card.
+// The backward reads g, en and skip2 and writes d en, d skip2, d ps and d
+// pv (~0.4 KB per edge) against ~4 * 34 * 32 flops per edge; d res = g is
+// the wrapper's, with no kernel work. Its first design gave each point a
+// warp that ran d en and d skip2 of each of the point's edges as a 32-step
+// shuffle + shared-load + FMA chain (the power-law scene's 133-edge point
+// 133 x 32 dependent steps on one warp), summed the cameras in a block each
+// and read g, en and skip2 a second time for the outer sums of d W: 20x its
+// bound on the power-law scene. Now it runs the layer step backward's edge
+// tiles (edge_tile.cuh, proj_update_bwd_tile_kernel: 32-edge tiles in
+// persistent blocks, [d en | d skip2] = du . W and d W, d b in registers,
+// register-tiled, the next tile's rows in flight), one column sum of the
+// blocks' partial rows, and the segment sum's split walks for d ps and d pv
+// (segment.cuh, #15/#18's, each with a merge launch where a hub exists).
+// No float atomics: bitwise reproducible on a given card.
+#include "edge_tile.cuh"
 #include "proj_update.cuh"
+#include "segment.cuh"
 
 namespace gasfm {
 
@@ -52,31 +63,6 @@ __global__ void __launch_bounds__(kUpdateWarps * 32) proj_update_kernel(
   }
 }
 
-// Warp per point, over the point's contiguous edges (grid-stride over points):
-// d en and d skip2 per edge, and d ps = the point's sum of g / 4 (0 for a point
-// without edges).
-__global__ void __launch_bounds__(kUpdateWarps * 32) proj_update_bwd_kernel(
-    const float* __restrict__ g, const float* __restrict__ w, const int* __restrict__ pt_ptr,
-    int n_pts, int d_in, int d2, int De, float* __restrict__ den,
-    float* __restrict__ dskip2, float* __restrict__ dps) {
-  __shared__ float s_w[32 * kUpdateMaxK];  // W (De, d_in + d2), torch layout
-  load_update_weights(s_w, w, De, d_in + d2);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kUpdateWarps;
-  for (int pt = blockIdx.x * kUpdateWarps + (threadIdx.x >> 5); pt < n_pts; pt += stride) {
-    float dps_acc = 0.f;
-    const int end = pt_ptr[pt + 1];
-    for (int edge = pt_ptr[pt]; edge < end; ++edge) {
-      const float du = lane < De ? g[(size_t)edge * De + lane] * 0.25f : 0.f;
-      dps_acc += du;
-      update_backward(du, edge, lane, s_w, De, d_in, d2, den, dskip2);
-    }
-    if (lane < De) dps[(size_t)pt * De + lane] = dps_acc;
-  }
-}
-
 }  // namespace gasfm
 
 // en (E, d_in), skip2 (E, d2) or NULL, res (E, De) or NULL, w (De, d_in + d2),
@@ -95,22 +81,33 @@ extern "C" int gasfm_proj_update(const float* en, int d_in, const float* skip2, 
 }
 
 // g (E, De) the cotangent of e; den (E, d_in); dskip2 (E, d2) or NULL; dps (n,
-// De); dpv (m, De). outer_partials (ogrid, kOuterRow) scratch; outer_sums
-// (kOuterRow): d W [a][b] (32 x 64, columns en's then skip2's) then d b[a].
+// De); dpv (m, De). partials (grid, De * K + De) scratch, K = d_in + d2;
+// sums (De * K + De): d W (De, K) then d b. grid: the tile kernel's blocks,
+// at most kTileBlocksPerSm per SM. split_p / split_c: both CSRs split as
+// the segment sum takes them (segment.cuh; ViewGraph.pt_chunks /
+// cam_chunks, layout SegmentSplit); part_p (n_chunks_p, De) and part_c
+// (n_chunks_c, De) their scratch. g, en and skip2 are read as 16-byte
+// vectors where their widths allow and must then be 16-byte aligned.
 extern "C" int gasfm_proj_update_bwd(const float* g, const float* en, int d_in,
                                      const float* skip2, int d2, const float* w,
                                      const int* pt_ptr, int n_pts, const int* cam_ptr,
-                                     const int* cam_perm, int n_cams, int E, int De,
-                                     float* den, float* dskip2, float* dps, float* dpv,
-                                     float* outer_partials, float* outer_sums, int grid,
-                                     int ogrid, void* stream) {
+                                     const int* cam_perm, int n_cams, const int* split_p,
+                                     int n_long_p, int n_chunks_p, const int* split_c,
+                                     int n_long_c, int n_chunks_c, float* part_p, float* part_c,
+                                     int E, int De, float* den, float* dskip2, float* dps,
+                                     float* dpv, float* partials, float* sums, int grid,
+                                     void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
-  proj_update_bwd_kernel<<<grid, kUpdateWarps * 32, 0, s>>>(g, w, pt_ptr, n_pts, d_in, d2, De,
-                                                            den, dskip2, dps);
-  launch_camera_update_sums(g, cam_ptr, cam_perm, n_cams, De, dpv, s);
-  OuterJobs jobs{};
-  jobs.job[0] = OuterJob{g, De, 0.25f, en, d_in, skip2, d2};
-  launch_outer_sums(jobs, 1, E, ogrid, outer_partials, outer_sums, s);
+  const int rows = E > 0 ? grid : 0;
+  if (rows > 0) {
+    proj_update_bwd_tile_kernel<<<rows, kTileThreads, 0, s>>>(g, en, d_in, skip2, d2, w, E, De,
+                                                              den, dskip2, partials);
+  }
+  launch_column_sum(partials, rows, De * (d_in + d2) + De, sums, s);
+  segment_sum(g, De, pt_ptr, nullptr, E, SegmentSplit(split_p, n_long_p, n_chunks_p), n_pts,
+              0.25f, dps, part_p, s);
+  segment_sum(g, De, cam_ptr, cam_perm, E, SegmentSplit(split_c, n_long_c, n_chunks_c), n_cams,
+              0.25f, dpv, part_c, s);
   return (int)cudaGetLastError();
 }

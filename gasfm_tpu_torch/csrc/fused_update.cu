@@ -17,16 +17,23 @@
 // Forward: read pe, write out (E x D each; 237 MB at D = 256 on the dense
 // bench scene), the tables (~8 MB) read from L2 — one thread per output
 // float4, consecutive threads on consecutive addresses, adds in the plain
-// version's order, so the result is bitwise the plain one. Backward: one
-// read of g gives d pe = g / 4 and the point sums d ps (a warp per point
-// over its contiguous rows, segment.cuh), and the same warps keep running
-// column sums of their points' d ps rows, merged per block in warp order
-// into one partial row; every edge is in exactly one point segment, so the
-// column sum of those partial rows (column_sum_kernel, common.cuh) is d pg
-// = sum over edges of g / 4 — no second pass over g. The camera sums d pv
-// read g a second time through the camera CSR: the segment sum of
-// segment.cu (#15/#18), with its merge launch where a camera is a hub.
-// Three launches per call (four with a hub), no float atomics: bitwise
+// version's order, so the result is bitwise the plain one. Backward: read g
+// once on the point side, write d pe = g / 4, d ps and d pv (E x D, n x D,
+// m x D), read g again through the camera CSR. The point pass first gave
+// each point a warp that walked its rows one at a time with no loads
+// issued ahead: the wide scene's 670-row point on one warp made the pass
+// 18x its bytes (0.60 ms at D = 256, 0.078 ms at D = 32). Now it is the
+// segment sum's split walk (segment.cuh, #15/#18) with its COMBINE flag:
+// short points several to a warp (runs of points per warp at D > 64), a
+// long point a 32-warp block, a hub's parts merged by a second launch;
+// every row the walk reads is also written back as d pe = g / 4 in the same
+// vector, and each block writes the column sums of the rows it summed as
+// one partial row, whose column sum (column_sum_kernel, common.cuh) is d pg
+// = sum over edges of g / 4: every edge lies in exactly one short point or
+// one part, so no row is counted twice and g is read once for d pe, d ps
+// and d pg. The camera sums d pv are the plain segment sum of segment.cu
+// (#15/#18), with its merge launch where a camera is a hub. Three launches
+// per call (four or five with a hub), no float atomics: bitwise
 // reproducible on a given card.
 #include "segment.cuh"
 
@@ -57,50 +64,6 @@ __global__ void __launch_bounds__(kCombineThreads) edge_combine_kernel(
   }
 }
 
-// Backward, point side: per point (warp, grid-stride) d pe = g / 4 for its
-// rows and d ps = sum of them; each block writes the sum of its points' d ps
-// rows to partials[blockIdx.x] (D floats).
-template <int VEC>
-__global__ void __launch_bounds__(kSegWarps * 32) edge_combine_bwd_point_kernel(
-    const float* __restrict__ g, int D, const int* __restrict__ pt_ptr, int n_pts,
-    float* __restrict__ dpe, float* __restrict__ dps, float* __restrict__ partials) {
-  using T = typename VecT<VEC>::T;
-  __shared__ __align__(16) float part[kSegWarps][kSegMaxD];
-  const T* rows = reinterpret_cast<const T*>(g);
-  T* de = reinterpret_cast<T*>(dpe);
-  const int warp = threadIdx.x >> 5;
-  RowSum<VEC> rs, tot;
-  rs.init(D);
-  tot.init(D);
-  for (int s = blockIdx.x * kSegWarps + warp; s < n_pts; s += gridDim.x * kSegWarps) {
-    rs.clear();
-    const int end = pt_ptr[s + 1];
-    for (int e = pt_ptr[s] + rs.sub; e < end; e += rs.R) {
-      const T* row = rows + (size_t)e * rs.Dv;
-#pragma unroll
-      for (int k = 0; k < RowSum<VEC>::KMAX; ++k) {
-        const int c = rs.col + rs.W * k;
-        if (c < rs.Dv) {
-          const T x = vscale(row[c], 0.25f);
-          de[(size_t)e * rs.Dv + c] = x;
-          vadd(rs.acc[k], x);
-        }
-      }
-    }
-    rs.merge_groups();
-    rs.store(reinterpret_cast<T*>(dps), s, 1.f);
-#pragma unroll
-    for (int k = 0; k < RowSum<VEC>::KMAX; ++k) vadd(tot.acc[k], rs.acc[k]);
-  }
-  tot.store_shared(part[warp]);  // zeros for a warp without a point
-  __syncthreads();
-  for (int f = threadIdx.x; f < D; f += kSegWarps * 32) {
-    float t = 0.f;
-    for (int w = 0; w < kSegWarps; ++w) t += part[w][f];
-    partials[(size_t)blockIdx.x * D + f] = t;
-  }
-}
-
 template <int VEC>
 void launch_edge_combine(const float* pe, const float* ps, const float* pv, const float* pg,
                          const int* pt_idx, const int* cam_idx, int E, int D, float* out,
@@ -112,17 +75,6 @@ void launch_edge_combine(const float* pe, const float* ps, const float* pv, cons
   const int grid = (int)(want < (1LL << 20) ? want : (1LL << 20));
   edge_combine_kernel<VEC><<<grid, kCombineThreads, 0, s>>>(pe, ps, pv, pg, pt_idx, cam_idx,
                                                             Dv, total, out);
-}
-
-template <int VEC>
-void launch_edge_combine_bwd(const float* g, int D, int E, const int* pt_ptr, int n_pts,
-                             const int* cam_ptr, const int* cam_perm, const SegmentSplit& spc,
-                             int n_cams, int grid, float* dpe, float* dps, float* dpv,
-                             float* dpg, float* partials, float* cam_part, cudaStream_t s) {
-  edge_combine_bwd_point_kernel<VEC><<<grid, kSegWarps * 32, 0, s>>>(g, D, pt_ptr, n_pts, dpe,
-                                                                     dps, partials);
-  segment_sum(g, D, cam_ptr, cam_perm, E, spc, n_cams, 0.25f, dpv, cam_part, s);
-  launch_column_sum(partials, grid, D, dpg, s);
 }
 
 }  // namespace gasfm
@@ -143,25 +95,26 @@ extern "C" int gasfm_edge_combine(const float* pe, const float* ps, const float*
 }
 
 // From the cotangent g (E, D): dpe (E, D) = g / 4; dps (n, D) and dpv (m, D)
-// its point and camera CSR sums / 4; dpg (D,) its column sum / 4 (through
-// partials, (grid, D) scratch, grid >= 1 blocks of the point pass). The
-// camera sums take the cameras' split (cam_split, n_long_c, n_chunks_c; the
-// segment sum's, segment.cuh) and cam_part, (n_chunks_c, D) scratch.
+// its point and camera CSR sums / 4; dpg (D,) its column sum / 4, through
+// partials: (n_chunks_p + ceil(n_pts / 32), D) scratch, one row per block
+// of the point pass. Each side's split (pt_split / cam_split, n_long,
+// n_chunks: the segment sum's, segment.cuh) and its (n_chunks, D) scratch
+// pt_part / cam_part, read only where a segment has several parts. g and
+// the outputs aligned to 16 bytes when D % 4 == 0 (8 when D % 4 == 2).
 extern "C" int gasfm_edge_combine_bwd(const float* g, int D, int E, const int* pt_ptr, int n_pts,
+                                      const int* pt_split, int n_long_p, int n_chunks_p,
                                       const int* cam_ptr, const int* cam_perm,
                                       const int* cam_split, int n_long_c, int n_chunks_c,
-                                      int n_cams, int grid, float* dpe, float* dps, float* dpv,
-                                      float* dpg, float* partials, float* cam_part,
+                                      int n_cams, float* dpe, float* dps, float* dpv, float* dpg,
+                                      float* partials, float* pt_part, float* cam_part,
                                       void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
-  const SegmentSplit spc(cam_split, n_long_c, n_chunks_c);
-  if (D % 4 == 0) {
-    launch_edge_combine_bwd<4>(g, D, E, pt_ptr, n_pts, cam_ptr, cam_perm, spc, n_cams, grid, dpe,
-                               dps, dpv, dpg, partials, cam_part, s);
-  } else {
-    launch_edge_combine_bwd<1>(g, D, E, pt_ptr, n_pts, cam_ptr, cam_perm, spc, n_cams, grid, dpe,
-                               dps, dpv, dpg, partials, cam_part, s);
-  }
+  const SegmentSplit spp(pt_split, n_long_p, n_chunks_p);
+  const int rows = segment_sum_combine(g, D, pt_ptr, E, spp, n_pts, 0.25f, dps, pt_part, dpe,
+                                       partials, s);
+  segment_sum(g, D, cam_ptr, cam_perm, E, SegmentSplit(cam_split, n_long_c, n_chunks_c), n_cams,
+              0.25f, dpv, cam_part, s);
+  launch_column_sum(partials, rows, D, dpg, s);
   return (int)cudaGetLastError();
 }

@@ -51,10 +51,6 @@ namespace gasfm {
 constexpr int kGatherWarpsWide = 2, kGatherWarpsNarrow = 8;
 constexpr int kGatherUnroll = 4;  // row steps whose loads are in flight together
 
-__device__ __forceinline__ void stcs(float* p, float v) { __stcs(p, v); }
-__device__ __forceinline__ void stcs(float2* p, float2 v) { __stcs(p, v); }
-__device__ __forceinline__ void stcs(float4* p, float4 v) { __stcs(p, v); }
-
 // out[e] = table[ids[e]], Dv vectors of VEC floats per row. Warp w takes the
 // 32 edges [32 w, 32 w + 32), kGatherUnroll row steps at a time: each row
 // group loads kGatherUnroll rows, then stores them.

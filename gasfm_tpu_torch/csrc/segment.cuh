@@ -1,7 +1,8 @@
 // Wide-row CSR segment sums (sm_90a, float32), shared by segment.cu (#15/#18),
-// fused_update.cu (#12's camera sums and, through RowSum, its point pass) and
-// fused_layer_step.cu (#6's two sums), and the vector helpers of segment.cu's
-// gather.
+// fused_update.cu (#12: its point pass is this walk with the COMBINE flag,
+// its camera sums the plain one), fused_layer_step.cu (#6's two sums) and
+// fused_proj_update.cu (#10's two sums), and the vector helpers of
+// segment.cu's gather.
 //
 // Unlike the narrow streams of the other kernels (one lane per feature,
 // D <= 32, common.cuh), these rows are 1 to 256 floats wide. A row is read
@@ -41,7 +42,7 @@
 namespace gasfm {
 
 constexpr int kSegMaxD = 256;  // widest row the kernels take
-constexpr int kSegWarps = 8;   // warps per block of the segment max and #12's point pass
+constexpr int kSegWarps = 8;   // warps per block of the segment max
 
 inline int seg_blocks(int n_seg) { return (n_seg + kSegWarps - 1) / kSegWarps; }
 
@@ -95,67 +96,18 @@ __device__ __forceinline__ float4 vshfl_xor(const float4 a, int off) {
                      __shfl_xor_sync(GASFM_FULL_MASK, a.w, off));
 }
 
+// Streaming stores: rows written once and not read again soon (the gather's
+// output, #12's d pe), kept from pushing the rows still to be read out of L2.
+__device__ __forceinline__ void stcs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void stcs(float2* p, float2 v) { __stcs(p, v); }
+__device__ __forceinline__ void stcs(float4* p, float4 v) { __stcs(p, v); }
+
 // Lanes per row: the smallest power of two >= dv, at most 32.
 __host__ __device__ __forceinline__ int row_lanes(int dv) {
   int w = 1;
   while (w < dv && w < 32) w <<= 1;
   return w;
 }
-
-// Per-lane accumulator of a warp walking one segment's rows, R = 32 / W row
-// groups (#12's point pass, fused_update.cu): KMAX vector columns (8 floats,
-// whatever VEC: D <= 256).
-template <int VEC>
-struct RowSum {
-  using T = typename VecT<VEC>::T;
-  static constexpr int KMAX = 8 / VEC;
-  T acc[KMAX];
-  int W, R, sub, col, Dv;
-
-  __device__ __forceinline__ void init(int D) {
-    Dv = D / VEC;
-    W = row_lanes(Dv);
-    R = 32 / W;
-    const int lane = threadIdx.x & 31;
-    sub = lane / W;
-    col = lane % W;
-    clear();
-  }
-
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) vzero(acc[k]);
-  }
-
-  // Merge the R row groups: afterwards every lane holds its columns' sum.
-  // All 32 lanes must call it.
-  __device__ __forceinline__ void merge_groups() {
-    for (int off = W; off < 32; off <<= 1) {
-#pragma unroll
-      for (int k = 0; k < KMAX; ++k) vadd(acc[k], vshfl_xor(acc[k], off));
-    }
-  }
-
-  // Write the sum times `scale` to `out` row `s` (lanes of row group 0).
-  __device__ __forceinline__ void store(T* __restrict__ out, int s, float scale) const {
-    if (sub != 0) return;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int c = col + W * k;
-      if (c < Dv) out[(size_t)s * Dv + c] = vscale(acc[k], scale);
-    }
-  }
-
-  // Write the sum to a D-float shared-memory row (lanes of row group 0).
-  __device__ __forceinline__ void store_shared(float* srow) const {
-    if (sub != 0) return;
-#pragma unroll
-    for (int k = 0; k < KMAX; ++k) {
-      const int c = col + W * k;
-      if (c < Dv) reinterpret_cast<T*>(srow)[c] = acc[k];
-    }
-  }
-};
 
 // ---- the CSR segment sum ----------------------------------------------------------
 //
@@ -170,6 +122,15 @@ struct RowSum {
 // come from the host, split once per graph (ViewGraph.pt_chunks /
 // cam_chunks with rows = kSumPartRows, long_above = kSumRows). One launch
 // unless a hub exists; every sum in a fixed order, bitwise reproducible.
+//
+// With the COMBINE flag (#12's point pass, point side only) the walk also
+// writes every row it reads times scale to rows_out, at the row's own place
+// (d pe = g / 4 from the one read of g), and each block of the main launch
+// writes the column sums of the rows it summed, times scale, as one partial
+// row, partials[blockIdx.x] (D floats): every row lies in exactly one short
+// segment or one part, so the column sum of those rows (column_sum_kernel,
+// common.cuh) is scale times the sum of all rows (d pg). Without the flag
+// the kernel's arithmetic is the plain sum's.
 
 constexpr int kSumRows = 64;         // the longest short segment
 constexpr int kSumGroup = 8;         // short segments per block at W = 32, 4 warps each
@@ -200,12 +161,16 @@ struct SumLayout {
 // lane), U rows' loads issued before they are added, whatever segments
 // they belong to; a segment's sum times scale is written when the stream
 // crosses its end (an empty one's: 0). A long segment's rows are skipped:
-// its block sums them. Every branch is the same on every lane.
-template <int VEC, int K, int U>
+// its block sums them. Every branch is the same on every lane. With
+// COMBINE, each row times scale also goes to rows_out, and the segments'
+// sums (unscaled) are added to tot.
+template <int VEC, int K, int U, bool COMBINE = false>
 __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __restrict__ rows,
                                               int Dv, const int* __restrict__ ptr, int n_seg,
                                               int s0, int run, float scale,
-                                              typename VecT<VEC>::T* __restrict__ out) {
+                                              typename VecT<VEC>::T* __restrict__ out,
+                                              typename VecT<VEC>::T* __restrict__ rows_out,
+                                              typename VecT<VEC>::T (&tot)[K]) {
   using T = typename VecT<VEC>::T;
   const int lane = threadIdx.x & 31;
   const int nr = min(run, n_seg - s0);
@@ -220,6 +185,7 @@ __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __res
     for (int k = 0; k < K; ++k) {
       const int col = lane + 32 * k;
       if (col < Dv) out[(size_t)(s0 + c) * Dv + col] = vscale(acc[k], scale);
+      if constexpr (COMBINE) vadd(tot[k], acc[k]);
       vzero(acc[k]);
     }
   };
@@ -253,7 +219,15 @@ __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __res
             next = __shfl_sync(GASFM_FULL_MASK, pj, c + 1);
           }
 #pragma unroll
-          for (int k = 0; k < K; ++k) vadd(acc[k], v[u][k]);
+          for (int k = 0; k < K; ++k) {
+            vadd(acc[k], v[u][k]);
+            if constexpr (COMBINE) {
+              const int col = lane + 32 * k;
+              if (col < Dv) {
+                stcs(rows_out + (size_t)(r + u) * Dv + col, vscale(v[u][k], scale));
+              }
+            }
+          }
         }
       }
     }
@@ -271,13 +245,16 @@ __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __res
 // flight; returns this lane's K columns summed over its rows, the row
 // groups merged by a butterfly. end = min(begin + cap, *end_at); the first
 // entries load before it is known: a row past it (below n_rows) loads an
-// entry that is never used.
-template <int VEC, int W>
+// entry that is never used. With COMBINE (no permutation), each row times
+// scale also goes to rows_out.
+template <int VEC, int W, bool COMBINE = false>
 __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restrict__ rows,
                                             int Dv, const int* __restrict__ perm, int n_rows,
                                             int begin, const int* __restrict__ end_at, int cap,
                                             int gw, int nw,
-                                            typename VecT<VEC>::T (&acc)[SumLayout<VEC, W>::K]) {
+                                            typename VecT<VEC>::T (&acc)[SumLayout<VEC, W>::K],
+                                            typename VecT<VEC>::T* __restrict__ rows_out = nullptr,
+                                            float scale = 1.f) {
   using T = typename VecT<VEC>::T;
   constexpr int NG = 32 / W, K = SumLayout<VEC, W>::K;
   constexpr int U = K == 1 ? 4 : (8 / K > 0 ? 8 / K : 1);
@@ -315,7 +292,14 @@ __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restr
     for (int u = 0; u < U; ++u) {
 #pragma unroll
       for (int c = 0; c < K; ++c) {
-        if (i + u * stride < end) vadd(acc[c], v[u][c]);
+        if (i + u * stride < end) {
+          vadd(acc[c], v[u][c]);
+          if constexpr (COMBINE) {
+            if (col + W * c < Dv) {
+              stcs(rows_out + (size_t)e[u] * Dv + col + W * c, vscale(v[u][c], scale));
+            }
+          }
+        }
       }
       e[u] = en[u];
     }
@@ -343,6 +327,22 @@ __device__ __forceinline__ void sum_to_shared(
   __syncthreads();
 }
 
+// COMBINE's partial row: each warp's column sums `tot` (lanes of row group
+// 0) added in warp order, times scale, to partials[blockIdx.x]. Every thread
+// of the block must call it.
+template <int VEC, int W>
+__device__ __forceinline__ void sum_block_partial(
+    const typename VecT<VEC>::T (&tot)[SumLayout<VEC, W>::K], int Dv, float (*sw)[kSegMaxD],
+    float scale, float* __restrict__ partials) {
+  sum_to_shared<VEC, W>(tot, Dv, sw);
+  const int D = Dv * VEC;
+  for (int j = threadIdx.x; j < D; j += kSumBlockWarps * 32) {
+    float t = 0.f;
+    for (int w = 0; w < kSumBlockWarps; ++w) t += sw[w][j];
+    partials[(size_t)blockIdx.x * D + j] = t * scale;
+  }
+}
+
 // Main launch, blocks of kSumBlockWarps warps, in this order:
 //   - [0, sp.n_chunks): part k of a long segment (sp: the parts), its rows
 //     walked by all the block's warps (sum_strided), their sums added in
@@ -355,28 +355,36 @@ __device__ __forceinline__ void sum_to_shared(
 //     points instead (sum_point_run: the power-law scene's ~3-row points).
 //     At W < 32, P to a warp, G lanes each: a lane group takes rows g, g +
 //     NG, ..., U at a time (their permutation entries, then their rows), and
-//     the NG groups merge by a butterfly.
+//     the NG groups merge by a butterfly (with COMBINE, `run` segments in
+//     turn per lane group).
 // A short segment's sum times scale goes to out (an empty one's: 0); a long
-// one is skipped there. At W < 32 (rows of 1-16 vectors) the launch bounds
-// ask for two blocks per SM, which caps the kernel at 32 registers: ptxas
-// then spills 20-32 bytes per thread at VEC = 4 and 8 at VEC = 2, W = 2 or 4
-// (a cap of one block per SM is not measured against it).
-template <int VEC, int W>
-__global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 ? 1 : 2) segment_sum_kernel(
+// one is skipped there. COMBINE (point side, run = kSumRun at every W): see above.
+// At W < 32 (rows of 1-16 vectors) the launch bounds ask for two blocks per
+// SM, which caps the kernel at 32 registers: ptxas then spills 20-32 bytes
+// per thread at VEC = 4 and 8 at VEC = 2, W = 2 or 4 (a cap of one block per
+// SM is not measured against it). With COMBINE the cap left 476 bytes of
+// spills per thread at VEC = 4 (the rows held until their copies are
+// stored), 7.5x the plain sum's time at D = 32 on the dense bench scene: it
+// asks for one block per SM.
+template <int VEC, int W, bool COMBINE = false>
+__global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 2)
+    segment_sum_kernel(
     const float* __restrict__ data, int Dv, const int* __restrict__ ptr,
     const int* __restrict__ perm, int n_rows, SegmentSplit sp, int n_seg, int run, float scale,
-    float* __restrict__ out, float* __restrict__ part) {
+    float* __restrict__ out, float* __restrict__ part, float* __restrict__ rows_out,
+    float* __restrict__ partials) {
   using L = SumLayout<VEC, W>;
   using T = typename VecT<VEC>::T;
   __shared__ __align__(16) float sw[kSumBlockWarps][kSegMaxD];
   const T* rows = reinterpret_cast<const T*>(data);
+  T* copy = reinterpret_cast<T*>(rows_out);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int D = Dv * VEC;
   if ((int)blockIdx.x < sp.n_chunks) {
     const int k = blockIdx.x, seg = sp.chunk_seg[k];
     T acc[L::K];
-    sum_strided<VEC, W>(rows, Dv, perm, n_rows, sp.chunk_begin[k], ptr + seg + 1, kSumPartRows,
-                        warp, kSumBlockWarps, acc);
+    sum_strided<VEC, W, COMBINE>(rows, Dv, perm, n_rows, sp.chunk_begin[k], ptr + seg + 1,
+                                 kSumPartRows, warp, kSumBlockWarps, acc, copy, scale);
     sum_to_shared<VEC, W>(acc, Dv, sw);
     const bool whole = ptr[seg + 1] - ptr[seg] <= kSumPartRows;
     float* dst = whole ? out + (size_t)seg * D : part + (size_t)k * D;
@@ -385,17 +393,22 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 ? 1 : 2) segment_
       float t = 0.f;
       for (int w = 0; w < kSumBlockWarps; ++w) t += sw[w][j];
       dst[j] = t * f;
+      if constexpr (COMBINE) partials[(size_t)k * D + j] = t * scale;
     }
     return;
   }
   const int b = blockIdx.x - sp.n_chunks;
   if constexpr (W == 32) {
-    if (run > 0) {
+    if (COMBINE || run > 0) {
+      T tot[L::K];
+#pragma unroll
+      for (int k = 0; k < L::K; ++k) vzero(tot[k]);
       const int s0 = (b * kSumBlockWarps + warp) * run;
       if (s0 < n_seg) {
-        sum_point_run<VEC, L::K, L::U>(rows, Dv, ptr, n_seg, s0, run, scale,
-                                       reinterpret_cast<T*>(out));
+        sum_point_run<VEC, L::K, L::U, COMBINE>(rows, Dv, ptr, n_seg, s0, run, scale,
+                                                reinterpret_cast<T*>(out), copy, tot);
       }
+      if constexpr (COMBINE) sum_block_partial<VEC, W>(tot, Dv, sw, scale, partials);
       return;
     }
     constexpr int kPer = kSumBlockWarps / kSumGroup;  // warps per short segment
@@ -416,54 +429,82 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 ? 1 : 2) segment_
     }
     return;
   }
-  const int q = (b * kSumBlockWarps + warp) * L::P + lane / L::G;
+  // A lane group takes one segment; with COMBINE, `run` consecutive ones in
+  // turn (the warp's P groups on P x run consecutive segments), so a block
+  // sums enough rows to pay for its partial row.
+  const int reps = COMBINE ? run : 1;
   const int g = (lane % L::G) / W, col = lane % W;
-  int seg = -1, begin = 0, end = 0;  // seg < 0: nothing to write
-  if (q < n_seg) {
-    seg = q;
-    begin = ptr[q];
-    end = ptr[q + 1];
-    if (end - begin > kSumRows) seg = -1, end = begin;  // long: its block sums it
-  }
-  T acc[L::K];
+  T tot[L::K];
 #pragma unroll
-  for (int k = 0; k < L::K; ++k) vzero(acc[k]);
-  for (int i = begin + g; i < end; i += L::NG * L::U) {
-    int e[L::U];
-#pragma unroll
-    for (int u = 0; u < L::U; ++u) {
-      const int r = i + u * L::NG;
-      e[u] = r < end ? (perm == nullptr ? r : __ldg(perm + r)) : -1;
+  for (int k = 0; k < L::K; ++k) vzero(tot[k]);
+  for (int it = 0; it < reps; ++it) {
+    const int q = ((b * kSumBlockWarps + warp) * reps + it) * L::P + lane / L::G;
+    int seg = -1, begin = 0, end = 0;  // seg < 0: nothing to write
+    if (q < n_seg) {
+      seg = q;
+      begin = ptr[q];
+      end = ptr[q + 1];
+      if (end - begin > kSumRows) seg = -1, end = begin;  // long: its block sums it
     }
-    T v[L::U][L::K];
+    T acc[L::K];
 #pragma unroll
-    for (int u = 0; u < L::U; ++u) {
+    for (int k = 0; k < L::K; ++k) vzero(acc[k]);
+    for (int i = begin + g; i < end; i += L::NG * L::U) {
+      int e[L::U];
+#pragma unroll
+      for (int u = 0; u < L::U; ++u) {
+        const int r = i + u * L::NG;
+        e[u] = r < end ? (perm == nullptr ? r : __ldg(perm + r)) : -1;
+      }
+      T v[L::U][L::K];
+#pragma unroll
+      for (int u = 0; u < L::U; ++u) {
+#pragma unroll
+        for (int k = 0; k < L::K; ++k) {
+          const int c = col + W * k;
+          vzero(v[u][k]);
+          if (e[u] >= 0 && c < Dv) v[u][k] = __ldg(rows + (size_t)e[u] * Dv + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < L::U; ++u) {
+#pragma unroll
+        for (int k = 0; k < L::K; ++k) {
+          if (e[u] >= 0) {
+            vadd(acc[k], v[u][k]);
+            if constexpr (COMBINE) {
+              const int c = col + W * k;
+              if (c < Dv) stcs(copy + (size_t)e[u] * Dv + c, vscale(v[u][k], scale));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int off = W; off < L::G; off <<= 1) {
+#pragma unroll
+      for (int k = 0; k < L::K; ++k) vadd(acc[k], vshfl_xor(acc[k], off));
+    }
+    if (g == 0 && seg >= 0) {
+      T* dst = reinterpret_cast<T*>(out) + (size_t)seg * Dv;
 #pragma unroll
       for (int k = 0; k < L::K; ++k) {
         const int c = col + W * k;
-        vzero(v[u][k]);
-        if (e[u] >= 0 && c < Dv) v[u][k] = __ldg(rows + (size_t)e[u] * Dv + c);
+        if (c < Dv) dst[c] = vscale(acc[k], scale);
       }
     }
+    if constexpr (COMBINE) {
 #pragma unroll
-    for (int u = 0; u < L::U; ++u) {
-#pragma unroll
-      for (int k = 0; k < L::K; ++k) {
-        if (e[u] >= 0) vadd(acc[k], v[u][k]);
-      }
+      for (int k = 0; k < L::K; ++k) vadd(tot[k], acc[k]);  // 0 for a long or missing one
     }
   }
+  if constexpr (COMBINE) {  // the warp's P lane groups, then the block's warps
 #pragma unroll
-  for (int off = W; off < L::G; off <<= 1) {
+    for (int off = L::G; off < 32; off <<= 1) {
 #pragma unroll
-    for (int k = 0; k < L::K; ++k) vadd(acc[k], vshfl_xor(acc[k], off));
-  }
-  if (g != 0 || seg < 0) return;
-  T* dst = reinterpret_cast<T*>(out) + (size_t)seg * Dv;
-#pragma unroll
-  for (int k = 0; k < L::K; ++k) {
-    const int c = col + W * k;
-    if (c < Dv) dst[c] = vscale(acc[k], scale);
+      for (int k = 0; k < L::K; ++k) vadd(tot[k], vshfl_xor(tot[k], off));
+    }
+    sum_block_partial<VEC, W>(tot, Dv, sw, scale, partials);
   }
 }
 
@@ -526,14 +567,18 @@ __global__ void __launch_bounds__(kSumMergeWarps * 32) segment_sum_merge_kernel(
   }
 }
 
-template <int VEC>
-inline void launch_segment_sum(const float* data, int D, const int* ptr, const int* perm,
-                               int n_rows, const SegmentSplit& sp, int n_seg, float scale,
-                               float* out, float* part, cudaStream_t s) {
+// The main launch's blocks, and with COMBINE its partial rows (none when
+// the grid is 0).
+template <int VEC, bool COMBINE>
+inline int launch_segment_sum(const float* data, int D, const int* ptr, const int* perm,
+                              int n_rows, const SegmentSplit& sp, int n_seg, float scale,
+                              float* out, float* part, float* rows_out, float* partials,
+                              cudaStream_t s) {
   const int Dv = D / VEC;
+  int grid = 0;
   auto main_launch = [&](auto w) {
     constexpr int Wc = decltype(w)::value;
-    const int run = Wc == 32 && perm == nullptr ? kSumRun : 0;
+    const int run = (Wc == 32 || COMBINE) && perm == nullptr ? kSumRun : 0;
     int short_blocks = 0;  // none when every segment is long
     if (n_seg > sp.n_long) {
       if (Wc == 32 && run == 0) {
@@ -543,10 +588,10 @@ inline void launch_segment_sum(const float* data, int D, const int* ptr, const i
         short_blocks = blocks_of(blocks_of(pieces, SumLayout<VEC, Wc>::P), kSumBlockWarps);
       }
     }
-    const int grid = sp.n_chunks + short_blocks;
+    grid = sp.n_chunks + short_blocks;
     if (grid > 0) {
-      segment_sum_kernel<VEC, Wc><<<grid, kSumBlockWarps * 32, 0, s>>>(
-          data, Dv, ptr, perm, n_rows, sp, n_seg, run, scale, out, part);
+      segment_sum_kernel<VEC, Wc, COMBINE><<<grid, kSumBlockWarps * 32, 0, s>>>(
+          data, Dv, ptr, perm, n_rows, sp, n_seg, run, scale, out, part, rows_out, partials);
     }
   };
   switch (row_lanes(Dv)) {
@@ -561,6 +606,23 @@ inline void launch_segment_sum(const float* data, int D, const int* ptr, const i
     segment_sum_merge_kernel<VEC><<<sp.n_long, kSumMergeWarps * 32, 0, s>>>(part, Dv, sp, scale,
                                                                             out);
   }
+  return grid;
+}
+
+template <bool COMBINE>
+inline int segment_sum_vec(const float* data, int D, const int* ptr, const int* perm,
+                           int n_rows, const SegmentSplit& sp, int n_seg, float scale, float* out,
+                           float* part, float* rows_out, float* partials, cudaStream_t s) {
+  if (D % 4 == 0) {
+    return launch_segment_sum<4, COMBINE>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
+                                          part, rows_out, partials, s);
+  }
+  if (D % 2 == 0) {
+    return launch_segment_sum<2, COMBINE>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
+                                          part, rows_out, partials, s);
+  }
+  return launch_segment_sum<1, COMBINE>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part,
+                                        rows_out, partials, s);
 }
 
 // The segment sum of D-wide rows (1 <= D <= kSegMaxD) over the CSR (ptr,
@@ -572,13 +634,20 @@ inline void launch_segment_sum(const float* data, int D, const int* ptr, const i
 inline void segment_sum(const float* data, int D, const int* ptr, const int* perm, int n_rows,
                         const SegmentSplit& sp, int n_seg, float scale, float* out, float* part,
                         cudaStream_t s) {
-  if (D % 4 == 0) {
-    launch_segment_sum<4>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, s);
-  } else if (D % 2 == 0) {
-    launch_segment_sum<2>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, s);
-  } else {
-    launch_segment_sum<1>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, s);
-  }
+  segment_sum_vec<false>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part, nullptr,
+                         nullptr, s);
+}
+
+// The same walk over the point CSR (rows ptr[s] .. ptr[s+1]) with the
+// COMBINE flag: also rows_out (n_rows, D) = scale * data, and one partial
+// row of scale-times column sums per block of the main launch in partials,
+// at least (sp.n_chunks + ceil(n_seg / 32), D). Returns the partial rows
+// written (the main launch's blocks). rows_out and partials aligned as out.
+inline int segment_sum_combine(const float* data, int D, const int* ptr, int n_rows,
+                               const SegmentSplit& sp, int n_seg, float scale, float* out,
+                               float* part, float* rows_out, float* partials, cudaStream_t s) {
+  return segment_sum_vec<true>(data, D, ptr, nullptr, n_rows, sp, n_seg, scale, out, part,
+                               rows_out, partials, s);
 }
 
 }  // namespace gasfm

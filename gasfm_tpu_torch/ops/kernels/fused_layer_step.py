@@ -45,11 +45,13 @@ from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (
     fused_dual_attend,
     fused_dual_attend_plain,
 )
-from gasfm_tpu_torch.ops.kernels.fused_proj_update import projection_update_plain
+from gasfm_tpu_torch.ops.kernels.fused_proj_update import (
+    TILE_BLOCKS_PER_SM,
+    TILE_ROWS,
+    projection_update_plain,
+)
 from gasfm_tpu_torch.ops.kernels.segment_kernels import sum_split
 
-TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile
-TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: the backward's persistent blocks per SM
 FWD_BLOCKS_PER_SM = 3  # kStepFwdBlocksPerSm: the forward's
 
 _ARGS = (

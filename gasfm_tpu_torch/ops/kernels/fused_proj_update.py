@@ -13,14 +13,18 @@ d2) in torch's layout (columns for en, then skip2), b (De,), ps (n, De), pv
 (m, De), pg (1, De); d_in, d2, De <= 32 and d_in + d2 <= 64. The model runs
 it on a merged-path layer whose successor is not merged (the depth head's
 layer L-2), where the update cannot defer into the next layer-step kernel.
-The layer-step kernel runs the same device code as its first half
-(``csrc/proj_update.cuh``).
+The forward keeps the per-edge device code the layer step's forward ran
+before it took the edge tiles (``csrc/proj_update.cuh``).
 
 The backward gives d en = (g / 4) W[:, :d_in], d skip2 = (g / 4) W[:, d_in:],
 d W the outer sums of g / 4 with [en | skip2], d b = d pg the column sum of
 g / 4, d ps and d pv the point and camera sums of g / 4 (0 for a point or
-camera without edges), and d res = g (no kernel work). Four launches inside
-one call, counted once by ``projection_update_bwd``.
+camera without edges), and d res = g (no kernel work). It runs the layer
+step backward's edge tiles (``csrc/edge_tile.cuh``, its phases 2 and 4: d en,
+d skip2, and d W, d b in one partial row per block), the column sum of those
+rows, and the segment sum on both sides (``csrc/segment.cuh``): four launches
+inside one call, one more for each side with a hub, counted once by
+``projection_update_bwd``.
 
 What bounds both on the H100 is bytes over its 3.35 TB/s (see the source).
 No float atomics; results are bitwise reproducible on a given card.
@@ -37,17 +41,19 @@ import torch
 import torch.nn.functional as F
 
 from gasfm_tpu_torch.ops.kernels import build as kb
-from gasfm_tpu_torch.ops.kernels.fused_dual_attn import OUTER_ROW, outer_grid, split_outer_sums
+from gasfm_tpu_torch.ops.kernels.segment_kernels import sum_split
 
 UPDATE_WARPS = 8  # kUpdateWarps of csrc/fused_proj_update.cu
+TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile
+TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: the backward tile kernels' blocks per SM
 
 _ARGS = {
     # en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, out, grid, stream
     "gasfm_proj_update": (kb.P, kb.I, kb.P, kb.I) + (kb.P,) * 8 + (kb.I, kb.I, kb.P, kb.I, kb.P),
-    # g, en, d_in, skip2, d2, w, pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, E, De,
-    # den, dskip2, dps, dpv, outer partials and sums, grid, ogrid, stream
-    "gasfm_proj_update_bwd": (kb.P, kb.P, kb.I, kb.P, kb.I, kb.P, kb.P, kb.I, kb.P, kb.P)
-    + (kb.I,) * 3 + (kb.P,) * 6 + (kb.I, kb.I, kb.P),
+    # g, en, d_in, skip2, d2, w, pt_ptr, n_pts, cam_ptr, cam_perm, n_cams, both sides'
+    # splits and their scratch, E, De, den, dskip2, dps, dpv, partials, sums, grid, stream
+    "gasfm_proj_update_bwd": (kb.P, kb.P, kb.I, kb.P, kb.I, kb.P, kb.P, kb.I, kb.P, kb.P, kb.I)
+    + (kb.P, kb.I, kb.I) * 2 + (kb.P, kb.P, kb.I, kb.I) + (kb.P,) * 6 + (kb.I, kb.P),
 }
 
 
@@ -136,28 +142,30 @@ def projection_update_bwd(g, en, skip2, w, graph):
     :func:`projection_update_plain`."""
     d_in, d2, De = _widths(en, skip2, w)
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
-    g = kb.cuda_f32("g", g, (E, De))
-    en = kb.cuda_f32("en", en, (E, d_in))
+    g = kb.aligned(kb.cuda_f32("g", g, (E, De)))
+    en = kb.aligned(kb.cuda_f32("en", en, (E, d_in)))
     if skip2 is not None:
-        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
+        skip2 = kb.aligned(kb.cuda_f32("skip2", skip2, (E, d2)))
     w = kb.cuda_f32("w", w, (De, d_in + d2))
     dev = g.device
-    grid, ogrid = kb.grid_for(dev, n, UPDATE_WARPS, per_sm=4), outer_grid(dev, E)
+    K = d_in + d2
+    grid = kb.grid_for(dev, -(-E // TILE_ROWS), 1, per_sm=TILE_BLOCKS_PER_SM)
     den = kb.f32_empty((E, d_in), dev)
     dskip2 = None if skip2 is None else kb.f32_empty((E, d2), dev)
     dps, dpv = kb.f32_empty((n, De), dev), kb.f32_empty((m, De), dev)
-    outer_partials, outer_sums = kb.f32_empty((ogrid, OUTER_ROW), dev), kb.f32_empty(
-        (OUTER_ROW,), dev)
+    partials, sums = kb.f32_empty((grid, De * K + De), dev), kb.f32_empty((De * K + De,), dev)
+    split_p, n_long_p, n_chunks_p, part_p = sum_split(graph, "point", De, dev)
+    split_c, n_long_c, n_chunks_c, part_c = sum_split(graph, "camera", De, dev)
     p = kb.ptr
     code = _entry("gasfm_proj_update_bwd")(
         p(g), p(en), d_in, p(skip2), d2, p(w), p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n,
         p(kb.cuda_i32("cam_ptr", graph.cam_ptr)), p(kb.cuda_i32("cam_perm", graph.cam_perm)), m,
-        E, De, p(den), p(dskip2), p(dps), p(dpv), p(outer_partials), p(outer_sums), grid, ogrid,
+        p(split_p), n_long_p, n_chunks_p, p(split_c), n_long_c, n_chunks_c, p(part_p),
+        p(part_c), E, De, p(den), p(dskip2), p(dps), p(dpv), p(partials), p(sums), grid,
         kb.stream(dev))
     kb.check(code, "projection_update_bwd")
     projection_update_bwd.launches += 1
-    dw, db = split_outer_sums(outer_sums, De, d_in + d2)
-    return den, dskip2, dw, db, dps, dpv
+    return den, dskip2, sums[:De * K].view(De, K), sums[De * K:], dps, dpv
 
 
 projection_update_bwd.launches = 0

@@ -9,9 +9,12 @@ Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_update.py``
 
 with pe (E, D), ps (n, D), pv (m, D) and pg (1, D), D from 1 to 256. The
 backward gives d pe = g / 4, d ps and d pv the point and camera CSR sums of
-g / 4 (the cameras' through the segment sum's kernel), and d pg its column
-sum (three launches inside one call, four where a camera is a hub, counted
-once by ``fused_edge_combine_bwd``).
+g / 4, and d pg its column sum: the point side is the segment sum's split
+walk with its COMBINE flag (``csrc/segment.cuh``: it also writes d pe and
+one partial row of column sums per block), the camera side the segment sum
+itself, then the column sum of the partial rows (three launches inside one
+call, one more for each side with a hub, counted once by
+``fused_edge_combine_bwd``).
 
 What bounds them on the H100 is bytes over its 3.35 TB/s: the forward
 reads pe and writes out, ~0.1 flop per byte (see the source for the
@@ -33,14 +36,15 @@ from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.segment_kernels import MAX_WIDTH, sum_split
 from gasfm_tpu_torch.ops.segment import gather_segments
 
-_SEG_WARPS = 8  # kSegWarps of csrc/segment.cuh
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(symbol):
     args = {"gasfm_edge_combine": (kb.P,) * 6 + (kb.I, kb.I, kb.P, kb.P),
-            "gasfm_edge_combine_bwd": (kb.P, kb.I, kb.I, kb.P, kb.I, kb.P, kb.P, kb.P, kb.I,
-                                       kb.I, kb.I, kb.I) + (kb.P,) * 7}[symbol]
+            # g, D, E, pt_ptr, n_pts, the point split, cam_ptr, cam_perm, the camera
+            # split, n_cams, dpe, dps, dpv, dpg, partials, pt_part, cam_part, stream
+            "gasfm_edge_combine_bwd": (kb.P, kb.I, kb.I, kb.P, kb.I, kb.P, kb.I, kb.I, kb.P,
+                                       kb.P, kb.P, kb.I, kb.I, kb.I) + (kb.P,) * 8}[symbol]
     return kb.bind(kb.load("fused_update"), symbol, args)
 
 
@@ -105,17 +109,19 @@ def fused_edge_combine_bwd(g, graph):
         raise ValueError(f"fused_edge_combine_bwd: width {D} not in [1, {MAX_WIDTH}]")
     g = kb.aligned(kb.cuda_f32("g", g, (E, D)))
     dev = g.device
-    grid = kb.grid_for(dev, n, _SEG_WARPS, per_sm=4)
     dpe, dps = kb.f32_empty((E, D), dev), kb.f32_empty((n, D), dev)
     dpv, dpg = kb.f32_empty((m, D), dev), kb.f32_empty((D,), dev)
-    partials = kb.f32_empty((grid, D), dev)
-    split, n_long, n_chunks, cam_part = sum_split(graph, "camera", D, dev)
+    split_p, n_long_p, n_chunks_p, part_p = sum_split(graph, "point", D, dev)
+    split_c, n_long_c, n_chunks_c, part_c = sum_split(graph, "camera", D, dev)
+    # one partial row per block of the point pass: its parts, then at most
+    # a block per 32 short points
+    partials = kb.f32_empty((n_chunks_p + -(-n // 32), D), dev)
     p = kb.ptr
     code = _entry("gasfm_edge_combine_bwd")(
-        p(g), D, E, p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n,
+        p(g), D, E, p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), n, p(split_p), n_long_p, n_chunks_p,
         p(kb.cuda_i32("cam_ptr", graph.cam_ptr)), p(kb.cuda_i32("cam_perm", graph.cam_perm)),
-        p(split), n_long, n_chunks, m, grid, p(dpe), p(dps), p(dpv), p(dpg), p(partials),
-        p(cam_part), kb.stream(dev))
+        p(split_c), n_long_c, n_chunks_c, m, p(dpe), p(dps), p(dpv), p(dpg), p(partials),
+        p(part_p), p(part_c), kb.stream(dev))
     kb.check(code, "fused_edge_combine_bwd")
     fused_edge_combine_bwd.launches += 1
     return dpe, dps, dpv, dpg

@@ -2,8 +2,9 @@
 the dual core's forward (#1) and backward (#2), the segment sum
 (#15/#18), the edge combine's backward (#12), the row gather (#16/#20),
 the point side's single-direction attention (#13, #14), the frontend's
-prologue (#3) and the projection update (#9), from ``torch.profiler``, on both bench scenes and the wide
-one, and of #5, #1, #2 and the segment sum on the kernel-check graphs of
+prologue (#3) and the projection update (#9) and its backward (#10), from
+``torch.profiler``, on both bench scenes and the wide one, and of #6, #1,
+#2, #10, #12 and the segment sum on the kernel-check graphs of
 ``chip_smoke.py`` (``graph/check_graphs.py``).
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
@@ -11,28 +12,34 @@ one, and of #5, #1, #2 and the segment sum on the kernel-check graphs of
 Each measurement profiles ``--calls`` back-to-back calls of one function
 and nothing else, after a warm-up, and divides the summed device time of
 every kernel in the window by the calls: so a function of several launches
-is counted whole. Each row also carries a digest of the function's outputs
-(SHA-1 of their bytes), so two trees' rows show whether they compute the
-same bits. The layer step runs at the flagship's interior shapes (en (E,
-32), skip2 (E, 2), res (E, 32), W (32, 34), both source linears 32 x 32):
-the forward's prologue alone (``layer_step_prologue``, the dual core not in
-the window), the backward from cotangents of xl_p, xl_c,
-e_norm_next and e_l (the dual core's backward not in the window); the dual
-core's forward (``dual_attend_forward``, all its launches) at D = 32, H =
-4, with its residuals and without; its backward
-(``fused_dual_attend_bwd``, all its launches) at D = 32, H = 4 from the
-forward's residuals (and on the degree graph at four more (D, H)); the
-segment sum on both sides at D = 256, 32 and 4 (256 and 32 on the hub
-graphs), beside ``index_add_`` on the same data; the edge combine's
-backward (``fused_edge_combine_bwd``, all its launches: the point pass,
-the camera sums, the column sum) at D = 256; the gather on both sides at D = 256 and D = 2, beside
+is counted whole. A window that caught fewer CUDA events than calls is
+taken again, up to three times, and then the script raises: it never
+reports an empty window as a time of 0. Each row also carries a digest of
+the function's outputs (SHA-1 of their bytes), so two trees' rows show
+whether they compute the same bits. The layer step runs at the flagship's
+interior shapes (en (E, 32), skip2 (E, 2), res (E, 32), W (32, 34), both
+source linears 32 x 32): the forward's prologue alone
+(``layer_step_prologue``, the dual core not in the window), the backward
+from cotangents of xl_p, xl_c, e_norm_next and e_l (the dual core's
+backward not in the window; also on every check graph); the dual core's
+forward (``dual_attend_forward``, all its launches) at D = 32, H = 4, with
+its residuals and without; its backward (``fused_dual_attend_bwd``, all its
+launches) at D = 32, H = 4 from the forward's residuals (and on the degree
+graph at four more (D, H)); the segment sum on both sides at D = 256, 32
+and 4 (256 and 32 on the hub graphs), beside ``index_add_`` on the same
+data; the edge combine's backward (``fused_edge_combine_bwd``, all its
+launches: the point pass, the camera sums, the column sum, a merge launch
+per side with a hub) at D = 256 and 32, also on the hub-point and
+hub-parts graphs; the gather on both sides at D = 256 and D = 2, beside
 ``index_select`` on the same table and ids; the attention on the point side
 at D = 32, H = 4 (an interior layer of the flagship on the unfused path),
 the forward with its residuals (as under autograd) and the backward from
 them; the frontend's prologue at De = 32; the projection update with skip2
-and res. Prints one line per measurement with each kernel's launches and
-device time per call, and writes them as JSON to ``--out`` (default
-``chiprun_out/kernel_device_time.json``).
+and res, and its backward (``projection_update_bwd``, all its launches) at
+De = d_in = 32, d2 = 2 on the bench scenes and the degree, hub-point and
+tile-boundary graphs. Prints one line per measurement with each kernel's
+launches and device time per call, and writes them as JSON to ``--out``
+(default ``chiprun_out/kernel_device_time.json``).
 
 It imports whichever ``gasfm_tpu_torch`` is first on the path, so one call
 on the card can measure a parent tree and this one in turns: run it by
@@ -61,8 +68,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
 from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_segments,
-                                                hub_camera_graph, hub_point_graph,
-                                                tile_boundary_graph)
+                                                hub_camera_graph, hub_parts_graph,
+                                                hub_point_graph, tile_boundary_graph)
 from gasfm_tpu_torch.ops.kernels import fused_attn as fat
 from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
 from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
@@ -74,23 +81,30 @@ from gasfm_tpu_torch.tools.profile_forward import SCENES
 
 def device_ms_per_call(fn, calls):
     """(device ms per call summed over every kernel in the window, {kernel
-    name: (launches, device ms) per call})."""
+    name: (launches, device ms) per call}). Every call launches at least one
+    kernel, so a window in which the profiler caught fewer CUDA events than
+    calls (none, as it happens) is taken again, up to three times in all;
+    then it raises: an empty window is not a time of 0."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    names = collections.defaultdict(lambda: [0, 0.0])
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
-            k = names[evt.name.split("(")[0][:70]]
-            k[0] += 1
-            k[1] += evt.time_range.elapsed_us()
-    total = sum(us for _, us in names.values())
-    return total / calls / 1e3, {k: (n / calls, round(us / calls / 1e3, 4))
-                                 for k, (n, us) in names.items()}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        names = collections.defaultdict(lambda: [0, 0.0])
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA and not getattr(evt, "is_user_annotation", False):
+                k = names[evt.name.split("(")[0][:70]]
+                k[0] += 1
+                k[1] += evt.time_range.elapsed_us()
+        if sum(n for n, _ in names.values()) >= calls:
+            total = sum(us for _, us in names.values())
+            return total / calls / 1e3, {k: (n / calls, round(us / calls / 1e3, 4))
+                                         for k, (n, us) in names.items()}
+    raise RuntimeError(f"device_ms_per_call: 3 profiler windows of {calls} calls each "
+                       "caught fewer CUDA events than calls")
 
 
 def digest(out) -> str:
@@ -200,6 +214,24 @@ def frontend_call(graph, dev, De=32):
         "ln_scale", "ln_bias", "wlp", "blp", "wlc", "blc")))
 
 
+def projection_update_bwd_call(graph, dev, seed=97):
+    """#10 whole (all its launches) at the depth flagship's layer L-2 shapes
+    (De = d_in = 32, d2 = 2), from a seeded cotangent."""
+    ops = step_operands(graph, dev)
+    g = torch.randn((graph.num_edges, 32), generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+    return lambda: fpu.projection_update_bwd(g, ops["en"], ops["skip2"], ops["w"], graph)
+
+
+def edge_combine_bwd_calls(graph, dev, widths=(256, 32), seed=2468):
+    """#12 whole (all its launches: the point pass, the camera sums, the
+    column sum, and a merge launch per side with a hub) at each width."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gs = {D: torch.randn((graph.num_edges, D), generator=gen, device=dev) for D in widths}
+    return [("fused_edge_combine_bwd", f"D{D}", lambda g=g: fu.fused_edge_combine_bwd(g, graph))
+            for D, g in gs.items()]
+
+
 def projection_update_call(graph, dev):
     """#9 with the 2-wide skip2 and the residual, De = 32."""
     ops = step_operands(graph, dev)
@@ -251,9 +283,7 @@ def main(argv=None) -> None:
             cases = attend_calls(graph, dev)
             cases.append(("fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev)))
             cases += segment_sum_calls(graph, dev)
-            g256 = torch.randn((graph.num_edges, 256), generator=gen, device=dev)
-            cases.append(("fused_edge_combine_bwd", "D256",
-                          lambda g=g256: fu.fused_edge_combine_bwd(g, graph)))
+            cases += edge_combine_bwd_calls(graph, dev)
             if scene_name != "wide":  # the merged path's kernels
                 for resid in (True, False):
                     cases.append(("fused_dual_attend", "D32_H4" + ("_residuals" if resid else ""),
@@ -263,6 +293,8 @@ def main(argv=None) -> None:
                 cases.append(("fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev)))
                 cases.append(("frontend_prologue", "De32", frontend_call(graph, dev)))
                 cases.append(("projection_update", "skip2_res", projection_update_call(graph, dev)))
+                cases.append(("projection_update_bwd", "skip2",
+                              projection_update_bwd_call(graph, dev)))
             for D in (256, 2):
                 for side in ("point", "camera"):
                     ids, S = sk.side_ids(graph, side)
@@ -279,7 +311,17 @@ def main(argv=None) -> None:
                  "hub_camera": hub_camera_graph(graphs["dense"]),
                  "degrees": degree_graph(graphs["powerlaw"])}
         extra["hub_point"] = hub_point_graph(graphs["wide"])
+        extra["hub_parts"] = hub_parts_graph(dev)
         for label, graph in extra.items():
+            measure(label, "fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev))
+            if label in ("degrees", "hub_point"):
+                measure(label, "projection_update_bwd", "skip2",
+                        projection_update_bwd_call(graph, dev))
+            if label in ("hub_point", "hub_parts"):
+                for name, variant, fn in edge_combine_bwd_calls(graph, dev):
+                    measure(label, name, variant, fn)
+            if label == "hub_parts":
+                continue
             if label != "hub_point":
                 for resid in (True, False):
                     measure(label, "fused_dual_attend", "D32_H4" + ("_residuals" if resid else ""),
@@ -292,6 +334,9 @@ def main(argv=None) -> None:
             measure("degrees", "fused_dual_attend_bwd", f"D{D}_H{H}",
                     dual_bwd_call(extra["degrees"], dev, D=D, heads=H))
         tiles = tile_boundary_graph(dev)
+        measure("tile_edges", "fused_layer_step_bwd", "interior", layer_step_bwd_call(tiles, dev))
+        measure("tile_edges", "projection_update_bwd", "skip2",
+                projection_update_bwd_call(tiles, dev))
         measure("tile_edges", "layer_step_prologue", "interior",
                 layer_step_prologue_call(tiles, dev))
         measure("tile_edges", "layer_step_prologue", "narrow_De8",

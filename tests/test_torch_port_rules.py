@@ -131,3 +131,17 @@ def test_projection_update_launchers_raise_on_operands_they_cannot_take():
     with pytest.raises(TypeError, match="float32 CUDA tensor"):
         fpu.projection_update_bwd(torch.zeros(E, 32), torch.zeros(E, 32), None,
                                   torch.zeros(32, 32), graph)
+
+
+def test_kernel_device_time_raises_on_a_window_without_cuda_events(monkeypatch):
+    """``device_ms_per_call`` takes a profiler window that caught fewer CUDA
+    events than calls again, three times in all, then raises: it never
+    reports such a window as a device time of 0 (here on the CPU, where no
+    call launches a kernel)."""
+    from gasfm_tpu_torch.tools import kernel_device_time as kdt
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    with pytest.raises(RuntimeError, match="fewer CUDA events than calls"):
+        kdt.device_ms_per_call(lambda: calls.append(1), 4)
+    assert len(calls) == 3 + 3 * 4  # the warm-up, then three windows

@@ -25,7 +25,19 @@ reference at a small size:
 - the split at the sum's and the dual core's length covers every edge of
   every segment exactly once, on both CSRs;
 - on ``check_graphs.hub_parts_graph`` the sum's split cuts the hub point
-  into three parts, and the model's sum agrees with the plain version.
+  into three parts, and the model's sum agrees with the plain version;
+- the edge combine's backward (#12), whose point pass is the segment sum's
+  walk with its COMBINE flag (csrc/segment.cuh): d pe = g / 4 from the same
+  read, d ps the sum's model at scale 1/4, and d pg the column sum
+  (``column_sum_model``: csrc/common.cuh's ``column_sum_kernel`` order) of
+  one partial row per block of the walk, each the sum of the rows its
+  short points or its part hold. Against the JAX kernel's VJP
+  (``gasfm_tpu/ops/pallas/fused_update.py`` ``fused_edge_combine``,
+  ``_bwd_raw``) at D = 2, 4, 32 and 256 on this scene and on
+  ``hub_parts_graph`` (in the JAX kernels' blocked edge layout, built here);
+  and the walk's blocks (parts, then runs of short points) cover every edge
+  exactly once on a graph of 19,001 edges (a prime) with points of 0-65,
+  100 and 2,047-4,500 edges.
 
 The scene: 45 views and 300 points (visibility 0.4: most cameras have more
 than 32 edges, a few fewer), point HUB seen by 40 views, point EMPTY_POINT
@@ -39,18 +51,23 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from gasfm_tpu.data.synthetic import generate_synthetic_scene as jax_synthetic_scene
 from gasfm_tpu.graph.view_graph import build_scene_graph as jax_build_scene_graph
 from gasfm_tpu.ops import segment as jseg
 from gasfm_tpu.ops.gatv2 import gatv2_attend_dual as jax_attend_dual
+from gasfm_tpu.graph.view_graph import WINDOW
 from gasfm_tpu.ops.pallas import fused_dual_attn as jax_fda
+from gasfm_tpu.ops.pallas import fused_update as jax_fused_update
 from gasfm_tpu.ops.pallas import segment_kernels as jax_segment_kernels
 
+from gasfm_tpu_torch.graph.check_graphs import graph_of_edges, hub_parts_graph
 from gasfm_tpu_torch.graph.view_graph import build_scene_graph
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, leaky_relu
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import SPLIT_ROWS, fused_dual_attend_plain
+from gasfm_tpu_torch.ops.kernels.fused_update import fused_edge_combine_plain
 from gasfm_tpu_torch.ops.kernels.segment_kernels import (SUM_PART_ROWS, SUM_ROWS,
                                                          segment_sum_plain, side_ids)
 from gasfm_tpu_torch.ops.segment import segment_max
@@ -58,6 +75,9 @@ from gasfm_tpu_torch.ops.segment import segment_max
 HEADS = 4
 HUB, EMPTY_POINT, EMPTY_CAMERA = 11, 20, 7
 SUM_MERGE_WARPS = 8  # kSumMergeWarps of csrc/segment.cuh: the runs of the hubs' merge
+SUM_BLOCK_WARPS = 32  # kSumBlockWarps: warps per block of the sum's main launch
+SUM_RUN = 4  # kSumRun: short points per warp (W = 32) or lane group (COMBINE, W < 32) in turn
+COLUMN_SUM_GROUPS = 8  # kSumGroups of csrc/common.cuh: the column sum's interleaved row groups
 JAX_SUM = {"point": "windowed_segment_sum", "camera": "segment_sum_kernel"}
 F32 = torch.float32  # explicit: another test module may change the default dtype
 
@@ -357,8 +377,6 @@ def test_hub_parts_graph_sums_a_point_of_three_parts(D):
     them) the sum's point split cuts point 0, and only it, into parts at
     rows 0, 2048 and 4096, and the sum in that schedule (the parts' merge
     included) agrees with the plain version."""
-    from gasfm_tpu_torch.graph.check_graphs import hub_parts_graph
-
     graph = hub_parts_graph("cpu")
     sp = side_split(graph, "point", SUM_PART_ROWS, SUM_ROWS)
     assert graph.num_cams == 4500 and int(graph.pt_ptr[1]) == 4500
@@ -367,3 +385,194 @@ def test_hub_parts_graph_sums_a_point_of_three_parts(D):
         np.random.default_rng(300 + D).standard_normal((graph.num_edges, D)).astype(np.float32))
     got = split_sum_model(data, graph, "point")
     assert_close(got.numpy(), segment_sum_plain(data, graph, "point").numpy(), "hub-parts sum")
+
+
+# ---- the edge combine's backward (#12): the point pass on the sum's walk -------------
+
+
+def sum_layout(D):
+    """(W, P) of csrc/segment.cuh's SumLayout for D-wide rows: lanes per
+    row, and short segments (lane groups) per warp."""
+    vec = 4 if D % 4 == 0 else 2 if D % 2 == 0 else 1
+    W = 1
+    while W < D // vec and W < 32:
+        W *= 2
+    G = 32 if W >= 8 else max(4 * W, 8)
+    return W, 32 // G
+
+
+def combine_blocks(graph, D):
+    """#12's point pass as the card launches it: its blocks in launch order,
+    each a list of (segment, first row, end row) units. First a block per
+    part of a long point (more than SUM_ROWS rows; parts of SUM_PART_ROWS),
+    then the short points, SUM_BLOCK_WARPS x P x SUM_RUN consecutive ones
+    per block (a warp's P lane groups take SUM_RUN each in turn; at W = 32,
+    P = 1: a warp streams SUM_RUN points); a long point is no unit there."""
+    ptr = graph.pt_ptr.long().tolist()
+    n = len(ptr) - 1
+    sp = side_split(graph, "point", SUM_PART_ROWS, SUM_ROWS)
+    blocks = []
+    for k in range(sp.n_chunks):
+        s, b = int(sp.chunk_seg[k]), int(sp.chunk_begin[k])
+        blocks.append([(s, b, min(b + SUM_PART_ROWS, ptr[s + 1]))])
+    per_block = SUM_BLOCK_WARPS * sum_layout(D)[1] * SUM_RUN
+    if n > sp.n_long:
+        for b0 in range(0, n, per_block):
+            blocks.append([(s, ptr[s], ptr[s + 1]) for s in range(b0, min(b0 + per_block, n))
+                           if ptr[s + 1] - ptr[s] <= SUM_ROWS])
+    return blocks
+
+
+def column_sum_model(rows):
+    """csrc/common.cuh's column_sum_kernel order: the rows r = q mod 8
+    summed in order for each group q, then the eight groups in order."""
+    total = torch.zeros(rows.shape[1], dtype=F32)
+    for q in range(COLUMN_SUM_GROUPS):
+        group = torch.zeros(rows.shape[1], dtype=F32)
+        for r in range(q, rows.shape[0], COLUMN_SUM_GROUPS):
+            group = group + rows[r]
+        total = total + group
+    return total
+
+
+def edge_combine_bwd_model(g, graph):
+    """(d pe, d ps, d pv, d pg) of the edge combine as the card computes
+    them from the cotangent g (E, D)."""
+    D = g.shape[1]
+    blocks = combine_blocks(graph, D)
+    rows = torch.zeros(len(blocks), D, dtype=F32)
+    for i, block in enumerate(blocks):
+        for _, b, e in block:
+            rows[i] += g[b:e].sum(0)
+    return (g * 0.25, split_sum_model(g, graph, "point") * 0.25,
+            split_sum_model(g, graph, "camera") * 0.25, column_sum_model(rows * 0.25))
+
+
+def blocked_ids(graph, chunk=512):
+    """The JAX kernels' blocked edge layout of a port graph: each window of
+    WINDOW points' edges, padded to a multiple of ``chunk`` with the ids n
+    and m (zero rows). Returns (point ids (E_pad / chunk, chunk), camera ids
+    likewise, each chunk's window, the real edges' rows)."""
+    pt, cam = graph.pt_idx.numpy(), graph.cam_idx.numpy()
+    n, m = graph.num_pts, graph.num_cams
+    win = pt // WINDOW
+    pids, cids, wb, rows = [], [], [], []
+    at = 0
+    for w in np.unique(win):
+        idx = np.flatnonzero(win == w)  # contiguous: the edges are by point
+        L = -(-idx.shape[0] // chunk) * chunk
+        p, c = np.full(L, n, np.int32), np.full(L, m, np.int32)
+        p[:idx.shape[0]], c[:idx.shape[0]] = pt[idx], cam[idx]
+        pids.append(p)
+        cids.append(c)
+        wb.append(np.full(L // chunk, w, np.int32))
+        rows.append(at + np.arange(idx.shape[0]))
+        at += L
+    return (np.concatenate(pids).reshape(-1, chunk), np.concatenate(cids).reshape(-1, chunk),
+            np.concatenate(wb), np.concatenate(rows))
+
+
+@pytest.mark.parametrize("graph_name", ["scene", "hub_parts"])
+@pytest.mark.parametrize("D", [2, 4, 32, 256])
+def test_edge_combine_bwd_model_matches_jax_kernel(scenes, monkeypatch, graph_name, D):
+    """d pe bitwise, d ps, d pv and d pg within tolerance, against the VJP of
+    the JAX package's fused_edge_combine (its _bwd_raw reached, interpret
+    mode), and against autograd of the plain version."""
+    calls = []
+
+    def spy(*a, _fn=jax_fused_update._bwd_raw, **k):
+        calls.append(1)
+        return _fn(*a, **k)
+
+    monkeypatch.setattr(jax_fused_update, "_bwd_raw", spy)
+    if graph_name == "scene":
+        jscene, pscene, mask = scenes
+        jg, graph = jscene.graph, pscene.graph
+        chunk = jg.chunk
+        pids, cids = jg.pt_idx.astype(jnp.int32), jg.cam_idx.astype(jnp.int32)
+        wb, n_pad, m_pad = jg.pt_segment_windows().block, jg.num_pts, jg.num_cams
+        rows = np.flatnonzero(mask)
+    else:
+        graph = hub_parts_graph("cpu")
+        assert side_split(graph, "point", SUM_PART_ROWS, SUM_ROWS).n_chunks == 3
+        pids, cids, wb, rows = blocked_ids(graph)
+        chunk, n_pad, m_pad = pids.shape[1], graph.num_pts, graph.num_cams
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    g = np.random.default_rng(400 + D).standard_normal((E, D)).astype(np.float32)
+    g_pad = np.zeros((np.asarray(pids).size, D), np.float32)
+    g_pad[rows] = g
+    zeros = [jnp.zeros(shape, jnp.float32) for shape in ((g_pad.shape[0], D), (n_pad, D),
+                                                         (m_pad, D), (1, D))]
+    _, vjp = jax.vjp(
+        lambda pe, ps, pv, pg: jax_fused_update.fused_edge_combine(
+            pe, ps, pv, pg, jnp.asarray(pids).reshape(-1, chunk),
+            jnp.asarray(cids).reshape(-1, chunk), jnp.asarray(wb), n_pad, m_pad, WINDOW, True),
+        *zeros)
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g_pad))]
+    assert calls  # the JAX backward kernel was reached
+    got = edge_combine_bwd_model(torch.from_numpy(g), graph)
+    np.testing.assert_array_equal(got[0].numpy(), want[0][rows])  # d pe = g / 4
+    assert_close(got[1].numpy(), want[1][:n], "d ps")
+    assert_close(got[2].numpy(), want[2][:m], "d pv")
+    assert_close(got[3].numpy(), want[3].reshape(-1), "d pg")
+    leaves = [torch.zeros(shape, dtype=F32, requires_grad=True)
+              for shape in ((E, D), (n, D), (m, D), (1, D))]
+    plain = torch.autograd.grad(fused_edge_combine_plain(*leaves, graph), leaves,
+                                torch.from_numpy(g))
+    for name, a, b in zip(("d pe", "d ps", "d pv", "d pg"), got, plain):
+        assert_close(a.numpy(), b.reshape(a.shape).numpy(), f"{name} against the plain version")
+
+
+def uneven_graph(seed=23):
+    """4,500 cameras; points of 0, 1, 2, 3, 63, 64, 65, 100, 2,047, 2,048,
+    2,049, 4,097 and 4,500 edges, then 997 of 1-7, then one whose degree
+    makes the edge count a prime (19,001)."""
+    rng = np.random.default_rng(seed)
+    m = 4500
+    degrees = [0, 1, 2, 3, 63, 64, 65, 100, 2047, 2048, 2049, 4097, 4500]
+    degrees += rng.integers(1, 8, 997).tolist()
+    total = sum(degrees)
+    last = next(d for d in range(1, 64)
+                if all((total + d) % q for q in range(2, int((total + d) ** 0.5) + 1)))
+    degrees.append(last)
+    pts = np.concatenate([np.full(d, p) for p, d in enumerate(degrees)])
+    cams = np.concatenate([np.sort(rng.choice(m, d, replace=False)) for d in degrees])
+    return graph_of_edges(pts, cams, len(degrees), m, "cpu", rng)
+
+
+@pytest.mark.parametrize("D", [2, 4, 32, 256])
+def test_edge_combine_walk_covers_every_edge_once(D):
+    """The point pass's units (the long points' parts, the short points in
+    their blocks) cover every edge exactly once, each unit inside its point,
+    a short unit of at most SUM_ROWS rows, a part of at most SUM_PART_ROWS;
+    the blocks are as many as the card launches and fit the wrapper's
+    partial rows; and the model's d ps and d pg agree with the plain
+    version."""
+    graph = uneven_graph()
+    E, n = graph.num_edges, graph.num_pts
+    assert E == 19001 and all(E % q for q in range(2, 138))  # a prime
+    ptr = graph.pt_ptr.long().tolist()
+    sp = side_split(graph, "point", SUM_PART_ROWS, SUM_ROWS)
+    blocks = combine_blocks(graph, D)
+    covered = np.zeros(E, np.int64)
+    for block in blocks:
+        for s, b, e in block:
+            assert ptr[s] <= b <= e <= ptr[s + 1]
+            long_ = ptr[s + 1] - ptr[s] > SUM_ROWS
+            assert e - b <= (SUM_PART_ROWS if long_ else SUM_ROWS)
+            assert len(block) == 1 or not long_  # a part is its block's only unit
+            covered[b:e] += 1
+    assert (covered == 1).all()
+    W, P = sum_layout(D)
+    runs = -(-n // SUM_RUN)  # the host's grid: parts, then ceil(ceil(runs / P) / 32) blocks
+    assert len(blocks) == sp.n_chunks + -(-(-(-runs // P)) // SUM_BLOCK_WARPS)
+    assert len(blocks) <= sp.n_chunks + -(-n // 32)  # fused_edge_combine_bwd's partial rows
+    assert sp.n_long == 7 and sp.n_chunks == 1 + 1 + 1 + 1 + 2 + 3 + 3  # 65 .. 4,500 rows
+    g = torch.from_numpy(np.random.default_rng(500 + D).standard_normal((E, D)).astype(
+        np.float32))
+    got = edge_combine_bwd_model(g, graph)
+    leaves = [torch.zeros(shape, dtype=F32, requires_grad=True)
+              for shape in ((E, D), (n, D), (graph.num_cams, D), (1, D))]
+    plain = torch.autograd.grad(fused_edge_combine_plain(*leaves, graph), leaves, g)
+    for name, a, b in zip(("d pe", "d ps", "d pv", "d pg"), got, plain):
+        assert_close(a.numpy(), b.reshape(a.shape).numpy(), name)

@@ -25,14 +25,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    bitwise; the kernels line takes its numbers from the interior form.
 3. Each GASFM backward kernel against autograd of its plain version on the
    card, on seeded inputs and cotangents at both scenes' shapes: the dual
-   core at D = 32, the frontend at layer 0 (De = 2), the layer step in its
-   interior, first-layer and raw-prologue forms, the loss in its three
-   equalization modes. The max error of every input gradient, the backward
-   kernels' per-call and burst times, the plain backward's time and the
-   bound. The layer step's backward (#6) is timed alone (the dual core's
-   backward ahead of it precomputed), its bound counted for the whole
-   function (weight gradients included), and two of its launches must
-   agree bitwise; its three forms also run on a graph built for its tiles
+   core at D = 32, the frontend at layer 0 (De = 2, Dq = 4) and at De = Dq
+   = 32 with the LayerNorm and raw (the depth head's widening layer), the
+   layer step in its interior, first-layer and raw-prologue forms, the loss
+   in its three equalization modes. The max error of every input gradient,
+   the backward kernels' per-call and burst times, the plain backward's
+   time and the bound. The frontend's backward (#4) and the layer step's
+   (#6) are timed alone (the dual core's backward ahead of each
+   precomputed), each bound counted for its own whole function (weight
+   gradients included), and two launches of each must agree bitwise; its three forms also run on a graph built for its tiles
    of 32 edges: one point's edges span four tiles, 57 points and one
    camera have no edges, and E is not a multiple of 32; so does #5's, at
    the flagship's width and at De = Dp = Dc = 8. The dual core's backward
@@ -83,12 +84,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    empty segments, bitwise, also timed against ``scatter_reduce_`` (amax).
 3d. The standalone projection update (the depth path's layer L-2) on both
    bench scenes at De = 32: with the 2-wide skip2 and the residual, with
-   neither, and at d2 = 0 with the residual; its backward (#10) against
-   autograd of the plain version, every input's gradient, twice, bitwise.
-   The same three forms also run on the tile-boundary graph, the power-law
-   scene plus cameras of 31-64 edges and a point of 133, the wide scene
-   plus a point in all 1280 views, and the dense scene with empty segments.
-   No single PyTorch call computes it (no library time).
+   neither, and at d2 = 0 with the residual, against its plain version,
+   twice, bitwise; its backward (#10) against autograd of the plain
+   version, every input's gradient, twice, bitwise. The same three forms
+   also run on the tile-boundary graph, the power-law scene plus cameras of
+   31-64 edges and a point of 133, the wide scene plus a point in all 1280
+   views, and the dense scene with empty segments; the frontend's backward
+   (#4) in its three forms on the first three of these. No single PyTorch
+   call computes either (no library time).
 4. GASFM serving: the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
    32/64/1024/2048, seeded init) answers 3 requests per scene through
    ``TrainingSession.forward`` and ``.loss`` on the dense (128 views, 8192
@@ -630,33 +633,7 @@ def backward_phase(dev, scene_name, graph, record):
     dual_bwd_check(results, record, scene_name, graph, rnd, 32, H, main=True)
 
     # #4 frontend at layer 0: De = 2, D = 4, separated feature pairs.
-    De, Dq = 2, 4
-    front = dict(e=separated_pairs(rnd, gen, dev, E), ln_scale=1.0 + rnd(De, scale=0.2),
-                 ln_bias=rnd(De, scale=0.1), wlp=rnd(Dq, De, scale=0.5), blp=rnd(Dq, scale=0.1),
-                 wlc=rnd(Dq, De, scale=0.5), blc=rnd(Dq, scale=0.1), xr_p=rnd(n, Dq),
-                 xr_c=rnd(m, Dq), att_p=rnd(Dq), att_c=rnd(Dq))
-    g_en, g_p4, g_c4 = rnd(E, De), rnd(n, Dq), rnd(m, Dq)
-    fa = tuple(front.values())
-    en0, xp0, xc0 = fda.frontend_prologue(*fa[:7])
-    op4, oc4, res4, ins4 = fda.dual_attend_forward(xp0, xc0, *fa[7:], graph, H, residuals=True)
-
-    def front_bwd():
-        d = fda.fused_dual_attend_bwd(*ins4, op4, oc4, *res4, g_p4, g_c4, graph, H)
-        return fda.fused_frontend_bwd(*fa[:3], fa[3], fa[5], d[0], d[1], g_en, en0)
-
-    check("fused_frontend_bwd", "De2_layer0",
-          lambda **a: fda.fused_frontend(*a.values(), graph, H),
-          lambda **a: fda.fused_frontend_plain(*a.values(), graph, H),
-          front, (g_en, g_p4, g_c4), front_bwd,
-          # reads: e, parameters, queries, outputs, residuals, cotangents
-          # (xl is recomputable from e); writes: de and every parameter's
-          # and query's gradient
-          nbytes(*fa, op4, oc4, *res4, g_en, g_p4, g_c4, *csr, *fa),
-          E * (30 * De + 8 * De * Dq + 40 * Dq), True,
-          # Over two features the LayerNorm's output is +-1/sqrt(1 + eps/var)
-          # whatever the input: d e is a near-zero difference of O(1) terms,
-          # whose rounding scales with those terms (~1), not with |d e|.
-          floors={"e": 1.0})
+    frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_BWD_FORMS[:1], main=True)
 
     # #6 layer step: interior (skip2 = e0, residual), first-layer form, final raw.
     layer_step_bwd_checks(check, rnd, gen, dev, graph, H, main=True)
@@ -676,7 +653,71 @@ def backward_phase(dev, scene_name, graph, record):
               lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
                   P, X, graph, coef, count, 1e-4, True, 1.0, mode),
               nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, *csr, P, X), 80.0 * E, main)
+
+    # #4 at De = Dq = 32 (the depth head's widening layer), with the
+    # LayerNorm and raw.
+    frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_BWD_FORMS[1:], main=False)
     return results
+
+
+# The frontend's backward (#4): (variant, De, Dq, raw) at the first layer's
+# widths and at the depth head's widening layer's.
+FRONT_BWD_FORMS = (("De2_layer0", 2, 4, False), ("De32_ln", 32, 32, False),
+                   ("De32_raw", 32, 32, True))
+
+
+def frontend_bwd_checks(check, rnd, gen, dev, graph, H, forms, main):
+    """The frontend's backward (#4) in each of ``forms`` (FRONT_BWD_FORMS;
+    at De = 2 the edges' two features kept apart): every input's gradient
+    through the frontend and its dual core against autograd of the plain
+    version; #4 alone timed (its cotangents of xl_p and xl_c precomputed by
+    the dual core's backward) and launched twice, bitwise; the first form's
+    numbers go to the kernels line with ``main``. Its bound counts #4's own
+    work: e, the cotangents of xl_p, xl_c and e_norm, and the LayerNorm's
+    and the linears' weights read once; d e and the six weight gradients
+    written once."""
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    for i, (variant, De, Dq, raw) in enumerate(forms):
+        scale = 0.5 if De == 2 else 0.2
+        front = dict(e=separated_pairs(rnd, gen, dev, E) if De == 2 else rnd(E, De))
+        if not raw:
+            front.update(ln_scale=1.0 + rnd(De, scale=0.2), ln_bias=rnd(De, scale=0.1))
+        front.update(wlp=rnd(Dq, De, scale=scale), blp=rnd(Dq, scale=0.1),
+                     wlc=rnd(Dq, De, scale=scale), blc=rnd(Dq, scale=0.1), xr_p=rnd(n, Dq),
+                     xr_c=rnd(m, Dq), att_p=rnd(Dq), att_c=rnd(Dq))
+        g_en, g_p, g_c = rnd(E, De), rnd(n, Dq), rnd(m, Dq)
+
+        def fargs(a):
+            return (a["e"], a.get("ln_scale"), a.get("ln_bias"), a["wlp"], a["blp"], a["wlc"],
+                    a["blc"], a["xr_p"], a["xr_c"], a["att_p"], a["att_c"])
+
+        f = front
+        _, xp, xc = fda.frontend_prologue(*fargs(f)[:7], raw_prologue=raw)
+        op, oc, res, ins = fda.dual_attend_forward(xp, xc, *fargs(f)[7:], graph, H,
+                                                   residuals=True)
+        dxp, dxc = fda.fused_dual_attend_bwd(*ins, op, oc, *res, g_p, g_c, graph, H)[:2]
+        den = None if raw else g_en
+        weights = [f.get("ln_scale"), f.get("ln_bias"), f["wlp"], f["wlc"]]
+        check("fused_frontend_bwd", variant,
+              lambda raw=raw, fargs=fargs, **a: fda.fused_frontend(
+                  *fargs(a), graph, H, raw_prologue=raw),
+              lambda raw=raw, fargs=fargs, **a: fda.fused_frontend_plain(
+                  *fargs(a), graph, H, raw_prologue=raw),
+              front, (g_en, g_p, g_c),
+              lambda f=f, dxp=dxp, dxc=dxc, den=den, raw=raw: fda.fused_frontend_bwd(
+                  f["e"], f.get("ln_scale"), f.get("ln_bias"), f["wlp"], f["wlc"], dxp, dxc,
+                  den, raw_prologue=raw),
+              # reads e, the three cotangents, the weights; writes d e and
+              # the weights' and biases' gradients
+              nbytes(f["e"], den, dxp, dxc, *weights) + nbytes(f["e"], *weights, f["blp"],
+                                                              f["blc"]),
+              E * (4.0 * De * 2 * Dq + 2 * Dq + (0 if raw else 30 * De)), main and i == 0,
+              # Over two features the LayerNorm's output is +-1/sqrt(1 + eps/var)
+              # whatever the input: d e is a near-zero difference of O(1) terms,
+              # whose rounding scales with those terms (~1), not with |d e|.
+              floors={"e": 1.0} if De == 2 and not raw else None, twice=True)
 
 
 def dual_bwd_check(results, record, scene_name, graph, rnd, D, H, main=False):
@@ -1338,7 +1379,7 @@ def projection_update_phase(dev, scene_name, graph, record, main=True):
         forward_check(results, record, scene_name, "projection_update", variant,
                       lambda: kern(**ins), lambda: plain(**ins), ("e",),
                       nbytes(*ins.values(), *idx) + 4 * E * De,
-                      float(E * (2 * K * De + 6 * De)), main_v)
+                      float(E * (2 * K * De + 6 * De)), main_v, twice=True)
         g = rnd(E, De)
         backward_check(
             results, record, scene_name, "projection_update_bwd", variant, kern, plain, ins, (g,),
@@ -1349,6 +1390,23 @@ def projection_update_phase(dev, scene_name, graph, record, main=True):
             nbytes(g, ins["en"], ins.get("skip2"), ins["w"], *csr, ins["en"], ins.get("skip2"),
                    ins["w"], ins["b"], ins["ps"], ins["pv"]),
             float(E * (4 * K * De + 3 * De)), main_v, twice=True)
+    return results
+
+
+def frontend_bwd_graph_phase(dev, graphs, record):
+    """#4 in its three forms (FRONT_BWD_FORMS) on each of ``graphs``, the
+    graphs that stress its tiles and spans."""
+    gen = torch.Generator(device=dev).manual_seed(1357)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    results = {}
+    for label, graph in graphs.items():
+        def check(*args, label=label, **kw):
+            backward_check(results, record, label, *args, **kw)
+
+        frontend_bwd_checks(check, rnd, gen, dev, graph, 4, FRONT_BWD_FORMS, main=False)
     return results
 
 
@@ -2117,6 +2175,10 @@ def main() -> int:
                      "dense_empty": graph_with_empty_segments(scenes["dense"].graph)}
     for k, graph in update_graphs.items():
         per_scene[f"update_{k}"] = projection_update_phase(dev, k, graph, record, main=False)
+    # ... and the frontend's backward (#4) on three of them: its tiles' and
+    # spans' ragged ends, short and long segments
+    per_scene["front_graphs"] = frontend_bwd_graph_phase(
+        dev, {k: update_graphs[k] for k in ("tile_edges", "degrees", "hub_point")}, record)
     bad = [(s, k) for s, r in per_scene.items() for k, v in r.items() if not v["ok"]]
     if bad:
         raise SmokeFailure(f"kernels out of tolerance: {bad}")

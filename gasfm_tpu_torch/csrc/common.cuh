@@ -200,91 +200,4 @@ inline void launch_column_sum(const float* partials, int rows, int cols, float* 
   }
 }
 
-// ---------------------------------------------------------------------------
-// Weight gradients as sums over all edges of outer products, from streams
-// stored in device memory: out[a][b] = sum_e s * A[e][a] * B[e][b] with the
-// columns of B taken from B1 (Db1) then B2 (Db2), and bias[a] = sum_e s *
-// A[e][a]. Up to three such jobs per launch (blockIdx.y). Tiles of 32 edges
-// are staged in shared memory; each thread owns one row a and 8 columns of
-// one job, so the sums sit in 9 registers (high occupancy, unlike per-lane
-// sums of whole weight rows inside the per-edge kernels). Blocks stride over
-// the tiles in a fixed order and write one partial row each, [a][b] (32 x 64)
-// then bias[a] (32): kOuterRow floats; column_sum_kernel finishes.
-// ---------------------------------------------------------------------------
-
-struct OuterJob {
-  const float* A;  // (E, Da), Da <= 32
-  int Da;
-  float scale;
-  const float* B1;  // (E, Db1)
-  int Db1;
-  const float* B2;  // (E, Db2) or NULL; Db1 + Db2 <= 64
-  int Db2;
-};
-
-struct OuterJobs {
-  OuterJob job[3];
-};
-
-constexpr int kOuterTile = 32;
-constexpr int kOuterThreads = 256;
-constexpr int kOuterRow = 32 * 64 + 32;
-
-__global__ void __launch_bounds__(kOuterThreads) outer_sum_kernel(OuterJobs jobs, int E,
-                                                                  float* __restrict__ partials) {
-  const OuterJob jb = jobs.job[blockIdx.y];
-  __shared__ float sA[kOuterTile][33];
-  __shared__ float sB[kOuterTile][65];
-  const int t = threadIdx.x;
-  const int a = t & 31;
-  const int b0 = t >> 5;  // columns b0, b0 + 8, ..., b0 + 56
-  const int Db = jb.Db1 + jb.Db2;
-  float acc[8];
-#pragma unroll
-  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
-  float accb = 0.f;
-  for (int tile = blockIdx.x; tile * kOuterTile < E; tile += gridDim.x) {
-    const int e0 = tile * kOuterTile;
-    for (int i = t; i < kOuterTile * 32; i += kOuterThreads) {
-      const int r = i >> 5, c = i & 31, e = e0 + r;
-      sA[r][c] = (e < E && c < jb.Da) ? jb.A[(size_t)e * jb.Da + c] * jb.scale : 0.f;
-    }
-    for (int i = t; i < kOuterTile * 64; i += kOuterThreads) {
-      const int r = i >> 6, c = i & 63, e = e0 + r;
-      float v = 0.f;
-      if (e < E) {
-        if (c < jb.Db1) {
-          v = jb.B1[(size_t)e * jb.Db1 + c];
-        } else if (c < Db) {
-          v = jb.B2[(size_t)e * jb.Db2 + (c - jb.Db1)];
-        }
-      }
-      sB[r][c] = v;
-    }
-    __syncthreads();
-    for (int r = 0; r < kOuterTile; ++r) {
-      const float av = sA[r][a];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) acc[k] = fmaf(av, sB[r][b0 + 8 * k], acc[k]);
-      accb += av;
-    }
-    __syncthreads();
-  }
-  float* row = partials + ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * kOuterRow;
-#pragma unroll
-  for (int k = 0; k < 8; ++k) row[a * 64 + b0 + 8 * k] = acc[k];
-  if (b0 == 0) row[32 * 64 + a] = accb;
-}
-
-// Launch `njobs` outer-sum jobs over E edges with `grid` blocks each, then
-// sum each job's partials: sums is (njobs, kOuterRow).
-inline void launch_outer_sums(const OuterJobs& jobs, int njobs, int E, int grid,
-                              float* partials, float* sums, cudaStream_t stream) {
-  outer_sum_kernel<<<dim3(grid, njobs), kOuterThreads, 0, stream>>>(jobs, E, partials);
-  for (int j = 0; j < njobs; ++j) {
-    launch_column_sum(partials + (size_t)j * grid * kOuterRow, grid, kOuterRow,
-                      sums + (size_t)j * kOuterRow, stream);
-  }
-}
-
 }  // namespace gasfm

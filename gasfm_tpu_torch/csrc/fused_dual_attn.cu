@@ -9,6 +9,9 @@
 //     gasfm_dual_attend right after it.
 //   - gasfm_frontend_prologue_bwd <- the prologue half of _front_bwd_raw /
 //     _front_bwd_kernel; the wrapper runs gasfm_dual_attend_bwd before it.
+//     It runs the edge tiles of edge_tile.cuh (frontend_bwd_tile_kernel,
+//     or frontend_bwd_narrow_kernel at the first layer's widths) and one
+//     column sum of their per-block partial rows: two launches.
 //
 // What bounds it on the H100: bytes. Per edge the core reads its two source
 // rows (xl_p, xl_c: 4*(Dp+Dc) bytes) and one camera-order index; per segment
@@ -46,9 +49,19 @@
 // chunk order, points and cameras together. The attention vectors'
 // gradients are per-block partial rows of both sides, [d att_p | d att_c],
 // and one fixed-order column sum (common.cuh): three launches.
+//   - The prologue's backward (#4) is bytes-bound too: per edge it reads e,
+// d xl_p, d xl_c and the cotangent of v, and writes d e, against ~4 De (Dp +
+// Dc) FMAs. Its first design gave each edge a warp, lane j feature j (28
+// of 32 lanes idle at the first layer's De = 2), and took the source
+// linears' weight gradients in a second pass over d xl and v, a kernel
+// staging 32 x 64 tiles whatever the widths, plus three column sums: five
+// launches. Now the edges go in 32-edge tiles (edge_tile.cuh): phases 1
+// and 3 of the layer step's backward, every weight gradient in registers,
+// one partial row per block and one column sum.
 // No float atomics anywhere: results are bitwise reproducible run to run.
 #include "attend_split.cuh"
 #include "edge_prologue.cuh"
+#include "edge_tile.cuh"
 
 namespace gasfm {
 
@@ -270,37 +283,6 @@ __global__ void __launch_bounds__(NWARPS * 32) dual_bwd_merge_kernel(DualSide pt
   if (lane < D) (is_cam ? cam.dxr : pt.dxr)[(size_t)seg * D + lane] = t;
 }
 
-// ---- backward of the frontend prologue ------------------------------------------
-//
-// Warp per edge (grid-stride): recompute the LayerNorm from e, then
-// front_backward: d e, and the LayerNorm scale / bias gradients summed per
-// lane. partials: (gridDim.x, 2 * 32), one row per block. The source linears'
-// gradients are outer sums (d xl_p^T v, d xl_c^T v) by outer_sum_kernel.
-__global__ void __launch_bounds__(kFrontWarps * 32) frontend_prologue_bwd_kernel(
-    const float* __restrict__ e, int E, int De, const float* __restrict__ lng,
-    const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
-    int Dp, const float* __restrict__ wlc, int Dc, const float* __restrict__ dxl_p,
-    const float* __restrict__ dxl_c, const float* __restrict__ den,
-    float* __restrict__ de, float* __restrict__ partials) {
-  __shared__ FrontBackParams sp;
-  __shared__ float sbuf[2 * 32];
-  load_front_back_params(sp, lng, lnb, wlp, wlc, De, Dp, Dc, raw != 0);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  float acc[2] = {0.f, 0.f};  // d ln_scale, d ln_bias of this lane's feature
-  const int stride = gridDim.x * kFrontWarps;
-  for (int edge = blockIdx.x * kFrontWarps + (threadIdx.x >> 5); edge < E; edge += stride) {
-    const float x = lane < De ? e[(size_t)edge * De + lane] : 0.f;
-    const float dxp = lane < Dp ? dxl_p[(size_t)edge * Dp + lane] : 0.f;
-    const float dxc = lane < Dc ? dxl_c[(size_t)edge * Dc + lane] : 0.f;
-    const float dv = (den != nullptr && lane < De) ? den[(size_t)edge * De + lane] : 0.f;
-    const float dx = front_backward(x, dxp, dxc, dv, De, Dp, Dc, raw != 0, sp, eps, lane,
-                                    acc[0], acc[1]);
-    if (lane < De) de[(size_t)edge * De + lane] = dx;
-  }
-  block_partial(acc, sbuf, partials + (size_t)blockIdx.x * 2 * 32);
-}
-
 }  // namespace gasfm
 
 // split_p / split_c: the point and camera splits at kAttendChunk edges
@@ -396,25 +378,32 @@ extern "C" int gasfm_dual_attend_bwd(
   return (int)cudaGetLastError();
 }
 
-// v: (E, De) the prologue's normalized output (e itself under raw).
-// ln_partials: (grid, 64) scratch; ln_sums: (2, 32), d ln_scale and d ln_bias
-// in the first De columns. outer_partials: (2, ogrid, kOuterRow) scratch;
-// outer_sums: (2, kOuterRow), for d wlp / d blp then d wlc / d blc, each
-// [a][b] (32 x 64) then bias[a] (32).
+// The prologue's backward (#4). den (E, De) the cotangent of its output v,
+// or NULL; de (E, De). partials (grid, FrontRow(De, Dp, Dc).len) scratch;
+// sums (FrontRow's len): d wlp (Dp, De), d blp, d wlc (Dc, De), d blc, d
+// ln_scale, d ln_bias (zeros under raw). At De <= kFrontNarrowDe and Dp, Dc
+// <= kFrontNarrowDq the narrow form runs, its blocks taking spans of
+// kTileThreads edges; else the tile form, its blocks 32-edge tiles. grid:
+// the kernel's blocks, at most kTileBlocksPerSm per SM, at most one per
+// span or tile. e, den, dxl_p and dxl_c are read as 16- or 8-byte vectors
+// where their widths allow and must then be 16-byte aligned.
 extern "C" int gasfm_frontend_prologue_bwd(
     const float* e, int E, int De, const float* lng, const float* lnb, int raw, float eps,
     const float* wlp, int Dp, const float* wlc, int Dc, const float* dxl_p,
-    const float* dxl_c, const float* den, const float* v, float* de, float* ln_partials,
-    float* ln_sums, float* outer_partials, float* outer_sums, int grid, int ogrid,
+    const float* dxl_c, const float* den, float* de, float* partials, float* sums, int grid,
     void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
-  frontend_prologue_bwd_kernel<<<grid, kFrontWarps * 32, 0, s>>>(
-      e, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, den, de, ln_partials);
-  launch_column_sum(ln_partials, grid, 2 * 32, ln_sums, s);
-  OuterJobs jobs{};
-  jobs.job[0] = OuterJob{dxl_p, Dp, 1.f, v, De, nullptr, 0};
-  jobs.job[1] = OuterJob{dxl_c, Dc, 1.f, v, De, nullptr, 0};
-  launch_outer_sums(jobs, 2, E, ogrid, outer_partials, outer_sums, s);
+  const int rows = E > 0 ? grid : 0;
+  if (rows > 0) {
+    if (De <= kFrontNarrowDe && Dp <= kFrontNarrowDq && Dc <= kFrontNarrowDq) {
+      frontend_bwd_narrow_kernel<kFrontNarrowDe, kFrontNarrowDq><<<rows, kTileThreads, 0, s>>>(
+          e, den, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, de, partials);
+    } else {
+      frontend_bwd_tile_kernel<<<rows, kTileThreads, 0, s>>>(
+          e, den, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, de, partials);
+    }
+  }
+  launch_column_sum(partials, rows, FrontRow(De, Dp, Dc).len, sums, s);
   return (int)cudaGetLastError();
 }

@@ -44,17 +44,17 @@
 // lane j holding feature j: every product was a chain of shuffles and shared
 // loads (~116 dependent steps per edge), a warp waited on its point's edges
 // one at a time (133 on the longest power-law point), and the weight
-// gradients took a second pass over the streams (outer_sum_kernel) plus
+// gradients took a second, outer-sum pass over the streams plus
 // separate camera and LayerNorm sums: 7 launches, ~0.46 / ~0.68 ms per call
 // on the two bench scenes. Now the work is split by edges, not by points:
 // tiles of 32 edges staged in shared memory with 16-byte loads, every
 // product register-tiled, every weight gradient in registers across a
 // block's tiles, each sum in a fixed order without atomics.
 //
-// The standalone projection update (#9, fused_proj_update.cu) and the
-// frontend (#3, fused_dual_attn.cu) keep their per-edge code
-// (proj_update.cuh, edge_prologue.cuh); the tile forward's phases are device
-// functions they can take up.
+// The standalone projection update (#9, fused_proj_update.cu) runs the tile
+// forward's phase A, and the frontend's backward (#4, fused_dual_attn.cu)
+// the tile backward's phases 1 and 3; the frontend's forward (#3) keeps its
+// per-edge code (edge_prologue.cuh).
 #include "edge_tile.cuh"
 #include "segment.cuh"
 

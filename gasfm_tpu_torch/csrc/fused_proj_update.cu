@@ -12,15 +12,23 @@
 // on lane-packed streams (4 edges per 128-lane row) with block-diagonal
 // weights, one-hot matmul gathers of the point window and the camera table,
 // and table gradients resident across the sequential grid. None of that
-// carries over: here the forward gives a warp an edge row (proj_update.cuh;
-// the layer step's forward ran the same code until it took the edge tiles
-// of edge_tile.cuh), the backward takes the edge tiles, the gathers are
-// direct loads, and the table gradients are CSR segment sums.
+// carries over: here both directions take the edge tiles of edge_tile.cuh,
+// the gathers are direct loads, and the table gradients are CSR segment
+// sums.
 //
 // What bounds it on the H100: bytes over 3.35 TB/s. The forward reads en,
 // skip2 and res and the two gathered table rows per edge and writes e, about
-// 0.65 KB per edge at De = 32, d2 = 2, against ~2 * 34 * 32 flops; the
-// weights (<= 64 x 32) sit in shared memory for the whole grid-stride sweep.
+// 0.65 KB per edge at De = 32, d2 = 2, against ~2 * 34 * 32 flops. Its
+// first design gave each edge a warp, lane j feature j, and ran the product
+// as a 34-step shuffle + shared-load + FMA chain per edge (4.8x its bound on
+// the dense scene); now it is the layer step forward's phase A on edge
+// tiles (proj_update_fwd_tile_kernel, edge_tile.cuh): persistent blocks
+// hold W^T in shared memory, stage the next span of two 32-edge tiles'
+// [en | skip2] rows by cp.async and load its res and gathered rows while a
+// span computes, each thread four features of two edges (the shared-memory
+// reads of W^T, which bound it, shared by both), the sum over k in the
+// per-edge code's order (so e is bitwise the first design's), written with
+// 16-byte stores.
 // The backward reads g, en and skip2 and writes d en, d skip2, d ps and d
 // pv (~0.4 KB per edge) against ~4 * 34 * 32 flops per edge; d res = g is
 // the wrapper's, with no kernel work. Its first design gave each point a
@@ -36,37 +44,13 @@
 // (segment.cuh, #15/#18's, each with a merge launch where a hub exists).
 // No float atomics: bitwise reproducible on a given card.
 #include "edge_tile.cuh"
-#include "proj_update.cuh"
 #include "segment.cuh"
 
-namespace gasfm {
-
-constexpr int kUpdateWarps = 8;
-
-__global__ void __launch_bounds__(kUpdateWarps * 32) proj_update_kernel(
-    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
-    const float* __restrict__ res, const float* __restrict__ w,
-    const float* __restrict__ b, const float* __restrict__ pg,
-    const float* __restrict__ ps, const float* __restrict__ pv,
-    const int* __restrict__ pt_idx, const int* __restrict__ cam_idx, int E, int De,
-    float* __restrict__ out) {
-  __shared__ UpdateParams su;
-  load_update_params(su, w, b, pg, De, d_in + d2);
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kUpdateWarps;
-  for (int edge = blockIdx.x * kUpdateWarps + (threadIdx.x >> 5); edge < E; edge += stride) {
-    const float x = update_forward(su, edge, lane, en, d_in, skip2, d2, res, ps, pv, pt_idx,
-                                   cam_idx, De);
-    if (lane < De) out[(size_t)edge * De + lane] = x;
-  }
-}
-
-}  // namespace gasfm
-
 // en (E, d_in), skip2 (E, d2) or NULL, res (E, De) or NULL, w (De, d_in + d2),
-// b, pg (De,), ps (n, De), pv (m, De); out (E, De).
+// b, pg (De,), ps (n, De), pv (m, De); out (E, De). grid: the tile kernel's
+// blocks, at most kUpdateFwdBlocksPerSm per SM. en, skip2, res, ps, pv and
+// out are read and written as 16-byte vectors where their widths allow and
+// must then be 16-byte aligned.
 extern "C" int gasfm_proj_update(const float* en, int d_in, const float* skip2, int d2,
                                  const float* res, const float* w, const float* b,
                                  const float* pg, const float* ps, const float* pv,
@@ -74,7 +58,7 @@ extern "C" int gasfm_proj_update(const float* en, int d_in, const float* skip2, 
                                  float* out, int grid, void* stream) {
   using namespace gasfm;
   if (E > 0) {
-    proj_update_kernel<<<grid, kUpdateWarps * 32, 0, (cudaStream_t)stream>>>(
+    proj_update_fwd_tile_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
         en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, out);
   }
   return (int)cudaGetLastError();

@@ -13,7 +13,10 @@ Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_dual_attn.py``:
   here) and the dual core (counted by ``fused_dual_attend``). Its backward
   ``fused_frontend_bwd`` is ``_front_bwd_raw`` split the same way: the dual
   core's backward (counted by ``fused_dual_attend_bwd``), then the
-  prologue's backward (counted here).
+  prologue's backward (counted here; two launches inside: the edge-tile
+  kernel of ``csrc/edge_tile.cuh``, whose blocks keep every weight gradient
+  in registers and write one partial row each, and one column sum of the
+  rows).
 
 What bounds them on the H100 is bytes over its 3.35 TB/s, not operations:
 per edge and feature the work is a few flops. The kernels read each edge
@@ -28,8 +31,9 @@ each long segment's chunks. See the CUDA source for the launch layout.
 Gradients: when an input requires grad, the wrappers run through
 ``torch.autograd.Function``s. The dual core's forward then also writes each
 segment's per-head softmax max and denominator, which its backward reads;
-the frontend's backward recomputes the LayerNorm from its input. Without
-grad the wrappers launch the forward kernels alone and write no residuals.
+the frontend's backward recomputes the LayerNorm and its output from its
+input. Without grad the wrappers launch the forward kernels alone and write
+no residuals.
 The plain version of each backward kernel is autograd through the forward's
 plain version.
 
@@ -46,6 +50,7 @@ import torch.nn.functional as F
 
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_relu
 from gasfm_tpu_torch.ops.kernels import build as kb
+from gasfm_tpu_torch.ops.kernels.fused_proj_update import TILE_BLOCKS_PER_SM, TILE_ROWS
 
 LN_EPS = 1e-5
 SPLIT_ROWS = 32  # kAttendChunk of csrc/attend_split.cuh: the dual core's split length
@@ -53,7 +58,11 @@ TRIPLE = 96  # kTriple of csrc/attend_split.cuh: floats of a chunk's online trip
 DUAL_BWD_WARPS = 8  # kDualBwdWarps of csrc/fused_dual_attn.cu: warps per backward block
 DUAL_BWD_BLOCKS_PER_SM = 3  # kDualBwdBlocksPerSm: its resident blocks per SM
 FRONT_WARPS = 8  # kFrontWarps: edges per prologue block
-OUTER_ROW = 32 * 64 + 32  # kOuterRow of csrc/common.cuh: one outer-sum job's sums
+# kFrontNarrowDe / kFrontNarrowDq of csrc/edge_tile.cuh: the widths up to which
+# the prologue's backward takes its narrow form, whose blocks take spans of
+# FRONT_SPAN_ROWS edges (a warp per 32-edge tile)
+FRONT_NARROW_DE, FRONT_NARROW_DQ = 2, 4
+FRONT_SPAN_ROWS = 8 * TILE_ROWS
 
 _P, _I, _F = kb.P, kb.I, kb.F
 _SIGNATURES = {
@@ -62,8 +71,8 @@ _SIGNATURES = {
     + (_I, _P),
     "gasfm_frontend_prologue": (_P, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I, _P, _P,
                                 _P, _I, _P),
-    "gasfm_frontend_prologue_bwd": (_P, _I, _I, _P, _P, _I, _F, _P, _I, _P, _I) + (_P,) * 9
-    + (_I, _I, _P),
+    "gasfm_frontend_prologue_bwd": (_P, _I, _I, _P, _P, _I, _F, _P, _I, _P, _I) + (_P,) * 6
+    + (_I, _P),
 }
 
 
@@ -81,15 +90,29 @@ def head_width(D: int, heads: int) -> int:
     return C
 
 
-def outer_grid(device, E: int) -> int:
-    """Blocks per job of the outer-sum kernel: one per 32-edge tile, at most
-    two per SM (each writes one partial row of OUTER_ROW floats)."""
-    return kb.grid_for(device, -(-E // 32), 1, per_sm=2)
+def front_sums_len(De: int, Dp: int, Dc: int) -> int:
+    """Floats in the prologue backward's partial row of weight gradients
+    (``FrontRow`` of csrc/edge_tile.cuh) for the source linears (Dp, De),
+    (Dc, De) and the LayerNorm (De,)."""
+    return (Dp + Dc) * (De + 1) + 2 * De
 
 
-def split_outer_sums(sums: torch.Tensor, Da: int, Db: int):
-    """One outer-sum job's result (OUTER_ROW,) as (out (Da, Db), bias (Da,))."""
-    return sums[:32 * 64].view(32, 64)[:Da, :Db], sums[32 * 64:32 * 64 + Da]
+def split_front_sums(sums: torch.Tensor, De: int, Dp: int, Dc: int):
+    """The prologue backward's summed partial row (``front_sums_len``
+    floats) as (d wlp (Dp, De), d blp, d wlc (Dc, De), d blc, d ln_scale,
+    d ln_bias), views in the row's order."""
+    dwlp, dblp, dwlc, dblc, dg, db = torch.split(sums, (Dp * De, Dp, Dc * De, Dc, De, De))
+    return dwlp.view(Dp, De), dblp, dwlc.view(Dc, De), dblc, dg, db
+
+
+def front_bwd_grid(device, E: int, De: int, Dp: int, Dc: int) -> int:
+    """Blocks of the prologue backward's kernel: one per span of
+    FRONT_SPAN_ROWS edges in its narrow form (De <= FRONT_NARROW_DE, Dp, Dc
+    <= FRONT_NARROW_DQ), else one per 32-edge tile, at most
+    TILE_BLOCKS_PER_SM per SM."""
+    narrow = De <= FRONT_NARROW_DE and max(Dp, Dc) <= FRONT_NARROW_DQ
+    rows = FRONT_SPAN_ROWS if narrow else TILE_ROWS
+    return kb.grid_for(device, -(-E // rows), 1, per_sm=TILE_BLOCKS_PER_SM)
 
 
 # ---------------------------------------------------------------------------
@@ -287,16 +310,17 @@ class _FrontendPrologue(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw):
         en, xl_p, xl_c = frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw)
-        ctx.save_for_backward(e, ln_scale, ln_bias, wlp, wlc, None if raw else en)
+        ctx.save_for_backward(e, ln_scale, ln_bias, wlp, wlc)
         ctx.eps, ctx.raw = eps, raw
         return (xl_p, xl_c) if raw else (en, xl_p, xl_c)
 
     @staticmethod
     def backward(ctx, *grads):
-        e, ln_scale, ln_bias, wlp, wlc, en = ctx.saved_tensors
+        e, ln_scale, ln_bias, wlp, wlc = ctx.saved_tensors
         den, dxl_p, dxl_c = (None, *grads) if ctx.raw else grads
         de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc = fused_frontend_bwd(
-            e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den, en, ctx.eps, ctx.raw)
+            e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den, eps=ctx.eps,
+            raw_prologue=ctx.raw)
         return de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc, None, None
 
 
@@ -331,42 +355,43 @@ def fused_frontend_bwd(e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den=None, e
     """The prologue's backward kernel (CUDA tensors): e (E, De) the
     prologue's input, the LayerNorm and source-linear weights, the
     cotangents of xl_p (E, Dp) and xl_c (E, Dc) (the dual core's backward
-    gives them) and of e_norm (E, De, or None), and the forward's e_norm
-    (ignored under ``raw_prologue``, where it is e). Returns (de, dln_scale,
-    dln_bias, dwlp, dblp, dwlc, dblc); the LayerNorm's are None under
-    ``raw_prologue``. Its plain version is autograd through
+    gives them) and of e_norm (E, De, or None). ``en``, the forward's
+    e_norm, is not read: the kernel recomputes it from e with the
+    LayerNorm's statistics, which its backward needs anyway. Returns (de,
+    dln_scale, dln_bias, dwlp, dblp, dwlc, dblc); the LayerNorm's are None
+    under ``raw_prologue``. Its plain version is autograd through
     :func:`fused_frontend_plain`."""
     E, De = e.shape
     Dp, Dc = wlp.shape[0], wlc.shape[0]
-    e = kb.cuda_f32("e", e, (E, De))
-    v = e if raw_prologue else kb.cuda_f32("en", en, (E, De))
+    if max(De, Dp, Dc) > 32:
+        raise ValueError(f"fused_frontend_bwd: widths De={De}, Dp={Dp}, Dc={Dc} must be <= 32")
+    al = kb.aligned
+    e = al(kb.cuda_f32("e", e, (E, De)))
     if not raw_prologue:
         ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
         ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
     wlp = kb.cuda_f32("wlp", wlp, (Dp, De))
     wlc = kb.cuda_f32("wlc", wlc, (Dc, De))
-    dxl_p = kb.cuda_f32("dxl_p", dxl_p, (E, Dp))
-    dxl_c = kb.cuda_f32("dxl_c", dxl_c, (E, Dc))
+    dxl_p = al(kb.cuda_f32("dxl_p", dxl_p, (E, Dp)))
+    dxl_c = al(kb.cuda_f32("dxl_c", dxl_c, (E, Dc)))
     if den is not None:
-        den = kb.cuda_f32("den", den, (E, De))
+        den = al(kb.cuda_f32("den", den, (E, De)))
     dev = e.device
-    grid, ogrid = kb.grid_for(dev, E, FRONT_WARPS, per_sm=4), outer_grid(dev, E)
+    grid = front_bwd_grid(dev, E, De, Dp, Dc)
+    row = front_sums_len(De, Dp, Dc)
     de = kb.f32_empty((E, De), dev)
-    ln_partials, ln_sums = kb.f32_empty((grid, 64), dev), kb.f32_empty((2, 32), dev)
-    outer_partials = kb.f32_empty((2, ogrid, OUTER_ROW), dev)
-    outer_sums = kb.f32_empty((2, OUTER_ROW), dev)
+    partials, sums = kb.f32_empty((grid, row), dev), kb.f32_empty((row,), dev)
     p = kb.ptr
     code = _entry("gasfm_frontend_prologue_bwd")(
         p(e), E, De, p(None if raw_prologue else ln_scale), p(None if raw_prologue else ln_bias),
-        int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc, p(dxl_p), p(dxl_c), p(den), p(v),
-        p(de), p(ln_partials), p(ln_sums), p(outer_partials), p(outer_sums), grid, ogrid,
-        kb.stream(dev),
+        int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc, p(dxl_p), p(dxl_c), p(den),
+        p(de), p(partials), p(sums), grid, kb.stream(dev),
     )
     kb.check(code, "fused_frontend_bwd")
     fused_frontend_bwd.launches += 1
-    dwlp, dblp = split_outer_sums(outer_sums[0], Dp, De)
-    dwlc, dblc = split_outer_sums(outer_sums[1], Dc, De)
-    dg, db = (None, None) if raw_prologue else (ln_sums[0, :De], ln_sums[1, :De])
+    dwlp, dblp, dwlc, dblc, dg, db = split_front_sums(sums, De, Dp, Dc)
+    if raw_prologue:
+        dg = db = None
     return de, dg, db, dwlp, dblp, dwlc, dblc
 
 

@@ -13,8 +13,10 @@ d2) in torch's layout (columns for en, then skip2), b (De,), ps (n, De), pv
 (m, De), pg (1, De); d_in, d2, De <= 32 and d_in + d2 <= 64. The model runs
 it on a merged-path layer whose successor is not merged (the depth head's
 layer L-2), where the update cannot defer into the next layer-step kernel.
-The forward keeps the per-edge device code the layer step's forward ran
-before it took the edge tiles (``csrc/proj_update.cuh``).
+The forward is the layer step forward's update on the edge tiles
+(``csrc/edge_tile.cuh``, its phase A: persistent blocks, spans of two
+32-edge tiles of [en | skip2] staged in shared memory, each thread four
+features of two edges), one launch.
 
 The backward gives d en = (g / 4) W[:, :d_in], d skip2 = (g / 4) W[:, d_in:],
 d W the outer sums of g / 4 with [en | skip2], d b = d pg the column sum of
@@ -43,9 +45,10 @@ import torch.nn.functional as F
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.segment_kernels import sum_split
 
-UPDATE_WARPS = 8  # kUpdateWarps of csrc/fused_proj_update.cu
 TILE_ROWS = 32  # kTileRows of csrc/edge_tile.cuh: edges per tile
 TILE_BLOCKS_PER_SM = 3  # kTileBlocksPerSm: the backward tile kernels' blocks per SM
+UPDATE_FWD_SPAN = 2 * TILE_ROWS  # kUpdateFwdSpan: edges per forward block per step
+UPDATE_FWD_BLOCKS_PER_SM = 3  # kUpdateFwdBlocksPerSm: the forward's
 
 _ARGS = {
     # en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, out, grid, stream
@@ -84,23 +87,26 @@ def projection_update_forward(en, skip2, res, w, b, ps, pv, pg, graph):
     """Launch the forward kernel (CUDA tensors): e (E, De)."""
     d_in, d2, De = _widths(en, skip2, w)
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
-    en = kb.cuda_f32("en", en, (E, d_in))
+    al = kb.aligned
+    en = al(kb.cuda_f32("en", en, (E, d_in)))
     if skip2 is not None:
-        skip2 = kb.cuda_f32("skip2", skip2, (E, d2))
+        skip2 = al(kb.cuda_f32("skip2", skip2, (E, d2)))
     if res is not None:
-        res = kb.cuda_f32("res", res, (E, De))
+        res = al(kb.cuda_f32("res", res, (E, De)))
     w = kb.cuda_f32("w", w, (De, d_in + d2))
     b = kb.cuda_f32("b", b, (De,))
     pg = kb.cuda_f32("pg", pg.reshape(-1), (De,))
-    ps = kb.cuda_f32("ps", ps, (n, De))
-    pv = kb.cuda_f32("pv", pv, (m, De))
+    ps = al(kb.cuda_f32("ps", ps, (n, De)))
+    pv = al(kb.cuda_f32("pv", pv, (m, De)))
     dev = en.device
     out = kb.f32_empty((E, De), dev)
     p = kb.ptr
     code = _entry("gasfm_proj_update")(
         p(en), d_in, p(skip2), d2, p(res), p(w), p(b), p(pg), p(ps), p(pv),
         p(kb.cuda_i32("pt_idx", graph.pt_idx)), p(kb.cuda_i32("cam_idx", graph.cam_idx)),
-        E, De, p(out), kb.grid_for(dev, E, UPDATE_WARPS), kb.stream(dev))
+        E, De, p(out),
+        kb.grid_for(dev, -(-E // UPDATE_FWD_SPAN), 1, per_sm=UPDATE_FWD_BLOCKS_PER_SM),
+        kb.stream(dev))
     kb.check(code, "projection_update")
     projection_update.launches += 1
     return out

@@ -2,10 +2,10 @@
 the dual core's forward (#1) and backward (#2), the segment sum
 (#15/#18), the edge combine's backward (#12), the row gather (#16/#20),
 the point side's single-direction attention (#13, #14), the frontend's
-prologue (#3) and the projection update (#9) and its backward (#10), from
-``torch.profiler``, on both bench scenes and the wide one, and of #6, #1,
-#2, #10, #12 and the segment sum on the kernel-check graphs of
-``chip_smoke.py`` (``graph/check_graphs.py``).
+prologue (#3) and its backward (#4), and the projection update (#9) and
+its backward (#10), from ``torch.profiler``, on both bench scenes and the
+wide one, and of #6, #1, #2, #4, #9, #10, #12 and the segment sum on the
+kernel-check graphs of ``chip_smoke.py`` (``graph/check_graphs.py``).
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
 
@@ -13,8 +13,9 @@ Each measurement profiles ``--calls`` back-to-back calls of one function
 and nothing else, after a warm-up, and divides the summed device time of
 every kernel in the window by the calls: so a function of several launches
 is counted whole. A window that caught fewer CUDA events than calls is
-taken again, up to three times, and then the script raises: it never
-reports an empty window as a time of 0. Each row also carries a digest of
+taken again, up to WINDOWS times, and then that row is reported as not
+measured (with the events each window caught), never as a time of 0, and
+the script exits non-zero after the last row. Each row also carries a digest of
 the function's outputs (SHA-1 of their bytes), so two trees' rows show
 whether they compute the same bits. The layer step runs at the flagship's
 interior shapes (en (E, 32), skip2 (E, 2), res (E, 32), W (32, 34), both
@@ -34,10 +35,14 @@ hub-parts graphs; the gather on both sides at D = 256 and D = 2, beside
 ``index_select`` on the same table and ids; the attention on the point side
 at D = 32, H = 4 (an interior layer of the flagship on the unfused path),
 the forward with its residuals (as under autograd) and the backward from
-them; the frontend's prologue at De = 32; the projection update with skip2
-and res, and its backward (``projection_update_bwd``, all its launches) at
-De = d_in = 32, d2 = 2 on the bench scenes and the degree, hub-point and
-tile-boundary graphs. Prints one line per measurement with each kernel's
+them; the frontend's prologue at De = 32; its backward
+(``fused_frontend_bwd``, all its launches, from seeded cotangents of xl_p,
+xl_c and e_norm) at the first layer's widths (De = 2, Dp = Dc = 4) and at
+De = Dp = Dc = 32 with the LayerNorm and raw; the projection update with
+skip2 and res, bare (d2 = 0, no res) and with res only; the projection
+update's backward (``projection_update_bwd``, all its launches) at De =
+d_in = 32, d2 = 2; these three on the bench scenes and the degree,
+hub-point and tile-boundary graphs. Prints one line per measurement with each kernel's
 launches and device time per call, and writes them as JSON to ``--out``
 (default ``chiprun_out/kernel_device_time.json``).
 
@@ -78,17 +83,23 @@ from gasfm_tpu_torch.ops.kernels import fused_update as fu
 from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
 from gasfm_tpu_torch.tools.profile_forward import SCENES
 
+# Profiler windows per measurement at most. On the H100 machines a window
+# drops some or all of its kernel events now and then, a few windows in a
+# row at times (1 to 8 in 60 windows of 20 calls of one kernel, some of 0
+# events), whatever the code measured.
+WINDOWS = 10
+
 
 def device_ms_per_call(fn, calls):
     """(device ms per call summed over every kernel in the window, {kernel
     name: (launches, device ms) per call}). Every call launches at least one
     kernel, so a window in which the profiler caught fewer CUDA events than
-    calls (none, as it happens) is taken again, up to three times in all;
-    then it raises: an empty window is not a time of 0."""
+    calls is taken again, up to WINDOWS times in all; then it raises: an
+    empty window is not a time of 0."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -103,7 +114,9 @@ def device_ms_per_call(fn, calls):
             total = sum(us for _, us in names.values())
             return total / calls / 1e3, {k: (n / calls, round(us / calls / 1e3, 4))
                                          for k, (n, us) in names.items()}
-    raise RuntimeError(f"device_ms_per_call: 3 profiler windows of {calls} calls each "
+        print(f"  device_ms_per_call: a window of {calls} calls caught "
+              f"{ {k: n for k, (n, _) in names.items()} } CUDA events", flush=True)
+    raise RuntimeError(f"device_ms_per_call: {WINDOWS} profiler windows of {calls} calls each "
                        "caught fewer CUDA events than calls")
 
 
@@ -232,11 +245,39 @@ def edge_combine_bwd_calls(graph, dev, widths=(256, 32), seed=2468):
             for D, g in gs.items()]
 
 
-def projection_update_call(graph, dev):
-    """#9 with the 2-wide skip2 and the residual, De = 32."""
-    ops = step_operands(graph, dev)
+PROJECTION_UPDATE_FORMS = {"skip2_res": dict(d2=2, res=True), "bare": dict(d2=0, res=False),
+                           "res_only": dict(d2=0, res=True)}
+
+
+def projection_update_call(graph, dev, form="skip2_res"):
+    """#9 at De = d_in = 32 in one of PROJECTION_UPDATE_FORMS: with the
+    2-wide skip2 and the residual, with neither, with the residual only."""
+    ops = step_operands(graph, dev, **PROJECTION_UPDATE_FORMS[form])
     return lambda: fpu.projection_update(*(ops[k] for k in (
         "en", "skip2", "res", "w", "b", "ps", "pv", "pg")), graph)
+
+
+FRONTEND_BWD_FORMS = {"De2_Dq4": (2, 4, False), "De32_Dq32": (32, 32, False),
+                      "De32_Dq32_raw": (32, 32, True)}
+
+
+def frontend_bwd_call(graph, dev, form="De2_Dq4", seed=531):
+    """#4 whole (all its launches) at (De, Dq, raw) = FRONTEND_BWD_FORMS[form]:
+    the source linears Dq x De on both sides, from seeded cotangents of
+    xl_p, xl_c and (not under raw) e_norm."""
+    De, Dq, raw = FRONTEND_BWD_FORMS[form]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E = graph.num_edges
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    e, lng, lnb = rnd(E, De, scale=2.0), 1.0 + rnd(De, scale=0.2), rnd(De, scale=0.1)
+    wlp, blp, wlc, blc = rnd(Dq, De, scale=0.3), rnd(Dq), rnd(Dq, De, scale=0.3), rnd(Dq)
+    dxl_p, dxl_c, den = rnd(E, Dq), rnd(E, Dq), None if raw else rnd(E, De)
+    en = fda.frontend_prologue(e, lng, lnb, wlp, blp, wlc, blc, raw_prologue=raw)[0]
+    return lambda: fda.fused_frontend_bwd(e, lng, lnb, wlp, wlc, dxl_p, dxl_c, den, en,
+                                          raw_prologue=raw)
 
 
 def attend_calls(graph, dev, heads=4, D=32):
@@ -267,7 +308,12 @@ def main(argv=None) -> None:
     out = []
 
     def measure(label, name, variant, fn):
-        ms, names = device_ms_per_call(fn, args.calls)
+        try:
+            ms, names = device_ms_per_call(fn, args.calls)
+        except RuntimeError as exc:  # a row without a time, not a time of 0
+            print(f"{label} {name}[{variant}]: not measured ({exc})", flush=True)
+            out.append(dict(scene=label, name=name, variant=variant, error=str(exc)))
+            return
         dig = digest(fn())
         print(f"{label} {name}[{variant}]: device {ms:.4f} ms per call; digest {dig}; per call "
               f"(launches, device ms) by kernel {names}", flush=True)
@@ -292,7 +338,11 @@ def main(argv=None) -> None:
                               layer_step_prologue_call(graph, dev)))
                 cases.append(("fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev)))
                 cases.append(("frontend_prologue", "De32", frontend_call(graph, dev)))
-                cases.append(("projection_update", "skip2_res", projection_update_call(graph, dev)))
+                for form in FRONTEND_BWD_FORMS:
+                    cases.append(("fused_frontend_bwd", form, frontend_bwd_call(graph, dev, form)))
+                for form in PROJECTION_UPDATE_FORMS:
+                    cases.append(("projection_update", form,
+                                  projection_update_call(graph, dev, form)))
                 cases.append(("projection_update_bwd", "skip2",
                               projection_update_bwd_call(graph, dev)))
             for D in (256, 2):
@@ -317,6 +367,11 @@ def main(argv=None) -> None:
             if label in ("degrees", "hub_point"):
                 measure(label, "projection_update_bwd", "skip2",
                         projection_update_bwd_call(graph, dev))
+                for form in PROJECTION_UPDATE_FORMS:
+                    measure(label, "projection_update", form,
+                            projection_update_call(graph, dev, form))
+                for form in FRONTEND_BWD_FORMS:
+                    measure(label, "fused_frontend_bwd", form, frontend_bwd_call(graph, dev, form))
             if label in ("hub_point", "hub_parts"):
                 for name, variant, fn in edge_combine_bwd_calls(graph, dev):
                     measure(label, name, variant, fn)
@@ -337,12 +392,20 @@ def main(argv=None) -> None:
         measure("tile_edges", "fused_layer_step_bwd", "interior", layer_step_bwd_call(tiles, dev))
         measure("tile_edges", "projection_update_bwd", "skip2",
                 projection_update_bwd_call(tiles, dev))
+        for form in PROJECTION_UPDATE_FORMS:
+            measure("tile_edges", "projection_update", form,
+                    projection_update_call(tiles, dev, form))
+        for form in FRONTEND_BWD_FORMS:
+            measure("tile_edges", "fused_frontend_bwd", form, frontend_bwd_call(tiles, dev, form))
         measure("tile_edges", "layer_step_prologue", "interior",
                 layer_step_prologue_call(tiles, dev))
         measure("tile_edges", "layer_step_prologue", "narrow_De8",
                 layer_step_prologue_call(tiles, dev, De=8, d_in=8))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(device=smi, rows=out), indent=1))
+    missing = [f"{r['scene']} {r['name']}[{r['variant']}]" for r in out if "error" in r]
+    if missing:
+        raise SystemExit(f"kernel_device_time: not measured: {missing}")
 
 
 if __name__ == "__main__":

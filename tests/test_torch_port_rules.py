@@ -135,7 +135,7 @@ def test_projection_update_launchers_raise_on_operands_they_cannot_take():
 
 def test_kernel_device_time_raises_on_a_window_without_cuda_events(monkeypatch):
     """``device_ms_per_call`` takes a profiler window that caught fewer CUDA
-    events than calls again, three times in all, then raises: it never
+    events than calls again, ``WINDOWS`` times in all, then raises: it never
     reports such a window as a device time of 0 (here on the CPU, where no
     call launches a kernel)."""
     from gasfm_tpu_torch.tools import kernel_device_time as kdt
@@ -144,4 +144,4 @@ def test_kernel_device_time_raises_on_a_window_without_cuda_events(monkeypatch):
     calls = []
     with pytest.raises(RuntimeError, match="fewer CUDA events than calls"):
         kdt.device_ms_per_call(lambda: calls.append(1), 4)
-    assert len(calls) == 3 + 3 * 4  # the warm-up, then three windows
+    assert len(calls) == 3 + kdt.WINDOWS * 4  # the warm-up, then every window

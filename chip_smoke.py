@@ -22,7 +22,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    denominator against the plain logits'). The layer step's prologue
    (#5), the kernel its wrapper launches before the dual core, is also
    held alone against its plain version in each form and launched twice,
-   bitwise; the kernels line takes its numbers from the interior form.
+   bitwise; the kernels line takes its numbers from the interior form. So
+   is the frontend's prologue (#3): the whole frontend and the prologue
+   alone, each twice, bitwise, at the model's own layer 0 (De = 2, Dp = Dc
+   = 4: the narrow form, a lane per edge) and at De = 32 with the LayerNorm
+   and raw (the tile form); the kernels line takes its numbers from the
+   prologue alone at layer 0.
 3. Each GASFM backward kernel against autograd of its plain version on the
    card, on seeded inputs and cotangents at both scenes' shapes: the dual
    core at D = 32, the frontend at layer 0 (De = 2, Dq = 4) and at De = Dq
@@ -81,7 +86,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    with #13's and #14's device times per call on the wide and hub graphs
    (the hub graph must cost less than 1.5x the wide one); and the segment
    max on both sides at D = 1, 4 and 8, on the graph and on a copy with
-   empty segments, bitwise, also timed against ``scatter_reduce_`` (amax).
+   empty segments, bitwise, twice, also timed against ``scatter_reduce_``
+   (amax); the max also on the graphs that stress the split it walks (the
+   segment sum's): the dense scene plus a camera over all 8,192 points
+   (four parts and the merge launch), 4,500 cameras with a point on all
+   (three parts) and the power-law scene plus cameras of 31-64 edges and a
+   point of 133.
 3d. The standalone projection update (the depth path's layer L-2) on both
    bench scenes at De = 32: with the 2-wide skip2 and the residual, with
    neither, and at d2 = 0 with the residual, against its plain version,
@@ -90,8 +100,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    also run on the tile-boundary graph, the power-law scene plus cameras of
    31-64 edges and a point of 133, the wide scene plus a point in all 1280
    views, and the dense scene with empty segments; the frontend's backward
-   (#4) in its three forms on the first three of these. No single PyTorch
-   call computes either (no library time).
+   (#4) in its three forms on the first three of these, and its forward
+   (#3, whole and alone, twice, bitwise) on the first two. No single
+   PyTorch call computes any of these (no library time).
 4. GASFM serving: the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
    32/64/1024/2048, seeded init) answers 3 requests per scene through
    ``TrainingSession.forward`` and ``.loss`` on the dense (128 views, 8192
@@ -465,16 +476,7 @@ def kernel_phase(dev, scene_name, graph, model, record):
            att_p, att_c, graph, H)
     front_variants += [("De32_ln", f32, False, False), ("De32_raw", f32, True, False)]
     for variant, fa, raw, main in front_variants:
-        e, Dq = fa[0], fa[3].shape[0]
-        # inputs read once (LayerNorm operands only when used), outputs
-        # written once: e_norm (not under raw), out_pt, out_cam
-        io = nbytes(e, *(() if raw else fa[1:3]), *fa[3:11], *csr) \
-            + (0 if raw else nbytes(e)) + 4 * (n + m) * Dq
-        flops = E * (8 * e.shape[1] + 4 * e.shape[1] * Dq + 20 * Dq)
-        check("fused_frontend", variant,
-              lambda fa=fa, raw=raw: fda.fused_frontend(*fa, raw_prologue=raw),
-              lambda fa=fa, raw=raw: fda.fused_frontend_plain(*fa, raw_prologue=raw),
-              ("e_norm", "out_pt", "out_cam"), io, flops, main)
+        frontend_fwd_checks(results, record, scene_name, variant, fa, raw, main)
 
     # #5 layer step: interior (skip2 = e0, res), first-layer form, final raw.
     en32, res = torch.relu(rnd(E, 32)), rnd(E, 32)
@@ -507,6 +509,60 @@ def kernel_phase(dev, scene_name, graph, model, record):
         check("fused_esfm_terms", variant, lambda la=la: (flo.fused_esfm_terms(*la),),
               lambda la=la: (flo.fused_esfm_terms_plain(*la),), ("terms",),
               nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx) + 12, 40.0 * E, main)
+    return results
+
+
+def frontend_fwd_checks(results, record, scene_name, variant, fa, raw, main):
+    """The frontend (#3 + #1) on the 13 operands ``fa`` against its plain
+    version, and its prologue (#3) alone, the kernel its wrapper launches
+    before the dual core, against the plain prologue, every output; each
+    launched twice, bitwise. With ``main`` the prologue's numbers go to the
+    kernels line; its bound counts what it moves: e and the parameters read
+    once (the LayerNorm's only when used), e_norm (not under raw), xl_p and
+    xl_c written once."""
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+
+    graph = fa[11]
+    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    e, De, Dq = fa[0], fa[0].shape[1], fa[3].shape[0]
+    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
+    ln = () if raw else fa[1:3]
+    # the whole frontend: inputs read once, e_norm (not under raw), out_pt
+    # and out_cam written once
+    io = nbytes(e, *ln, *fa[3:11], *csr) + (0 if raw else nbytes(e)) + 4 * (n + m) * Dq
+    flops = E * (8 * De + 4 * De * Dq + 20 * Dq)
+    forward_check(results, record, scene_name, "fused_frontend", variant,
+                  lambda: fda.fused_frontend(*fa, raw_prologue=raw),
+                  lambda: fda.fused_frontend_plain(*fa, raw_prologue=raw),
+                  ("e_norm", "out_pt", "out_cam"), io, flops, False, twice=True)
+    pa = fa[:7]
+    io = nbytes(e, *ln, *pa[3:7]) + 4 * E * ((0 if raw else De) + 2 * Dq)
+    forward_check(results, record, scene_name, "fused_frontend", f"prologue_{variant}",
+                  lambda: fda.frontend_prologue(*pa, raw_prologue=raw),
+                  lambda: fda.frontend_prologue_plain(*pa, raw_prologue=raw),
+                  ("e_norm", "xl_p", "xl_c"), io, E * (4.0 * De * Dq + 10 * De), main,
+                  twice=True)
+
+
+def frontend_fwd_graph_phase(dev, graphs, record, H=4):
+    """#3 in its forms (FRONT_FORMS; at De = 2 the edges' two features kept
+    apart) on each of ``graphs``, whole and alone (:func:`frontend_fwd_checks`),
+    random parameters."""
+    gen = torch.Generator(device=dev).manual_seed(2468)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    results = {}
+    for label, graph in graphs.items():
+        E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+        for variant, De, Dq, raw in FRONT_FORMS:
+            scale = 0.5 if De == 2 else 0.2
+            e = separated_pairs(rnd, gen, dev, E) if De == 2 else rnd(E, De)
+            fa = (e, 1.0 + rnd(De, scale=0.2), rnd(De, scale=0.1), rnd(Dq, De, scale=scale),
+                  rnd(Dq, scale=0.1), rnd(Dq, De, scale=scale), rnd(Dq, scale=0.1), rnd(n, Dq),
+                  rnd(m, Dq), rnd(Dq), rnd(Dq), graph, H)
+            frontend_fwd_checks(results, record, label, variant, fa, raw, False)
     return results
 
 
@@ -633,7 +689,7 @@ def backward_phase(dev, scene_name, graph, record):
     dual_bwd_check(results, record, scene_name, graph, rnd, 32, H, main=True)
 
     # #4 frontend at layer 0: De = 2, D = 4, separated feature pairs.
-    frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_BWD_FORMS[:1], main=True)
+    frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_FORMS[:1], main=True)
 
     # #6 layer step: interior (skip2 = e0, residual), first-layer form, final raw.
     layer_step_bwd_checks(check, rnd, gen, dev, graph, H, main=True)
@@ -656,18 +712,19 @@ def backward_phase(dev, scene_name, graph, record):
 
     # #4 at De = Dq = 32 (the depth head's widening layer), with the
     # LayerNorm and raw.
-    frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_BWD_FORMS[1:], main=False)
+    frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_FORMS[1:], main=False)
     return results
 
 
-# The frontend's backward (#4): (variant, De, Dq, raw) at the first layer's
-# widths and at the depth head's widening layer's.
-FRONT_BWD_FORMS = (("De2_layer0", 2, 4, False), ("De32_ln", 32, 32, False),
-                   ("De32_raw", 32, 32, True))
+# The frontend's prologue (#3) and backward (#4): (variant, De, Dq, raw) at
+# the first layer's widths (their narrow forms, a lane per edge) and at the
+# depth head's widening layer's (their tile forms).
+FRONT_FORMS = (("De2_layer0", 2, 4, False), ("De32_ln", 32, 32, False),
+               ("De32_raw", 32, 32, True))
 
 
 def frontend_bwd_checks(check, rnd, gen, dev, graph, H, forms, main):
-    """The frontend's backward (#4) in each of ``forms`` (FRONT_BWD_FORMS;
+    """The frontend's backward (#4) in each of ``forms`` (FRONT_FORMS;
     at De = 2 the edges' two features kept apart): every input's gradient
     through the frontend and its dual core against autograd of the plain
     version; #4 alone timed (its cotangents of xl_p and xl_c precomputed by
@@ -1283,12 +1340,10 @@ def unfused_kernel_phase(dev, scene_name, graph, record):
     forward and backward on both sides (:func:`attention_checks`), on the
     wide scene also on a copy with empty segments and on
     :func:`hub_graph`, with #13's and #14's device times on the wide and
-    hub graphs; the segment max on both sides at D = 1, 4 (the logits of 4
-    heads: the camera composite's) and 8, on the scene's graph and on a copy
-    with empty segments, bitwise, also timed against ``scatter_reduce_``
-    (amax). The main variants are the main path's: the attention on the
-    point side, the max on the camera side at D = 4."""
-    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+    hub graphs; the segment max (:func:`segment_max_checks`) on the scene's
+    graph and on a copy with empty segments. The main variants are the main
+    path's: the attention on the point side, the max on the camera side at
+    D = 4."""
     from gasfm_tpu_torch.graph.check_graphs import graph_with_empty_segments
 
     gen = torch.Generator(device=dev).manual_seed(1357)
@@ -1313,23 +1368,60 @@ def unfused_kernel_phase(dev, scene_name, graph, record):
         if not attention_device_times({"wide": graph, "hub": hub}, rnd, record):
             results["fused_attend"]["ok"] = False
 
-    neutral = -7.5  # a caller's neutral: empty segments must give it
-    for label, gr in (("", graph), ("_empty", graph_with_empty_segments(graph))):
-        ids = {"point": gr.pt_idx.long(), "camera": gr.cam_idx.long()}
-        gcsr = {"point": (gr.pt_ptr,), "camera": (gr.cam_ptr, gr.cam_perm)}
-        for Dm in (1, 4, 8):
-            for side, S in (("point", gr.num_pts), ("camera", gr.num_cams)):
-                x = rnd(gr.num_edges, Dm)
-                acc = torch.full((S, Dm), neutral, device=dev)
-                idx = ids[side][:, None].expand(-1, Dm).contiguous()
-                forward_check(
-                    results, record, scene_name, "segment_max", f"{side}_D{Dm}{label}",
-                    lambda x=x, gr=gr, side=side: (sk.segment_max(x, gr, side, neutral),),
-                    lambda x=x, gr=gr, side=side: (sk.segment_max_plain(x, gr, side, neutral),),
-                    ("out",), nbytes(x, *gcsr[side]) + 4 * S * Dm, float(x.numel()),
-                    main=(not label and Dm == 4 and side == "camera"), exact=True,
-                    library=lambda acc=acc, idx=idx, x=x: acc.scatter_reduce_(
-                        0, idx, x, reduce="amax", include_self=False))
+    segment_max_checks(results, record, scene_name, graph, "", rnd, main=True)
+    segment_max_checks(results, record, scene_name, graph_with_empty_segments(graph), "_empty",
+                       rnd, main=False)
+    return results
+
+
+def segment_max_checks(results, record, scene_name, graph, label, rnd, main):
+    """The segment max on both sides of ``graph`` at D = 1, 4 (the logits
+    of 4 heads: the camera composite's) and 8, with a caller's neutral
+    (-7.5: empty segments must give it), bitwise against its plain version,
+    launched twice, bitwise, and timed beside ``scatter_reduce_`` (amax) on
+    the same data; with ``main`` the camera side at D = 4 gives the kernels
+    line its numbers. Its bound: the rows, the CSR (and permutation) read
+    once, the maxima written once."""
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    neutral = -7.5
+    ids = {"point": graph.pt_idx.long(), "camera": graph.cam_idx.long()}
+    csr = {"point": (graph.pt_ptr,), "camera": (graph.cam_ptr, graph.cam_perm)}
+    for D in (1, 4, 8):
+        for side, S in (("point", graph.num_pts), ("camera", graph.num_cams)):
+            x = rnd(graph.num_edges, D)
+            acc = torch.full((S, D), neutral, device=x.device)
+            idx = ids[side][:, None].expand(-1, D).contiguous()
+            forward_check(
+                results, record, scene_name, "segment_max", f"{side}_D{D}{label}",
+                lambda x=x, side=side: (sk.segment_max(x, graph, side, neutral),),
+                lambda x=x, side=side: (sk.segment_max_plain(x, graph, side, neutral),),
+                ("out",), nbytes(x, *csr[side]) + 4 * S * D, float(x.numel()),
+                main=main and D == 4 and side == "camera", exact=True, twice=True,
+                library=lambda acc=acc, idx=idx, x=x: acc.scatter_reduce_(
+                    0, idx, x, reduce="amax", include_self=False))
+
+
+def segment_max_graph_phase(dev, scenes, record):
+    """The segment max (:func:`segment_max_checks`) on the graphs that
+    stress the sum's split it walks: the dense scene plus a camera over all
+    8,192 points (four parts of 2,048 rows and the merge launch), 4,500
+    cameras with a point on all (three parts, the merge on the point side)
+    and the power-law scene plus cameras of 31-64 edges and a point of 133
+    (long segments of one part)."""
+    from gasfm_tpu_torch.graph.check_graphs import (degree_graph, hub_camera_graph,
+                                                    hub_parts_graph)
+
+    gen = torch.Generator(device=dev).manual_seed(8642)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+
+    results = {}
+    graphs = {"hub_camera": hub_camera_graph(scenes["dense"].graph),
+              "hub_parts": hub_parts_graph(dev), "degrees": degree_graph(scenes["powerlaw"].graph)}
+    for label, graph in graphs.items():
+        segment_max_checks(results, record, label, graph, "", rnd, main=False)
     return results
 
 
@@ -1394,7 +1486,7 @@ def projection_update_phase(dev, scene_name, graph, record, main=True):
 
 
 def frontend_bwd_graph_phase(dev, graphs, record):
-    """#4 in its three forms (FRONT_BWD_FORMS) on each of ``graphs``, the
+    """#4 in its three forms (FRONT_FORMS) on each of ``graphs``, the
     graphs that stress its tiles and spans."""
     gen = torch.Generator(device=dev).manual_seed(1357)
 
@@ -1406,7 +1498,7 @@ def frontend_bwd_graph_phase(dev, graphs, record):
         def check(*args, label=label, **kw):
             backward_check(results, record, label, *args, **kw)
 
-        frontend_bwd_checks(check, rnd, gen, dev, graph, 4, FRONT_BWD_FORMS, main=False)
+        frontend_bwd_checks(check, rnd, gen, dev, graph, 4, FRONT_FORMS, main=False)
     return results
 
 
@@ -1892,12 +1984,15 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
             if not all(map(math.isfinite, steps[-1])) or abs(a - b) > SLICE_RTOL * abs(b):
                 raise SmokeFailure(f"{label} {name}: step {k + 1} loss {a!r} vs plain path {b!r}")
         ms = statistics.median(times)
+        step_calls = {k: per_step.get(k, 0) + repro.get(k, 0) for k in counters}
         print(f"{label} {name}: {scene.graph.num_cams} views, {scene.graph.num_pts} points, {E} "
               f"edges; ms/step {[round(t, 3) for t in times]} (median {ms:.3f} ms, "
               f"{E / ms * 1e3:.4g} edges/s); "
               f"({'loss, grad_norm' if depth else 'loss, our_repro, grad_norm'}) per step {steps}; "
               f"peak device memory {peak / 2**20:.1f} MiB; launches over {1 + TRAIN_STEPS} "
-              f"steps {({k: v for k, v in delta.items() if v})}")
+              f"steps {({k: v for k, v in delta.items() if v})}, per timed step "
+              f"{({k: v for k, v in step_calls.items() if v})} ({sum(step_calls.values())} "
+              f"calls of the port's kernels)")
         print(f"{label} {name}: loss per step, kernel path {losses} vs plain path "
               f"{plain_losses} (rtol {SLICE_RTOL:g}) ok")
         record.setdefault(label, {}).setdefault(name, {}).update(
@@ -2162,6 +2257,8 @@ def main() -> int:
         per_scene["wide"] = {}
         for k, sc in (("dense", scenes["dense"]), ("wide", wide["wide"])):
             per_scene[k].update(unfused_kernel_phase(dev, k, sc.graph, record))
+        # ... and the segment max on the graphs that stress the split it walks
+        per_scene["max_graphs"] = segment_max_graph_phase(dev, scenes, record)
     # ---- phase 3d: the projection update and its backward, both scenes, and
     # on graphs that stress the backward's edge tiles and sums (a ragged last
     # tile, empty points and camera, a hub point, cameras of 31-64 edges)
@@ -2179,6 +2276,10 @@ def main() -> int:
     # spans' ragged ends, short and long segments
     per_scene["front_graphs"] = frontend_bwd_graph_phase(
         dev, {k: update_graphs[k] for k in ("tile_edges", "degrees", "hub_point")}, record)
+    # ... and the frontend's forward (#3) on two of them, whole and alone
+    with torch.no_grad():
+        per_scene["front_fwd_graphs"] = frontend_fwd_graph_phase(
+            dev, {k: update_graphs[k] for k in ("tile_edges", "degrees")}, record)
     bad = [(s, k) for s, r in per_scene.items() for k, v in r.items() if not v["ok"]]
     if bad:
         raise SmokeFailure(f"kernels out of tolerance: {bad}")

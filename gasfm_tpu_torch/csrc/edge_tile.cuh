@@ -1,10 +1,10 @@
 // Edge tiles of a per-edge prologue, for sm_90a: the layer step's forward
 // (#5) and backward (#6) (fused_layer_step.cu, gasfm_layer_step_prologue and
-// gasfm_layer_step_bwd), the frontend's backward (#4, fused_dual_attn.cu,
+// gasfm_layer_step_bwd), the frontend's forward (#3) and backward (#4)
+// (fused_dual_attn.cu, gasfm_frontend_prologue and
 // gasfm_frontend_prologue_bwd) and the projection update's forward (#9) and
 // backward (#10) (fused_proj_update.cu, gasfm_proj_update and
-// gasfm_proj_update_bwd) run them; the frontend's forward (#3) can take up
-// the same tile layout.
+// gasfm_proj_update_bwd) run them.
 //
 // The per-edge work of these prologues is a few small dense products (the
 // update's weight W, the two GATv2 source linears and their transposes, the
@@ -653,7 +653,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) frontend_bwd_t
   store_ln_grads(&s.dx[0][0][0], row + L.g, row + L.bn, De, dg, db);
 }
 
-// The narrow form's widths: De <= kFrontNarrowDe, Dp, Dc <= kFrontNarrowDq.
+// The narrow forms' widths (#4's here, #3's below): De <= kFrontNarrowDe,
+// Dp, Dc <= kFrontNarrowDq.
 constexpr int kFrontNarrowDe = 2;
 constexpr int kFrontNarrowDq = 4;
 
@@ -689,6 +690,12 @@ template <int N>
 __device__ __forceinline__ void store_row_n(float* __restrict__ dst, int D, int e,
                                             const float (&v)[N]) {
   float* p = dst + (size_t)e * D;
+  if constexpr (N >= 4) {
+    if (D == 4) {
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+  }
   if (N >= 2 && D == 2) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
     return;
@@ -920,8 +927,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) proj_update_bw
 // 1, outputs 4 og .. 4 og + 3 of the 64-wide [xl_p | xl_c], each side
 // zero-padded to 32). Each phase's products are its own device code: the
 // standalone projection update's forward (#9, proj_update_fwd_tile_kernel)
-// is phase A alone, and the standalone frontend (#3) could take up phases B
-// and C. Widths: d_in, d2, De, Dp, Dc <= 32, K <= 64.
+// is phase A alone, the frontend's forward (#3, frontend_fwd_tile_kernel)
+// phases B and C. Widths: d_in, d2, De, Dp, Dc <= 32, K <= 64.
 //
 // The tiles are double-buffered: while tile t computes, tile t + grid's [en
 // | skip2] rows are in flight into the other buffer (cp.async) and its res
@@ -991,6 +998,33 @@ __device__ __forceinline__ void load_update_fwd_params(float (*wt)[32], float* c
   if (tid < 32) c0[tid] = tid < De ? b[tid] + pg[tid] : 0.f;
 }
 
+// Phases B and C's parameters: [Wlp ; Wlc]^T (De, 64) into wf (column o < 32
+// feeds xl_p, o >= 32 xl_c, zero past De rows and past Dp / Dc columns),
+// [blp | blc] into bf, the LayerNorm's scale and bias into g and b (zeros
+// under raw). Every thread of the block calls it; the caller synchronises
+// before reading.
+__device__ __forceinline__ void load_front_fwd_params(
+    float (*wf)[64], float* bf, float* g, float* b, const float* __restrict__ wlp,
+    const float* __restrict__ blp, int Dp, const float* __restrict__ wlc,
+    const float* __restrict__ blc, int Dc, int De, const float* __restrict__ lng,
+    const float* __restrict__ lnb, int raw) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 32 * 64; i += kTileThreads) {
+    const int k = i >> 6, o = i & 63;
+    float x = 0.f;
+    if (k < De && o < Dp) x = wlp[o * De + k];
+    if (k < De && o >= 32 && o - 32 < Dc) x = wlc[(o - 32) * De + k];
+    wf[k][o] = x;
+  }
+  if (tid < 64) {
+    bf[tid] = tid < 32 ? (tid < Dp ? blp[tid] : 0.f) : (tid - 32 < Dc ? blc[tid - 32] : 0.f);
+  }
+  if (tid < 32) {
+    g[tid] = (!raw && tid < De) ? lng[tid] : 0.f;
+    b[tid] = (!raw && tid < De) ? lnb[tid] : 0.f;
+  }
+}
+
 // Zeros in the columns past K of both buffers of staged [en | skip2] rows
 // (never staged; step_update4 reads them up to K rounded up to 4).
 template <int ROWS>
@@ -1042,9 +1076,10 @@ __device__ __forceinline__ void step_update4(const float (*wt)[32], const float*
 }
 
 // Phase B: v = relu(LN(x)) over the De features of a row held 4 per lane by
-// 8 lanes (0 past De). Every lane of the warp calls it.
-__device__ __forceinline__ void step_norm4(const StepFwdSmem& s, const float (&x)[4], int De,
-                                           int c1, float inv, float eps, float (&v)[4]) {
+// 8 lanes (0 past De), with the LayerNorm's scale g and bias b (shared
+// memory). Every lane of the warp calls it.
+__device__ __forceinline__ void step_norm4(const float* g, const float* b, const float (&x)[4],
+                                           int De, int c1, float inv, float eps, float (&v)[4]) {
   float sq[4];
 #pragma unroll
   for (int q = 0; q < 4; ++q) sq[q] = x[q] * x[q];
@@ -1054,27 +1089,29 @@ __device__ __forceinline__ void step_norm4(const StepFwdSmem& s, const float (&x
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
     const int c = c1 + q;
-    v[q] = c < De ? fmaxf((x[q] - mean) * rstd * s.g[c] + s.b[c], 0.f) : 0.f;
+    v[q] = c < De ? fmaxf((x[q] - mean) * rstd * g[c] + b[c], 0.f) : 0.f;
   }
 }
 
 // Phase C: outputs 4 og .. 4 og + 3 of [xl_p | xl_c] for edges ra, ra + 1 of
-// the tile (DP = De rounded up to 4; v zero past De). The sum over k runs in
-// order, then the bias, as the per-edge kernels' did.
-__device__ __forceinline__ void step_linears4(const StepFwdSmem& s, int ra, int og, int DP,
-                                              float (&o)[2][4]) {
+// the tile v (DP = De rounded up to 4; v zero past De), with [Wlp ; Wlc]^T in
+// wf and [blp | blc] in bf (shared memory, load_front_fwd_params). The sum
+// over k runs in order, then the bias, as the per-edge kernels' did.
+__device__ __forceinline__ void step_linears4(const float (*v)[kTileNarrow],
+                                              const float (*wf)[64], const float* bf, int ra,
+                                              int og, int DP, float (&o)[2][4]) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) o[h][q] = 0.f;
   }
   for (int k = 0; k < DP; k += 4) {
-    const float4 v0 = *reinterpret_cast<const float4*>(&s.v[ra][k]);
-    const float4 v1 = *reinterpret_cast<const float4*>(&s.v[ra + 1][k]);
+    const float4 v0 = *reinterpret_cast<const float4*>(&v[ra][k]);
+    const float4 v1 = *reinterpret_cast<const float4*>(&v[ra + 1][k]);
     const float a0[4] = {v0.x, v0.y, v0.z, v0.w}, a1[4] = {v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float4 wk = *reinterpret_cast<const float4*>(&s.wf[k + u][4 * og]);
+      const float4 wk = *reinterpret_cast<const float4*>(&wf[k + u][4 * og]);
       o[0][0] = fmaf(a0[u], wk.x, o[0][0]);
       o[0][1] = fmaf(a0[u], wk.y, o[0][1]);
       o[0][2] = fmaf(a0[u], wk.z, o[0][2]);
@@ -1088,7 +1125,7 @@ __device__ __forceinline__ void step_linears4(const StepFwdSmem& s, int ra, int 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) o[h][q] += s.bf[4 * og + q];
+    for (int q = 0; q < 4; ++q) o[h][q] += bf[4 * og + q];
   }
 }
 
@@ -1109,20 +1146,7 @@ __global__ void __launch_bounds__(kTileThreads, kStepFwdBlocksPerSm) layer_step_
   // The weights, once per block. Consecutive threads store consecutive
   // words (no bank conflicts); the transposing reads come from L2.
   load_update_fwd_params(s.wt, s.c0, w, b, pg, K, De);
-  for (int i = tid; i < 32 * 64; i += kTileThreads) {
-    const int k = i >> 6, o = i & 63;
-    float x = 0.f;
-    if (k < De && o < Dp) x = wlp[o * De + k];
-    if (k < De && o >= 32 && o - 32 < Dc) x = wlc[(o - 32) * De + k];
-    s.wf[k][o] = x;
-  }
-  if (tid < 64) {
-    s.bf[tid] = tid < 32 ? (tid < Dp ? blp[tid] : 0.f) : (tid - 32 < Dc ? blc[tid - 32] : 0.f);
-  }
-  if (tid < 32) {
-    s.g[tid] = (!raw && tid < De) ? lng[tid] : 0.f;
-    s.b[tid] = (!raw && tid < De) ? lnb[tid] : 0.f;
-  }
+  load_front_fwd_params(s.wf, s.bf, s.g, s.b, wlp, blp, Dp, wlc, blc, Dc, De, lng, lnb, raw);
   zero_tile_pad(s.a, K);
 
   const int r1 = tid >> 3, c1 = 4 * (tid & 7);   // phases A and B
@@ -1179,7 +1203,7 @@ __global__ void __launch_bounds__(kTileThreads, kStepFwdBlocksPerSm) layer_step_
 #pragma unroll
       for (int q = 0; q < 4; ++q) v[q] = x[0][q];
     } else {
-      step_norm4(s, x[0], De, c1, inv, eps, v);
+      step_norm4(s.g, s.b, x[0], De, c1, inv, eps, v);
       store_row4(en_next, De, e1, c1, valid, v);
     }
     *reinterpret_cast<float4*>(&s.v[r1][c1]) = make_float4(v[0], v[1], v[2], v[3]);
@@ -1188,7 +1212,7 @@ __global__ void __launch_bounds__(kTileThreads, kStepFwdBlocksPerSm) layer_step_
     // ---- phase C: xl_p, xl_c, stored through L2, where the dual core,
     // launched next, finds them (streaming stores cost it ~5%)
     float o[2][4];
-    step_linears4(s, ra, og, DP, o);
+    step_linears4(s.v, s.wf, s.bf, ra, og, DP, o);
     store_row4(out_c, Dout, e0 + ra, col, e0 + ra < E, o[0]);
     store_row4(out_c, Dout, e0 + ra + 1, col, e0 + ra + 1 < E, o[1]);
     cur = nxt;
@@ -1196,6 +1220,167 @@ __global__ void __launch_bounds__(kTileThreads, kStepFwdBlocksPerSm) layer_step_
   cp_async_wait<0>();
 }
 
+
+// ---------------------------------------------------------------------------
+// The frontend's forward (#3): the LayerNorm + ReLU of a layer's edge
+// stream e (E, De), flax form, or e itself under raw, then both GATv2 source
+// linears: writes en = relu(LN(e)) (not under raw), xl_p = en Wlp^T + blp
+// and xl_c = en Wlc^T + blc; the dual core (#1) runs next. Per edge it moves
+// 4 (2 De + Dp + Dc) bytes against ~2 De (Dp + Dc) FMAs: bytes bound it (48
+// bytes per edge at the first layer's De = 2, Dp = Dc = 4; 512 at De = Dp =
+// Dc = 32). Its first design gave each edge a warp, lane j feature j: at
+// the first layer 30 of 32 lanes idle, two 32-lane butterflies and eight
+// shuffled FMAs per edge. Two forms, chosen by width as #4's are:
+//
+// - the tile form (frontend_fwd_tile_kernel, any widths <= 32): phases B
+//   and C of the layer step's forward (step_norm4, step_linears4) on
+//   32-edge tiles; persistent blocks load [Wlp ; Wlc]^T once and take the
+//   tiles tile = block, block + grid, ..., each tile's e rows staged by
+//   cp.async into the buffer the previous tile did not use, a tile ahead;
+// - the narrow form (frontend_fwd_narrow_kernel, De <= kFrontNarrowDe and
+//   Dp, Dc <= kFrontNarrowDq: the first layer): a lane per edge, the 28
+//   parameters in registers, e read with one 8-byte load, en written with
+//   one 8-byte store and xl_p, xl_c with one 16-byte store each (a warp's
+//   rows contiguous). Nothing is summed across edges, so its blocks are not
+//   persistent: one lane per edge.
+//
+// Both round as the warp per edge did: the mean and E[x^2] in
+// group_sum(x, 32)'s order (row_sum32; over two features: x0 + x1 and
+// x0^2 + x1^2, each square rounded), var = E[x^2] - mean^2 written as
+// there, the linears' sum over k in order, then the bias.
+// ---------------------------------------------------------------------------
+
+struct FrontFwdSmem {
+  float x[2][kTileRows][kTileNarrow];  // e of the tile (double-buffered)
+  float v[kTileRows][kTileNarrow];     // v of the tile, zero past De
+  float wf[32][64];                    // [Wlp ; Wlc]^T, zero-padded
+  float bf[64];                        // [blp | blc], zero-padded
+  float g[32], b[32];                  // the LayerNorm's scale and bias
+};
+
+__global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) frontend_fwd_tile_kernel(
+    const float* __restrict__ e, int E, int De, const float* __restrict__ lng,
+    const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
+    const float* __restrict__ blp, int Dp, const float* __restrict__ wlc,
+    const float* __restrict__ blc, int Dc, float* __restrict__ en, float* __restrict__ xl_p,
+    float* __restrict__ xl_c) {
+  __shared__ __align__(16) FrontFwdSmem s;
+  const int tid = threadIdx.x;
+  const int DP = (De + 3) & ~3;
+  const int stride = gridDim.x * kTileRows;
+  int e0 = blockIdx.x * kTileRows;
+  // the first tile's rows in flight while the weights load
+  stage_rows_async(&s.x[0][0][0], kTileNarrow, 0, e, De, e0, E);
+  cp_async_commit();
+  load_front_fwd_params(s.wf, s.bf, s.g, s.b, wlp, blp, Dp, wlc, blc, Dc, De, lng, lnb, raw);
+
+  const int r1 = tid >> 3, c1 = 4 * (tid & 7);   // phase B
+  const int og = tid & 15, ra = 2 * (tid >> 4);  // phase C
+  float* const out_c = og < 8 ? xl_p : xl_c;
+  const int Dout = og < 8 ? Dp : Dc, col = 4 * (og & 7);
+  const float inv = 1.f / (float)De;
+  for (int it = 0; e0 < E; e0 += stride, ++it) {
+    const int buf = it & 1;
+    // The other buffer was last read in the previous tile's phase B, which a
+    // barrier since has closed.
+    const int f0 = e0 + stride;
+    if (f0 < E) stage_rows_async(&s.x[buf ^ 1][0][0], kTileNarrow, 0, e, De, f0, E);
+    cp_async_commit();
+    cp_async_wait<1>();  // this thread's copies of this tile have landed
+    __syncthreads();     // everyone's (and the weights); the previous tile's phase C is done
+
+    // ---- phase B: v (features c1 .. c1 + 3 of edge r1, zero past De)
+    const int e1 = e0 + r1;
+    const bool valid = e1 < E;
+    const float4 x4 = *reinterpret_cast<const float4*>(&s.x[buf][r1][c1]);
+    const float xs[4] = {x4.x, x4.y, x4.z, x4.w};
+    float x[4], v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x[q] = c1 + q < De ? xs[q] : 0.f;
+    if (raw) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[q] = x[q];
+    } else {
+      step_norm4(s.g, s.b, x, De, c1, inv, eps, v);
+      store_row4(en, De, e1, c1, valid, v);
+    }
+    *reinterpret_cast<float4*>(&s.v[r1][c1]) = make_float4(v[0], v[1], v[2], v[3]);
+    __syncthreads();
+
+    // ---- phase C: xl_p, xl_c, stored through L2, where the dual core,
+    // launched next, finds them
+    float o[2][4];
+    step_linears4(s.v, s.wf, s.bf, ra, og, DP, o);
+    store_row4(out_c, Dout, e0 + ra, col, e0 + ra < E, o[0]);
+    store_row4(out_c, Dout, e0 + ra + 1, col, e0 + ra + 1 < E, o[1]);
+  }
+  cp_async_wait<0>();
+}
+
+template <int DE, int DQ>
+__global__ void __launch_bounds__(kTileThreads) frontend_fwd_narrow_kernel(
+    const float* __restrict__ e, int E, int De, const float* __restrict__ lng,
+    const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
+    const float* __restrict__ blp, int Dp, const float* __restrict__ wlc,
+    const float* __restrict__ blc, int Dc, float* __restrict__ en, float* __restrict__ xl_p,
+    float* __restrict__ xl_c) {
+  const int edge = blockIdx.x * kTileThreads + threadIdx.x;
+  if (edge >= E) return;
+  float wp[DQ][DE], wc[DQ][DE], bp[DQ], bc[DQ], g[DE], b[DE];
+#pragma unroll
+  for (int i = 0; i < DQ; ++i) {
+#pragma unroll
+    for (int j = 0; j < DE; ++j) {
+      wp[i][j] = (i < Dp && j < De) ? __ldg(wlp + i * De + j) : 0.f;
+      wc[i][j] = (i < Dc && j < De) ? __ldg(wlc + i * De + j) : 0.f;
+    }
+    bp[i] = i < Dp ? __ldg(blp + i) : 0.f;
+    bc[i] = i < Dc ? __ldg(blc + i) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < DE; ++j) {
+    g[j] = (!raw && j < De) ? __ldg(lng + j) : 0.f;
+    b[j] = (!raw && j < De) ? __ldg(lnb + j) : 0.f;
+  }
+  float x[DE], v[DE];
+  load_row_n(e, De, edge, x);
+  if (raw) {
+#pragma unroll
+    for (int j = 0; j < DE; ++j) v[j] = x[j];
+  } else {
+    // the warp per edge's rounding: each square rounded before the sums (no
+    // fused multiply-add), both sums in feature order
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < DE; ++j) {
+      s1 = __fadd_rn(s1, x[j]);
+      s2 = __fadd_rn(s2, __fmul_rn(x[j], x[j]));
+    }
+    const float inv = 1.f / (float)De;
+    const float mean = s1 * inv;
+    const float var = s2 * inv - mean * mean;
+    const float rstd = rsqrtf(var + eps);
+#pragma unroll
+    for (int j = 0; j < DE; ++j) {
+      v[j] = j < De ? fmaxf((x[j] - mean) * rstd * g[j] + b[j], 0.f) : 0.f;
+    }
+    store_row_n(en, De, edge, v);
+  }
+  float yp[DQ], yc[DQ];
+#pragma unroll
+  for (int i = 0; i < DQ; ++i) {
+    float ap = 0.f, ac = 0.f;
+#pragma unroll
+    for (int j = 0; j < DE; ++j) {
+      ap = fmaf(v[j], wp[i][j], ap);
+      ac = fmaf(v[j], wc[i][j], ac);
+    }
+    yp[i] = ap + bp[i];
+    yc[i] = ac + bc[i];
+  }
+  store_row_n(xl_p, Dp, edge, yp);
+  store_row_n(xl_c, Dc, edge, yc);
+}
 
 // ---------------------------------------------------------------------------
 // The standalone projection update's forward tile kernel (#9): phase A

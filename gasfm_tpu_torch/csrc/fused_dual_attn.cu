@@ -6,7 +6,9 @@
 //   - gasfm_dual_attend_bwd   <- _dual_bwd_raw / _dual_bwd_kernel
 //   - gasfm_frontend_prologue <- the LN + ReLU + source-linear prologue of
 //     _front_fwd_raw / _front_fwd_kernel (fused_frontend); the wrapper runs
-//     gasfm_dual_attend right after it.
+//     gasfm_dual_attend right after it. It runs the edge tiles of
+//     edge_tile.cuh (frontend_fwd_tile_kernel, or frontend_fwd_narrow_kernel,
+//     a lane per edge, at the first layer's widths): one launch.
 //   - gasfm_frontend_prologue_bwd <- the prologue half of _front_bwd_raw /
 //     _front_bwd_kernel; the wrapper runs gasfm_dual_attend_bwd before it.
 //     It runs the edge tiles of edge_tile.cuh (frontend_bwd_tile_kernel,
@@ -60,13 +62,11 @@
 // one partial row per block and one column sum.
 // No float atomics anywhere: results are bitwise reproducible run to run.
 #include "attend_split.cuh"
-#include "edge_prologue.cuh"
 #include "edge_tile.cuh"
 
 namespace gasfm {
 
-constexpr int kDualWarps = 8;    // warps per block of the dual core's forward launches
-constexpr int kFrontWarps = 8;   // warps per block of the prologue
+constexpr int kDualWarps = 8;  // warps per block of the dual core's forward launches
 
 // One direction's operands of the forward; perm is the camera CSR's, NULL
 // on the point side; m and den NULL without residuals.
@@ -162,30 +162,6 @@ __global__ void __launch_bounds__(NWARPS * 32) dual_attend_merge_kernel(DualFwdS
     attend_store(r, seg, cam.D, cam.C, lane, cam.out, cam.m, cam.den);
   } else {
     attend_store(r, seg, pt.D, pt.C, lane, pt.out, pt.m, pt.den);
-  }
-}
-
-// Warp per edge (grid-stride): en = relu(LN(e)) unless raw, then the two
-// source linears. Writes en (not under raw), xl_p and xl_c.
-__global__ void __launch_bounds__(kFrontWarps * 32) frontend_prologue_kernel(
-    const float* __restrict__ e, int E, int De, const float* __restrict__ lng,
-    const float* __restrict__ lnb, int raw, float eps,
-    const float* __restrict__ wlp, const float* __restrict__ blp, int Dp,
-    const float* __restrict__ wlc, const float* __restrict__ blc, int Dc,
-    float* __restrict__ en, float* __restrict__ xl_p, float* __restrict__ xl_c) {
-  __shared__ FrontParams sp;
-  load_front_params(sp, lng, lnb, wlp, blp, wlc, blc, De, Dp, Dc, raw != 0);
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int stride = gridDim.x * kFrontWarps;
-  for (int edge = blockIdx.x * kFrontWarps + (threadIdx.x >> 5); edge < E; edge += stride) {
-    const float x = lane < De ? e[(size_t)edge * De + lane] : 0.f;
-    const float v = front_norm(x, De, raw != 0, sp, eps, lane);
-    if (!raw && lane < De) en[(size_t)edge * De + lane] = v;
-    float yp, yc;
-    front_linears(v, De, Dp, Dc, sp, lane, yp, yc);
-    if (lane < Dp) xl_p[(size_t)edge * Dp + lane] = yp;
-    if (lane < Dc) xl_c[(size_t)edge * Dc + lane] = yc;
   }
 }
 
@@ -323,15 +299,28 @@ extern "C" int gasfm_dual_attend(
   return (int)cudaGetLastError();
 }
 
+// The prologue (#3): en (E, De, not written under raw), xl_p (E, Dp) and
+// xl_c (E, Dc) from e (E, De), all widths <= 32. At De <= kFrontNarrowDe and
+// Dp, Dc <= kFrontNarrowDq the narrow form runs, a lane per edge (grid:
+// ceil(E / kTileThreads) blocks); else the tile form, its persistent blocks
+// (at most kTileBlocksPerSm per SM, at most one per tile) taking 32-edge
+// tiles. e, en, xl_p and xl_c are read and written as 16- or 8-byte vectors
+// where their widths allow and must then be 16-byte aligned.
 extern "C" int gasfm_frontend_prologue(
     const float* e, int E, int De, const float* lng, const float* lnb, int raw,
     float eps, const float* wlp, const float* blp, int Dp, const float* wlc,
     const float* blc, int Dc, float* en, float* xl_p, float* xl_c, int grid,
     void* stream) {
   using namespace gasfm;
+  cudaStream_t s = (cudaStream_t)stream;
   if (E > 0) {
-    frontend_prologue_kernel<<<grid, kFrontWarps * 32, 0, (cudaStream_t)stream>>>(
-        e, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, en, xl_p, xl_c);
+    if (De <= kFrontNarrowDe && Dp <= kFrontNarrowDq && Dc <= kFrontNarrowDq) {
+      frontend_fwd_narrow_kernel<kFrontNarrowDe, kFrontNarrowDq><<<grid, kTileThreads, 0, s>>>(
+          e, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, en, xl_p, xl_c);
+    } else {
+      frontend_fwd_tile_kernel<<<grid, kTileThreads, 0, s>>>(
+          e, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, en, xl_p, xl_c);
+    }
   }
   return (int)cudaGetLastError();
 }

@@ -52,9 +52,9 @@
 // block's tiles, each sum in a fixed order without atomics.
 //
 // The standalone projection update (#9, fused_proj_update.cu) runs the tile
-// forward's phase A, and the frontend's backward (#4, fused_dual_attn.cu)
-// the tile backward's phases 1 and 3; the frontend's forward (#3) keeps its
-// per-edge code (edge_prologue.cuh).
+// forward's phase A, the frontend's forward (#3, fused_dual_attn.cu) its
+// phases B and C, and the frontend's backward (#4) the tile backward's
+// phases 1 and 3.
 #include "edge_tile.cuh"
 #include "segment.cuh"
 

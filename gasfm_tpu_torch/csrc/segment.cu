@@ -8,8 +8,8 @@
 //   - gasfm_segment_max <- _segment_max_raw (segment_max_kernel, dense) and
 //     _wseg_max_raw (windowed_segment_max): the per-segment max of the
 //     softmax shifts, (E, d <= 8) -> (S, d), empty segments -> neutral. No
-//     backward: its callers take the max of detached logits. Bytes bound it
-//     like the sum (the input read once, ~20 us for 55k x 4 floats);
+//     backward: its callers take the max of detached logits. It is the
+//     sum's walk and split with fmaxf from -inf (segment.cuh, MaxRed);
 //   - gasfm_gather_rows <- _gather_rows_raw (gather_rows_kernel) and
 //     _wgather_raw (windowed_gather).
 // The TPU kernels gather and scatter by one-hot matmuls on the MXU, over
@@ -27,6 +27,15 @@
 // block before), short segments several to a warp with rows' loads in
 // flight, long ones a block each, a hub cut into parts whose partial rows a
 // second launch adds in part order.
+//
+// The max reads E x d <= 8 floats (47,383 x 4 on the wide scene: 0.97 MB
+// with the CSR, 0.3 us at 3.35 TB/s): a call is its launch and a chain of
+// DRAM latencies (offsets, permutation, rows). Its first design gave a point
+// a warp and a camera an 8-warp block, most of whose lanes held no row (a
+// wide-scene camera has ~37): 3.4 us a call on the wide scene's cameras at
+// D = 4, 8.2 on its points (H100 80GB HBM3, 700 W). On the sum's walk four
+// short segments share a warp, each lane with 8 rows' loads in flight, in
+// blocks of 8 warps (the wide scene's cameras take 40 SMs): 2.3 and 2.6 us.
 //
 // The gather writes E x D and reads each table row once per edge (the
 // tables, at most 25 MB on the bench scenes, stay in the 50 MB L2): at D =
@@ -106,69 +115,6 @@ void launch_gather(const float* table, int D, const int* ids, int E, float* out,
       table, D / VEC, ids, E, out);
 }
 
-// ---- segment max ----------------------------------------------------------------
-//
-// Rows are 1 to kSegMaxCols floats wide (per-head logits). A warp splits into
-// R = 32 / W row groups of W lanes (W the smallest power of two >= D), so
-// R rows are read per step; the groups merge by a butterfly of fmaxf. A max
-// is exact whatever the order: the result is bitwise the plain version's.
-constexpr int kSegMaxCols = 8;
-
-// This lane's max over rows perm[i] (i without perm), i = first, first +
-// stride, ... < end, of its column (-inf where it has none).
-__device__ __forceinline__ float max_walk(const float* __restrict__ data, int D,
-                                          const int* __restrict__ perm, int first, int end,
-                                          int stride, int col) {
-  float acc = -INFINITY;
-  if (col < D) {
-    for (int i = first; i < end; i += stride) {
-      const int e = perm == nullptr ? i : perm[i];
-      acc = fmaxf(acc, data[(size_t)e * D + col]);
-    }
-  }
-  return acc;
-}
-
-__device__ __forceinline__ float merge_row_groups_max(float acc, int W) {
-  for (int off = W; off < 32; off <<= 1) acc = fmaxf(acc, __shfl_xor_sync(GASFM_FULL_MASK, acc, off));
-  return acc;
-}
-
-// Point side: one warp per segment over its contiguous rows.
-__global__ void __launch_bounds__(kSegWarps * 32) segment_max_contiguous_kernel(
-    const float* __restrict__ data, int D, const int* __restrict__ ptr, int n_seg,
-    float neutral, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int W = row_lanes(D), R = 32 / W, sub = lane / W, col = lane % W;
-  const int s = blockIdx.x * kSegWarps + (threadIdx.x >> 5);
-  if (s >= n_seg) return;
-  const int begin = ptr[s], end = ptr[s + 1];
-  const float acc = merge_row_groups_max(max_walk(data, D, nullptr, begin + sub, end, R, col), W);
-  if (sub == 0 && col < D) out[(size_t)s * D + col] = end > begin ? acc : neutral;
-}
-
-// Camera side: a block of kSegWarps warps per segment over perm[ptr[c] ..];
-// warp w takes row groups w, w + kSegWarps, ...; the warps merge in shared
-// memory.
-__global__ void __launch_bounds__(kSegWarps * 32) segment_max_permuted_kernel(
-    const float* __restrict__ data, int D, const int* __restrict__ ptr,
-    const int* __restrict__ perm, float neutral, float* __restrict__ out) {
-  __shared__ float part[kSegWarps][32];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int W = row_lanes(D), R = 32 / W, sub = lane / W, col = lane % W;
-  const int c = blockIdx.x;
-  const int begin = ptr[c], end = ptr[c + 1];
-  part[warp][lane] = merge_row_groups_max(
-      max_walk(data, D, perm, begin + warp * R + sub, end, kSegWarps * R, col), W);
-  __syncthreads();
-  if (warp == 0) {
-    float t = part[0][lane];
-    for (int w = 1; w < kSegWarps; ++w) t = fmaxf(t, part[w][lane]);
-    if (sub == 0 && col < D) out[(size_t)c * D + col] = end > begin ? t : neutral;
-  }
-}
-
 }  // namespace gasfm
 
 // out (n_seg, D) = per-segment sums of data (E, D): the rows ptr[s] ..
@@ -189,21 +135,16 @@ extern "C" int gasfm_segment_sum(const float* data, int D, int E, const int* ptr
   return (int)cudaGetLastError();
 }
 
-// out (n_seg, D) = per-segment max of data (E, D) over the same segments as
-// gasfm_segment_sum; an empty segment gives `neutral`. 1 <= D <= 8.
-extern "C" int gasfm_segment_max(const float* data, int D, const int* ptr, const int* perm,
-                                 int n_seg, float neutral, float* out, void* stream) {
+// out (n_seg, D) = per-segment max of data (E, D) over the same segments,
+// split and scratch as gasfm_segment_sum's; an empty segment gives
+// `neutral`. 1 <= D <= 8; data, out and part aligned as there.
+extern "C" int gasfm_segment_max(const float* data, int D, int E, const int* ptr,
+                                 const int* perm, const int* split, int n_long, int n_chunks,
+                                 int n_seg, float neutral, float* out, float* part,
+                                 void* stream) {
   using namespace gasfm;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (n_seg > 0) {
-    if (perm == nullptr) {
-      segment_max_contiguous_kernel<<<seg_blocks(n_seg), kSegWarps * 32, 0, s>>>(
-          data, D, ptr, n_seg, neutral, out);
-    } else {
-      segment_max_permuted_kernel<<<n_seg, kSegWarps * 32, 0, s>>>(data, D, ptr, perm,
-                                                                   neutral, out);
-    }
-  }
+  segment_max(data, D, ptr, perm, E, SegmentSplit(split, n_long, n_chunks), n_seg, neutral, out,
+              part, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }
 

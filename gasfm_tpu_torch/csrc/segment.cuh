@@ -1,8 +1,9 @@
-// Wide-row CSR segment sums (sm_90a, float32), shared by segment.cu (#15/#18),
-// fused_update.cu (#12: its point pass is this walk with the COMBINE flag,
-// its camera sums the plain one), fused_layer_step.cu (#6's two sums) and
-// fused_proj_update.cu (#10's two sums), and the vector helpers of
-// segment.cu's gather.
+// Wide-row CSR segment sums and narrow-row segment maxima (sm_90a, float32),
+// shared by segment.cu (#15/#18, and #17/#19: the max is this walk with the
+// reduction swapped), fused_update.cu (#12: its point pass is this walk with
+// the COMBINE flag, its camera sums the plain one), fused_layer_step.cu (#6's
+// two sums) and fused_proj_update.cu (#10's two sums), and the vector
+// helpers of segment.cu's gather.
 //
 // Unlike the narrow streams of the other kernels (one lane per feature,
 // D <= 32, common.cuh), these rows are 1 to 256 floats wide. A row is read
@@ -41,10 +42,8 @@
 
 namespace gasfm {
 
-constexpr int kSegMaxD = 256;  // widest row the kernels take
-constexpr int kSegWarps = 8;   // warps per block of the segment max
-
-inline int seg_blocks(int n_seg) { return (n_seg + kSegWarps - 1) / kSegWarps; }
+constexpr int kSegMaxD = 256;   // widest row the sum takes
+constexpr int kSegMaxCols = 8;  // widest row the max takes
 
 template <int VEC>
 struct VecT;
@@ -61,19 +60,53 @@ struct VecT<4> {
   using T = float4;
 };
 
-__device__ __forceinline__ void vzero(float& a) { a = 0.f; }
-__device__ __forceinline__ void vzero(float2& a) { a = make_float2(0.f, 0.f); }
-__device__ __forceinline__ void vzero(float4& a) { a = make_float4(0.f, 0.f, 0.f, 0.f); }
-__device__ __forceinline__ void vadd(float& a, float b) { a += b; }
-__device__ __forceinline__ void vadd(float2& a, const float2 b) {
-  a.x += b.x;
-  a.y += b.y;
+// The walk's reduction R. SumRed adds from 0, and its result is scaled by
+// the caller's factor (an empty segment sums to 0); MaxRed takes fmaxf from
+// -inf, its result is not scaled, and an empty segment gives the caller's
+// neutral value, passed where the sum takes its factor. A max is exact in any
+// order, so the split's order gives the plain version's bits.
+struct SumRed {
+  static constexpr bool kMax = false;
+  __device__ __forceinline__ static float ident() { return 0.f; }
+  __device__ __forceinline__ static float op(float a, float b) { return a + b; }
+};
+struct MaxRed {
+  static constexpr bool kMax = true;
+  __device__ __forceinline__ static float ident() { return -INFINITY; }
+  __device__ __forceinline__ static float op(float a, float b) { return fmaxf(a, b); }
+};
+
+__device__ __forceinline__ void vfill(float& a, float f) { a = f; }
+__device__ __forceinline__ void vfill(float2& a, float f) { a = make_float2(f, f); }
+__device__ __forceinline__ void vfill(float4& a, float f) { a = make_float4(f, f, f, f); }
+template <class R, class T>
+__device__ __forceinline__ void vinit(T& a) {
+  vfill(a, R::ident());
 }
-__device__ __forceinline__ void vadd(float4& a, const float4 b) {
-  a.x += b.x;
-  a.y += b.y;
-  a.z += b.z;
-  a.w += b.w;
+template <class R>
+__device__ __forceinline__ void vred(float& a, float b) {
+  a = R::op(a, b);
+}
+template <class R>
+__device__ __forceinline__ void vred(float2& a, const float2 b) {
+  a.x = R::op(a.x, b.x);
+  a.y = R::op(a.y, b.y);
+}
+template <class R>
+__device__ __forceinline__ void vred(float4& a, const float4 b) {
+  a.x = R::op(a.x, b.x);
+  a.y = R::op(a.y, b.y);
+  a.z = R::op(a.z, b.z);
+  a.w = R::op(a.w, b.w);
+}
+
+template <class T>
+__device__ __forceinline__ void vzero(T& a) {
+  vinit<SumRed>(a);
+}
+template <class T>
+__device__ __forceinline__ void vadd(T& a, const T b) {
+  vred<SumRed>(a, b);
 }
 __device__ __forceinline__ float vscale(float a, float s) { return a * s; }
 __device__ __forceinline__ float2 vscale(const float2 a, float s) {
@@ -94,6 +127,29 @@ __device__ __forceinline__ float4 vshfl_xor(const float4 a, int off) {
                      __shfl_xor_sync(GASFM_FULL_MASK, a.y, off),
                      __shfl_xor_sync(GASFM_FULL_MASK, a.z, off),
                      __shfl_xor_sync(GASFM_FULL_MASK, a.w, off));
+}
+
+// A segment's result as written: the sum times f, the max as it is.
+template <class R>
+__device__ __forceinline__ float finish(float t, float f) {
+  if constexpr (R::kMax) {
+    return t;
+  } else {
+    return t * f;
+  }
+}
+
+// A short segment's result as written: the sum times f (0 if empty), the
+// max, or f if the segment is empty.
+template <class R, class T>
+__device__ __forceinline__ T vfinish(const T a, float f, bool empty) {
+  if constexpr (R::kMax) {
+    T n;
+    vfill(n, f);
+    return empty ? n : a;
+  } else {
+    return vscale(a, f);
+  }
 }
 
 // Streaming stores: rows written once and not read again soon (the gather's
@@ -131,6 +187,12 @@ __host__ __device__ __forceinline__ int row_lanes(int dv) {
 // segment or one part, so the column sum of those rows (column_sum_kernel,
 // common.cuh) is scale times the sum of all rows (d pg). Without the flag
 // the kernel's arithmetic is the plain sum's.
+//
+// With MaxRed for R (segment_max: #17/#19, rows of at most kSegMaxCols
+// floats, so W <= 8 and never COMBINE) the same walk takes each segment's
+// max, from -inf by fmaxf, in blocks of kMaxBlockWarps warps: an empty
+// segment gives the neutral value passed as `scale`, and a hub's part maxima
+// are merged by max.
 
 constexpr int kSumRows = 64;         // the longest short segment
 constexpr int kSumGroup = 8;         // short segments per block at W = 32, 4 warps each
@@ -139,6 +201,11 @@ constexpr int kSumBlockWarps = 32;   // warps per block of the main launch
 constexpr int kSumMergeWarps = 8;    // warps per block of the hubs' merge
 constexpr int kSumLoads = 8;         // vectors per lane whose loads are in flight together
 constexpr int kSumRun = 4;           // points per warp on the point side at W = 32
+// Warps per block of the max. Its rows are 1-8 floats, 4 short segments to a
+// warp: 32-warp blocks would put the wide scene's 1,280 cameras on 10 SMs,
+// each reading a tenth of the scattered rows (there the sum at D = 4 takes
+// 4.1 us a call, the max in 8-warp blocks 2.3; H100 80GB HBM3, 700 W).
+constexpr int kMaxBlockWarps = 8;
 
 // The layout for rows of Dv VEC-float vectors with W lanes per row
 // (row_lanes(Dv)): a short segment takes G lanes, NG = G / W row groups
@@ -246,8 +313,8 @@ __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __res
 // groups merged by a butterfly. end = min(begin + cap, *end_at); the first
 // entries load before it is known: a row past it (below n_rows) loads an
 // entry that is never used. With COMBINE (no permutation), each row times
-// scale also goes to rows_out.
-template <int VEC, int W, bool COMBINE = false>
+// scale also goes to rows_out. R: the reduction (the sum's by default).
+template <int VEC, int W, bool COMBINE = false, class R = SumRed>
 __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restrict__ rows,
                                             int Dv, const int* __restrict__ perm, int n_rows,
                                             int begin, const int* __restrict__ end_at, int cap,
@@ -269,7 +336,7 @@ __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restr
   }
   const int end = min(begin + cap, *end_at);
 #pragma unroll
-  for (int c = 0; c < K; ++c) vzero(acc[c]);
+  for (int c = 0; c < K; ++c) vinit<R>(acc[c]);
   for (; i < end; i += U * stride) {
     T v[U][K];
 #pragma unroll
@@ -293,7 +360,7 @@ __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restr
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         if (i + u * stride < end) {
-          vadd(acc[c], v[u][c]);
+          vred<R>(acc[c], v[u][c]);
           if constexpr (COMBINE) {
             if (col + W * c < Dv) {
               stcs(rows_out + (size_t)e[u] * Dv + col + W * c, vscale(v[u][c], scale));
@@ -307,7 +374,7 @@ __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restr
 #pragma unroll
   for (int off = W; off < 32; off <<= 1) {
 #pragma unroll
-    for (int c = 0; c < K; ++c) vadd(acc[c], vshfl_xor(acc[c], off));
+    for (int c = 0; c < K; ++c) vred<R>(acc[c], vshfl_xor(acc[c], off));
   }
 }
 
@@ -365,17 +432,22 @@ __device__ __forceinline__ void sum_block_partial(
 // SM is not measured against it). With COMBINE the cap left 476 bytes of
 // spills per thread at VEC = 4 (the rows held until their copies are
 // stored), 7.5x the plain sum's time at D = 32 on the dense bench scene: it
-// asks for one block per SM.
-template <int VEC, int W, bool COMBINE = false>
-__global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 2)
+// asks for one block per SM. R: the reduction; NW: warps per block (the
+// max's kMaxBlockWarps asks for four blocks per SM, 64 registers, no
+// spills).
+template <int VEC, int W, bool COMBINE = false, class R = SumRed, int NW = kSumBlockWarps>
+__global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
+                                               ? (W == 32 || COMBINE ? 1 : 2)
+                                               : kSumBlockWarps / NW)
     segment_sum_kernel(
     const float* __restrict__ data, int Dv, const int* __restrict__ ptr,
     const int* __restrict__ perm, int n_rows, SegmentSplit sp, int n_seg, int run, float scale,
     float* __restrict__ out, float* __restrict__ part, float* __restrict__ rows_out,
     float* __restrict__ partials) {
+  static_assert(!R::kMax || (W < 32 && !COMBINE), "the max's rows are at most 8 floats");
   using L = SumLayout<VEC, W>;
   using T = typename VecT<VEC>::T;
-  __shared__ __align__(16) float sw[kSumBlockWarps][kSegMaxD];
+  __shared__ __align__(16) float sw[NW][kSegMaxD];
   const T* rows = reinterpret_cast<const T*>(data);
   T* copy = reinterpret_cast<T*>(rows_out);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -383,16 +455,16 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 
   if ((int)blockIdx.x < sp.n_chunks) {
     const int k = blockIdx.x, seg = sp.chunk_seg[k];
     T acc[L::K];
-    sum_strided<VEC, W, COMBINE>(rows, Dv, perm, n_rows, sp.chunk_begin[k], ptr + seg + 1,
-                                 kSumPartRows, warp, kSumBlockWarps, acc, copy, scale);
+    sum_strided<VEC, W, COMBINE, R>(rows, Dv, perm, n_rows, sp.chunk_begin[k], ptr + seg + 1,
+                                    kSumPartRows, warp, NW, acc, copy, scale);
     sum_to_shared<VEC, W>(acc, Dv, sw);
     const bool whole = ptr[seg + 1] - ptr[seg] <= kSumPartRows;
     float* dst = whole ? out + (size_t)seg * D : part + (size_t)k * D;
     const float f = whole ? scale : 1.f;
-    for (int j = threadIdx.x; j < D; j += kSumBlockWarps * 32) {
-      float t = 0.f;
-      for (int w = 0; w < kSumBlockWarps; ++w) t += sw[w][j];
-      dst[j] = t * f;
+    for (int j = threadIdx.x; j < D; j += NW * 32) {
+      float t = R::ident();
+      for (int w = 0; w < NW; ++w) t = R::op(t, sw[w][j]);
+      dst[j] = finish<R>(t, f);
       if constexpr (COMBINE) partials[(size_t)k * D + j] = t * scale;
     }
     return;
@@ -438,7 +510,7 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 
 #pragma unroll
   for (int k = 0; k < L::K; ++k) vzero(tot[k]);
   for (int it = 0; it < reps; ++it) {
-    const int q = ((b * kSumBlockWarps + warp) * reps + it) * L::P + lane / L::G;
+    const int q = ((b * NW + warp) * reps + it) * L::P + lane / L::G;
     int seg = -1, begin = 0, end = 0;  // seg < 0: nothing to write
     if (q < n_seg) {
       seg = q;
@@ -448,7 +520,7 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 
     }
     T acc[L::K];
 #pragma unroll
-    for (int k = 0; k < L::K; ++k) vzero(acc[k]);
+    for (int k = 0; k < L::K; ++k) vinit<R>(acc[k]);
     for (int i = begin + g; i < end; i += L::NG * L::U) {
       int e[L::U];
 #pragma unroll
@@ -471,7 +543,7 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 
 #pragma unroll
         for (int k = 0; k < L::K; ++k) {
           if (e[u] >= 0) {
-            vadd(acc[k], v[u][k]);
+            vred<R>(acc[k], v[u][k]);
             if constexpr (COMBINE) {
               const int c = col + W * k;
               if (c < Dv) stcs(copy + (size_t)e[u] * Dv + c, vscale(v[u][k], scale));
@@ -483,14 +555,14 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 
 #pragma unroll
     for (int off = W; off < L::G; off <<= 1) {
 #pragma unroll
-      for (int k = 0; k < L::K; ++k) vadd(acc[k], vshfl_xor(acc[k], off));
+      for (int k = 0; k < L::K; ++k) vred<R>(acc[k], vshfl_xor(acc[k], off));
     }
     if (g == 0 && seg >= 0) {
       T* dst = reinterpret_cast<T*>(out) + (size_t)seg * Dv;
 #pragma unroll
       for (int k = 0; k < L::K; ++k) {
         const int c = col + W * k;
-        if (c < Dv) dst[c] = vscale(acc[k], scale);
+        if (c < Dv) dst[c] = vfinish<R>(acc[k], scale, end == begin);
       }
     }
     if constexpr (COMBINE) {
@@ -512,9 +584,10 @@ __global__ void __launch_bounds__(kSumBlockWarps * 32, W == 32 || COMBINE ? 1 : 
 // a single part has nothing to do). Warp w adds the partial rows of its
 // share of the hub's parts (a contiguous run, the w-th of kSumMergeWarps)
 // in part order, U rows loaded ahead; the warps' rows are then added in
-// warp order and the sum times scale written. Lane j holds vector columns
-// j, j + 32, ... (K of them).
-template <int VEC>
+// warp order and the sum times scale written (with MaxRed: the parts'
+// maxima, their max). Lane j holds vector columns j, j + 32, ... (K of
+// them).
+template <int VEC, class R = SumRed>
 __global__ void __launch_bounds__(kSumMergeWarps * 32) segment_sum_merge_kernel(
     const float* __restrict__ part, int Dv, SegmentSplit sp, float scale,
     float* __restrict__ out) {
@@ -531,7 +604,7 @@ __global__ void __launch_bounds__(kSumMergeWarps * 32) segment_sum_merge_kernel(
   const int k0 = k_begin + min(n, warp * per), k1 = k_begin + min(n, (warp + 1) * per);
   T acc[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) vzero(acc[k]);
+  for (int k = 0; k < K; ++k) vinit<R>(acc[k]);
   for (int r0 = k0; r0 < k1; r0 += U) {
     T v[U][K];
 #pragma unroll
@@ -548,7 +621,7 @@ __global__ void __launch_bounds__(kSumMergeWarps * 32) segment_sum_merge_kernel(
     for (int u = 0; u < U; ++u) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        if (r0 + u < k1) vadd(acc[k], v[u][k]);
+        if (r0 + u < k1) vred<R>(acc[k], v[u][k]);
       }
     }
   }
@@ -561,37 +634,41 @@ __global__ void __launch_bounds__(kSumMergeWarps * 32) segment_sum_merge_kernel(
   const int D = Dv * VEC;
   float* dst = out + (size_t)sp.long_seg[i] * D;
   for (int f = threadIdx.x; f < D; f += kSumMergeWarps * 32) {
-    float t = 0.f;
-    for (int w = 0; w < kSumMergeWarps; ++w) t += sw[w][f];
-    dst[f] = t * scale;
+    float t = R::ident();
+    for (int w = 0; w < kSumMergeWarps; ++w) t = R::op(t, sw[w][f]);
+    dst[f] = finish<R>(t, scale);
   }
 }
 
 // The main launch's blocks, and with COMBINE its partial rows (none when
-// the grid is 0).
-template <int VEC, bool COMBINE>
+// the grid is 0). With MaxRed, `scale` is the neutral value of an empty
+// segment.
+template <int VEC, bool COMBINE, class R = SumRed>
 inline int launch_segment_sum(const float* data, int D, const int* ptr, const int* perm,
                               int n_rows, const SegmentSplit& sp, int n_seg, float scale,
                               float* out, float* part, float* rows_out, float* partials,
                               cudaStream_t s) {
+  constexpr int NW = R::kMax ? kMaxBlockWarps : kSumBlockWarps;
   const int Dv = D / VEC;
   int grid = 0;
   auto main_launch = [&](auto w) {
     constexpr int Wc = decltype(w)::value;
-    const int run = (Wc == 32 || COMBINE) && perm == nullptr ? kSumRun : 0;
-    int short_blocks = 0;  // none when every segment is long
-    if (n_seg > sp.n_long) {
-      if (Wc == 32 && run == 0) {
-        short_blocks = blocks_of(n_seg, kSumGroup);
-      } else {
-        const int pieces = run > 0 ? blocks_of(n_seg, run) : n_seg;
-        short_blocks = blocks_of(blocks_of(pieces, SumLayout<VEC, Wc>::P), kSumBlockWarps);
+    if constexpr (!R::kMax || Wc <= 8) {  // the max's rows: at most 8 floats
+      const int run = (Wc == 32 || COMBINE) && perm == nullptr ? kSumRun : 0;
+      int short_blocks = 0;  // none when every segment is long
+      if (n_seg > sp.n_long) {
+        if (Wc == 32 && run == 0) {
+          short_blocks = blocks_of(n_seg, kSumGroup);
+        } else {
+          const int pieces = run > 0 ? blocks_of(n_seg, run) : n_seg;
+          short_blocks = blocks_of(blocks_of(pieces, SumLayout<VEC, Wc>::P), NW);
+        }
       }
-    }
-    grid = sp.n_chunks + short_blocks;
-    if (grid > 0) {
-      segment_sum_kernel<VEC, Wc, COMBINE><<<grid, kSumBlockWarps * 32, 0, s>>>(
-          data, Dv, ptr, perm, n_rows, sp, n_seg, run, scale, out, part, rows_out, partials);
+      grid = sp.n_chunks + short_blocks;
+      if (grid > 0) {
+        segment_sum_kernel<VEC, Wc, COMBINE, R, NW><<<grid, NW * 32, 0, s>>>(
+            data, Dv, ptr, perm, n_rows, sp, n_seg, run, scale, out, part, rows_out, partials);
+      }
     }
   };
   switch (row_lanes(Dv)) {
@@ -603,26 +680,26 @@ inline int launch_segment_sum(const float* data, int D, const int* ptr, const in
     default: main_launch(std::integral_constant<int, 32>{}); break;
   }
   if (sp.n_chunks > sp.n_long) {  // a hub: its parts' partial rows
-    segment_sum_merge_kernel<VEC><<<sp.n_long, kSumMergeWarps * 32, 0, s>>>(part, Dv, sp, scale,
-                                                                            out);
+    segment_sum_merge_kernel<VEC, R><<<sp.n_long, kSumMergeWarps * 32, 0, s>>>(part, Dv, sp,
+                                                                               scale, out);
   }
   return grid;
 }
 
-template <bool COMBINE>
+template <bool COMBINE, class R = SumRed>
 inline int segment_sum_vec(const float* data, int D, const int* ptr, const int* perm,
                            int n_rows, const SegmentSplit& sp, int n_seg, float scale, float* out,
                            float* part, float* rows_out, float* partials, cudaStream_t s) {
   if (D % 4 == 0) {
-    return launch_segment_sum<4, COMBINE>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
-                                          part, rows_out, partials, s);
+    return launch_segment_sum<4, COMBINE, R>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
+                                             part, rows_out, partials, s);
   }
   if (D % 2 == 0) {
-    return launch_segment_sum<2, COMBINE>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
-                                          part, rows_out, partials, s);
+    return launch_segment_sum<2, COMBINE, R>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
+                                             part, rows_out, partials, s);
   }
-  return launch_segment_sum<1, COMBINE>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out, part,
-                                        rows_out, partials, s);
+  return launch_segment_sum<1, COMBINE, R>(data, D, ptr, perm, n_rows, sp, n_seg, scale, out,
+                                           part, rows_out, partials, s);
 }
 
 // The segment sum of D-wide rows (1 <= D <= kSegMaxD) over the CSR (ptr,
@@ -648,6 +725,17 @@ inline int segment_sum_combine(const float* data, int D, const int* ptr, int n_r
                                float* part, float* rows_out, float* partials, cudaStream_t s) {
   return segment_sum_vec<true>(data, D, ptr, nullptr, n_rows, sp, n_seg, scale, out, part,
                                rows_out, partials, s);
+}
+
+// The segment max of D-wide rows (1 <= D <= kSegMaxCols) on the same walk,
+// split (sp) and scratch (part, read and written only where a segment has
+// several parts) as segment_sum's; an empty segment gives `neutral`. data,
+// part and out aligned as there.
+inline void segment_max(const float* data, int D, const int* ptr, const int* perm, int n_rows,
+                        const SegmentSplit& sp, int n_seg, float neutral, float* out, float* part,
+                        cudaStream_t s) {
+  segment_sum_vec<false, MaxRed>(data, D, ptr, perm, n_rows, sp, n_seg, neutral, out, part,
+                                 nullptr, nullptr, s);
 }
 
 }  // namespace gasfm

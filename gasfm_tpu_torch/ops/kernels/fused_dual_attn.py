@@ -10,7 +10,9 @@ Replaces the TPU kernels of ``gasfm_tpu/ops/pallas/fused_dual_attn.py``:
 - ``fused_frontend``: ``fused_frontend`` / ``_front_fwd_raw`` — LayerNorm +
   ReLU (skipped under ``raw_prologue``) and the two GATv2 source linears per
   edge, then the dual core. Two launches: the per-edge prologue (counted
-  here) and the dual core (counted by ``fused_dual_attend``). Its backward
+  here: the edge tiles of ``csrc/edge_tile.cuh``, or a lane per edge at the
+  first layer's widths) and the dual core (counted by
+  ``fused_dual_attend``). Its backward
   ``fused_frontend_bwd`` is ``_front_bwd_raw`` split the same way: the dual
   core's backward (counted by ``fused_dual_attend_bwd``), then the
   prologue's backward (counted here; two launches inside: the edge-tile
@@ -57,11 +59,12 @@ SPLIT_ROWS = 32  # kAttendChunk of csrc/attend_split.cuh: the dual core's split 
 TRIPLE = 96  # kTriple of csrc/attend_split.cuh: floats of a chunk's online triple
 DUAL_BWD_WARPS = 8  # kDualBwdWarps of csrc/fused_dual_attn.cu: warps per backward block
 DUAL_BWD_BLOCKS_PER_SM = 3  # kDualBwdBlocksPerSm: its resident blocks per SM
-FRONT_WARPS = 8  # kFrontWarps: edges per prologue block
 # kFrontNarrowDe / kFrontNarrowDq of csrc/edge_tile.cuh: the widths up to which
-# the prologue's backward takes its narrow form, whose blocks take spans of
-# FRONT_SPAN_ROWS edges (a warp per 32-edge tile)
+# the prologue takes its narrow form, a lane per edge (forward: blocks of
+# FRONT_NARROW_THREADS edges; backward: blocks taking spans of
+# FRONT_SPAN_ROWS edges, a warp per 32-edge tile)
 FRONT_NARROW_DE, FRONT_NARROW_DQ = 2, 4
+FRONT_NARROW_THREADS = 256  # kTileThreads
 FRONT_SPAN_ROWS = 8 * TILE_ROWS
 
 _P, _I, _F = kb.P, kb.I, kb.F
@@ -105,13 +108,28 @@ def split_front_sums(sums: torch.Tensor, De: int, Dp: int, Dc: int):
     return dwlp.view(Dp, De), dblp, dwlc.view(Dc, De), dblc, dg, db
 
 
+def front_narrow(De: int, Dp: int, Dc: int) -> bool:
+    """Whether the prologue (both ways) takes its narrow form at these
+    widths: De <= FRONT_NARROW_DE, Dp, Dc <= FRONT_NARROW_DQ (the first
+    layer's De = 2, Dp = Dc = 4)."""
+    return De <= FRONT_NARROW_DE and max(Dp, Dc) <= FRONT_NARROW_DQ
+
+
+def front_fwd_grid(device, E: int, De: int, Dp: int, Dc: int) -> int:
+    """Blocks of the prologue's forward kernel: a lane per edge in its
+    narrow form (ceil(E / FRONT_NARROW_THREADS) blocks), else one per
+    32-edge tile, at most TILE_BLOCKS_PER_SM per SM (persistent)."""
+    if front_narrow(De, Dp, Dc):
+        return max(1, -(-E // FRONT_NARROW_THREADS))
+    return kb.grid_for(device, -(-E // TILE_ROWS), 1, per_sm=TILE_BLOCKS_PER_SM)
+
+
 def front_bwd_grid(device, E: int, De: int, Dp: int, Dc: int) -> int:
     """Blocks of the prologue backward's kernel: one per span of
     FRONT_SPAN_ROWS edges in its narrow form (De <= FRONT_NARROW_DE, Dp, Dc
     <= FRONT_NARROW_DQ), else one per 32-edge tile, at most
     TILE_BLOCKS_PER_SM per SM."""
-    narrow = De <= FRONT_NARROW_DE and max(Dp, Dc) <= FRONT_NARROW_DQ
-    rows = FRONT_SPAN_ROWS if narrow else TILE_ROWS
+    rows = FRONT_SPAN_ROWS if front_narrow(De, Dp, Dc) else TILE_ROWS
     return kb.grid_for(device, -(-E // rows), 1, per_sm=TILE_BLOCKS_PER_SM)
 
 
@@ -260,13 +278,20 @@ fused_dual_attend_bwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def frontend_prologue_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
+                            raw_prologue=False):
+    """Plain version of the per-edge prologue: (en = relu(LN(e)) or e under
+    raw, xl_p, xl_c)."""
+    en = e if raw_prologue else layer_norm_relu(e, ln_scale, ln_bias, eps)
+    return en, F.linear(en, wlp, blp), F.linear(en, wlc, blc)
+
+
 def fused_frontend_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
                          att_p, att_c, graph, heads, eps=LN_EPS,
                          raw_prologue=False, slope=NEGATIVE_SLOPE):
     """Plain version: LN + ReLU, the two source linears, the dual core."""
-    en = e if raw_prologue else layer_norm_relu(e, ln_scale, ln_bias, eps)
-    xl_p = F.linear(en, wlp, blp)
-    xl_c = F.linear(en, wlc, blc)
+    en, xl_p, xl_c = frontend_prologue_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps,
+                                             raw_prologue)
     out_p, out_c = fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c,
                                            graph, heads, slope)
     return en, out_p, out_c
@@ -280,7 +305,7 @@ def frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
     Dp, Dc = wlp.shape[0], wlc.shape[0]
     if De > 32 or Dp > 32 or Dc > 32:
         raise ValueError(f"fused_frontend: widths De={De}, Dp={Dp}, Dc={Dc} must be <= 32")
-    e = kb.cuda_f32("e", e, (E, De))
+    e = kb.aligned(kb.cuda_f32("e", e, (E, De)))
     if not raw_prologue:
         ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
         ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
@@ -296,7 +321,7 @@ def frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
         p(e), E, De, p(None if raw_prologue else ln_scale), p(None if raw_prologue else ln_bias),
         int(raw_prologue), float(eps), p(wlp), p(blp), Dp, p(wlc), p(blc), Dc,
         p(None if raw_prologue else en), p(xl_p), p(xl_c),
-        kb.grid_for(dev, E, FRONT_WARPS), kb.stream(dev),
+        front_fwd_grid(dev, E, De, Dp, Dc), kb.stream(dev),
     )
     kb.check(code, "fused_frontend")
     fused_frontend.launches += 1

@@ -23,7 +23,8 @@ The sum walks both CSRs split by length (``ViewGraph.pt_chunks`` /
 ``cam_chunks``, built once per graph on the host): short segments (at most
 ``SUM_ROWS`` rows) several to a warp (at D > 64 several warps to one),
 longer ones a block each (cut into parts of ``SUM_PART_ROWS`` rows, merged
-by a second launch, where a hub has more).
+by a second launch, where a hub has more). The max is the same walk on the
+same split with the reduction swapped (fmaxf from -inf).
 Rows are float32, 1 to 256 wide (1 to 8 for the max); sums are taken in a
 fixed order without atomics, so results are bitwise reproducible on a given
 card, and a max is exact, so it is bitwise the plain version's.
@@ -47,7 +48,7 @@ from gasfm_tpu_torch.ops.segment import segment_sum as index_segment_sum
 MAX_WIDTH = 256  # kSegMaxD of csrc/segment.cuh
 SUM_ROWS = 64  # kSumRows of csrc/segment.cuh: the longest segment a lane group sums alone
 SUM_PART_ROWS = 2048  # kSumPartRows: the rows of a long segment one block sums
-MAX_MAX_WIDTH = 8  # kSegMaxCols of csrc/segment.cu: the widest row the max takes
+MAX_MAX_WIDTH = 8  # kSegMaxCols of csrc/segment.cuh: the widest row the max takes
 SIDES = ("point", "camera")
 
 
@@ -55,7 +56,8 @@ SIDES = ("point", "camera")
 def _entry(symbol):
     args = {"gasfm_segment_sum": (kb.P, kb.I, kb.I, kb.P, kb.P, kb.P, kb.I, kb.I, kb.I, kb.P,
                                   kb.P, kb.P),
-            "gasfm_segment_max": (kb.P, kb.I, kb.P, kb.P, kb.I, kb.F, kb.P, kb.P),
+            "gasfm_segment_max": (kb.P, kb.I, kb.I, kb.P, kb.P, kb.P, kb.I, kb.I, kb.I, kb.F,
+                                  kb.P, kb.P, kb.P),
             "gasfm_gather_rows": (kb.P, kb.I, kb.P, kb.I, kb.P, kb.P)}[symbol]
     return kb.bind(kb.load("segment"), symbol, args)
 
@@ -80,11 +82,11 @@ def side_csr(graph, side):
 
 
 def sum_split(graph, side, D, device):
-    """The segment sum's split of ``side`` as the C entries take it: its
-    segments of more than SUM_ROWS rows, cut into parts of SUM_PART_ROWS
-    (built once per graph: ``pt_chunks`` / ``cam_chunks``); (table, n_long,
-    n_chunks, partial-row scratch (n_chunks, D), None unless a segment has
-    several parts)."""
+    """The split of ``side`` that the segment sum and max walk, as the C
+    entries take it: its segments of more than SUM_ROWS rows, cut into
+    parts of SUM_PART_ROWS (built once per graph: ``pt_chunks`` /
+    ``cam_chunks``); (table, n_long, n_chunks, partial-row scratch
+    (n_chunks, D), None unless a segment has several parts)."""
     side_ids(graph, side)  # raises for an unknown side
     chunks = graph.pt_chunks if side == "point" else graph.cam_chunks
     sp = chunks(SUM_PART_ROWS, SUM_ROWS)
@@ -204,7 +206,9 @@ def segment_max_plain(data, graph, side, neutral=float("-inf")):
 def segment_max(data, graph, side, neutral=float("-inf")):
     """(S, D) maxima of the (E, D) rows of ``data`` (1 <= D <= 8) per
     segment of ``side`` ("point" or "camera"); empty segments give
-    ``neutral``. No gradient: pass detached data."""
+    ``neutral``. No gradient: pass detached data. The kernel walks the
+    segment sum's split (:func:`sum_split`): one launch, two where a
+    segment has more than SUM_PART_ROWS rows."""
     if data.device.type == "cpu":
         return segment_max_plain(data, graph, side, neutral)
     if kb.needs_grad(data):
@@ -214,12 +218,14 @@ def segment_max(data, graph, side, neutral=float("-inf")):
     if data.dim() != 2 or not 1 <= data.shape[1] <= MAX_MAX_WIDTH or data.shape[0] != E:
         raise ValueError(f"data: expected ({E}, D) with 1 <= D <= {MAX_MAX_WIDTH}, "
                          f"got {tuple(data.shape)}")
-    data = kb.cuda_f32("data", data)
+    data = kb.aligned(kb.cuda_f32("data", data))
     D = data.shape[1]
     ptr, perm = side_csr(graph, side)
+    split, n_long, n_chunks, part = sum_split(graph, side, D, data.device)
     out = kb.f32_empty((S, D), data.device)
     p = kb.ptr
-    code = _entry("gasfm_segment_max")(p(data), D, p(ptr), p(perm), S, float(neutral), p(out),
+    code = _entry("gasfm_segment_max")(p(data), D, E, p(ptr), p(perm), p(split), n_long,
+                                       n_chunks, S, float(neutral), p(out), p(part),
                                        kb.stream(data.device))
     kb.check(code, "segment_max")
     segment_max.launches += 1

@@ -1,13 +1,19 @@
 """Device time per call of the layer step's forward (#5) and backward (#6),
 the dual core's forward (#1) and backward (#2), the segment sum
-(#15/#18), the edge combine's backward (#12), the row gather (#16/#20),
-the point side's single-direction attention (#13, #14), the frontend's
-prologue (#3) and its backward (#4), and the projection update (#9) and
-its backward (#10), from ``torch.profiler``, on both bench scenes and the
-wide one, and of #6, #1, #2, #4, #9, #10, #12 and the segment sum on the
-kernel-check graphs of ``chip_smoke.py`` (``graph/check_graphs.py``).
+(#15/#18), the segment max (#17/#19), the edge combine's backward (#12),
+the row gather (#16/#20), the point side's single-direction attention
+(#13, #14), the frontend's prologue (#3) and its backward (#4), and the
+projection update (#9) and its backward (#10), from ``torch.profiler``, on
+both bench scenes and the wide one, and of #6, #1, #2, #4, #9, #10, #12,
+the segment sum and the segment max on the kernel-check graphs of
+``chip_smoke.py`` (``graph/check_graphs.py``).
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
+        [--only NAME,NAME,...]
+
+``--only`` measures only the rows of those names (the first field of a
+row: ``segment_max``, ``scatter_reduce_``, ``frontend_prologue``,
+``layer_step_prologue``, ...).
 
 Each measurement profiles ``--calls`` back-to-back calls of one function
 and nothing else, after a warm-up, and divides the summed device time of
@@ -28,14 +34,21 @@ its residuals and without; its backward (``fused_dual_attend_bwd``, all its
 launches) at D = 32, H = 4 from the forward's residuals (and on the degree
 graph at four more (D, H)); the segment sum on both sides at D = 256, 32
 and 4 (256 and 32 on the hub graphs), beside ``index_add_`` on the same
-data; the edge combine's backward (``fused_edge_combine_bwd``, all its
+data; the segment max on both sides at D = 1, 4 and 8 (the default
+neutral), on the bench, wide, hub-camera, hub-parts and degree graphs,
+beside ``scatter_reduce_`` (amax) on the same data; the edge combine's
+backward (``fused_edge_combine_bwd``, all its
 launches: the point pass, the camera sums, the column sum, a merge launch
 per side with a hub) at D = 256 and 32, also on the hub-point and
 hub-parts graphs; the gather on both sides at D = 256 and D = 2, beside
 ``index_select`` on the same table and ids; the attention on the point side
 at D = 32, H = 4 (an interior layer of the flagship on the unfused path),
 the forward with its residuals (as under autograd) and the backward from
-them; the frontend's prologue at De = 32; its backward
+them; the frontend's prologue (#3) at the first layer's widths (De = 2,
+Dp = Dc = 4, with the LayerNorm) and at De = Dp = Dc = 32 with the
+LayerNorm and raw (also on the degree, hub-point and tile-boundary
+graphs); the layer step's prologue (#5) also under raw and on the degree
+and hub-point graphs; the frontend's backward
 (``fused_frontend_bwd``, all its launches, from seeded cotangents of xl_p,
 xl_c and e_norm) at the first layer's widths (De = 2, Dp = Dc = 4) and at
 De = Dp = Dc = 32 with the LayerNorm and raw; the projection update with
@@ -154,10 +167,10 @@ def step_operands(graph, dev, De=32, d_in=32, d2=2, res=True, seed=4321):
                 blc=rnd(De))
 
 
-def layer_step_prologue_call(graph, dev, **shape):
-    """#5 alone, the interior form by default."""
+def layer_step_prologue_call(graph, dev, raw=False, **shape):
+    """#5 alone, the interior form by default (``raw``: its raw prologue)."""
     ops = step_operands(graph, dev, **shape)
-    return lambda: fls.layer_step_prologue(*ops.values(), graph)
+    return lambda: fls.layer_step_prologue(*ops.values(), graph, raw_prologue=raw)
 
 
 def layer_step_bwd_call(graph, dev):
@@ -219,12 +232,44 @@ def dual_bwd_call(graph, dev, D=32, heads=4, seed=2):
     return lambda: fda.fused_dual_attend_bwd(*ins, out_p, out_c, *res, g_p, g_c, graph, heads)
 
 
-def frontend_call(graph, dev, De=32):
-    """#3's per-edge prologue at De = 32 (LayerNorm, source linears 32 x 32)."""
-    ops = step_operands(graph, dev, De=De)
-    e = ops["en"]
-    return lambda: fda.frontend_prologue(e, *(ops[k] for k in (
-        "ln_scale", "ln_bias", "wlp", "blp", "wlc", "blc")))
+FRONTEND_FORMS = {"De2_Dq4": (2, 4, False), "De32": (32, 32, False),
+                  "De32_raw": (32, 32, True)}
+
+
+def frontend_call(graph, dev, form="De32", seed=613):
+    """#3's per-edge prologue at (De, Dq, raw) = FRONTEND_FORMS[form]: the
+    LayerNorm (De,) unless raw, the source linears Dq x De on both sides;
+    De2_Dq4 is the first layer's (the embedded uv)."""
+    De, Dq, raw = FRONTEND_FORMS[form]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    ops = (rnd(graph.num_edges, De, scale=2.0), 1.0 + rnd(De, scale=0.2), rnd(De, scale=0.1),
+           rnd(Dq, De, scale=0.3), rnd(Dq, scale=0.1), rnd(Dq, De, scale=0.3),
+           rnd(Dq, scale=0.1))
+    return lambda: fda.frontend_prologue(*ops, raw_prologue=raw)
+
+
+def segment_max_calls(graph, dev, widths=(1, 4, 8), seed=97531):
+    """The segment max on both sides at each width (the default neutral,
+    -inf), each beside ``scatter_reduce_`` (amax) on the same data (the one
+    PyTorch call of the same function)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cases = []
+    for D in widths:
+        for side in ("point", "camera"):
+            ids, S = sk.side_ids(graph, side)
+            x = torch.randn((graph.num_edges, D), generator=gen, device=dev)
+            acc = torch.full((S, D), float("-inf"), device=dev)
+            idx = ids.long()[:, None].expand(-1, D).contiguous()
+            cases.append(("segment_max", f"{side}_D{D}",
+                          lambda x=x, s=side: sk.segment_max(x, graph, s)))
+            cases.append(("scatter_reduce_", f"{side}_D{D}",
+                          lambda x=x, a=acc, i=idx: a.scatter_reduce_(0, i, x, reduce="amax",
+                                                                      include_self=False)))
+    return cases
 
 
 def projection_update_bwd_call(graph, dev, seed=97):
@@ -298,7 +343,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=20)
     ap.add_argument("--out", type=Path, default=Path("chiprun_out/kernel_device_time.json"))
+    ap.add_argument("--only", default="", help="comma-separated row names to measure")
     args = ap.parse_args(argv)
+    only = set(filter(None, args.only.split(",")))
     if not torch.cuda.is_available():
         raise SystemExit("kernel_device_time: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -308,6 +355,8 @@ def main(argv=None) -> None:
     out = []
 
     def measure(label, name, variant, fn):
+        if only and name not in only:
+            return
         try:
             ms, names = device_ms_per_call(fn, args.calls)
         except RuntimeError as exc:  # a row without a time, not a time of 0
@@ -329,6 +378,7 @@ def main(argv=None) -> None:
             cases = attend_calls(graph, dev)
             cases.append(("fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev)))
             cases += segment_sum_calls(graph, dev)
+            cases += segment_max_calls(graph, dev)
             cases += edge_combine_bwd_calls(graph, dev)
             if scene_name != "wide":  # the merged path's kernels
                 for resid in (True, False):
@@ -336,8 +386,11 @@ def main(argv=None) -> None:
                                   dual_fwd_call(graph, dev, residuals=resid)))
                 cases.append(("layer_step_prologue", "interior",
                               layer_step_prologue_call(graph, dev)))
+                cases.append(("layer_step_prologue", "interior_raw",
+                              layer_step_prologue_call(graph, dev, raw=True)))
                 cases.append(("fused_dual_attend_bwd", "D32_H4", dual_bwd_call(graph, dev)))
-                cases.append(("frontend_prologue", "De32", frontend_call(graph, dev)))
+                for form in FRONTEND_FORMS:
+                    cases.append(("frontend_prologue", form, frontend_call(graph, dev, form)))
                 for form in FRONTEND_BWD_FORMS:
                     cases.append(("fused_frontend_bwd", form, frontend_bwd_call(graph, dev, form)))
                 for form in PROJECTION_UPDATE_FORMS:
@@ -364,7 +417,14 @@ def main(argv=None) -> None:
         extra["hub_parts"] = hub_parts_graph(dev)
         for label, graph in extra.items():
             measure(label, "fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev))
+            if label in ("hub_camera", "hub_parts", "degrees"):
+                for name, variant, fn in segment_max_calls(graph, dev):
+                    measure(label, name, variant, fn)
             if label in ("degrees", "hub_point"):
+                for form in FRONTEND_FORMS:
+                    measure(label, "frontend_prologue", form, frontend_call(graph, dev, form))
+                measure(label, "layer_step_prologue", "interior",
+                        layer_step_prologue_call(graph, dev))
                 measure(label, "projection_update_bwd", "skip2",
                         projection_update_bwd_call(graph, dev))
                 for form in PROJECTION_UPDATE_FORMS:
@@ -401,6 +461,8 @@ def main(argv=None) -> None:
                 layer_step_prologue_call(tiles, dev))
         measure("tile_edges", "layer_step_prologue", "narrow_De8",
                 layer_step_prologue_call(tiles, dev, De=8, d_in=8))
+        for form in FRONTEND_FORMS:
+            measure("tile_edges", "frontend_prologue", form, frontend_call(tiles, dev, form))
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(dict(device=smi, rows=out), indent=1))
     missing = [f"{r['scene']} {r['name']}[{r['variant']}]" for r in out if "error" in r]

@@ -1,6 +1,25 @@
-"""The edge-tile schedules of the frontend's backward (#4) and of the
-projection update's forward (#9) on the card, as plain float32 PyTorch
-models, against the JAX package's Pallas kernels in interpret mode.
+"""The edge-tile schedules of the frontend's forward (#3) and backward (#4)
+and of the projection update's forward (#9) on the card, as plain float32
+PyTorch models, against the JAX package's Pallas kernels in interpret mode.
+
+#3 (``csrc/edge_tile.cuh``): per edge, en = relu(LN(e)) in the flax form
+(var = E[x^2] - mean^2) or e under raw, then xl_p = en Wlp^T + blp and xl_c
+= en Wlc^T + blc (the sum over k in order, then the bias). Two forms, chosen
+by width (``front_narrow``):
+
+- the narrow form (``frontend_fwd_narrow_kernel``, De <= 2 and Dp, Dc <=
+  4, the first layer): a lane per edge, the LayerNorm's sums x0 + x1 and
+  x0^2 + x1^2 in feature order, each square rounded;
+- the tile form (``frontend_fwd_tile_kernel``, any widths <= 32): a row's
+  32 features 4 per lane over 8 lanes, its sums in ``row_sum32``'s order
+  (the lanes' butterfly xor 4, 2, 1, then (q0 + q2) + (q1 + q3) inside the
+  lane), 32-edge tiles in the persistent order.
+
+Both are held against the forward of the JAX package's ``fused_frontend``
+(its ``_front_fwd_raw``, reached through ``gatv2_layer_frontend``, a spy
+counting the calls): e_norm directly, xl_p and xl_c through the port's
+plain dual core against its outputs; and against the plain prologue. The
+grids of both forms (``front_fwd_grid``) write every edge exactly once.
 
 #4 (``csrc/edge_tile.cuh``): per edge, dv = [d xl_p | d xl_c] [Wlp ; Wlc]
 added to the cotangent of v (the sum over the rows of [Wlp ; Wlc] in
@@ -65,9 +84,12 @@ from gasfm_tpu.ops.pallas.packing import pack_edges, unpack_edges
 from gasfm_tpu.ops.segment import set_kernel_mode
 
 from gasfm_tpu_torch.ops.gatv2 import layer_norm_relu
+from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import (FRONT_NARROW_DE, FRONT_NARROW_DQ,
-                                                         FRONT_SPAN_ROWS, LN_EPS,
+                                                         FRONT_NARROW_THREADS, FRONT_SPAN_ROWS,
+                                                         LN_EPS, front_fwd_grid, front_narrow,
                                                          front_sums_len,
+                                                         frontend_prologue_plain,
                                                          fused_dual_attend_plain,
                                                          fused_frontend, split_front_sums)
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import (TILE_BLOCKS_PER_SM, TILE_ROWS,
@@ -94,6 +116,117 @@ def _interpret_mode():
 @pytest.fixture(scope="module")
 def graphs():
     return {"scene": make_graphs(), "sub_tile": make_small_graphs()}
+
+
+# ---------------------------------------------------------------------------
+# #3, the frontend's forward
+# ---------------------------------------------------------------------------
+
+
+def row_sum32_model(x):
+    """csrc/edge_tile.cuh's ``row_sum32`` of each row of x (E, 32): feature
+    4 l + q on lane l's slot q; the lanes' butterfly xor 4, 2, 1 (as lane 0
+    sums: l + (l + 4), then + (l + 2), then + (l + 1)), then (q0 + q2) +
+    (q1 + q3)."""
+    t = x.reshape(-1, 8, 4)
+    t = t[:, :4] + t[:, 4:]
+    t = t[:, :2] + t[:, 2:]
+    t = t[:, 0] + t[:, 1]
+    return (t[:, 0] + t[:, 2]) + (t[:, 1] + t[:, 3])
+
+
+def frontend_fwd_model(e, lng, lnb, wlp, blp, wlc, blc, raw, eps=LN_EPS):
+    """#3 as the card computes it: (en, xl_p, xl_c), en = e under raw; the
+    form by width (``front_narrow``)."""
+    E, De = e.shape
+    if raw:
+        v = e
+    else:
+        if front_narrow(De, wlp.shape[0], wlc.shape[0]):  # a lane per edge, feature order
+            s1, s2 = torch.zeros(E, dtype=F32), torch.zeros(E, dtype=F32)
+            for j in range(De):
+                s1 = s1 + e[:, j]
+                s2 = s2 + e[:, j] * e[:, j]
+        else:  # row_sum32 over the row zero-padded to 32 features
+            x = torch.cat([e, torch.zeros(E, 32 - De, dtype=F32)], 1)
+            s1, s2 = row_sum32_model(x), row_sum32_model(x * x)
+        inv = torch.tensor(1.0 / De, dtype=F32)
+        mean = (s1 * inv)[:, None]
+        var = (s2 * inv)[:, None] - mean * mean
+        v = torch.relu((e - mean) * torch.rsqrt(var + eps) * lng + lnb)
+    outs = []
+    for w, b in ((wlp, blp), (wlc, blc)):
+        acc = torch.zeros(E, w.shape[0], dtype=F32)
+        for k in range(De):  # the sum over k in order, then the bias
+            acc = acc + v[:, k:k + 1] * w[:, k][None, :]
+        outs.append(acc + b)
+    return (v, *outs)
+
+
+@pytest.mark.parametrize("graph_name", ["scene", "sub_tile"])
+@pytest.mark.parametrize("De,Dq,raw", FRONT_SHAPES)
+def test_frontend_fwd_model_matches_fused_frontend(graphs, monkeypatch, graph_name, De, Dq, raw):
+    """The model's e_norm, and the dual core's outputs from its xl_p and
+    xl_c, against the JAX kernel's forward; its three outputs against the
+    plain prologue."""
+    calls = []
+
+    def spy(*a, _fn=jax_fused_dual_attn._front_fwd_raw, **k):
+        calls.append(1)
+        return _fn(*a, **k)
+
+    monkeypatch.setattr(jax_fused_dual_attn, "_front_fwd_raw", spy)
+    jg, pg, mask = graphs[graph_name]
+    draw = Draw((jg, pg, mask), seed=71 + De + raw)
+    e, e_t = draw.ln_edges(De)
+    p = frontend_params(draw, De, Dq)
+    en, out_p, out_c = jax_frontend_fn(jg, Dq, raw)(
+        *([jnp.asarray(e)] + [jnp.asarray(p[k]) for k in FRONT_KEYS]))
+    assert calls  # the JAX forward kernel was reached
+    t = {k: torch.from_numpy(v) for k, v in p.items() if not k.endswith("_t")}
+    prm = (t["lng"], t["lnb"], t["wlp"].T.contiguous(), t["blp"], t["wlc"].T.contiguous(),
+           t["blc"])
+    got = frontend_fwd_model(e_t, *prm, raw)
+    got_p, got_c = fused_dual_attend_plain(got[1], got[2], p["xr_p_t"], p["xr_c_t"],
+                                           t["att_p"].reshape(-1), t["att_c"].reshape(-1), pg,
+                                           HEADS)
+    assert_close(got[0], np.asarray(en)[mask], "e_norm")
+    assert_close(got_p, np.asarray(out_p).reshape(-1, Dq)[:pg.num_pts], "out_pt")
+    assert_close(got_c, np.asarray(out_c).reshape(-1, Dq)[:pg.num_cams], "out_cam")
+    plain = frontend_prologue_plain(e_t, *prm, eps=LN_EPS, raw_prologue=raw)
+    for name, a_, b_ in zip(("en", "xl_p", "xl_c"), got, plain):
+        assert_close(a_, b_, f"{name} against the plain version")
+
+
+@pytest.mark.parametrize("De,Dq", [(2, 4), (1, 3), (32, 32), (4, 4), (3, 5)])
+def test_frontend_fwd_grids_write_every_edge_once(graphs, monkeypatch, De, Dq):
+    """``front_fwd_grid`` on the card's 132 SMs: the narrow form's blocks of
+    FRONT_NARROW_THREADS lanes, a lane per edge, the last block ragged; the
+    tile form's persistent blocks taking the 32-edge tiles block, block +
+    grid, ..., the last tile ragged. Either writes every edge exactly once,
+    on both graphs and on edge counts around a block's and a tile's."""
+    monkeypatch.setattr(kb, "sm_count", lambda index: H100_SMS)
+    narrow = front_narrow(De, Dq, Dq)
+    assert narrow == (De <= FRONT_NARROW_DE and Dq <= FRONT_NARROW_DQ)
+    counts = [g[1].num_edges for g in graphs.values()] + [1, 31, 32, 33, 255, 256, 257,
+                                                          TILE_ROWS * TILE_BLOCKS_PER_SM *
+                                                          H100_SMS + 5]
+    for E in counts:
+        grid = front_fwd_grid(torch.device("cpu"), E, De, Dq, Dq)
+        written = np.zeros(E, np.int64)
+        if narrow:
+            assert grid == -(-E // FRONT_NARROW_THREADS)
+            for b in range(grid):
+                lanes = b * FRONT_NARROW_THREADS + np.arange(FRONT_NARROW_THREADS)
+                np.add.at(written, lanes[lanes < E], 1)
+        else:
+            tiles = -(-E // TILE_ROWS)
+            assert grid == min(tiles, TILE_BLOCKS_PER_SM * H100_SMS)
+            for b in range(grid):
+                for t in range(b, tiles, grid):
+                    rows = t * TILE_ROWS + np.arange(TILE_ROWS)
+                    np.add.at(written, rows[rows < E], 1)
+        assert (written == 1).all(), (E, grid)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,14 @@ reference at a small size:
   every segment exactly once, on both CSRs;
 - on ``check_graphs.hub_parts_graph`` the sum's split cuts the hub point
   into three parts, and the model's sum agrees with the plain version;
+- the segment max (#17/#19), the same walk with fmaxf from -inf in place of
+  the add (csrc/segment.cuh ``MaxRed``): the model on the sum's split,
+  bitwise against the JAX max kernels (``segment_max_kernel`` /
+  ``_segment_max_raw`` for the cameras, ``windowed_segment_max`` /
+  ``_wseg_max_raw`` for the points) at D = 1, 4 and 8, neutral -inf and
+  -7.5 (the empty segments', real and padded), also on a split into parts
+  of 16 rows, and bitwise against the plain version on ``hub_parts_graph``
+  (a point of three parts, merged by max);
 - the edge combine's backward (#12), whose point pass is the segment sum's
   walk with its COMBINE flag (csrc/segment.cuh): d pe = g / 4 from the same
   read, d ps the sum's model at scale 1/4, and d pg the column sum
@@ -69,7 +77,8 @@ from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, leaky_relu
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import SPLIT_ROWS, fused_dual_attend_plain
 from gasfm_tpu_torch.ops.kernels.fused_update import fused_edge_combine_plain
 from gasfm_tpu_torch.ops.kernels.segment_kernels import (SUM_PART_ROWS, SUM_ROWS,
-                                                         segment_sum_plain, side_ids)
+                                                         segment_max_plain, segment_sum_plain,
+                                                         side_ids)
 from gasfm_tpu_torch.ops.segment import segment_max
 
 HEADS = 4
@@ -79,6 +88,7 @@ SUM_BLOCK_WARPS = 32  # kSumBlockWarps: warps per block of the sum's main launch
 SUM_RUN = 4  # kSumRun: short points per warp (W = 32) or lane group (COMBINE, W < 32) in turn
 COLUMN_SUM_GROUPS = 8  # kSumGroups of csrc/common.cuh: the column sum's interleaved row groups
 JAX_SUM = {"point": "windowed_segment_sum", "camera": "segment_sum_kernel"}
+JAX_MAX_RAW = {"point": "_wseg_max_raw", "camera": "_segment_max_raw"}
 F32 = torch.float32  # explicit: another test module may change the default dtype
 
 
@@ -273,30 +283,40 @@ def test_split_dual_forward_max_is_the_plain_segment_max(scenes, side):
 
 
 def split_sum_model(data, graph, side, rows=SUM_PART_ROWS, long_above=SUM_ROWS,
-                    runs=SUM_MERGE_WARPS):
+                    runs=SUM_MERGE_WARPS, reduction="sum", neutral=0.0):
     """The segment sum as the kernels schedule it: a segment of at most
     ``long_above`` rows summed alone; a longer one cut into parts of
     ``rows``, each part's sum a block's; a hub of several parts merged as
     its second launch does: the parts in ``runs`` contiguous runs of
-    ceil(n / runs), each summed in part order, then the runs in order."""
+    ceil(n / runs), each summed in part order, then the runs in order.
+    With ``reduction="max"`` the same walk takes maxima from -inf (the
+    segment max, #17/#19): an empty segment gives ``neutral``."""
     ptr, edge = side_rows(graph, side)
     seg, k, K = row_chunks(graph, side, rows, long_above)
     S, D = ptr.shape[0] - 1, data.shape[1]
-    part = torch.zeros(S * K, D, dtype=F32).index_add_(0, seg * K + k, data[edge]).view(S, K, D)
+    unit = seg * K + k
+    if reduction == "sum":
+        ident, op = 0.0, torch.add
+        part = torch.zeros(S * K, D, dtype=F32).index_add_(0, unit, data[edge])
+    else:
+        ident, op = float("-inf"), torch.maximum
+        part = torch.full((S * K, D), ident, dtype=F32).scatter_reduce_(
+            0, unit[:, None].expand(-1, D), data[edge], reduce="amax")
+    part = part.view(S, K, D)
     deg = (ptr[1:] - ptr[:-1]).tolist()
-    out = torch.zeros(S, D, dtype=F32)
+    out = torch.full((S, D), ident, dtype=F32)
     for s in range(S):
         n = -(-deg[s] // rows) if deg[s] > long_above else 1
         if n == 1:
-            out[s] = part[s, 0]
+            out[s] = part[s, 0] if deg[s] or reduction == "sum" else neutral
             continue
         per = -(-n // runs)
-        total = torch.zeros(D, dtype=F32)
+        total = torch.full((D,), ident, dtype=F32)
         for r0 in range(0, n, per):
-            run = torch.zeros(D, dtype=F32)
+            run = torch.full((D,), ident, dtype=F32)
             for j in range(r0, min(r0 + per, n)):
-                run = run + part[s, j]
-            total = total + run
+                run = op(run, part[s, j])
+            total = op(total, run)
         out[s] = total
     return out
 
@@ -385,6 +405,66 @@ def test_hub_parts_graph_sums_a_point_of_three_parts(D):
         np.random.default_rng(300 + D).standard_normal((graph.num_edges, D)).astype(np.float32))
     got = split_sum_model(data, graph, "point")
     assert_close(got.numpy(), segment_sum_plain(data, graph, "point").numpy(), "hub-parts sum")
+
+
+# ---- the segment max (#17/#19): the sum's walk with fmaxf ---------------------------
+
+
+@pytest.mark.parametrize("neutral", [float("-inf"), -7.5])
+@pytest.mark.parametrize("side", ["point", "camera"])
+@pytest.mark.parametrize("D", [1, 4, 8])
+def test_split_segment_max_model_matches_jax_kernels(scenes, monkeypatch, D, side, neutral):
+    """The max on the sum's split (and at D = 4 on a split into parts of 16
+    rows, several per long segment, so the hubs' merge by max is held too)
+    bitwise against the JAX max kernel of the side (its raw Pallas call
+    reached, interpret mode) and the plain version; the empty segments,
+    real and padded, give ``neutral``."""
+    calls = {}
+    name = JAX_MAX_RAW[side]
+
+    def spy(*a, _fn=getattr(jax_segment_kernels, name), **k):
+        calls[name] = calls.get(name, 0) + 1
+        return _fn(*a, **k)
+
+    monkeypatch.setattr(jax_segment_kernels, name, spy)
+    jscene, pscene, mask = scenes
+    jg, pg = jscene.graph, pscene.graph
+    rng = np.random.default_rng(700 + 10 * D + (side == "camera"))
+    jdata, data = draw_edges(rng, mask, pg.num_edges, D)
+    ids, S, window = ((jg.pt_idx, jg.num_pts, jg.pt_segment_windows()) if side == "point"
+                      else (jg.cam_idx, jg.num_cams, None))
+    want = np.asarray(jseg.segment_max(jnp.asarray(jdata), ids, S, edge_mask=jg.edge_mask,
+                                       indices_are_sorted=side == "point", neutral=neutral,
+                                       window=window))
+    assert calls.get(name, 0) >= 1
+    S_real = side_ids(pg, side)[1]
+    assert (want[S_real:] == neutral).all()  # the padded segments are empty
+    got = split_sum_model(data, pg, side, reduction="max", neutral=neutral)
+    np.testing.assert_array_equal(got.numpy(), want[:S_real])
+    np.testing.assert_array_equal(got.numpy(),
+                                  segment_max_plain(data, pg, side, neutral).numpy())
+    assert (got[EMPTY_POINT if side == "point" else EMPTY_CAMERA] == neutral).all()
+    if D == 4:
+        assert side_split(pg, side, 16, 32).n_chunks > 2 * side_split(pg, side, 16, 32).n_long
+        fine = split_sum_model(data, pg, side, rows=16, long_above=32, reduction="max",
+                               neutral=neutral)
+        np.testing.assert_array_equal(fine.numpy(), want[:S_real])
+
+
+@pytest.mark.parametrize("D", [1, 8])
+def test_hub_parts_graph_maxes_a_point_of_three_parts(D):
+    """On ``hub_parts_graph`` the max's split is the sum's: point 0 in three
+    parts of 2,048 rows, their maxima merged by max; the model agrees with
+    the plain version bitwise on both sides."""
+    graph = hub_parts_graph("cpu")
+    assert side_split(graph, "point", SUM_PART_ROWS, SUM_ROWS).chunk_begin.tolist() == [
+        0, 2048, 4096]
+    data = torch.from_numpy(
+        np.random.default_rng(800 + D).standard_normal((graph.num_edges, D)).astype(np.float32))
+    for side in ("point", "camera"):
+        got = split_sum_model(data, graph, side, reduction="max", neutral=-7.5)
+        np.testing.assert_array_equal(got.numpy(),
+                                      segment_max_plain(data, graph, side, -7.5).numpy())
 
 
 # ---- the edge combine's backward (#12): the point pass on the sum's walk -------------

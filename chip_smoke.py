@@ -33,7 +33,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    core at D = 32, the frontend at layer 0 (De = 2, Dq = 4) and at De = Dq
    = 32 with the LayerNorm and raw (the depth head's widening layer), the
    layer step in its interior, first-layer and raw-prologue forms, the loss
-   in its three equalization modes. The max error of every input gradient,
+   in its three equalization modes (the loss's forward, #7, and backward,
+   #8, launched twice, bitwise, also on the wide scene, the dense scene
+   with empty segments, the dense scene plus a camera over all 8,192 points
+   and 4,500 cameras with a point on all). The max error of every input gradient,
    the backward kernels' per-call and burst times, the plain backward's
    time and the bound. The frontend's backward (#4) and the layer step's
    (#6) are timed alone (the dual core's backward ahead of each
@@ -436,7 +439,6 @@ def dual_forward_checks(results, record, scene_name, graph, ins, H, main=False):
 def kernel_phase(dev, scene_name, graph, model, record):
     from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
     from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
-    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
@@ -506,10 +508,21 @@ def kernel_phase(dev, scene_name, graph, model, record):
     P, X = loss_operands(rnd, gen, dev, m, n)
     for variant, hinge, main in (("hinge", True, True), ("no_hinge", False, False)):
         la = (P, X, graph, 1e-4, hinge, 1.0 if hinge else 0.0)
-        check("fused_esfm_terms", variant, lambda la=la: (flo.fused_esfm_terms(*la),),
-              lambda la=la: (flo.fused_esfm_terms_plain(*la),), ("terms",),
-              nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx) + 12, 40.0 * E, main)
+        loss_forward_check(results, record, scene_name, variant, la, main)
     return results
+
+
+def loss_forward_check(results, record, scene_name, variant, la, main):
+    """#7 on ``la`` (P, X, graph, margin, hinge, hinge_w) against its plain
+    version, launched twice, bitwise. Its bound: the tables, uv and the two
+    id streams read once, three floats written."""
+    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
+
+    P, X, graph = la[:3]
+    forward_check(results, record, scene_name, "fused_esfm_terms", variant,
+                  lambda: (flo.fused_esfm_terms(*la),), lambda: (flo.fused_esfm_terms_plain(*la),),
+                  ("terms",), nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx) + 12,
+                  40.0 * graph.num_edges, main, twice=True)
 
 
 def frontend_fwd_checks(results, record, scene_name, variant, fa, raw, main):
@@ -670,16 +683,14 @@ def backward_check(results, record, scene_name, name, variant, kernel, plain, le
 def backward_phase(dev, scene_name, graph, record):
     from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
     from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
-    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
 
     gen = torch.Generator(device=dev).manual_seed(4321)
-    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
+    n, m = graph.num_pts, graph.num_cams
     H = 4
 
     def rnd(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
 
-    csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
     results = {}
 
     def check(*args, **kw):
@@ -695,24 +706,64 @@ def backward_phase(dev, scene_name, graph, record):
     layer_step_bwd_checks(check, rnd, gen, dev, graph, H, main=True)
 
     # #8 loss terms, hinge on, in the three equalization modes.
-    P, X = loss_operands(rnd, gen, dev, m, n)
-    coef = torch.full((1,), 1.0 / E, device=dev)
-    terms = flo.esfm_terms_forward(P, X, graph, 1e-4, True, 1.0)[0]
-    for mode, main in (("valid_only", True), ("all", False), ("none", False)):
-        count = terms[2:3] if mode == "valid_only" else terms[1:2]
-        check("fused_esfm_terms_bwd", mode,
-              lambda mode=mode, **a: (flo.fused_esfm_terms(
-                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
-              lambda mode=mode, **a: (flo.fused_esfm_terms_plain(
-                  a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
-              dict(P=P, X=X), (coef[0],),
-              lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
-                  P, X, graph, coef, count, 1e-4, True, 1.0, mode),
-              nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, *csr, P, X), 80.0 * E, main)
+    loss_backward_checks(results, record, scene_name, graph, loss_operands(rnd, gen, dev, m, n),
+                         main=True)
 
     # #4 at De = Dq = 32 (the depth head's widening layer), with the
     # LayerNorm and raw.
     frontend_bwd_checks(check, rnd, gen, dev, graph, H, FRONT_FORMS[1:], main=False)
+    return results
+
+
+def loss_backward_checks(results, record, scene_name, graph, PX, main):
+    """#8 with the hinge in its three equalization modes (with ``main``,
+    valid_only gives the kernels line its numbers): every input's gradient
+    against autograd of the plain version, two launches bitwise. Its bound:
+    the tables, uv, both id streams and both CSRs read once, the two table
+    gradients written."""
+    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
+
+    P, X = PX
+    E = graph.num_edges
+    coef = torch.full((1,), 1.0 / max(E, 1), device=P.device)
+    terms = flo.esfm_terms_forward(P, X, graph, 1e-4, True, 1.0)[0]
+    io = nbytes(P, X, graph.uv, graph.cam_idx, graph.pt_idx, graph.pt_ptr, graph.cam_ptr,
+                graph.cam_perm, P, X)
+    for mode in ("valid_only", "all", "none"):
+        count = terms[2:3] if mode == "valid_only" else terms[1:2]
+        backward_check(
+            results, record, scene_name, "fused_esfm_terms_bwd", mode,
+            lambda mode=mode, **a: (flo.fused_esfm_terms(
+                a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
+            lambda mode=mode, **a: (flo.fused_esfm_terms_plain(
+                a["P"], a["X"], graph, 1e-4, True, 1.0, mode)[0],),
+            dict(P=P, X=X), (coef[0],),
+            lambda mode=mode, count=count: flo.fused_esfm_terms_bwd(
+                P, X, graph, coef, count, 1e-4, True, 1.0, mode),
+            io, 80.0 * E, main and mode == "valid_only", twice=True)
+
+
+def loss_graph_phase(dev, graphs, record):
+    """#7 (hinge on and off) and #8 (three equalization modes) against
+    their plain versions, each launched twice, bitwise, on the wide scene
+    (1,280 cameras of ~37 edges: all short) and on the graphs that stress
+    the split #8 walks: the dense scene with empty segments, the dense
+    scene plus a camera over all 8,192 points (four parts and a merge
+    launch on the camera side) and 4,500 cameras with a point on all (three
+    parts and a merge launch on the point side)."""
+    gen = torch.Generator(device=dev).manual_seed(7531)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    results = {}
+    for label, graph in graphs.items():
+        P, X = loss_operands(rnd, gen, dev, graph.num_cams, graph.num_pts)
+        with torch.no_grad():
+            for variant, hinge in (("hinge", True), ("no_hinge", False)):
+                loss_forward_check(results, record, label, variant,
+                                   (P, X, graph, 1e-4, hinge, 1.0 if hinge else 0.0), False)
+        loss_backward_checks(results, record, label, graph, (P, X), main=False)
     return results
 
 
@@ -2241,6 +2292,14 @@ def main() -> int:
     # layer step on a graph whose segments cross its edge tiles, with empty
     # segments and a ragged last tile
     per_scene["dual_graphs"] = dual_bwd_graph_phase(dev, scenes, record)
+    # ... the loss terms (#7, #8) on the wide scene and the graphs that
+    # stress #8's split
+    from gasfm_tpu_torch.graph.check_graphs import (graph_with_empty_segments, hub_camera_graph,
+                                                    hub_parts_graph)
+    per_scene["loss_graphs"] = loss_graph_phase(
+        dev, {"wide": wg, "dense_empty": graph_with_empty_segments(scenes["dense"].graph),
+              "hub_camera": hub_camera_graph(scenes["dense"].graph),
+              "hub_parts": hub_parts_graph(dev)}, record)
     per_scene["tile_edges"] = tile_boundary_phase(dev, record)
     # ---- phase 3b: the DPESFM path's kernels (segment sum, gather, edge
     # combine and its backward) against their plain versions

@@ -2,8 +2,9 @@
 // shared by segment.cu (#15/#18, and #17/#19: the max is this walk with the
 // reduction swapped), fused_update.cu (#12: its point pass is this walk with
 // the COMBINE flag, its camera sums the plain one), fused_layer_step.cu (#6's
-// two sums) and fused_proj_update.cu (#10's two sums), and the vector
-// helpers of segment.cu's gather.
+// two sums), fused_proj_update.cu (#10's two sums) and fused_loss.cu (#8:
+// both table gradients, this walk with rows computed in place of loaded, a
+// row source), and the vector helpers of segment.cu's gather.
 //
 // Unlike the narrow streams of the other kernels (one lane per feature,
 // D <= 32, common.cuh), these rows are 1 to 256 floats wide. A row is read
@@ -59,6 +60,15 @@ template <>
 struct VecT<4> {
   using T = float4;
 };
+// A 12-float row held whole by one lane (the ESFM loss's camera gradients,
+// g x X per edge, computed in place, csrc/fused_loss.cu): Dv = 1, W = 1.
+struct __align__(16) Row12 {
+  float4 a, b, c;
+};
+template <>
+struct VecT<12> {
+  using T = Row12;
+};
 
 // The walk's reduction R. SumRed adds from 0, and its result is scaled by
 // the caller's factor (an empty segment sums to 0); MaxRed takes fmaxf from
@@ -79,6 +89,11 @@ struct MaxRed {
 __device__ __forceinline__ void vfill(float& a, float f) { a = f; }
 __device__ __forceinline__ void vfill(float2& a, float f) { a = make_float2(f, f); }
 __device__ __forceinline__ void vfill(float4& a, float f) { a = make_float4(f, f, f, f); }
+__device__ __forceinline__ void vfill(Row12& a, float f) {
+  vfill(a.a, f);
+  vfill(a.b, f);
+  vfill(a.c, f);
+}
 template <class R, class T>
 __device__ __forceinline__ void vinit(T& a) {
   vfill(a, R::ident());
@@ -99,6 +114,12 @@ __device__ __forceinline__ void vred(float4& a, const float4 b) {
   a.z = R::op(a.z, b.z);
   a.w = R::op(a.w, b.w);
 }
+template <class R>
+__device__ __forceinline__ void vred(Row12& a, const Row12& b) {
+  vred<R>(a.a, b.a);
+  vred<R>(a.b, b.b);
+  vred<R>(a.c, b.c);
+}
 
 template <class T>
 __device__ __forceinline__ void vzero(T& a) {
@@ -115,6 +136,9 @@ __device__ __forceinline__ float2 vscale(const float2 a, float s) {
 __device__ __forceinline__ float4 vscale(const float4 a, float s) {
   return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
 }
+__device__ __forceinline__ Row12 vscale(const Row12& a, float s) {
+  return Row12{vscale(a.a, s), vscale(a.b, s), vscale(a.c, s)};
+}
 __device__ __forceinline__ float vshfl_xor(float a, int off) {
   return __shfl_xor_sync(GASFM_FULL_MASK, a, off);
 }
@@ -127,6 +151,9 @@ __device__ __forceinline__ float4 vshfl_xor(const float4 a, int off) {
                      __shfl_xor_sync(GASFM_FULL_MASK, a.y, off),
                      __shfl_xor_sync(GASFM_FULL_MASK, a.z, off),
                      __shfl_xor_sync(GASFM_FULL_MASK, a.w, off));
+}
+__device__ __forceinline__ Row12 vshfl_xor(const Row12& a, int off) {
+  return Row12{vshfl_xor(a.a, off), vshfl_xor(a.b, off), vshfl_xor(a.c, off)};
 }
 
 // A segment's result as written: the sum times f, the max as it is.
@@ -305,6 +332,31 @@ __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __res
   }
 }
 
+// The walk's row source S, a template parameter of the walk as its
+// reduction is: where a row comes from. src.at(s) is segment s's view v
+// (what all its rows share; s < 0: no segment, nothing loaded):
+// v.fetch(e, c) loads what vector column c of the row of edge e (the CSR
+// row's edge: perm[r], or r without a permutation) is made of, a
+// V::Fetched, and v.row(f, c) makes the column from it. The walk fetches the
+// rows of a step before it makes and adds them, at most V::kAhead rows per
+// lane. The default, TableRows, loads rows of `data` (fetch loads the
+// vector, row returns it); csrc/fused_loss.cu's EdgeGradRows compute each
+// edge's gradient row from the cameras, points and observations.
+template <int VEC>
+struct TableRows {
+  using T = typename VecT<VEC>::T;
+  using Fetched = T;
+  static constexpr int kAhead = kSumLoads;
+  static constexpr int kLongAbove = kSumRows;
+  const T* rows;
+  int Dv;
+  __device__ __forceinline__ const TableRows& at(int) const { return *this; }
+  __device__ __forceinline__ T fetch(int e, int c) const {
+    return __ldg(rows + (size_t)e * Dv + c);
+  }
+  __device__ __forceinline__ T row(const T& f, int) const { return f; }
+};
+
 // The rows [begin, end) of one segment walked by the nw warps gw = 0 .. nw
 // - 1 of a group, a row per W lanes (NG = 32 / W row groups per warp): warp
 // gw's row groups take rows gw * NG + g, then every nw * NG-th, U at a time,
@@ -313,18 +365,20 @@ __device__ __forceinline__ void sum_point_run(const typename VecT<VEC>::T* __res
 // groups merged by a butterfly. end = min(begin + cap, *end_at); the first
 // entries load before it is known: a row past it (below n_rows) loads an
 // entry that is never used. With COMBINE (no permutation), each row times
-// scale also goes to rows_out. R: the reduction (the sum's by default).
-template <int VEC, int W, bool COMBINE = false, class R = SumRed>
-__device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restrict__ rows,
-                                            int Dv, const int* __restrict__ perm, int n_rows,
+// scale also goes to rows_out. R: the reduction (the sum's by default);
+// rows_of: the segment's view of the row source.
+template <int VEC, int W, bool COMBINE = false, class R = SumRed, class V>
+__device__ __forceinline__ void sum_strided(const V& rows_of, int Dv,
+                                            const int* __restrict__ perm, int n_rows,
                                             int begin, const int* __restrict__ end_at, int cap,
                                             int gw, int nw,
                                             typename VecT<VEC>::T (&acc)[SumLayout<VEC, W>::K],
                                             typename VecT<VEC>::T* __restrict__ rows_out = nullptr,
                                             float scale = 1.f) {
-  using T = typename VecT<VEC>::T;
+  using F = typename V::Fetched;
   constexpr int NG = 32 / W, K = SumLayout<VEC, W>::K;
-  constexpr int U = K == 1 ? 4 : (8 / K > 0 ? 8 / K : 1);
+  constexpr int U0 = K == 1 ? 4 : (8 / K > 0 ? 8 / K : 1);
+  constexpr int U = U0 < V::kAhead ? U0 : V::kAhead;
   const int lane = threadIdx.x & 31, g = lane / W, col = lane % W;
   const int stride = nw * NG;
   int i = begin + gw * NG + g;
@@ -338,15 +392,13 @@ __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restr
 #pragma unroll
   for (int c = 0; c < K; ++c) vinit<R>(acc[c]);
   for (; i < end; i += U * stride) {
-    T v[U][K];
+    F v[U][K];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
 #pragma unroll
       for (int c = 0; c < K; ++c) {
-        vzero(v[u][c]);
-        if (i + u * stride < end && col + W * c < Dv) {
-          v[u][c] = rows[(size_t)e[u] * Dv + col + W * c];
-        }
+        v[u][c] = F{};
+        if (i + u * stride < end && col + W * c < Dv) v[u][c] = rows_of.fetch(e[u], col + W * c);
       }
     }
     int en[U];  // the next U rows' entries, while these rows load
@@ -360,10 +412,11 @@ __device__ __forceinline__ void sum_strided(const typename VecT<VEC>::T* __restr
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         if (i + u * stride < end) {
-          vred<R>(acc[c], v[u][c]);
+          const auto x = rows_of.row(v[u][c], col + W * c);
+          vred<R>(acc[c], x);
           if constexpr (COMBINE) {
             if (col + W * c < Dv) {
-              stcs(rows_out + (size_t)e[u] * Dv + col + W * c, vscale(v[u][c], scale));
+              stcs(rows_out + (size_t)e[u] * Dv + col + W * c, vscale(x, scale));
             }
           }
         }
@@ -395,22 +448,22 @@ __device__ __forceinline__ void sum_to_shared(
 }
 
 // COMBINE's partial row: each warp's column sums `tot` (lanes of row group
-// 0) added in warp order, times scale, to partials[blockIdx.x]. Every thread
-// of the block must call it.
+// 0) added in warp order, times scale, to partials[bid]. Every thread of the
+// block must call it.
 template <int VEC, int W>
 __device__ __forceinline__ void sum_block_partial(
     const typename VecT<VEC>::T (&tot)[SumLayout<VEC, W>::K], int Dv, float (*sw)[kSegMaxD],
-    float scale, float* __restrict__ partials) {
+    float scale, int bid, float* __restrict__ partials) {
   sum_to_shared<VEC, W>(tot, Dv, sw);
   const int D = Dv * VEC;
   for (int j = threadIdx.x; j < D; j += kSumBlockWarps * 32) {
     float t = 0.f;
     for (int w = 0; w < kSumBlockWarps; ++w) t += sw[w][j];
-    partials[(size_t)blockIdx.x * D + j] = t * scale;
+    partials[(size_t)bid * D + j] = t * scale;
   }
 }
 
-// Main launch, blocks of kSumBlockWarps warps, in this order:
+// Block bid of the main launch, blocks of NW warps, in this order:
 //   - [0, sp.n_chunks): part k of a long segment (sp: the parts), its rows
 //     walked by all the block's warps (sum_strided), their sums added in
 //     warp order: a segment of one part writes its sum times scale, a hub's
@@ -425,38 +478,27 @@ __device__ __forceinline__ void sum_block_partial(
 //     the NG groups merge by a butterfly (with COMBINE, `run` segments in
 //     turn per lane group).
 // A short segment's sum times scale goes to out (an empty one's: 0); a long
-// one is skipped there. COMBINE (point side, run = kSumRun at every W): see above.
-// At W < 32 (rows of 1-16 vectors) the launch bounds ask for two blocks per
-// SM, which caps the kernel at 32 registers: ptxas then spills 20-32 bytes
-// per thread at VEC = 4 and 8 at VEC = 2, W = 2 or 4 (a cap of one block per
-// SM is not measured against it). With COMBINE the cap left 476 bytes of
-// spills per thread at VEC = 4 (the rows held until their copies are
-// stored), 7.5x the plain sum's time at D = 32 on the dense bench scene: it
-// asks for one block per SM. R: the reduction; NW: warps per block (the
-// max's kMaxBlockWarps asks for four blocks per SM, 64 registers, no
-// spills).
-template <int VEC, int W, bool COMBINE = false, class R = SumRed, int NW = kSumBlockWarps>
-__global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
-                                               ? (W == 32 || COMBINE ? 1 : 2)
-                                               : kSumBlockWarps / NW)
-    segment_sum_kernel(
-    const float* __restrict__ data, int Dv, const int* __restrict__ ptr,
-    const int* __restrict__ perm, int n_rows, SegmentSplit sp, int n_seg, int run, float scale,
+// one is skipped there. COMBINE (point side, run = kSumRun at every W): see
+// above. R: the reduction; NW: warps per block; src: the row source
+// (TableRows: the rows of a table; W = 32 takes no other); sw: the block's
+// (NW, kSegMaxD) shared floats. Every thread of the block must call it.
+template <int VEC, int W, bool COMBINE, class R, int NW, class S>
+__device__ __forceinline__ void segment_sum_block(
+    int bid, const S& src, int Dv, const int* __restrict__ ptr, const int* __restrict__ perm,
+    int n_rows, const SegmentSplit& sp, int n_seg, int run, float scale,
     float* __restrict__ out, float* __restrict__ part, float* __restrict__ rows_out,
-    float* __restrict__ partials) {
+    float* __restrict__ partials, float (*sw)[kSegMaxD]) {
   static_assert(!R::kMax || (W < 32 && !COMBINE), "the max's rows are at most 8 floats");
   using L = SumLayout<VEC, W>;
   using T = typename VecT<VEC>::T;
-  __shared__ __align__(16) float sw[NW][kSegMaxD];
-  const T* rows = reinterpret_cast<const T*>(data);
   T* copy = reinterpret_cast<T*>(rows_out);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int D = Dv * VEC;
-  if ((int)blockIdx.x < sp.n_chunks) {
-    const int k = blockIdx.x, seg = sp.chunk_seg[k];
+  if (bid < sp.n_chunks) {
+    const int k = bid, seg = sp.chunk_seg[k];
     T acc[L::K];
-    sum_strided<VEC, W, COMBINE, R>(rows, Dv, perm, n_rows, sp.chunk_begin[k], ptr + seg + 1,
-                                    kSumPartRows, warp, NW, acc, copy, scale);
+    sum_strided<VEC, W, COMBINE, R>(src.at(seg), Dv, perm, n_rows, sp.chunk_begin[k],
+                                    ptr + seg + 1, kSumPartRows, warp, NW, acc, copy, scale);
     sum_to_shared<VEC, W>(acc, Dv, sw);
     const bool whole = ptr[seg + 1] - ptr[seg] <= kSumPartRows;
     float* dst = whole ? out + (size_t)seg * D : part + (size_t)k * D;
@@ -469,7 +511,7 @@ __global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
     }
     return;
   }
-  const int b = blockIdx.x - sp.n_chunks;
+  const int b = bid - sp.n_chunks;
   if constexpr (W == 32) {
     if (COMBINE || run > 0) {
       T tot[L::K];
@@ -477,10 +519,10 @@ __global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
       for (int k = 0; k < L::K; ++k) vzero(tot[k]);
       const int s0 = (b * kSumBlockWarps + warp) * run;
       if (s0 < n_seg) {
-        sum_point_run<VEC, L::K, L::U, COMBINE>(rows, Dv, ptr, n_seg, s0, run, scale,
+        sum_point_run<VEC, L::K, L::U, COMBINE>(src.rows, Dv, ptr, n_seg, s0, run, scale,
                                                 reinterpret_cast<T*>(out), copy, tot);
       }
-      if constexpr (COMBINE) sum_block_partial<VEC, W>(tot, Dv, sw, scale, partials);
+      if constexpr (COMBINE) sum_block_partial<VEC, W>(tot, Dv, sw, scale, bid, partials);
       return;
     }
     constexpr int kPer = kSumBlockWarps / kSumGroup;  // warps per short segment
@@ -489,8 +531,8 @@ __global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
     const int* end_at = ptr;  // an empty walk where there is no short segment
     if (q < n_seg && ptr[q + 1] - ptr[q] <= kSumRows) begin = ptr[q], end_at = ptr + q + 1;
     T acc[L::K];
-    sum_strided<VEC, W>(rows, Dv, perm, n_rows, begin, end_at, kSumPartRows, warp % kPer, kPer,
-                        acc);
+    sum_strided<VEC, W>(src.at(q), Dv, perm, n_rows, begin, end_at, kSumPartRows, warp % kPer,
+                        kPer, acc);
     sum_to_shared<VEC, W>(acc, Dv, sw);
     for (int o = threadIdx.x; o < kSumGroup * D; o += kSumBlockWarps * 32) {
       const int j = o / D, f = o - j * D, s = b * kSumGroup + j;
@@ -504,6 +546,9 @@ __global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
   // A lane group takes one segment; with COMBINE, `run` consecutive ones in
   // turn (the warp's P groups on P x run consecutive segments), so a block
   // sums enough rows to pay for its partial row.
+  using V = std::decay_t<decltype(src.at(0))>;
+  using F = typename V::Fetched;
+  constexpr int U = L::U < V::kAhead ? L::U : V::kAhead;
   const int reps = COMBINE ? run : 1;
   const int g = (lane % L::G) / W, col = lane % W;
   T tot[L::K];
@@ -516,37 +561,39 @@ __global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
       seg = q;
       begin = ptr[q];
       end = ptr[q + 1];
-      if (end - begin > kSumRows) seg = -1, end = begin;  // long: its block sums it
+      if (end - begin > S::kLongAbove) seg = -1, end = begin;  // long: its block sums it
     }
+    const auto rows_of = src.at(seg);
     T acc[L::K];
 #pragma unroll
     for (int k = 0; k < L::K; ++k) vinit<R>(acc[k]);
-    for (int i = begin + g; i < end; i += L::NG * L::U) {
-      int e[L::U];
+    for (int i = begin + g; i < end; i += L::NG * U) {
+      int e[U];
 #pragma unroll
-      for (int u = 0; u < L::U; ++u) {
+      for (int u = 0; u < U; ++u) {
         const int r = i + u * L::NG;
         e[u] = r < end ? (perm == nullptr ? r : __ldg(perm + r)) : -1;
       }
-      T v[L::U][L::K];
+      F v[U][L::K];
 #pragma unroll
-      for (int u = 0; u < L::U; ++u) {
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
         for (int k = 0; k < L::K; ++k) {
           const int c = col + W * k;
-          vzero(v[u][k]);
-          if (e[u] >= 0 && c < Dv) v[u][k] = __ldg(rows + (size_t)e[u] * Dv + c);
+          v[u][k] = F{};
+          if (e[u] >= 0 && c < Dv) v[u][k] = rows_of.fetch(e[u], c);
         }
       }
 #pragma unroll
-      for (int u = 0; u < L::U; ++u) {
+      for (int u = 0; u < U; ++u) {
 #pragma unroll
         for (int k = 0; k < L::K; ++k) {
           if (e[u] >= 0) {
-            vred<R>(acc[k], v[u][k]);
+            const int c = col + W * k;
+            const auto x = rows_of.row(v[u][k], c);
+            vred<R>(acc[k], x);
             if constexpr (COMBINE) {
-              const int c = col + W * k;
-              if (c < Dv) stcs(copy + (size_t)e[u] * Dv + c, vscale(v[u][k], scale));
+              if (c < Dv) stcs(copy + (size_t)e[u] * Dv + c, vscale(x, scale));
             }
           }
         }
@@ -576,8 +623,48 @@ __global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
 #pragma unroll
       for (int k = 0; k < L::K; ++k) vadd(tot[k], vshfl_xor(tot[k], off));
     }
-    sum_block_partial<VEC, W>(tot, Dv, sw, scale, partials);
+    sum_block_partial<VEC, W>(tot, Dv, sw, scale, bid, partials);
   }
+}
+
+// The main launch of the walk over the rows of `data` (segment_sum_block).
+// At W < 32 (rows of 1-16 vectors) the launch bounds ask for two blocks per
+// SM, which caps the kernel at 32 registers: ptxas then spills 20-32 bytes
+// per thread at VEC = 4 and 8 at VEC = 2, W = 2 or 4 (a cap of one block per
+// SM is not measured against it). With COMBINE the cap left 476 bytes of
+// spills per thread at VEC = 4 (the rows held until their copies are
+// stored), 7.5x the plain sum's time at D = 32 on the dense bench scene: it
+// asks for one block per SM. NW: warps per block (the max's kMaxBlockWarps
+// asks for four blocks per SM, 64 registers, no spills).
+template <int VEC, int W, bool COMBINE = false, class R = SumRed, int NW = kSumBlockWarps>
+__global__ void __launch_bounds__(NW * 32, NW == kSumBlockWarps
+                                               ? (W == 32 || COMBINE ? 1 : 2)
+                                               : kSumBlockWarps / NW)
+    segment_sum_kernel(
+    const float* __restrict__ data, int Dv, const int* __restrict__ ptr,
+    const int* __restrict__ perm, int n_rows, SegmentSplit sp, int n_seg, int run, float scale,
+    float* __restrict__ out, float* __restrict__ part, float* __restrict__ rows_out,
+    float* __restrict__ partials) {
+  __shared__ __align__(16) float sw[NW][kSegMaxD];
+  const TableRows<VEC> src{reinterpret_cast<const typename VecT<VEC>::T*>(data), Dv};
+  segment_sum_block<VEC, W, COMBINE, R, NW>(blockIdx.x, src, Dv, ptr, perm, n_rows, sp, n_seg,
+                                            run, scale, out, part, rows_out, partials, sw);
+}
+
+// Blocks of the main launch: the parts, then the short segments' blocks
+// (none when every segment is long).
+template <int VEC, int W, int NW>
+inline int sum_blocks(int n_seg, const SegmentSplit& sp, int run) {
+  int short_blocks = 0;
+  if (n_seg > sp.n_long) {
+    if (W == 32 && run == 0) {
+      short_blocks = blocks_of(n_seg, kSumGroup);
+    } else {
+      const int pieces = run > 0 ? blocks_of(n_seg, run) : n_seg;
+      short_blocks = blocks_of(blocks_of(pieces, SumLayout<VEC, W>::P), NW);
+    }
+  }
+  return sp.n_chunks + short_blocks;
 }
 
 // Second launch, only where a hub exists: a block per long segment (one of
@@ -655,16 +742,7 @@ inline int launch_segment_sum(const float* data, int D, const int* ptr, const in
     constexpr int Wc = decltype(w)::value;
     if constexpr (!R::kMax || Wc <= 8) {  // the max's rows: at most 8 floats
       const int run = (Wc == 32 || COMBINE) && perm == nullptr ? kSumRun : 0;
-      int short_blocks = 0;  // none when every segment is long
-      if (n_seg > sp.n_long) {
-        if (Wc == 32 && run == 0) {
-          short_blocks = blocks_of(n_seg, kSumGroup);
-        } else {
-          const int pieces = run > 0 ? blocks_of(n_seg, run) : n_seg;
-          short_blocks = blocks_of(blocks_of(pieces, SumLayout<VEC, Wc>::P), NW);
-        }
-      }
-      grid = sp.n_chunks + short_blocks;
+      grid = sum_blocks<VEC, Wc, NW>(n_seg, sp, run);
       if (grid > 0) {
         segment_sum_kernel<VEC, Wc, COMBINE, R, NW><<<grid, NW * 32, 0, s>>>(
             data, Dv, ptr, perm, n_rows, sp, n_seg, run, scale, out, part, rows_out, partials);

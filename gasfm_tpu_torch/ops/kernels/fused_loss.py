@@ -13,11 +13,17 @@ backward only.
 
 What bounds them on the H100 is bytes over its 3.35 TB/s: each edge gathers
 a 48-byte camera row and a 16-byte point row and reads its observation and
-two ids, against ~40 flops. Forward: one thread per edge, nothing per edge
-written back, a fixed-order block tree and a second one-block pass over the
-block partials (two launches per call, counted once). Backward: the two
-table gradients are segment sums, walked per point (warp) and per camera
-(block) without atomics. Deterministic throughout.
+two ids, against ~40 flops; at the bench scenes' sizes a call is its launch
+and a few DRAM latencies. Forward: one launch, each thread two edges with
+their loads issued ahead, one partial triple per block, the partials summed
+in block order by the last block to finish (a ticket on a counter that
+belongs to the stream, :func:`_ticket`). Backward: the two table gradients
+are segment sums on the segment sum's walk and split
+(``segment_kernels.sum_split``; a point of more than LONG_POINT edges, a
+camera of more than SUM_ROWS, takes a block), each edge's gradient row
+computed in place of loaded, both sides in one launch (plus a merge launch
+per side where a hub has several parts). No float atomics: deterministic
+throughout.
 
 A CPU tensor runs the plain version (autograd through it, with the
 equalization Function below, is the backward's plain version); a CUDA
@@ -32,18 +38,43 @@ import functools
 import torch
 
 from gasfm_tpu_torch.ops.kernels import build as kb
+from gasfm_tpu_torch.ops.kernels.segment_kernels import sum_split
 
-_THREADS = 256
-_BWD_WARPS = 8  # kLossBwdWarps of csrc/fused_loss.cu
+TERMS_EDGES = 512  # edges per block of the forward: kTermsThreads x kTermsEdges
+LONG_POINT = 32  # kLossLongPoint of csrc/fused_loss.cu: the longest point a lane group walks
 EQ_MODES = {"none": 0, "all": 1, "valid_only": 2}
-_ARGS = (kb.P,) * 5 + (kb.I, kb.F, kb.I, kb.F) + (kb.P,) * 3
-_BWD_ARGS = (kb.P,) * 8 + (kb.I, kb.I, kb.F, kb.I, kb.F, kb.I) + (kb.P,) * 5
+_ARGS = (kb.P,) * 5 + (kb.I, kb.F, kb.I, kb.F) + (kb.P,) * 4
+_BWD_ARGS = ((kb.P,) * 8 + (kb.I,) * 3 + (kb.F, kb.I, kb.F, kb.I) + (kb.P,) * 2
+             + (kb.P, kb.I, kb.I) * 2 + (kb.P,) * 5)
+_TICKETS = {}
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(symbol="gasfm_esfm_terms"):
     args = _ARGS if symbol == "gasfm_esfm_terms" else _BWD_ARGS
     return kb.bind(kb.load("fused_loss"), symbol, args)
+
+
+def _ticket(dev):
+    """The forward's ticket counter on the current stream of ``dev``: one
+    int32 per (device, stream), zeroed once; each call leaves it at 0 (the
+    last block's atomicInc wraps it), and calls on one stream run in order,
+    so no two calls share a counter at once."""
+    key = (dev.index, kb.stream(dev))
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def _tables(P_flat, Xt, graph):
+    """The kernels' table operands, validated: P_flat (m, 12) and Xt (n, 4)
+    16-byte aligned (a camera row is read as three float4, a point as one),
+    uv (E, 2) 8-byte aligned (one float2 per edge)."""
+    P_flat = kb.aligned(kb.cuda_f32("P_flat", P_flat, (graph.num_cams, 12)))
+    Xt = kb.aligned(kb.cuda_f32("Xt", Xt, (graph.num_pts, 4)))
+    uv = kb.aligned(kb.cuda_f32("uv", graph.uv, (graph.num_edges, 2)))
+    return P_flat, Xt, uv
 
 
 class EqualizeGrads(torch.autograd.Function):
@@ -98,20 +129,15 @@ def fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode="n
 def esfm_terms_forward(P_flat, Xt, graph, margin, hinge, hinge_w):
     """Launch the forward kernel (CUDA tensors). Returns (terms (3,), P_flat,
     Xt) with the validated operands."""
-    E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
-    P_flat = kb.cuda_f32("P_flat", P_flat, (m, 12))
-    Xt = kb.cuda_f32("Xt", Xt, (n, 4))
-    if Xt.data_ptr() % 16:  # the kernels read each point as one float4
-        Xt = Xt.clone()
-    uv = kb.cuda_f32("uv", graph.uv, (E, 2))
-    cam_idx = kb.cuda_i32("cam_idx", graph.cam_idx)
-    pt_idx = kb.cuda_i32("pt_idx", graph.pt_idx)
+    E = graph.num_edges
+    P_flat, Xt, uv = _tables(P_flat, Xt, graph)
     dev = P_flat.device
-    partials = kb.f32_empty((max(1, -(-E // _THREADS)), 3), dev)
+    partials = kb.f32_empty((max(1, -(-E // TERMS_EDGES)), 3), dev)
     out = kb.f32_empty((3,), dev)
     p = kb.ptr
-    code = _entry()(p(P_flat), p(Xt), p(uv), p(cam_idx), p(pt_idx), E, float(margin),
-                    int(bool(hinge)), float(hinge_w), p(partials), p(out), kb.stream(dev))
+    code = _entry()(p(P_flat), p(Xt), p(uv), p(kb.cuda_i32("cam_idx", graph.cam_idx)),
+                    p(kb.cuda_i32("pt_idx", graph.pt_idx)), E, float(margin), int(bool(hinge)),
+                    float(hinge_w), p(partials), p(_ticket(dev)), p(out), kb.stream(dev))
     kb.check(code, "fused_esfm_terms")
     fused_esfm_terms.launches += 1
     return out, P_flat, Xt
@@ -156,21 +182,21 @@ def fused_esfm_terms_bwd(P_flat, Xt, graph, coef, count, margin, hinge, hinge_w,
     under "none"), both read on the card. Returns (dP (m, 12), dX (n, 4)).
     Its plain version is autograd through :func:`fused_esfm_terms_plain`."""
     E, n, m = graph.num_edges, graph.num_pts, graph.num_cams
-    P_flat = kb.cuda_f32("P_flat", P_flat, (m, 12))
-    Xt = kb.cuda_f32("Xt", Xt, (n, 4))
-    if Xt.data_ptr() % 16:
-        Xt = Xt.clone()
+    P_flat, Xt, uv = _tables(P_flat, Xt, graph)
     coef = kb.cuda_f32("coef", coef.reshape(1), (1,))
     count = kb.cuda_f32("count", count.reshape(1), (1,))
     dev = P_flat.device
+    pt_split, pt_long, pt_chunks, pt_part = sum_split(graph, "point", 4, dev, LONG_POINT)
+    cam_split, cam_long, cam_chunks, cam_part = sum_split(graph, "camera", 12, dev)
     dP, dX = kb.f32_empty((m, 12), dev), kb.f32_empty((n, 4), dev)
     p = kb.ptr
     code = _entry("gasfm_esfm_terms_bwd")(
-        p(P_flat), p(Xt), p(kb.cuda_f32("uv", graph.uv, (E, 2))),
-        p(kb.cuda_i32("cam_idx", graph.cam_idx)), p(kb.cuda_i32("pt_idx", graph.pt_idx)),
-        p(kb.cuda_i32("pt_ptr", graph.pt_ptr)), p(kb.cuda_i32("cam_ptr", graph.cam_ptr)),
-        p(kb.cuda_i32("cam_perm", graph.cam_perm)), n, m, float(margin), int(bool(hinge)),
-        float(hinge_w), EQ_MODES[eq_mode], p(coef), p(count), p(dP), p(dX), kb.stream(dev),
+        p(P_flat), p(Xt), p(uv), p(kb.cuda_i32("cam_idx", graph.cam_idx)),
+        p(kb.cuda_i32("pt_idx", graph.pt_idx)), p(kb.cuda_i32("pt_ptr", graph.pt_ptr)),
+        p(kb.cuda_i32("cam_ptr", graph.cam_ptr)), p(kb.cuda_i32("cam_perm", graph.cam_perm)),
+        E, n, m, float(margin), int(bool(hinge)), float(hinge_w), EQ_MODES[eq_mode], p(coef),
+        p(count), p(pt_split), pt_long, pt_chunks, p(cam_split), cam_long, cam_chunks,
+        p(pt_part), p(cam_part), p(dP), p(dX), kb.stream(dev),
     )
     kb.check(code, "fused_esfm_terms_bwd")
     fused_esfm_terms_bwd.launches += 1

@@ -81,15 +81,15 @@ def side_csr(graph, side):
     return kb.cuda_i32("cam_ptr", graph.cam_ptr), kb.cuda_i32("cam_perm", graph.cam_perm)
 
 
-def sum_split(graph, side, D, device):
+def sum_split(graph, side, D, device, long_above=SUM_ROWS):
     """The split of ``side`` that the segment sum and max walk, as the C
-    entries take it: its segments of more than SUM_ROWS rows, cut into
-    parts of SUM_PART_ROWS (built once per graph: ``pt_chunks`` /
+    entries take it: its segments of more than ``long_above`` rows, cut
+    into parts of SUM_PART_ROWS (built once per graph: ``pt_chunks`` /
     ``cam_chunks``); (table, n_long, n_chunks, partial-row scratch
     (n_chunks, D), None unless a segment has several parts)."""
     side_ids(graph, side)  # raises for an unknown side
     chunks = graph.pt_chunks if side == "point" else graph.cam_chunks
-    sp = chunks(SUM_PART_ROWS, SUM_ROWS)
+    sp = chunks(SUM_PART_ROWS, long_above)
     part = kb.f32_empty((sp.n_chunks, D), device) if sp.n_chunks > sp.n_long else None
     return kb.cuda_i32(f"{side}_chunks", sp.table), sp.n_long, sp.n_chunks, part
 

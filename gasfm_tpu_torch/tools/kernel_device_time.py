@@ -2,10 +2,11 @@
 the dual core's forward (#1) and backward (#2), the segment sum
 (#15/#18), the segment max (#17/#19), the edge combine's backward (#12),
 the row gather (#16/#20), the point side's single-direction attention
-(#13, #14), the frontend's prologue (#3) and its backward (#4), and the
-projection update (#9) and its backward (#10), from ``torch.profiler``, on
-both bench scenes and the wide one, and of #6, #1, #2, #4, #9, #10, #12,
-the segment sum and the segment max on the kernel-check graphs of
+(#13, #14), the frontend's prologue (#3) and its backward (#4), the
+projection update (#9) and its backward (#10), and the ESFM loss terms
+(#7) and their backward (#8), from ``torch.profiler``, on both bench
+scenes and the wide one, and of #6, #1, #2, #4, #7, #8, #9, #10, #12, the
+segment sum and the segment max on the kernel-check graphs of
 ``chip_smoke.py`` (``graph/check_graphs.py``).
 
     python -m gasfm_tpu_torch.tools.kernel_device_time [--calls 20] [--out PATH]
@@ -13,7 +14,7 @@ the segment sum and the segment max on the kernel-check graphs of
 
 ``--only`` measures only the rows of those names (the first field of a
 row: ``segment_max``, ``scatter_reduce_``, ``frontend_prologue``,
-``layer_step_prologue``, ...).
+``layer_step_prologue``, ``esfm_terms``, ``esfm_terms_bwd``, ...).
 
 Each measurement profiles ``--calls`` back-to-back calls of one function
 and nothing else, after a warm-up, and divides the summed device time of
@@ -55,7 +56,11 @@ De = Dp = Dc = 32 with the LayerNorm and raw; the projection update with
 skip2 and res, bare (d2 = 0, no res) and with res only; the projection
 update's backward (``projection_update_bwd``, all its launches) at De =
 d_in = 32, d2 = 2; these three on the bench scenes and the degree,
-hub-point and tile-boundary graphs. Prints one line per measurement with each kernel's
+hub-point and tile-boundary graphs; the loss terms (``esfm_terms``, all
+their launches) with the hinge and without, and their backward
+(``esfm_terms_bwd``, all its launches) with the hinge in the three
+equalization modes, on the bench and wide scenes and the empty-segment,
+hub-camera, hub-point, degree and hub-parts graphs. Prints one line per measurement with each kernel's
 launches and device time per call, and writes them as JSON to ``--out``
 (default ``chiprun_out/kernel_device_time.json``).
 
@@ -91,6 +96,7 @@ from gasfm_tpu_torch.graph.check_graphs import (degree_graph, graph_with_empty_s
 from gasfm_tpu_torch.ops.kernels import fused_attn as fat
 from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
 from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+from gasfm_tpu_torch.ops.kernels import fused_loss as flo
 from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
 from gasfm_tpu_torch.ops.kernels import fused_update as fu
 from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
@@ -325,6 +331,36 @@ def frontend_bwd_call(graph, dev, form="De2_Dq4", seed=531):
                                           raw_prologue=raw)
 
 
+def loss_calls(graph, dev, seed=8642):
+    """#7 (``esfm_terms_forward``, all its launches) with the hinge and
+    without, and #8 (``fused_esfm_terms_bwd``, all its launches) with the
+    hinge in the three equalization modes: cameras near [I | (0, 0, 3)], a
+    fifth of them flipped, points in a unit box (depths of both signs),
+    margin 1e-4, the cotangent 1 / E."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m, n = graph.num_cams, graph.num_pts
+
+    def rnd(*shape):
+        return 0.1 * torch.randn(shape, generator=gen, device=dev)
+
+    P = torch.cat([torch.eye(3, device=dev) + rnd(m, 3, 3),
+                   torch.tensor([[0.0], [0.0], [3.0]], device=dev) + rnd(m, 3, 1)], dim=2)
+    P = (P * torch.where(torch.arange(m, device=dev) % 5 == 0, -1.0, 1.0)[:, None, None]
+         ).reshape(m, 12).contiguous()
+    X = torch.cat([torch.rand((n, 3), generator=gen, device=dev) * 2 - 1,
+                   torch.ones((n, 1), device=dev)], dim=1)
+    terms = flo.esfm_terms_forward(P, X, graph, 1e-4, True, 1.0)[0]
+    coef = torch.full((1,), 1.0 / max(graph.num_edges, 1), device=dev)
+    cases = [("esfm_terms", variant, lambda h=hinge: flo.esfm_terms_forward(
+                  P, X, graph, 1e-4, h, 1.0 if h else 0.0)[0])
+             for variant, hinge in (("hinge", True), ("no_hinge", False))]
+    for mode in ("valid_only", "all", "none"):
+        count = terms[2:3] if mode == "valid_only" else terms[1:2]
+        cases.append(("esfm_terms_bwd", mode, lambda mode=mode, count=count:
+                      flo.fused_esfm_terms_bwd(P, X, graph, coef, count, 1e-4, True, 1.0, mode)))
+    return cases
+
+
 def attend_calls(graph, dev, heads=4, D=32):
     """#13 (the forward with residuals) and #14 (the backward from them) on
     the point side, through the wrapper calls the parent trees have too."""
@@ -380,6 +416,7 @@ def main(argv=None) -> None:
             cases += segment_sum_calls(graph, dev)
             cases += segment_max_calls(graph, dev)
             cases += edge_combine_bwd_calls(graph, dev)
+            cases += loss_calls(graph, dev)
             if scene_name != "wide":  # the merged path's kernels
                 for resid in (True, False):
                     cases.append(("fused_dual_attend", "D32_H4" + ("_residuals" if resid else ""),
@@ -417,6 +454,8 @@ def main(argv=None) -> None:
         extra["hub_parts"] = hub_parts_graph(dev)
         for label, graph in extra.items():
             measure(label, "fused_layer_step_bwd", "interior", layer_step_bwd_call(graph, dev))
+            for name, variant, fn in loss_calls(graph, dev):
+                measure(label, name, variant, fn)
             if label in ("hub_camera", "hub_parts", "degrees"):
                 for name, variant, fn in segment_max_calls(graph, dev):
                     measure(label, name, variant, fn)

@@ -163,6 +163,24 @@ Phases, each printing its own lines; any failure exits non-zero:
 12. DPESFM with the depth head on the dense scene: serving (per request
    segment sum 6, edge combine 3) and training 1 + 3 steps (per step also
    edge-combine backward 3, gather 4), as above.
+12b. The training step recorded as CUDA graphs, the session's default on
+   the card (the phases above build theirs with ``capture=False``), on
+   every training path: merged GASFM dense and power-law, GASFM wide,
+   DPESFM power-law, the depth flagship dense (``loss_and_grads`` and
+   ``update``, two graphs). Two eager sessions and a captured one from the
+   same weights take 1 + 3 steps side by side (the captured one's warm-up,
+   its recording, two replays): per step loss, our_repro, grad norm and
+   every parameter, captured against eager bitwise where the two eager runs
+   agree bitwise, else within phase 6's tolerances (it prints which held);
+   exact launches (the warm-up and the recording a step's each, a replay
+   none), and the kernel operands that the wrappers' validation copied in
+   the recording (each a launch per replay) printed. Then 200 more replays: each kept loss unchanged by the next
+   replay, losses finite, and every 50 replays the step's loss against a
+   forward's taken just before (the loss's ticket counter at 0 at each
+   replay's start). Then a checkpoint, 2 steps, a restore in place (no
+   tensor moved), the same 2 steps: equal under the same rule, on the same
+   graphs. ms per step captured and eager (median of 3), launches and peak
+   memory printed.
 13. A ``kernels`` JSON line (all seventeen kernels, each with its per-call
    ``ms`` and its burst ``burst_ms``; launches from the training path that
    runs each: GASFM's merged path for the first eight,
@@ -203,6 +221,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import statistics
@@ -1932,9 +1951,9 @@ def train_phase(dev, scenes, counters, record, model, loss_kw, optim, per_step, 
 
     twin = copy.deepcopy(model)
     ref64 = copy.deepcopy(model).double()
-    session = TrainingSession(model, make_loss(loss_kw), device=dev, optim=optim)
-    plain = TrainingSession(twin, make_loss(loss_kw), device=dev, optim=optim)
-    ref = TrainingSession(ref64, make_loss(loss_kw), device=dev, optim=optim)
+    session = TrainingSession(model, make_loss(loss_kw), device=dev, optim=optim, capture=False)
+    plain = TrainingSession(twin, make_loss(loss_kw), device=dev, optim=optim, capture=False)
+    ref = TrainingSession(ref64, make_loss(loss_kw), device=dev, optim=optim, capture=False)
     names = [k for k, p in model.named_parameters() if p.requires_grad]
     depth = model.depth_head_enabled
     repro = {} if depth else REPRO_LAUNCHES
@@ -2097,7 +2116,7 @@ def small_scene_check(dev, session, record, loss_kw, optim, label, adam_bound=Fa
     # parameter gradients are then held, card and CPU, against the CPU's in
     # float64 under the main path's rule (param_grad_errors).
     card = TrainingSession(copy.deepcopy(session.model), ESFMLoss(**loss_kw), device=dev,
-                           optim=optim)
+                           optim=optim, capture=False)
     cpu = TrainingSession(copy.deepcopy(session.model).cpu(), ESFMLoss(**loss_kw),
                           device="cpu", optim=optim)
     slack = 0.0
@@ -2140,6 +2159,228 @@ def small_scene_check(dev, session, record, loss_kw, optim, label, adam_bound=Fa
     record[f"{label}_small_scene_train_param_max_abs_err"] = worst
 
 
+# ---------------------------------------------------------------------------
+# phase 12b: the training step recorded as CUDA graphs
+# ---------------------------------------------------------------------------
+
+CAPTURE_REPLAYS = 200  # further replays after the compared steps
+CAPTURE_CHECK_EVERY = 50  # replays between checks of the step's loss against a forward
+
+
+@contextlib.contextmanager
+def operand_copies():
+    """Counts, by operand name, the kernel operands that the wrappers'
+    validation copied while the block runs: ``cuda_f32`` / ``cuda_i32``
+    made one contiguous, or ``aligned`` cloned one to 16 bytes. Inside a
+    recording each such copy is a launch of every replay."""
+    from gasfm_tpu_torch.ops.kernels import build as kb
+
+    copies = collections.Counter()
+    saved = {name: getattr(kb, name) for name in ("cuda_f32", "cuda_i32", "aligned")}
+
+    def counting(name, fn):
+        def validate(*args, **kw):
+            out = fn(*args, **kw)
+            given = args[0] if name == "aligned" else args[1]
+            if out is not given:
+                copies[name if name == "aligned" else args[0]] += 1
+            return out
+        return validate
+
+    for name, fn in saved.items():
+        setattr(kb, name, counting(name, fn))
+    try:
+        yield copies
+    finally:
+        for name, fn in saved.items():
+            setattr(kb, name, fn)
+
+
+def captured_phase(dev, label, model, loss_kw, optim, scene, counters, per_step, record,
+                   adam_bound=False):
+    """The training step of ``model`` recorded as CUDA graphs (the session's
+    default on the card) against the eager step from the same weights: two
+    eager sessions and a captured one take 1 + TRAIN_STEPS steps side by
+    side; loss, our_repro, grad norm and every parameter after every step,
+    captured against eager bitwise where the two eager runs agree bitwise,
+    else within the small-scene rule's tolerances (rtol SLICE_RTOL for the
+    three values; parameters 1e-6 + 1e-5 x |ref|, plus twice the learning
+    rates so far with ``adam_bound``). Launches: the warm-up step and the
+    recording count one step each, a replay none. Then CAPTURE_REPLAYS
+    replays: each kept loss unchanged after the next replay, the loss finite,
+    and every CAPTURE_CHECK_EVERY replays against the loss of a forward
+    taken just before (the loss's ticket counter starts each replay at 0).
+    Then a checkpoint, 2 steps (A), a restore in place, the same 2 steps (B):
+    A equals B as the steps above compared, on the same graphs. Prints ms per
+    step captured and eager (median of 3), launches and peak memory."""
+    import copy
+    import tempfile
+
+    from gasfm_tpu_torch.tools.profile_forward import train_step
+    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.train.state import restore_checkpoint, save_checkpoint
+
+    depth = model.depth_head_enabled
+    names = ("loss", "grad_norm") if depth else ("loss", "our_repro", "grad_norm")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sessions = {k: TrainingSession(copy.deepcopy(model), make_loss(loss_kw), device=dev,
+                                   optim=optim, capture=k == "captured")
+                for k in ("eager", "eager2", "captured")}
+    cap, eager = sessions["captured"], sessions["eager"]
+    per_call = {k: per_step.get(k, 0) + (0 if depth else REPRO_LAUNCHES.get(k, 0))
+                for k in counters}
+
+    def counted(fn):
+        before = {k: c.launches for k, c in counters.items()}
+        out = fn()
+        return out, {k: c.launches - before[k] for k, c in counters.items()}
+
+    def compare(got, want, got_params, want_params, lr_steps, bitwise):
+        """(max |err| of the values, max |err| of the parameters, ok); the
+        parameters' slack with ``adam_bound`` is twice the learning rates of
+        the batches ``lr_steps`` that the two runs took apart."""
+        slack = 2.0 * sum(cap.lr_at(k) for k in lr_steps) if adam_bound else 0.0
+        got_params = [t.detach() for t in got_params]
+        want_params = [t.detach() for t in want_params]
+        v_err = max(abs(a - b) for a, b in zip(got, want))
+        ok = all(a == b if bitwise else math.isfinite(a) and abs(a - b) <= SLICE_RTOL * abs(b)
+                 for a, b in zip(got, want))
+        p_err = 0.0
+        for a, b in zip(got_params, want_params):
+            if bitwise:
+                same = torch.equal(a, b)
+                ok &= same
+                if not same:
+                    p_err = max(p_err, float((a - b).abs().max()))
+                continue
+            d = (a - b).abs()
+            p_err = max(p_err, float(d.max()))
+            ok &= bool((d <= 1e-6 + 1e-5 * b.abs() + slack).all())
+        return v_err, p_err, ok
+
+    # 1 + TRAIN_STEPS steps side by side
+    steps, launches, eager_bitwise = [], [], True
+    for k in range(1 + TRAIN_STEPS):
+        e = [float(v) for v in train_step(eager, scene)]
+        e2 = [float(v) for v in train_step(sessions["eager2"], scene)]
+        with operand_copies() as copies:
+            c, delta = counted(lambda: train_step(cap, scene))
+        if k == 1:  # the recording
+            recorded_copies = dict(copies)
+        c = [float(v) for v in c]
+        launches.append(sum(delta.values()))
+        want = per_call if k < 2 else {}  # the warm-up and the recording; replays count none
+        if delta != {n: want.get(n, 0) for n in counters}:
+            raise SmokeFailure(f"captured {label}: step {k + 1} launches {delta}, expected {want}")
+        same = e == e2 and all(torch.equal(a, b) for a, b in
+                               zip(eager.params, sessions["eager2"].params))
+        eager_bitwise &= same
+        # the parameters after this step, captured against eager, under both rules
+        v_err, p_err, ok_tol = compare(c, e, cap.params, eager.params, range(k + 1), False)
+        exact = c == e and all(torch.equal(a, b) for a, b in zip(cap.params, eager.params))
+        steps.append((c, e, e2, exact, ok_tol, v_err, p_err))
+    rule = "bitwise" if eager_bitwise else "tolerance"
+    bad = [k + 1 for k, st in enumerate(steps) if not (st[3] if eager_bitwise else st[4])]
+    if bad:
+        raise SmokeFailure(f"captured {label}: steps {bad} captured vs eager out of the {rule} "
+                           f"rule: {[st[:3] + st[5:] for st in steps]}")
+    def graphs():
+        return {k: p.graph for k, p in cap._programs.items() if p.graph is not None}
+
+    recorded = graphs()
+    if {k[0] for k in recorded} != ({"loss_and_grads", "update"} if depth else {"fused_step"}):
+        raise SmokeFailure(f"captured {label}: recorded programs {list(cap._programs)}")
+    print(f"captured {label}: {1 + TRAIN_STEPS} steps captured (warm-up, recording, replays) "
+          f"against eager from the same weights: two eager runs "
+          + ("agree bitwise, and so do captured and eager" if eager_bitwise else
+             "differ, so captured vs eager is held to the tolerances") +
+          f" ({rule}); per step ({', '.join(names)}) captured / eager: "
+          f"{[(st[0], st[1]) for st in steps]}; max |err| values "
+          f"{max(st[5] for st in steps):.3e}, parameters {max(st[6] for st in steps):.3e}; "
+          f"port kernel launches per captured call {launches} (a step's {sum(per_call.values())} "
+          f"at the warm-up and the recording, none at a replay); operands the wrappers' "
+          f"validation copied in the recording {recorded_copies or 'none'} ok")
+
+    # ms per step, median of 3 each
+    def timed(sess):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_step(sess, scene)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0), out
+
+    ms = {k: statistics.median(timed(sessions[k])[0] for _ in range(3))
+          for k in ("captured", "eager")}
+
+    # further replays: kept outputs, finiteness, and the loss against a forward
+    kept, checks = None, []
+    for j in range(CAPTURE_REPLAYS):
+        ref = float(cap.loss(cap.forward(scene), scene)) if j % CAPTURE_CHECK_EVERY == 0 else None
+        out = train_step(cap, scene)
+        loss = float(out[0])
+        if not math.isfinite(loss):
+            raise SmokeFailure(f"captured {label}: replay {j + 1} loss {loss!r}")
+        if kept is not None and float(kept[0]) != kept[1]:
+            raise SmokeFailure(f"captured {label}: replay {j}'s kept loss {kept[1]!r} became "
+                               f"{float(kept[0])!r} after the next replay")
+        kept = (out[0], loss)
+        if ref is not None:
+            checks.append((j + 1, loss, ref))
+            if abs(loss - ref) > SLICE_RTOL * abs(ref):
+                raise SmokeFailure(f"captured {label}: replay {j + 1} loss {loss!r} vs a forward's "
+                                   f"{ref!r}")
+    if graphs() != recorded:
+        raise SmokeFailure(f"captured {label}: recorded again during the replays")
+    print(f"captured {label}: {CAPTURE_REPLAYS} more replays: losses finite, each kept loss "
+          f"unchanged by the next replay, the step's loss against a forward's just before "
+          f"(replay, step, forward) {checks} (rtol {SLICE_RTOL:g}) ok")
+
+    # checkpoint, 2 steps (A), restore in place, the same 2 steps (B)
+    adam = cap.optimizer.adam.state
+    at = cap.optimizer.schedule_count  # the batches taken so far
+    ptrs = [t.data_ptr() for p in cap.params for t in (p, *adam[p].values())]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_checkpoint(tmp, cap, step=at)
+        save_s = time.perf_counter() - t0
+        a = [[float(v) for v in train_step(cap, scene)] for _ in range(2)]
+        a_params = [p.detach().clone() for p in cap.params]
+        a_count = (cap.optimizer.schedule_count, float(adam[cap.params[0]]["step"]))
+        if restore_checkpoint(tmp, cap) != at:
+            raise SmokeFailure(f"captured {label}: restored another step")
+    if [t.data_ptr() for p in cap.params for t in (p, *adam[p].values())] != ptrs:
+        raise SmokeFailure(f"captured {label}: the restore moved a tensor")
+    b = [[float(v) for v in train_step(cap, scene)] for _ in range(2)]
+    b_count = (cap.optimizer.schedule_count, float(adam[cap.params[0]]["step"]))
+    v_err, p_err, ok = compare(sum(b, []), sum(a, []), cap.params, a_params, range(at, at + 2),
+                               eager_bitwise)
+    same_graphs = graphs() == recorded
+    if not ok or a_count != b_count or not same_graphs:
+        raise SmokeFailure(f"captured {label}: after the restore {b} {b_count} vs {a} {a_count} "
+                           f"(parameters max |err| {p_err:.3e}; same graphs {same_graphs})")
+    del a_params
+    peak = torch.cuda.max_memory_allocated(dev)
+    E = scene.graph.num_edges
+    print(f"captured {label}: checkpoint (written in {save_s:.1f} s), 2 steps, restore in place "
+          f"(no tensor moved, no new recording), the same 2 steps: equal ({rule}; values "
+          f"{a}) ok; ms/step median of 3: captured {ms['captured']:.3f} "
+          f"({E / ms['captured'] * 1e3:.4g} edges/s), eager {ms['eager']:.3f}; port kernel launches per step "
+          f"{sum(per_call.values())}, recorded once; peak device memory "
+          f"{peak / 2**20:.1f} MiB (three sessions and the graphs)")
+    record.setdefault("captured", {})[label] = dict(
+        edges=E, rule=rule, eager_bitwise=eager_bitwise,
+        steps=[dict(captured=st[0], eager=st[1], eager2=st[2], values_err=st[5],
+                    params_err=st[6]) for st in steps],
+        launches_per_call=launches, kernel_launches_per_step=sum(per_call.values()),
+        operand_copies_recorded=recorded_copies,
+        ms_captured=ms["captured"], ms_eager=ms["eager"], replay_checks=checks,
+        checkpoint_steps=a, peak_bytes=peak)
+    del sessions, cap, eager
+    gc.collect()  # a captured session's programs refer back to it
+    torch.cuda.empty_cache()
+
+
 def unfused_dual_check(dev, scene_name, scene, counters, record):
     """``use_norm_proj_update = false`` with a one-layer projection-update
     MLP, at the flagship's widths and 2 layers (reduced depth), on a scene
@@ -2159,8 +2400,9 @@ def unfused_dual_check(dev, scene_name, scene, counters, record):
     model = GraphAttnSfMNet(**dict(FLAGSHIP, num_layers=L, use_norm_proj_update=False,
                                    n_hidden_layers_proj_update=1),
                             generator=torch.Generator().manual_seed(0))
-    ref = TrainingSession(copy.deepcopy(model).double(), ESFMLoss(**FLAGSHIP_LOSS), device=dev)
-    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    ref = TrainingSession(copy.deepcopy(model).double(), ESFMLoss(**FLAGSHIP_LOSS), device=dev,
+                          capture=False)
+    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev, capture=False)
     fwd = {"fused_dual_attend": L + 1, "fused_edge_combine": L, "fused_esfm_terms": 1}
     bwd = {"fused_dual_attend_bwd": L + 1, "fused_edge_combine_bwd": L, "fused_esfm_terms_bwd": 1}
 
@@ -2264,7 +2506,7 @@ def main() -> int:
         record.setdefault("triangulation_s", {})[k] = time.perf_counter() - t1
         scenes[k] = data.to_scene_graph(device=dev)
     model = GraphAttnSfMNet(**FLAGSHIP, generator=torch.Generator().manual_seed(0))
-    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev)
+    session = TrainingSession(model, ESFMLoss(**FLAGSHIP_LOSS), device=dev, capture=False)
     print(f"setup: scenes and model in {time.perf_counter() - t0:.1f} s; "
           f"{sum(p.numel() for p in model.parameters())} parameters")
     t0 = time.perf_counter()
@@ -2385,7 +2627,7 @@ def main() -> int:
     # ---- phase 7: DPESFM serving
     dp_model = SetOfSetNet(**DPESFM, generator=torch.Generator().manual_seed(0))
     dp_session = TrainingSession(dp_model, ESFMLoss(**DPESFM_LOSS), device=dev,
-                                 optim=DPESFM_OPTIM)
+                                 optim=DPESFM_OPTIM, capture=False)
     print(f"DPESFM: {sum(p.numel() for p in dp_model.parameters())} parameters")
     record["dpesfm_serving_launches"] = slice_phase(
         dev, dp_session, scenes, counters, record,
@@ -2405,7 +2647,8 @@ def main() -> int:
         return torch.Generator().manual_seed(DEPTH_SEEDS[model])
 
     depth_model = GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=depth_gen("gasfm"))
-    depth_session = TrainingSession(depth_model, DirectDepthLoss(**DEPTH_LOSS), device=dev)
+    depth_session = TrainingSession(depth_model, DirectDepthLoss(**DEPTH_LOSS), device=dev,
+                                    capture=False)
     print(f"GASFM with the depth head: {sum(p.numel() for p in depth_model.parameters())} "
           f"parameters; per-layer plan (merged, defer) on the dense scene "
           f"{depth_model.layer_plan(scenes['dense'].graph)}")
@@ -2422,7 +2665,7 @@ def main() -> int:
     dense = {"dense": scenes["dense"]}
     dpd_model = SetOfSetNet(**DPESFM_DEPTH, generator=depth_gen("dpesfm"))
     dpd_session = TrainingSession(dpd_model, DirectDepthLoss(**DEPTH_LOSS), device=dev,
-                                  optim=DPESFM_OPTIM)
+                                  optim=DPESFM_OPTIM, capture=False)
     print(f"DPESFM with the depth head: {sum(p.numel() for p in dpd_model.parameters())} "
           "parameters")
     record["dpesfm_depth_serving_launches"] = slice_phase(
@@ -2436,6 +2679,29 @@ def main() -> int:
     for name, (_, _, path) in KERNELS.items():
         if paths[path][name] == 0:
             raise SmokeFailure(f"{name} was never launched on the {path} training path")
+
+    # ---- phase 12b: the training step recorded as CUDA graphs (the session's
+    # default on the card) on every training path, against the eager step
+    def gasfm(**kw):
+        return GraphAttnSfMNet(**kw, generator=torch.Generator().manual_seed(0))
+
+    for label, build_model, loss_kw, optim, scene, per_step, bound in (
+            ("gasfm dense", lambda: gasfm(**FLAGSHIP), FLAGSHIP_LOSS, FLAGSHIP_OPTIM,
+             scenes["dense"], per_step_launches(L, backward=True), False),
+            ("gasfm powerlaw", lambda: gasfm(**FLAGSHIP), FLAGSHIP_LOSS, FLAGSHIP_OPTIM,
+             scenes["powerlaw"], per_step_launches(L, backward=True), False),
+            ("gasfm wide", lambda: gasfm(**FLAGSHIP), FLAGSHIP_LOSS, FLAGSHIP_OPTIM, wide["wide"],
+             unfused_step_launches(L, backward=True), False),
+            ("dpesfm powerlaw",
+             lambda: SetOfSetNet(**DPESFM, generator=torch.Generator().manual_seed(0)),
+             DPESFM_LOSS, DPESFM_OPTIM, scenes["powerlaw"],
+             dpesfm_step_launches(dp_model, backward=True), True),
+            ("gasfm-depth dense",
+             lambda: GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=depth_gen("gasfm")),
+             DEPTH_LOSS, FLAGSHIP_OPTIM, scenes["dense"], depth_step_launches(L, backward=True),
+             False)):
+        captured_phase(dev, label, build_model(), loss_kw, optim, scene, counters, per_step,
+                       record, adam_bound=bound)
 
     # ---- phase 13: the record
     kernels = []

@@ -18,6 +18,11 @@ names, which are the reference checkpoint's. Conventions translated:
 
 Every flax leaf is mapped or the call raises; loading the result with
 ``load_state_dict(strict=True)`` then proves every port key was filled.
+
+``params_to_jax`` is its inverse: the port's ``state_dict`` as flat flax key
+paths (``"/"``-joined, as the JAX package's ``save_params`` writes them) in
+flax's layouts; each key is mapped back through ``params_from_jax``'s own
+rule and raises unless it comes out as the key it started from.
 """
 
 from __future__ import annotations
@@ -113,4 +118,68 @@ def params_from_jax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
         out[key] = torch.tensor(a)
 
     walk(tree, [])
+    return out
+
+
+# The inverse renames: (flax parent, torch name) -> flax name, and the leaves
+# that span two torch names.
+_IN_PARENT_BACK = {(parent, torch_name): flax_name
+                   for (parent, flax_name), torch_name in _IN_PARENT.items()}
+_LEAF_BACK = {torch_name: flax_name for flax_name, (torch_name, _) in _LEAF.items()
+              if "." in torch_name}
+
+
+def _flax_path(key: str, ndim: int) -> List[str]:
+    """The flax key path of the port's state_dict key ``key`` (a tensor of
+    ``ndim`` dimensions)."""
+    parts = key.split(".")
+    if ".".join(parts[-2:]) in _LEAF_BACK:
+        leaf, parts = _LEAF_BACK[".".join(parts[-2:])], parts[:-2]
+    else:
+        leaf, parts = parts[-1], parts[:-1]
+        if leaf == "weight":
+            leaf = "kernel" if ndim == 2 else "scale"
+    path: List[str] = []
+    i = 0
+    while i < len(parts):
+        parent, name = (path[-1] if path else ""), parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else None
+        step = 1
+        if (parent, name) in _IN_PARENT_BACK:
+            name = _IN_PARENT_BACK[(parent, name)]
+        elif name in ("equivariant_blocks", "layers") and nxt is not None and nxt.isdigit():
+            name, step = f"{name}_{nxt}", 2
+        elif name == "projection_feature_update" and nxt == "lin_proj" \
+                and parent.startswith("layers_"):
+            name, step = "lin_proj", 2
+        elif name == "skip_projection" and nxt == "lin_proj":
+            step = 2
+        elif name.isdigit():
+            k = int(name)
+            if parent.startswith("query_adapter"):
+                name = "LayerNorm_0" if k == 0 else "TorchDense_0"
+            else:
+                name = f"TorchDense_{k // 2}"
+        elif name == "residual_skipconn_proj_norm_layer":
+            name = "residual_skipconn_proj_norm"
+        path.append(name)
+        i += step
+    return path + [leaf]
+
+
+def params_to_jax(state_dict) -> "OrderedDict[str, np.ndarray]":
+    """The port's ``state_dict`` -> {flax key path joined by "/": array in
+    flax's layout}, without the top-level ``"params"``."""
+    out: "OrderedDict[str, np.ndarray]" = OrderedDict()
+    for key, t in state_dict.items():
+        a = t.detach().cpu().numpy().astype(np.float32)
+        path = _flax_path(key, a.ndim)
+        back, transpose = _torch_key(path)
+        if back != key:
+            raise ValueError(f"{key}: maps to flax {'/'.join(path)}, which maps back to {back}")
+        if transpose:
+            a = a.T
+        if path[-1] == "att":
+            a = a.reshape(a.shape[1:])
+        out["/".join(path)] = np.ascontiguousarray(a)
     return out

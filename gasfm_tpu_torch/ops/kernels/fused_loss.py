@@ -59,10 +59,19 @@ def _ticket(dev):
     """The forward's ticket counter on the current stream of ``dev``: one
     int32 per (device, stream), zeroed once; each call leaves it at 0 (the
     last block's atomicInc wraps it), and calls on one stream run in order,
-    so no two calls share a counter at once."""
+    so no two calls share a counter at once. A CUDA graph reads the counter
+    of the stream it was recorded on, at each replay's start at 0 as the
+    previous call left it. The counter is never made inside a recording
+    (raises): there it would come from the graph's private memory, which
+    this table outlives; a recording's eager warm-up on its stream makes it
+    first (``train/loop.py``)."""
     key = (dev.index, kb.stream(dev))
     t = _TICKETS.get(key)
     if t is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("fused_esfm_terms: the loss's ticket counter of this stream is "
+                               "made in a CUDA graph recording; run the step once on the "
+                               "recording's stream first")
         t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
     return t
 

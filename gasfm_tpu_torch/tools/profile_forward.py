@@ -2,7 +2,7 @@
 
     python -m gasfm_tpu_torch.tools.profile_forward
         [--model gasfm|dpesfm|gasfm-depth|dpesfm-depth]
-        [--scene dense|powerlaw|wide] [--requests 3] [--train]
+        [--scene dense|powerlaw|wide] [--requests 3] [--train | --capture]
 
 Builds the flagship GraphAttnSfMNet (9 layers, 4 heads, widths
 32/64/1024/2048, seeded init) or, with ``--model dpesfm``, the DPESFM
@@ -16,12 +16,17 @@ views, on which it takes the unfused one), two warm-up requests, then
 through ``TrainingSession``, or with ``--train`` one training step each
 (``TrainingSession.fused_step``; for a depth model ``loss_and_grads`` +
 ``update``, the JAX package's loop for it), with the model's conf's loss and
-optimizer. Prints the wall time per request, the device time per
-kernel name (the port's own kernels, each with its launches and time per
-launch, then the top 15 of all), the hand-written kernels' share, the
-number of kernel launches per request, and the device busy share: summed
-kernel time over wall time (one stream, so kernels never overlap). Writes
-the Chrome trace to ``chiprun_out/profile_<model>_{forward,train}_<scene>.json``.
+optimizer: eagerly with ``--train`` (``capture=False``, one launch per
+operation), or with ``--capture`` replays of the step recorded as CUDA
+graphs (the session's default on the card; the two warm-up steps are the
+recording's eager warm-up and the recording). Prints the wall time per
+request, the device time per kernel name (the port's own kernels, each with
+its launches and time per launch, then the top 15 of all), the hand-written
+kernels' share, the optimizer's kernels (Adam's and the multi-tensor
+kernels other than the gradient norm's), the number of kernel launches per
+request, and the device busy share: summed kernel time over wall time (one
+stream, so kernels never overlap). Writes the Chrome trace to
+``chiprun_out/profile_<model>_{forward,train,capture}_<scene>.json``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import argparse
 import collections
 import time
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -78,30 +84,38 @@ SCENES = {
 }
 
 
-def build_session(model_name: str, device) -> TrainingSession:
+def build_session(model_name: str, device, capture: Optional[bool] = None) -> TrainingSession:
     """A seeded model of ``model_name`` (one of ``MODELS``) with its conf's
-    loss and optimizer."""
+    loss and optimizer; ``capture`` as ``TrainingSession`` takes it."""
     gen = torch.Generator().manual_seed(0)
+    kw = dict(device=device, capture=capture)
     if model_name == "dpesfm":
         return TrainingSession(SetOfSetNet(**DPESFM, generator=gen), ESFMLoss(**DPESFM_LOSS),
-                               device=device, optim=DPESFM_OPTIM)
+                               optim=DPESFM_OPTIM, **kw)
     if model_name == "dpesfm-depth":
         return TrainingSession(SetOfSetNet(**DPESFM_DEPTH, generator=gen),
-                               DirectDepthLoss(**DEPTH_LOSS), device=device, optim=DPESFM_OPTIM)
+                               DirectDepthLoss(**DEPTH_LOSS), optim=DPESFM_OPTIM, **kw)
     if model_name == "gasfm-depth":
         return TrainingSession(GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=gen),
-                               DirectDepthLoss(**DEPTH_LOSS), device=device, optim=FLAGSHIP_OPTIM)
+                               DirectDepthLoss(**DEPTH_LOSS), optim=FLAGSHIP_OPTIM, **kw)
     return TrainingSession(GraphAttnSfMNet(**FLAGSHIP, generator=gen),
-                           ESFMLoss(**FLAGSHIP_LOSS), device=device, optim=FLAGSHIP_OPTIM)
+                           ESFMLoss(**FLAGSHIP_LOSS), optim=FLAGSHIP_OPTIM, **kw)
 
 
-def train_step(session: TrainingSession, scene) -> None:
+def optimizer_kernel(name: str) -> bool:
+    """Whether a kernel is the optimizer's: fused Adam's, or a multi-tensor
+    kernel other than the gradient norm's (multi-tensor Adam's)."""
+    return "adam" in name.lower() or ("multi_tensor_apply" in name and "LpNorm" not in name)
+
+
+def train_step(session: TrainingSession, scene) -> Tuple[torch.Tensor, ...]:
     """One training step as the JAX package's loop takes it: the fused step
-    with our_repro, or for a depth model loss_and_grads + update."""
+    with our_repro, or for a depth model loss_and_grads + update. Returns
+    (loss, our_repro, grad_norm), or (loss, grad_norm) for a depth model."""
     if session.model.depth_head_enabled:
-        session.update(session.loss_and_grads(scene)[2])
-    else:
-        session.fused_step(scene)
+        loss, _, grads = session.loss_and_grads(scene)
+        return loss, session.update(grads)
+    return session.fused_step(scene)
 
 
 def main(argv=None) -> None:
@@ -109,19 +123,22 @@ def main(argv=None) -> None:
     ap.add_argument("--model", choices=MODELS, default="gasfm")
     ap.add_argument("--scene", choices=sorted(SCENES), default="dense")
     ap.add_argument("--requests", type=int, default=3)
-    ap.add_argument("--train", action="store_true", help="trace training steps")
+    ap.add_argument("--train", action="store_true", help="trace eager training steps")
+    ap.add_argument("--capture", action="store_true",
+                    help="trace replays of the training step recorded as CUDA graphs")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    session = build_session(args.model, dev)
+    train = args.train or args.capture
+    session = build_session(args.model, dev, capture=args.capture)
     scene = generate_synthetic_scene(
         **SCENES[args.scene], store_depth_targets=session.model.depth_head_enabled
     ).to_scene_graph(device=dev)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
     def request():
-        if args.train:
+        if train:
             train_step(session, scene)
         else:
             session.loss(session.forward(scene), scene)
@@ -150,7 +167,7 @@ def main(argv=None) -> None:
     launches = sum(c for c, _ in kernels.values())
     R = args.requests
     g = scene.graph
-    mode = "train" if args.train else "forward"
+    mode = "capture" if args.capture else "train" if train else "forward"
     print(f"{args.model}, scene {args.scene} ({mode}): {g.num_cams} views, {g.num_pts} points, "
           f"{g.num_edges} edges; device "
           f"{torch.cuda.get_device_name(dev) if dev.type == 'cuda' else 'cpu'}")
@@ -158,6 +175,9 @@ def main(argv=None) -> None:
           f"{total / R / 1e3:.3f} ms/request; device busy share {total / wall_us:.4f}; "
           f"{launches / R:.1f} kernel launches/request; hand-written kernels "
           f"{ours / R / 1e3:.3f} ms/request ({ours / max(total, 1e-9):.4f} of device time)")
+    opt = [(c, t) for name, (c, t) in kernels.items() if optimizer_kernel(name)]
+    print(f"optimizer kernels: {sum(t for _, t in opt) / R / 1e3:.4f} ms/request, "
+          f"{sum(c for c, _ in opt) / R:.1f} launches/request")
     print("the port's kernels:")
     for name, (count, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1]):
         if "gasfm::" in name:

@@ -1,18 +1,35 @@
 """Optimizer construction: Adam with the per-batch LR schedule and optional
-gradient clipping.
+gradient clipping; checkpoints of a training session and weight files.
 
-Counterpart of ``build_optimizer`` and ``advance_schedule_count`` in the JAX
-package's train/state.py (reference: torch.optim.Adam with default betas and
-eps, train.py:437; clipping by global norm or by value before the update,
-train.py:141-151). Until the port reads confs, the builder takes the conf's
-values as keyword arguments; ``FLAGSHIP_OPTIM`` holds those of
-``confs/gasfm/optim_euc_gasfm.conf``, ``DPESFM_OPTIM`` those of
-``confs/dpesfm/learning_euc_noaug_dpesfm.conf``.
+Counterpart of ``build_optimizer``, ``advance_schedule_count``,
+``save_checkpoint`` / ``restore_checkpoint`` and ``save_params`` /
+``load_params`` in the JAX package's train/state.py (reference:
+torch.optim.Adam with default betas and eps, train.py:437; clipping by
+global norm or by value before the update, train.py:141-151). Until the
+port reads confs, the builder takes the conf's values as keyword arguments;
+``FLAGSHIP_OPTIM`` holds those of ``confs/gasfm/optim_euc_gasfm.conf``,
+``DPESFM_OPTIM`` those of ``confs/dpesfm/learning_euc_noaug_dpesfm.conf``.
 
 Two counters, as in the JAX package: the schedule's count advances on every
 batch (:meth:`Optimizer.advance_schedule` for a batch without an update),
 Adam's own step count (bias correction) only on real updates. Update k
 (counting batches from 0) uses lr = schedule(k).
+
+The optimizer's state lives on the parameters' device, so that a CUDA graph
+can record the update: Adam is PyTorch's fused one, its learning rate a 0-d
+float32 tensor that :meth:`Optimizer.set_lr` fills from the schedule
+(computed on the host) before each update, and its step count a tensor
+(``adam.state[p]["step"]``). The same optimizer serves the CPU, the eager
+card path and the captured one (``capturable`` on the card, which the CPU
+refuses).
+
+Checkpoints (:func:`save_checkpoint` / :func:`restore_checkpoint`) are the
+port's own format, one ``torch.save`` file of tensors per step (no orbax):
+the parameters, Adam's moments and step count, the schedule's count and the
+caller's step. A restore copies into the session's existing tensors, so a
+CUDA graph recorded on them stays valid. Weight files (:func:`save_params` /
+:func:`load_params`) are the JAX package's flat npz under its flax key paths,
+so either package loads the other's.
 
 The bf16 first-moment / second-moment storage and the bf16-parameter
 (f32 master) options of the JAX package are not ported yet.
@@ -20,8 +37,11 @@ The bf16 first-moment / second-moment storage and the bf16-parameter
 
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Sequence
+import os
+import re
+from typing import Dict, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from gasfm_tpu_torch.train.schedules import build_lr_schedule
@@ -58,7 +78,8 @@ def clip_grads(grads: List[torch.Tensor], mode: Optional[str], threshold: Option
 
 class Optimizer:
     """Adam (b1 0.9, b2 0.999, eps 1e-8; ``torch.optim.Adam``, the
-    reference's optimizer) with the LR schedule and optional clipping."""
+    reference's optimizer, fused) with the LR schedule and optional
+    clipping. ``lr`` is the rate tensor Adam reads on every update."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, main_scheduler: str,
                  lr_warmup_n_steps: int = 0, exp_gamma_after_n_steps: Optional[float] = None,
@@ -73,7 +94,10 @@ class Optimizer:
         if grad_clip_mode is not None and grad_clip_th is None:
             raise ValueError("grad_clip_mode needs grad_clip_th")
         self.grad_clip_mode, self.grad_clip_th = grad_clip_mode, grad_clip_th
-        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        device = self.params[0].device
+        self.lr = torch.tensor(float(lr), dtype=torch.float32, device=device)
+        self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                                     fused=True, capturable=device.type == "cuda")
         self.schedule_count = 0  # batches seen, updates or not
 
     def lr_at(self, step: int) -> float:
@@ -81,19 +105,33 @@ class Optimizer:
 
     def step(self, grads: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
         """One update from ``grads`` (one per parameter, in order), in place:
-        clip, set this batch's LR, Adam, advance the schedule."""
+        set this batch's LR, clip, Adam, advance the schedule."""
+        self.set_lr()
+        self.apply(grads, norm)
+        self.advance_schedule()
+
+    def set_lr(self) -> None:
+        """Fill :attr:`lr` with this batch's rate, schedule(schedule_count),
+        computed on the host. Runs before every update, a CUDA graph's
+        replay too: the graph reads the tensor."""
+        self.lr.fill_(self.lr_at(self.schedule_count))
+
+    def apply(self, grads: Sequence[torch.Tensor], norm: Optional[torch.Tensor] = None) -> None:
+        """Clip and take Adam's step with the rate in :attr:`lr`: device work
+        only, which a CUDA graph can record. The ``p.grad`` assignments stay
+        inside a recording: the graph reads the gradients at the addresses
+        it was recorded with."""
         grads = clip_grads(list(grads), self.grad_clip_mode, self.grad_clip_th, norm)
         for p, g in zip(self.params, grads):
             p.grad = g
-        for group in self.adam.param_groups:
-            group["lr"] = self.lr_at(self.schedule_count)
         self.adam.step()
         for p in self.params:
             p.grad = None
-        self.schedule_count += 1
 
     def advance_schedule(self) -> None:
-        """A batch without an update: the schedule steps, Adam's count does not."""
+        """A batch without an update: the schedule steps, Adam's count does
+        not. Also the last part of every update, on the host (a CUDA graph's
+        replay runs it too)."""
         self.schedule_count += 1
 
 
@@ -102,3 +140,118 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], **conf) -> Optimizer:
     ``train.lr``, ``train.lr_schedule.*`` and ``loss.grad_clip_*`` values,
     given as keyword arguments (see :class:`Optimizer`)."""
     return Optimizer(params, **conf)
+
+
+# ---------------------------------------------------------------------------
+# Weight files (the JAX package's npz) and checkpoints (the port's own)
+# ---------------------------------------------------------------------------
+
+
+def save_params(path: str, model: torch.nn.Module) -> None:
+    """A flat npz of the model's weights under the JAX package's keys
+    (``"params/..."``, the ``"/"``-joined flax key paths its ``save_params``
+    writes), in flax's layouts: the JAX package's ``load_params`` restores it
+    into its init of the same configuration."""
+    from gasfm_tpu_torch.models.convert import params_to_jax
+
+    flat = params_to_jax(model.state_dict())
+    np.savez(path, **{f"params/{k}": v for k, v in flat.items()})
+
+
+def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a weight file written by either package's ``save_params`` into
+    ``model`` in place, keeping the init values of the keys the file lacks
+    (the reference's pretrained-weight loading, main.py:168-190), as the JAX
+    package's ``load_params`` does; a key of the file that the model lacks,
+    or a shape that differs, raises."""
+    from gasfm_tpu_torch.models.convert import params_from_jax
+
+    tree: Dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = data[key]
+    state = params_from_jax(tree)
+    missing = [k for k in model.state_dict() if k not in state]
+    extra = [k for k in state if k not in model.state_dict()]
+    if extra:
+        raise KeyError(f"{path}: keys the model lacks: {extra[:5]}")
+    if missing:
+        print(f"[load_params] keeping init values for {len(missing)} missing keys "
+              f"(e.g. {missing[:3]})")
+    model.load_state_dict(state, strict=False)
+    return model
+
+
+_CKPT = re.compile(r"step_(\d+)\.pt$")
+
+
+def _checkpoints(ckpt_dir: str) -> Dict[int, str]:
+    """{step: path} of the checkpoints in ``ckpt_dir``."""
+    if not os.path.isdir(ckpt_dir):
+        return {}
+    found = (_CKPT.fullmatch(name) for name in os.listdir(ckpt_dir))
+    return {int(m.group(1)): os.path.join(ckpt_dir, m.group(0)) for m in found if m}
+
+
+def _named_params(session) -> List:
+    return [(k, p) for k, p in session.model.named_parameters() if p.requires_grad]
+
+
+def save_checkpoint(ckpt_dir: str, session, step: int, keep: int = 3) -> str:
+    """Write the session's training state as ``<ckpt_dir>/step_<step>.pt``
+    (``torch.save`` of tensors on the CPU): the parameters, Adam's moments
+    and step count, the schedule's count and ``step`` (the caller's: an
+    epoch or an update count). Keeps the newest ``keep`` checkpoints.
+    Returns the file's path."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    adam = session.optimizer.adam.state
+    state = {
+        "step": int(step),
+        "schedule_count": int(session.optimizer.schedule_count),
+        "params": {k: p.detach().cpu() for k, p in _named_params(session)},
+        "adam": {k: {n: t.detach().cpu() for n, t in adam[p].items()}
+                 for k, p in _named_params(session) if p in adam},
+    }
+    path = os.path.join(ckpt_dir, f"step_{int(step):09d}.pt")
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    found = _checkpoints(ckpt_dir)
+    for old in sorted(found)[:-keep]:
+        os.remove(found[old])
+    return path
+
+
+@torch.no_grad()
+def restore_checkpoint(ckpt_dir: str, session, step: Optional[int] = None) -> Optional[int]:
+    """Restore the checkpoint of ``step`` (the newest by default) into
+    ``session``, copying into its existing tensors (the parameters, Adam's
+    moments and step count; Adam's state is made first where the session has
+    taken no step, zeroed where the checkpoint's had taken none), so a CUDA
+    graph recorded on them stays valid; and the schedule's count. Returns the checkpoint's step, or None where
+    ``ckpt_dir`` holds none."""
+    found = _checkpoints(ckpt_dir)
+    if not found:
+        return None
+    step = max(found) if step is None else int(step)
+    state = torch.load(found[step], weights_only=True)
+    named = _named_params(session)
+    if sorted(state["params"]) != sorted(k for k, _ in named):
+        raise KeyError(f"{found[step]}: its parameters are not the session's")
+    adam = session.optimizer.adam.state
+    for k, p in named:
+        p.copy_(state["params"][k])
+        saved = state["adam"].get(k)
+        if saved is None:  # saved before any update: Adam's state is all zeros
+            for t in adam[p].values() if p in adam else ():
+                t.zero_()
+            continue
+        if p not in adam:  # Adam's own layout: moments like p, step a 0-d float32 on p's device
+            adam[p] = {n: torch.zeros_like(t, device=p.device) for n, t in saved.items()}
+        for n, t in saved.items():
+            adam[p][n].copy_(t)
+    session.optimizer.schedule_count = int(state["schedule_count"])
+    return int(state["step"])

@@ -181,6 +181,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    tensor moved), the same 2 steps: equal under the same rule, on the same
    graphs. ms per step captured and eager (median of 3), launches and peak
    memory printed.
+14. Sessions built from the shipped confs (``load_config`` ->
+   ``init_model`` -> ``TrainingSession.from_conf``, captured, the session's
+   default): the flagship (``confs/gasfm/optim_euc_gasfm.conf``, dense
+   scene) and DPESFM (``confs/dpesfm/learning_euc_noaug_dpesfm.conf``,
+   power-law scene) each against its preset session from a generator of
+   the same seed, ``state_dict`` bitwise, then 2 and 1 + 3 captured steps
+   bitwise. The projective flagship (``confs/gasfm/optim_proj_gasfm.conf``:
+   ``calibrated = false``, "Differentiable Chirality"; full width) on the
+   dense scene generated uncalibrated: its forward kernels against their
+   plain versions as in phase 2, 3 requests with exact launches as in phase
+   4, training 1 + 3 steps as in phase 5 (exact launches, step-1 gradients
+   against float64 with ``branch_ties``), captured as in phase 12b (its
+   launches must reach every kernel of the merged path). The evaluation
+   forward recorded as a CUDA graph on the flagship, the projective
+   flagship, DPESFM (power-law) and the depth flagship: 3 requests captured
+   against two eager runs (bitwise where they agree, else the serving
+   tolerance), the warm-up's and the recording's launches a request's, a
+   replay's none; a replay after the step's warm-up, recording and a
+   replay against an eager forward at the same weights; ms per request
+   captured and eager (median of 3) and device memory around the
+   recording. Then each single-scene synthetic conf
+   (``confs/synth/optim_synth_{gasfm,dpesfm,depth_gasfm,proj_gasfm}.conf``)
+   on its own scene from ``create_scene_data``: phase 12b's captured steps
+   (launches per step those of an eager ``loss_and_grads``) and the
+   recorded forward. The phase's seconds are printed.
 13. A ``kernels`` JSON line (all seventeen kernels, each with its per-call
    ``ms`` and its burst ``burst_ms``; launches from the training path that
    runs each: GASFM's merged path for the first eight,
@@ -2285,8 +2310,9 @@ def captured_phase(dev, label, model, loss_kw, optim, scene, counters, per_step,
     if bad:
         raise SmokeFailure(f"captured {label}: steps {bad} captured vs eager out of the {rule} "
                            f"rule: {[st[:3] + st[5:] for st in steps]}")
-    def graphs():
-        return {k: p.graph for k, p in cap._programs.items() if p.graph is not None}
+    def graphs():  # the step's recordings (the forward's, taken below, apart)
+        return {k: p.graph for k, p in cap._programs.items()
+                if p.graph is not None and k[0] != "forward"}
 
     recorded = graphs()
     if {k[0] for k in recorded} != ({"loss_and_grads", "update"} if depth else {"fused_step"}):
@@ -2444,6 +2470,281 @@ def unfused_dual_check(dev, scene_name, scene, counters, record):
           f"(G = {G:.4g}) ok")
     record["unfused_dual_check"] = dict(scene=scene_name, layers=L, kernel_vs_plain=errs,
                                         grad_err_kernel=wk, grad_err_plain=wp, G=G)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: sessions from the shipped confs, and the recorded forward
+# ---------------------------------------------------------------------------
+
+SYNTH_CONFS = ("synth/optim_synth_gasfm.conf", "synth/optim_synth_dpesfm.conf",
+               "synth/optim_synth_depth_gasfm.conf", "synth/optim_synth_proj_gasfm.conf")
+
+
+def forward_launches(per_request):
+    """One request's launches without the loss's: a recorded forward's."""
+    return {k: v for k, v in per_request.items() if not k.startswith("fused_esfm_terms")}
+
+
+def counted_launches(counters, fn):
+    before = {k: c.launches for k, c in counters.items()}
+    out = fn()
+    return out, {k: c.launches - before[k] for k, c in counters.items() if c.launches != before[k]}
+
+
+def conf_loss_kw(conf):
+    """The keyword arguments of the loss a conf builds (``get_loss_func``):
+    the ESFM or depth loss's attributes are its constructor's arguments."""
+    from gasfm_tpu_torch.losses import get_loss_func
+
+    return dict(vars(get_loss_func(conf)))
+
+
+def conf_vs_preset_check(dev, label, conf_name, preset_model, preset_loss_kw, preset_optim,
+                         scene, steps, record):
+    """The session of a shipped conf (``load_config`` -> ``init_model`` ->
+    ``TrainingSession.from_conf``, captured: the session's default on the
+    card) against the preset session from a generator of the same seed:
+    equal ``state_dict``s bitwise, then ``steps`` captured steps of each
+    (the warm-up, the recording, replays) equal bitwise, values and every
+    parameter."""
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.main import init_model
+    from gasfm_tpu_torch.tools.profile_forward import train_step
+    from gasfm_tpu_torch.train.loop import TrainingSession
+
+    conf = load_config(conf_name)
+    model, n_params = init_model(conf)
+    sd, psd = model.state_dict(), preset_model.state_dict()
+    if list(sd) != list(psd) or not all(torch.equal(sd[k], psd[k]) for k in sd):
+        raise SmokeFailure(f"conf {label}: {conf_name}'s model differs from the preset's")
+    ours = TrainingSession.from_conf(conf, model, device=dev)
+    preset = TrainingSession(preset_model, make_loss(preset_loss_kw), device=dev,
+                             optim=preset_optim)
+    if not (ours.capture and preset.capture):
+        raise SmokeFailure(f"conf {label}: a CUDA session does not record its steps")
+    values = []
+    for k in range(steps):
+        a = [float(v) for v in train_step(ours, scene)]
+        b = [float(v) for v in train_step(preset, scene)]
+        if a != b or not all(torch.equal(x, y) for x, y in zip(ours.params, preset.params)):
+            raise SmokeFailure(f"conf {label}: captured step {k + 1} {a} vs the preset's {b}")
+        values.append(a)
+    print(f"conf {label}: {conf_name} -> init_model ({n_params} parameters, seed "
+          f"{conf.get_int('random_seed')}) -> TrainingSession.from_conf: state_dict equal to the "
+          f"preset session's bitwise; {steps} captured steps (warm-up, recording"
+          f"{', replays' if steps > 2 else ''}) equal to the preset's bitwise, values {values} ok")
+    record.setdefault("conf_sessions", {})[label] = dict(conf=conf_name, params=n_params,
+                                                         steps=values)
+    del ours, preset
+    gc.collect()  # a captured session's programs refer back to it
+    torch.cuda.empty_cache()
+
+
+def recorded_forward_check(dev, label, model, loss_kw, optim, scene, counters, record,
+                           per_request=None):
+    """The evaluation forward recorded as a CUDA graph (the captured
+    session's ``forward``) against the eager one from the same weights:
+    REQUESTS requests of two eager sessions and a captured one side by side
+    (the captured one's warm-up, recording, replays), captured against
+    eager bitwise where the two eager runs agree bitwise, else within the
+    serving tolerance (it prints which held); launches: the warm-up and the
+    recording a request's each (``per_request``, else an eager request's),
+    a replay none. Then the captured session's step warm-up, recording and
+    a replay, and its forward replayed against an eager forward at the
+    same weights (the eager session's parameters copied from it). ms per
+    request captured and eager (median of 3) and device memory printed."""
+    import copy
+
+    from gasfm_tpu_torch.tools.profile_forward import train_step
+    from gasfm_tpu_torch.train.loop import TrainingSession
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sessions = {k: TrainingSession(copy.deepcopy(model), make_loss(loss_kw), device=dev,
+                                   optim=optim, capture=k == "captured")
+                for k in ("eager", "eager2", "captured")}
+    cap, eager, eager2 = sessions["captured"], sessions["eager"], sessions["eager2"]
+    if per_request is None:
+        per_request = counted_launches(counters, lambda: eager.forward(scene))[1]
+    want_one = {k: v for k, v in per_request.items() if v}
+
+    def compare(got, want):
+        """(max |err| over the outputs, bitwise equal, within the tolerance)"""
+        errs = [max_err(got[k], want[k], SLICE_RTOL, SLICE_ATOL) for k in want]
+        return (max(e for e, _ in errs), all(torch.equal(got[k], want[k]) for k in want),
+                all(ok for _, ok in errs))
+
+    rows, eager_bitwise, kept = [], True, []
+    mib = 2 ** 20
+    for k in range(REQUESTS):
+        e, e2 = eager.forward(scene), eager2.forward(scene)
+        if k == 1:  # the recording: the memory its graph's private pool keeps
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved_before = torch.cuda.memory_reserved(dev)
+            peak_before = torch.cuda.max_memory_allocated(dev)
+        c, delta = counted_launches(counters, lambda: cap.forward(scene))
+        if k == 1:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            reserved_after = torch.cuda.memory_reserved(dev)
+        expect = want_one if k < 2 else {}
+        if delta != expect:
+            raise SmokeFailure(f"recorded forward {label}: request {k + 1} launches {delta}, "
+                               f"expected {expect}")
+        eager_bitwise &= all(torch.equal(e[x], e2[x]) for x in e)
+        rows.append(compare(c, e))
+        kept.append((c, {x: v.clone() for x, v in c.items()}))
+    rule = "bitwise" if eager_bitwise else "tolerance"
+    bad = [k + 1 for k, r in enumerate(rows) if not (r[1] if eager_bitwise else r[2])]
+    if bad or not all(torch.equal(a[x], b[x]) for a, b in kept for x in a):
+        raise SmokeFailure(f"recorded forward {label}: requests {bad} out of the {rule} rule "
+                           f"(max |err| {[r[0] for r in rows]}), or a kept prediction changed")
+    prog = cap._programs.get(("forward", id(scene)))
+    if prog is None or prog.graph is None:
+        raise SmokeFailure(f"recorded forward {label}: no recording")
+
+    # the forward after the step's warm-up, recording and a replay
+    for _ in range(3):
+        train_step(cap, scene)
+    with torch.no_grad():
+        for a, b in zip(eager.params, cap.params):
+            a.copy_(b)
+    after, delta = counted_launches(counters, lambda: cap.forward(scene))
+    if delta:
+        raise SmokeFailure(f"recorded forward {label}: a replay after the steps launched {delta}")
+    err, exact, ok = compare(after, eager.forward(scene))
+    moved = not all(torch.equal(after[x], kept[0][1][x]) for x in after)
+    if not (exact if eager_bitwise else ok) or not moved:
+        raise SmokeFailure(f"recorded forward {label}: after 3 steps the replay vs eager at the "
+                           f"same weights max |err| {err:.3e} ({rule}); moved {moved}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    ms = {k: statistics.median(timed(lambda: s.forward(scene)) for _ in range(3))
+          for k, s in (("captured", cap), ("eager", eager))}
+    peak = torch.cuda.max_memory_allocated(dev)
+    E = scene.graph.num_edges
+    print(f"recorded forward {label}: {REQUESTS} requests captured (warm-up, recording, replay) "
+          f"against eager from the same weights: two eager runs "
+          + ("agree bitwise, and so do captured and eager" if eager_bitwise else
+             "differ, so captured vs eager is held to the serving tolerance") +
+          f" ({rule}; max |err| {max(r[0] for r in rows):.3e}); launches per request "
+          f"{sum(want_one.values())} ({want_one}) at the warm-up and the recording, none at a "
+          f"replay; the replay after the step's warm-up, recording and a replay against eager at "
+          f"the same weights: max |err| {err:.3e} ({rule}) ok; ms/request median of 3: captured "
+          f"{ms['captured']:.3f} ({E / ms['captured'] * 1e3:.4g} edges/s), eager "
+          f"{ms['eager']:.3f}; device memory reserved (cache emptied) without the forward's "
+          f"graph {reserved_before / mib:.1f} MiB, with it {reserved_after / mib:.1f} "
+          f"(+{(reserved_after - reserved_before) / mib:.1f}); peak allocated "
+          f"{peak_before / mib:.1f} MiB before the recording, {peak / mib:.1f} by the end "
+          f"(three sessions, then the step's graph)")
+    record.setdefault("recorded_forward", {})[label] = dict(
+        edges=E, rule=rule, max_abs_err=[r[0] for r in rows], after_steps_err=err,
+        launches_per_request=want_one, ms_captured=ms["captured"], ms_eager=ms["eager"],
+        reserved_before_recording=reserved_before, reserved_after_recording=reserved_after,
+        peak_before_recording=peak_before, peak_bytes=peak)
+    del sessions, cap, eager, eager2, prog, kept, after
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def conf_phase(dev, scenes, counters, record, L):
+    """Phase 14: sessions built from the shipped confs. Returns the
+    projective flagship's training launches."""
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.data.loaders import create_scene_data
+    from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+    from gasfm_tpu_torch.losses import DEPTH_LOSS, DPESFM_LOSS, FLAGSHIP_LOSS
+    from gasfm_tpu_torch.main import init_model
+    from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+    from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
+    from gasfm_tpu_torch.tools.profile_forward import (DPESFM, FLAGSHIP, FLAGSHIP_DEPTH,
+                                                       SCENES)
+    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.train.state import DPESFM_OPTIM, FLAGSHIP_OPTIM, optim_from_conf
+
+    def seeded(seed=0):
+        return torch.Generator().manual_seed(seed)
+
+    t_phase = time.perf_counter()
+    # the flagship and DPESFM from their confs against the presets
+    conf_vs_preset_check(dev, "flagship", "gasfm/optim_euc_gasfm.conf",
+                         GraphAttnSfMNet(**FLAGSHIP, generator=seeded()), FLAGSHIP_LOSS,
+                         FLAGSHIP_OPTIM, scenes["dense"], 2, record)
+    conf_vs_preset_check(dev, "dpesfm", "dpesfm/learning_euc_noaug_dpesfm.conf",
+                         SetOfSetNet(**DPESFM, generator=seeded()), DPESFM_LOSS, DPESFM_OPTIM,
+                         scenes["powerlaw"], 1 + TRAIN_STEPS, record)
+
+    # the projective flagship on the dense scene generated uncalibrated
+    conf = load_config("gasfm/optim_proj_gasfm.conf")
+    model, _ = init_model(conf)
+    t0 = time.perf_counter()
+    proj = {"proj_dense": generate_synthetic_scene(**SCENES["dense"], calibrated=False)
+            .to_scene_graph(device=dev)}
+    g = proj["proj_dense"].graph
+    print(f"conf projective: {g.num_cams} views, {g.num_pts} points, {g.num_edges} edges "
+          f"(the dense scene uncalibrated, set up in {time.perf_counter() - t0:.1f} s); the "
+          f"model's view head: {model.calibrated=}, {model.normalize_output=}")
+    loss_kw, optim = conf_loss_kw(conf), optim_from_conf(conf)
+    serving = TrainingSession(model, make_loss(loss_kw), device=dev, optim=optim, capture=False)
+    with torch.no_grad():
+        res = kernel_phase(dev, "proj_dense", g, serving.model, record)
+    bad = [k for k, v in res.items() if not v["ok"]]
+    if bad:
+        raise SmokeFailure(f"projective flagship: kernels out of tolerance: {bad}")
+    record["proj_serving_launches"] = slice_phase(
+        dev, serving, proj, counters, record, per_step_launches(L, backward=False), "proj_slice")
+    del serving
+    launches = train_phase(dev, proj, counters, record, init_model(conf)[0], loss_kw, optim,
+                           per_step_launches(L, backward=True), "proj_train")
+    captured_phase(dev, "gasfm-proj dense", init_model(conf)[0], loss_kw, optim,
+                   proj["proj_dense"], counters, per_step_launches(L, backward=True), record)
+
+    # the recorded forward on four models
+    for label, build, lkw, opt, scene, per_request in (
+            ("gasfm dense", lambda: GraphAttnSfMNet(**FLAGSHIP, generator=seeded()),
+             FLAGSHIP_LOSS, FLAGSHIP_OPTIM, scenes["dense"],
+             forward_launches(per_step_launches(L, backward=False))),
+            ("gasfm-proj dense", lambda: init_model(conf)[0], loss_kw, optim,
+             proj["proj_dense"], forward_launches(per_step_launches(L, backward=False))),
+            ("dpesfm powerlaw", lambda: SetOfSetNet(**DPESFM, generator=seeded()), DPESFM_LOSS,
+             DPESFM_OPTIM, scenes["powerlaw"], None),
+            ("gasfm-depth dense",
+             lambda: GraphAttnSfMNet(**FLAGSHIP_DEPTH, generator=seeded(DEPTH_SEEDS["gasfm"])),
+             DEPTH_LOSS, FLAGSHIP_OPTIM, scenes["dense"], depth_step_launches(L, backward=False))):
+        if per_request is None:  # DPESFM's, from its layer count
+            per_request = forward_launches(dpesfm_step_launches(build(), backward=False))
+        recorded_forward_check(dev, label, build(), lkw, opt, scene, counters, record,
+                               per_request)
+
+    # the single-scene synthetic confs, each on its own scene
+    for name in SYNTH_CONFS:
+        conf = load_config(name)
+        data = create_scene_data(conf)
+        scene = data.to_scene_graph(device=dev)
+        model, n_params = init_model(conf)
+        loss_kw, optim = conf_loss_kw(conf), optim_from_conf(conf)
+        eager = TrainingSession(init_model(conf)[0], make_loss(loss_kw), device=dev, optim=optim,
+                                capture=False)
+        per_step = counted_launches(counters, lambda: eager.loss_and_grads(scene))[1]
+        del eager
+        label = name.split("/")[-1][:-len(".conf")]
+        print(f"conf {label}: {data.num_views} views, {data.num_points} points, "
+              f"{scene.graph.num_edges} edges (create_scene_data); {n_params} parameters; "
+              f"launches per forward + loss + backward {per_step}")
+        captured_phase(dev, label, model, loss_kw, optim, scene, counters, per_step, record,
+                       adam_bound=isinstance(model, SetOfSetNet))
+        recorded_forward_check(dev, label, init_model(conf)[0], loss_kw, optim, scene, counters,
+                               record)
+    record["conf_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 14 (sessions from the shipped confs): {record['conf_phase_s']:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -2702,6 +3003,13 @@ def main() -> int:
              False)):
         captured_phase(dev, label, build_model(), loss_kw, optim, scene, counters, per_step,
                        record, adam_bound=bound)
+
+    # ---- phase 14: sessions from the shipped confs (conf reader, builders,
+    # the projective flagship) and the evaluation forward recorded
+    paths["gasfm-proj"] = conf_phase(dev, scenes, counters, record, L)
+    for name, (_, _, path) in KERNELS.items():
+        if path == "gasfm" and paths["gasfm-proj"][name] == 0:
+            raise SmokeFailure(f"{name} was never launched on the projective flagship's path")
 
     # ---- phase 13: the record
     kernels = []

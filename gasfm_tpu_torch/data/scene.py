@@ -2,9 +2,10 @@
 
 The subset of the JAX package's data/scene.py that the port's slices need:
 the (2m, n) measurement matrix, per-view normalization matrices Ns
-(= inv(K) when calibrated), GT cameras, the validity mask, and optional GT
-depths from host DLT triangulation in float64 with the JAX package's (and
-the reference's, SceneData.py:57-132) invariant asserts.
+(= inv(K) when calibrated), GT cameras, the validity mask and the sample
+validity test, and optional GT depths from host DLT triangulation in
+float64 with the JAX package's (and the reference's, SceneData.py:57-132)
+invariant asserts.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from gasfm_tpu_torch.geometry.np_geo import get_M_valid_points, normalize_M
 from gasfm_tpu_torch.geometry.triangulation import n_view_triangulation
+from gasfm_tpu_torch.utils.constants import MIN_N_POINTS_PER_VIEW, MIN_N_VIEWS_PER_POINT
 
 
 class SceneData:
@@ -44,6 +46,21 @@ class SceneData:
             self.depths = (np.asarray(depths, dtype=np.float32) if depths is not None
                            else self._triangulated_depths())
             assert self.depths.shape == (n_images, self.M.shape[1])
+
+    @property
+    def num_views(self) -> int:
+        return self.y.shape[0]
+
+    @property
+    def num_points(self) -> int:
+        return self.M.shape[1]
+
+    def is_valid_sample(self) -> bool:
+        """Every view sees at least MIN_N_POINTS_PER_VIEW points and every
+        point lies in at least MIN_N_VIEWS_PER_POINT views (the JAX
+        package's, reference dataset_utils.py:12-14)."""
+        return bool(self.valid_pts.sum(axis=1).min() >= MIN_N_POINTS_PER_VIEW
+                    and self.valid_pts.sum(axis=0).min() >= MIN_N_VIEWS_PER_POINT)
 
     def _triangulated_depths(self) -> np.ndarray:
         """(m, n) depths of the GT points, triangulated from the GT cameras in

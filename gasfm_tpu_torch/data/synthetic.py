@@ -150,3 +150,20 @@ def generate_synthetic_scene(
         calibrated=calibrated,
         store_depth_targets=store_depth_targets,
     )
+
+
+def synthetic_scene_from_conf(conf, scene_name=None) -> SceneData:
+    """The scene of a conf's ``dataset.synthetic`` block, with the JAX
+    package's defaults (12 views, 200 points, visibility 0.75; its
+    ``synthetic_scene_from_conf``, data/synthetic.py:159-170)."""
+    sub = "dataset.synthetic"
+    return generate_synthetic_scene(
+        n_views=conf.get_int(f"{sub}.n_views", default=12),
+        n_points=conf.get_int(f"{sub}.n_points", default=200),
+        visibility=conf.get_float(f"{sub}.visibility", default=0.75),
+        noise_px=conf.get_float(f"{sub}.noise_px", default=0.0),
+        seed=conf.get_int(f"{sub}.seed", default=0),
+        calibrated=conf.get_bool("dataset.calibrated", default=True),
+        scene_name=scene_name,
+        store_depth_targets=conf.get_bool("model.depth_head.enabled", default=False),
+    )

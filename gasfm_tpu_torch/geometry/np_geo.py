@@ -1,8 +1,8 @@
 """Host-side (NumPy) measurement-matrix helpers.
 
 A copy of the parts of the JAX package's geometry/np_geo.py that the graph
-construction, the synthetic scene generator and the GT-depth triangulation
-need.
+construction, the synthetic scene generator, the GT-depth triangulation and
+the scene loaders need.
 """
 
 from __future__ import annotations
@@ -18,6 +18,11 @@ def M_to_xs(M: np.ndarray) -> np.ndarray:
     """(2m, n) stacked measurement matrix -> (m, n, 2) point array."""
     m2, n = M.shape
     return M.reshape(m2 // 2, 2, n).transpose(0, 2, 1)
+
+
+def batch_pflat(x: np.ndarray) -> np.ndarray:
+    """(m, 3, n): divide by the third coordinate."""
+    return x / x[:, 2:3, :]
 
 
 def get_M_valid_points(M: np.ndarray) -> np.ndarray:

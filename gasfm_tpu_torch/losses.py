@@ -16,6 +16,19 @@ loss_functions.py:24-66, the JAX package's losses.py:303-333): L1 or L2
 between the predicted and the GT per-edge depths, each divided by its mean
 over the edges. The JAX package computes it in XLA with no Pallas kernel;
 here it is plain PyTorch on every device.
+
+``ExpDepthRegularizedOSELoss`` (the object-space error plus an exponential
+push on the depths, reference loss_functions.py:126-150) and ``GTLoss`` (the
+supervised pose loss, :153-204) are plain PyTorch too, as the JAX package
+runs both in XLA. ``GTLoss`` follows the JAX package's reading of the
+reference's calibrated branch, which calls functions the reference lacks:
+the L2 distance of the rotations' quaternions plus that of the normalized
+camera centres, the predictions taken from ``Ps_norm``.
+
+Each loss has a ``from_conf`` builder with the JAX package's keys and
+asserts, and :func:`get_loss_func` builds the loss a conf's ``loss.func``
+names (``gasfm_tpu/losses.py:344-359``). The port's graph holds valid
+edges and cameras only, so its means run over E and m.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from typing import Dict
 
 import torch
 
+from gasfm_tpu_torch.geometry.rotations import matrix_to_quaternion
 from gasfm_tpu_torch.ops.kernels.fused_loss import fused_esfm_terms, fused_esfm_terms_plain
 
 # The loss of confs/gasfm/optim_euc_gasfm.conf, as ESFMLoss's keyword arguments.
@@ -48,6 +62,26 @@ class ESFMLoss:
         self.hinge_loss_weight = float(hinge_loss_weight) if hinge_loss else 0.0
         self.pts_grad_equalization = bool(pts_grad_equalization)
         self.normalize_grad_valid_only = bool(normalize_grad_valid_only) and self.pts_grad_equalization
+
+    @classmethod
+    def from_conf(cls, conf) -> "ESFMLoss":
+        """The JAX package's ``ESFMLoss(conf)`` (``gasfm_tpu/losses.py:
+        109-131``): ``loss.pts_grad_equalization_pre_perspective_divide`` is
+        ``pts_grad_equalization``, ``loss.normalize_grad_wrt_valid_projections_only``
+        ``normalize_grad_valid_only`` (read only with the equalization on);
+        the hinge weight is read only with the hinge on."""
+        assert conf.get_bool("model.view_head.enabled", default=False)
+        assert conf.get_bool("model.scenepoint_head.enabled", default=False)
+        eq = conf.get_bool("loss.pts_grad_equalization_pre_perspective_divide")
+        hinge = conf.get_bool("loss.hinge_loss")
+        return cls(
+            infinity_pts_margin=conf.get_float("loss.infinity_pts_margin"),
+            hinge_loss=hinge,
+            hinge_loss_weight=conf.get_float("loss.hinge_loss_weight") if hinge else 0.0,
+            pts_grad_equalization=eq,
+            normalize_grad_valid_only=(
+                conf.get_bool("loss.normalize_grad_wrt_valid_projections_only") if eq else False),
+        )
 
     @property
     def eq_mode(self) -> str:
@@ -80,6 +114,15 @@ class DirectDepthLoss:
                                       "package and the reference have none either)")
         self.cost_fcn = cost_fcn
 
+    @classmethod
+    def from_conf(cls, conf) -> "DirectDepthLoss":
+        """The JAX package's ``DirectDepthLoss(conf)`` (``gasfm_tpu/losses.py:
+        309-314``)."""
+        assert conf.get_bool("model.depth_head.enabled")
+        cost_fcn = conf.get_string("loss.cost_fcn")
+        assert cost_fcn in ("L1", "L2")
+        return cls(cost_fcn=cost_fcn, calibrated=conf.get_bool("dataset.calibrated"))
+
     def __call__(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:
         if scene.gt_depths is None:
             raise ValueError("DirectDepthLoss needs a scene built with depth targets "
@@ -91,3 +134,124 @@ class DirectDepthLoss:
         diff = d_pred / s_pred - d_gt / torch.where(s_gt == 0, torch.ones_like(s_gt), s_gt)
         per_edge = diff.abs() if self.cost_fcn == "L1" else diff * diff
         return per_edge.sum() / n
+
+
+def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """L2 norm whose gradient at 0 is 0 (the JAX package's ``safe_norm``)."""
+    sq = (x * x).sum(dim)
+    nz = sq > 0
+    return torch.where(nz, torch.sqrt(torch.where(nz, sq, torch.ones_like(sq))),
+                       torch.zeros_like(sq))
+
+
+def project_edges(Ps: torch.Tensor, pts3D: torch.Tensor, graph) -> torch.Tensor:
+    """(E, 3) homogeneous projections ``P[cam_e] @ X[:, pt_e]`` (plain
+    PyTorch)."""
+    P_e = Ps.reshape(graph.num_cams, 12)[graph.cam_idx].reshape(-1, 3, 4)
+    X_e = pts3D.T[graph.pt_idx]
+    return torch.einsum("eij,ej->ei", P_e, X_e)
+
+
+class ExpDepthRegularizedOSELoss:
+    """Mean over the edges of the object-space error ``||proj_xy - depth *
+    uv||`` plus ``depth_regul_weight * exp(-depth)`` (reference
+    loss_functions.py:126-150; the JAX package's losses.py:215-236).
+    ``plain`` is accepted for the session's interface; the loss has no
+    kernel."""
+
+    def __init__(self, depth_regul_weight: float):
+        self.depth_regul_weight = float(depth_regul_weight)
+
+    @classmethod
+    def from_conf(cls, conf) -> "ExpDepthRegularizedOSELoss":
+        assert conf.get_bool("model.view_head.enabled", default=False)
+        assert conf.get_bool("model.scenepoint_head.enabled", default=False)
+        return cls(conf.get_float("loss.depth_regul_weight"))
+
+    def __call__(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:
+        graph = scene.graph
+        proj = project_edges(pred["Ps_norm"], pred["pts3D"], graph)
+        depth = proj[:, 2]
+        ose = safe_norm(proj[:, :2] - depth[:, None] * graph.uv, dim=1)
+        per_edge = ose + self.depth_regul_weight * torch.exp(-depth)
+        return per_edge.sum() / max(graph.num_edges, 1)
+
+
+class GTLoss:
+    """The supervised pose loss (reference loss_functions.py:153-204, as
+    the JAX package's losses.py:239-300 reads it): the mean over the cameras
+    of the orientation error plus the mean of the distance between the GT
+    camera centres (centred and scaled to mean norm 1) and the predicted
+    ones. Calibrated, the orientation error is the L2 distance of the
+    rotations' quaternions (``matrix_to_quaternion``, w >= 0); projective,
+    the smaller of ``||V_p - V_g||`` and ``||V_p + V_g||`` over the
+    Frobenius-normalized inverse-transposed 3x3 blocks. ``plain`` is
+    accepted for the session's interface; the loss has no kernel."""
+
+    def __init__(self, calibrated: bool):
+        self.calibrated = bool(calibrated)
+
+    @classmethod
+    def from_conf(cls, conf) -> "GTLoss":
+        assert conf.get_bool("model.view_head.enabled", default=False)
+        assert conf.get_bool("model.scenepoint_head.enabled", default=False)
+        return cls(conf.get_bool("dataset.calibrated"))
+
+    def __call__(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:
+        y = scene.Ps_gt.to(pred["Ps_norm"].dtype)
+        Ns_invT = scene.Ns_inv.to(y.dtype).transpose(1, 2)
+        m = max(y.shape[0], 1)
+        A_inv = torch.linalg.inv(y[:, :3, :3])
+        V_gt = A_inv.transpose(1, 2)
+        t_gt = -torch.einsum("mij,mj->mi", A_inv, y[:, :3, 3])
+        trans = t_gt.sum(0) / m
+        scale = torch.linalg.norm(t_gt - trans, dim=1).sum() / m
+        t_gt = (t_gt - trans) / torch.clamp(scale, min=1e-12)
+
+        Ps = pred["Ps_norm"]
+        Vs = torch.linalg.inv(Ps[:, :3, :3]).transpose(1, 2)
+        ts = -torch.einsum("mij,mj->mi", Vs.transpose(1, 2), Ps[:, :3, 3])
+        translation_err = torch.linalg.norm(t_gt - ts, dim=1)
+
+        if self.calibrated:
+            Rs_gt = matrix_to_quaternion((Ns_invT @ V_gt).transpose(1, 2))
+            Rs = matrix_to_quaternion((Ns_invT @ Vs).transpose(1, 2))
+            orient_err = torch.linalg.norm(Rs - Rs_gt, dim=1)
+        else:
+            def fro_normalized(V):
+                fro = torch.linalg.norm(V.reshape(V.shape[0], -1), dim=1)
+                return V / torch.clamp(fro, min=1e-12)[:, None, None]
+
+            Vg, Vp = fro_normalized(V_gt), fro_normalized(Vs)
+            d1 = torch.linalg.norm((Vp - Vg).reshape(Vp.shape[0], -1), dim=1)
+            d2 = torch.linalg.norm((Vp + Vg).reshape(Vp.shape[0], -1), dim=1)
+            orient_err = torch.minimum(d1, d2)
+        return orient_err.sum() / m + translation_err.sum() / m
+
+
+_LOSS_REGISTRY = {
+    "ESFMLoss": ESFMLoss,
+    "ExpDepthRegularizedOSELoss": ExpDepthRegularizedOSELoss,
+    "GTLoss": GTLoss,
+    "DirectDepthLoss": DirectDepthLoss,
+}
+
+
+def get_loss_func(conf):
+    """The loss of ``loss.func``, with the JAX package's head asserts
+    (``gasfm_tpu/losses.py:344-359``, reference loss_functions.py:8-21):
+    ``AssertionError`` for a head combination the loss does not take and for
+    an unknown loss."""
+    spec = conf.get_string("loss.func")
+    if spec in ("ESFMLoss", "ExpDepthRegularizedOSELoss", "GTLoss"):
+        assert conf.get_bool("model.view_head.enabled")
+        assert conf.get_bool("model.scenepoint_head.enabled")
+        assert not conf.get_bool("model.depth_head.enabled"), (
+            "model.depth_head.enabled must be False when no loss is applied to that output.")
+    elif spec == "DirectDepthLoss":
+        assert conf.get_bool("model.depth_head.enabled")
+        assert not conf.get_bool("model.view_head.enabled")
+        assert not conf.get_bool("model.scenepoint_head.enabled")
+    else:
+        raise AssertionError(f"Unknown loss function: {spec}.")
+    return _LOSS_REGISTRY[spec].from_conf(conf)

@@ -155,6 +155,61 @@ class GraphAttnSfMNet(nn.Module):
         if generator is not None:
             init_parameters(self, generator)
 
+    @staticmethod
+    def conf_kwargs(conf) -> dict:
+        """The constructor's keyword arguments from a conf, read as the JAX
+        package's ``GraphAttnSfMNet.from_conf`` reads them
+        (``gasfm_tpu/models/gasfm.py:293-335``, reference
+        graph_attn_sfm.py:9-41). ``model.remat_layers`` is accepted and
+        ignored: rematerialization is a TPU memory device."""
+        return dict(
+            num_layers=conf.get_int("model.num_layers"),
+            n_heads=conf.get_int("model.n_heads"),
+            n_feat_proj=conf.get_int("model.n_feat_proj"),
+            n_feat_scenepoint=conf.get_int("model.n_feat_scenepoint"),
+            n_feat_view=conf.get_int("model.n_feat_view"),
+            n_feat_global=conf.get_int("model.n_feat_global"),
+            calibrated=conf.get_bool("dataset.calibrated"),
+            rot_representation=conf.get_string("model.view_head.rot_representation",
+                                               default="quat"),
+            normalize_output=conf.get_string("model.view_head.normalize_output", default=None),
+            n_feat_proj2scenepoint_agg=conf.get_int("model.n_feat_proj2scenepoint_agg",
+                                                    default=None),
+            n_feat_proj2view_agg=conf.get_int("model.n_feat_proj2view_agg", default=None),
+            n_feat_scenepoint2global_agg=conf.get_int("model.n_feat_scenepoint2global_agg",
+                                                      default=None),
+            n_feat_view2global_agg=conf.get_int("model.n_feat_view2global_agg", default=None),
+            n_hidden_layers_scenepoint_update=conf.get_int(
+                "model.n_hidden_layers_scenepoint_update"),
+            n_hidden_layers_view_update=conf.get_int("model.n_hidden_layers_view_update"),
+            n_hidden_layers_global_update=conf.get_int("model.n_hidden_layers_global_update"),
+            n_hidden_layers_proj_update=conf.get_int("model.n_hidden_layers_proj_update"),
+            pos_emb_n_freq=conf.get_int("model.pos_emb_n_freq"),
+            use_norm_proj_update=conf.get_bool("model.use_norm_proj_update"),
+            add_residual_skipconn_proj_update=conf.get_bool(
+                "model.add_residual_skipconn_proj_update"),
+            add_skipconn_from_init_projfeat=conf.get_bool("model.add_skipconn_from_init_projfeat"),
+            stateful_global_features=conf.get_bool("model.stateful_global_features"),
+            global2view_and_global2scenepoint_enabled=conf.get_bool(
+                "model.global2view_and_global2scenepoint_enabled"),
+            depth_head_enabled=conf.get_bool("model.depth_head.enabled", default=False),
+            depth_head_n_feat=conf.get_int("model.depth_head.n_feat", default=128),
+            depth_head_n_hidden_layers=conf.get_int("model.depth_head.n_hidden_layers",
+                                                    default=2),
+            view_head_enabled=conf.get_bool("model.view_head.enabled", default=False),
+            view_head_n_hidden_layers=conf.get_int("model.view_head.n_hidden_layers", default=2),
+            scenepoint_head_enabled=conf.get_bool("model.scenepoint_head.enabled", default=False),
+            scenepoint_head_n_hidden_layers=conf.get_int("model.scenepoint_head.n_hidden_layers",
+                                                         default=2),
+        )
+
+    @classmethod
+    def from_conf(cls, conf, generator: Optional[torch.Generator] = None) -> "GraphAttnSfMNet":
+        """Build from a conf (:meth:`conf_kwargs`), its weights drawn from
+        ``generator``: the port's initializer, not JAX's PRNG bits (a JAX
+        init carries over through ``models.convert.params_from_jax``)."""
+        return cls(**cls.conf_kwargs(conf), generator=generator)
+
     def proj_out(self, i: int) -> int:
         """Layer i's output width: the depth head's for the last layer."""
         last = i == self.num_layers - 1

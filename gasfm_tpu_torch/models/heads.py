@@ -41,6 +41,16 @@ def view_head_out_channels(calibrated: bool, rot_representation: str) -> int:
     return channels[rot_representation]
 
 
+def det3(A: torch.Tensor) -> torch.Tensor:
+    """Determinants of (..., 3, 3) matrices by cofactor expansion:
+    elementwise, so its backward takes the input's dtype whatever torch's
+    default dtype is (``torch.linalg.det``'s LU backward fails for float32
+    inputs under a float64 default)."""
+    return (A[..., 0, 0] * (A[..., 1, 1] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 1])
+            - A[..., 0, 1] * (A[..., 1, 0] * A[..., 2, 2] - A[..., 1, 2] * A[..., 2, 0])
+            + A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] - A[..., 1, 1] * A[..., 2, 0]))
+
+
 def decode_view_outputs(
     x: torch.Tensor,  # (m, out_channels)
     calibrated: bool,
@@ -60,7 +70,7 @@ def decode_view_outputs(
         return torch.cat([RTs, x[:, -3:, None]], dim=-1)
     Ps = x.reshape(-1, 3, 4)
     if normalize_output in ("Chirality", "Differentiable Chirality"):
-        det = torch.linalg.det(Ps[:, 0:3, 0:3])
+        det = det3(Ps[:, 0:3, 0:3])
         row3 = torch.linalg.norm(Ps[:, 2, 0:3], dim=1).clamp_min(1e-12)
         if normalize_output == "Chirality":
             scale = torch.sign(det) / row3

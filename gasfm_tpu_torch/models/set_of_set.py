@@ -86,6 +86,42 @@ class SetOfSetNet(nn.Module):
         if generator is not None:
             init_parameters(self, generator)
 
+    @staticmethod
+    def conf_kwargs(conf) -> dict:
+        """The constructor's keyword arguments from a conf, read as the JAX
+        package's ``SetOfSetNet.from_conf`` reads them
+        (``gasfm_tpu/models/set_of_set.py:112-135``, reference
+        SetOfSet.py:50-100)."""
+        return dict(
+            num_blocks=conf.get_int("model.num_blocks"),
+            num_features=conf.get_int("model.num_features"),
+            block_size=conf.get_int("model.block_size"),
+            calibrated=conf.get_bool("dataset.calibrated"),
+            rot_representation=conf.get_string("model.view_head.rot_representation",
+                                               default="quat"),
+            normalize_output=conf.get_string("model.view_head.normalize_output", default=None),
+            proj_feat_normalization=conf.get_bool("model.proj_feat_normalization"),
+            add_skipconn_for_residual_blocks=conf.get_bool(
+                "model.add_skipconn_for_residual_blocks"),
+            pos_emb_n_freq=conf.get_int("model.pos_emb_n_freq"),
+            depth_head_enabled=conf.get_bool("model.depth_head.enabled", default=False),
+            depth_head_n_feat=conf.get_int("model.depth_head.n_feat", default=128),
+            depth_head_n_hidden_layers=conf.get_int("model.depth_head.n_hidden_layers",
+                                                    default=2),
+            view_head_enabled=conf.get_bool("model.view_head.enabled", default=False),
+            view_head_n_hidden_layers=conf.get_int("model.view_head.n_hidden_layers", default=2),
+            scenepoint_head_enabled=conf.get_bool("model.scenepoint_head.enabled", default=False),
+            scenepoint_head_n_hidden_layers=conf.get_int("model.scenepoint_head.n_hidden_layers",
+                                                         default=2),
+        )
+
+    @classmethod
+    def from_conf(cls, conf, generator: Optional[torch.Generator] = None) -> "SetOfSetNet":
+        """Build from a conf (:meth:`conf_kwargs`), its weights drawn from
+        ``generator`` (the port's initializer; a JAX init carries over
+        through ``models.convert.params_from_jax``)."""
+        return cls(**cls.conf_kwargs(conf), generator=generator)
+
     def forward(self, graph, plain: bool = False) -> Dict[str, torch.Tensor]:
         """Predicted normalized cameras ``Ps_norm`` (m, 3, 4) and homogeneous
         points ``pts3D`` (4, n) for one scene graph, or with the depth head

@@ -29,19 +29,35 @@ once per set of gradients it is given: a captured ``loss_and_grads``' own
 gradients are read where that graph leaves them; other gradients are copied
 into the update graph's own inputs first. A kernel's ``launches`` counter
 counts a recording once and a replay not at all.
+
+The evaluation forward is recorded the same way, the counterpart of the JAX
+package's ``_fwd_fn = jax.jit(model.apply)`` (train/loop.py:182): per scene
+the first ``forward`` runs eagerly on the capture stream, the second records
+and replays, later ones replay; the graph reads the parameters where they
+lie, so a replay after training steps sees the updated weights, and a
+replay's predictions are copies. Recorded under ``no_grad``, the kernels
+take their variants that write no softmax residuals. ``loss`` stays eager,
+as the JAX package takes no loss inside its jitted forward.
+
+:meth:`TrainingSession.from_conf` builds the session from a conf as the JAX
+package's ``TrainingSession(conf, model, milestone_shift)`` does
+(train/loop.py:156-160): the loss of ``loss.func`` and the optimizer of
+``train.*`` and ``loss.grad_clip_*``.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from gasfm_tpu_torch.eval.metrics import core_errors_device
-from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss
+from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss, get_loss_func
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
-from gasfm_tpu_torch.train.state import FLAGSHIP_OPTIM, build_optimizer, global_norm
+from gasfm_tpu_torch.train.state import (FLAGSHIP_OPTIM, build_optimizer, global_norm,
+                                         optim_from_conf)
 from gasfm_tpu_torch.utils.device import resolve_device
 
 
@@ -111,11 +127,30 @@ class TrainingSession:
         self._programs: Dict[tuple, _Program] = {}
         self._update_inputs: Optional[List[torch.Tensor]] = None
 
+    @classmethod
+    def from_conf(cls, conf, model: Union[GraphAttnSfMNet, SetOfSetNet],
+                  milestone_shift: int = 0, device: Optional[Union[str, torch.device]] = None,
+                  capture: Optional[bool] = None) -> "TrainingSession":
+        """The session of a conf: ``get_loss_func(conf)`` and the optimizer
+        of ``optim_from_conf(conf, milestone_shift)``. A
+        ``parallel.mesh_shape`` of more than one device raises
+        ``NotImplementedError``: the port runs on one device, and does not
+        run another layout than the conf asks for."""
+        mesh = conf.get_list("parallel.mesh_shape", default=None)
+        if mesh is not None and math.prod(int(d) for d in mesh) > 1:
+            raise NotImplementedError(f"parallel.mesh_shape = {mesh}: the port runs on one "
+                                      f"device (multi-device execution is not ported yet)")
+        return cls(model, get_loss_func(conf), device=device,
+                   optim=optim_from_conf(conf, milestone_shift), capture=capture)
+
     def _program(self, key: tuple, fn: Callable, keep=None) -> _Program:
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = _Program(fn, self._stream, keep)
         return prog
+
+    def _forward(self, scene, plain: bool = False) -> Dict[str, torch.Tensor]:
+        return self.model(scene.graph, plain=plain)
 
     @torch.no_grad()
     def forward(self, scene, plain: bool = False) -> Dict[str, torch.Tensor]:
@@ -123,8 +158,13 @@ class TrainingSession:
         depth head ``depths`` (E,), for a
         :class:`~gasfm_tpu_torch.graph.view_graph.SceneGraph` on this
         session's device. ``plain=True`` runs the kernels' plain versions
-        (for comparing the two on the card)."""
-        return self.model(scene.graph, plain=plain)
+        (for comparing the two on the card), eagerly. Captured, the forward
+        replays this scene's recording and the predictions are copies of
+        its outputs."""
+        if plain or not self.capture:
+            return self._forward(scene, plain)
+        pred = self._program(("forward", id(scene)), self._forward, keep=scene)(scene)
+        return {k: v.clone() for k, v in pred.items()}
 
     @torch.no_grad()
     def loss(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:

@@ -69,3 +69,26 @@ def build_lr_schedule(
         return base_lr * factor
 
     return schedule
+
+
+def schedule_kwargs_from_conf(conf, milestone_shift: int = 0) -> dict:
+    """:func:`build_lr_schedule`'s keyword arguments from a conf's
+    ``train.lr`` and ``train.lr_schedule.*``, with the JAX package's
+    defaults (``gasfm_tpu/train/schedules.py:75-86``, reference
+    train.py:434-472)."""
+    sub = "train.lr_schedule"
+    return dict(
+        base_lr=conf.get_float("train.lr"),
+        main_scheduler=conf.get_string(f"{sub}.main_scheduler"),
+        lr_warmup_n_steps=conf.get_int(f"{sub}.lr_warmup_n_steps", default=0),
+        exp_gamma_after_n_steps=conf.get_float(f"{sub}.exp_gamma_after_n_steps", default=None),
+        exp_n_steps=conf.get_float(f"{sub}.exp_n_steps", default=None),
+        multistep_milestones=conf.get_list(f"{sub}.multistep_milestones", default=None),
+        multistep_gamma=conf.get_float(f"{sub}.multistep_gamma", default=0.1),
+        milestone_shift=milestone_shift,
+    )
+
+
+def schedule_from_conf(conf, milestone_shift: int = 0) -> Callable:
+    """The LR schedule of a conf (the JAX package's ``schedule_from_conf``)."""
+    return build_lr_schedule(**schedule_kwargs_from_conf(conf, milestone_shift))

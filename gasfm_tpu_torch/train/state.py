@@ -5,10 +5,12 @@ Counterpart of ``build_optimizer``, ``advance_schedule_count``,
 ``save_checkpoint`` / ``restore_checkpoint`` and ``save_params`` /
 ``load_params`` in the JAX package's train/state.py (reference:
 torch.optim.Adam with default betas and eps, train.py:437; clipping by
-global norm or by value before the update, train.py:141-151). Until the
-port reads confs, the builder takes the conf's values as keyword arguments;
-``FLAGSHIP_OPTIM`` holds those of ``confs/gasfm/optim_euc_gasfm.conf``,
-``DPESFM_OPTIM`` those of ``confs/dpesfm/learning_euc_noaug_dpesfm.conf``.
+global norm or by value before the update, train.py:141-151). The builder
+takes the conf's values as keyword arguments, which :func:`optim_from_conf`
+reads from a conf as the JAX package's ``build_optimizer`` does
+(``gasfm_tpu/train/state.py:162-210``); ``FLAGSHIP_OPTIM`` holds those of
+``confs/gasfm/optim_euc_gasfm.conf``, ``DPESFM_OPTIM`` those of
+``confs/dpesfm/learning_euc_noaug_dpesfm.conf``.
 
 Two counters, as in the JAX package: the schedule's count advances on every
 batch (:meth:`Optimizer.advance_schedule` for a batch without an update),
@@ -32,7 +34,9 @@ CUDA graph recorded on them stays valid. Weight files (:func:`save_params` /
 so either package loads the other's.
 
 The bf16 first-moment / second-moment storage and the bf16-parameter
-(f32 master) options of the JAX package are not ported yet.
+(f32 master) options of the JAX package are not ported yet: a conf that
+sets ``train.adam_mu_dtype``, ``train.adam_nu_dtype`` or
+``train.param_dtype`` to bf16 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,12 +48,14 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
-from gasfm_tpu_torch.train.schedules import build_lr_schedule
+from gasfm_tpu_torch.train.schedules import build_lr_schedule, schedule_kwargs_from_conf
 
 FLAGSHIP_OPTIM = dict(lr=1e-4, main_scheduler="exponential", lr_warmup_n_steps=2500,
                       exp_n_steps=35000, exp_gamma_after_n_steps=0.1, grad_clip_mode=None)
 # The optimizer of confs/dpesfm/learning_euc_noaug_dpesfm.conf (:67-79, :117).
+# (The exponential keys are the conf's too; the multistep schedule ignores them.)
 DPESFM_OPTIM = dict(lr=1e-3, main_scheduler="multistep", lr_warmup_n_steps=0,
+                    exp_n_steps=250000, exp_gamma_after_n_steps=0.1,
                     multistep_milestones=[60000], multistep_gamma=0.5, grad_clip_mode=None)
 
 
@@ -142,6 +148,30 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], **conf) -> Optimizer:
     return Optimizer(params, **conf)
 
 
+def optim_from_conf(conf, milestone_shift: int = 0) -> dict:
+    """:class:`Optimizer`'s keyword arguments from a conf: ``train.lr``,
+    ``train.lr_schedule.*`` (``milestone_shift`` added to the milestones),
+    ``loss.grad_clip_mode`` (norm, value or null; another mode is an
+    ``AssertionError``, as in the JAX package) and ``loss.grad_clip_th``.
+    bf16 moments or parameters (``train.adam_mu_dtype``,
+    ``train.adam_nu_dtype``, ``train.param_dtype``) raise
+    ``NotImplementedError``: the port keeps Adam and the weights in float32
+    and does not run another optimizer than the conf asks for."""
+    for key in ("train.param_dtype", "train.adam_mu_dtype", "train.adam_nu_dtype"):
+        if conf.get_string(key, default=None) == "bf16":
+            raise NotImplementedError(f"{key} = bf16: the port keeps Adam's moments and the "
+                                      f"parameters in float32 (bf16 storage is not ported yet)")
+    kw = schedule_kwargs_from_conf(conf, milestone_shift)
+    kw["lr"] = kw.pop("base_lr")
+    mode = conf.get_string("loss.grad_clip_mode", default=None)
+    threshold = None
+    if mode is not None:
+        threshold = conf.get_float("loss.grad_clip_th")
+        if mode not in ("norm", "value"):
+            raise AssertionError(f'Could not interpret gradient clipping mode "{mode}".')
+    return dict(kw, grad_clip_mode=mode, grad_clip_th=threshold)
+
+
 # ---------------------------------------------------------------------------
 # Weight files (the JAX package's npz) and checkpoints (the port's own)
 # ---------------------------------------------------------------------------
@@ -160,10 +190,11 @@ def save_params(path: str, model: torch.nn.Module) -> None:
 
 def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Load a weight file written by either package's ``save_params`` into
-    ``model`` in place, keeping the init values of the keys the file lacks
-    (the reference's pretrained-weight loading, main.py:168-190), as the JAX
-    package's ``load_params`` does; a key of the file that the model lacks,
-    or a shape that differs, raises."""
+    ``model`` in place, as the JAX package's ``load_params`` does (the
+    reference's pretrained-weight loading, main.py:168-190): the keys the
+    file lacks keep their init values, the file's keys that the model lacks
+    (another model's heads) are ignored, both printed; a shape that differs
+    raises."""
     from gasfm_tpu_torch.models.convert import params_from_jax
 
     tree: Dict = {}
@@ -175,14 +206,19 @@ def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
                 node = node.setdefault(name, {})
             node[leaf] = data[key]
     state = params_from_jax(tree)
-    missing = [k for k in model.state_dict() if k not in state]
-    extra = [k for k in state if k not in model.state_dict()]
-    if extra:
-        raise KeyError(f"{path}: keys the model lacks: {extra[:5]}")
+    own = model.state_dict()
+    missing = [k for k in own if k not in state]
+    extra = [k for k in state if k not in own]
+    for k, v in state.items():
+        if k in own and v.shape != own[k].shape:
+            raise ValueError(f"{path}: shape mismatch for {k}: {tuple(v.shape)} vs "
+                             f"{tuple(own[k].shape)}")
     if missing:
         print(f"[load_params] keeping init values for {len(missing)} missing keys "
               f"(e.g. {missing[:3]})")
-    model.load_state_dict(state, strict=False)
+    if extra:
+        print(f"[load_params] ignoring {len(extra)} keys the model lacks (e.g. {extra[:3]})")
+    model.load_state_dict({k: v for k, v in state.items() if k in own}, strict=False)
     return model
 
 

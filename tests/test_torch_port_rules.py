@@ -30,7 +30,8 @@ assert not bad, bad
 assert len(names) >= 20, names
 for new in ("ops.kernels.segment_kernels", "ops.kernels.fused_update", "ops.edge_update",
             "models.set_of_set", "ops.kernels.fused_attn", "ops.kernels.fused_proj_update",
-            "geometry.triangulation", "tools.bench"):
+            "geometry.triangulation", "tools.bench", "config.hocon", "config", "data.loaders",
+            "main"):
     assert "gasfm_tpu_torch." + new in names, new
 """
 

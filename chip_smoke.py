@@ -206,6 +206,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    on its own scene from ``create_scene_data``: phase 12b's captured steps
    (launches per step those of an eager ``loss_and_grads``) and the
    recorded forward. The phase's seconds are printed.
+15. (after phase 14) Single-scene optimization through the port's CLI,
+   ``gasfm_tpu_torch.main.main(["single-scene-optim", ...])`` in this
+   process (``CLI_RUNS``): the flagship (``gasfm/optim_euc_gasfm.conf``, full
+   width) on the dense scene's sizes from ``dataset.synthetic`` (128 views,
+   8,192 points, visibility 0.2), 30 epochs with evaluations at init, after
+   epochs 1, 10, 20 and 30 and the final one with bundle adjustment; the
+   projective flagship the same way for 10 epochs (``proj_ba``); the four
+   single-scene synthetic confs at their own sizes for 20 epochs. Each
+   experiment goes to ``chiprun_out/phase15/<run>/``, its output to
+   ``chiprun_out/phase15/<run>.log``. Checks: no port kernel launched by any
+   step, update or forward after its recording's second call (replays); the
+   final ``our_repro`` below the first evaluation's and ``repro_ba <=
+   our_repro + 1e-6`` where BA ran; every metric finite; the tree complete
+   (results CSV and xlsx, ``final_model.npz``, the predictions' npz, the
+   HTML plot for calibrated scenes, one event file, the code snapshot and
+   ``exp.conf.json``), then the code snapshot and every file over 1 MiB
+   deleted (sizes kept in the record). Printed: the loop's ms per step over
+   steps 3..N (median host interval between step calls without an
+   evaluation between them) beside phase 12b's captured dense step, and the
+   final evaluation's seconds: forward, ``prepare_predictions`` without BA,
+   BA, ``compute_errors``.
 13. A ``kernels`` JSON line (all seventeen kernels, each with its per-call
    ``ms`` and its burst ``burst_ms``; launches from the training path that
    runs each: GASFM's merged path for the first eight,
@@ -2747,6 +2768,236 @@ def conf_phase(dev, scenes, counters, record, L):
     return launches
 
 
+# phase 15: single-scene optimization through the port's CLI
+# ---------------------------------------------------------------------------
+
+DENSE_SYNTH = ("dataset.synthetic.enabled=true", "dataset.synthetic.n_views=128",
+               "dataset.synthetic.n_points=8192", "dataset.synthetic.visibility=0.2")
+# (label, conf, external params): the flagships on the dense scene's sizes
+# (profile_forward.SCENES["dense"]), the warm-up cut with the run (2,500 of
+# the conf's 100,000 epochs; 3 of these 30), one evaluation between the
+# first and the last, and the final evaluation with bundle adjustment; the
+# synthetic confs at their own sizes.
+CLI_RUNS = (
+    ("flagship", "gasfm/optim_euc_gasfm.conf",
+     DENSE_SYNTH + ("train.n_epochs=30", "eval.eval_interval=10",
+                    "train.lr_schedule.lr_warmup_n_steps=3")),
+    ("flagship-proj", "gasfm/optim_proj_gasfm.conf",
+     DENSE_SYNTH + ("train.n_epochs=10", "eval.eval_interval=5",
+                    "train.lr_schedule.lr_warmup_n_steps=1")),
+) + tuple((name.split("/")[-1][:-len(".conf")], name, ("train.n_epochs=20", "eval.eval_interval=10"))
+          for name in SYNTH_CONFS)
+CLI_KEEP_BYTES = 1 << 20  # larger artifacts are checked, listed and deleted
+
+
+@contextlib.contextmanager
+def stdout_to(path):
+    """File descriptor 1 (Python's prints and the BA solver's printf) into
+    ``path`` for the block."""
+    import ctypes
+    import os
+
+    libc = ctypes.CDLL(None)
+    sys.stdout.flush()
+    libc.fflush(None)
+    saved = os.dup(1)
+    with open(path, "w") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            yield
+        finally:
+            sys.stdout.flush()
+            libc.fflush(None)
+            os.dup2(saved, 1)
+            os.close(saved)
+
+
+@contextlib.contextmanager
+def cli_probe(counters):
+    """Record every call of the session's step, update and forward and of the
+    evaluation's stages while the CLI runs: (kind, host start, host end, the
+    port kernels it launched, what it returned)."""
+    from gasfm_tpu_torch.experiments import single_scene
+    from gasfm_tpu_torch.train import loop
+
+    calls = []
+    patched = []
+
+    def wrap(owner, name, kind):
+        fn = getattr(owner, name)
+
+        def wrapped(*args, **kwargs):
+            before = {k: c.launches for k, c in counters.items()}
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            t1 = time.perf_counter()
+            calls.append((kind, t0, t1, {k: c.launches - before[k] for k, c in counters.items()
+                                         if c.launches != before[k]}, out))
+            return out
+
+        patched.append((owner, name, fn))
+        setattr(owner, name, wrapped)
+
+    for name, kind in (("fused_step", "step"), ("loss_and_grads", "step"), ("update", "update"),
+                       ("forward", "forward")):
+        wrap(loop.TrainingSession, name, kind)
+    wrap(loop, "prepare_predictions", "prepare")
+    wrap(loop, "compute_errors", "errors")
+    wrap(loop, "epoch_evaluation", "eval")
+    wrap(single_scene, "epoch_evaluation", "eval")
+    try:
+        yield calls
+    finally:
+        for owner, name, fn in reversed(patched):
+            setattr(owner, name, fn)
+
+
+def cli_run(label, conf_name, ext, counters, record, out_dir):
+    """One ``main(["single-scene-optim", ...])`` on the card, its output in
+    ``<out_dir>/<label>.log``. Checks: from the third step on no step, update
+    or forward launched a port kernel (each replays its recording); the final
+    row's ``our_repro`` below the first evaluation's (explicit heads), and
+    ``repro_ba <= our_repro + 1e-6`` where bundle adjustment ran; the tree
+    complete. Returns the run's summary."""
+    import os
+    import shutil
+
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.main import main as cli_main
+    from gasfm_tpu_torch.utils.observability import reset_tb_writer
+
+    exp = out_dir / label
+    if exp.exists():
+        shutil.rmtree(exp)
+    argv = ["single-scene-optim", "--conf", conf_name, "--exp-dir", str(exp),
+            "--external-params", *ext]
+    t0 = time.perf_counter()
+    with cli_probe(counters) as calls, stdout_to(out_dir / f"{label}.log"):
+        rc = cli_main(argv)
+        reset_tb_writer()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SmokeFailure(f"CLI {label}: main returned {rc}")
+    conf = load_config(conf_name, external_params=list(ext))
+    explicit = conf.get_bool("model.view_head.enabled")
+    calibrated = conf.get_bool("dataset.calibrated")
+    run_ba = conf.get_bool("ba.run_ba")
+    scene = conf.get_string("dataset.scene")
+
+    # replays: every step, update and forward after a recording's second call
+    by_kind = collections.defaultdict(list)
+    for c in calls:
+        by_kind[c[0]].append(c)
+    steps = by_kind["step"]
+    n_epochs = conf.get_int("train.n_epochs")
+    if len(steps) != n_epochs:  # one batch per epoch: a fused step, or loss_and_grads
+        raise SmokeFailure(f"CLI {label}: {len(steps)} steps for {n_epochs} epochs")
+    late = [(kind, i + 1, c[3]) for kind in ("step", "update", "forward")
+            for i, c in enumerate(by_kind[kind]) if i >= 2 and c[3]]
+    if late:
+        raise SmokeFailure(f"CLI {label}: port kernels launched after a recording: {late[:5]}")
+    first_steps = [c[3] for c in steps[:2]]
+    first_forwards = [c[3] for c in by_kind["forward"][:2]]
+    if not first_steps[0] or first_steps[0] != first_steps[1]:
+        raise SmokeFailure(f"CLI {label}: the warm-up and recording steps launched "
+                           f"{first_steps}")
+
+    # the loop's ms per step over steps 3..N (host clock, the intervals
+    # between step calls with no evaluation in between)
+    evals = [(c[1], c[2]) for c in by_kind["eval"]]
+    gaps = [1e3 * (b[1] - a[1]) for a, b in zip(steps[2:], steps[3:])
+            if not any(a[1] < e0 < b[1] for e0, _ in evals)]
+    ms_step = statistics.median(gaps) if gaps else float("nan")
+
+    # learning and BA, from the tables the evaluations returned
+    tables = [c[4] for c in by_kind["eval"]]
+    first, final = tables[0], tables[-1]
+    row = {c: final.loc(scene, c) for c in final.columns}
+    if explicit:
+        repro0 = first.loc(scene, "our_repro")
+        if not row["our_repro"] < repro0:
+            raise SmokeFailure(f"CLI {label}: our_repro {row['our_repro']} not below the first "
+                               f"evaluation's {repro0}")
+        if run_ba and not row["repro_ba"] <= row["our_repro"] + 1e-6:
+            raise SmokeFailure(f"CLI {label}: repro_ba {row['repro_ba']} > our_repro "
+                               f"{row['our_repro']}")
+    bad = [c for c, v in row.items() if isinstance(v, float) and not math.isfinite(v)]
+    if bad:
+        raise SmokeFailure(f"CLI {label}: non-finite metrics {bad}")
+
+    # the final evaluation's seconds
+    t_eval = by_kind["eval"][-1]
+    inside = [c for c in calls if t_eval[1] <= c[1] and c[2] <= t_eval[2]]
+    fwd = row["Inference time"]  # the forward between two synchronisations
+    prep = [c for c in inside if c[0] == "prepare"]
+    ba_s = sum(c[4].get("ba_time", 0.0) for c in prep)
+    prep_s = sum(c[2] - c[1] for c in prep) - ba_s
+    err_s = sum(c[2] - c[1] for c in inside if c[0] == "errors")
+
+    # the tree
+    sdir = exp / "OPTIMIZATION" / scene
+    need = [exp / "final_train_errors_OPTIMIZATION.csv",
+            exp / "final_train_errors_OPTIMIZATION.xlsx",
+            sdir / "models" / "final_model.npz", sdir / "predictions" / "final_predictions.npz",
+            exp / "code" / "exp.conf.json", exp / "code" / "gasfm_tpu_torch" / "main.py"]
+    if calibrated and explicit:
+        need.append(sdir / "plots" / "final_plots.html")
+    missing = [str(p.relative_to(exp)) for p in need if not p.exists()]
+    events = list((exp / "tb").glob("events.out.tfevents.*"))
+    if missing or len(events) != 1 or events[0].stat().st_size < 100:
+        raise SmokeFailure(f"CLI {label}: missing {missing}, event files {events}")
+    header = (exp / "final_train_errors_OPTIMIZATION.csv").read_text().splitlines()[0]
+    files = sorted((str(p.relative_to(exp)), p.stat().st_size) for p in exp.rglob("*")
+                   if p.is_file() and "code/gasfm_tpu_torch" not in str(p))
+    shutil.rmtree(exp / "code" / "gasfm_tpu_torch")
+    for rel, size in files:
+        if size > CLI_KEEP_BYTES:
+            os.remove(exp / rel)
+
+    summary = dict(conf=conf_name, external_params=list(ext), wall_s=wall, steps=len(steps),
+                   ms_per_step_3_to_n=ms_step, step_gaps_ms=gaps,
+                   launches_first_steps=first_steps, launches_first_forwards=first_forwards,
+                   forwards=len(by_kind["forward"]), evaluations=len(evals),
+                   final_eval_s=dict(forward=fwd, prepare_without_ba=prep_s, ba=ba_s,
+                                     compute_errors=err_s, whole=t_eval[2] - t_eval[1]),
+                   first_our_repro=first.loc(scene, "our_repro") if explicit else None,
+                   final_row=row, csv_columns=header.split(","), files=files)
+    record.setdefault("cli", {})[label] = summary
+    print(f"CLI {label} ({conf_name}, {' '.join(ext)}): {len(steps)} steps, "
+          f"{len(by_kind['forward'])} forwards in {len(evals)} evaluations, {wall:.1f} s; port "
+          f"kernels: warm-up step {sum(first_steps[0].values())}, recording "
+          f"{sum(first_steps[1].values())}, steps 3..{len(steps)} and forwards 3.."
+          f"{len(by_kind['forward'])} none (replays) ok; loop {ms_step:.3f} ms/step over steps "
+          f"3..{len(steps)} (median of {len(gaps)} host intervals); final evaluation "
+          f"{t_eval[2] - t_eval[1]:.2f} s: forward {fwd:.3f}, prepare_predictions without BA "
+          f"{prep_s:.2f}, BA {ba_s:.2f}, compute_errors {err_s:.2f}; our_repro "
+          + (f"{summary['first_our_repro']:.3f} -> {row['our_repro']:.3f}" if explicit else "n/a")
+          + (f", repro_ba {row['repro_ba']:.4g}" if explicit and run_ba else "")
+          + f"; tree complete ({len(files)} files, those over {CLI_KEEP_BYTES >> 20} MiB "
+          f"deleted after the check)")
+    return summary
+
+
+def cli_phase(counters, record):
+    """Phase 15: the port's CLI (``gasfm_tpu_torch.main.main``) in this
+    process on the flagships at full width on the dense scene's sizes and on
+    the four single-scene synthetic confs; its experiments under
+    ``chiprun_out/phase15/``."""
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "phase15"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for label, conf_name, ext in CLI_RUNS:
+        cli_run(label, conf_name, ext, counters, record, out_dir)
+        gc.collect()  # the run's session (its recordings refer back to it)
+        torch.cuda.empty_cache()
+    dense = record["captured"]["gasfm dense"]["ms_captured"]
+    cli = record["cli"]["flagship"]["ms_per_step_3_to_n"]
+    print(f"phase 15: the CLI loop's flagship step {cli:.3f} ms against phase 12b's captured "
+          f"dense step {dense:.3f} ms ({cli / dense:.3f}x), {nvidia_smi_line()}")
+    record["cli_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 15 (single-scene optimization through the CLI): {record['cli_phase_s']:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an "
@@ -3010,6 +3261,10 @@ def main() -> int:
     for name, (_, _, path) in KERNELS.items():
         if path == "gasfm" and paths["gasfm-proj"][name] == 0:
             raise SmokeFailure(f"{name} was never launched on the projective flagship's path")
+
+    # ---- phase 15: single-scene optimization through the port's CLI
+    # (train, evaluate, bundle adjustment, the experiment's tree)
+    cli_phase(counters, record)
 
     # ---- phase 13: the record
     kernels = []

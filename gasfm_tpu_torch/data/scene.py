@@ -1,10 +1,11 @@
 """Host-side scene container (numpy) and its conversion to a device scene.
 
-The subset of the JAX package's data/scene.py that the port's slices need:
-the (2m, n) measurement matrix, per-view normalization matrices Ns
-(= inv(K) when calibrated), GT cameras, the validity mask and the sample
-validity test, and optional GT depths from host DLT triangulation in
-float64 with the JAX package's (and the reference's, SceneData.py:57-132)
+The JAX package's data/scene.py: the (2m, n) measurement matrix, per-view
+normalization matrices Ns (= inv(K) when calibrated) and their inverses'
+transposes ``Ns_invT`` (float32, as the metrics read them), GT cameras, the
+validity mask, the sample validity test and the data statistics of the
+final evaluation's rows, and optional GT depths from host DLT triangulation
+in float64 with the JAX package's (and the reference's, SceneData.py:57-132)
 invariant asserts.
 """
 
@@ -15,7 +16,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from gasfm_tpu_torch.geometry.np_geo import get_M_valid_points, normalize_M
+from gasfm_tpu_torch.geometry.np_geo import M_to_xs, get_M_valid_points, normalize_M
 from gasfm_tpu_torch.geometry.triangulation import n_view_triangulation
 from gasfm_tpu_torch.utils.constants import MIN_N_POINTS_PER_VIEW, MIN_N_VIEWS_PER_POINT
 
@@ -41,6 +42,8 @@ class SceneData:
         assert self.M.shape[0] == 2 * n_images
         self.valid_pts = get_M_valid_points(self.M)  # (m, n)
         self.norm_M = normalize_M(self.M, self.Ns, self.valid_pts)  # (m, n, 2)
+        self.Ns_invT = np.transpose(
+            np.linalg.inv(self.Ns.astype(np.float64)).astype(np.float32), (0, 2, 1))
         self.depths = None  # (m, n) GT depths with store_depth_targets
         if store_depth_targets:
             self.depths = (np.asarray(depths, dtype=np.float32) if depths is not None
@@ -55,12 +58,36 @@ class SceneData:
     def num_points(self) -> int:
         return self.M.shape[1]
 
+    @property
+    def pts_per_cam(self) -> np.ndarray:
+        return self.valid_pts.sum(axis=1)
+
+    @property
+    def cam_per_pts(self) -> np.ndarray:
+        return self.valid_pts.sum(axis=0)
+
     def is_valid_sample(self) -> bool:
         """Every view sees at least MIN_N_POINTS_PER_VIEW points and every
         point lies in at least MIN_N_VIEWS_PER_POINT views (the JAX
         package's, reference dataset_utils.py:12-14)."""
-        return bool(self.valid_pts.sum(axis=1).min() >= MIN_N_POINTS_PER_VIEW
-                    and self.valid_pts.sum(axis=0).min() >= MIN_N_VIEWS_PER_POINT)
+        return bool(self.pts_per_cam.min() >= MIN_N_POINTS_PER_VIEW
+                    and self.cam_per_pts.min() >= MIN_N_VIEWS_PER_POINT)
+
+    def get_data_statistics(self) -> dict:
+        """The scene's statistics that the best-model evaluation adds to its
+        row (reference dataset_utils.py:49-55)."""
+        valid_stat = self.valid_pts.sum(axis=0).astype(np.float64)
+        return {
+            "Max_2d_pt": float(self.M.max()),
+            "Num_2d_pts": int(self.valid_pts.sum()),
+            "n_pts": int(self.M.shape[-1]),
+            "Cameras_per_pts_mean": float(valid_stat.mean()),
+            "Cameras_per_pts_std": float(valid_stat.std(ddof=1)),
+            "Num of cameras": int(self.y.shape[0]),
+        }
+
+    def xs(self) -> np.ndarray:
+        return M_to_xs(self.M)
 
     def _triangulated_depths(self) -> np.ndarray:
         """(m, n) depths of the GT points, triangulated from the GT cameras in

@@ -1,9 +1,14 @@
-"""Rotation parametrizations in PyTorch (the torch half of the JAX package's
-geometry/rotations.py): pytorch3d ``quaternion_to_matrix`` and
-``rotation_6d_to_matrix`` semantics, and the SVD projection to SO(3)."""
+"""Rotation parametrizations: PyTorch (the model's heads) and NumPy (bundle
+adjustment's packing, the evaluation's rotation errors).
+
+The torch half of the JAX package's geometry/rotations.py (pytorch3d
+``quaternion_to_matrix`` and ``rotation_6d_to_matrix`` semantics, the SVD
+projection to SO(3)) and a copy of its NumPy half (Rodrigues vectors through
+quaternions, the geodesic angle between rotations)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -78,3 +83,92 @@ def matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
     q = torch.take_along_dim(cands, best[..., None, None], dim=-2)[..., 0, :]
     q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)  # w >= 0 (sign(0) -> +)
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# NumPy (host): bundle adjustment's packing, the evaluation
+# ---------------------------------------------------------------------------
+
+
+def axis_angle_to_matrix_np(aa: np.ndarray) -> np.ndarray:
+    aa = np.asarray(aa, dtype=np.float64)
+    theta = np.linalg.norm(aa, axis=-1, keepdims=True)
+    small = (theta < 1e-12)[..., 0]
+    axis = aa / np.where(theta < 1e-12, 1.0, theta)
+    x, y, z = axis[..., 0], axis[..., 1], axis[..., 2]
+    zero = np.zeros_like(x)
+    K = np.stack([zero, -z, y, z, zero, -x, -y, x, zero], axis=-1).reshape(aa.shape[:-1] + (3, 3))
+    t = theta[..., None]
+    eye = np.broadcast_to(np.eye(3), K.shape).copy()
+    R = eye + np.sin(t) * K + (1.0 - np.cos(t)) * (K @ K)
+    R[small] = eye[small]
+    return R
+
+
+def _matrix_to_quaternion_np(R: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) -> (..., 4) wxyz unit quaternions (branch-free, robust
+    at all angles including theta ~ pi)."""
+    m00, m11, m22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    qw = np.sqrt(np.maximum(1.0 + m00 + m11 + m22, 0.0)) / 2.0
+    qx = np.sqrt(np.maximum(1.0 + m00 - m11 - m22, 0.0)) / 2.0
+    qy = np.sqrt(np.maximum(1.0 - m00 + m11 - m22, 0.0)) / 2.0
+    qz = np.sqrt(np.maximum(1.0 - m00 - m11 + m22, 0.0)) / 2.0
+    q = np.stack([qw, qx, qy, qz], axis=-1)
+    # Refine signs/values using the component of largest magnitude (stable).
+    # Candidate reconstructions from each pivot:
+    out = np.empty_like(q)
+    pivot = np.argmax(q, axis=-1)
+    it = np.ndindex(*q.shape[:-1])
+    for idx in it:
+        p = pivot[idx]
+        Ri = R[idx]
+        if p == 0:
+            w = q[idx][0]
+            out[idx] = [w, (Ri[2, 1] - Ri[1, 2]) / (4 * w), (Ri[0, 2] - Ri[2, 0]) / (4 * w),
+                        (Ri[1, 0] - Ri[0, 1]) / (4 * w)]
+        elif p == 1:
+            x = q[idx][1]
+            out[idx] = [(Ri[2, 1] - Ri[1, 2]) / (4 * x), x, (Ri[0, 1] + Ri[1, 0]) / (4 * x),
+                        (Ri[0, 2] + Ri[2, 0]) / (4 * x)]
+        elif p == 2:
+            y = q[idx][2]
+            out[idx] = [(Ri[0, 2] - Ri[2, 0]) / (4 * y), (Ri[0, 1] + Ri[1, 0]) / (4 * y), y,
+                        (Ri[1, 2] + Ri[2, 1]) / (4 * y)]
+        else:
+            z = q[idx][3]
+            out[idx] = [(Ri[1, 0] - Ri[0, 1]) / (4 * z), (Ri[0, 2] + Ri[2, 0]) / (4 * z),
+                        (Ri[1, 2] + Ri[2, 1]) / (4 * z), z]
+    out /= np.linalg.norm(out, axis=-1, keepdims=True)
+    return out
+
+
+def matrix_to_axis_angle_np(R: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) rotations -> (..., 3) axis-angle (Rodrigues vectors).
+
+    Equivalent to cv2.Rodrigues applied batchwise (reference:
+    code/utils/ceres_utils.py:25). Goes through the quaternion
+    representation, which is uniformly accurate — including theta ~ pi,
+    where the classic sin-based formula degrades (look-at cameras on a ring
+    commonly have such rotations).
+    """
+    R = np.asarray(R, dtype=np.float64)
+    q = _matrix_to_quaternion_np(R)
+    q = np.where(q[..., :1] < 0, -q, q)  # hemisphere with w >= 0
+    w = np.clip(q[..., 0], -1.0, 1.0)
+    xyz = q[..., 1:]
+    norm = np.linalg.norm(xyz, axis=-1)
+    theta = 2.0 * np.arctan2(norm, w)
+    small = norm < 1e-12
+    axis = xyz / np.where(small, 1.0, norm)[..., None]
+    return axis * theta[..., None]
+
+
+def compare_rotations_np(R1: np.ndarray, R2: np.ndarray) -> np.ndarray:
+    """Geodesic angle in degrees between rotation batches.
+
+    Parity: reference code/utils/geo_utils.py:14-22.
+    """
+    cos_err = (R1 @ np.transpose(R2, (0, 2, 1)))[:, np.arange(3), np.arange(3)]
+    cos_err = (cos_err.sum(axis=-1) - 1.0) / 2.0
+    cos_err = np.clip(cos_err, -1.0, 1.0)
+    return np.arccos(cos_err) * 180.0 / np.pi

@@ -1,19 +1,27 @@
-"""Experiment set-up from a conf: ``init_exp`` and ``init_model``.
+"""The port's CLI: ``single-scene-optim`` on the card (or the CPU).
 
-Counterpart of ``init_exp`` and ``init_model`` in the JAX package's main.py
-(:75-107, :110-131; reference main.py:74-190). The CLI itself
-(``parse_args``, ``main``: the ``single-scene-optim`` and
-``multi-scene-learning`` subcommands) and the experiment directory's
-artifacts are not ported yet.
+Counterpart of the JAX package's main.py (reference code/main.py): the same
+subcommands, aliases and flags (``parse_args``), the conf load with
+``--external-params`` merged and checked (``init_exp``), the seeded model
+with optional pretrained weights (``init_model``), the experiment directory
+and ``main``. One flag is the port's own: ``--device`` (default ``cuda``;
+without a GPU ``main`` raises unless given ``--device cpu``).
+``multi-scene-learning`` parses and raises ``NotImplementedError`` until the
+multi-scene slice (slice 5). ``--accelerator-not-required`` is accepted and
+ignored, as in the JAX CLI. The common flags may come before or after the
+subcommand::
 
-A session from a shipped conf, on the card::
+    python -m gasfm_tpu_torch.main single-scene-optim --conf gasfm/optim_euc_gasfm.conf
+    python -m gasfm_tpu_torch.main --conf synth/optim_synth_gasfm.conf single-scene-optim \
+        --device cpu --external-params train.n_epochs=20 eval.eval_interval=10
 
-    conf, rng = init_exp(argparse.Namespace(conf="gasfm/optim_euc_gasfm.conf",
-                                            external_params=[], scene=None,
-                                            exp_dir="exp", scene_name_exp_subdir=False))
-    model, n_params = init_model(conf)
-    session = TrainingSession.from_conf(conf, model)
-    scene = create_scene_data(conf).to_scene_graph()
+It writes the JAX CLI's tree under ``$GASFM_RESULTS_PATH`` (default
+``results/``) / ``exp_dir``: ``code/`` (the package's source and
+``exp.conf.json``), ``tb/events.out.tfevents.*``,
+``OPTIMIZATION/<scene>/models/final_model.npz`` (the JAX package's npz
+layout), ``.../predictions/final_predictions.npz``,
+``.../plots/final_plots.html`` (calibrated scenes) and
+``final_train_errors_OPTIMIZATION.csv`` / ``.xlsx``.
 
 Conf keys the port reads and does not act on: ``compile.*`` (the edge chunk,
 ``stream_dtype``, the bucket multiples and growth, ``kernel_precision``,
@@ -22,19 +30,78 @@ TPU layout and memory devices. Options the port has not ported yet raise
 ``NotImplementedError`` where they are read, rather than run something
 other than the conf asks for: bf16 parameters or Adam moments
 (``train.param_dtype``, ``train.adam_mu_dtype``, ``train.adam_nu_dtype``;
-``train.state.optim_from_conf``) and a ``parallel.mesh_shape`` of more than
-one device (``TrainingSession.from_conf``).
+``train.state.optim_from_conf``), a ``parallel.mesh_shape`` of more than
+one device (``TrainingSession.from_conf``), and the multi-scene slice's
+options (``train.loop.train``).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import random
+import shutil
 from datetime import datetime
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def _common_flags(p: argparse.ArgumentParser, top: bool) -> None:
+    """The flags every subcommand takes, on the top-level parser (``top``,
+    with their defaults) and on each subcommand's (default
+    ``argparse.SUPPRESS``, so that a flag given before the subcommand is
+    not reset after it)."""
+    def default(value):
+        return value if top else argparse.SUPPRESS
+
+    p.add_argument("--conf", type=str, default=default(None))
+    p.add_argument("--exp-dir", "--exp_dir", type=str, default=default(None))
+    p.add_argument("--overwrite-exp", "--overwrite_exp", action="store_true",
+                   default=default(False))
+    p.add_argument("--external-params", "--external_params", type=str, nargs="*",
+                   default=default([]))
+    p.add_argument("--pretrained-model-path", "--pretrained_model_path", type=str,
+                   default=default(None))
+    # the reference's --gpu-not-required (main.py:50): accepted and ignored
+    p.add_argument("--accelerator-not-required", "--gpu-not-required", "--gpu_not_required",
+                   action="store_true", default=default(False))
+    p.add_argument("--count-model-params-and-die", "--count_model_params_and_die",
+                   action="store_true", default=default(False))
+    p.add_argument("--device", type=str, default=default("cuda"),
+                   help="the device to run on: cuda (default) or cpu")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """The JAX CLI's arguments (its main.py:26-71) and ``--device``."""
+    parser = argparse.ArgumentParser(prog="python -m gasfm_tpu_torch.main")
+    _common_flags(parser, top=True)
+    subparsers = parser.add_subparsers(help="Mode-specific arguments.", dest="mode")
+    subparsers.required = True
+
+    sso = subparsers.add_parser("single-scene-optim", aliases=["single_scene_optim"])
+    sso.set_defaults(mode="single_scene_optim")
+    sso.add_argument("--scene", type=str, default=None)
+    sso.add_argument("--scene-name-exp-subdir", "--scene_name_exp_subdir", action="store_true",
+                     default=False)
+
+    msl = subparsers.add_parser("multi-scene-learning", aliases=["multi_scene_learning"])
+    msl.set_defaults(mode="multi_scene_learning", scene=None, scene_name_exp_subdir=None)
+    msl.add_argument("--old-exp-dir", "--old_exp_dir", type=str, default=None)
+    msl.add_argument("--pretrained-model-filename", "--pretrained_model_filename", type=str,
+                     default=None)
+    for flag in ("skip-training", "skip-fine-tuning", "skip-fine-tuning-from-best",
+                 "skip-fine-tuning-from-final", "skip-short-optim"):
+        msl.add_argument(f"--{flag}", f"--{flag.replace('-', '_')}", action="store_true",
+                         default=False)
+
+    for p in (sso, msl):
+        _common_flags(p, top=False)
+    args = parser.parse_args(argv)
+    if args.conf is None:
+        parser.error("the following arguments are required: --conf")
+    return args
 
 
 def init_exp(args):
@@ -81,3 +148,35 @@ def init_model(conf, pretrained_model_path: Optional[str] = None
     if pretrained_model_path is not None:
         load_params(pretrained_model_path, model)
     return model, n_params
+
+
+def main(argv=None) -> int:
+    """Run the CLI (see the module docstring). Returns 0."""
+    from gasfm_tpu_torch.utils.device import resolve_device
+
+    args = parse_args(argv)
+    if args.mode == "multi_scene_learning":
+        raise NotImplementedError("multi-scene-learning is not ported yet (the multi-scene "
+                                  "learning slice, slice 5)")
+    device = resolve_device(args.device)
+    conf, rng = init_exp(args)
+
+    from gasfm_tpu_torch.experiments import train_model_single_scene
+    from gasfm_tpu_torch.utils.observability import log_code
+    from gasfm_tpu_torch.utils.paths import path_to_exp
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    model, _ = init_model(conf, args.pretrained_model_path)
+    if args.count_model_params_and_die:
+        return 0
+    if args.overwrite_exp:
+        exp_path = path_to_exp(conf, create=False)
+        if os.path.exists(exp_path):
+            shutil.rmtree(exp_path)
+    log_code(conf)
+    train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -237,16 +237,18 @@ def _named_params(session) -> List:
     return [(k, p) for k, p in session.model.named_parameters() if p.requires_grad]
 
 
-def save_checkpoint(ckpt_dir: str, session, step: int, keep: int = 3) -> str:
+def save_checkpoint(ckpt_dir: str, session, step: int, keep: int = 3,
+                    meta: Optional[Dict[str, int]] = None) -> str:
     """Write the session's training state as ``<ckpt_dir>/step_<step>.pt``
     (``torch.save`` of tensors on the CPU): the parameters, Adam's moments
-    and step count, the schedule's count and ``step`` (the caller's: an
-    epoch or an update count). Keeps the newest ``keep`` checkpoints.
-    Returns the file's path."""
+    and step count, the schedule's count, ``step`` (the caller's: an
+    epoch or an update count) and the caller's integer counters ``meta``.
+    Keeps the newest ``keep`` checkpoints. Returns the file's path."""
     os.makedirs(ckpt_dir, exist_ok=True)
     adam = session.optimizer.adam.state
     state = {
         "step": int(step),
+        "meta": {k: int(v) for k, v in (meta or {}).items()},
         "schedule_count": int(session.optimizer.schedule_count),
         "params": {k: p.detach().cpu() for k, p in _named_params(session)},
         "adam": {k: {n: t.detach().cpu() for n, t in adam[p].items()}
@@ -262,13 +264,15 @@ def save_checkpoint(ckpt_dir: str, session, step: int, keep: int = 3) -> str:
 
 
 @torch.no_grad()
-def restore_checkpoint(ckpt_dir: str, session, step: Optional[int] = None) -> Optional[int]:
+def restore_checkpoint(ckpt_dir: str, session, step: Optional[int] = None,
+                       meta: Optional[Dict[str, int]] = None) -> Optional[int]:
     """Restore the checkpoint of ``step`` (the newest by default) into
     ``session``, copying into its existing tensors (the parameters, Adam's
     moments and step count; Adam's state is made first where the session has
     taken no step, zeroed where the checkpoint's had taken none), so a CUDA
-    graph recorded on them stays valid; and the schedule's count. Returns the checkpoint's step, or None where
-    ``ckpt_dir`` holds none."""
+    graph recorded on them stays valid; and the schedule's count. The
+    checkpoint's counters are copied into ``meta`` where one is given.
+    Returns the checkpoint's step, or None where ``ckpt_dir`` holds none."""
     found = _checkpoints(ckpt_dir)
     if not found:
         return None
@@ -290,4 +294,6 @@ def restore_checkpoint(ckpt_dir: str, session, step: Optional[int] = None) -> Op
         for n, t in saved.items():
             adam[p][n].copy_(t)
     session.optimizer.schedule_count = int(state["schedule_count"])
+    if meta is not None:
+        meta.update(state.get("meta", {}))
     return int(state["step"])

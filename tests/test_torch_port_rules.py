@@ -1,7 +1,9 @@
 """Rules of the PyTorch/CUDA port (gasfm_tpu_torch).
 
 - It stands alone: importing every module of the package, and chip_smoke.py
-  as a module, loads neither JAX nor any module of the JAX package.
+  as a module, loads neither JAX nor any module of the JAX package, nor
+  pandas, tensorboard or matplotlib (none of them is on the H100 machine);
+  its bundle-adjustment solver is the JAX package's source, byte for byte.
 - Its entry points run on CUDA unless told otherwise, and raise — never
   fall back to the CPU quietly — when no GPU is present.
 """
@@ -31,7 +33,9 @@ assert len(names) >= 20, names
 for new in ("ops.kernels.segment_kernels", "ops.kernels.fused_update", "ops.edge_update",
             "models.set_of_set", "ops.kernels.fused_attn", "ops.kernels.fused_proj_update",
             "geometry.triangulation", "tools.bench", "config.hocon", "config", "data.loaders",
-            "main"):
+            "main", "data.dataset", "geometry.alignment", "ba.drivers", "ba.native_lib",
+            "ba.packing", "experiments.single_scene", "utils.observability", "utils.tables",
+            "utils.events", "utils.paths", "utils.phases", "utils.plotting", "utils.xlsx"):
     assert "gasfm_tpu_torch." + new in names, new
 """
 
@@ -42,6 +46,32 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+NO_HOST_LIBRARIES = r"""
+import importlib, importlib.util, pkgutil, sys
+import gasfm_tpu_torch
+for m in pkgutil.walk_packages(gasfm_tpu_torch.__path__, "gasfm_tpu_torch."):
+    importlib.import_module(m.name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+from gasfm_tpu_torch.main import parse_args
+parse_args(["single-scene-optim", "--conf", "synth/optim_synth_gasfm.conf"])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("pandas", "tensorboard", "matplotlib", "tensorflow"))
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_pandas_tensorboard_or_matplotlib():
+    proc = subprocess.run([sys.executable, "-c", NO_HOST_LIBRARIES], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_ba_solver_is_the_jax_packages_source_byte_for_byte():
+    port = REPO / "gasfm_tpu_torch" / "ba" / "native" / "ba_solver.cpp"
+    assert port.read_bytes() == (REPO / "gasfm_tpu" / "ba" / "native" / "ba_solver.cpp").read_bytes()
+
+
 def _tiny_model():
     from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 
@@ -49,19 +79,24 @@ def _tiny_model():
                            n_feat_view=8, n_feat_global=8)
 
 
-@pytest.mark.parametrize("entry", ["session", "graph"])
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry):
+@pytest.mark.parametrize("entry", ["session", "graph", "cli"])
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry, tmp_path):
     from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
     from gasfm_tpu_torch.losses import ESFMLoss
+    from gasfm_tpu_torch.main import main
     from gasfm_tpu_torch.train.loop import TrainingSession
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
     data = generate_synthetic_scene(n_views=6, n_points=60, seed=0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "session":
             TrainingSession(_tiny_model(), ESFMLoss())
-        else:
+        elif entry == "graph":
             data.to_scene_graph()
+        else:
+            main(["single-scene-optim", "--conf", "synth/optim_synth_dpesfm.conf"])
+    assert not list(tmp_path.iterdir())  # the CLI raised before writing anything
     # Asking for the CPU explicitly works.
     session = TrainingSession(_tiny_model(), ESFMLoss(), device="cpu")
     pred = session.forward(data.to_scene_graph(device="cpu"))

@@ -227,6 +227,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    evaluation between them) beside phase 12b's captured dense step, and the
    final evaluation's seconds: forward, ``prepare_predictions`` without BA,
    BA, ``compute_errors``.
+16. (after phase 15) Multi-scene learning through the port's CLI,
+   ``main(["multi-scene-learning", ...])`` in this process (``MSL_RUNS``):
+   GASFM (``gasfm/learning_euc_rhaug-15-20_gasfm.conf``, 12 layers, full
+   width) on the dense scene's sizes, its lists cut to 3 training, 1
+   validation and 1 test scene, 20 epochs (evaluations at init, after epochs
+   1, 10 and 20), 4 fine-tuning epochs, no BA, the conf's 8 loader workers;
+   DPESFM with outliers (``dpesfm/learning_euc_rhaug-15-20_outliers0.1_
+   dpesfm.conf``) in batches of 4 on 64-view scenes; the synthetic conf as
+   shipped. Each experiment goes to ``chiprun_out/phase16/<run>/``, its
+   output to ``<run>.log``. Checks: every sampled step launched exactly the
+   port kernels of its path (``per_step_launches``, ``dpesfm_step_launches``,
+   ``dual_unfused_step_launches``, with our_repro's gathers where the fused
+   step runs) and made no recording; after training the session holds
+   recordings of the fixed evaluation scenes only; the device memory
+   allocated after epochs 2..N flat within one subscene's bytes; every
+   fixed evaluation scene's forward launched no port kernel from its third
+   call on; a batch of four updated with the sum of its samples' gradients
+   to float32 rounding; training losses finite; the best validation
+   ``our_repro`` no worse than the first evaluation's; the tree complete
+   (training, the final and best evaluations, fine-tuning from both weights,
+   short optimization). Printed: ms per sampled step, the loader's wait per
+   batch, host ms per sample, the subscenes' sizes, the profiler window's
+   device ms and busy share, memory per epoch.
 13. A ``kernels`` JSON line (all seventeen kernels, each with its per-call
    ``ms`` and its burst ``burst_ms``; launches from the training path that
    runs each: GASFM's merged path for the first eight,
@@ -267,13 +290,16 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -2213,6 +2239,15 @@ CAPTURE_REPLAYS = 200  # further replays after the compared steps
 CAPTURE_CHECK_EVERY = 50  # replays between checks of the step's loss against a forward
 
 
+def session_programs(session):
+    """{(kind, id(scene graph), or None for the session's own update
+    inputs): the recording} of every recording ``session`` holds."""
+    out = {(kind, id(c.ref())): prog for c in session._cache.calls.values()
+           for kind, prog in c.programs.items()}
+    out.update({(kind, None): prog for kind, prog in session._own.programs.items()})
+    return out
+
+
 @contextlib.contextmanager
 def operand_copies():
     """Counts, by operand name, the kernel operands that the wrappers'
@@ -2332,12 +2367,11 @@ def captured_phase(dev, label, model, loss_kw, optim, scene, counters, per_step,
         raise SmokeFailure(f"captured {label}: steps {bad} captured vs eager out of the {rule} "
                            f"rule: {[st[:3] + st[5:] for st in steps]}")
     def graphs():  # the step's recordings (the forward's, taken below, apart)
-        return {k: p.graph for k, p in cap._programs.items()
-                if p.graph is not None and k[0] != "forward"}
+        return {k: p.graph for k, p in session_programs(cap).items() if k[0] != "forward"}
 
     recorded = graphs()
     if {k[0] for k in recorded} != ({"loss_and_grads", "update"} if depth else {"fused_step"}):
-        raise SmokeFailure(f"captured {label}: recorded programs {list(cap._programs)}")
+        raise SmokeFailure(f"captured {label}: recorded programs {list(session_programs(cap))}")
     print(f"captured {label}: {1 + TRAIN_STEPS} steps captured (warm-up, recording, replays) "
           f"against eager from the same weights: two eager runs "
           + ("agree bitwise, and so do captured and eager" if eager_bitwise else
@@ -2621,8 +2655,8 @@ def recorded_forward_check(dev, label, model, loss_kw, optim, scene, counters, r
     if bad or not all(torch.equal(a[x], b[x]) for a, b in kept for x in a):
         raise SmokeFailure(f"recorded forward {label}: requests {bad} out of the {rule} rule "
                            f"(max |err| {[r[0] for r in rows]}), or a kept prediction changed")
-    prog = cap._programs.get(("forward", id(scene)))
-    if prog is None or prog.graph is None:
+    prog = session_programs(cap).get(("forward", id(scene)))
+    if prog is None:
         raise SmokeFailure(f"recorded forward {label}: no recording")
 
     # the forward after the step's warm-up, recording and a replay
@@ -2998,6 +3032,502 @@ def cli_phase(counters, record):
     print(f"phase 15 (single-scene optimization through the CLI): {record['cli_phase_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: multi-scene learning through the port's CLI
+# ---------------------------------------------------------------------------
+
+
+def dual_unfused_step_launches(L, backward):
+    """Exact kernel launches of one forward + loss (and, with ``backward``,
+    of its backward) through an L-layer GASFM model off the merged path on
+    a scene of at most 1024 cameras (a width other than 32, as the
+    synthetic confs' 16): per layer the frontend (with its dual core) and
+    the edge combine, the final aggregation's dual core, the loss terms
+    once; the backward the same."""
+    fwd = {"fused_frontend": L, "fused_dual_attend": L + 1, "fused_edge_combine": L,
+           "fused_esfm_terms": 1}
+    bwd = {"fused_frontend_bwd": L, "fused_dual_attend_bwd": L + 1,
+           "fused_edge_combine_bwd": L, "fused_esfm_terms_bwd": 1}
+    return {**fwd, **{k: v if backward else 0 for k, v in bwd.items()}}
+
+
+def with_repro(per_step):
+    """A fused step's launches: the forward, loss and backward's, and
+    our_repro's gathers."""
+    out = dict(per_step)
+    for k, v in REPRO_LAUNCHES.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+# The learning confs' lists cut to 3 training scenes (4 for DPESFM's batches
+# of 4), 1 validation and 1 test scene (synthetic scenes named after them)
+LISTS = ('dataset.validation_set=["GoldenStatueSomewhereInHongKong"]',
+         'dataset.test_set=["AlcatrazCourtyard"]')
+TRAIN3 = 'dataset.train_set=["EcoleSuperiorDeGuerre","DoorLund","ParkGateClermontFerrand"]'
+TRAIN4 = ('dataset.train_set=["EcoleSuperiorDeGuerre","DoorLund","ParkGateClermontFerrand",'
+          '"StatueOfLiberty"]')
+# (label, conf, external params, the launches of a sampled step given the
+# session's model): GASFM at full width on the dense scene's sizes, 20
+# epochs (2,500 warm-up steps cut to 3), evaluations at init and after
+# epochs 1, 10 and 20, 4 fine-tuning epochs, no BA (phase 15 runs it), no
+# weight file and prediction dump at each phase's first evaluation (580 MB a
+# file); a profiler window over epochs 6-7 (no evaluation inside; past the
+# fine-tuning phases' 4 epochs, which take the same keys). DPESFM with
+# outliers in batches of 4 on 64-view scenes, 6 epochs, a profiler window over
+# epoch 4. The synthetic conf as shipped.
+MSL_RUNS = (
+    ("gasfm", "gasfm/learning_euc_rhaug-15-20_gasfm.conf",
+     DENSE_SYNTH + LISTS + (TRAIN3, "train.n_epochs=20", "eval.eval_interval=10",
+                            "train.lr_schedule.lr_warmup_n_steps=3", "train.finetune_n_epochs=4",
+                            "ba.run_ba=false", "train.finetune_dump_model_interval=null",
+                            "train.finetune_dump_and_plot_pred_interval=null",
+                            "observability.profile_start_epoch=5",
+                            "observability.profile_n_epochs=2"),
+     lambda m: with_repro(per_step_launches(len(m.equivariant_blocks), backward=True))),
+    ("dpesfm-outliers", "dpesfm/learning_euc_rhaug-15-20_outliers0.1_dpesfm.conf",
+     ("dataset.synthetic.enabled=true", "dataset.synthetic.n_views=64",
+      "dataset.synthetic.n_points=2048", "dataset.synthetic.visibility=0.3") + LISTS
+     + (TRAIN4, "train.n_epochs=6", "eval.eval_interval=3", "train.finetune_n_epochs=2",
+        "ba.run_ba=false", "observability.profile_start_epoch=3",
+        "observability.profile_n_epochs=1"),
+     lambda m: dpesfm_step_launches(m, backward=True)),
+    ("synth", "synth/learning_synth_gasfm.conf", (),
+     lambda m: with_repro(dual_unfused_step_launches(len(m.equivariant_blocks), backward=True))),
+)
+PROFILED = re.compile(r"\[profiler\] epochs (\d+)\.\.(\d+): wall ([\d.]+) ms, device kernel time "
+                      r"([\d.]+) ms in (\d+) kernels, busy share ([\d.]+)")
+
+
+def scene_bytes(scene):
+    """Device bytes of a scene graph: its tensors and its splits' tables."""
+    g = scene.graph
+    tensors = [getattr(g, f.name) for f in dataclasses.fields(g)]
+    tensors += [c.table for side in ("_pt_chunks", "_cam_chunks")
+                for c in g.__dict__.get(side, {}).values()]
+    tensors += [scene.Ns, scene.Ns_inv, scene.Ps_gt]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@contextlib.contextmanager
+def msl_probe(counters):
+    """What a multi-scene CLI run did: every step, update and forward call
+    (its kind, the phase it ran in, host start and end, the port kernels it
+    launched, the recordings made inside it; for a forward whether its
+    scene had a recording before and which fixed evaluation scene it was;
+    for a sampled step its scene's sizes and bytes), the device memory
+    allocated after each training epoch, the loader's wait per batch, the
+    host seconds of each outlier injection and graph host half, the
+    recordings the session holds after training, the train stats, and for
+    a batch of several samples whether the update took the sum of their
+    gradients (one batch, after the first epoch)."""
+    from gasfm_tpu_torch import experiments
+    from gasfm_tpu_torch.data import outliers, scene as scene_mod
+    from gasfm_tpu_torch.train import loop
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    st = dict(calls=[], memory=[], waits=[], host=collections.defaultdict(list), phase=None,
+              fixed=[], recordings=None, stats=None, made=0, epochs=0, samples=None,
+              batch_check=None, evals=[], phases=[], epoch_s=[], sampled=0, syncs=[])
+    patched = []
+
+    def patch(owner, name, make):
+        fn = getattr(owner, name)
+        patched.append((owner, name, fn))
+        setattr(owner, name, make(fn))
+
+    def fixed_label(session, scene):
+        for d in st["fixed"]:
+            if session._cache is not None and session._cache.graphs.get(id(d)) is scene:
+                return d.scene_name
+        return None
+
+    def session_call(kind):
+        def make(fn):
+            def wrapped(self, scene, *args, **kwargs):
+                training = st["phase"] == Phases.TRAINING
+                had = kind == "forward" and any(k == "forward" and s is scene
+                                                for k, s in self.recordings())
+                label = fixed_label(self, scene) if kind == "forward" else None
+                before = {k: c.launches for k, c in counters.items()}
+                made = st["made"]
+                # the second to fourth sampled steps under CUDA's sync
+                # debug mode: what in them waits for the device
+                watch = training and kind != "forward" and 1 <= st["sampled"] <= 3
+                with warnings.catch_warnings(record=True) as caught:
+                    if watch:
+                        warnings.simplefilter("always")
+                        torch.cuda.set_sync_debug_mode("warn")
+                    t0 = time.perf_counter()
+                    try:
+                        out = fn(self, scene, *args, **kwargs)
+                    finally:
+                        t1 = time.perf_counter()
+                        if watch:
+                            torch.cuda.set_sync_debug_mode("default")
+                if watch:
+                    st["syncs"].append([str(w.message).splitlines()[0][:160] for w in caught
+                                        if "called a synchronizing CUDA operation"
+                                        in str(w.message)])
+                if training and kind != "forward":
+                    st["sampled"] += 1
+                launched = {k: c.launches - before[k] for k, c in counters.items()
+                            if c.launches != before[k]}
+                rec = dict(kind=kind, phase=st["phase"], t0=t0, t1=t1, launched=launched,
+                           recorded=st["made"] - made, session=id(self), scene=id(scene),
+                           had=had, fixed=label, model=self.model)
+                if kind != "forward" and training:
+                    g = scene.graph
+                    rec.update(views=g.num_cams, points=g.num_pts, edges=g.num_edges,
+                               bytes=scene_bytes(scene), epoch=st["epochs"])
+                    if kind == "loss_and_grads" and st["samples"] is not None:
+                        st["samples"].append([t.detach().clone() for t in out[2]])
+                st["calls"].append(rec)
+                return out
+            return wrapped
+        return make
+
+    def update(fn):
+        def wrapped(self, grads):
+            samples = st["samples"]
+            if samples is not None and len(samples) > 1:
+                exact = [sum(s[i].double() for s in samples) for i in range(len(grads))]
+                bound = [sum(s[i].double().abs() for s in samples) * (len(samples) - 1) * 2 ** -24
+                         for i in range(len(grads))]
+                worst = max(float(((g.double() - e).abs() - b).max())
+                            for g, e, b in zip(grads, exact, bound))
+                st["batch_check"] = dict(samples=len(samples), tensors=len(grads),
+                                         worst_excess=worst, ok=worst <= 0.0)
+                st["samples"] = None
+            return fn(self, grads)
+        return wrapped
+
+    def program_init(fn):
+        def wrapped(self, *args, **kwargs):
+            st["made"] += 1
+            return fn(self, *args, **kwargs)
+        return wrapped
+
+    def train(fn):
+        def wrapped(conf, train_loader, session, phase, *args, **kwargs):
+            st["phase"] = phase
+            t0 = time.perf_counter()
+            try:
+                out = fn(conf, train_loader, session, phase, *args, **kwargs)
+            finally:
+                st["phase"] = None
+                st["phases"].append((phase.name, t0, time.perf_counter()))
+            if phase == Phases.TRAINING:
+                st["stats"] = out[1]
+            return out
+        return wrapped
+
+    def epoch_train(fn):
+        def wrapped(conf, session, *args, **kwargs):
+            training = st["phase"] == Phases.TRAINING
+            if training and st["epochs"] == 1 and st["batch_check"] is None:
+                st["samples"] = []  # the second epoch's first batch of several
+            t0 = time.perf_counter()
+            out = fn(conf, session, *args, **kwargs)
+            if training:
+                st["epoch_s"].append(time.perf_counter() - t0)
+                st["samples"] = None
+                st["epochs"] += 1
+                st["memory"].append(torch.cuda.memory_allocated())
+                bad = [v for v in out[2] if not math.isfinite(v)]
+                if bad:
+                    raise SmokeFailure(f"non-finite training losses {bad[:5]}")
+            return out
+        return wrapped
+
+    def prepare(fn):
+        def wrapped(*args, **kwargs):
+            gen = fn(*args, **kwargs)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    return
+                if st["phase"] == Phases.TRAINING:
+                    st["waits"].append(time.perf_counter() - t0)
+                yield item
+        return wrapped
+
+    def timed(key):
+        def make(fn):
+            def wrapped(*args, **kwargs):
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                st["host"][key].append(time.perf_counter() - t0)
+                return out
+            return wrapped
+        return make
+
+    def host_graph(fn):
+        def wrapped(self):
+            if self._host_graph is not None:
+                return fn(self)
+            t0 = time.perf_counter()
+            out = fn(self)
+            st["host"]["host_graph"].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def dataloaders(fn):
+        def wrapped(*args, **kwargs):
+            datasets, loaders = fn(*args, **kwargs)
+            st["datasets"] = datasets
+            st["fixed"] = [d for key in ("train_set_for_eval", "validation_set")
+                           for d in datasets[key].data_list]
+            return datasets, loaders
+        return wrapped
+
+    def train_model(fn):
+        def wrapped(conf, session, *args, **kwargs):
+            out = fn(conf, session, *args, **kwargs)
+            st["recordings"] = [(k, fixed_label(session, s) if s is not None else None)
+                                for k, s in session.recordings()]
+            return out
+        return wrapped
+
+    def evaluation(fn):
+        def wrapped(data_loader, session, weights, conf, epoch, phase, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(data_loader, session, weights, conf, epoch, phase, *args, **kwargs)
+            st["evals"].append(dict(phase=st["phase"], eval_phase=phase, epoch=epoch,
+                                    outliers=kwargs.get("outlier_injection_rate"), table=out,
+                                    s=time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    for name, kind in (("fused_step", "step"), ("loss_and_grads", "loss_and_grads"),
+                       ("forward", "forward")):
+        patch(loop.TrainingSession, name, session_call(kind))
+    patch(loop.TrainingSession, "update", update)
+    patch(loop._Program, "__init__", program_init)
+    from gasfm_tpu_torch.experiments import multi_scene, single_scene
+
+    for owner in (loop, multi_scene, single_scene):
+        patch(owner, "train", train)
+    patch(loop, "epoch_train", epoch_train)
+    patch(loop, "_prepare_batches", prepare)
+    patch(loop, "epoch_evaluation", evaluation)
+    patch(outliers, "inject_outliers", timed("inject_outliers"))
+    # the run's other host costs: weight files, CPU copies of the weights,
+    # the profiler window's close (its trace export)
+    from gasfm_tpu_torch.utils import observability
+
+    patch(loop, "save_params", timed("save_params"))
+    patch(loop.TrainingSession, "weights", timed("weights"))
+    patch(observability.ProfilerWindow, "close", timed("profiler_close"))
+    patch(scene_mod.SceneData, "host_graph", host_graph)
+    patch(experiments, "create_eval_dataloaders", dataloaders)
+    patch(experiments, "train_model", train_model)
+    try:
+        yield st
+    finally:
+        for owner, name, fn in reversed(patched):
+            setattr(owner, name, fn)
+
+
+def msl_run(label, conf_name, ext, expect, counters, record, out_dir):
+    """One ``main(["multi-scene-learning", ...])`` on the card, its output in
+    ``<out_dir>/<label>.log``. Checks (each raises): every sampled step
+    launched exactly ``expect(model)`` and made no recording; after
+    training the session held recordings of the fixed evaluation scenes
+    only; the device memory allocated after epochs 2..N flat within one
+    subscene's bytes; every fixed evaluation scene's forward launched no
+    port kernel from its third call on; a batch of several samples updated
+    with the sum of their gradients to float32 rounding; the training
+    losses finite; the best validation metric no worse than the first
+    evaluation's; the tree complete. Returns the run's summary."""
+    import os
+    import shutil
+
+    import numpy
+
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.main import main as cli_main
+    from gasfm_tpu_torch.utils.observability import reset_tb_writer
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    exp = out_dir / label
+    if exp.exists():
+        shutil.rmtree(exp)
+    argv = ["multi-scene-learning", "--conf", conf_name, "--exp-dir", str(exp),
+            "--external-params", *ext]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with msl_probe(counters) as st, stdout_to(out_dir / f"{label}.log"):
+        rc = cli_main(argv)
+        reset_tb_writer()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise SmokeFailure(f"multi-scene {label}: main returned {rc}")
+    conf = load_config(conf_name, external_params=list(ext))
+    n_epochs = conf.get_int("train.n_epochs")
+    oir = conf.get_float("train.outlier_injection_rate", default=None)
+
+    # sampled steps: exact launches, no recording
+    sampled = [c for c in st["calls"] if c["phase"] == Phases.TRAINING and c["kind"] != "forward"]
+    want = expect(sampled[0]["model"])
+    wrong = [(i, c["launched"]) for i, c in enumerate(sampled)
+             if c["launched"] != {k: v for k, v in want.items() if v}]
+    recorded = [i for i, c in enumerate(sampled) if c["recorded"]]
+    if not sampled or wrong or recorded:
+        raise SmokeFailure(f"multi-scene {label}: {len(sampled)} sampled steps; launches other "
+                           f"than {want}: {wrong[:3]}; recordings made by steps {recorded[:5]}")
+    # the session after training
+    stray = [r for r in st["recordings"] if not ((r[0] == "forward" and r[1] is not None)
+                                                  or r == ("update", None))]
+    if stray or not st["recordings"]:
+        raise SmokeFailure(f"multi-scene {label}: recordings after training {st['recordings']}")
+    # memory after each epoch
+    mem = st["memory"]
+    biggest = max(c["bytes"] for c in sampled)
+    spread = max(mem[1:]) - min(mem[1:])
+    if len(mem) != n_epochs or spread > biggest:
+        raise SmokeFailure(f"multi-scene {label}: memory allocated after epochs 2..N spreads "
+                           f"{spread} bytes, more than a subscene's {biggest}: {mem}")
+    # the fixed scenes' forwards: replays from the third call on
+    per_scene = collections.defaultdict(list)
+    for c in st["calls"]:
+        if c["kind"] == "forward" and c["fixed"] is not None:
+            per_scene[c["session"], c["fixed"]].append(c)
+    late = [(k[1], i + 1, c["launched"]) for k, cs in per_scene.items() for i, c in enumerate(cs)
+            if i >= 2 and (c["launched"] or not c["had"])]
+    if late or not per_scene or max(len(cs) for cs in per_scene.values()) < 3:
+        raise SmokeFailure(f"multi-scene {label}: fixed scenes' forwards {late[:5]}, calls "
+                           f"{ {k[1]: len(cs) for k, cs in per_scene.items()} }")
+    # a batch of several samples
+    batch = st["batch_check"]
+    if conf.get_int("dataset.batch_size") > 1 and (batch is None or not batch["ok"]):
+        raise SmokeFailure(f"multi-scene {label}: the batch's gradient against its samples' sum "
+                           f"{batch}")
+    # best against the first evaluation
+    stats = st["stats"]
+    best = stats.loc(0, "best_validation_metric")
+    clean = [e for e in st["evals"] if e["phase"] == Phases.TRAINING
+             and e["eval_phase"] == Phases.VALIDATION and e["outliers"] is None]
+    first = clean[0]["table"].loc("Mean", "our_repro")
+    if not best <= first:
+        raise SmokeFailure(f"multi-scene {label}: best validation our_repro {best} worse than "
+                           f"the first evaluation's {first}")
+    # the tree
+    test_scene = conf.get_list("dataset.test_set")[0]
+    ids = [f"_outlier_rate{oir:.2f}"] if oir is not None else []
+    need = ["train_stats.csv", "models/final_model.npz", "models/best_model.npz"]
+    need += [f"{w}_{s}_errors{o}.csv" for w in ("final", "best") for s in ("train", "val", "test")
+             for o in [""] + ids]
+    for ph in ("FINE_TUNE_from_final", "FINE_TUNE_from_best", "SHORT_OPTIMIZATION"):
+        need += [f"{ph}/{test_scene}/models/final_model.npz",
+                 f"{ph}/{test_scene}/predictions/final_predictions.npz",
+                 f"final_train_errors_{ph}.csv"]
+    missing = [r for r in need if not (exp / r).exists()]
+    events = list((exp / "tb").glob("events.out.tfevents.*"))
+    if missing or len(events) != 1:
+        raise SmokeFailure(f"multi-scene {label}: missing {missing}, event files {events}")
+
+    # the measurements
+    by_epoch = collections.defaultdict(list)
+    for c in sampled:
+        by_epoch[c["epoch"]].append(c)
+    step_ms = [1e3 * (c["t1"] - c["t0"]) for c in sampled]
+    batches = len(st["waits"])
+    log = (out_dir / f"{label}.log").read_text()
+    prof = PROFILED.search(log)
+    profiled = None if prof is None else dict(
+        epochs=(int(prof[1]), int(prof[2])), wall_ms=float(prof[3]), device_ms=float(prof[4]),
+        kernels=int(prof[5]), busy=float(prof[6]),
+        steps=sum(len(by_epoch[e - 1]) for e in range(int(prof[1]), int(prof[2]) + 1)))
+    per_sample = ("inject_outliers", "host_graph")
+    host = {k: 1e3 * statistics.median(v) for k, v in st["host"].items() if v and k in per_sample}
+    seconds_in = {k: sum(v) for k, v in st["host"].items() if k not in per_sample}
+    samples_ms = None
+    if st.get("datasets") is not None:
+        ds = st["datasets"]["train_set"]
+        times = []
+        for i in range(8):
+            t1 = time.perf_counter()
+            ds.get_with_rng(i % len(ds), numpy.random.default_rng(i))
+            times.append(time.perf_counter() - t1)
+        samples_ms = 1e3 * statistics.median(times)
+    # where the run's wall time went: each phase's train(), the TRAINING
+    # phase's epochs and evaluations inside it, the rest (the loaders'
+    # scenes, models, the final and best evaluations, weight files)
+    seconds = {}
+    for name, a, b in st["phases"]:
+        seconds[name] = seconds.get(name, 0.0) + b - a
+    seconds["TRAINING epochs"] = sum(st["epoch_s"])
+    seconds["TRAINING evaluations"] = sum(e["s"] for e in st["evals"]
+                                          if e["phase"] == Phases.TRAINING)
+    seconds["outside train()"] = wall - sum(b - a for _, a, b in st["phases"])
+    seconds.update({f"in {k}": v for k, v in seconds_in.items()})
+    files = sorted((str(p.relative_to(exp)), p.stat().st_size) for p in exp.rglob("*")
+                   if p.is_file() and "code/gasfm_tpu_torch" not in str(p))
+    shutil.rmtree(exp / "code" / "gasfm_tpu_torch")
+    for rel, size in files:
+        if size > CLI_KEEP_BYTES:
+            os.remove(exp / rel)
+    summary = dict(
+        conf=conf_name, external_params=list(ext), wall_s=wall, seconds=seconds, epochs=n_epochs,
+        sampled_steps=len(sampled), batches=batches, launches_per_sampled_step=want,
+        ms_per_sampled_step=statistics.median(step_ms), ms_per_sampled_step_all=step_ms,
+        loader_wait_ms_per_batch=1e3 * statistics.median(st["waits"]),
+        loader_wait_ms_max=1e3 * max(st["waits"]), host_ms_per_sample=samples_ms,
+        host_ms=host, profiled=profiled,
+        subscenes=dict(views=[c["views"] for c in sampled], points=[c["points"] for c in sampled],
+                       edges=[c["edges"] for c in sampled], bytes_max=biggest),
+        syncs_in_steps_2_to_4=st["syncs"],
+        memory_after_epoch=[m - mem0 for m in mem], memory_spread_2_to_n=spread,
+        recordings_after_training=st["recordings"], batch_check=batch,
+        fixed_forward_calls={k[1]: len(cs) for k, cs in per_scene.items()},
+        best_validation_metric=best, first_validation_our_repro=first, files=files)
+    record.setdefault("msl", {})[label] = summary
+    views, edges = summary["subscenes"]["views"], summary["subscenes"]["edges"]
+    print(f"multi-scene {label} ({conf_name}): {n_epochs} epochs, {len(sampled)} sampled steps "
+          f"in {batches} batches, {wall:.1f} s; each sampled step launched "
+          f"{sum(want.values())} port kernels as expected and recorded nothing; subscenes "
+          f"{min(views)}-{max(views)} views, {min(edges)}-{max(edges)} edges; "
+          f"{statistics.median(step_ms):.3f} ms per sampled step (median host wall of the step "
+          f"call), loader wait {summary['loader_wait_ms_per_batch']:.3f} ms per batch (max "
+          f"{summary['loader_wait_ms_max']:.3f}); host ms per sample: sampling + augmentation "
+          + (f"{samples_ms:.3f}" if samples_ms is not None else "n/a")
+          + "".join(f", {k} {v:.3f}" for k, v in host.items())
+          + (f"; profiler epochs {profiled['epochs'][0]}..{profiled['epochs'][1]}: "
+             f"{profiled['device_ms']:.3f} device ms in {profiled['wall_ms']:.3f} wall ms over "
+             f"{profiled['steps']} steps, busy {profiled['busy']:.4f}" if profiled else "")
+          + f"; synchronising calls in sampled steps 2-4: {[len(x) for x in st['syncs']]} "
+          + (f"(first: {st['syncs'][0][0]!r})" if st["syncs"] and st["syncs"][0] else "")
+          + f"; memory after epochs 2..{n_epochs} flat within {spread} bytes (a subscene "
+          f"{biggest}); {len(st['recordings'])} recordings after training, all fixed scenes'"
+          + (f"; the batch's update = the sum of its {batch['samples']} samples' gradients"
+             if batch else "")
+          + f"; best validation our_repro {best:.3f} (first {first:.3f}); tree complete; "
+          f"seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    return summary
+
+
+def msl_phase(counters, record):
+    """Phase 16: the port's CLI (``main(["multi-scene-learning", ...])``) in
+    this process on the GASFM learning conf at full width, DPESFM with
+    outliers in batches of 4, and the synthetic conf; experiments under
+    ``chiprun_out/phase16/``."""
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "phase16"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for label, conf_name, ext, expect in MSL_RUNS:
+        msl_run(label, conf_name, ext, expect, counters, record, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["msl_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16 (multi-scene learning through the CLI): {record['msl_phase_s']:.1f} s, "
+          f"{nvidia_smi_line()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an "
@@ -3265,6 +3795,10 @@ def main() -> int:
     # ---- phase 15: single-scene optimization through the port's CLI
     # (train, evaluate, bundle adjustment, the experiment's tree)
     cli_phase(counters, record)
+
+    # ---- phase 16: multi-scene learning through the port's CLI (sampled,
+    # augmented subscenes, outliers, batches, the best model, fine-tuning)
+    msl_phase(counters, record)
 
     # ---- phase 13: the record
     kernels = []

@@ -45,6 +45,7 @@ class SceneData:
         self.Ns_invT = np.transpose(
             np.linalg.inv(self.Ns.astype(np.float64)).astype(np.float32), (0, 2, 1))
         self.depths = None  # (m, n) GT depths with store_depth_targets
+        self._host_graph = None  # host_graph()'s
         if store_depth_targets:
             self.depths = (np.asarray(depths, dtype=np.float32) if depths is not None
                            else self._triangulated_depths())
@@ -110,8 +111,19 @@ class SceneData:
         assert np.all(depths[vi, vj] > 0), "negative GT depths at valid points"
         return depths.astype(np.float32)
 
-    def to_scene_graph(self, device: Optional[Union[str, torch.device]] = None):
-        from gasfm_tpu_torch.graph.view_graph import build_scene_graph
+    def host_graph(self):
+        """The host half of the scene's graph
+        (:class:`~gasfm_tpu_torch.graph.view_graph.HostSceneGraph`, numpy
+        only), built at the first call and kept with the scene: a loader's
+        thread builds it, :meth:`to_scene_graph` uploads it."""
+        if self._host_graph is None:
+            from gasfm_tpu_torch.graph.view_graph import build_host_scene_graph
 
-        return build_scene_graph(self.M, self.Ns, self.y, device=device,
-                                 gt_depths_dense=self.depths)
+            self._host_graph = build_host_scene_graph(self.M, self.Ns, self.y,
+                                                      gt_depths_dense=self.depths)
+        return self._host_graph
+
+    def to_scene_graph(self, device: Optional[Union[str, torch.device]] = None):
+        from gasfm_tpu_torch.graph.view_graph import upload
+
+        return upload(self.host_graph(), device)

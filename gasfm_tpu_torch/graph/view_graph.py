@@ -16,7 +16,12 @@ Layout:
   every segment reduction walks ``cam_perm[cam_ptr[c]:cam_ptr[c+1]]``.
 - ``uv`` holds the normalized (N-applied) observations.
 
-All of it is built once per scene on the host with numpy.
+All of it is built once per scene on the host with numpy, in two halves:
+:func:`build_host_scene_graph` (numpy only, no device: the CSR, the camera
+permutation and both sides' splits by length, so a loader's thread can make
+it) and :func:`upload` (the arrays to the device, through pinned memory and
+asynchronous copies on the card). A graph's splits are read on the host,
+so a step on a new scene makes no device-to-host copy.
 """
 
 from __future__ import annotations
@@ -92,7 +97,11 @@ class ViewGraph:
         cache = self.__dict__.setdefault(f"_{side}_chunks", {})
         key = (rows, rows if long_above is None else long_above)
         if key not in cache:
-            cache[key] = split_segments(ptr.cpu().numpy(), rows, self.device, key[1])
+            # an uploaded graph keeps its offsets on the host too (no copy
+            # back from the device); a graph made from tensors reads them
+            host = self.__dict__.get("_host_ptr", {}).get(side)
+            cache[key] = split_segments(ptr.cpu().numpy() if host is None else host, rows,
+                                        self.device, key[1])
         return cache[key]
 
 
@@ -130,6 +139,13 @@ def split_segments(ptr: np.ndarray, rows: int, device=None,
     """Split the segments of the CSR offsets ``ptr`` (S + 1,): those of more
     than ``long_above`` edges (default ``rows``) are long and cut into
     chunks of ``rows`` edges (see :class:`SegmentChunks`)."""
+    parts = _split_parts(ptr, rows, long_above)
+    table = torch.as_tensor(np.concatenate(list(parts.values())), device=device)
+    return SegmentChunks(rows=rows, table=table, **parts)
+
+
+def _split_parts(ptr: np.ndarray, rows: int, long_above: Optional[int] = None) -> dict:
+    """The four int32 arrays of :class:`SegmentChunks`, in its table's order."""
     long_above = rows if long_above is None else long_above
     ptr = np.asarray(ptr, dtype=np.int64)
     deg = ptr[1:] - ptr[:-1]
@@ -142,9 +158,7 @@ def split_segments(ptr: np.ndarray, rows: int, device=None,
     chunk_begin = ptr[chunk_seg] + rows * within
     parts = dict(chunk_seg=chunk_seg, chunk_begin=chunk_begin, long_seg=long_seg,
                  long_ptr=long_ptr)
-    table = torch.as_tensor(np.concatenate(list(parts.values())).astype(np.int32), device=device)
-    return SegmentChunks(rows=rows, table=table,
-                         **{k: v.astype(np.int32) for k, v in parts.items()})
+    return {k: v.astype(np.int32) for k, v in parts.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,20 +172,54 @@ class SceneGraph:
     gt_depths: Optional[torch.Tensor] = None  # (E,) float32 GT depth per edge, or None
 
 
-def build_view_graph(
-    M: np.ndarray,
-    Ns: np.ndarray,
-    device: Optional[Union[str, torch.device]] = None,
-) -> ViewGraph:
-    """Host-side construction from a (2m, n) measurement matrix, with the
-    validity semantics of the JAX package's ``build_view_graph``
-    (reference M2sparse + masks)."""
-    device = resolve_device(device)
+def host_split_keys():
+    """The (rows, long_above) splits the kernels take, per side: the dual
+    core's and the attention's (``SPLIT_ROWS``, ``ATTEND_CHUNK``), the
+    segment walk's (``SUM_PART_ROWS`` over ``SUM_ROWS``) and the loss's
+    point side (over ``LONG_POINT``). A host graph holds them all."""
+    from gasfm_tpu_torch.ops.kernels.fused_attn import ATTEND_CHUNK
+    from gasfm_tpu_torch.ops.kernels.fused_dual_attn import SPLIT_ROWS
+    from gasfm_tpu_torch.ops.kernels.fused_loss import LONG_POINT
+    from gasfm_tpu_torch.ops.kernels.segment_kernels import SUM_PART_ROWS, SUM_ROWS
+
+    both = {(SPLIT_ROWS, SPLIT_ROWS), (SUM_PART_ROWS, SUM_ROWS)}
+    return {"pt": sorted(both | {(ATTEND_CHUNK, ATTEND_CHUNK), (SUM_PART_ROWS, LONG_POINT)}),
+            "cam": sorted(both)}
+
+
+@dataclasses.dataclass(frozen=True)
+class HostSceneGraph:
+    """The host half of a :class:`SceneGraph`: the same arrays in numpy
+    (int32 indices, float32 values, bool masks), and each side's splits
+    (:func:`host_split_keys`) as :class:`SegmentChunks`' four arrays. Built
+    without a device; :func:`upload` makes the graph."""
+
+    uv: np.ndarray
+    cam_idx: np.ndarray
+    pt_idx: np.ndarray
+    pt_ptr: np.ndarray
+    cam_perm: np.ndarray
+    cam_ptr: np.ndarray
+    cam_valid: np.ndarray
+    pt_valid: np.ndarray
+    Ns: np.ndarray
+    Ns_inv: np.ndarray
+    Ps_gt: np.ndarray
+    gt_depths: Optional[np.ndarray]
+    splits: dict  # {(side, rows, long_above): {name: int32 array}}
+
+
+def build_host_scene_graph(M: np.ndarray, Ns: np.ndarray, Ps_gt: np.ndarray,
+                           gt_depths_dense: Optional[np.ndarray] = None) -> HostSceneGraph:
+    """The host half of :func:`build_scene_graph`, numpy only, from a (2m, n)
+    measurement matrix, with the validity semantics of the JAX package's
+    ``build_view_graph`` (reference M2sparse + masks)."""
     M = np.asarray(M, dtype=np.float32)
     m = M.shape[0] // 2
     n = M.shape[1]
+    Ns = np.asarray(Ns, dtype=np.float32)
     valid = get_M_valid_points(M)  # (m, n)
-    norm_M = normalize_M(M, np.asarray(Ns, dtype=np.float32), valid)  # (m, n, 2)
+    norm_M = normalize_M(M, Ns, valid)  # (m, n, 2)
 
     rows, cols = np.nonzero(valid)
     order = np.lexsort((rows, cols))  # by (point, camera)
@@ -183,20 +231,54 @@ def build_view_graph(
     cam_perm = np.argsort(rows, kind="stable")
     cam_ptr = np.zeros(m + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=m), out=cam_ptr[1:])
+    splits = {(side, rows_, above): _split_parts(ptr, rows_, above)
+              for side, ptr in (("pt", pt_ptr), ("cam", cam_ptr))
+              for rows_, above in host_split_keys()[side]}
+    gt_depths = None
+    if gt_depths_dense is not None:
+        gt_depths = np.asarray(gt_depths_dense, dtype=np.float32)[rows, cols]
+    i32 = np.int32
+    return HostSceneGraph(
+        uv=uv, cam_idx=rows.astype(i32), pt_idx=cols.astype(i32), pt_ptr=pt_ptr.astype(i32),
+        cam_perm=cam_perm.astype(i32), cam_ptr=cam_ptr.astype(i32),
+        cam_valid=valid.sum(axis=1) >= MIN_N_POINTS_PER_VIEW,
+        pt_valid=valid.sum(axis=0) >= MIN_N_VIEWS_PER_POINT,
+        Ns=Ns, Ns_inv=np.linalg.inv(Ns.astype(np.float64)).astype(np.float32),
+        Ps_gt=np.asarray(Ps_gt, dtype=np.float32), gt_depths=gt_depths, splits=splits)
 
-    def t(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    return ViewGraph(
-        uv=t(uv, torch.float32),
-        cam_idx=t(rows, torch.int32),
-        pt_idx=t(cols, torch.int32),
-        pt_ptr=t(pt_ptr, torch.int32),
-        cam_perm=t(cam_perm, torch.int32),
-        cam_ptr=t(cam_ptr, torch.int32),
-        cam_valid=t(valid.sum(axis=1) >= MIN_N_POINTS_PER_VIEW, torch.bool),
-        pt_valid=t(valid.sum(axis=0) >= MIN_N_VIEWS_PER_POINT, torch.bool),
-    )
+def upload(host: HostSceneGraph, device: Optional[Union[str, torch.device]] = None) -> "SceneGraph":
+    """The :class:`SceneGraph` of ``host`` on ``device``: on the card each
+    array goes through pinned memory by an asynchronous copy on the current
+    stream (no synchronisation); the graph keeps the splits, built, and its
+    CSR offsets on the host for any other split."""
+    device = resolve_device(device)
+
+    def t(a):
+        a = torch.from_numpy(np.ascontiguousarray(a))
+        return a.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else a
+
+    graph = ViewGraph(uv=t(host.uv), cam_idx=t(host.cam_idx), pt_idx=t(host.pt_idx),
+                      pt_ptr=t(host.pt_ptr), cam_perm=t(host.cam_perm), cam_ptr=t(host.cam_ptr),
+                      cam_valid=t(host.cam_valid), pt_valid=t(host.pt_valid))
+    graph.__dict__["_host_ptr"] = {"pt": host.pt_ptr, "cam": host.cam_ptr}
+    for (side, rows, above), parts in host.splits.items():
+        table = t(np.concatenate(list(parts.values())))
+        graph.__dict__.setdefault(f"_{side}_chunks", {})[(rows, above)] = SegmentChunks(
+            rows=rows, table=table, **parts)
+    return SceneGraph(graph=graph, Ns=t(host.Ns), Ns_inv=t(host.Ns_inv), Ps_gt=t(host.Ps_gt),
+                      gt_depths=None if host.gt_depths is None else t(host.gt_depths))
+
+
+def build_view_graph(
+    M: np.ndarray,
+    Ns: np.ndarray,
+    device: Optional[Union[str, torch.device]] = None,
+) -> ViewGraph:
+    """The :class:`ViewGraph` of a (2m, n) measurement matrix on ``device``
+    (:func:`build_host_scene_graph`, :func:`upload`)."""
+    m = np.asarray(M).shape[0] // 2
+    return build_scene_graph(M, Ns, np.zeros((m, 3, 4), np.float32), device=device).graph
 
 
 def build_scene_graph(
@@ -210,18 +292,4 @@ def build_scene_graph(
     also each edge's GT depth ``depths[cam, pt]``, in the graph's edge order
     (as the JAX package's build_scene_graph picks them, view_graph.py:379-395;
     the port's graph holds valid edges only)."""
-    device = resolve_device(device)
-    graph = build_view_graph(M, Ns, device=device)
-    gt_depths = None
-    if gt_depths_dense is not None:
-        picked = np.asarray(gt_depths_dense, dtype=np.float32)[
-            graph.cam_idx.cpu().numpy(), graph.pt_idx.cpu().numpy()]
-        gt_depths = torch.as_tensor(picked, device=device)
-    return SceneGraph(
-        graph=graph,
-        Ns=torch.as_tensor(np.asarray(Ns, dtype=np.float32), device=device),
-        Ns_inv=torch.as_tensor(
-            np.linalg.inv(np.asarray(Ns, dtype=np.float64)).astype(np.float32), device=device),
-        Ps_gt=torch.as_tensor(np.asarray(Ps_gt, dtype=np.float32), device=device),
-        gt_depths=gt_depths,
-    )
+    return upload(build_host_scene_graph(M, Ns, Ps_gt, gt_depths_dense), device)

@@ -1,19 +1,24 @@
-"""The port's CLI: ``single-scene-optim`` on the card (or the CPU).
+"""The port's CLI: ``single-scene-optim`` and ``multi-scene-learning`` on the
+card (or the CPU).
 
 Counterpart of the JAX package's main.py (reference code/main.py): the same
 subcommands, aliases and flags (``parse_args``), the conf load with
 ``--external-params`` merged and checked (``init_exp``), the seeded model
-with optional pretrained weights (``init_model``), the experiment directory
-and ``main``. One flag is the port's own: ``--device`` (default ``cuda``;
-without a GPU ``main`` raises unless given ``--device cpu``).
-``multi-scene-learning`` parses and raises ``NotImplementedError`` until the
-multi-scene slice (slice 5). ``--accelerator-not-required`` is accepted and
-ignored, as in the JAX CLI. The common flags may come before or after the
-subcommand::
+with optional pretrained weights (``init_model``; with ``--old-exp-dir``,
+``<dir>/models/<--pretrained-model-filename or best_model.npz>``), the
+experiment directory and ``main``'s phases: single-scene optimization, or
+multi-scene learning (training, the final and best weights' evaluations,
+fine-tuning of every test scene from each, short optimization from fresh
+weights; ``--skip-training``, ``--skip-fine-tuning[-from-best|-from-final]``,
+``--skip-short-optim``). One flag is the port's own: ``--device`` (default
+``cuda``; without a GPU ``main`` raises unless given ``--device cpu``).
+``--accelerator-not-required`` is accepted and ignored, as in the JAX CLI.
+The common flags may come before or after the subcommand::
 
     python -m gasfm_tpu_torch.main single-scene-optim --conf gasfm/optim_euc_gasfm.conf
     python -m gasfm_tpu_torch.main --conf synth/optim_synth_gasfm.conf single-scene-optim \
         --device cpu --external-params train.n_epochs=20 eval.eval_interval=10
+    python -m gasfm_tpu_torch.main multi-scene-learning --conf synth/learning_synth_gasfm.conf
 
 It writes the JAX CLI's tree under ``$GASFM_RESULTS_PATH`` (default
 ``results/``) / ``exp_dir``: ``code/`` (the package's source and
@@ -21,7 +26,12 @@ It writes the JAX CLI's tree under ``$GASFM_RESULTS_PATH`` (default
 ``OPTIMIZATION/<scene>/models/final_model.npz`` (the JAX package's npz
 layout), ``.../predictions/final_predictions.npz``,
 ``.../plots/final_plots.html`` (calibrated scenes) and
-``final_train_errors_OPTIMIZATION.csv`` / ``.xlsx``.
+``final_train_errors_OPTIMIZATION.csv`` / ``.xlsx``; for multi-scene learning
+``TRAINING/models/{final_model,best_model,model_epoch*}.npz``,
+``train_stats``, ``{final,best}_{train,val,test}_errors``, the evaluations'
+predictions and plots per set and scene, and per test scene the
+fine-tuning's (``FINE_TUNE_from_final``, ``FINE_TUNE_from_best``) and the
+short optimization's trees and ``final_train_errors_<PHASE>[_id]`` tables.
 
 Conf keys the port reads and does not act on: ``compile.*`` (the edge chunk,
 ``stream_dtype``, the bucket multiples and growth, ``kernel_precision``,
@@ -31,13 +41,13 @@ TPU layout and memory devices. Options the port has not ported yet raise
 other than the conf asks for: bf16 parameters or Adam moments
 (``train.param_dtype``, ``train.adam_mu_dtype``, ``train.adam_nu_dtype``;
 ``train.state.optim_from_conf``), a ``parallel.mesh_shape`` of more than
-one device (``TrainingSession.from_conf``), and the multi-scene slice's
-options (``train.loop.train``).
+one device (``TrainingSession.from_conf``).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import os
 import random
 import shutil
@@ -155,18 +165,22 @@ def main(argv=None) -> int:
     from gasfm_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
-    if args.mode == "multi_scene_learning":
-        raise NotImplementedError("multi-scene-learning is not ported yet (the multi-scene "
-                                  "learning slice, slice 5)")
     device = resolve_device(args.device)
     conf, rng = init_exp(args)
 
-    from gasfm_tpu_torch.experiments import train_model_single_scene
+    from gasfm_tpu_torch.experiments import (create_eval_dataloaders, eval_model,
+                                             optimization_all_test_scenes, train_model,
+                                             train_model_single_scene)
+    from gasfm_tpu_torch.train.loop import TrainingSession
     from gasfm_tpu_torch.utils.observability import log_code
     from gasfm_tpu_torch.utils.paths import path_to_exp
     from gasfm_tpu_torch.utils.phases import Phases
 
-    model, _ = init_model(conf, args.pretrained_model_path)
+    pretrained = args.pretrained_model_path
+    if pretrained is None and getattr(args, "old_exp_dir", None):
+        name = args.pretrained_model_filename or "best_model.npz"
+        pretrained = os.path.join(args.old_exp_dir, "models", name)
+    model, _ = init_model(conf, pretrained)
     if args.count_model_params_and_die:
         return 0
     if args.overwrite_exp:
@@ -174,7 +188,38 @@ def main(argv=None) -> int:
         if os.path.exists(exp_path):
             shutil.rmtree(exp_path)
     log_code(conf)
-    train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=device)
+    if args.mode == "single_scene_optim":
+        train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=device)
+        return 0
+
+    # multi-scene learning: TRAINING -> final / best evaluations -> FINE_TUNE
+    # from the final and the best weights -> SHORT_OPTIMIZATION from fresh ones
+    datasets, eval_loaders = create_eval_dataloaders(conf, rng=rng)
+    session = TrainingSession.from_conf(conf, model, device=device)
+    if not args.skip_training:
+        trained, _ = train_model(conf, session, datasets["train_set"], eval_loaders,
+                                 Phases.TRAINING, rng=rng)
+    else:
+        weights = session.weights()
+        trained = {"final_model": weights, "best_model": weights}
+    eval_model(conf, session, trained["final_model"], eval_loaders, -1, "final_", rng=rng)
+    if "best_model" in trained:
+        eval_model(conf, session, trained["best_model"], eval_loaders, None, "best_", rng=rng)
+    session.close()  # one session on the device at a time
+    del session
+    gc.collect()
+
+    if not args.skip_fine_tuning and not args.skip_fine_tuning_from_final:
+        optimization_all_test_scenes(conf, model, trained["final_model"], Phases.FINE_TUNE,
+                                     additional_identifier="from_final", rng=rng, device=device)
+    if ("best_model" in trained and not args.skip_fine_tuning
+            and not args.skip_fine_tuning_from_best):
+        optimization_all_test_scenes(conf, model, trained["best_model"], Phases.FINE_TUNE,
+                                     additional_identifier="from_best", rng=rng, device=device)
+    if not args.skip_short_optim:
+        fresh = init_model(conf)[0].state_dict()
+        optimization_all_test_scenes(conf, model, fresh, Phases.SHORT_OPTIMIZATION, rng=rng,
+                                     device=device)
     return 0
 
 

@@ -44,29 +44,34 @@ package's ``TrainingSession(conf, model, milestone_shift)`` does
 (train/loop.py:156-160): the loss of ``loss.func`` and the optimizer of
 ``train.*`` and ``loss.grad_clip_*``.
 
-The drivers (the JAX package's train/loop.py :356-1173, reference
-code/train.py) run a session for the single-scene phases: ``epoch_train``
-(one epoch: the fused step where the heads allow it, else
-``loss_and_grads`` + ``update``), ``epoch_evaluation`` (the recorded forward,
-then the host metric battery and bundle adjustment of ``eval/metrics.py``)
-and ``train`` (the epochs with their evaluations, dumps, checkpoints and the
-final weights). Where the JAX package builds a new padded graph for every
-batch and returns new parameters, the port keeps one graph per
-:class:`~gasfm_tpu_torch.data.scene.SceneData` for the session's life
-(:meth:`TrainingSession.scene_graph`), so every step after a scene's
-second replays its recording, and trains the session's model in place. A
-step's scalars are copied to the host behind the step and read after the
-next step has been dispatched (across epochs too: a single scene's epoch is
-one step), so the host never waits for the step it has just launched.
-Options that no single-scene conf sets raise ``NotImplementedError`` until
-the multi-scene slice (slice 5): the ``TRAINING`` phase,
-``train.sequentially_increment_views`` and ``train.outlier_injection_rate``.
+The drivers (the JAX package's train/loop.py :313-1173, reference
+code/train.py) run a session: ``epoch_train`` (one epoch: the fused step
+where the heads allow it, else ``loss_and_grads`` per sample, their
+gradients summed, and ``update``), ``epoch_evaluation`` (the recorded
+forward, then the host metric battery and bundle adjustment of
+``eval/metrics.py``) and ``train`` (the epochs with their evaluations, the
+best weights in multi-scene learning, dumps, checkpoints and the final
+weights). Where the JAX package builds a new padded graph for every batch
+and returns new parameters, the port trains the session's model in place
+and keeps one graph per :class:`~gasfm_tpu_torch.data.scene.SceneData` while
+the caller keeps the scene (:meth:`TrainingSession.scene_graph`): a fixed
+scene (a single scene's epochs, the evaluation sets) replays its recordings
+from its third call on; a scene used once (a sampled subscene, a scene with
+outliers injected) runs eagerly, records nothing, and its graph goes when
+the caller drops it. A step's scalars are copied to the host behind the
+step and read after the next step has been dispatched (across epochs too: a
+single scene's epoch is one step), so the host never waits for the step it
+has just launched. In multi-scene learning the samples' host work (sampling,
+augmentation, validity, outliers, the graph's host half) runs on a prefetch
+thread; the upload runs on the caller's.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
+import weakref
 from time import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -90,42 +95,92 @@ from gasfm_tpu_torch.utils.phases import Phases
 from gasfm_tpu_torch.utils.tables import Table
 
 
+def _eager_on(stream: "torch.cuda.Stream", fn: Callable, *args):
+    """``fn(*args)`` eagerly on ``stream``, ordered after the current
+    stream's work and before its later work: a function's warm-up, on the
+    stream its recording will use, so that every lazily built operand (the
+    loss's ticket counter, Adam's state, the BLAS workspaces of this stream)
+    exists before a recording."""
+    main = torch.cuda.current_stream(stream.device)
+    stream.wait_stream(main)
+    with torch.cuda.stream(stream):
+        out = fn(*args)
+    main.wait_stream(stream)
+    return out
+
+
 class _Program:
-    """A function of the session recorded as one CUDA graph: the first call
-    runs it eagerly on the capture stream, the second records it on its
-    arguments and replays the recording, later calls replay it (their
-    arguments are ignored: the graph reads the recorded ones where they
-    lie). ``keep`` holds the tensors the recording reads (the scene), so
-    that their addresses stay valid while the graph lives."""
+    """A function of the session recorded as one CUDA graph on ``args``
+    (made at the function's second call on the same operands; the first ran
+    :func:`_eager_on`); a call replays it and returns the recorded outputs
+    (the graph reads the recorded operands where they lie). ``keep`` holds
+    the tensors the recording reads (the scene), so that their addresses
+    stay valid while the graph lives."""
 
-    def __init__(self, fn: Callable, stream: "torch.cuda.Stream", keep=None):
-        self.fn, self.stream, self.keep = fn, stream, keep
-        self.calls = 0
-        self.graph: Optional["torch.cuda.CUDAGraph"] = None
-        self.out = None
+    def __init__(self, fn: Callable, stream: "torch.cuda.Stream", args: tuple, keep=None):
+        self.keep = keep
+        stream.wait_stream(torch.cuda.current_stream(stream.device))
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.out = fn(*args)
 
-    def __call__(self, *args):
-        self.calls += 1
-        if self.graph is not None:
-            self.graph.replay()
-            return self.out
-        main = torch.cuda.current_stream(self.stream.device)
-        self.stream.wait_stream(main)
-        if self.calls == 1:
-            # the warm-up: every lazily built operand of the step (the
-            # graph's splits, the loss's ticket counter, Adam's state, the
-            # BLAS workspaces of this stream) is made here, outside the
-            # recording
-            with torch.cuda.stream(self.stream):
-                out = self.fn(*args)
-            main.wait_stream(self.stream)
-            return out
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=self.stream):
-            out = self.fn(*args)
-        self.graph, self.out = graph, out
-        graph.replay()
-        return out
+    def __call__(self):
+        self.graph.replay()
+        return self.out
+
+
+class _Calls:
+    """What a session keeps for one set of operands (a scene graph, or its
+    own update inputs): the kinds of call whose warm-up ran, and their
+    recordings."""
+
+    def __init__(self, ref: Optional["weakref.ref"] = None):
+        self.ref = ref
+        self.warm: set = set()
+        self.programs: Dict[str, _Program] = {}
+
+
+class _SceneCache:
+    """A session's scene graphs and per-scene recordings, bounded by the
+    scenes' lives. ``graphs`` maps a live :class:`SceneData` (by id) to its
+    graph: a ``weakref.finalize`` on the SceneData drops the graph and every
+    recording keyed on it when the caller drops the scene. ``calls`` maps a
+    live scene graph (by id) to its :class:`_Calls`: a weak reference's
+    callback drops the entry when the graph dies, so an id is never looked
+    up after its object is gone (CPython reuses them). The callbacks hold
+    the cache weakly: a dropped session leaves nothing behind."""
+
+    def __init__(self):
+        self.graphs: Dict[int, Any] = {}
+        self.calls: Dict[int, _Calls] = {}
+
+    def graph_of(self, data, device: torch.device):
+        graph = self.graphs.get(id(data))
+        if graph is None:
+            graph = self.graphs[id(data)] = data.to_scene_graph(device=device)
+            weakref.finalize(data, _SceneCache._drop_scene, weakref.ref(self), id(data),
+                             id(graph))
+        return graph
+
+    def of(self, scene) -> _Calls:
+        calls = self.calls.get(id(scene))
+        if calls is None or calls.ref() is not scene:
+            ref = weakref.ref(scene, functools.partial(_SceneCache._drop_graph,
+                                                       weakref.ref(self), id(scene)))
+            calls = self.calls[id(scene)] = _Calls(ref)
+        return calls
+
+    @staticmethod
+    def _drop_scene(cache_ref, data_key: int, graph_key: int) -> None:
+        cache = cache_ref()
+        if cache is not None and cache.graphs.pop(data_key, None) is not None:
+            cache.calls.pop(graph_key, None)
+
+    @staticmethod
+    def _drop_graph(cache_ref, graph_key: int, ref) -> None:
+        cache = cache_ref()
+        if cache is not None and graph_key in cache.calls and cache.calls[graph_key].ref is ref:
+            del cache.calls[graph_key]
 
 
 class TrainingSession:
@@ -153,9 +208,9 @@ class TrainingSession:
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = build_optimizer(self.params, **(optim or FLAGSHIP_OPTIM))
         self._stream = torch.cuda.Stream(self.device) if capture else None
-        self._programs: Dict[tuple, _Program] = {}
+        self._cache = _SceneCache()
+        self._own = _Calls()  # the update on the session's own input buffers
         self._update_inputs: Optional[List[torch.Tensor]] = None
-        self._graphs: Dict[int, tuple] = {}
 
     @classmethod
     def from_conf(cls, conf, model: Union[GraphAttnSfMNet, SetOfSetNet],
@@ -176,13 +231,24 @@ class TrainingSession:
     def scene_graph(self, data):
         """The :class:`~gasfm_tpu_torch.graph.view_graph.SceneGraph` of a
         :class:`~gasfm_tpu_torch.data.scene.SceneData` on this session's
-        device, built at the first request and kept (with the scene) for the
-        session's life: the same scene object gets the same graph, whose
-        recordings replay."""
-        hit = self._graphs.get(id(data))
-        if hit is None:
-            hit = self._graphs[id(data)] = (data, data.to_scene_graph(device=self.device))
-        return hit[1]
+        device, built (uploaded from ``data.host_graph()``) at the first
+        request and kept while the caller keeps ``data``: the same scene
+        object gets the same graph, whose recordings replay. When the caller
+        drops ``data`` the graph goes, with every recording that reads it."""
+        return self._cache.graph_of(data, self.device)
+
+    def recordings(self) -> List[Tuple[str, Any]]:
+        """(kind, scene graph) of every recording the session holds, kind
+        one of ``forward``, ``fused_step``, ``loss_and_grads``, ``update``;
+        the scene None for the update on the session's own inputs."""
+        out = [(kind, c.ref()) for c in list(self._cache.calls.values()) for kind in c.programs]
+        return out + [(kind, None) for kind in self._own.programs]
+
+    def close(self) -> None:
+        """Release what the session holds besides its model: graphs,
+        recordings, optimizer state, input buffers. The session cannot be
+        used after."""
+        self._cache = self._own = self._update_inputs = self.optimizer = None
 
     def weights(self) -> Dict[str, torch.Tensor]:
         """A copy of the model's ``state_dict`` on the CPU."""
@@ -200,11 +266,17 @@ class TrainingSession:
         for k, v in state.items():
             own[k].copy_(v)
 
-    def _program(self, key: tuple, fn: Callable, keep=None) -> _Program:
-        prog = self._programs.get(key)
+    def _recorded(self, calls: _Calls, kind: str, fn: Callable, args: tuple, keep=None):
+        """``fn(*args)`` for the operands of ``calls``: the first call of
+        ``kind`` runs eagerly on the capture stream and leaves no recording;
+        the second records it and replays; later ones replay."""
+        prog = calls.programs.get(kind)
         if prog is None:
-            prog = self._programs[key] = _Program(fn, self._stream, keep)
-        return prog
+            if kind not in calls.warm:
+                calls.warm.add(kind)
+                return _eager_on(self._stream, fn, *args)
+            prog = calls.programs[kind] = _Program(fn, self._stream, args, keep)
+        return prog()
 
     def _forward(self, scene, plain: bool = False) -> Dict[str, torch.Tensor]:
         return self.model(scene.graph, plain=plain)
@@ -220,7 +292,7 @@ class TrainingSession:
         its outputs."""
         if plain or not self.capture:
             return self._forward(scene, plain)
-        pred = self._program(("forward", id(scene)), self._forward, keep=scene)(scene)
+        pred = self._recorded(self._cache.of(scene), "forward", self._forward, (scene,), scene)
         return {k: v.clone() for k, v in pred.items()}
 
     @torch.no_grad()
@@ -250,8 +322,8 @@ class TrainingSession:
         overwrites (``update`` reads them there)."""
         if plain or not self.capture:
             return self._loss_and_grads(scene, plain)
-        prog = self._program(("loss_and_grads", id(scene)), self._loss_and_grads, keep=scene)
-        loss, pred, grads = prog(scene)
+        loss, pred, grads = self._recorded(self._cache.of(scene), "loss_and_grads",
+                                           self._loss_and_grads, (scene,), scene)
         return loss.clone(), {k: v.clone() for k, v in pred.items()}, grads
 
     def _update(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -272,20 +344,28 @@ class TrainingSession:
 
     def _captured_update(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The update's recording that reads ``grads`` where they lie when
-        they are a recorded ``loss_and_grads``' outputs, else the one that
-        reads the session's own input buffers, ``grads`` copied in first
-        (its eager warm-up reads them where they lie)."""
-        for key, prog in self._programs.items():
-            if key[0] == "loss_and_grads" and prog.out is not None and all(
-                    a is b for a, b in zip(prog.out[2], grads)):
-                return self._program(("update", key[1]), self._update, keep=grads)(grads)
-        prog = self._program(("update", None), self._update)
-        if prog.calls:
+        they are a recorded ``loss_and_grads``' outputs (it goes with that
+        scene), else the one that reads the session's own input buffers,
+        ``grads`` copied in first (its eager warm-up reads them where they
+        lie)."""
+        for calls in list(self._cache.calls.values()):
+            prog = calls.programs.get("loss_and_grads")
+            if prog is not None and all(a is b for a, b in zip(prog.out[2], grads)):
+                return self._recorded(calls, "update", self._update, (grads,), grads)
+        if "update" in self._own.warm:
             if self._update_inputs is None:
                 self._update_inputs = [torch.empty_like(p) for p in self.params]
             torch._foreach_copy_(self._update_inputs, list(grads))
             grads = self._update_inputs
-        return prog(grads)
+        return self._recorded(self._own, "update", self._update, (grads,))
+
+    def accumulate(self, grads_a: List[torch.Tensor], grads_b: List[torch.Tensor]
+                   ) -> List[torch.Tensor]:
+        """The sum of two lists of gradients, in new tensors (the JAX
+        package's ``accumulate``, train/loop.py:297): neither input is held,
+        so a recorded ``loss_and_grads``' outputs may be overwritten by its
+        next replay."""
+        return list(torch._foreach_add(list(grads_a), list(grads_b)))
 
     def advance_schedule(self) -> None:
         """Step only the LR schedule (a batch without valid samples)."""
@@ -319,8 +399,9 @@ class TrainingSession:
         if plain or not self.capture:
             out = self._fused_step(scene, plain)
         else:
-            prog = self._program(("fused_step", id(scene)), self._fused_step, keep=scene)
-            out = tuple(torch.stack(prog(scene)).unbind())
+            out = self._recorded(self._cache.of(scene), "fused_step", self._fused_step, (scene,),
+                                 scene)
+            out = tuple(torch.stack(out).unbind())
         self.optimizer.advance_schedule()
         return out
 
@@ -328,9 +409,6 @@ class TrainingSession:
 # ---------------------------------------------------------------------------
 # The drivers: one epoch of training, one evaluation pass, the controller
 # ---------------------------------------------------------------------------
-
-_SLICE5 = "is not ported yet (the multi-scene learning slice, slice 5)"
-
 
 def _is_oom_error(e: BaseException) -> bool:
     """A device out-of-memory error (the JAX package's reads XLA's
@@ -370,6 +448,46 @@ class _HostScalars:
         return [next(fetched) if isinstance(v, torch.Tensor) else float(v) for v in self.values]
 
 
+def _prepare_batches(train_loader, outlier_injection_rate: Optional[float],
+                     rng: Optional[np.random.Generator], epoch: int, depth: int):
+    """The loader's batches, each as a list of (scene, the scene the model
+    takes, or None for a skipped sample): the validity check, the outlier
+    injection (a failed one skips the sample) and the host half of the
+    model's scene's graph (``SceneData.host_graph``), on one prefetch thread
+    with ``depth`` batches in flight (the JAX package's ``_prepare_batches``,
+    train/loop.py:313; ``depth`` 0 runs them inline). numpy only: the
+    upload is the caller's, on its own thread. The generator's draws stay
+    in one thread, in the loader's order."""
+    from gasfm_tpu_torch.data.dataset import prefetch_iter
+    from gasfm_tpu_torch.data.outliers import inject_outliers
+
+    def _source():
+        for train_batch in train_loader:
+            prepared = []
+            for curr_data in train_batch:
+                if not curr_data.is_valid_sample():
+                    print(f"{epoch} {curr_data.scene_name} has a camera with not enough "
+                          "points or a point with not enough cameras")
+                    prepared.append((curr_data, None))
+                    continue
+                model_data = curr_data
+                if outlier_injection_rate is not None:
+                    model_data = inject_outliers(curr_data, outlier_injection_rate, rng=rng)
+                    if model_data is None:
+                        print(f"Failed outlier sampling for {curr_data.scene_name} - "
+                              "skipping training sample.")
+                        prepared.append((curr_data, None))
+                        continue
+                model_data.host_graph()
+                prepared.append((curr_data, model_data))
+            yield prepared
+
+    if depth <= 0:
+        yield from _source()
+    else:
+        yield from prefetch_iter(_source, depth)
+
+
 def epoch_train(
     conf,
     session: TrainingSession,
@@ -388,13 +506,18 @@ def epoch_train(
     keep_last: bool = False,
 ):
     """One epoch over ``train_loader`` (the JAX package's
-    train/loop.py:356-430; reference train.py:49-157), updating the
-    session's model in place. A batch (of one scene: several, summed, are
-    the multi-scene slice's) takes the fused step when the conf has both
-    explicit heads and no backprojection metric (the JAX package's
-    ``device_metrics``), else ``loss_and_grads`` (with the host metrics the
-    conf asks for) and ``update``. A batch without a valid sample steps only
-    the schedule.
+    train/loop.py:313-565; reference train.py:49-157), updating the
+    session's model in place. The samples come through
+    :func:`_prepare_batches`, on a prefetch thread in the ``TRAINING``
+    phase (a single scene's epoch is one batch of the same scene: there it
+    runs inline). A batch of one valid sample takes the fused step when the
+    conf has both explicit heads, no backprojection metric and no outlier
+    injection (the JAX package's ``device_metrics``); otherwise each valid
+    sample takes ``loss_and_grads`` (``our_repro`` on the device with
+    ``device_metrics``, else the host metrics the conf asks for, scored
+    against the clean observations), their gradients summed
+    (``accumulate``), then one ``update``. A batch without a valid sample
+    steps only the schedule.
 
     A batch's scalars are read, and logged, once the next batch has been
     dispatched. A single scene's epoch is one batch, so the deferral also
@@ -405,15 +528,12 @@ def epoch_train(
 
     Returns (n_updates, mean_loss, the losses read of this epoch's samples,
     n_batches, the unread last batch with ``keep_last`` else None)."""
-    if outlier_injection_rate is not None:
-        raise NotImplementedError(f"train.outlier_injection_rate {_SLICE5}")
     additional_identifiers = list(additional_identifiers or [])
     view_head = conf.get_bool("model.view_head.enabled")
     scenepoint_head = conf.get_bool("model.scenepoint_head.enabled")
     explicit = view_head and scenepoint_head
     calc_backproj = conf.get_bool("eval.calc_reprojerr_with_gtposes_for_depth_pred", default=False)
-    device_metrics = explicit and not calc_backproj
-
+    device_metrics = explicit and not calc_backproj and outlier_injection_rate is None
     train_losses: List[float] = []
     loss_totals = {"sum": 0.0, "n": 0}
 
@@ -456,17 +576,13 @@ def epoch_train(
 
     pending = carried
     batch_idx = -1
-    for batch_idx, train_batch in enumerate(train_loader):
-        valid = []
-        for curr_data in train_batch:
-            if not curr_data.is_valid_sample():
-                print(f"{epoch} {curr_data.scene_name} has a camera with not enough "
-                      "points or a point with not enough cameras")
-                continue
-            valid.append((curr_data, session.scene_graph(curr_data)))
-        if len(valid) > 1:
-            raise NotImplementedError(f"a batch of several scenes (gradient accumulation) "
-                                      f"{_SLICE5}")
+    prepared_batches = _prepare_batches(train_loader, outlier_injection_rate, rng, epoch,
+                                        depth=2 if phase == Phases.TRAINING else 0)
+    for batch_idx, prepared_batch in enumerate(prepared_batches):
+        # the upload, on this thread (a CUDA call from the loader's thread
+        # could break a recording made here)
+        valid = [(curr_data, session.scene_graph(model_data))
+                 for curr_data, model_data in prepared_batch if model_data is not None]
         loss_parts: List[Any] = []
         repro_parts: List[Any] = []
         backproj_parts: List[float] = []
@@ -476,24 +592,33 @@ def epoch_train(
             # no valid sample: the reference still steps its scheduler
             # (train.py:152), not the optimizer
             session.advance_schedule()
-        elif device_metrics:
+        elif device_metrics and len(valid) == 1:
             curr_scene_name = valid[0][0].scene_name
             loss, repro, grad_norm = session.fused_step(valid[0][1])
             loss_parts.append(loss)
             repro_parts.append(repro)
         else:
-            curr_data, scene_graph = valid[0]
-            curr_scene_name = curr_data.scene_name
-            loss, pred, grads = session.loss_and_grads(scene_graph)
-            if explicit or calc_backproj:
-                core = compute_core_errors(
-                    curr_data, predictions_to_host(pred, curr_data, scene_graph.graph), conf)
-                if explicit:
-                    repro_parts.append(core["our_repro"])
-                if calc_backproj:
-                    backproj_parts.append(core["repro_backproj_rnd_gt_2view"])
-            loss_parts.append(loss)
-            grad_norm = session.update(grads)
+            grads_sum = None
+            for curr_data, scene_graph in valid:
+                curr_scene_name = curr_data.scene_name
+                loss, pred, grads = session.loss_and_grads(scene_graph)
+                if device_metrics:
+                    repro_parts.append(core_errors_device(pred, scene_graph)["our_repro"])
+                elif explicit or calc_backproj:
+                    core = compute_core_errors(
+                        curr_data, predictions_to_host(pred, curr_data, scene_graph.graph), conf)
+                    if explicit:
+                        repro_parts.append(core["our_repro"])
+                    if calc_backproj:
+                        backproj_parts.append(core["repro_backproj_rnd_gt_2view"])
+                loss_parts.append(loss)
+                if grads_sum is None:
+                    # of several samples, a copy: a recording's outputs are
+                    # overwritten by its next replay
+                    grads_sum = grads if len(valid) == 1 else [g.clone() for g in grads]
+                else:
+                    grads_sum = session.accumulate(grads_sum, grads)
+            grad_norm = session.update(grads_sum)
 
         scalars = _HostScalars(loss_parts + repro_parts + ([] if grad_norm is None else [grad_norm]))
         if pending is not None:
@@ -504,7 +629,7 @@ def epoch_train(
             "repro": repro_parts,
             "backproj": backproj_parts,
             "has_norm": grad_norm is not None,
-            "n_batch": len(train_batch),
+            "n_batch": len(prepared_batch),
             "step_idx": prev_n_batches + batch_idx,
             "scene_name": curr_scene_name,
             "lr": session.lr_at(n_updates),
@@ -554,8 +679,11 @@ def epoch_evaluation(
     rng: Optional[np.random.Generator] = None,
 ) -> Table:
     """Evaluate every scene of ``data_loader`` (the JAX package's
-    train/loop.py:587-765; reference train.py:170-259): the session's
-    forward (recorded on the card), timed on the host between two
+    train/loop.py:587-765; reference train.py:170-259): with
+    ``outlier_injection_rate`` each scene injected with outliers from
+    ``rng`` first (a new scene each time: its forward runs eagerly, and its
+    graph goes with it) and the metrics scored against the clean scene; the
+    session's forward (recorded on the card), timed on the host between two
     synchronisations (``Inference time``), then ``prepare_predictions``
     (with bundle adjustment if asked) and ``compute_errors`` on the host;
     with ``dump_and_plot_predictions`` the predictions' npz and, for a
@@ -564,8 +692,8 @@ def epoch_evaluation(
     its current ones. A scene that runs the device out of memory gets a row
     of NaNs unless ``crash_on_scene_exhausting_memory``. Returns the rows
     with their ``Mean`` row."""
-    if outlier_injection_rate is not None:
-        raise NotImplementedError(f"outlier injection {_SLICE5}")
+    from gasfm_tpu_torch.data.outliers import inject_outliers
+
     additional_identifiers = list(additional_identifiers or [])
     explicit = (conf.get_bool("model.view_head.enabled")
                 and conf.get_bool("model.scenepoint_head.enabled"))
@@ -600,7 +728,11 @@ def epoch_evaluation(
             print(f"Scene batch {j + 1}/{len(data_loader)}.")
         for curr_data in batch_data:
             try:
-                scene_graph = session.scene_graph(curr_data)
+                model_data = curr_data
+                if outlier_injection_rate is not None:
+                    model_data = inject_outliers(curr_data, outlier_injection_rate, rng=rng)
+                    assert model_data is not None
+                scene_graph = session.scene_graph(model_data)
                 _sync(session.device)
                 begin = time()
                 pred = session.forward(scene_graph)
@@ -630,6 +762,19 @@ def get_dummy_train_stats() -> Table:
     }])
 
 
+def curriculum_epochs(conf, phase: Phases, scene_data) -> int:
+    """The epochs the single-scene view curriculum
+    (``train.sequentially_increment_views``) adds before the conf's
+    ``train.n_epochs``, 0 without it or in the ``TRAINING`` phase: one stage
+    of ``train.increment_views_interval`` epochs per view added from 2 (the
+    JAX package's train/loop.py:810-828). The session's schedule takes them
+    as its ``milestone_shift``."""
+    if phase == Phases.TRAINING or not conf.get_bool("train.sequentially_increment_views",
+                                                      default=False):
+        return 0
+    return (scene_data.num_views - 1) * conf.get_int("train.increment_views_interval")
+
+
 def train(
     conf,
     train_loader,
@@ -643,27 +788,44 @@ def train(
 ):
     """Train ``session``'s model in place for ``train.n_epochs`` epochs of
     ``train_loader`` (the JAX package's train/loop.py:768-1163; reference
-    train.train, train.py:372-700), a single-scene phase (``OPTIMIZATION``,
-    ``FINE_TUNE``, ``SHORT_OPTIMIZATION``): an evaluation before the first
-    epoch with ``eval.eval_init`` (always before fine-tuning), after the
-    first, every ``eval.eval_interval`` and the last (bundle adjustment at
-    each unless ``ba.only_last_eval``), each logged to TensorBoard;
-    ``train.finetune_dump_*`` weight files and prediction dumps;
-    ``checkpoint.*`` (save every ``interval`` epochs, keep ``keep``, resume
-    the newest); ``final_model.npz`` in the JAX package's npz layout.
-    Returns ({"final_model": a CPU copy of the final ``state_dict``}, the
+    train.train, train.py:372-700).
+
+    ``TRAINING`` (multi-scene learning: ``train_loader`` samples subscenes,
+    ``val_loader`` and ``test_loader`` given): evaluations on the validation
+    set (with ``train.outlier_injection_rate`` also an outlier-free pass),
+    with ``eval.eval_on_train_set`` on ``train_loader_for_eval`` too, each
+    logged to TensorBoard (per scene with ``train.tb_log_*_per_scene``);
+    the best weights by ``train.validation_metric`` (``our_repro`` for the
+    explicit heads, else the backprojection metric, which needs
+    ``eval.calc_reprojerr_with_gtposes_for_depth_pred``) kept as a CPU copy,
+    ``model_epoch*.npz`` at each new best and ``best_model.npz``.
+
+    A single-scene phase (``OPTIMIZATION``, ``FINE_TUNE``,
+    ``SHORT_OPTIMIZATION``; ``train_loader`` one scene): evaluations of
+    ``train_loader_for_eval`` (the scene); with
+    ``train.sequentially_increment_views`` the view curriculum first
+    (:func:`curriculum_epochs`; the caller's session built with them as its
+    ``milestone_shift``): each stage trains on ``get_subset`` of the scene,
+    whose recordings go when the next stage replaces it.
+
+    Both: an evaluation before the first epoch with ``eval.eval_init``
+    (always before fine-tuning), after the first, every
+    ``eval.eval_interval`` and the last (bundle adjustment at each unless
+    ``ba.only_last_eval``); outlier injection in training and evaluation
+    with ``train.outlier_injection_rate``; ``train.finetune_dump_*`` weight
+    files and prediction dumps; ``checkpoint.*`` (save every ``interval``
+    epochs, keep ``keep``, resume the newest); ``final_model.npz`` in the
+    JAX package's npz layout. Returns ({"final_model": a CPU copy of the
+    final ``state_dict``, and with a validation metric "best_model"}, the
     train-stats table)."""
-    if phase == Phases.TRAINING:
-        raise NotImplementedError(f"the TRAINING phase (validation, best_model) {_SLICE5}")
-    assert phase in (Phases.FINE_TUNE, Phases.SHORT_OPTIMIZATION, Phases.OPTIMIZATION)
-    assert val_loader is None and test_loader is None
-    if conf.get_bool("train.sequentially_increment_views", default=False):
-        raise NotImplementedError(f"train.sequentially_increment_views = true {_SLICE5}")
-    outlier_injection_rate = conf.get_float("train.outlier_injection_rate", default=None)
-    if outlier_injection_rate is not None:
-        raise NotImplementedError(f"train.outlier_injection_rate {_SLICE5}")
+    from gasfm_tpu_torch.data.dataset import SceneLoader, ScenesDataSet
+    from gasfm_tpu_torch.data.sampling import get_subset
+    from gasfm_tpu_torch.utils.paths import get_additional_identifiers_for_outlier_injection
+
+    training = phase == Phases.TRAINING
     additional_identifiers = [] if additional_identifier is None else [additional_identifier]
     n_epochs = conf.get_int("train.n_epochs")
+    outlier_injection_rate = conf.get_float("train.outlier_injection_rate", default=None)
     print_interval = conf.get_int("train.print_interval", default=None)
     eval_interval = conf.get_int("eval.eval_interval", default=500)
     finetune_dump_model_interval = conf.get_int("train.finetune_dump_model_interval", default=None)
@@ -671,41 +833,129 @@ def train(
         "train.finetune_dump_and_plot_pred_interval", default=None)
     stdout_log_eval_memory = conf.get_bool("memory.stdout_log_eval_memory_consumption",
                                            default=False)
+    explicit = (conf.get_bool("model.view_head.enabled")
+                and conf.get_bool("model.scenepoint_head.enabled"))
     lr_warmup_n_steps = conf.get_int("train.lr_schedule.lr_warmup_n_steps", default=0)
     if rng is None:
         rng = np.random.default_rng(conf.get_int("random_seed", default=0))
-    if train_loader_for_eval is None:
-        train_loader_for_eval = train_loader
-    assert len(train_loader) == 1
-    the_batch = next(iter(train_loader))
-    assert len(the_batch) == 1
-    scene = conf.get_string("dataset.scene")
+    tb_log_train_per_scene = conf.get_bool("train.tb_log_train_per_scene", default=False)
+    tb_log_val_per_scene = conf.get_bool("train.tb_log_val_per_scene", default=False)
+
+    scene = None
+    sequential = False
+    if not training:
+        assert phase in (Phases.FINE_TUNE, Phases.SHORT_OPTIMIZATION, Phases.OPTIMIZATION)
+        if train_loader_for_eval is None:
+            train_loader_for_eval = train_loader
+        assert len(train_loader) == 1
+        the_batch = next(iter(train_loader))
+        assert len(the_batch) == 1
+        scene = conf.get_string("dataset.scene")
+        fullscene_data = the_batch[0]
+        n_epochs_sequential = curriculum_epochs(conf, phase, fullscene_data)
+        if n_epochs_sequential:
+            sequential = True
+            increment_views_interval = conf.get_int("train.increment_views_interval")
+            total_n_views = fullscene_data.num_views
+            curr_n_views = None
+            n_epochs += n_epochs_sequential
+        validation_metric = None
+    else:
+        if conf.get_bool("eval.eval_on_train_set", default=False):
+            assert train_loader_for_eval is not None
+        validation_metric = conf.get_string("train.validation_metric", default=None)
+        if validation_metric is None:
+            if explicit:
+                validation_metric = "our_repro"
+            elif conf.get_bool("model.depth_head.enabled"):
+                validation_metric = "repro_backproj_rnd_gt_2view"
+        if validation_metric == "repro_backproj_rnd_gt_2view" and not conf.get_bool(
+                "eval.calc_reprojerr_with_gtposes_for_depth_pred", default=False):
+            # fail fast: compute_errors writes the column only with the flag
+            # on, so the first validation would die with a KeyError
+            raise ValueError(
+                "train.validation_metric 'repro_backproj_rnd_gt_2view' requires "
+                "eval.calc_reprojerr_with_gtposes_for_depth_pred = true (or set "
+                "train.validation_metric explicitly).")
+    assert training == (val_loader is not None)
+    # the test set is evaluated by the caller (reference train.py:372,429)
+    assert training == (test_loader is not None)
 
     tb_writer = get_tb_writer(conf)
     run_ba = conf.get_bool("ba.run_ba", default=True)
     ba_during_training = run_ba and not conf.get_bool("ba.only_last_eval")
+    outlier_ids = get_additional_identifiers_for_outlier_injection(outlier_injection_rate)
 
     def models_path(name: str) -> str:
         return os.path.join(paths.path_to_models_dir(
             conf, phase, additional_identifiers=additional_identifiers), name)
 
+    def evaluate(loader, epoch, ph, oir, ids, dump_and_plot) -> Table:
+        return epoch_evaluation(
+            loader, session, None, conf, epoch, ph, outlier_injection_rate=oir,
+            dump_and_plot_predictions=dump_and_plot, additional_identifiers=ids,
+            bundle_adjustment=ba_during_training, log_memory_consumption=stdout_log_eval_memory,
+            crash_on_scene_exhausting_memory=True, rng=rng)
+
+    def log_eval(epoch, errors, ph, ids, per_scene_key=None, log_scene=None):
+        tb_log_eval_step(conf, tb_writer, epoch, errors, phase=ph, additional_identifiers=ids,
+                         scene=log_scene, include_post_ba_metrics=ba_during_training)
+        if per_scene_key is not None:
+            for sc in conf.get_list(per_scene_key, default=[]):
+                tb_log_eval_step(conf, tb_writer, epoch, errors, phase=ph,
+                                 additional_identifiers=ids, scene=sc,
+                                 include_post_ba_metrics=ba_during_training)
+
     def run_evals(epoch: int, dump_and_plot: bool) -> Table:
-        errors = epoch_evaluation(
-            train_loader_for_eval, session, None, conf, epoch, phase,
-            dump_and_plot_predictions=dump_and_plot,
-            additional_identifiers=additional_identifiers,
-            bundle_adjustment=ba_during_training,
-            log_memory_consumption=stdout_log_eval_memory,
-            crash_on_scene_exhausting_memory=True, rng=rng,
-        )
-        tb_log_eval_step(conf, tb_writer, epoch, errors, phase=phase,
-                         additional_identifiers=additional_identifiers, scene=scene,
-                         include_post_ba_metrics=ba_during_training)
+        """The evaluations of an epoch (reference train.py:486-547, 587-631);
+        returns the table the validation metric is read from."""
+        ids, ids_out = additional_identifiers, additional_identifiers + outlier_ids
+        if not training:
+            errors = evaluate(train_loader_for_eval, epoch, phase, outlier_injection_rate,
+                              ids_out, dump_and_plot)
+            log_eval(epoch, errors, phase, ids_out, log_scene=scene)
+            if outlier_injection_rate is not None:
+                log_eval(epoch, evaluate(train_loader_for_eval, epoch, phase, None, ids,
+                                         dump_and_plot), phase, ids, log_scene=scene)
+            return errors
+        val_per_scene = "dataset.validation_set" if tb_log_val_per_scene else None
+        errors = evaluate(val_loader, epoch, Phases.VALIDATION, outlier_injection_rate, ids_out,
+                          dump_and_plot)
+        log_eval(epoch, errors, Phases.VALIDATION, ids_out, val_per_scene)
+        if outlier_injection_rate is not None:  # the outlier-free pass (train.py:497-501)
+            errors = evaluate(val_loader, epoch, Phases.VALIDATION, None, ids, dump_and_plot)
+            log_eval(epoch, errors, Phases.VALIDATION, ids, val_per_scene)
+        if conf.get_bool("eval.eval_on_train_set", default=False):  # train.py:503-516
+            train_per_scene = "dataset.train_set" if tb_log_train_per_scene else None
+            for oir, oids in ((outlier_injection_rate, ids_out),) + (
+                    ((None, ids),) if outlier_injection_rate is not None else ()):
+                log_eval(epoch, evaluate(train_loader_for_eval, epoch, Phases.TRAINING, oir,
+                                         oids, dump_and_plot),
+                         Phases.TRAINING, oids, train_per_scene)
         return errors
+
+    best = {"metric": math.inf, "epoch": -1, "weights": None, "time": -1.0}
+    final_validation_metric = float("nan")
+    begin_time = time()
+
+    def track_best(epoch: int, validation_errors: Table) -> float:
+        metric = aggregate_val_metric(validation_errors, metric_column=validation_metric)
+        if metric < best["metric"]:
+            best.update(metric=metric, epoch=epoch, weights=session.weights())
+            if epoch >= 0:
+                best["time"] = time() - begin_time
+                print(f"Updated best validation metric: {metric} time so far: {best['time']}")
+            else:
+                print(f"Updated best validation metric: {metric}")
+        return metric
 
     # the initial evaluation (always before fine-tuning; reference train.py:486)
     if conf.get_bool("eval.eval_init", default=False) or phase == Phases.FINE_TUNE:
-        run_evals(-1, finetune_dump_and_plot_pred_interval is not None)
+        validation_errors = run_evals(-1, finetune_dump_and_plot_pred_interval is not None)
+        if validation_metric is not None:
+            track_best(-1, validation_errors)
+            if best["epoch"] == -1:
+                save_params(models_path("best_model.npz"), best["weights"])
         if finetune_dump_model_interval is not None:
             save_params(models_path(f"model_epoch{0:06d}.npz"), session.model)
 
@@ -732,16 +982,32 @@ def train(
             print(f"[checkpoint] resumed at epoch {start_epoch} ({n_updates} updates)")
 
     carried = None  # the last epoch's step, its scalars not read yet
+    curr_train_loader = train_loader
     profiler = ProfilerWindow(conf)
     for epoch in range(start_epoch, n_epochs):
+        if sequential:
+            prev_n_views = curr_n_views
+            curr_n_views = (2 + n_epochs_post_warmup // increment_views_interval
+                            if n_epochs_post_warmup is not None else 2)
+            if curr_n_views >= total_n_views:
+                curr_train_loader = train_loader
+            elif curr_n_views != prev_n_views:
+                print(f"Updating #views: {prev_n_views} -> {curr_n_views}")
+                # the stage's subscene lives in its loader only: replaced,
+                # it goes, with its graph and recordings
+                curr_train_loader = SceneLoader(
+                    ScenesDataSet([get_subset(fullscene_data, curr_n_views)], return_all=True),
+                    batch_size=1, shuffle=False, prefetch=0)
         will_eval = (epoch + 1) % eval_interval == 0 or epoch == 0 or epoch == n_epochs - 1
         will_print = print_interval is not None and epoch % print_interval == 0
         will_save = ckpt_enabled and (epoch + 1) % ckpt_interval == 0
         profiler.maybe_start(epoch)
         n_updates, mean_loss, _, n_batches, carried = epoch_train(
-            conf, session, train_loader, n_updates, epoch, phase, tb_writer,
-            additional_identifiers=additional_identifiers, scene=scene,
-            prev_n_batches=total_n_batches, tb_log_train_per_scene=None, rng=rng,
+            conf, session, curr_train_loader, n_updates, epoch, phase, tb_writer,
+            outlier_injection_rate=outlier_injection_rate,
+            additional_identifiers=additional_identifiers + outlier_ids, scene=scene,
+            prev_n_batches=total_n_batches,
+            tb_log_train_per_scene=tb_log_train_per_scene if training else None, rng=rng,
             carried=carried, keep_last=not (will_eval or will_print or will_save),
         )
         profiler.maybe_stop(epoch)
@@ -763,12 +1029,28 @@ def train(
         if will_eval:
             dump_and_plot = (finetune_dump_and_plot_pred_interval is not None
                              and (epoch + 1) % finetune_dump_and_plot_pred_interval == 0)
-            run_evals(epoch, dump_and_plot)
-            if (finetune_dump_model_interval is not None
-                    and (epoch + 1) % finetune_dump_model_interval == 0):
+            validation_errors = run_evals(epoch, dump_and_plot)
+            if validation_metric is not None:
+                metric = track_best(epoch, validation_errors)
+                if epoch == n_epochs - 1:
+                    final_validation_metric = metric
+            if ((finetune_dump_model_interval is not None
+                 and (epoch + 1) % finetune_dump_model_interval == 0)
+                    or (validation_metric is not None and epoch == best["epoch"])):
                 save_params(models_path(f"model_epoch{epoch + 1:06d}.npz"), session.model)
 
     profiler.close()
     save_params(models_path("final_model.npz"), session.model)
+    trained = {"final_model": session.weights()}
+    train_stats = get_dummy_train_stats()
+    if validation_metric is not None:
+        trained["best_model"] = (best["weights"] if best["weights"] is not None
+                                 else trained["final_model"])
+        save_params(models_path("best_model.npz"), trained["best_model"])
+        # unindexed, as the JAX package's DataFrame (train/loop.py:1148-1153)
+        train_stats = Table.from_records([{
+            "": 0, "Convergence time": best["time"], "best_epoch": best["epoch"] + 1,
+            "best_validation_metric": best["metric"],
+            "final_validation_metric": final_validation_metric}], index="")
     tb_writer.flush()
-    return {"final_model": session.weights()}, get_dummy_train_stats()
+    return trained, train_stats

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -177,14 +177,14 @@ def optim_from_conf(conf, milestone_shift: int = 0) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def save_params(path: str, model: torch.nn.Module) -> None:
-    """A flat npz of the model's weights under the JAX package's keys
-    (``"params/..."``, the ``"/"``-joined flax key paths its ``save_params``
-    writes), in flax's layouts: the JAX package's ``load_params`` restores it
-    into its init of the same configuration."""
+def save_params(path: str, model: Union[torch.nn.Module, Mapping[str, torch.Tensor]]) -> None:
+    """A flat npz of the model's weights (or of a ``state_dict`` of it) under
+    the JAX package's keys (``"params/..."``, the ``"/"``-joined flax key
+    paths its ``save_params`` writes), in flax's layouts: the JAX package's
+    ``load_params`` restores it into its init of the same configuration."""
     from gasfm_tpu_torch.models.convert import params_to_jax
 
-    flat = params_to_jax(model.state_dict())
+    flat = params_to_jax(model.state_dict() if isinstance(model, torch.nn.Module) else model)
     np.savez(path, **{f"params/{k}": v for k, v in flat.items()})
 
 

@@ -353,6 +353,7 @@ def test_recorded_forward_follows_the_weights(small_scene, monkeypatch, determin
     eager = session_of()
     rec = session_of()
     monkeypatch.setattr(loop, "_Program", ReplayStandIn)
+    monkeypatch.setattr(loop, "_eager_on", lambda stream, fn, *args: fn(*args))
     rec.capture = True
     kept = []
     for k in range(4):
@@ -364,14 +365,15 @@ def test_recorded_forward_follows_the_weights(small_scene, monkeypatch, determin
         assert torch.equal(rec.loss(got, small_scene), eager.loss(want, small_scene))
         for a, b in zip(rec.fused_step(small_scene), eager.fused_step(small_scene)):
             assert torch.equal(a, b)
-    static = rec._programs[("forward", id(small_scene))].out
+    static = rec._cache.of(small_scene).programs["forward"].out
     assert all(v is not static[key] for pred in kept for key, (v, _) in pred.items())
     assert all(torch.equal(v, copy) for pred in kept for v, copy in pred.values())
     assert not torch.equal(kept[0]["Ps_norm"][0], kept[3]["Ps_norm"][0])  # the weights moved
-    assert rec._programs[("forward", id(small_scene))].calls == 4
-    assert rec._programs[("fused_step", id(small_scene))].calls == 4
+    programs = rec._cache.of(small_scene).programs
+    assert programs["forward"].calls == 3  # after the eager warm-up
+    assert programs["fused_step"].calls == 3
     plain = rec.forward(small_scene, plain=True)  # eager, no program call
-    assert rec._programs[("forward", id(small_scene))].calls == 4
+    assert programs["forward"].calls == 3
     assert all(torch.equal(plain[k], eager.forward(small_scene)[k]) for k in plain)
 
 
@@ -423,7 +425,7 @@ def test_recorded_forward_runs_the_wrappers_at_warmup_and_recording_only(small_s
     assert {n for n, _ in calls} == {"fused_frontend", "fused_layer_step"}
     assert not any(grad for _, grad in calls)
     assert _Graph.replays == 3  # the recording's own replay, then one per call
-    prog = session._programs[("forward", id(small_scene))]
+    prog = session._cache.of(small_scene).programs["forward"]
     for pred in outs[1:]:
         assert all(pred[k] is not prog.out[k] and torch.equal(pred[k], prog.out[k])
                    for k in pred)

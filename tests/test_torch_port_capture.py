@@ -140,25 +140,22 @@ def test_capture_on_a_cpu_session_raises():
 
 class ReplayStandIn:
     """A CUDA graph's stand-in on the CPU, with ``loop._Program``'s
-    interface: the first call runs the function, the second records (keeps
-    that run's arguments and outputs as the static ones), later calls
-    replay: a fresh run on the recorded arguments, its results written into
-    the static outputs in place."""
+    interface: made at a function's second call on the same operands (its
+    first ran eagerly), it runs the function and keeps that run's arguments
+    and outputs as the static ones; its first call returns them, later
+    calls replay: a fresh run on the recorded arguments, its results written
+    into the static outputs in place."""
 
-    def __init__(self, fn, stream, keep=None):
-        self.fn, self.calls, self.out, self.graph = fn, 0, None, None
+    def __init__(self, fn, stream, args, keep=None):
+        self.fn, self.args, self.calls = fn, args, 0
+        self.out = self.graph = fn(*args)
 
-    def __call__(self, *args):
+    def __call__(self):
         self.calls += 1
-        if self.calls == 1:
-            return self.fn(*args)
-        if self.out is None:
-            self.args = args
-            self.out = self.graph = self.fn(*args)
-            return self.out
-        with torch.no_grad():
-            for static, fresh in zip(_leaves(self.out), _leaves(self.fn(*self.args))):
-                static.copy_(fresh)
+        if self.calls > 1:
+            with torch.no_grad():
+                for static, fresh in zip(_leaves(self.out), _leaves(self.fn(*self.args))):
+                    static.copy_(fresh)
         return self.out
 
 
@@ -171,10 +168,19 @@ def _leaves(out):
 
 
 def recorded(session, monkeypatch):
-    """``session`` taking the recorded path, with the stand-in for the graph."""
+    """``session`` taking the recorded path, with the stand-in for the graph
+    and the warm-up run in place of on a capture stream."""
     monkeypatch.setattr(loop, "_Program", ReplayStandIn)
+    monkeypatch.setattr(loop, "_eager_on", lambda stream, fn, *args: fn(*args))
     session.capture = True
     return session
+
+
+def program(session, kind, scene=None):
+    """The session's recording of ``kind`` on ``scene`` (None: its own
+    update inputs), or None."""
+    calls = session._own if scene is None else session._cache.of(scene)
+    return calls.programs.get(kind)
 
 
 def test_recorded_fused_step_keeps_the_eager_bookkeeping(small_scene, monkeypatch,
@@ -194,8 +200,8 @@ def test_recorded_fused_step_keeps_the_eager_bookkeeping(small_scene, monkeypatc
         kept.append((got[0], float(got[0])))
     assert all(float(t) == v for t, v in kept)
     assert len({id(t) for t, _ in kept}) == 4
-    assert [k[0] for k in rec._programs] == ["fused_step"]
-    assert rec._programs[("fused_step", id(small_scene))].calls == 4
+    assert [kind for kind, _ in rec.recordings()] == ["fused_step"]
+    assert program(rec, "fused_step", small_scene).calls == 3  # after the eager warm-up
     for a, b in zip(rec.params, eager.params):
         assert torch.equal(a, b)
     assert rec.optimizer.schedule_count == eager.optimizer.schedule_count == 4
@@ -220,11 +226,12 @@ def test_recorded_depth_step_reads_the_recorded_gradients(monkeypatch, determini
         assert torch.equal(loss, w_loss) and torch.equal(norm, w_norm)
     for a, b in zip(rec.params, eager.params):
         assert torch.equal(a, b)
-    lg = rec._programs[("loss_and_grads", id(scene))]
-    assert lg.calls == 4
-    assert rec._programs[("update", None)].calls == 1  # the warm-up's, read where they lie
+    lg = program(rec, "loss_and_grads", scene)
+    assert lg.calls == 3  # after the eager warm-up
+    # the warm-up's gradients, read where they lie by the update's eager warm-up
+    assert "update" in rec._own.warm and program(rec, "update") is None
     assert rec._update_inputs is None  # no input buffers: that update was never recorded
-    assert rec._programs[("update", id(scene))].calls == 3
+    assert program(rec, "update", scene).calls == 2  # warm-up at step 2, recorded at 3
     assert rec.optimizer.schedule_count == 4
 
 
@@ -240,7 +247,7 @@ def test_recorded_update_copies_other_gradients(monkeypatch, deterministic):
         assert torch.equal(rec.update(grads), eager.update(grads))
     for a, b in zip(rec.params, eager.params):
         assert torch.equal(a, b)
-    assert rec._programs[("update", None)].calls == 3
+    assert program(rec, "update").calls == 2  # after the eager warm-up
     assert rec._update_inputs is not None and rec._update_inputs[0] is not grads[0]
 
 

@@ -434,31 +434,3 @@ def test_event_file_matches_the_jax_writer(tmp_path):
     assert "OPTIMIZATION-train/x/synth0/batch/loss" in got
     for tag in want:
         assert got[tag] == want[tag], tag
-
-
-# -- what the port does not run yet raises -----------------------------------------
-
-
-@pytest.mark.parametrize("what", ["multi-scene-learning", "sequential-views", "outliers",
-                                  "training-phase", "view-sampling", "prefetch"])
-def test_unported_options_raise_and_name_slice_5(tmp_path, what):
-    from gasfm_tpu_torch.data.dataset import SceneLoader, ScenesDataSet
-    from gasfm_tpu_torch.main import main
-    from gasfm_tpu_torch.train.loop import train
-    from gasfm_tpu_torch.utils.phases import Phases
-
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        if what == "multi-scene-learning":
-            main(["multi-scene-learning", "--conf", "synth/learning_synth_gasfm.conf",
-                  "--device", "cpu"])
-        elif what == "sequential-views":
-            port_cli(tmp_path, DPESFM, "e", ["train.sequentially_increment_views=true",
-                                             "train.increment_views_interval=2"])
-        elif what == "outliers":
-            port_cli(tmp_path, DPESFM, "e", ["train.outlier_injection_rate=0.1"])
-        elif what == "training-phase":
-            train(None, None, None, Phases.TRAINING)
-        elif what == "view-sampling":
-            ScenesDataSet([], return_all=False)
-        else:
-            SceneLoader(ScenesDataSet([], return_all=True), prefetch=2)

@@ -35,7 +35,8 @@ for new in ("ops.kernels.segment_kernels", "ops.kernels.fused_update", "ops.edge
             "geometry.triangulation", "tools.bench", "config.hocon", "config", "data.loaders",
             "main", "data.dataset", "geometry.alignment", "ba.drivers", "ba.native_lib",
             "ba.packing", "experiments.single_scene", "utils.observability", "utils.tables",
-            "utils.events", "utils.paths", "utils.phases", "utils.plotting", "utils.xlsx"):
+            "utils.events", "utils.paths", "utils.phases", "utils.plotting", "utils.xlsx",
+            "data.sampling", "data.augmentation", "data.outliers", "experiments.multi_scene"):
     assert "gasfm_tpu_torch." + new in names, new
 """
 
@@ -79,7 +80,7 @@ def _tiny_model():
                            n_feat_view=8, n_feat_global=8)
 
 
-@pytest.mark.parametrize("entry", ["session", "graph", "cli"])
+@pytest.mark.parametrize("entry", ["session", "graph", "cli", "multi-scene-cli"])
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry, tmp_path):
     from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
     from gasfm_tpu_torch.losses import ESFMLoss
@@ -94,8 +95,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch, entry, t
             TrainingSession(_tiny_model(), ESFMLoss())
         elif entry == "graph":
             data.to_scene_graph()
-        else:
+        elif entry == "cli":
             main(["single-scene-optim", "--conf", "synth/optim_synth_dpesfm.conf"])
+        else:
+            main(["multi-scene-learning", "--conf", "synth/learning_synth_gasfm.conf"])
     assert not list(tmp_path.iterdir())  # the CLI raised before writing anything
     # Asking for the CPU explicitly works.
     session = TrainingSession(_tiny_model(), ESFMLoss(), device="cpu")

@@ -250,13 +250,38 @@ Phases, each printing its own lines; any failure exits non-zero:
    short optimization). Printed: ms per sampled step, the loader's wait per
    batch, host ms per sample, the subscenes' sizes, the profiler window's
    device ms and busy share, memory per epoch.
-13. A ``kernels`` JSON line (all seventeen kernels, each with its per-call
-   ``ms`` and its burst ``burst_ms``; launches from the training path that
-   runs each: GASFM's merged path for the first eight,
-   DPESFM for the segment sum, gather and edge combine, the wide scene's
-   unfused path for the attention and the segment max, whose times are the
-   wide scene's, the depth flagship for the projection update), the
-   nvidia-smi line, and the final ``{"ok": true, "device": ...}`` line.
+17. (after phase 16) Mixed precision, ``mixed_precision_phase``: the Adam
+   kernel (``csrc/adam.cu``) against its plain version on every parameter
+   tensor of the flagship (109,108,632 parameters, 673 tensors, one launch
+   per update) in four configurations, (a) bf16 moments, (b) bf16 weights
+   with an f32 master and bf16 moments, (c) a bf16 first moment alone and
+   the master with f32 moments: bitwise after two updates (under (a) a
+   third from gradients that start off 16 bytes); device ms per update
+   (graph replays in a burst) beside the bound (20 / 20 / 24 / 28 bytes per
+   parameter over 3.35 TB/s) and PyTorch's fused f32 Adam in the same run.
+   Then the flagship's dense-scene step under (a), (b) and (c) through
+   ``TrainingSession.from_conf`` (``MIXED_RUNS``), an eager and a captured
+   session side by side: the step-1 loss and gradients bitwise the float32
+   session's under (a) and (c); under (b) the loss within rtol 1e-2 and the
+   gradients against the plain path in float64 from the same bf16 weights
+   by phase 5's rule with one bf16 rounding (2^-8 x max |ref|) added; 1 +
+   3 steps captured against eager bitwise (values, weights, master,
+   moments, count); port launches per step phase 12b's plus one Adam; ms
+   per step captured against the float32 captured step, and the replay's
+   device ms by torch.profiler with the Adam kernel's share beside fused
+   f32 Adam's in the float32 step; peak memory. Then
+   the CLI under (b) on the synthetic GASFM conf (``cli_run``), its bf16
+   weight file loaded back. Its experiment goes to ``chiprun_out/phase17/``.
+13. A ``kernels`` JSON line (the seventeen TPU kernels' counterparts and
+   the Adam kernel, each with its per-call ``ms`` and its burst
+   ``burst_ms``; launches from the training path that runs each: GASFM's
+   merged path for the first eight, DPESFM for the segment sum, gather and
+   edge combine, the wide scene's unfused path for the attention and the
+   segment max, whose times are the wide scene's, the depth flagship for
+   the projection update, phase 17's (a) run for the Adam kernel, whose
+   ``burst_ms`` is its device time from graph replays and ``library_ms``
+   PyTorch's fused f32 Adam's), the nvidia-smi line, and the final
+   ``{"ok": true, "device": ...}`` line.
    The full record goes to ``chiprun_out/chip_smoke.json``.
 
 Tolerances, all float32 with sums in another order than the plain version:
@@ -3528,6 +3553,390 @@ def msl_phase(counters, record):
           f"{nvidia_smi_line()}")
 
 
+
+# ---------------------------------------------------------------------------
+# phase 17: mixed precision (bf16 Adam moments, bf16 weights with an f32
+# master) through the port's Adam kernel
+# ---------------------------------------------------------------------------
+
+BF16_EPS = 2.0 ** -8
+# (label, the conf's external params): (a) the JAX bench's fast
+# configuration, (b) bf16 weights with an f32 master, (c) the first moment alone
+MIXED_RUNS = (
+    ("a", ("train.adam_mu_dtype=bf16", "train.adam_nu_dtype=bf16")),
+    ("b", ("train.param_dtype=bf16", "train.adam_mu_dtype=bf16", "train.adam_nu_dtype=bf16")),
+    ("c", ("train.adam_mu_dtype=bf16",)),
+)
+# the Adam kernel's configurations: label -> (mu bf16, nu bf16, master, bytes
+# per parameter the update must move: g, mu, nu and p read, mu, nu and p
+# written, plus the bf16 copy under the master)
+ADAM_CONFIGS = {"a": (True, True, False, 20), "b": (True, True, True, 20),
+                "c": (True, False, False, 24), "master_f32": (False, False, True, 28)}
+ADAM_FLOPS = 14  # per parameter: g*g, two moments (3 each), 6 for the step, the add
+ADAM_SOURCE = "gasfm_tpu_torch/csrc/adam.cu"
+ADAM_REPLACES = ("port-only, no pallas_call: the JAX package's Adam is XLA "
+                 "(gasfm_tpu/train/state.py:29, :86, :197)")
+
+
+def graph_burst_ms(fn, reps=20) -> float:
+    """Device milliseconds per call of ``fn`` (device work only), recorded
+    once as a CUDA graph and replayed ``reps`` times between two events:
+    the host's launch path does not count."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = burst_ms(graph.replay, reps=reps, warmup=2)
+    del graph
+    return ms
+
+
+def adam_kernel_phase(dev, shapes, record):
+    """The Adam kernel against its plain version on every parameter tensor
+    of the flagship, in each configuration: two updates of each from the
+    same tensors and gradients, then every tensor (the parameters or master,
+    the bf16 copies, mu, nu, the count) bitwise equal (under (a) after a
+    third update whose gradients are views one element into a buffer, so
+    that no array of a tensor starts on 16 bytes: the kernel's element-wise
+    path); times: per call
+    (events around one call, the host's path included), device time per
+    update (graph replays in a burst), the plain version's per call, and
+    PyTorch's fused f32 Adam (``torch.optim.Adam(fused=True)``, f32
+    moments, no master: another function) on the same shapes, beside the
+    bound. Returns {label: result}."""
+    from gasfm_tpu_torch.ops.kernels import adam as A
+
+    n = sum(math.prod(s) for s in shapes)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    lr = torch.tensor(1e-3, device=dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = {}
+    for label, (mu_bf16, nu_bf16, master, per_param) in ADAM_CONFIGS.items():
+        pdt = bf16 if master else f32
+        base = [torch.randn(s, generator=gen, device=dev).to(pdt) for s in shapes]
+        grads = [(torch.randn(s, generator=gen, device=dev) * 1e-2).to(pdt) for s in shapes]
+        bufs = [A.AdamBuffers([t.clone() for t in base], bf16 if mu_bf16 else f32,
+                              bf16 if nu_bf16 else f32, master) for _ in range(2)]
+        del base
+        for _ in range(2):
+            A.adam_update_cuda(grads, bufs[0], lr)
+            A.adam_update_plain(grads, bufs[1], lr)
+        updates = 2
+        if label == "a":  # gradients one element into a buffer: the kernel's unaligned path
+            flat = torch.empty(n + 1, dtype=pdt, device=dev)
+            views, at = [], 1
+            for g in grads:
+                views.append(flat[at:at + g.numel()].view(g.shape))
+                at += g.numel()
+            torch._foreach_copy_(views, grads)
+            A.adam_update_cuda(views, bufs[0], lr)
+            A.adam_update_plain(views, bufs[1], lr)
+            updates += 1
+            del flat, views
+        pairs = [(x, y) for name in ("params", "mu", "nu")
+                 for x, y in zip(getattr(bufs[0], name), getattr(bufs[1], name))]
+        if master:
+            pairs += list(zip(bufs[0].copies, bufs[1].copies))
+        pairs.append((bufs[0].count, bufs[1].count))
+        bitwise = all(torch.equal(x, y) for x, y in pairs)
+        err = max(float((x.double() - y.double()).abs().max()) for x, y in pairs if x.numel())
+        if not bitwise or int(bufs[0].count) != updates:
+            raise SmokeFailure(f"adam {label}: kernel vs plain max |err| {err:.3e} (bitwise "
+                               f"required), count {int(bufs[0].count)}")
+        ms = cuda_ms(lambda: A.adam_update_cuda(grads, bufs[0], lr), reps=10)
+        dev_ms = graph_burst_ms(lambda: A.adam_update_cuda(grads, bufs[0], lr))
+        plain_ms = cuda_ms(lambda: A.adam_update_plain(grads, bufs[1], lr), reps=3, warmup=1)
+        b_ms, by = bound_ms(per_param * n, ADAM_FLOPS * n)
+        out[label] = dict(ok=True, max_abs_err=err, ms=ms, burst_ms=dev_ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=by, bytes_per_param=per_param,
+                          launches_per_update=len(bufs[0].launches), updates=updates)
+        del bufs, grads, pairs
+        torch.cuda.empty_cache()
+    # the library: PyTorch's fused f32 Adam on the same shapes
+    params = [torch.nn.Parameter(torch.randn(s, generator=gen, device=dev)) for s in shapes]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+    fused = torch.optim.Adam(params, lr=lr, fused=True, capturable=True)
+    fused.step()
+    lib_ms = cuda_ms(fused.step, reps=10)
+    lib_dev_ms = graph_burst_ms(fused.step)
+    lib_bound, _ = bound_ms(28 * n, ADAM_FLOPS * n)
+    del params, fused
+    torch.cuda.empty_cache()
+    smi = nvidia_smi_line()
+    for label, r in out.items():
+        r.update(library_ms=lib_dev_ms, library_call_ms=lib_ms, library_bound_ms=lib_bound)
+        print(f"adam {label} ({r['bytes_per_param']} B per parameter, {n} parameters in "
+              f"{len(shapes)} tensors, {r['launches_per_update']} launch per update): kernel vs "
+              f"plain bitwise after {r['updates']} updates; device ms per update {r['burst_ms']:.4f} (graph "
+              f"replays), per call {r['ms']:.4f} (host included), plain {r['plain_ms']:.3f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}; {r['bound_ms'] / r['burst_ms']:.0%} "
+              f"of it reached); PyTorch's fused f32 Adam {lib_dev_ms:.4f} device ms, per call "
+              f"{lib_ms:.4f} (its bound {lib_bound:.4f}); {smi} ok")
+    record["adam_kernel"] = dict(out, parameters=n, tensors=len(shapes), nvidia_smi=smi)
+    return out
+
+
+def mixed_precision_phase(dev, scenes, counters, record, L):
+    """Phase 17: mixed precision on the card. The Adam kernel against its
+    plain version on the flagship's tensors (:func:`adam_kernel_phase`);
+    then the flagship (``gasfm/optim_euc_gasfm.conf``, full width, its
+    ``random_seed`` init) on the dense scene under each of ``MIXED_RUNS``,
+    through ``TrainingSession.from_conf``, an eager and a captured session
+    side by side, the counters zeroed just before and read just after:
+    - the step-1 loss against the float32 session's: bitwise under (a) and
+      (c) (the weights are float32 until the first update), within rtol
+      1e-2 under (b) (bf16 weights, the linears' inputs rounded to bf16);
+    - the step-1 gradients: under (a) and (c) bitwise the float32 session's
+      (which phase 5's rule holds against float64); under (b) against the
+      plain path run in float64 from the same (bf16) weights by phase 5's
+      rule (``param_grad_errors``, ``branch_ties``) with bf16's rounding
+      added: the plain bf16 path is the yardstick (its error carries the
+      roundings of the linears' inputs and of the gradients to bf16), plus
+      one bf16 rounding of each gradient (2^-8 x its max |ref|), on which
+      side of a tie the kernel path may land;
+    - 1 + TRAIN_STEPS steps, captured (warm-up, recording, replays) against
+      eager: values and every parameter, master, moment and count bitwise;
+    - port launches per step: phase 12b's plus one Adam launch, at the
+      eager steps, the warm-up and the recording; none at a replay;
+    - ms per step captured (median of 5) against the float32 captured
+      session's in the same call; device ms per replay (torch.profiler, 10
+      replays), the Adam kernel's and the dtype casts' share of it, beside
+      the float32 step's fused Adam; peak device memory over the steps.
+    Then the CLI under (b) on the synthetic GASFM conf (phase 15's
+    ``cli_run``: replays, learning, the tree), its weight file (bf16
+    leaves) loaded back into a bf16 model. Returns the launches of the (a)
+    run (the path the kernels line reports the Adam kernel's launches on)."""
+    import copy
+
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.main import init_model
+    from gasfm_tpu_torch.ops.kernels import adam as A
+    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.train.state import load_params
+
+    t_phase = time.perf_counter()
+    conf_name = "gasfm/optim_euc_gasfm.conf"
+    scene = scenes["dense"]
+    counters = dict(counters, adam_update=A.adam_update)
+    model0, n_params = init_model(load_config(conf_name))
+    shapes = [tuple(p.shape) for p in model0.parameters() if p.requires_grad]
+    kern = adam_kernel_phase(dev, shapes, record)
+    per_step = {k: v for k, v in per_step_launches(L, backward=True).items() if v}
+    fwd_bwd = dict(per_step)
+    per_call = dict(per_step, **{k: per_step.get(k, 0) + v for k, v in REPRO_LAUNCHES.items()})
+    with_adam = dict(per_call, adam_update=1)
+
+    def session(ext, capture):
+        conf = load_config(conf_name, external_params=list(ext))
+        return TrainingSession.from_conf(conf, copy.deepcopy(model0), device=dev,
+                                         capture=capture)
+
+    def counted(fn):
+        before = {k: c.launches for k, c in counters.items()}
+        res = fn()
+        return res, {k: c.launches - before[k] for k, c in counters.items()
+                     if c.launches != before[k]}
+
+    def profiled(sess, reps=10):
+        """Device ms per replayed step from torch.profiler over ``reps``
+        replays: (total, Adam's kernel, the dtype casts, {kernel: ms})."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):  # the profiler drops a window's events now and then (PERF.md)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    sess.fused_step(scene)
+                torch.cuda.synchronize()
+            by = collections.Counter()
+            for e in prof.key_averages():
+                t = getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0)
+                if t:
+                    by[e.key] += t / 1e3 / reps
+            total = sum(by.values())
+            if total > 0:
+                break
+        else:
+            raise SmokeFailure("the profiler caught no device time in 3 windows")
+        adam = sum(v for k, v in by.items() if "adam_kernel" in k or "FusedAdamMathFunctor" in k)
+        casts = sum(v for k, v in by.items() if "copy_kernel" in k)
+        return total, adam, casts, by
+
+    def timed_ms(sess, reps=5):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.fused_step(scene)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    # the float32 session: its step-1 loss and gradients, and its captured step
+    ref_loss, _, ref_grads = session((), capture=False).loss_and_grads(scene)
+    ref_loss = float(ref_loss)
+    base = session((), capture=True)
+    for _ in range(2):
+        base.fused_step(scene)  # warm-up, recording
+    f32_ms = timed_ms(base)
+    f32_prof = profiled(base)
+    print(f"mixed f32: the float32 flagship's captured dense step {f32_ms:.3f} ms; device "
+          f"{f32_prof[0]:.3f} ms per replay (torch.profiler, 10 replays), fused Adam "
+          f"{f32_prof[1]:.4f}, dtype casts {f32_prof[2]:.4f}")
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    results, path_launches = {}, None
+    for label, ext in MIXED_RUNS:
+        eager, cap = session(ext, capture=False), session(ext, capture=True)
+        names = [k for k, p in eager.model.named_parameters() if p.requires_grad]
+        if label == "a":
+            for c in counters.values():
+                c.launches = 0
+        (loss, pred, grads), d = counted(lambda: eager.loss_and_grads(scene))
+        if d != fwd_bwd:
+            raise SmokeFailure(f"mixed {label}: loss_and_grads launched {d}, expected {fwd_bwd}")
+        loss = float(loss)
+        if label == "b":
+            if abs(loss - ref_loss) > 1e-2 * abs(ref_loss):
+                raise SmokeFailure(f"mixed b: step-1 loss {loss!r} vs float32 {ref_loss!r}")
+            grad_note = mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record)
+        else:
+            same = loss == ref_loss and all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+            if not same:
+                raise SmokeFailure(f"mixed {label}: step-1 loss {loss!r} / gradients differ from "
+                                   f"the float32 session's ({ref_loss!r}); bitwise required")
+            grad_note = "step-1 loss and gradients bitwise the float32 session's"
+        del grads, pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)  # the steps' peak, the checks' apart
+        steps, launches = [], []
+        for k in range(1 + TRAIN_STEPS):
+            e, de = counted(lambda: [float(v) for v in eager.fused_step(scene)])
+            c, dc = counted(lambda: [float(v) for v in cap.fused_step(scene)])
+            want_c = with_adam if k < 2 else {}
+            if de != with_adam or dc != want_c:
+                raise SmokeFailure(f"mixed {label}: step {k + 1} launches eager {de}, captured "
+                                   f"{dc}; expected {with_adam} and {want_c}")
+            launches.append(sum(dc.values()))
+            ob, cb = eager.optimizer.buffers, cap.optimizer.buffers
+            tensors = list(zip(eager.params, cap.params)) + [
+                (x, y) for name in ("params", "mu", "nu")
+                for x, y in zip(getattr(ob, name), getattr(cb, name))] + [(ob.count, cb.count)]
+            if e != c or not all(torch.equal(x, y) for x, y in tensors):
+                raise SmokeFailure(f"mixed {label}: step {k + 1} captured {c} vs eager {e}; "
+                                   f"bitwise required")
+            if not all(map(math.isfinite, c)):
+                raise SmokeFailure(f"mixed {label}: step {k + 1} values {c}")
+            steps.append(c)
+        if label == "a":
+            path_launches = {k: c.launches for k, c in counters.items()}
+        if int(cap.optimizer.buffers.count) != 1 + TRAIN_STEPS:
+            raise SmokeFailure(f"mixed {label}: Adam's count {int(cap.optimizer.buffers.count)}")
+        master = cap.optimizer.buffers.master
+        if master and not all(torch.equal(p, m.to(torch.bfloat16)) for p, m in
+                              zip(cap.params, cap.optimizer.buffers.params)):
+            raise SmokeFailure(f"mixed {label}: a bf16 weight is not its master's rounding")
+        ms = timed_ms(cap)
+        peak = torch.cuda.max_memory_allocated(dev)
+        dev_ms, adam_ms, cast_ms, by = profiled(cap)
+        results[label] = dict(external_params=list(ext), step1_loss=loss, steps=steps,
+                              launches_per_call=launches, ms_captured=ms, ms_f32_captured=f32_ms,
+                              peak_bytes=peak, grads=grad_note, device_ms=dev_ms,
+                              adam_device_ms=adam_ms, cast_device_ms=cast_ms,
+                              f32_device_ms=f32_prof[0], f32_adam_device_ms=f32_prof[1],
+                              top_kernels=by.most_common(12))
+        print(f"mixed {label} ({' '.join(ext)}): flagship dense, {n_params} parameters; step-1 "
+              f"loss {loss!r} (float32 {ref_loss!r}); {grad_note}; {1 + TRAIN_STEPS} steps "
+              f"captured vs eager bitwise (values, weights, "
+              f"{'master, ' if master else ''}moments, count) {steps}; port launches per "
+              f"captured call {launches} ({sum(with_adam.values())} = phase 12b's "
+              f"{sum(per_call.values())} + 1 Adam, at the warm-up and the recording); captured "
+              f"ms/step {ms:.3f} against float32's {f32_ms:.3f} ({ms / f32_ms:.3f}x); device ms "
+              f"per replay {dev_ms:.3f} (float32 {f32_prof[0]:.3f}), the Adam kernel "
+              f"{adam_ms:.4f} of it (fused f32 Adam {f32_prof[1]:.4f}), dtype casts {cast_ms:.4f}; "
+              f"peak device memory over the steps {peak / 2**20:.1f} MiB (an eager and a "
+              f"captured session) ok")
+        del eager, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    del ref_grads
+
+    # the CLI under (b), its weight file loaded back
+    out_dir = ROOT / "chiprun_out" / "phase17"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    synth = "synth/optim_synth_gasfm.conf"
+    b_ext = ("train.n_epochs=20", "eval.eval_interval=10") + MIXED_RUNS[1][1]
+    summary = cli_run("synth-gasfm-bf16", synth, b_ext, counters, record, out_dir)
+    first = summary["launches_first_steps"][0]
+    if first.get("adam_update") != 1:
+        raise SmokeFailure(f"CLI synth-gasfm-bf16: the warm-up step launched {first}")
+    weights = out_dir / "synth-gasfm-bf16" / "OPTIMIZATION" / "synth0" / "models" / \
+        "final_model.npz"
+    import numpy as np
+
+    with np.load(weights) as data:
+        leaves = {k: data[k].dtype.str for k in data.files}
+    if set(leaves.values()) != {"|V2"}:
+        raise SmokeFailure(f"CLI synth-gasfm-bf16: weight file leaves {set(leaves.values())}")
+    loaded = init_model(load_config(synth, external_params=list(b_ext)))[0].to(torch.bfloat16)
+    load_params(str(weights), loaded)
+    if not all(bool(torch.isfinite(p.float()).all()) for p in loaded.parameters()):
+        raise SmokeFailure("CLI synth-gasfm-bf16: non-finite loaded weights")
+    print(f"phase 17: the CLI under (b) wrote {len(leaves)} bf16 leaves (|V2), loaded back into a "
+          f"bf16 model ok")
+    record["mixed"] = dict(results, adam=kern)
+    record["mixed_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 17 (mixed precision): {record['mixed_phase_s']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return path_launches, kern
+
+
+def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
+    """(b)'s step-1 gradients (bf16) against the plain path run in float64
+    from the same bf16 weights, by phase 5's rule with bf16's rounding added
+    (see :func:`mixed_precision_phase`). Returns the line's note."""
+    import copy
+
+    from gasfm_tpu_torch.train.loop import TrainingSession
+
+    _, _, p_grads = eager.loss_and_grads(scene, plain=True)
+    ref = TrainingSession(copy.deepcopy(eager.model).double(), eager.loss_func, device=dev,
+                          capture=False)
+    acts = ActivationBranches()
+    with acts.watch("record"):
+        eager.loss_and_grads(scene)
+    scene64 = float64_scene(scene)
+    with acts.watch("compare"):
+        r_loss, r_pred, r_grads = ref.loss_and_grads(scene64, plain=True)
+    tie, ties = branch_ties(ref, scene64, pred, r_pred, r_grads, acts)
+    rounding = [BF16_EPS * float(r.abs().max()) for r in r_grads]
+    errs, G = param_grad_errors(names, [g.float() for g in grads], [g.float() for g in p_grads],
+                                r_grads, GRAD_EPS64, [t + b for t, b in zip(ties, rounding)])
+    bad = [t for t in errs if not t[-1]]
+    wk = max(errs, key=lambda t: t[1] / max(t[3], 1e-30))
+    note = (f"step-1 gradients (bf16, {len(errs)} tensors, G = {G:.4g}) against float64 from the "
+            f"same weights: worst relative to its max |ref| {wk[0]} kernel {wk[1]:.3e}, plain "
+            f"{wk[2]:.3e}, max |ref| {wk[3]:.3e}; ties {tie['act_flips']} activations, "
+            f"{tie['loss_flips']} loss edges; tol kernel err <= {GRAD_FACTOR:g} x plain err + "
+            f"{GRAD_RTOL64:g} x max|ref| + {GRAD_EPS64:g} x G + ties + 2^-8 x max|ref| "
+            f"{'ok' if not bad else 'FAIL'}")
+    record.setdefault("mixed_b_grads", {}).update(
+        errors=[t[:4] for t in errs], G=G, loss64=float(r_loss), ties=tie)
+    if bad:
+        raise SmokeFailure(f"mixed b: step-1 gradients out of tolerance: "
+                           f"{[t[:4] for t in bad[:8]]}")
+    del ref, r_grads, r_pred, p_grads
+    return note
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an "
@@ -3800,6 +4209,12 @@ def main() -> int:
     # augmented subscenes, outliers, batches, the best model, fine-tuning)
     msl_phase(counters, record)
 
+    # ---- phase 17: mixed precision (bf16 moments, bf16 weights with an f32
+    # master) through the port's Adam kernel
+    mixed_launches, adam = mixed_precision_phase(dev, scenes, counters, record, L)
+    if mixed_launches["adam_update"] == 0:
+        raise SmokeFailure("adam_update was never launched on the mixed-precision path")
+
     # ---- phase 13: the record
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():
@@ -3809,6 +4224,12 @@ def main() -> int:
             launches=paths[path][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             burst_ms=r["burst_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+    a = adam["a"]  # the JAX bench's configuration, on the (a) path
+    kernels.append(dict(
+        name="adam_update", route="cuda", source=ADAM_SOURCE, replaces=ADAM_REPLACES,
+        launches=mixed_launches["adam_update"], max_abs_err=a["max_abs_err"], ms=a["ms"],
+        burst_ms=a["burst_ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+        bound_by=a["bound_by"], library_ms=a["library_ms"]))
     record["kernels"] = kernels
     record["seconds"] = time.perf_counter() - t_start
     print(f"chip_smoke: all phases ok in {record['seconds']:.1f} s")

@@ -16,6 +16,12 @@ from gasfm_tpu_torch.config.hocon import (
     merge_external_params,
 )
 
+# Keys the JAX package reads (train/state.py build_optimizer and
+# cast_params_for_training: bf16 second moments, bf16 weights with an f32
+# master) that its ref.conf lacks, so that its CLI's schema check refuses
+# them (its bench sets them on a conf it builds). The port's CLI takes them.
+KEYS_BEYOND_SCHEMA = ("train.adam_nu_dtype", "train.param_dtype")
+
 _CONF_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "confs")
 
 
@@ -31,6 +37,7 @@ def load_config(path: str, external_params=None, validate: bool = True) -> Confi
     """Load a runtime config file, merge CLI overrides, validate keys.
 
     Relative bare names resolve against the shipped ``confs/`` directory.
+    The keys of ``KEYS_BEYOND_SCHEMA`` pass the check.
     """
     if not os.path.exists(path):
         candidate = os.path.join(_CONF_DIR, path)
@@ -41,7 +48,8 @@ def load_config(path: str, external_params=None, validate: bool = True) -> Confi
     if external_params:
         merge_external_params(conf, list(external_params))
     if validate:
-        bad = detect_schema_discrepancies(conf, load_ref_schema())
+        bad = [k for k in detect_schema_discrepancies(conf, load_ref_schema())
+               if k not in KEYS_BEYOND_SCHEMA]
         if bad:
             raise ValueError(f"Unknown configuration keys (not in ref.conf schema): {bad}")
     return conf
@@ -51,6 +59,7 @@ __all__ = [
     "ConfigFactory",
     "ConfigMissingError",
     "ConfigTree",
+    "KEYS_BEYOND_SCHEMA",
     "confs_dir",
     "detect_schema_discrepancies",
     "load_config",

@@ -36,12 +36,14 @@ short optimization's trees and ``final_train_errors_<PHASE>[_id]`` tables.
 Conf keys the port reads and does not act on: ``compile.*`` (the edge chunk,
 ``stream_dtype``, the bucket multiples and growth, ``kernel_precision``,
 ``donate_state``, ``dtype``) and ``model.remat_layers``, the JAX package's
-TPU layout and memory devices. Options the port has not ported yet raise
-``NotImplementedError`` where they are read, rather than run something
-other than the conf asks for: bf16 parameters or Adam moments
-(``train.param_dtype``, ``train.adam_mu_dtype``, ``train.adam_nu_dtype``;
-``train.state.optim_from_conf``), a ``parallel.mesh_shape`` of more than
-one device (``TrainingSession.from_conf``).
+TPU layout and memory devices. bf16 Adam moments and bf16 weights with an
+f32 master (``train.adam_mu_dtype``, ``train.adam_nu_dtype``,
+``train.param_dtype``) train through the port's Adam kernel
+(``train.state.optim_from_conf``; the weight files then hold bf16 leaves,
+as the JAX package's do). An option the port has not ported yet raises
+``NotImplementedError`` where it is read, rather than run something other
+than the conf asks for: a ``parallel.mesh_shape`` of more than one device
+(``TrainingSession.from_conf``).
 """
 
 from __future__ import annotations

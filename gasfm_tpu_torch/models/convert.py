@@ -19,6 +19,11 @@ names, which are the reference checkpoint's. Conventions translated:
 Every flax leaf is mapped or the call raises; loading the result with
 ``load_state_dict(strict=True)`` then proves every port key was filled.
 
+bf16 leaves (the JAX package's weights under ``train.param_dtype = bf16``:
+``ml_dtypes`` bfloat16 arrays, which ``np.savez`` stores as ``|V2``, raw
+bfloat16 bits) become torch bfloat16 tensors and back, through an int16 view
+of their bits: the port has no ``ml_dtypes``.
+
 ``params_to_jax`` is its inverse: the port's ``state_dict`` as flat flax key
 paths (``"/"``-joined, as the JAX package's ``save_params`` writes them) in
 flax's layouts; each key is mapped back through ``params_from_jax``'s own
@@ -44,6 +49,7 @@ _LEAF = {
     "att": ("att", False),
     "prev_projfeat_norm_scale": ("prev_projfeat_norm_layer.weight", False),
     "prev_projfeat_norm_bias": ("prev_projfeat_norm_layer.bias", False),
+    "pts_3d": ("pts_3d", False),  # Parameter3DPts
 }
 
 # Module renames that depend on the parent module's name.
@@ -96,6 +102,12 @@ def _torch_key(path: List[str]) -> Tuple[str, bool]:
     return ".".join(parts + [leaf]), transpose
 
 
+def _is_bf16_bits(a: np.ndarray) -> bool:
+    """An ``ml_dtypes`` bfloat16 array, or the ``|V2`` array an npz gives
+    back for one."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2 and not a.dtype.names
+
+
 def params_from_jax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
     """flax params of the JAX ``GraphAttnSfMNet`` or ``SetOfSetNet`` -> the
     port's state_dict."""
@@ -108,14 +120,17 @@ def params_from_jax(tree: Dict) -> "OrderedDict[str, torch.Tensor]":
                 walk(v, path + [k])
             return
         key, transpose = _torch_key(path)
-        a = np.asarray(node, dtype=np.float32)
+        a = np.asarray(node)
+        bf16 = _is_bf16_bits(a)
+        a = a.view(np.int16) if bf16 else a.astype(np.float32)
         if transpose:
             a = a.T
         if path[-1] == "att":
             a = a.reshape((1,) + a.shape)
         if key in out:
             raise ValueError(f"two flax leaves map to {key}")
-        out[key] = torch.tensor(a)
+        t = torch.tensor(a)
+        out[key] = t.view(torch.bfloat16) if bf16 else t
 
     walk(tree, [])
     return out
@@ -169,10 +184,14 @@ def _flax_path(key: str, ndim: int) -> List[str]:
 
 def params_to_jax(state_dict) -> "OrderedDict[str, np.ndarray]":
     """The port's ``state_dict`` -> {flax key path joined by "/": array in
-    flax's layout}, without the top-level ``"params"``."""
+    flax's layout}, without the top-level ``"params"``; a bf16 tensor
+    becomes a ``|V2`` array of its bits (what ``np.savez`` stores of an
+    ``ml_dtypes`` bfloat16 array)."""
     out: "OrderedDict[str, np.ndarray]" = OrderedDict()
     for key, t in state_dict.items():
-        a = t.detach().cpu().numpy().astype(np.float32)
+        t = t.detach().cpu()
+        bf16 = t.dtype == torch.bfloat16
+        a = t.contiguous().view(torch.int16).numpy() if bf16 else t.numpy().astype(np.float32)
         path = _flax_path(key, a.ndim)
         back, transpose = _torch_key(path)
         if back != key:
@@ -181,5 +200,6 @@ def params_to_jax(state_dict) -> "OrderedDict[str, np.ndarray]":
             a = a.T
         if path[-1] == "att":
             a = a.reshape(a.shape[1:])
-        out["/".join(path)] = np.ascontiguousarray(a)
+        a = np.ascontiguousarray(a)
+        out["/".join(path)] = a.view("V2") if bf16 else a
     return out

@@ -36,6 +36,23 @@ function as E[x^2] - mean^2, so the two round differently (the model parity
 test holds them to rtol 1e-3). The edge-stream LayerNorm inside the kernels
 keeps the flax form of the JAX kernels.
 
+Weights in bf16 (``train.param_dtype = bf16``, the JAX package's bf16
+parameter storage with an f32 master in the optimizer) take the JAX
+package's three paths, use by use:
+
+- ``TorchDense`` (the flax ``TorchDense``) is a bf16 dot with f32
+  accumulation (``gasfm_tpu/models/layers.py:72-81``): ``x`` rounded to
+  bf16, an f32 product, ``+ bias`` in f32 (:class:`_Bf16Dense`);
+- every other use upcasts the weight to f32 under autograd (:func:`f32`),
+  as JAX promotes a bf16 operand beside an f32 one and as it upcasts the
+  weight-side operands of its Pallas kernels (``ops/gatv2.py`` ``_opf32``):
+  the GATv2 source and query linears (:class:`Linear32`) and attention
+  vectors, the LayerNorms (:class:`LayerNorm`, as flax promotes its scale
+  and bias), the edge LayerNorm and the projection update's weights handed
+  to the kernels, the aggregators' output bias. The kernels stay float32;
+  the upcast's backward rounds each use's f32 gradient to bf16, as JAX's
+  convert transposes.
+
 Initialization: ``init_parameters`` draws every parameter from an explicit
 ``torch.Generator`` — torch ``nn.Linear`` bounds (uniform +-1/sqrt(fan_in))
 for plain linears, Glorot with zero bias for the GATv2 linears and
@@ -48,6 +65,7 @@ import math
 from typing import NamedTuple, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from gasfm_tpu_torch.ops.edge_update import edge_combine, projection_update
@@ -78,8 +96,74 @@ class PendingUpdate(NamedTuple):
     pg: torch.Tensor  # (1, De) global linear output
 
 
+def f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bf16 weight upcast to float32, under autograd (its gradient comes
+    back rounded to bf16); any other tensor (a float32 weight, or a float64
+    one of a reference run) as it is."""
+    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
+
+
+class _Bf16Dense(torch.autograd.Function):
+    """``jax.lax.dot_general(x.astype(bf16), W_bf16, preferred_element_type=
+    f32) + b`` and its transpose: forward ``x`` rounded to bf16, products
+    accumulated in f32, an f32 output, then ``+ b`` in f32; backward ``dx``
+    in f32 rounded to bf16 (the convert's transpose takes it back to f32),
+    ``dW`` and ``db`` in f32 rounded to bf16. On the card the product is
+    cuBLAS's bf16 GEMM with an f32 output; on the CPU (where torch has no
+    such GEMM) the f32 product of the bf16 values, which are exact in f32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xb = x.to(torch.bfloat16)
+        x2 = xb.reshape(-1, xb.shape[-1])
+        if x2.is_cuda:
+            y = torch.mm(x2, weight.t(), out_dtype=torch.float32)
+        else:
+            y = x2.float() @ weight.float().t()
+        y = y.reshape(*x.shape[:-1], weight.shape[0])
+        if bias is not None:
+            y = y + bias.float()
+        ctx.save_for_backward(xb, weight)
+        ctx.has_bias = bias is not None
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, weight = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = (g2 @ weight.float()).to(torch.bfloat16).float().reshape(xb.shape)
+        dw = (g2.t() @ xb.reshape(-1, xb.shape[-1]).float()).to(torch.bfloat16)
+        db = g2.sum(0).to(torch.bfloat16) if ctx.has_bias else None
+        return dx, dw, db
+
+
 class TorchDense(nn.Linear):
-    """Linear layer with torch's default initialization bounds."""
+    """Linear layer with torch's default initialization bounds; with bf16
+    weights the JAX ``TorchDense``'s bf16 dot (:class:`_Bf16Dense`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype == torch.bfloat16:
+            return _Bf16Dense.apply(x, self.weight, self.bias)
+        return super().forward(x)
+
+
+class Linear32(nn.Linear):
+    """A linear whose bf16 weights are upcast to f32 for an f32 product (the
+    JAX package's GATv2 linears, ``x @ kernel + bias`` with promotion)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, f32(self.weight), f32(self.bias))
+
+
+class LayerNorm(nn.LayerNorm):
+    """torch's LayerNorm with bf16 scale and bias upcast to f32, as flax
+    promotes them beside an f32 input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape, f32(self.weight), f32(self.bias),
+                            self.eps)
 
 
 class MLPStack(nn.Sequential):
@@ -142,23 +226,23 @@ class GATv2SegmentConv(nn.Module):
         super().__init__()
         self.heads = heads
         D = heads * out_per_head
-        self.lin_l = nn.Linear(in_feat, D)
-        self.lin_r = nn.Linear(in_feat, D)
+        self.lin_l = Linear32(in_feat, D)
+        self.lin_r = Linear32(in_feat, D)
         self.att = nn.Parameter(torch.empty(1, heads, out_per_head))
         self.bias = nn.Parameter(torch.zeros(D))
 
     def transform_dst(self, query: Optional[torch.Tensor], num_segments: int) -> torch.Tensor:
         """(S, H*C) query rows; the bias alone for a stateless aggregation."""
         if query is None:
-            return self.lin_r.bias.expand(num_segments, -1)
+            return f32(self.lin_r.bias).expand(num_segments, -1)
         return self.lin_r(query)
 
     def pool(self, x_src: torch.Tensor, row_mask: torch.Tensor,
              query: Optional[torch.Tensor]) -> torch.Tensor:
         """Single-node attention pool over the masked rows: (1, H*C)."""
         out = gatv2_attend_pool(self.lin_l(x_src), self.transform_dst(query, 1),
-                                self.att.reshape(-1), row_mask, self.heads)
-        return out + self.bias
+                                f32(self.att).reshape(-1), row_mask, self.heads)
+        return out + f32(self.bias)
 
 
 class QueryAdapter(nn.Sequential):
@@ -166,7 +250,7 @@ class QueryAdapter(nn.Sequential):
     path (reference ``norm_and_proj_*`` Sequentials)."""
 
     def __init__(self, d_state: int, d_target: int):
-        mods = [nn.LayerNorm(d_state), nn.ReLU()]
+        mods = [LayerNorm(d_state), nn.ReLU()]
         if d_target != d_state:
             mods.append(TorchDense(d_state, d_target))
         super().__init__(*mods)
@@ -191,7 +275,7 @@ class AxialAttentionAggregator(nn.Module):
         self.graph_conv = GATv2SegmentConv(in_feat, agg // n_heads, n_heads)
         if agg != out_feat:
             self.add_module(self._proj, TorchDense(agg, out_feat))
-        self.norm_pre_mlp = nn.LayerNorm(out_feat)
+        self.norm_pre_mlp = LayerNorm(out_feat)
         self.mlp = MLPStack([out_feat] * (2 + n_hidden_layers))
 
     def query_transform(self, prev: Optional[torch.Tensor], num_segments: int) -> torch.Tensor:
@@ -201,7 +285,7 @@ class AxialAttentionAggregator(nn.Module):
     def finish(self, aggregated: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
         """Everything after the aggregation: bias, width adapter, residual,
         LN + ReLU + MLP with a second residual (reference layers.py:344-357)."""
-        x = aggregated + self.graph_conv.bias
+        x = aggregated + f32(self.graph_conv.bias)
         if hasattr(self, self._proj):
             x = getattr(self, self._proj)(x)
         if prev is not None:
@@ -233,7 +317,7 @@ class ViewAndScenePoint2Global(nn.Module):
         self.proj_view_and_scenepoint2global = (
             TorchDense(v2g + s2g, n_feat_global_out) if v2g + s2g != n_feat_global_out else None
         )
-        self.norm_pre_mlp = nn.LayerNorm(n_feat_global_out)
+        self.norm_pre_mlp = LayerNorm(n_feat_global_out)
         self.mlp = MLPStack([n_feat_global_out] * (2 + n_hidden_layers))
 
     def forward(self, view_features, scenepoint_features, cam_valid, pt_valid, prev_global=None):
@@ -262,8 +346,8 @@ class GlobalBroadcastUpdate(nn.Module):
         super().__init__()
         self._norm = f"{target}_norm_layer"
         self._lin = f"lin_{target}"
-        self.add_module(self._norm, nn.LayerNorm(n_feat_in_out))
-        self.global_norm_layer = nn.LayerNorm(n_feat_global_in)
+        self.add_module(self._norm, LayerNorm(n_feat_in_out))
+        self.global_norm_layer = LayerNorm(n_feat_global_in)
         self.add_module(self._lin, TorchDense(n_feat_in_out, n_feat_in_out))
         self.lin_global = TorchDense(n_feat_global_in, n_feat_in_out, bias=False)
         self.mlp = (MLPStack([n_feat_in_out] * (n_hidden_layers + 1))
@@ -330,11 +414,12 @@ class GraphAttnGlobalFeatureUpdate(nn.Module):
         conv_p, conv_c = agg_p.graph_conv, agg_c.graph_conv
         ln_scale, ln_bias = ln if ln is not None else (None, None)
         args = (
-            ln_scale, ln_bias, LN_EPS,
-            conv_p.lin_l.weight, conv_p.lin_l.bias, conv_c.lin_l.weight, conv_c.lin_l.bias,
+            f32(ln_scale), f32(ln_bias), LN_EPS,
+            f32(conv_p.lin_l.weight), f32(conv_p.lin_l.bias),
+            f32(conv_c.lin_l.weight), f32(conv_c.lin_l.bias),
             agg_p.query_transform(prev_scenepoint_features, graph.num_pts),
             agg_c.query_transform(prev_view_features, graph.num_cams),
-            conv_p.att.reshape(-1), conv_c.att.reshape(-1), graph, self.n_heads,
+            f32(conv_p.att).reshape(-1), f32(conv_c.att).reshape(-1), graph, self.n_heads,
         )
         e_prev = None
         if isinstance(x_edges, PendingUpdate):
@@ -370,9 +455,9 @@ class ProjectionFeatureUpdate(nn.Module):
     def __init__(self, n_feat_proj_in: int, n_feat_scenepoint_in: int, n_feat_view_in: int,
                  n_feat_global_in: int, n_feat_proj_out: int, n_hidden_layers: int = 0):
         super().__init__()
-        self.scenepoint_norm_layer = nn.LayerNorm(n_feat_scenepoint_in)
-        self.view_norm_layer = nn.LayerNorm(n_feat_view_in)
-        self.global_norm_layer = nn.LayerNorm(n_feat_global_in)
+        self.scenepoint_norm_layer = LayerNorm(n_feat_scenepoint_in)
+        self.view_norm_layer = LayerNorm(n_feat_view_in)
+        self.global_norm_layer = LayerNorm(n_feat_global_in)
         self.lin_proj = TorchDense(n_feat_proj_in, n_feat_proj_out)
         self.lin_scenepoint = TorchDense(n_feat_scenepoint_in, n_feat_proj_out, bias=False)
         self.lin_view = TorchDense(n_feat_view_in, n_feat_proj_out, bias=False)
@@ -444,7 +529,7 @@ class GraphAttnLayer(nn.Module):
         self.add_residual = add_residual_skipconn_proj_update
         self.n_skip_in = n_feat_skipconn_init_projfeat_in or 0
         if use_norm_proj_update:
-            self.prev_projfeat_norm_layer = nn.LayerNorm(n_feat_proj_in)
+            self.prev_projfeat_norm_layer = LayerNorm(n_feat_proj_in)
         self.global_feature_update = GraphAttnGlobalFeatureUpdate(
             n_feat_proj_in, n_feat_scenepoint_hidden, n_feat_view_hidden,
             n_feat_global_out=n_feat_global_hidden,
@@ -463,7 +548,7 @@ class GraphAttnLayer(nn.Module):
         self.skip_projection = None
         if add_residual_skipconn_proj_update and n_feat_proj_in != n_feat_proj_out:
             if use_norm_proj_update:
-                self.residual_skipconn_proj_norm_layer = nn.LayerNorm(n_feat_proj_in)
+                self.residual_skipconn_proj_norm_layer = LayerNorm(n_feat_proj_in)
             self.skip_projection = ProjLayer(n_feat_proj_in, n_feat_proj_out)
 
     def forward(self, x_edges, graph, prev_scenepoint_features=None, prev_view_features=None,
@@ -480,14 +565,14 @@ class GraphAttnLayer(nn.Module):
         raw = x_edges if e_prev is None else e_prev  # this layer's input stream
         update = self.projection_feature_update
         ps, pv, pg = update.tables(s, v, g)
-        w, b = update.lin_proj.weight, update.lin_proj.bias
+        w, b = f32(update.lin_proj.weight), f32(update.lin_proj.bias)
         skip2 = skipconn_init_projfeat if self.n_skip_in else None
         res = None
         if self.skip_projection is not None:
             lin = self.skip_projection.lin_proj
             skip2 = torch.relu(self.residual_skipconn_proj_norm_layer(raw))
-            w = torch.cat([w, 4.0 * lin.weight], dim=1)
-            b = b + 4.0 * lin.bias
+            w = torch.cat([w, 4.0 * f32(lin.weight)], dim=1)
+            b = b + 4.0 * f32(lin.bias)
         elif self.add_residual:
             res = raw
         pending = PendingUpdate(en, skip2, res, w, b, ps, pv, pg)
@@ -595,6 +680,23 @@ class SetOfSetBlock(nn.Module):
         return torch.relu(xl)
 
 
+class Parameter3DPts(nn.Module):
+    """A learnable bank of 3D points, ``pts_3d`` (3, n_pts), normal with
+    sigma 0.1 (drawn from ``generator``; left uninitialized without one):
+    the JAX package's ``Parameter3DPts`` (models/layers.py:1094; reference
+    models/layers.py:47-57), unused by the shipped confs. Its flax key is
+    ``pts_3d``, its layout the same."""
+
+    def __init__(self, n_pts: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.pts_3d = nn.Parameter(torch.empty(3, n_pts))
+        if generator is not None:
+            init_parameters(self, generator)
+
+    def forward(self) -> torch.Tensor:
+        return self.pts_3d
+
+
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """(Re)draw every parameter of ``module`` from ``generator``."""
 
@@ -626,3 +728,6 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+        elif isinstance(mod, Parameter3DPts):
+            with torch.no_grad():
+                mod.pts_3d.copy_(torch.randn(mod.pts_3d.shape, generator=generator) * 0.1)

@@ -34,7 +34,7 @@ PKG = Path(__file__).resolve().parents[2]
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 SOURCES = ("fused_dual_attn", "fused_layer_step", "fused_loss", "segment", "fused_update",
-           "fused_attn", "fused_proj_update")
+           "fused_attn", "fused_proj_update", "adam")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

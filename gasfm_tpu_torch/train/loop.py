@@ -84,9 +84,9 @@ from gasfm_tpu_torch.eval.metrics import (compute_core_errors, compute_errors,
 from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss, get_loss_func
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
-from gasfm_tpu_torch.train.state import (FLAGSHIP_OPTIM, build_optimizer, global_norm,
-                                         optim_from_conf, restore_checkpoint, save_checkpoint,
-                                         save_params)
+from gasfm_tpu_torch.train.state import (FLAGSHIP_OPTIM, build_optimizer,
+                                         cast_params_for_training, global_norm, optim_from_conf,
+                                         restore_checkpoint, save_checkpoint, save_params)
 from gasfm_tpu_torch.utils import paths
 from gasfm_tpu_torch.utils.device import resolve_device
 from gasfm_tpu_torch.utils.observability import (ProfilerWindow, dump_predictions, get_tb_writer,
@@ -188,7 +188,11 @@ class TrainingSession:
     ``SetOfSetNet``), its loss and its optimizer on one device (``cuda``
     unless the caller passes ``device="cpu"``; raises when CUDA is asked for
     and absent). ``optim``: :func:`~gasfm_tpu_torch.train.state.build_optimizer`'s
-    keyword arguments, the flagship conf's by default. ``capture``: record
+    keyword arguments, the flagship conf's by default; with ``param_dtype``
+    "bf16" the model's weights become bf16 in place first, and the
+    optimizer keeps their f32 master (the JAX package's
+    ``cast_params_for_training`` at step 0, train/loop.py:867-873; its
+    gradients are then bf16 too). ``capture``: record
     the training steps as CUDA graphs (see the module docstring); on by
     default for a CUDA session, and refused for a CPU one."""
 
@@ -203,10 +207,11 @@ class TrainingSession:
             raise ValueError(f"capture=True records CUDA graphs; this session runs on "
                              f"{self.device}")
         self.capture = capture
-        self.model = model.to(self.device)
+        optim = optim or FLAGSHIP_OPTIM
+        self.model = cast_params_for_training(model.to(self.device), optim.get("param_dtype"))
         self.loss_func = loss_func
         self.params = [p for p in self.model.parameters() if p.requires_grad]
-        self.optimizer = build_optimizer(self.params, **(optim or FLAGSHIP_OPTIM))
+        self.optimizer = build_optimizer(self.params, **optim)
         self._stream = torch.cuda.Stream(self.device) if capture else None
         self._cache = _SceneCache()
         self._own = _Calls()  # the update on the session's own input buffers
@@ -361,8 +366,9 @@ class TrainingSession:
 
     def accumulate(self, grads_a: List[torch.Tensor], grads_b: List[torch.Tensor]
                    ) -> List[torch.Tensor]:
-        """The sum of two lists of gradients, in new tensors (the JAX
-        package's ``accumulate``, train/loop.py:297): neither input is held,
+        """The sum of two lists of gradients, in new tensors and in their own
+        dtype, bf16 under bf16 weights (the JAX package's ``accumulate``,
+        train/loop.py:297, a ``jnp.add`` per leaf): neither input is held,
         so a recorded ``loss_and_grads``' outputs may be overwritten by its
         next replay."""
         return list(torch._foreach_add(list(grads_a), list(grads_b)))

@@ -33,10 +33,20 @@ CUDA graph recorded on them stays valid. Weight files (:func:`save_params` /
 :func:`load_params`) are the JAX package's flat npz under its flax key paths,
 so either package loads the other's.
 
-The bf16 first-moment / second-moment storage and the bf16-parameter
-(f32 master) options of the JAX package are not ported yet: a conf that
-sets ``train.adam_mu_dtype``, ``train.adam_nu_dtype`` or
-``train.param_dtype`` to bf16 raises ``NotImplementedError``.
+Mixed precision (the JAX package's ``train.adam_mu_dtype``,
+``train.adam_nu_dtype`` and ``train.param_dtype``, :29-156): with any of
+them bf16, Adam is the port's own multi-tensor kernel
+(``ops/kernels/adam.py``, ``csrc/adam.cu``) with its state on the device
+(:class:`~gasfm_tpu_torch.ops.kernels.adam.AdamBuffers`): the int32 count,
+the moments in their dtypes and, with bf16 weights, the f32 master, whose
+bf16 rounding the model's parameters receive in place after each update
+(the JAX wrapper's "updates are the new params", so a recorded graph stays
+valid). Clipping keeps its place in the chain; with bf16 weights it acts on
+the f32 upcast of the bf16 gradients. The float32 default stays on
+PyTorch's fused Adam. Weight files carry bf16 leaves as the JAX package's
+``np.savez`` of ``ml_dtypes`` bfloat16 arrays stores them (``|V2``, raw
+bfloat16 bits); checkpoints hold the master, the moments and the count in
+their dtypes.
 """
 
 from __future__ import annotations
@@ -48,6 +58,7 @@ from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from gasfm_tpu_torch.ops.kernels.adam import AdamBuffers, adam_update
 from gasfm_tpu_torch.train.schedules import build_lr_schedule, schedule_kwargs_from_conf
 
 FLAGSHIP_OPTIM = dict(lr=1e-4, main_scheduler="exponential", lr_warmup_n_steps=2500,
@@ -59,10 +70,17 @@ DPESFM_OPTIM = dict(lr=1e-3, main_scheduler="multistep", lr_warmup_n_steps=0,
                     multistep_milestones=[60000], multistep_gamma=0.5, grad_clip_mode=None)
 
 
+DTYPES = {"bf16": torch.bfloat16}  # the conf's dtype names; any other value is float32
+
+
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares of every element of every tensor) — optax's
-    ``global_norm``, as a 0-d tensor (no host synchronisation)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(grads))))
+    ``global_norm``, as a 0-d tensor (no host synchronisation); in float32
+    for bf16 gradients (the norm that clipping takes under the f32 master)."""
+    grads = list(grads)
+    if all(g.dtype == torch.float32 for g in grads):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads, 2, torch.float32)))
 
 
 def clip_grads(grads: List[torch.Tensor], mode: Optional[str], threshold: Optional[float],
@@ -82,17 +100,34 @@ def clip_grads(grads: List[torch.Tensor], mode: Optional[str], threshold: Option
     raise AssertionError(f'Could not interpret gradient clipping mode "{mode}".')
 
 
+def cast_params_for_training(model: torch.nn.Module, param_dtype: Optional[str]
+                              ) -> torch.nn.Module:
+    """``train.param_dtype``: with "bf16" the model's weights become bf16
+    in place, before the optimizer is built (the JAX package's
+    ``cast_params_for_training``, train/state.py:149); otherwise unchanged."""
+    if param_dtype == "bf16":
+        model.to(torch.bfloat16)
+    return model
+
+
 class Optimizer:
-    """Adam (b1 0.9, b2 0.999, eps 1e-8; ``torch.optim.Adam``, the
-    reference's optimizer, fused) with the LR schedule and optional
-    clipping. ``lr`` is the rate tensor Adam reads on every update."""
+    """Adam (b1 0.9, b2 0.999, eps 1e-8) with the LR schedule and optional
+    clipping. ``lr`` is the rate tensor Adam reads on every update. In
+    float32 (the default) Adam is ``torch.optim.Adam``, the reference's
+    optimizer, fused (:attr:`adam`); with ``mu_dtype``, ``nu_dtype`` or
+    ``param_dtype`` "bf16" it is the port's kernel on :attr:`buffers`
+    (:mod:`~gasfm_tpu_torch.ops.kernels.adam`), and with ``param_dtype``
+    "bf16" the parameters must be bf16 already
+    (:func:`cast_params_for_training`)."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], lr: float, main_scheduler: str,
                  lr_warmup_n_steps: int = 0, exp_gamma_after_n_steps: Optional[float] = None,
                  exp_n_steps: Optional[float] = None,
                  multistep_milestones: Optional[Sequence[int]] = None,
                  multistep_gamma: float = 0.1, milestone_shift: int = 0,
-                 grad_clip_mode: Optional[str] = None, grad_clip_th: Optional[float] = None):
+                 grad_clip_mode: Optional[str] = None, grad_clip_th: Optional[float] = None,
+                 mu_dtype: Optional[str] = None, nu_dtype: Optional[str] = None,
+                 param_dtype: Optional[str] = None):
         self.params = list(params)
         self.schedule = build_lr_schedule(
             lr, main_scheduler, lr_warmup_n_steps, exp_gamma_after_n_steps, exp_n_steps,
@@ -102,8 +137,15 @@ class Optimizer:
         self.grad_clip_mode, self.grad_clip_th = grad_clip_mode, grad_clip_th
         device = self.params[0].device
         self.lr = torch.tensor(float(lr), dtype=torch.float32, device=device)
-        self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                                     fused=True, capturable=device.type == "cuda")
+        self.adam: Optional[torch.optim.Adam] = None
+        self.buffers: Optional[AdamBuffers] = None
+        if (mu_dtype, nu_dtype, param_dtype) == (None, None, None):
+            self.adam = torch.optim.Adam(self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                                         fused=True, capturable=device.type == "cuda")
+        else:
+            self.buffers = AdamBuffers(self.params, DTYPES.get(mu_dtype, torch.float32),
+                                       DTYPES.get(nu_dtype, torch.float32),
+                                       master=param_dtype == "bf16")
         self.schedule_count = 0  # batches seen, updates or not
 
     def lr_at(self, step: int) -> float:
@@ -126,7 +168,15 @@ class Optimizer:
         """Clip and take Adam's step with the rate in :attr:`lr`: device work
         only, which a CUDA graph can record. The ``p.grad`` assignments stay
         inside a recording: the graph reads the gradients at the addresses
-        it was recorded with."""
+        it was recorded with. The kernel's path clips the f32 upcast of bf16
+        gradients, and without clipping reads them as they are."""
+        if self.buffers is not None:
+            grads = list(grads)
+            if self.grad_clip_mode is not None:
+                grads = clip_grads([g.float() for g in grads], self.grad_clip_mode,
+                                   self.grad_clip_th, norm)
+            adam_update(grads, self.buffers, self.lr)
+            return
         grads = clip_grads(list(grads), self.grad_clip_mode, self.grad_clip_th, norm)
         for p, g in zip(self.params, grads):
             p.grad = g
@@ -152,16 +202,16 @@ def optim_from_conf(conf, milestone_shift: int = 0) -> dict:
     """:class:`Optimizer`'s keyword arguments from a conf: ``train.lr``,
     ``train.lr_schedule.*`` (``milestone_shift`` added to the milestones),
     ``loss.grad_clip_mode`` (norm, value or null; another mode is an
-    ``AssertionError``, as in the JAX package) and ``loss.grad_clip_th``.
-    bf16 moments or parameters (``train.adam_mu_dtype``,
-    ``train.adam_nu_dtype``, ``train.param_dtype``) raise
-    ``NotImplementedError``: the port keeps Adam and the weights in float32
-    and does not run another optimizer than the conf asks for."""
-    for key in ("train.param_dtype", "train.adam_mu_dtype", "train.adam_nu_dtype"):
-        if conf.get_string(key, default=None) == "bf16":
-            raise NotImplementedError(f"{key} = bf16: the port keeps Adam's moments and the "
-                                      f"parameters in float32 (bf16 storage is not ported yet)")
+    ``AssertionError``, as in the JAX package) and ``loss.grad_clip_th``;
+    and ``mu_dtype`` / ``nu_dtype`` / ``param_dtype`` "bf16" where
+    ``train.adam_mu_dtype`` / ``train.adam_nu_dtype`` / ``train.param_dtype``
+    is bf16 (another value is float32, as in the JAX package, and leaves the
+    key out)."""
     kw = schedule_kwargs_from_conf(conf, milestone_shift)
+    for name in ("mu_dtype", "nu_dtype", "param_dtype"):
+        key = f"train.{'adam_' if name != 'param_dtype' else ''}{name}"
+        if conf.get_string(key, default=None) == "bf16":
+            kw[name] = "bf16"
     kw["lr"] = kw.pop("base_lr")
     mode = conf.get_string("loss.grad_clip_mode", default=None)
     threshold = None
@@ -241,19 +291,31 @@ def save_checkpoint(ckpt_dir: str, session, step: int, keep: int = 3,
                     meta: Optional[Dict[str, int]] = None) -> str:
     """Write the session's training state as ``<ckpt_dir>/step_<step>.pt``
     (``torch.save`` of tensors on the CPU): the parameters, Adam's moments
-    and step count, the schedule's count, ``step`` (the caller's: an
+    and step count (with bf16 options: the kernel's count, moments and f32
+    master, in their dtypes), the schedule's count, ``step`` (the caller's: an
     epoch or an update count) and the caller's integer counters ``meta``.
     Keeps the newest ``keep`` checkpoints. Returns the file's path."""
     os.makedirs(ckpt_dir, exist_ok=True)
-    adam = session.optimizer.adam.state
+    opt = session.optimizer
+    named = _named_params(session)
     state = {
         "step": int(step),
         "meta": {k: int(v) for k, v in (meta or {}).items()},
-        "schedule_count": int(session.optimizer.schedule_count),
-        "params": {k: p.detach().cpu() for k, p in _named_params(session)},
-        "adam": {k: {n: t.detach().cpu() for n, t in adam[p].items()}
-                 for k, p in _named_params(session) if p in adam},
+        "schedule_count": int(opt.schedule_count),
+        "params": {k: p.detach().cpu() for k, p in named},
     }
+    if opt.adam is not None:
+        adam = opt.adam.state
+        state["adam"] = {k: {n: t.detach().cpu() for n, t in adam[p].items()}
+                         for k, p in named if p in adam}
+    else:  # the kernel's state, each tensor in its dtype
+        buf = opt.buffers
+        state["mixed"] = {
+            "count": buf.count.cpu(),
+            "mu": {k: t.cpu() for (k, _), t in zip(named, buf.mu)},
+            "nu": {k: t.cpu() for (k, _), t in zip(named, buf.nu)},
+            "master": {k: t.cpu() for (k, _), t in zip(named, buf.params)} if buf.master else {},
+        }
     path = os.path.join(ckpt_dir, f"step_{int(step):09d}.pt")
     torch.save(state, path + ".tmp")
     os.replace(path + ".tmp", path)
@@ -269,7 +331,8 @@ def restore_checkpoint(ckpt_dir: str, session, step: Optional[int] = None,
     """Restore the checkpoint of ``step`` (the newest by default) into
     ``session``, copying into its existing tensors (the parameters, Adam's
     moments and step count; Adam's state is made first where the session has
-    taken no step, zeroed where the checkpoint's had taken none), so a CUDA
+    taken no step, zeroed where the checkpoint's had taken none; with bf16
+    options the kernel's count, moments and master), so a CUDA
     graph recorded on them stays valid; and the schedule's count. The
     checkpoint's counters are copied into ``meta`` where one is given.
     Returns the checkpoint's step, or None where ``ckpt_dir`` holds none."""
@@ -281,18 +344,32 @@ def restore_checkpoint(ckpt_dir: str, session, step: Optional[int] = None,
     named = _named_params(session)
     if sorted(state["params"]) != sorted(k for k, _ in named):
         raise KeyError(f"{found[step]}: its parameters are not the session's")
-    adam = session.optimizer.adam.state
-    for k, p in named:
-        p.copy_(state["params"][k])
-        saved = state["adam"].get(k)
-        if saved is None:  # saved before any update: Adam's state is all zeros
-            for t in adam[p].values() if p in adam else ():
-                t.zero_()
-            continue
-        if p not in adam:  # Adam's own layout: moments like p, step a 0-d float32 on p's device
-            adam[p] = {n: torch.zeros_like(t, device=p.device) for n, t in saved.items()}
-        for n, t in saved.items():
-            adam[p][n].copy_(t)
+    opt = session.optimizer
+    if ("adam" in state) != (opt.adam is not None):
+        raise ValueError(f"{found[step]}: written by another optimizer (fused float32 Adam "
+                         f"or the bf16 options' kernel) than the session's")
+    if opt.adam is None:
+        buf, saved = opt.buffers, state["mixed"]
+        for i, (k, p) in enumerate(named):
+            p.copy_(state["params"][k])
+            buf.mu[i].copy_(saved["mu"][k])
+            buf.nu[i].copy_(saved["nu"][k])
+            if buf.master:
+                buf.params[i].copy_(saved["master"][k])
+        buf.count.copy_(saved["count"])
+    else:
+        adam = opt.adam.state
+        for k, p in named:
+            p.copy_(state["params"][k])
+            saved = state["adam"].get(k)
+            if saved is None:  # saved before any update: Adam's state is all zeros
+                for t in adam[p].values() if p in adam else ():
+                    t.zero_()
+                continue
+            if p not in adam:  # Adam's own layout: moments like p, step a 0-d float32
+                adam[p] = {n: torch.zeros_like(t, device=p.device) for n, t in saved.items()}
+            for n, t in saved.items():
+                adam[p][n].copy_(t)
     session.optimizer.schedule_count = int(state["schedule_count"])
     if meta is not None:
         meta.update(state.get("meta", {}))

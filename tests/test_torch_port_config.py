@@ -262,10 +262,8 @@ def test_clip_mode_from_conf(mode, th):
     assert (opt.grad_clip_mode, opt.grad_clip_th) == (kw["grad_clip_mode"], th)
 
 
-@pytest.mark.parametrize("option", ["train.param_dtype=bf16", "train.adam_mu_dtype=bf16",
-                                    "train.adam_nu_dtype=bf16", "parallel.mesh_shape=[1, 2]"])
+@pytest.mark.parametrize("option", ["parallel.mesh_shape=[1, 2]"])
 def test_options_not_ported_raise(option):
-    # param_dtype and adam_nu_dtype are not in ref.conf (the JAX bench sets them)
     conf = load_config("synth/optim_synth_gasfm.conf", external_params=[option], validate=False)
     model, _ = init_model(conf)
     with pytest.raises(NotImplementedError, match=option.split("=")[0]):

@@ -272,6 +272,29 @@ Phases, each printing its own lines; any failure exits non-zero:
    f32 Adam's in the float32 step; peak memory. Then
    the CLI under (b) on the synthetic GASFM conf (``cli_run``), its bf16
    weight file loaded back. Its experiment goes to ``chiprun_out/phase17/``.
+18. (after phase 17) The (data, edge) mesh with replicated tables,
+   ``mesh_phase``: ranks spawned by ``gasfm_tpu_torch.parallel.run_ranks``
+   that share the card on a gloo process group (each prints its backend
+   and device; one spawn of 2 ranks for [1, 2] and [2, 1], one of 4), the
+   mesh ``TrainingSession`` from fresh seeded weights
+   (``mesh_runs``): (a) the flagship (9 layers, full width) on the dense
+   scene under [1, 2], step-1 loss and every gradient against the
+   single-rank eager step on the card from the same weights, per tensor
+   within phase 5's rule taken twice plus its ties' most, then 3 fused
+   steps; (b) DPESFM under [2, 1], a group of two power-law scenes against
+   the single-rank sum of their ``loss_and_grads`` + ``update`` (gradients,
+   the first update's weights within lr, bitwise so far), a padded group of
+   one against ``fused_step`` (the same); (c) GASFM at 2 layers under [2,
+   2], 4 ranks, a group of two; (d) the wide scene (2 layers: unfused,
+   #13/#14, #17/#19) and the depth flagship (3 layers: #9/#10) under [1,
+   2]. Every run: launches per rank per step those of the single-rank
+   eager step on its slot's scene, the weights bitwise equal on every rank
+   after every update, later losses against the single rank's (rtol 1e-3);
+   with a gradient check also the forward from the first weights (the
+   model forwards' tolerance); ms per step, the gradient all-reduce alone,
+   beside phase 5's single-rank eager step.
+   (e) the CLI under [1, 2] on the synthetic GASFM conf, 3 epochs: exit 0,
+   one tree (``chiprun_out/phase18/``), a finite final our_repro.
 13. A ``kernels`` JSON line (the seventeen TPU kernels' counterparts and
    the Adam kernel, each with its per-call ``ms`` and its burst
    ``burst_ms``; launches from the training path that runs each: GASFM's
@@ -3128,6 +3151,7 @@ def scene_bytes(scene):
     """Device bytes of a scene graph: its tensors and its splits' tables."""
     g = scene.graph
     tensors = [getattr(g, f.name) for f in dataclasses.fields(g)]
+    tensors = [t for t in tensors if isinstance(t, torch.Tensor)]  # not a shard's fields
     tensors += [c.table for side in ("_pt_chunks", "_cam_chunks")
                 for c in g.__dict__.get(side, {}).values()]
     tensors += [scene.Ns, scene.Ns_inv, scene.Ps_gt]
@@ -3937,6 +3961,460 @@ def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
     del ref, r_grads, r_pred, p_grads
     return note
 
+# ---------------------------------------------------------------------------
+# phase 18: multi-device training on a mesh of ranks that share the card
+# ---------------------------------------------------------------------------
+
+
+def kernel_counters():
+    """The port's kernel wrappers whose launches the phases count, by name."""
+    from gasfm_tpu_torch.ops.kernels import fused_attn as fat
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
+    from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
+    from gasfm_tpu_torch.ops.kernels import fused_update as fu
+    from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
+
+    return {"fused_dual_attend": fda.fused_dual_attend,
+            "fused_dual_attend_bwd": fda.fused_dual_attend_bwd,
+            "fused_frontend": fda.fused_frontend, "fused_frontend_bwd": fda.fused_frontend_bwd,
+            "fused_layer_step": fls.fused_layer_step,
+            "fused_layer_step_bwd": fls.fused_layer_step_bwd,
+            "fused_esfm_terms": flo.fused_esfm_terms,
+            "fused_esfm_terms_bwd": flo.fused_esfm_terms_bwd,
+            "segment_sum": sk.segment_sum, "gather_rows": sk.gather_rows,
+            "fused_edge_combine": fu.fused_edge_combine,
+            "fused_edge_combine_bwd": fu.fused_edge_combine_bwd,
+            "fused_attend": fat.fused_attend, "fused_attend_bwd": fat.fused_attend_bwd,
+            "segment_max": sk.segment_max, "projection_update": fpu.projection_update,
+            "projection_update_bwd": fpu.projection_update_bwd}
+
+
+# A mesh run: (label, mesh, model ("gasfm" | "dpesfm", widths and seed), loss
+# ("esfm" | "depth", its keyword arguments), optimizer preset, the group's
+# scenes ("name" or "name:seed", a bench scene of profile_forward.SCENES),
+# how the first step runs ("grads": group_loss_and_grads + update, its loss
+# and gradients compared; "fused": fused_group_step), the steps, whether rank
+# 0 returns its first gradients and times the gradient all-reduce alone).
+MeshRun = collections.namedtuple(
+    "MeshRun", "label mesh model loss optim scenes first steps grads")
+
+
+def mesh_runs():
+    from gasfm_tpu_torch.losses import DEPTH_LOSS, DPESFM_LOSS, FLAGSHIP_LOSS
+    from gasfm_tpu_torch.tools.profile_forward import DPESFM, FLAGSHIP, FLAGSHIP_DEPTH
+
+    two = dict(FLAGSHIP, num_layers=2)
+    return (
+        # (a) the flagship, 9 layers at full width, on the dense scene
+        MeshRun("flagship [1, 2]", (1, 2), ("gasfm", FLAGSHIP, 0), ("esfm", FLAGSHIP_LOSS),
+                "flagship", ("dense",), "grads", 1 + MESH_STEPS, True),
+        # (d) the unfused path (the wide scene) and the depth flagship (3
+        # layers: the least that reaches the projection update)
+        MeshRun("wide [1, 2]", (1, 2), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS), "flagship",
+                ("wide",), "grads", 2, True),
+        MeshRun("depth [1, 2]", (1, 2), ("gasfm", dict(FLAGSHIP_DEPTH, num_layers=3),
+                                         DEPTH_SEEDS["gasfm"]),
+                ("depth", DEPTH_LOSS), "flagship", ("dense",), "grads", 2, True),
+        # (b) DPESFM, scene data parallelism: a group of two, a padded group of one
+        MeshRun("dpesfm group [2, 1]", (2, 1), ("dpesfm", DPESFM, 0), ("esfm", DPESFM_LOSS),
+                "dpesfm", ("powerlaw", "powerlaw:1"), "grads", 2, True),
+        MeshRun("dpesfm padded [2, 1]", (2, 1), ("dpesfm", DPESFM, 0), ("esfm", DPESFM_LOSS),
+                "dpesfm", ("powerlaw",), "fused", 1, False),
+        # (c) both at once, 4 ranks: GASFM at 2 layers on a group of two
+        MeshRun("gasfm [2, 2]", (2, 2), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS), "flagship",
+                ("dense", "powerlaw"), "fused", 1, False),
+    )
+
+
+MESH_STEPS = 3  # the steps after the first of the flagship's run
+
+
+def mesh_scene_data(name, depth):
+    """The SceneData of a bench scene, ``name`` or ``name:seed``."""
+    from gasfm_tpu_torch.data.scene import SceneData
+    from gasfm_tpu_torch.data.synthetic import generate_synthetic_scene
+    from gasfm_tpu_torch.tools.profile_forward import SCENES
+
+    base, _, seed = name.partition(":")
+    kw = dict(SCENES[base], **({"seed": int(seed)} if seed else {}))
+    data = generate_synthetic_scene(**kw)
+    return SceneData(data.M, data.Ns, data.y, name, calibrated=True, store_depth_targets=depth)
+
+
+def mesh_model(spec):
+    from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+    from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
+
+    kind, widths, seed = spec
+    cls = GraphAttnSfMNet if kind == "gasfm" else SetOfSetNet
+    return cls(**widths, generator=torch.Generator().manual_seed(seed))
+
+
+def mesh_session(run, device, mesh=None):
+    from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss
+    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.train.state import DPESFM_OPTIM, FLAGSHIP_OPTIM
+
+    loss = (ESFMLoss if run.loss[0] == "esfm" else DirectDepthLoss)(**run.loss[1])
+    optim = FLAGSHIP_OPTIM if run.optim == "flagship" else DPESFM_OPTIM
+    return TrainingSession(mesh_model(run.model), loss, device=device, optim=optim,
+                           capture=False, mesh=mesh)
+
+
+def first_moments(session):
+    """Adam's first moment of each parameter: after the first update 0.1 x
+    its gradient (neither optimizer preset clips), the gradient a fused
+    step applied."""
+    state = session.optimizer.adam.state
+    return [state[p]["exp_avg"] for p in session.params]
+
+
+def weights_digest(model) -> str:
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1).float() for p in model.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_rank(mesh, runs):
+    """One rank of phase 18 (``parallel.run_ranks``' function): each run of
+    this mesh from fresh weights, eagerly, every step timed between two
+    synchronisations with its launches counted (the counters zeroed just
+    before it, read just after); after each update a digest of the
+    weights; rank 0 returns the first step's gradients (through Adam's
+    first moment after a fused one) and, with whole scenes per rank, the
+    weights after it."""
+    import torch.distributed as dist
+
+    from gasfm_tpu_torch.parallel import make_mesh
+
+    counters = kernel_counters()
+    out = dict(rank=mesh.rank, backend=dist.get_backend(), device=str(mesh.device),
+               name=torch.cuda.get_device_name(mesh.device), runs={})
+    meshes = {(mesh.n_data, mesh.n_edge): mesh}
+    for run in runs:
+        t_setup = time.perf_counter()
+        if run.mesh not in meshes:  # another layout of the same ranks ([2, 1] of [1, 2]'s)
+            meshes[run.mesh] = make_mesh(*run.mesh, mesh.device)
+        mesh = meshes[run.mesh]
+        session = mesh_session(run, mesh.device, mesh)
+        depth = run.loss[0] == "depth"
+        # the group as the session takes it, only this rank's slot's scene made
+        # (pad_scene_group: slot d takes scene d, or the last one past the group)
+        mine = min(mesh.data_slot, len(run.scenes) - 1)
+        graphs = [session.scene_graph(mesh_scene_data(s, depth)) if i == mine else None
+                  for i, s in enumerate(run.scenes)]
+        res = dict(values=[], ms=[], launches=[], digests=[],
+                   setup_s=time.perf_counter() - t_setup)
+        if run.grads:  # the forward from the first weights, whole on every rank
+            pred = session.forward(graphs[mine])
+            if mesh.rank == 0:
+                res["pred0"] = {k: v.cpu() for k, v in pred.items()}
+        for k in range(run.steps):
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize(mesh.device)
+            t0 = time.perf_counter()
+            if k == 0 and run.first == "grads" or depth:
+                loss, _, grads = session.group_loss_and_grads(graphs)
+                values = [float(loss), float(session.update(grads))]
+            else:
+                values = [float(v) for v in session.fused_group_step(graphs)]
+            torch.cuda.synchronize(mesh.device)
+            res["ms"].append(1e3 * (time.perf_counter() - t0))
+            res["launches"].append({n: fn.launches for n, fn in counters.items() if fn.launches})
+            res["values"].append(values)
+            res["digests"].append(weights_digest(session.model))
+            if k == 0 and run.first == "grads" and run.grads:
+                bufs = [g.clone() for g in grads]
+                torch.cuda.synchronize(mesh.device)
+                t0 = time.perf_counter()
+                mesh.sum_over_world(bufs)
+                torch.cuda.synchronize(mesh.device)
+                res["allreduce_ms"] = 1e3 * (time.perf_counter() - t0)
+                res["grad_bytes"] = sum(g.numel() * g.element_size() for g in grads)
+                del bufs
+                if mesh.rank == 0:
+                    res["grads"] = [g.cpu() for g in grads]
+            if k == 0 and run.first == "fused" and mesh.rank == 0:
+                res["mu"] = [m.cpu() for m in first_moments(session)]
+            if k == 0 and mesh.rank == 0 and mesh.n_edge == 1:  # whole scenes per rank
+                res["weights1"] = [p.detach().cpu() for p in session.params]
+        out["runs"][run.label] = res
+        session.close()
+        del session, graphs
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_grad_errors(got, ref, scale_rule):
+    """Per tensor (index, max |err|, max |ref|, allowed) of ``got`` against
+    ``ref`` (lists of tensors), ``scale_rule(k, max |ref|)`` the allowance."""
+    out = []
+    for k, (g, r) in enumerate(zip(got, ref)):
+        r = r.to(g.device, torch.float64)
+        err = float((g.double() - r).abs().max())
+        scale = float(r.abs().max())
+        out.append((k, err, scale, scale_rule(k, scale), bool(torch.isfinite(g).all())))
+    return out
+
+
+def mesh_phase(dev, counters, record, L, graphs_by_name):
+    """Phase 18: the (data, edge) mesh (``parallel.mesh_shape``, replicated
+    tables) with ranks that share the card, through ``parallel.run_ranks``
+    and the mesh ``TrainingSession``, against the single-rank eager session
+    on the card in this process from the same weights (on the bench scenes'
+    graphs of ``graphs_by_name``, made at set-up; another scene is made
+    here); then the CLI under [1, 2]."""
+    from gasfm_tpu_torch.parallel import run_ranks
+
+    t_phase = time.perf_counter()
+    runs = mesh_runs()
+    by_mesh = collections.defaultdict(list)  # one spawn per number of ranks
+    for run in runs:
+        by_mesh[(1, math.prod(run.mesh))].append(run)
+    results = {}
+    for shape, group in by_mesh.items():
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, *shape, args=(group,), device="cuda")
+        print(f"phase 18 {sorted({str(list(r.mesh)) for r in group})}: {len(ranks)} ranks "
+              f"spawned, run and joined in "
+              f"{time.perf_counter() - t0:.1f} s; " + "; ".join(
+                  f"rank {r['rank']} {r['backend']} on {r['device']} ({r['name']})"
+                  for r in ranks))
+        for r in ranks:
+            if r["backend"] != "gloo" or not r["device"].startswith("cuda"):
+                raise SmokeFailure(f"phase 18: rank {r['rank']} on {r['backend']} {r['device']}")
+        for run in group:
+            results[run.label] = [r["runs"][run.label] for r in ranks]
+
+    summary = {}
+    for run in runs:
+        ranks = results[run.label]
+        r0 = ranks[0]
+        # the same weights on every rank after every update
+        for r in ranks[1:]:
+            if r["digests"] != r0["digests"]:
+                raise SmokeFailure(f"phase 18 {run.label}: weights differ between ranks")
+        # the single-rank reference from the same weights: a group of one
+        # through fused_step; else the group's scenes' loss_and_grads summed
+        # (the JAX package's accumulate path), then update; each scene's
+        # launches counted
+        ref = mesh_session(run, dev)
+        names = [k for k, p in ref.model.named_parameters() if p.requires_grad]
+        graphs = [graphs_by_name[s] if s in graphs_by_name
+                  else ref.scene_graph(mesh_scene_data(s, run.loss[0] == "depth"))
+                  for s in run.scenes]
+        if run.grads:  # the mesh's forward from the first weights against the single rank's
+            want = ref.forward(graphs[0])
+            errs = {k: max_err(r0["pred0"][k].to(dev), v, SLICE_RTOL, SLICE_ATOL)
+                    for k, v in want.items()}
+            print(f"phase 18 {run.label}: forward from the first weights, max |err| against the "
+                  f"single rank's {({k: f'{e:.3e}' for k, (e, _) in errs.items()})} (tol "
+                  f"{SLICE_ATOL:g} x scale + {SLICE_RTOL:g} x |ref|) "
+                  f"{'ok' if all(ok for _, ok in errs.values()) else 'FAIL'}")
+            if not all(ok for _, ok in errs.values()):
+                raise SmokeFailure(f"phase 18 {run.label}: forward out of tolerance {errs}")
+        fused_ref = run.first == "fused" and len(graphs) == 1
+        if fused_ref:
+            (loss, repro, norm), launches = counted_launches(
+                counters, lambda: ref.fused_step(graphs[0]))
+            total, repro, norm, grads = float(loss), float(repro), float(norm), None
+            grads_launches = {k: v - REPRO_LAUNCHES.get(k, 0) for k, v in launches.items()}
+            scene_launches = [{k: v for k, v in grads_launches.items() if v}]
+        else:
+            total, grads, repro, scene_launches = 0.0, None, 0.0, []
+            for sg in graphs:
+                (loss, pred, g), launches = counted_launches(counters,
+                                                             lambda: ref.loss_and_grads(sg))
+                scene_launches.append(launches)
+                total += float(loss)
+                if run.loss[0] == "esfm":
+                    repro += float(ref.our_repro(pred, sg))
+                grads = g if grads is None else ref.accumulate(grads, g)
+            norm = float(ref.update(grads))
+        ref_mu = [m.clone() for m in first_moments(ref)] if "mu" in r0 else None
+        ref_params1 = [p.detach().clone() for p in ref.params] if "weights1" in r0 else None
+        # the port's launches per rank per step: its slot's scene's in the
+        # single-rank eager step (plus our_repro's gathers in a fused step)
+        for rank, r in enumerate(ranks):
+            slot = min(rank // run.mesh[1], len(graphs) - 1)
+            for k, got in enumerate(r["launches"]):
+                want = dict(scene_launches[slot])
+                if not ((k == 0 and run.first == "grads") or run.loss[0] == "depth"):
+                    for name, v in REPRO_LAUNCHES.items():
+                        want[name] = want.get(name, 0) + v
+                if got != want:
+                    raise SmokeFailure(f"phase 18 {run.label}: rank {rank} step {k + 1} "
+                                       f"launched {got}, the single-rank eager step {want}")
+        first = r0["values"][0]
+        info = dict(ms=r0["ms"], setup_s=r0["setup_s"], launches_per_step=r0["launches"][-1],
+                    allreduce_ms=r0.get("allreduce_ms"), grad_bytes=r0.get("grad_bytes"))
+        if run.first == "fused":
+            loss_g, repro_g, n_valid, norm_g = first
+            if n_valid != len(run.scenes) or abs(loss_g - total) > 1e-4 * abs(total) or \
+                    abs(repro_g - repro) > 1e-4 * abs(repro) or abs(norm_g - norm) > 1e-3 * norm:
+                raise SmokeFailure(
+                    f"phase 18 {run.label}: (loss, our_repro, n_valid, grad_norm) {first} "
+                    f"against the single-rank ({total}, {repro}, {len(run.scenes)}, {norm})")
+            print(f"phase 18 {run.label}: (loss, our_repro, n_valid, grad_norm) {first} against "
+                  f"the single-rank {'fused_step' if fused_ref else 'sum'} "
+                  f"{[total, repro, len(run.scenes), norm]} ok")
+            info["first"] = dict(mesh=first, single=[total, repro, len(run.scenes), norm])
+        else:
+            if abs(first[0] - total) > 1e-5 * abs(total):
+                raise SmokeFailure(f"phase 18 {run.label}: step-1 loss {first[0]!r} against the "
+                                   f"single-rank {total!r}")
+            if run.label.startswith("flagship"):
+                # phase 5's rule, per tensor, taken twice (the mesh path and the
+                # single-rank path each against float64), plus its ties' most
+                p5 = record["train"]["dense"]
+                G = p5["step1_grad_G"]
+                tie = record["train"].get("dense_ties", {}).get("most", 0.0)
+                rule = {t[0]: GRAD_FACTOR * t[2] + GRAD_RTOL64 * t[3] + GRAD_EPS64 * G
+                        for t in p5["step1_grad_vs_float64"]}
+
+                def allowed(k, scale):
+                    return 2 * rule[names[k]] + tie
+            else:
+                G = max(float(g.abs().max()) for g in grads)
+
+                def allowed(k, scale):
+                    return 1e-4 * scale + MESH_GRAD_EPS * G
+            errs = mesh_grad_errors(r0["grads"], grads, allowed)
+            bad = [e for e in errs if e[1] > e[3] or not e[4]]
+            worst = max(errs, key=lambda e: e[1] / max(e[3], 1e-30))
+            print(f"phase 18 {run.label}: step-1 loss {first[0]!r} (single-rank {total!r}); "
+                  f"{len(errs)} gradients against the single-rank eager step, the closest to "
+                  f"its bound {names[worst[0]]}: max |err| {worst[1]:.3e}, allowed "
+                  f"{worst[3]:.3e} (max |ref| {worst[2]:.3e}) {'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise SmokeFailure(f"phase 18 {run.label}: gradients out of tolerance: "
+                                   f"{[(names[e[0]], e[1], e[3]) for e in bad[:8]]}")
+            info["grad_worst"] = (names[worst[0]], worst[1], worst[3])
+        if ref_mu is not None:
+            # a fused first step's gradients, through Adam's first moment:
+            # bitwise the single rank's with whole scenes per rank, else by
+            # the rule of the other runs' gradients
+            if run.mesh[1] == 1:
+                bad = [names[k] for k, (a, b) in enumerate(zip(r0["mu"], ref_mu))
+                       if not torch.equal(a.to(dev), b)]
+                worst = "bitwise equal" if not bad else f"differ: {bad[:8]}"
+            else:
+                G = max(float(m.abs().max()) for m in ref_mu)
+                errs = mesh_grad_errors(r0["mu"], ref_mu,
+                                        lambda k, scale: 1e-4 * scale + MESH_GRAD_EPS * G)
+                bad = [(names[e[0]], e[1], e[3]) for e in errs if e[1] > e[3] or not e[4]]
+                w = max(errs, key=lambda e: e[1] / max(e[3], 1e-30))
+                worst = (f"the closest to its bound {names[w[0]]}: max |err| {w[1]:.3e}, "
+                         f"allowed {w[3]:.3e} (max |ref| {w[2]:.3e})")
+            print(f"phase 18 {run.label}: {len(ref_mu)} first moments after the first step "
+                  f"(0.1 x its gradients) against the single rank's, {worst} "
+                  f"{'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise SmokeFailure(f"phase 18 {run.label}: first moments out of tolerance: "
+                                   f"{bad[:8]}")
+            info["mu_check"] = worst
+        if "weights1" in r0:
+            # scene data parallelism: the ranks' sum is the single rank's, and
+            # so are the first update's weights, bitwise
+            bad = [names[k] for k, (a, b) in enumerate(zip(r0["weights1"], ref_params1))
+                   if not torch.equal(a.to(dev), b)]
+            print(f"phase 18 {run.label}: weights after the first update bitwise the single "
+                  f"rank's {'ok' if not bad else 'FAIL'}")
+            if bad:
+                raise SmokeFailure(f"phase 18 {run.label}: the first update's weights differ "
+                                   f"from the single rank's: {bad[:8]}")
+            info["weights1_bitwise"] = True
+        # the later steps: their losses against the single-rank session's
+        later = []
+        for k in range(1, run.steps):
+            if run.loss[0] == "depth" or len(graphs) > 1:
+                total_k, grads_k = 0.0, None
+                for sg in graphs:
+                    loss, _, g = ref.loss_and_grads(sg)
+                    total_k += float(loss)
+                    grads_k = g if grads_k is None else ref.accumulate(grads_k, g)
+                ref.update(grads_k)
+                later.append(total_k)
+            else:
+                later.append(float(ref.fused_step(graphs[0])[0]))
+        got_later = [v[0] for v in r0["values"][1:]]
+        for a, b in zip(got_later, later):
+            if not math.isfinite(a) or abs(a - b) > SLICE_RTOL * abs(b):
+                raise SmokeFailure(f"phase 18 {run.label}: later losses {got_later} against the "
+                                   f"single-rank {later}")
+        info["later_losses"] = dict(mesh=got_later, single=later)
+        steps_ms = [round(t, 1) for t in r0["ms"]]
+        print(f"phase 18 {run.label}: weights equal on all {len(ranks)} ranks after each of "
+              f"{run.steps} steps; ms per step {steps_ms}"
+              f"{'' if r0.get('allreduce_ms') is None else f'; the gradient all-reduce alone ' + format(r0['allreduce_ms'], '.1f') + ' ms for ' + format(r0['grad_bytes'] / 2**20, '.1f') + ' MiB'}; "
+              f"launches per rank per step {r0['launches'][-1]} (the single-rank eager step's); "
+              f"later losses {got_later} (single-rank {later}) ok")
+        summary[run.label] = info
+        ref.close()
+        del ref, graphs, grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    record["mesh"] = summary
+    record["mesh"]["single_rank_eager_ms"] = record["train"]["dense"]["median_ms"]
+    print(f"phase 18: the single-rank eager flagship step on the dense scene (phase 5, this "
+          f"run) {record['train']['dense']['median_ms']:.3f} ms against the [1, 2] mesh's "
+          f"{statistics.median(summary['flagship [1, 2]']['ms'][1:]):.3f} ms")
+    mesh_cli_run(record)
+    record["mesh_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 18 (multi-device training on a mesh of ranks): {record['mesh_phase_s']:.1f} s")
+
+
+MESH_GRAD_EPS = 5e-6  # x the largest gradient: cancelling sums' noise, both float32 paths
+
+
+def mesh_cli_run(record):
+    """(e) ``single-scene-optim`` under [1, 2] on the synthetic GASFM conf:
+    exit 0, one tree, a finite final our_repro. Into chiprun_out/phase18/."""
+    import os
+    import shutil
+
+    from gasfm_tpu_torch.main import main as cli_main
+
+    out_dir = ROOT / "chiprun_out" / "phase18"
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    before = os.environ.get("GASFM_RESULTS_PATH")
+    os.environ["GASFM_RESULTS_PATH"] = str(out_dir / "results")
+    t0 = time.perf_counter()
+    try:
+        with stdout_to(out_dir / "cli.log"):
+            rc = cli_main(["single-scene-optim", "--conf", "synth/optim_synth_gasfm.conf",
+                           "--exp-dir", "mesh", "--external-params", "train.n_epochs=3",
+                           "eval.eval_interval=3", "parallel.mesh_shape=[1,2]",
+                           "parallel.table_sharding=false"])
+    finally:
+        if before is None:
+            os.environ.pop("GASFM_RESULTS_PATH", None)
+        else:
+            os.environ["GASFM_RESULTS_PATH"] = before
+    wall = time.perf_counter() - t0
+    root = out_dir / "results"
+    exp = root / "mesh"
+    csv = exp / "final_train_errors_OPTIMIZATION.csv"
+    if rc != 0 or os.listdir(root) != ["mesh"] or not csv.exists():
+        raise SmokeFailure(f"phase 18 CLI: rc {rc}, tree {sorted(os.listdir(root))}")
+    header, row = [line.split(",") for line in csv.read_text().splitlines()[:2]]
+    repro = float(row[header.index("our_repro")])
+    scenes = os.listdir(exp / "OPTIMIZATION")
+    if len(scenes) != 1 or not math.isfinite(repro) or len(os.listdir(exp / "tb")) != 1:
+        raise SmokeFailure(f"phase 18 CLI: scenes {scenes}, our_repro {repro}")
+    shutil.rmtree(exp / "code", ignore_errors=True)
+    print(f"phase 18 CLI under [1, 2] (synth/optim_synth_gasfm.conf, 3 epochs): exit 0 in "
+          f"{wall:.1f} s, one tree, final our_repro {repro:.4f}")
+    record["mesh_cli"] = dict(seconds=wall, our_repro=repro)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke run needs an "
@@ -3949,12 +4427,6 @@ def main() -> int:
     from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
     from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
     from gasfm_tpu_torch.ops.kernels import build
-    from gasfm_tpu_torch.ops.kernels import fused_attn as fat
-    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
-    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
-    from gasfm_tpu_torch.ops.kernels import fused_loss as flo
-    from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
-    from gasfm_tpu_torch.ops.kernels import fused_update as fu
     from gasfm_tpu_torch.ops.kernels import segment_kernels as sk
     from gasfm_tpu_torch.tools.profile_forward import (DPESFM, DPESFM_DEPTH, FLAGSHIP,
                                                        FLAGSHIP_DEPTH, SCENES)
@@ -4076,19 +4548,7 @@ def main() -> int:
     if bad:
         raise SmokeFailure(f"kernels out of tolerance: {bad}")
 
-    counters = {"fused_dual_attend": fda.fused_dual_attend,
-                "fused_dual_attend_bwd": fda.fused_dual_attend_bwd,
-                "fused_frontend": fda.fused_frontend, "fused_frontend_bwd": fda.fused_frontend_bwd,
-                "fused_layer_step": fls.fused_layer_step,
-                "fused_layer_step_bwd": fls.fused_layer_step_bwd,
-                "fused_esfm_terms": flo.fused_esfm_terms,
-                "fused_esfm_terms_bwd": flo.fused_esfm_terms_bwd,
-                "segment_sum": sk.segment_sum, "gather_rows": sk.gather_rows,
-                "fused_edge_combine": fu.fused_edge_combine,
-                "fused_edge_combine_bwd": fu.fused_edge_combine_bwd,
-                "fused_attend": fat.fused_attend, "fused_attend_bwd": fat.fused_attend_bwd,
-                "segment_max": sk.segment_max, "projection_update": fpu.projection_update,
-                "projection_update_bwd": fpu.projection_update_bwd}
+    counters = kernel_counters()
     L = len(model.equivariant_blocks)
     # ---- phase 4: GASFM serving
     record["serving_launches"] = slice_phase(dev, session, scenes, counters, record,
@@ -4214,6 +4674,10 @@ def main() -> int:
     mixed_launches, adam = mixed_precision_phase(dev, scenes, counters, record, L)
     if mixed_launches["adam_update"] == 0:
         raise SmokeFailure("adam_update was never launched on the mixed-precision path")
+
+    # ---- phase 18: multi-device training, scene data parallelism and edge
+    # partitioning over replicated tables, with ranks that share the card
+    mesh_phase(dev, counters, record, L, {**scenes, "wide": wide["wide"]})
 
     # ---- phase 13: the record
     kernels = []

@@ -43,7 +43,8 @@ def predictions_to_host(pred: Dict[str, torch.Tensor], data: SceneData,
     and ``pts3D`` (4, n); with the depth head ``depths_edges`` (E,), in the
     graph's edge order, and ``depths_dense`` (m, n), zero where no edge is.
     ``graph`` is the :class:`~gasfm_tpu_torch.graph.view_graph.ViewGraph`
-    the forward ran on."""
+    the forward ran on (on a mesh, the rank's shard: its whole scene's edge
+    order, that of the depths made whole)."""
     out = {}
     if "Ps_norm" in pred:
         out["Ps_norm"] = pred["Ps_norm"].detach().cpu().numpy().astype(np.float64)
@@ -52,7 +53,7 @@ def predictions_to_host(pred: Dict[str, torch.Tensor], data: SceneData,
     if "depths" in pred:
         depths = pred["depths"].detach().cpu().numpy().astype(np.float64)
         dense = np.zeros((data.num_views, data.num_points), dtype=np.float64)
-        dense[graph.cam_idx.cpu().numpy(), graph.pt_idx.cpu().numpy()] = depths
+        dense[graph.scene_edge_ids()] = depths
         out["depths_dense"] = dense
         out["depths_edges"] = depths
     return out
@@ -417,8 +418,11 @@ def core_errors_device(pred: Dict[str, torch.Tensor], scene,
     as pflat(Ns_inv [uv; 1]). Edges whose error is not finite or whose
     depth or homogeneous weight is 0 are left out (np.nanmean semantics of
     the reference's evaluation.py:8-74). ``plain=True`` gathers with the
-    kernel's plain version whatever the device."""
+    kernel's plain version whatever the device. Under an edge mesh the
+    scene's: the sum and the count go through ``all_sum`` (the JAX
+    package's eval/metrics.py:447-452)."""
     from gasfm_tpu_torch.ops.kernels import segment_kernels as k
+    from gasfm_tpu_torch.ops.segment import all_sum
 
     gather = k.gather_rows_plain if plain else k.gather_rows
     g = scene.graph
@@ -436,5 +440,7 @@ def core_errors_device(pred: Dict[str, torch.Tensor], scene,
     pix = pixh[:, :2] / torch.where(w == 0, torch.ones_like(w), w)[:, None]
     err = torch.sqrt(((uv_proj - pix) ** 2).sum(1))
     valid = torch.isfinite(err) & (z != 0) & (w != 0)
-    count = valid.sum().clamp_min(1)
-    return {"our_repro": torch.where(valid, err, torch.zeros_like(err)).sum() / count}
+    # the scene's sum and count under an edge mesh (one all_sum of both)
+    sums = all_sum(torch.stack([torch.where(valid, err, torch.zeros_like(err)).sum(),
+                                valid.sum().to(err.dtype)]))
+    return {"our_repro": sums[0] / sums[1].clamp_min(1)}

@@ -9,6 +9,11 @@ the returned weights in a second session, the port evaluates them in the
 training session itself (its model restored in place from the
 ``final_model`` copy): its recorded forward replays, and no second model or
 recording is made.
+
+On a mesh (``mesh``, this rank's; the CLI launches the ranks) every rank runs
+this driver on the same scene and conf; only rank 0 evaluates the metrics,
+runs BA and writes the results, and the other ranks return None for the
+evaluation's table.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ def train_model_single_scene(
     rng: Optional[np.random.Generator] = None,
     device: Optional[Union[str, torch.device]] = None,
     capture: Optional[bool] = None,
+    mesh=None,
 ):
     """Optimize ``model`` (in place) on the conf's scene for ``phase`` on
     ``device`` (``cuda`` unless the caller names another; the steps and the
@@ -74,7 +80,7 @@ def train_model_single_scene(
                                shuffle=False, prefetch=0)
     session = TrainingSession.from_conf(
         conf, model, milestone_shift=curriculum_epochs(conf, phase, scene_data), device=device,
-        capture=capture)
+        capture=capture, mesh=mesh)
     trained, train_stats = train(conf, scene_loader, session, phase,
                                  additional_identifier=additional_identifier, rng=rng)
 
@@ -104,7 +110,10 @@ def train_model_single_scene(
         final_train_errors = eval_errors_list2df([errors])
         outlier_free = None
         train_stats = get_dummy_train_stats()
+    writer = session.is_writer
     session.close()
+    if not writer:
+        return trained, train_stats, None
 
     _write_train_res(conf, final_train_errors, train_stats, f"final_train_errors_{phase.name}",
                      additional_identifiers + outlier_ids)

@@ -22,6 +22,14 @@ permutation and both sides' splits by length, so a loader's thread can make
 it) and :func:`upload` (the arrays to the device, through pinned memory and
 asynchronous copies on the card). A graph's splits are read on the host,
 so a step on a new scene makes no device-to-host copy.
+
+An edge mesh's rank holds one shard of a scene (:func:`shard_host_graph`,
+the counterpart of the JAX package's ``_EDGE_FIELDS`` /
+``scene_graph_specs``, ``gasfm_tpu/parallel/edge_sharding.py:47-49, :194``):
+a contiguous range of the point-major edges, with CSR offsets over all the
+scene's points and cameras and every split recomputed for its own edges,
+while the tables (``Ns``, ``Ps_gt``), the validity masks and each segment's
+count (``pt_count`` / ``cam_count``) stay the whole scene's.
 """
 
 from __future__ import annotations
@@ -50,6 +58,12 @@ class ViewGraph:
     cam_ptr: torch.Tensor  # (m+1,) int32 camera CSR offsets into cam_perm
     cam_valid: torch.Tensor  # (m,) bool — >= MIN_N_POINTS_PER_VIEW observations
     pt_valid: torch.Tensor  # (n,) bool — >= MIN_N_VIEWS_PER_POINT observations
+    # an edge shard's (shard_host_graph), else the defaults: the whole
+    # scene's number of edges, the scene's index of the shard's first edge
+    # and the scene's (cam_idx, pt_idx), numpy on the host
+    scene_num_edges: Optional[int] = None
+    edge_offset: int = 0
+    scene_ids: Optional[tuple] = dataclasses.field(default=None, compare=False)
 
     @property
     def num_cams(self) -> int:
@@ -67,10 +81,24 @@ class ViewGraph:
     def device(self) -> torch.device:
         return self.uv.device
 
+    @property
+    def scene_edges(self) -> int:
+        """The whole scene's edges: ``num_edges``, or on an edge shard the
+        scene's (the mean over the edges divides by it)."""
+        return self.num_edges if self.scene_num_edges is None else self.scene_num_edges
+
+    def scene_edge_ids(self):
+        """(camera, point) of each of the whole scene's edges, numpy int32
+        on the host: this graph's, or on an edge shard the scene's."""
+        if self.scene_ids is None:
+            return self.cam_idx.cpu().numpy(), self.pt_idx.cpu().numpy()
+        return self.scene_ids
+
     @functools.cached_property
     def pt_count(self) -> torch.Tensor:
         """(n,) float32 edges per point, at least 1 (an empty segment's sum
-        is 0 and stays 0), from the CSR offsets; computed once."""
+        is 0 and stays 0), from the CSR offsets; computed once (an edge
+        shard's are the scene's, set when it is uploaded)."""
         return (self.pt_ptr[1:] - self.pt_ptr[:-1]).clamp_min(1).to(torch.float32)
 
     @functools.cached_property
@@ -207,6 +235,64 @@ class HostSceneGraph:
     Ps_gt: np.ndarray
     gt_depths: Optional[np.ndarray]
     splits: dict  # {(side, rows, long_above): {name: int32 array}}
+    # an edge shard's (shard_host_graph): the scene's float32 counts per
+    # point and camera, its number of edges, the shard's first edge and the
+    # scene's (cam_idx, pt_idx)
+    pt_count: Optional[np.ndarray] = None
+    cam_count: Optional[np.ndarray] = None
+    scene_edges: Optional[int] = None
+    edge_offset: int = 0
+    scene_ids: Optional[tuple] = None
+
+
+def _splits(pt_ptr: np.ndarray, cam_ptr: np.ndarray) -> dict:
+    return {(side, rows_, above): _split_parts(ptr, rows_, above)
+            for side, ptr in (("pt", pt_ptr), ("cam", cam_ptr))
+            for rows_, above in host_split_keys()[side]}
+
+
+def _counts(ptr: np.ndarray) -> np.ndarray:
+    return np.maximum(np.diff(ptr.astype(np.int64)), 1).astype(np.float32)
+
+
+def edge_shard_range(num_edges: int, shard: int, n_shards: int):
+    """[lo, hi) of edge shard ``shard`` of ``n_shards``: the contiguous range
+    starting at ``shard * ceil(E / n_shards)``. Raises ``ValueError`` when
+    the shard would get no edge."""
+    per = -(-num_edges // n_shards)
+    lo, hi = shard * per, min(num_edges, (shard + 1) * per)
+    if not 0 <= shard < n_shards or lo >= hi:
+        raise ValueError(f"edge shard {shard} of {n_shards} gets no edge of a scene of "
+                         f"{num_edges} edges: use fewer edge shards or a larger scene")
+    return lo, hi
+
+
+def shard_host_graph(host: HostSceneGraph, shard: int, n_shards: int) -> HostSceneGraph:
+    """Edge shard ``shard`` of ``n_shards`` of a whole scene's host graph
+    (:func:`edge_shard_range`): its edges' rows, point CSR offsets over all
+    n points, the camera permutation and offsets of its edges over all m
+    cameras, its splits; the scene's tables, validity masks and counts.
+    One shard of one is the scene itself."""
+    if host.scene_edges is not None:
+        raise ValueError("shard_host_graph takes a whole scene's graph, not a shard")
+    if n_shards == 1:
+        return host
+    E = host.cam_idx.shape[0]
+    lo, hi = edge_shard_range(E, shard, n_shards)
+    i32 = np.int32
+    pt_ptr = (np.clip(host.pt_ptr.astype(np.int64), lo, hi) - lo).astype(i32)
+    cam_idx = host.cam_idx[lo:hi]
+    perm = host.cam_perm.astype(np.int64)
+    cam_perm = (perm[(perm >= lo) & (perm < hi)] - lo).astype(i32)
+    cam_ptr = np.zeros(host.cam_ptr.shape[0], dtype=np.int64)
+    np.cumsum(np.bincount(cam_idx, minlength=cam_ptr.shape[0] - 1), out=cam_ptr[1:])
+    return dataclasses.replace(
+        host, uv=host.uv[lo:hi], cam_idx=cam_idx, pt_idx=host.pt_idx[lo:hi], pt_ptr=pt_ptr,
+        cam_perm=cam_perm, cam_ptr=cam_ptr.astype(i32),
+        gt_depths=None if host.gt_depths is None else host.gt_depths[lo:hi],
+        splits=_splits(pt_ptr, cam_ptr), pt_count=_counts(host.pt_ptr),
+        cam_count=_counts(host.cam_ptr), scene_edges=E, edge_offset=lo,
+        scene_ids=(host.cam_idx, host.pt_idx))
 
 
 def build_host_scene_graph(M: np.ndarray, Ns: np.ndarray, Ps_gt: np.ndarray,
@@ -231,9 +317,7 @@ def build_host_scene_graph(M: np.ndarray, Ns: np.ndarray, Ps_gt: np.ndarray,
     cam_perm = np.argsort(rows, kind="stable")
     cam_ptr = np.zeros(m + 1, dtype=np.int64)
     np.cumsum(np.bincount(rows, minlength=m), out=cam_ptr[1:])
-    splits = {(side, rows_, above): _split_parts(ptr, rows_, above)
-              for side, ptr in (("pt", pt_ptr), ("cam", cam_ptr))
-              for rows_, above in host_split_keys()[side]}
+    splits = _splits(pt_ptr, cam_ptr)
     gt_depths = None
     if gt_depths_dense is not None:
         gt_depths = np.asarray(gt_depths_dense, dtype=np.float32)[rows, cols]
@@ -260,8 +344,12 @@ def upload(host: HostSceneGraph, device: Optional[Union[str, torch.device]] = No
 
     graph = ViewGraph(uv=t(host.uv), cam_idx=t(host.cam_idx), pt_idx=t(host.pt_idx),
                       pt_ptr=t(host.pt_ptr), cam_perm=t(host.cam_perm), cam_ptr=t(host.cam_ptr),
-                      cam_valid=t(host.cam_valid), pt_valid=t(host.pt_valid))
+                      cam_valid=t(host.cam_valid), pt_valid=t(host.pt_valid),
+                      scene_num_edges=host.scene_edges, edge_offset=host.edge_offset,
+                      scene_ids=host.scene_ids)
     graph.__dict__["_host_ptr"] = {"pt": host.pt_ptr, "cam": host.cam_ptr}
+    if host.scene_edges is not None:  # an edge shard: the scene's counts, not its CSR's
+        graph.__dict__.update(pt_count=t(host.pt_count), cam_count=t(host.cam_count))
     for (side, rows, above), parts in host.splits.items():
         table = t(np.concatenate(list(parts.values())))
         graph.__dict__.setdefault(f"_{side}_chunks", {})[(rows, above)] = SegmentChunks(

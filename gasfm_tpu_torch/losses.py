@@ -29,6 +29,14 @@ Each loss has a ``from_conf`` builder with the JAX package's keys and
 asserts, and :func:`get_loss_func` builds the loss a conf's ``loss.func``
 names (``gasfm_tpu/losses.py:344-359``). The port's graph holds valid
 edges and cameras only, so its means run over E and m.
+
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``) each loss is
+the scene's: its sums over edges are ``all_sum_final`` of the ranks' (the
+JAX package's losses.py:149-235), except ``DirectDepthLoss``'s ``s_pred``,
+which every edge's divide reads back and so is the interior ``all_sum``
+(:323-325); its means divide by the scene's edges. ``GTLoss`` reads the
+camera tables only, the same on every rank: its gradient is counted on the
+edge group's first rank (``replicated_final``).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 
 from gasfm_tpu_torch.geometry.rotations import matrix_to_quaternion
 from gasfm_tpu_torch.ops.kernels.fused_loss import fused_esfm_terms, fused_esfm_terms_plain
+from gasfm_tpu_torch.ops.segment import all_sum, all_sum_final, replicated_final
 
 # The loss of confs/gasfm/optim_euc_gasfm.conf, as ESFMLoss's keyword arguments.
 FLAGSHIP_LOSS = dict(infinity_pts_margin=1e-4, hinge_loss=True, hinge_loss_weight=1.0,
@@ -95,6 +104,7 @@ class ESFMLoss:
         terms = fn(pred["Ps_norm"].reshape(graph.num_cams, 12), pred["pts3D"].T,
                    graph, self.infinity_pts_margin, self.hinge_loss, self.hinge_loss_weight,
                    self.eq_mode)
+        terms = all_sum_final(terms)
         return terms[0] / terms[1].clamp_min(1.0)
 
 
@@ -128,12 +138,12 @@ class DirectDepthLoss:
             raise ValueError("DirectDepthLoss needs a scene built with depth targets "
                              "(SceneData(store_depth_targets=True))")
         d_pred, d_gt = pred["depths"], scene.gt_depths.to(pred["depths"].dtype)
-        n = max(d_pred.shape[0], 1)
-        s_pred = d_pred.sum() / n
-        s_gt = d_gt.sum() / n
+        n = max(scene.graph.scene_edges, 1)
+        s_pred = all_sum(d_pred.sum()) / n
+        s_gt = all_sum_final(d_gt.sum()) / n
         diff = d_pred / s_pred - d_gt / torch.where(s_gt == 0, torch.ones_like(s_gt), s_gt)
         per_edge = diff.abs() if self.cost_fcn == "L1" else diff * diff
-        return per_edge.sum() / n
+        return all_sum_final(per_edge.sum()) / n
 
 
 def safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -174,7 +184,7 @@ class ExpDepthRegularizedOSELoss:
         depth = proj[:, 2]
         ose = safe_norm(proj[:, :2] - depth[:, None] * graph.uv, dim=1)
         per_edge = ose + self.depth_regul_weight * torch.exp(-depth)
-        return per_edge.sum() / max(graph.num_edges, 1)
+        return all_sum_final(per_edge.sum()) / max(graph.scene_edges, 1)
 
 
 class GTLoss:
@@ -226,7 +236,7 @@ class GTLoss:
             d1 = torch.linalg.norm((Vp - Vg).reshape(Vp.shape[0], -1), dim=1)
             d2 = torch.linalg.norm((Vp + Vg).reshape(Vp.shape[0], -1), dim=1)
             orient_err = torch.minimum(d1, d2)
-        return orient_err.sum() / m + translation_err.sum() / m
+        return replicated_final(orient_err.sum() / m + translation_err.sum() / m)
 
 
 _LOSS_REGISTRY = {

@@ -40,10 +40,19 @@ TPU layout and memory devices. bf16 Adam moments and bf16 weights with an
 f32 master (``train.adam_mu_dtype``, ``train.adam_nu_dtype``,
 ``train.param_dtype``) train through the port's Adam kernel
 (``train.state.optim_from_conf``; the weight files then hold bf16 leaves,
-as the JAX package's do). An option the port has not ported yet raises
-``NotImplementedError`` where it is read, rather than run something other
-than the conf asks for: a ``parallel.mesh_shape`` of more than one device
-(``TrainingSession.from_conf``).
+as the JAX package's do).
+
+A conf with a ``parallel.mesh_shape = [n_data, n_edge]`` of more than one
+position and ``parallel.table_sharding = false`` runs single-scene
+optimization on a mesh: ``main`` launches ``n_data * n_edge`` ranks itself
+(``parallel.run_ranks``: spawned processes on a gloo process group, sharing
+the cards round robin, or on the CPU with ``--device cpu``), every rank runs
+the same loop on its edge shard, and only rank 0 prints, writes the tree and
+runs BA. An option the port has not ported yet raises
+``NotImplementedError`` naming the slice that lifts it, rather than run
+something other than the conf asks for: table sharding (an ``n_edge > 1``
+mesh with ``parallel.table_sharding`` null or true), multi-scene learning
+under a mesh, and ``parallel.distributed``.
 """
 
 from __future__ import annotations
@@ -134,11 +143,16 @@ def init_exp(args):
     if args.scene_name_exp_subdir:
         exp_dir = os.path.join(exp_dir, conf.get_string("dataset.scene"))
     conf.put("exp_dir", exp_dir)
+    return conf, seed_from_conf(conf)
 
+
+def seed_from_conf(conf) -> np.random.Generator:
+    """Seed ``random`` and numpy with ``random_seed``; a numpy Generator of
+    the same seed."""
     seed = conf.get_int("random_seed", default=0)
     random.seed(seed)
     np.random.seed(seed)
-    return conf, np.random.default_rng(seed)
+    return np.random.default_rng(seed)
 
 
 def init_model(conf, pretrained_model_path: Optional[str] = None
@@ -162,13 +176,38 @@ def init_model(conf, pretrained_model_path: Optional[str] = None
     return model, n_params
 
 
+def _mesh_rank(mesh, conf, pretrained: Optional[str]) -> int:
+    """One rank of a mesh run of single-scene optimization: the seeded
+    model (rank 0's weights reach every rank when its session is made),
+    trained on this rank's edge shard; only rank 0 prints and writes."""
+    import sys
+
+    from gasfm_tpu_torch.experiments import train_model_single_scene
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    if not mesh.is_writer:
+        sys.stdout = open(os.devnull, "w")
+    rng = seed_from_conf(conf)
+    model, _ = init_model(conf, pretrained)
+    train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=mesh.device,
+                             mesh=mesh)
+    return 0
+
+
 def main(argv=None) -> int:
     """Run the CLI (see the module docstring). Returns 0."""
+    from gasfm_tpu_torch.parallel import mesh_shape_from_conf, run_ranks
     from gasfm_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
     device = resolve_device(args.device)
     conf, rng = init_exp(args)
+    mesh_shape = mesh_shape_from_conf(conf)
+    if mesh_shape is not None and args.mode != "single_scene_optim":
+        raise NotImplementedError(
+            f"multi-scene-learning on parallel.mesh_shape = {list(mesh_shape)}: learning over a "
+            f"mesh (the sampled groups through fused_group_step, the grouped evaluations) comes "
+            f"with slice 8's table sharding and is not ported yet")
 
     from gasfm_tpu_torch.experiments import (create_eval_dataloaders, eval_model,
                                              optimization_all_test_scenes, train_model,
@@ -182,7 +221,8 @@ def main(argv=None) -> int:
     if pretrained is None and getattr(args, "old_exp_dir", None):
         name = args.pretrained_model_filename or "best_model.npz"
         pretrained = os.path.join(args.old_exp_dir, "models", name)
-    model, _ = init_model(conf, pretrained)
+    if mesh_shape is None or args.count_model_params_and_die:
+        model, _ = init_model(conf, pretrained)
     if args.count_model_params_and_die:
         return 0
     if args.overwrite_exp:
@@ -190,6 +230,9 @@ def main(argv=None) -> int:
         if os.path.exists(exp_path):
             shutil.rmtree(exp_path)
     log_code(conf)
+    if mesh_shape is not None:  # the ranks take it from here, each with this conf
+        run_ranks(_mesh_rank, *mesh_shape, args=(conf, pretrained), device=device.type)
+        return 0
     if args.mode == "single_scene_optim":
         train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=device)
         return 0

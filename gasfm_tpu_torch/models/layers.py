@@ -30,6 +30,14 @@ and camera means through the segment-sum kernel (``ops/segment.py``
 ``segment_mean``) and combine the edge stream through the edge-combine
 kernel (``ops/edge_update.py``); their linears are plain ``nn.Linear``.
 
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``) every
+reduction over edges is the scene's through the ops (the segment means,
+the aggregations) and :func:`~gasfm_tpu_torch.ops.segment.edge_mean` (the
+DPESFM global mean and mean-centering, the JAX package's ``masked_mean``).
+The view->global and point->global pools reduce the tables, which every
+rank holds whole, with no collective (the JAX package's ``edge_replicated``,
+``gasfm_tpu/models/layers.py:427-448``).
+
 Node-level LayerNorms are torch's ``nn.LayerNorm`` (one fused kernel, a
 two-pass variance); the JAX package's flax LayerNorm computes the same
 function as E[x^2] - mean^2, so the two round differently (the model parity
@@ -75,7 +83,7 @@ from gasfm_tpu_torch.ops.gatv2 import (
     gatv2_layer_frontend,
     merged_layer_frontend,
 )
-from gasfm_tpu_torch.ops.segment import segment_mean
+from gasfm_tpu_torch.ops.segment import edge_mean, segment_mean
 
 LN_EPS = 1e-5  # the edge LayerNorm's epsilon (torch nn.LayerNorm's default)
 
@@ -606,11 +614,12 @@ class GraphAttnLayer(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def normalize_edge_features(x: torch.Tensor) -> torch.Tensor:
+def normalize_edge_features(x: torch.Tensor, graph) -> torch.Tensor:
     """Mean-centering over the edges (reference ``normalize_projection_features``
     with no LayerNorm, layers.py:972-979): the port's graph holds valid edges
-    only, so the JAX package's masked mean is the plain column mean."""
-    return x - x.mean(0, keepdim=True)
+    only, so the JAX package's masked mean is the column mean over the
+    scene's edges (:func:`~gasfm_tpu_torch.ops.segment.edge_mean`)."""
+    return x - edge_mean(x, graph)
 
 
 class SetOfSetGlobalFeatureUpdate(nn.Module):
@@ -628,7 +637,7 @@ class SetOfSetGlobalFeatureUpdate(nn.Module):
         v = self.lin_view(segment_mean(x_edges, graph, "camera", plain))
         if self.lin_global is None:
             return s, v
-        return s, v, self.lin_global(x_edges.mean(0, keepdim=True))
+        return s, v, self.lin_global(edge_mean(x_edges, graph))
 
 
 class SetOfSetLayer(nn.Module):
@@ -668,14 +677,14 @@ class SetOfSetBlock(nn.Module):
             xl = layer(xl, graph, plain)
             if j < len(self.layers) - 1:
                 if self.proj_feat_normalization:
-                    xl = normalize_edge_features(xl)
+                    xl = normalize_edge_features(xl, graph)
                 xl = torch.relu(xl)
         if self.add_skip:
             x_skip = x_edges
             if self.skip_projection is not None:
                 x_skip = self.skip_projection.lin_proj(x_skip)
                 if self.proj_feat_normalization:
-                    x_skip = normalize_edge_features(x_skip)
+                    x_skip = normalize_edge_features(x_skip, graph)
             xl = x_skip + xl
         return torch.relu(xl)
 

@@ -28,6 +28,13 @@ the dual kernel (and the frontend kernel fuses its prologue); above it the
 point direction runs in the single-direction kernel and the camera
 direction as the composite of gathers, a segment max and segment sums
 (``gasfm_tpu/ops/gatv2.py:146-214, 249-296, 361-439``).
+
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``; the JAX
+package's ``gatv2.py:95-114, 141-180``) ``gatv2_attend`` and the composite
+take the scene's max and sums through the segment max and sums, which finish
+over the edge group, and the kernels combine the shards' softmax
+(``ops/attn_combine.py``). ``gatv2_attend_pool`` reduces the tables, which
+every rank holds whole: no collective.
 """
 
 from __future__ import annotations

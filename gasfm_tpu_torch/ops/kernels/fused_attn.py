@@ -33,6 +33,14 @@ it.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. ``launches`` counts the kernel launches of each wrapper.
+
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``; the JAX
+package's ``fused_attn.py:542-610``, on replicated tables) the kernel runs on
+the rank's edge shard with its residuals written, ``ops/attn_combine.py``
+combines the shards' (out, max, den) over the edge group, and the backward
+sums the output's cotangent over the group before it takes the combined
+residuals. The plain version reaches the group through the segment max and
+sums of ``ops/segment.py``.
 """
 
 from __future__ import annotations
@@ -41,10 +49,12 @@ import functools
 
 import torch
 
+from gasfm_tpu_torch.ops.attn_combine import combine_attention_shards, sum_cotangents
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import head_width
 from gasfm_tpu_torch.ops.kernels.segment_kernels import side_csr, side_ids
+from gasfm_tpu_torch.ops.segment import edge_group
 
 # of csrc/fused_attn.cu: kAttendChunk, the most edges of one point a warp
 # walks; kQuad, short points per warp; kPointWarps, warps per point-side
@@ -110,18 +120,33 @@ def attend_forward(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE, residu
     return out, res, (xl, xr, att)
 
 
+def attend_combined(xl, xr, att, graph, side, heads, group, slope=NEGATIVE_SLOPE):
+    """The forward kernel on this rank's edge shard, combined over the edge
+    ``group``: (out, (m, den), ins), the output and residuals the scene's."""
+    out, res, ins = attend_forward(xl, xr, att, graph, side, heads, slope, residuals=True)
+    ((out, m, den),) = combine_attention_shards([(out, *res)], group)
+    return out, (m, den), ins
+
+
 class _Attend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xl, xr, att, graph, side, heads, slope):
-        out, res, ins = attend_forward(xl, xr, att, graph, side, heads, slope, residuals=True)
+        group = edge_group()
+        if group is None:
+            out, res, ins = attend_forward(xl, xr, att, graph, side, heads, slope,
+                                           residuals=True)
+        else:
+            out, res, ins = attend_combined(xl, xr, att, graph, side, heads, group, slope)
         ctx.save_for_backward(*ins, out, *res)
-        ctx.graph, ctx.side, ctx.heads, ctx.slope = graph, side, heads, slope
+        ctx.graph, ctx.side, ctx.heads, ctx.slope, ctx.group = graph, side, heads, slope, group
         ctx.att_shape = att.shape
         return out
 
     @staticmethod
     def backward(ctx, g):
         xl, xr, att, out, m, den = ctx.saved_tensors
+        if ctx.group is not None:
+            (g,) = sum_cotangents([g], ctx.group)
         dxl, dxr, datt = fused_attend_bwd(xl, xr, att, out, m, den, g, ctx.graph, ctx.side,
                                           ctx.heads, ctx.slope)
         return dxl, dxr, datt.reshape(ctx.att_shape), None, None, None, None
@@ -135,6 +160,9 @@ def fused_attend(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE):
         return fused_attend_plain(xl, xr, att, graph, side, heads, slope)
     if kb.needs_grad(xl, xr, att):
         return _Attend.apply(xl, xr, att, graph, side, heads, slope)
+    group = edge_group()
+    if group is not None:
+        return attend_combined(xl, xr, att, graph, side, heads, group, slope)[0]
     return attend_forward(xl, xr, att, graph, side, heads, slope)[0]
 
 

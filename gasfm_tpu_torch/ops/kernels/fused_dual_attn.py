@@ -41,6 +41,16 @@ plain version.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises. Each wrapper's ``launches`` attribute counts its kernel launches.
+
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``; the JAX
+package's ``fused_dual_attn.py:598-690``) the dual core runs on the rank's
+edge shard with its residuals written, and ``ops/attn_combine.py`` combines
+the shards' (out, max, den) of both directions over the edge group; its
+backward sums the outputs' cotangents over the group first and takes the
+combined residuals, so the kernel gives the rank's exact share of every
+gradient. The frontend's prologue is per edge and needs no collective: the
+frontend reaches the group through the dual core only. The plain versions
+reach it through the segment max and sums of ``ops/segment.py``.
 """
 
 from __future__ import annotations
@@ -50,8 +60,10 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from gasfm_tpu_torch.ops.attn_combine import combine_attention_shards, sum_cotangents
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_relu
 from gasfm_tpu_torch.ops.kernels import build as kb
+from gasfm_tpu_torch.ops.segment import edge_group
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import TILE_BLOCKS_PER_SM, TILE_ROWS
 
 LN_EPS = 1e-5
@@ -189,19 +201,38 @@ def dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
     return out_p, out_c, res, (xl_p, xl_c, xr_p, xr_c, att_p, att_c)
 
 
+def dual_attend_combined(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, group,
+                         slope=NEGATIVE_SLOPE):
+    """The dual core on this rank's edge shard, combined over the edge
+    ``group``: (out_p, out_c, (m_p, den_p, m_c, den_c), ins), every output
+    and residual the scene's."""
+    out_p, out_c, res, ins = dual_attend_forward(
+        xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope, residuals=True)
+    (out_p, m_p, den_p), (out_c, m_c, den_c) = combine_attention_shards(
+        [(out_p, res[0], res[1]), (out_c, res[2], res[3])], group)
+    return out_p, out_c, (m_p, den_p, m_c, den_c), ins
+
+
 class _DualAttend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope):
-        out_p, out_c, res, ins = dual_attend_forward(
-            xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope, residuals=True)
+        group = edge_group()
+        if group is None:
+            out_p, out_c, res, ins = dual_attend_forward(
+                xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope, residuals=True)
+        else:
+            out_p, out_c, res, ins = dual_attend_combined(
+                xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, group, slope)
         ctx.save_for_backward(*ins, out_p, out_c, *res)
-        ctx.graph, ctx.heads, ctx.slope = graph, heads, slope
+        ctx.graph, ctx.heads, ctx.slope, ctx.group = graph, heads, slope, group
         ctx.att_shapes = (att_p.shape, att_c.shape)
         return out_p, out_c
 
     @staticmethod
     def backward(ctx, g_p, g_c):
         saved = ctx.saved_tensors
+        if ctx.group is not None:
+            g_p, g_c = sum_cotangents([g_p, g_c], ctx.group)
         dxl_p, dxl_c, dxr_p, dxr_c, datt_p, datt_c = fused_dual_attend_bwd(
             *saved, g_p, g_c, ctx.graph, ctx.heads, ctx.slope)
         return (dxl_p, dxl_c, dxr_p, dxr_c, datt_p.reshape(ctx.att_shapes[0]),
@@ -217,6 +248,10 @@ def fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
         return fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
     if kb.needs_grad(xl_p, xl_c, xr_p, xr_c, att_p, att_c):
         return _DualAttend.apply(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
+    group = edge_group()
+    if group is not None:
+        return dual_attend_combined(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, group,
+                                    slope)[:2]
     out_p, out_c, _, _ = dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph,
                                              heads, slope)
     return out_p, out_c

@@ -29,6 +29,13 @@ sums every weight gradient in registers without atomics.
 
 A CPU tensor runs the plain version (and autograd through it is the
 backward's plain version); a CUDA tensor launches the kernel or raises.
+
+Under an edge mesh (the JAX package's ``fused_layer_step.py:856-952``) the
+prologue and its backward are per edge and need no collective: their
+segment sums of d e_l / 4 are the rank's partial table cotangents. The
+combine of the shards' softmax and the sum of the aggregations' cotangents
+over the edge group happen in the dual core (``fused_dual_attend``), which
+the layer step calls.
 """
 
 from __future__ import annotations

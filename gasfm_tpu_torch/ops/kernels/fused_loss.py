@@ -29,6 +29,12 @@ A CPU tensor runs the plain version (autograd through it, with the
 equalization Function below, is the backward's plain version); a CUDA
 tensor launches the kernel or raises. ``launches`` counts the calls that
 launched.
+
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``) the three
+scalars are the rank's own, over its edge shard; the loss takes their
+``all_sum_final``. The equalization's count is the scene's: its forward sums
+the shards' counts over the edge group (the JAX package's
+``fused_loss.py:349-359``), and the backward divides by it.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import torch
 
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.segment_kernels import sum_split
+from gasfm_tpu_torch.ops.segment import all_sum_final, edge_group
 
 TERMS_EDGES = 512  # edges per block of the forward: kTermsThreads x kTermsEdges
 LONG_POINT = 32  # kLossLongPoint of csrc/fused_loss.cu: the longest point a lane group walks
@@ -120,9 +127,10 @@ def fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode="n
     depth = proj[:, 2].detach()
     pos = depth >= margin if hinge else depth.abs() >= margin
     n_pos = pos.to(proj.dtype).sum()
+    n_edges = torch.tensor(float(graph.num_edges), dtype=proj.dtype, device=proj.device)
     if eq_mode != "none":
-        count = n_pos if eq_mode == "valid_only" else torch.tensor(
-            float(graph.num_edges), dtype=proj.dtype, device=proj.device)
+        counts = all_sum_final(torch.stack([n_edges, n_pos]))  # the scene's under a mesh
+        count = counts[1] if eq_mode == "valid_only" else counts[0]
         proj = EqualizeGrads.apply(proj, pos, 1.0 / count.clamp_min(1.0), eq_mode == "valid_only")
     depth = proj[:, 2]
     denom = torch.where(pos, depth, torch.ones_like(depth))
@@ -131,7 +139,6 @@ def fused_esfm_terms_plain(P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode="n
     nz = sq > 0
     rnorm = torch.where(nz, torch.sqrt(torch.where(nz, sq, torch.ones_like(sq))), torch.zeros_like(sq))
     term = torch.where(pos, rnorm, (margin - depth) * hinge_w)
-    n_edges = torch.tensor(float(graph.num_edges), dtype=term.dtype, device=term.device)
     return torch.stack([term.sum(), n_edges, n_pos])
 
 
@@ -156,7 +163,10 @@ class _EsfmTerms(torch.autograd.Function):
     @staticmethod
     def forward(ctx, P_flat, Xt, graph, margin, hinge, hinge_w, eq_mode):
         out, P_c, X_c = esfm_terms_forward(P_flat, Xt, graph, margin, hinge, hinge_w)
-        ctx.save_for_backward(P_c, X_c, out)
+        counts = out
+        if eq_mode != "none" and edge_group() is not None:
+            counts = all_sum_final(out)  # the scene's counts, for the equalization
+        ctx.save_for_backward(P_c, X_c, counts)
         ctx.args = (graph, margin, hinge, hinge_w, eq_mode)
         return out  # the counts' cotangents are ignored by the backward
 

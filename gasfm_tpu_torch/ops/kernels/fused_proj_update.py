@@ -33,6 +33,11 @@ No float atomics; results are bitwise reproducible on a given card.
 
 A CPU tensor runs the plain version (autograd through it is the backward's
 plain version); a CUDA tensor launches the kernel or raises.
+
+Under an edge mesh it needs no collective (the JAX package's
+``fused_proj_update.py:26``): the update is per edge over whole tables, and
+its backward's table and weight gradients are the rank's partials, which
+the interior sums upstream or the final sum of the gradients complete.
 """
 
 from __future__ import annotations

@@ -24,6 +24,11 @@ card, and the forward's adds follow the plain version's order.
 A CPU tensor runs the plain version (the JAX package's composite line,
 ``ops/edge_update.py:53-58``; autograd through it is the backward's plain
 version); a CUDA tensor launches the kernel or raises.
+
+Under an edge mesh it needs no collective (the JAX package's
+``ops/edge_update.py:11``): each edge reads whole tables, and the backward's
+table gradients are the rank's partials, which the interior sums upstream
+(their backward) or the final sum of the gradients complete.
 """
 
 from __future__ import annotations

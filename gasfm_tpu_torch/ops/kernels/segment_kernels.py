@@ -32,6 +32,13 @@ card, and a max is exact, so it is bitwise the plain version's.
 A CPU tensor runs the plain version (``index_add_`` / indexing, the
 functions of ``ops/segment.py``); a CUDA tensor launches the kernel or
 raises. ``launches`` counts the calls that launched.
+
+Under an edge mesh (``ops/segment.py`` ``edge_partitioned``) the kernels run
+on the rank's edge shard, and ``segment_sum`` finishes with the interior
+``all_sum`` over the edge group, ``segment_max`` with ``all_max`` (the
+plain versions through ``ops/segment.py``'s, which do the same). The gather
+needs none: its table gradient is the rank's partial, which the interior
+sum's backward upstream or the final sum of the gradients completes.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ import functools
 import torch
 
 from gasfm_tpu_torch.ops.kernels import build as kb
-from gasfm_tpu_torch.ops.segment import gather_segments
+from gasfm_tpu_torch.ops.segment import all_sum, edge_group, gather_segments, max_over_edges
 from gasfm_tpu_torch.ops.segment import segment_max as index_segment_max
 from gasfm_tpu_torch.ops.segment import segment_sum as index_segment_sum
 
@@ -172,12 +179,13 @@ class _GatherRows(torch.autograd.Function):
 
 def segment_sum(data, graph, side):
     """(S, D) sums of the (E, D) rows of ``data`` per segment of ``side``
-    ("point" or "camera"); empty segments sum to 0."""
+    ("point" or "camera"); empty segments sum to 0. Under an edge mesh the
+    sums of the scene's edges (the interior ``all_sum`` of the shards')."""
     if data.device.type == "cpu":
         return segment_sum_plain(data, graph, side)
     if kb.needs_grad(data):
-        return _SegmentSum.apply(data, graph, side)
-    return segment_sum_forward(data, graph, side)
+        return all_sum(_SegmentSum.apply(data, graph, side))
+    return all_sum(segment_sum_forward(data, graph, side))
 
 
 segment_sum.launches = 0
@@ -208,7 +216,9 @@ def segment_max(data, graph, side, neutral=float("-inf")):
     segment of ``side`` ("point" or "camera"); empty segments give
     ``neutral``. No gradient: pass detached data. The kernel walks the
     segment sum's split (:func:`sum_split`): one launch, two where a
-    segment has more than SUM_PART_ROWS rows."""
+    segment has more than SUM_PART_ROWS rows. Under an edge mesh the maxima
+    over the scene's edges (``all_max`` of the shards', taken with -inf for
+    a segment empty on a shard)."""
     if data.device.type == "cpu":
         return segment_max_plain(data, graph, side, neutral)
     if kb.needs_grad(data):
@@ -224,12 +234,13 @@ def segment_max(data, graph, side, neutral=float("-inf")):
     split, n_long, n_chunks, part = sum_split(graph, side, D, data.device)
     out = kb.f32_empty((S, D), data.device)
     p = kb.ptr
+    local = neutral if edge_group() is None else float("-inf")
     code = _entry("gasfm_segment_max")(p(data), D, E, p(ptr), p(perm), p(split), n_long,
-                                       n_chunks, S, float(neutral), p(out), p(part),
+                                       n_chunks, S, float(local), p(out), p(part),
                                        kb.stream(data.device))
     kb.check(code, "segment_max")
     segment_max.launches += 1
-    return out
+    return max_over_edges(out, neutral)
 
 
 segment_max.launches = 0

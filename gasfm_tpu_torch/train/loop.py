@@ -64,6 +64,27 @@ single scene's epoch is one step), so the host never waits for the step it
 has just launched. In multi-scene learning the samples' host work (sampling,
 augmentation, validity, outliers, the graph's host half) runs on a prefetch
 thread; the upload runs on the caller's.
+
+Under a mesh (``parallel.mesh_shape = [n_data, n_edge]`` with
+``parallel.table_sharding = false``; ``gasfm_tpu_torch/parallel``) one
+session runs on each rank, eagerly, and every call is collective: every rank
+makes it, on the same scenes. The session holds the rank's edge shard of each
+scene (``scene_graph``); rank 0's weights are broadcast to every rank when
+the session is made. ``fused_group_step(scenes)`` trains on a group of at
+most ``n_data`` scenes (data slot d on scene d, a short group's empty slots
+on its last scene with weight 0; the JAX package's ``make_sharded_fused_step``,
+``parallel/edge_sharding.py:319``): each rank's loss, scaled by its slot's
+weight, goes backward under the edge group's reductions (``ops/segment.py``
+``edge_partitioned``), the gradients are summed over all ranks in one
+all-reduce, and the same Adam step then runs on every rank, so the weights
+stay bitwise equal. ``fused_step(scene)`` is the group of one;
+``loss_and_grads`` runs one scene the same way and returns the summed
+gradients (``make_sharded_grad_step``, :396), ``update`` is unchanged. The
+predictions of ``forward`` (every slot on one scene) and ``forward_group``
+(each slot on its scene, :517) come back whole on every rank: the tables
+are, and the depth head's per-edge depths are put together over the edge
+group. The drivers run on every rank; only rank 0 (``is_writer``) prints,
+writes files, evaluates the metrics and runs BA.
 """
 
 from __future__ import annotations
@@ -84,6 +105,7 @@ from gasfm_tpu_torch.eval.metrics import (compute_core_errors, compute_errors,
 from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss, get_loss_func
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
+from gasfm_tpu_torch.ops.segment import edge_partitioned
 from gasfm_tpu_torch.train.state import (FLAGSHIP_OPTIM, build_optimizer,
                                          cast_params_for_training, global_norm, optim_from_conf,
                                          restore_checkpoint, save_checkpoint, save_params)
@@ -154,10 +176,16 @@ class _SceneCache:
         self.graphs: Dict[int, Any] = {}
         self.calls: Dict[int, _Calls] = {}
 
-    def graph_of(self, data, device: torch.device):
+    def graph_of(self, data, device: torch.device, shard: Optional[Tuple[int, int]] = None):
         graph = self.graphs.get(id(data))
         if graph is None:
-            graph = self.graphs[id(data)] = data.to_scene_graph(device=device)
+            if shard is None:
+                graph = data.to_scene_graph(device=device)
+            else:  # this rank's edge shard of the scene
+                from gasfm_tpu_torch.graph.view_graph import shard_host_graph, upload
+
+                graph = upload(shard_host_graph(data.host_graph(), *shard), device)
+            self.graphs[id(data)] = graph
             weakref.finalize(data, _SceneCache._drop_scene, weakref.ref(self), id(data),
                              id(graph))
         return graph
@@ -194,13 +222,26 @@ class TrainingSession:
     ``cast_params_for_training`` at step 0, train/loop.py:867-873; its
     gradients are then bf16 too). ``capture``: record
     the training steps as CUDA graphs (see the module docstring); on by
-    default for a CUDA session, and refused for a CPU one."""
+    default for a CUDA session, and refused for a CPU one. ``mesh``: this
+    rank's :class:`~gasfm_tpu_torch.parallel.Mesh` (see the module
+    docstring); a mesh session runs eagerly, and refuses ``capture=True``
+    (the gloo collectives cannot be recorded)."""
 
     def __init__(self, model: Union[GraphAttnSfMNet, SetOfSetNet],
                  loss_func: Union[ESFMLoss, DirectDepthLoss],
                  device: Optional[Union[str, torch.device]] = None,
-                 optim: Optional[dict] = None, capture: Optional[bool] = None):
+                 optim: Optional[dict] = None, capture: Optional[bool] = None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None:
+            if capture:
+                raise ValueError("capture=True records CUDA graphs; a mesh session's gloo "
+                                 "collectives cannot be recorded, it runs eagerly")
+            if torch.device(mesh.device) != self.device:
+                raise ValueError(f"the session's device {self.device} is not its rank's "
+                                 f"{mesh.device}")
+            capture = False
         if capture is None:
             capture = self.device.type == "cuda"
         elif capture and self.device.type != "cuda":
@@ -210,6 +251,9 @@ class TrainingSession:
         optim = optim or FLAGSHIP_OPTIM
         self.model = cast_params_for_training(model.to(self.device), optim.get("param_dtype"))
         self.loss_func = loss_func
+        if mesh is not None:  # rank 0's weights on every rank, before the optimizer
+            # copies them (its f32 master under bf16 weights)
+            mesh.broadcast(list(self.model.state_dict().values()))
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer = build_optimizer(self.params, **optim)
         self._stream = torch.cuda.Stream(self.device) if capture else None
@@ -220,18 +264,30 @@ class TrainingSession:
     @classmethod
     def from_conf(cls, conf, model: Union[GraphAttnSfMNet, SetOfSetNet],
                   milestone_shift: int = 0, device: Optional[Union[str, torch.device]] = None,
-                  capture: Optional[bool] = None) -> "TrainingSession":
+                  capture: Optional[bool] = None, mesh=None) -> "TrainingSession":
         """The session of a conf: ``get_loss_func(conf)`` and the optimizer
-        of ``optim_from_conf(conf, milestone_shift)``. A
-        ``parallel.mesh_shape`` of more than one device raises
-        ``NotImplementedError``: the port runs on one device, and does not
-        run another layout than the conf asks for."""
-        mesh = conf.get_list("parallel.mesh_shape", default=None)
-        if mesh is not None and math.prod(int(d) for d in mesh) > 1:
-            raise NotImplementedError(f"parallel.mesh_shape = {mesh}: the port runs on one "
-                                      f"device (multi-device execution is not ported yet)")
+        of ``optim_from_conf(conf, milestone_shift)``. A ``parallel.mesh_shape``
+        of more than one position makes a mesh session on ``mesh``, this
+        rank's :class:`~gasfm_tpu_torch.parallel.Mesh` of that shape (the
+        ranks come from ``parallel.run_ranks``, or from the CLI, which
+        launches them); without ``mesh`` it raises ``ValueError``. What the
+        port does not run yet raises ``NotImplementedError``
+        (``parallel.mesh_shape_from_conf``: table sharding, multi-host)."""
+        from gasfm_tpu_torch.parallel import mesh_shape_from_conf
+
+        shape = mesh_shape_from_conf(conf)
+        have = None if mesh is None else (mesh.n_data, mesh.n_edge)
+        if shape != have:
+            raise ValueError(f"the conf's mesh {shape} is not the session's {have}: a mesh "
+                             f"conf runs on the ranks of parallel.run_ranks (or the CLI)")
         return cls(model, get_loss_func(conf), device=device,
-                   optim=optim_from_conf(conf, milestone_shift), capture=capture)
+                   optim=optim_from_conf(conf, milestone_shift), capture=capture, mesh=mesh)
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this session prints and writes: always, but on a mesh
+        only rank 0's."""
+        return self.mesh is None or self.mesh.is_writer
 
     def scene_graph(self, data):
         """The :class:`~gasfm_tpu_torch.graph.view_graph.SceneGraph` of a
@@ -239,8 +295,10 @@ class TrainingSession:
         device, built (uploaded from ``data.host_graph()``) at the first
         request and kept while the caller keeps ``data``: the same scene
         object gets the same graph, whose recordings replay. When the caller
-        drops ``data`` the graph goes, with every recording that reads it."""
-        return self._cache.graph_of(data, self.device)
+        drops ``data`` the graph goes, with every recording that reads it.
+        On a mesh, the rank's edge shard of the scene."""
+        shard = None if self.mesh is None else (self.mesh.edge_shard, self.mesh.n_edge)
+        return self._cache.graph_of(data, self.device, shard)
 
     def recordings(self) -> List[Tuple[str, Any]]:
         """(kind, scene graph) of every recording the session holds, kind
@@ -294,20 +352,87 @@ class TrainingSession:
         session's device. ``plain=True`` runs the kernels' plain versions
         (for comparing the two on the card), eagerly. Captured, the forward
         replays this scene's recording and the predictions are copies of
-        its outputs."""
+        its outputs. On a mesh every slot runs ``scene`` and the predictions
+        come back whole on every rank."""
+        if self.mesh is not None:
+            return self._mesh_forward(scene, plain)
         if plain or not self.capture:
             return self._forward(scene, plain)
         pred = self._recorded(self._cache.of(scene), "forward", self._forward, (scene,), scene)
         return {k: v.clone() for k, v in pred.items()}
 
+    def _as_graph(self, scene):
+        """A scene graph of this session: ``scene`` itself, or the graph of a
+        :class:`~gasfm_tpu_torch.data.scene.SceneData` (:meth:`scene_graph`)."""
+        return scene if hasattr(scene, "graph") else self.scene_graph(scene)
+
+    def _whole(self, pred: Dict[str, torch.Tensor], graph) -> Dict[str, torch.Tensor]:
+        """A rank's predictions made whole: the depth head's per-edge depths
+        of the edge shard put into the scene's edge order and summed over
+        the edge group (each range filled by one rank); the tables are
+        whole already."""
+        pred = {k: v.detach() for k, v in pred.items()}
+        if "depths" in pred and self.mesh.n_edge > 1:
+            d = pred["depths"]
+            full = d.new_zeros((graph.scene_edges,))
+            full[graph.edge_offset:graph.edge_offset + d.shape[0]] = d
+            pred["depths"] = self.mesh.sum_over_edges(full)
+        return pred
+
+    @torch.no_grad()
+    def _mesh_forward(self, scene, plain: bool = False) -> Dict[str, torch.Tensor]:
+        scene = self._as_graph(scene)
+        with edge_partitioned(self.mesh.edge_scope):
+            pred = self.model(scene.graph, plain=plain)
+        return self._whole(pred, scene.graph)
+
+    @torch.no_grad()
+    def forward_group(self, scenes: Sequence, plain: bool = False
+                      ) -> List[Dict[str, torch.Tensor]]:
+        """The predictions of each of at most ``n_data`` scenes (scene graphs
+        of this session, or ``SceneData``), each data slot running its own
+        (the JAX package's grouped forward, ``edge_sharding.py:517``): per
+        scene, whole on every rank, shared over the data group. Without a
+        mesh, one ``forward`` per scene."""
+        if self.mesh is None:
+            return [self.forward(self._as_graph(s), plain) for s in scenes]
+        from gasfm_tpu_torch.parallel import pad_scene_group
+
+        slots, _ = pad_scene_group([self._as_graph(s) for s in scenes], self.mesh.n_data)
+        own = self.mesh.data_slot
+        mine = self._mesh_forward(slots[own], plain)
+        if self.mesh.n_data == 1:
+            return [mine]
+        preds = []
+        for i, sc in enumerate(slots[:len(scenes)]):  # scene i from slot i's ranks
+            pred = {k: (mine[k] if i == own else torch.zeros(shape, device=self.device))
+                    for k, shape in self._pred_shapes(sc.graph).items()}
+            preds.append({k: self.mesh.sum_over_data(v) for k, v in pred.items()})
+        return preds
+
+    def _pred_shapes(self, graph) -> Dict[str, tuple]:
+        if self.model.depth_head_enabled:
+            return {"depths": (graph.scene_edges,)}
+        return {"Ps_norm": (graph.num_cams, 3, 4), "pts3D": (4, graph.num_pts)}
+
     @torch.no_grad()
     def loss(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:
-        return self.loss_func(pred, scene, plain=plain)
+        """The loss of predictions on a scene graph of this session; on a
+        mesh, of whole predictions (``forward``'s), the scene's."""
+        if self.mesh is None:
+            return self.loss_func(pred, scene, plain=plain)
+        g = scene.graph
+        if "depths" in pred and pred["depths"].shape[0] != g.num_edges:  # the shard's edges
+            pred = dict(pred, depths=pred["depths"][g.edge_offset:g.edge_offset + g.num_edges])
+        with edge_partitioned(self.mesh.edge_scope):
+            return self.loss_func(pred, scene, plain=plain)
 
-    def _loss_and_grads(self, scene, plain: bool = False):
+    def _loss_and_grads(self, scene, plain: bool = False, weight: Optional[float] = None):
         with torch.enable_grad():
             pred = self.model(scene.graph, plain=plain)
             loss = self.loss_func(pred, scene, plain=plain)
+            if weight is not None:  # a mesh slot's weight
+                loss = loss * weight
             grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         # contiguous: the kernels' weight gradients can be views of one sums
         # buffer, and PyTorch's multi-tensor Adam and norm fall back to one
@@ -324,12 +449,49 @@ class TrainingSession:
         Parameters a configuration leaves unused get zero gradients, as
         optax treats them. Captured, the loss and predictions are copies;
         the gradients are the graph's own outputs, which its next replay
-        overwrites (``update`` reads them there)."""
+        overwrites (``update`` reads them there). On a mesh the scene is a
+        group of one (slot 0; the other slots run it with weight 0): the
+        loss is the scene's, the predictions whole, the gradients summed
+        over all ranks, the same on every rank."""
+        if self.mesh is not None:
+            return self.group_loss_and_grads([scene], plain)
         if plain or not self.capture:
             return self._loss_and_grads(scene, plain)
         loss, pred, grads = self._recorded(self._cache.of(scene), "loss_and_grads",
                                            self._loss_and_grads, (scene,), scene)
         return loss.clone(), {k: v.clone() for k, v in pred.items()}, grads
+
+    def _slot(self, scenes: Sequence):
+        """This rank's (scene graph, weight) of a group of at most ``n_data``
+        scenes (``parallel.pad_scene_group``); a group needs a mesh."""
+        from gasfm_tpu_torch.parallel import pad_scene_group
+
+        if self.mesh is None:
+            raise ValueError("a group of scenes is a mesh session's: make the session with "
+                             "its rank's mesh")
+        slots, weights = pad_scene_group(list(scenes), self.mesh.n_data)
+        return self._as_graph(slots[self.mesh.data_slot]), weights[self.mesh.data_slot]
+
+    def group_loss_and_grads(self, scenes: Sequence, plain: bool = False
+                             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
+        """A mesh session's group of at most ``n_data`` scenes (scene graphs of
+        this session, or ``SceneData``) as :meth:`fused_group_step` takes it:
+        (the sum of the scenes' losses, the predictions of this rank's
+        slot's scene, whole, the gradients of the sum, the same on every
+        rank)."""
+        scene, weight = self._slot(scenes)
+        loss, pred, grads = self._mesh_loss_and_grads(scene, weight, plain)
+        return self.mesh.sum_over_data(loss), self._whole(pred, scene.graph), grads
+
+    def _mesh_loss_and_grads(self, scene, weight: float, plain: bool = False):
+        """This rank's (loss x weight, predictions, gradients summed over all
+        ranks): the forward and backward of its edge shard under the edge
+        group's reductions, the loss scaled by the slot's weight before the
+        backward (the JAX package's ``loss_func(pred, scene) * w``)."""
+        with edge_partitioned(self.mesh.edge_scope):
+            loss, pred, grads = self._loss_and_grads(scene, plain, weight=float(weight))
+        self.mesh.sum_over_world(grads)
+        return loss, pred, grads
 
     def _update(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
         norm = global_norm(grads)
@@ -396,11 +558,12 @@ class TrainingSession:
         ``plain=True`` runs the kernels' plain versions throughout, eagerly.
         Captured, the step replays this scene's graph and the three values
         are copies of its outputs. Needs a model with the view and
-        scenepoint heads."""
-        if self.model.depth_head_enabled:
-            raise ValueError("fused_step takes our_repro of the view and scenepoint heads' "
-                             "predictions; a depth-head model trains through loss_and_grads "
-                             "and update")
+        scenepoint heads. On a mesh, the group of one
+        (:meth:`fused_group_step`)."""
+        if self.mesh is not None:
+            loss, repro, _, grad_norm = self.fused_group_step([scene], plain)
+            return loss, repro, grad_norm
+        self._check_explicit("fused_step")
         self.optimizer.set_lr()
         if plain or not self.capture:
             out = self._fused_step(scene, plain)
@@ -410,6 +573,41 @@ class TrainingSession:
             out = tuple(torch.stack(out).unbind())
         self.optimizer.advance_schedule()
         return out
+
+    @torch.no_grad()
+    def our_repro(self, pred: Dict[str, torch.Tensor], scene) -> torch.Tensor:
+        """``core_errors_device``'s ``our_repro`` of whole predictions on a
+        scene graph of this session (on a mesh, over the scene's edges)."""
+        with edge_partitioned(None if self.mesh is None else self.mesh.edge_scope):
+            return core_errors_device(pred, scene)["our_repro"]
+
+    def _check_explicit(self, what: str) -> None:
+        if self.model.depth_head_enabled:
+            raise ValueError(f"{what} takes our_repro of the view and scenepoint heads' "
+                             "predictions; a depth-head model trains through loss_and_grads "
+                             "and update")
+
+    def fused_group_step(self, scenes: Sequence, plain: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One training step on a group of at most ``n_data`` scenes (scene
+        graphs of this session, or ``SceneData``; the JAX package's
+        ``fused_group_step`` and ``make_sharded_fused_step``): data slot d
+        trains on scene d, the slots past the group on its last scene with
+        weight 0 (``parallel.pad_scene_group``). Returns (the sum of the
+        scenes' losses, the sum of their ``our_repro``, the number of
+        scenes, the global gradient norm), 0-d tensors, the same on every
+        rank. Any group of at most ``n_data`` scenes takes one step, whatever
+        their sizes."""
+        self._check_explicit("fused_group_step")
+        scene, weight = self._slot(scenes)
+        self.optimizer.set_lr()
+        loss, pred, grads = self._mesh_loss_and_grads(scene, weight, plain)
+        grad_norm = self._update(grads)
+        with torch.no_grad(), edge_partitioned(self.mesh.edge_scope):
+            repro = core_errors_device(pred, scene, plain=plain)["our_repro"] * weight
+        sums = self.mesh.sum_over_data(torch.stack([loss, repro, torch.full_like(loss, weight)]))
+        self.optimizer.advance_schedule()
+        return sums[0], sums[1], sums[2], grad_norm
 
 
 # ---------------------------------------------------------------------------
@@ -609,7 +807,7 @@ def epoch_train(
                 curr_scene_name = curr_data.scene_name
                 loss, pred, grads = session.loss_and_grads(scene_graph)
                 if device_metrics:
-                    repro_parts.append(core_errors_device(pred, scene_graph)["our_repro"])
+                    repro_parts.append(session.our_repro(pred, scene_graph))
                 elif explicit or calc_backproj:
                     core = compute_core_errors(
                         curr_data, predictions_to_host(pred, curr_data, scene_graph.graph), conf)
@@ -697,7 +895,8 @@ def epoch_evaluation(
     ``state_dict``) are copied into the session's model first; None keeps
     its current ones. A scene that runs the device out of memory gets a row
     of NaNs unless ``crash_on_scene_exhausting_memory``. Returns the rows
-    with their ``Mean`` row."""
+    with their ``Mean`` row. On a mesh every rank runs the forwards (they
+    are collective) and only rank 0 the rest; the others return None."""
     from gasfm_tpu_torch.data.outliers import inject_outliers
 
     additional_identifiers = list(additional_identifiers or [])
@@ -743,6 +942,8 @@ def epoch_evaluation(
                 begin = time()
                 pred = session.forward(scene_graph)
                 _sync(session.device)
+                if not session.is_writer:
+                    continue
                 errors = _post(curr_data, scene_graph, pred, time() - begin)
             except Exception as e:  # noqa: BLE001 - the reference's OOM tolerance
                 if not _is_oom_error(e) or crash_on_scene_exhausting_memory:
@@ -752,7 +953,7 @@ def epoch_evaluation(
                 errors["Inference time"] = float("nan")
                 errors["Scene"] = curr_data.scene_name
             errors_list.append(errors)
-    return eval_errors_list2df(errors_list)
+    return eval_errors_list2df(errors_list) if session.is_writer else None
 
 
 def get_dummy_train_stats() -> Table:
@@ -887,7 +1088,13 @@ def train(
     # the test set is evaluated by the caller (reference train.py:372,429)
     assert training == (test_loader is not None)
 
-    tb_writer = get_tb_writer(conf)
+    # on a mesh only rank 0 logs and writes files (every rank trains)
+    writer = session.is_writer
+    tb_writer = get_tb_writer(conf) if writer else None
+
+    def save(name: str, what) -> None:
+        if writer:
+            save_params(models_path(name), what)
     run_ba = conf.get_bool("ba.run_ba", default=True)
     ba_during_training = run_ba and not conf.get_bool("ba.only_last_eval")
     outlier_ids = get_additional_identifiers_for_outlier_injection(outlier_injection_rate)
@@ -904,6 +1111,8 @@ def train(
             crash_on_scene_exhausting_memory=True, rng=rng)
 
     def log_eval(epoch, errors, ph, ids, per_scene_key=None, log_scene=None):
+        if not writer:
+            return
         tb_log_eval_step(conf, tb_writer, epoch, errors, phase=ph, additional_identifiers=ids,
                          scene=log_scene, include_post_ba_metrics=ba_during_training)
         if per_scene_key is not None:
@@ -961,9 +1170,9 @@ def train(
         if validation_metric is not None:
             track_best(-1, validation_errors)
             if best["epoch"] == -1:
-                save_params(models_path("best_model.npz"), best["weights"])
+                save("best_model.npz", best["weights"])
         if finetune_dump_model_interval is not None:
-            save_params(models_path(f"model_epoch{0:06d}.npz"), session.model)
+            save(f"model_epoch{0:06d}.npz", session.model)
 
     # full train-state checkpoints with resume (the JAX package's addition;
     # the reference saves weights only)
@@ -1026,7 +1235,7 @@ def train(
         if will_print:
             print(f"{epoch} Train Loss: {mean_loss}")
 
-        if will_save:
+        if will_save and writer:
             save_checkpoint(ckpt_dir, session, epoch + 1, keep=ckpt_keep, meta={
                 "total_n_batches": total_n_batches,
                 "n_epochs_post_warmup_plus_1": (0 if n_epochs_post_warmup is None
@@ -1043,20 +1252,21 @@ def train(
             if ((finetune_dump_model_interval is not None
                  and (epoch + 1) % finetune_dump_model_interval == 0)
                     or (validation_metric is not None and epoch == best["epoch"])):
-                save_params(models_path(f"model_epoch{epoch + 1:06d}.npz"), session.model)
+                save(f"model_epoch{epoch + 1:06d}.npz", session.model)
 
     profiler.close()
-    save_params(models_path("final_model.npz"), session.model)
+    save("final_model.npz", session.model)
     trained = {"final_model": session.weights()}
     train_stats = get_dummy_train_stats()
     if validation_metric is not None:
         trained["best_model"] = (best["weights"] if best["weights"] is not None
                                  else trained["final_model"])
-        save_params(models_path("best_model.npz"), trained["best_model"])
+        save("best_model.npz", trained["best_model"])
         # unindexed, as the JAX package's DataFrame (train/loop.py:1148-1153)
         train_stats = Table.from_records([{
             "": 0, "Convergence time": best["time"], "best_epoch": best["epoch"] + 1,
             "best_validation_metric": best["metric"],
             "final_validation_metric": final_validation_metric}], index="")
-    tb_writer.flush()
+    if writer:
+        tb_writer.flush()
     return trained, train_stats

@@ -212,7 +212,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    width) on the dense scene's sizes from ``dataset.synthetic`` (128 views,
    8,192 points, visibility 0.2), 30 epochs with evaluations at init, after
    epochs 1, 10, 20 and 30 and the final one with bundle adjustment; the
-   projective flagship the same way for 10 epochs (``proj_ba``); the four
+   projective flagship the same way for 10 epochs (``proj_ba``), its bundle
+   adjustment's solves cut to 25 iterations each; the four
    single-scene synthetic confs at their own sizes for 20 epochs. Each
    experiment goes to ``chiprun_out/phase15/<run>/``, its output to
    ``chiprun_out/phase15/<run>.log``. Checks: no port kernel launched by any
@@ -272,29 +273,40 @@ Phases, each printing its own lines; any failure exits non-zero:
    f32 Adam's in the float32 step; peak memory. Then
    the CLI under (b) on the synthetic GASFM conf (``cli_run``), its bf16
    weight file loaded back. Its experiment goes to ``chiprun_out/phase17/``.
-18. (after phase 17) The (data, edge) mesh with replicated tables,
-   ``mesh_phase``: ranks spawned by ``gasfm_tpu_torch.parallel.run_ranks``
-   that share the card on a gloo process group (each prints its backend
-   and device; one spawn of 2 ranks for [1, 2] and [2, 1], one of 4), the
-   mesh ``TrainingSession`` from fresh seeded weights
-   (``mesh_runs``): (a) the flagship (9 layers, full width) on the dense
-   scene under [1, 2], step-1 loss and every gradient against the
-   single-rank eager step on the card from the same weights, per tensor
-   within phase 5's rule taken twice plus its ties' most, then 3 fused
-   steps; (b) DPESFM under [2, 1], a group of two power-law scenes against
-   the single-rank sum of their ``loss_and_grads`` + ``update`` (gradients,
-   the first update's weights within lr, bitwise so far), a padded group of
-   one against ``fused_step`` (the same); (c) GASFM at 2 layers under [2,
-   2], 4 ranks, a group of two; (d) the wide scene (2 layers: unfused,
-   #13/#14, #17/#19) and the depth flagship (3 layers: #9/#10) under [1,
-   2]. Every run: launches per rank per step those of the single-rank
-   eager step on its slot's scene, the weights bitwise equal on every rank
-   after every update, later losses against the single rank's (rtol 1e-3);
-   with a gradient check also the forward from the first weights (the
-   model forwards' tolerance); ms per step, the gradient all-reduce alone,
-   beside phase 5's single-rank eager step.
-   (e) the CLI under [1, 2] on the synthetic GASFM conf, 3 epochs: exit 0,
-   one tree (``chiprun_out/phase18/``), a finite final our_repro.
+18. (after phase 17) The (data, edge) mesh, over replicated tables
+   (``parallel.table_sharding = false``) and table-sharded (the default
+   with more than one edge shard), ``mesh_phase``: ranks spawned by
+   ``gasfm_tpu_torch.parallel.run_ranks`` that share the card on a gloo
+   process group (each prints its backend and device; one spawn of 2 ranks
+   for [1, 2] and [2, 1], one of 4), the mesh ``TrainingSession`` from
+   fresh seeded weights (``mesh_runs``): (a) the flagship (9 layers, full
+   width) on the dense scene under [1, 2], replicated and table-sharded,
+   step-1 loss and every gradient against the single-rank eager step on
+   the card from the same weights, per tensor within phase 5's rule taken
+   twice plus its ties' most, then 3 steps; the table-sharded run's forward
+   and first loss also against the replicated run's, with fewer bytes
+   through the edge group; (b) GASFM at 2 layers under [1, 4],
+   table-sharded, and under [2, 2], 4 ranks, a group of two, both ways;
+   (c) the wide scene (2 layers: unfused, #13/#14, #17/#19) and the depth
+   flagship (3 layers: #9/#10) under [1, 2], both ways; (d) DPESFM under
+   [1, 2], table-sharded, and under [2, 1], a group of two power-law
+   scenes against the single-rank sum of their ``loss_and_grads`` +
+   ``update`` (gradients, the first update's weights within lr, bitwise so
+   far), a padded group of one against ``fused_step`` (the same). Every
+   run: launches per rank per step those of the single-rank eager step on
+   its slot's scene, the weights bitwise equal on every rank after every
+   update, later losses against the single rank's (rtol 1e-3); with a
+   gradient check also the forward from the first weights (the model
+   forwards' tolerance); ms per step, the gradient all-reduce alone, and
+   the all-reduces, bytes and host ms through the edge group per step
+   (``torch.distributed.all_reduce`` wrapped in the ranks), beside phase
+   5's single-rank eager step.
+   (e) the CLI: ``single-scene-optim`` under [1, 2] on the synthetic GASFM
+   conf, 3 epochs, over replicated tables and table-sharded: exit 0, one
+   tree, a finite final our_repro; ``multi-scene-learning`` on
+   ``synth/learning_synth_gasfm.conf`` under [2, 1] and [1, 2], 3 epochs in
+   batches of two: exit 0, one tree, finite errors in every table
+   (``chiprun_out/phase18/``).
 13. A ``kernels`` JSON line (the seventeen TPU kernels' counterparts and
    the Adam kernel, each with its per-call ``ms`` and its burst
    ``burst_ms``; launches from the training path that runs each: GASFM's
@@ -2858,15 +2870,17 @@ DENSE_SYNTH = ("dataset.synthetic.enabled=true", "dataset.synthetic.n_views=128"
 # (label, conf, external params): the flagships on the dense scene's sizes
 # (profile_forward.SCENES["dense"]), the warm-up cut with the run (2,500 of
 # the conf's 100,000 epochs; 3 of these 30), one evaluation between the
-# first and the last, and the final evaluation with bundle adjustment; the
-# synthetic confs at their own sizes.
+# first and the last, and the final evaluation with bundle adjustment (the
+# projective one's two solves cut to 25 LM iterations each, against the
+# 60 and 44 they take to converge: ~0.5 s each on the host); the synthetic
+# confs at their own sizes.
 CLI_RUNS = (
     ("flagship", "gasfm/optim_euc_gasfm.conf",
      DENSE_SYNTH + ("train.n_epochs=30", "eval.eval_interval=10",
                     "train.lr_schedule.lr_warmup_n_steps=3")),
     ("flagship-proj", "gasfm/optim_proj_gasfm.conf",
      DENSE_SYNTH + ("train.n_epochs=10", "eval.eval_interval=5",
-                    "train.lr_schedule.lr_warmup_n_steps=1")),
+                    "train.lr_schedule.lr_warmup_n_steps=1", "ba.max_iterations=25")),
 ) + tuple((name.split("/")[-1][:-len(".conf")], name, ("train.n_epochs=20", "eval.eval_interval=10"))
           for name in SYNTH_CONFS)
 CLI_KEEP_BYTES = 1 << 20  # larger artifacts are checked, listed and deleted
@@ -3996,39 +4010,59 @@ def kernel_counters():
 # scenes ("name" or "name:seed", a bench scene of profile_forward.SCENES),
 # how the first step runs ("grads": group_loss_and_grads + update, its loss
 # and gradients compared; "fused": fused_group_step), the steps, whether rank
-# 0 returns its first gradients and times the gradient all-reduce alone).
+# 0 returns its first gradients and times the gradient all-reduce alone, the
+# session's table_sharding (None: on with more than one edge shard, the
+# default; False: replicated tables)).
 MeshRun = collections.namedtuple(
-    "MeshRun", "label mesh model loss optim scenes first steps grads")
+    "MeshRun", "label mesh model loss optim scenes first steps grads ts", defaults=(None,))
+FLAGSHIP_REPLICATED = "flagship [1, 2] replicated"
+FLAGSHIP_SHARDED = "flagship [1, 2] table-sharded"
 
 
 def mesh_runs():
     from gasfm_tpu_torch.losses import DEPTH_LOSS, DPESFM_LOSS, FLAGSHIP_LOSS
     from gasfm_tpu_torch.tools.profile_forward import DPESFM, FLAGSHIP, FLAGSHIP_DEPTH
 
-    two = dict(FLAGSHIP, num_layers=2)
+    two, depth3 = dict(FLAGSHIP, num_layers=2), dict(FLAGSHIP_DEPTH, num_layers=3)
     return (
-        # (a) the flagship, 9 layers at full width, on the dense scene
-        MeshRun("flagship [1, 2]", (1, 2), ("gasfm", FLAGSHIP, 0), ("esfm", FLAGSHIP_LOSS),
+        # the flagship, 9 layers at full width, on the dense scene: over
+        # replicated tables, then table-sharded (the default), held against it
+        MeshRun(FLAGSHIP_REPLICATED, (1, 2), ("gasfm", FLAGSHIP, 0), ("esfm", FLAGSHIP_LOSS),
+                "flagship", ("dense",), "grads", 1 + MESH_STEPS, True, False),
+        MeshRun(FLAGSHIP_SHARDED, (1, 2), ("gasfm", FLAGSHIP, 0), ("esfm", FLAGSHIP_LOSS),
                 "flagship", ("dense",), "grads", 1 + MESH_STEPS, True),
-        # (d) the unfused path (the wide scene) and the depth flagship (3
-        # layers: the least that reaches the projection update)
+        # the unfused path (the wide scene: #13/#14, table-sharded its
+        # exchange) and the depth flagship (3 layers: the least that reaches
+        # the projection update), over replicated tables and table-sharded;
+        # DPESFM table-sharded (the point table's sum alone)
+        MeshRun("wide [1, 2] replicated", (1, 2), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS),
+                "flagship", ("wide",), "grads", 2, True, False),
         MeshRun("wide [1, 2]", (1, 2), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS), "flagship",
                 ("wide",), "grads", 2, True),
-        MeshRun("depth [1, 2]", (1, 2), ("gasfm", dict(FLAGSHIP_DEPTH, num_layers=3),
-                                         DEPTH_SEEDS["gasfm"]),
+        MeshRun("depth [1, 2] replicated", (1, 2), ("gasfm", depth3, DEPTH_SEEDS["gasfm"]),
+                ("depth", DEPTH_LOSS), "flagship", ("dense",), "grads", 2, True, False),
+        MeshRun("depth [1, 2]", (1, 2), ("gasfm", depth3, DEPTH_SEEDS["gasfm"]),
                 ("depth", DEPTH_LOSS), "flagship", ("dense",), "grads", 2, True),
-        # (b) DPESFM, scene data parallelism: a group of two, a padded group of one
+        MeshRun("dpesfm [1, 2]", (1, 2), ("dpesfm", DPESFM, 0), ("esfm", DPESFM_LOSS),
+                "dpesfm", ("powerlaw",), "grads", 2, True),
+        # DPESFM, scene data parallelism: a group of two, a padded group of one
         MeshRun("dpesfm group [2, 1]", (2, 1), ("dpesfm", DPESFM, 0), ("esfm", DPESFM_LOSS),
                 "dpesfm", ("powerlaw", "powerlaw:1"), "grads", 2, True),
         MeshRun("dpesfm padded [2, 1]", (2, 1), ("dpesfm", DPESFM, 0), ("esfm", DPESFM_LOSS),
                 "dpesfm", ("powerlaw",), "fused", 1, False),
-        # (c) both at once, 4 ranks: GASFM at 2 layers on a group of two
+        # 4 ranks, GASFM at 2 layers: four edge shards, table-sharded (the two
+        # middle ones with neighbours on both sides), and both axes at once,
+        # over replicated tables and table-sharded
+        MeshRun("gasfm [1, 4]", (1, 4), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS), "flagship",
+                ("dense",), "grads", 2, True),
+        MeshRun("gasfm [2, 2] replicated", (2, 2), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS),
+                "flagship", ("dense", "powerlaw"), "fused", 1, False, False),
         MeshRun("gasfm [2, 2]", (2, 2), ("gasfm", two, 0), ("esfm", FLAGSHIP_LOSS), "flagship",
                 ("dense", "powerlaw"), "fused", 1, False),
     )
 
 
-MESH_STEPS = 3  # the steps after the first of the flagship's run
+MESH_STEPS = 3  # the steps after the first of the flagship's runs
 
 
 def mesh_scene_data(name, depth):
@@ -4060,7 +4094,7 @@ def mesh_session(run, device, mesh=None):
     loss = (ESFMLoss if run.loss[0] == "esfm" else DirectDepthLoss)(**run.loss[1])
     optim = FLAGSHIP_OPTIM if run.optim == "flagship" else DPESFM_OPTIM
     return TrainingSession(mesh_model(run.model), loss, device=device, optim=optim,
-                           capture=False, mesh=mesh)
+                           capture=False, mesh=mesh, table_sharding=run.ts)
 
 
 def first_moments(session):
@@ -4085,7 +4119,10 @@ def mesh_rank(mesh, runs):
     before it, read just after); after each update a digest of the
     weights; rank 0 returns the first step's gradients (through Adam's
     first moment after a fused one) and, with whole scenes per rank, the
-    weights after it."""
+    weights after it. Each step also counts the all-reduces over the edge
+    group, the bytes they carry and the host ms they take, the card
+    synchronised before each (``torch.distributed.all_reduce`` wrapped here:
+    the gradient sum goes over the world, the loss's over the data group)."""
     import torch.distributed as dist
 
     from gasfm_tpu_torch.parallel import make_mesh
@@ -4094,11 +4131,29 @@ def mesh_rank(mesh, runs):
     out = dict(rank=mesh.rank, backend=dist.get_backend(), device=str(mesh.device),
                name=torch.cuda.get_device_name(mesh.device), runs={})
     meshes = {(mesh.n_data, mesh.n_edge): mesh}
+    edge = {"group": None, "calls": 0, "bytes": 0, "s": 0.0}
+    all_reduce = dist.all_reduce
+
+    def counted_all_reduce(tensor, *args, **kw):
+        group = kw.get("group", args[1] if len(args) > 1 else None)
+        if group is None or group is not edge["group"]:
+            return all_reduce(tensor, *args, **kw)
+        edge["calls"] += 1
+        edge["bytes"] += tensor.numel() * tensor.element_size()
+        torch.cuda.synchronize(mesh.device)
+        t0 = time.perf_counter()
+        out = all_reduce(tensor, *args, **kw)
+        torch.cuda.synchronize(mesh.device)
+        edge["s"] += time.perf_counter() - t0
+        return out
+
+    dist.all_reduce = counted_all_reduce
     for run in runs:
         t_setup = time.perf_counter()
         if run.mesh not in meshes:  # another layout of the same ranks ([2, 1] of [1, 2]'s)
             meshes[run.mesh] = make_mesh(*run.mesh, mesh.device)
         mesh = meshes[run.mesh]
+        edge["group"] = mesh.edge_scope
         session = mesh_session(run, mesh.device, mesh)
         depth = run.loss[0] == "depth"
         # the group as the session takes it, only this rank's slot's scene made
@@ -4106,8 +4161,10 @@ def mesh_rank(mesh, runs):
         mine = min(mesh.data_slot, len(run.scenes) - 1)
         graphs = [session.scene_graph(mesh_scene_data(s, depth)) if i == mine else None
                   for i, s in enumerate(run.scenes)]
-        res = dict(values=[], ms=[], launches=[], digests=[],
-                   setup_s=time.perf_counter() - t_setup)
+        res = dict(values=[], ms=[], launches=[], digests=[], edge_calls=[], edge_bytes=[],
+                   edge_ms=[],
+                   setup_s=time.perf_counter() - t_setup, table_sharding=session.table_sharding,
+                   table_shard=graphs[mine].graph.table_shard)
         if run.grads:  # the forward from the first weights, whole on every rank
             pred = session.forward(graphs[mine])
             if mesh.rank == 0:
@@ -4115,6 +4172,7 @@ def mesh_rank(mesh, runs):
         for k in range(run.steps):
             for fn in counters.values():
                 fn.launches = 0
+            edge.update(calls=0, bytes=0, s=0.0)
             torch.cuda.synchronize(mesh.device)
             t0 = time.perf_counter()
             if k == 0 and run.first == "grads" or depth:
@@ -4124,6 +4182,9 @@ def mesh_rank(mesh, runs):
                 values = [float(v) for v in session.fused_group_step(graphs)]
             torch.cuda.synchronize(mesh.device)
             res["ms"].append(1e3 * (time.perf_counter() - t0))
+            res["edge_calls"].append(edge["calls"])
+            res["edge_bytes"].append(edge["bytes"])
+            res["edge_ms"].append(1e3 * edge["s"])
             res["launches"].append({n: fn.launches for n, fn in counters.items() if fn.launches})
             res["values"].append(values)
             res["digests"].append(weights_digest(session.model))
@@ -4147,6 +4208,7 @@ def mesh_rank(mesh, runs):
         del session, graphs
         gc.collect()
         torch.cuda.empty_cache()
+    dist.all_reduce = all_reduce
     return out
 
 
@@ -4163,12 +4225,15 @@ def mesh_grad_errors(got, ref, scale_rule):
 
 
 def mesh_phase(dev, counters, record, L, graphs_by_name):
-    """Phase 18: the (data, edge) mesh (``parallel.mesh_shape``, replicated
+    """Phase 18: the (data, edge) mesh (``parallel.mesh_shape``; table
+    sharding, the default with more than one edge shard, and replicated
     tables) with ranks that share the card, through ``parallel.run_ranks``
     and the mesh ``TrainingSession``, against the single-rank eager session
     on the card in this process from the same weights (on the bench scenes'
     graphs of ``graphs_by_name``, made at set-up; another scene is made
-    here); then the CLI under [1, 2]."""
+    here); the table-sharded flagship also against the replicated one; then
+    the CLI: single-scene optimization under [1, 2] over replicated tables
+    and table-sharded, multi-scene learning under [2, 1] and [1, 2]."""
     from gasfm_tpu_torch.parallel import run_ranks
 
     t_phase = time.perf_counter()
@@ -4199,6 +4264,16 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
         for r in ranks[1:]:
             if r["digests"] != r0["digests"]:
                 raise SmokeFailure(f"phase 18 {run.label}: weights differ between ranks")
+        sharded = run.mesh[1] > 1 and run.ts is not False
+        if any(r["table_sharding"] != sharded for r in ranks):
+            raise SmokeFailure(f"phase 18 {run.label}: table sharding {r0['table_sharding']}, "
+                               f"asked {sharded}")
+        if sharded:
+            print(f"phase 18 {run.label}: table-sharded, the ranks' boundary points (first, "
+                  f"last, shared left, shared right) and owned points " + "; ".join(
+                      f"rank {k}: ({t.first}, {t.last}, {t.shared_left}, {t.shared_right}) "
+                      f"[{t.own_lo}, {t.own_hi})"
+                      for k, t in enumerate(r["table_shard"] for r in ranks)))
         # the single-rank reference from the same weights: a group of one
         # through fused_step; else the group's scenes' loss_and_grads summed
         # (the JAX package's accumulate path), then update; each scene's
@@ -4218,6 +4293,26 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
                   f"{'ok' if all(ok for _, ok in errs.values()) else 'FAIL'}")
             if not all(ok for _, ok in errs.values()):
                 raise SmokeFailure(f"phase 18 {run.label}: forward out of tolerance {errs}")
+        if run.label == FLAGSHIP_SHARDED:
+            # against the replicated tables' run: the forward, the first loss, and
+            # fewer bytes through the edge group
+            rep = results[FLAGSHIP_REPLICATED][0]
+            errs = {k: max_err(r0["pred0"][k].to(dev), v.to(dev), SLICE_RTOL, SLICE_ATOL)
+                    for k, v in rep["pred0"].items()}
+            loss_rel = abs(r0["values"][0][0] - rep["values"][0][0]) / abs(rep["values"][0][0])
+            print(f"phase 18 {run.label}: forward against the replicated run's, max |err| "
+                  f"{({k: f'{e:.3e}' for k, (e, _) in errs.items()})}; step-1 loss "
+                  f"{r0['values'][0][0]!r} against {rep['values'][0][0]!r} (rel {loss_rel:.2e}); "
+                  f"through the edge group per step {r0['edge_calls'][-1]} all-reduces, "
+                  f"{r0['edge_bytes'][-1]} bytes, {r0['edge_ms'][-1]:.1f} ms, against "
+                  f"{rep['edge_calls'][-1]}, {rep['edge_bytes'][-1]} bytes, "
+                  f"{rep['edge_ms'][-1]:.1f} ms; ms per step "
+                  f"{[round(t, 1) for t in r0['ms']]} against {[round(t, 1) for t in rep['ms']]}")
+            if not all(ok for _, ok in errs.values()) or loss_rel > 1e-5 or \
+                    r0["edge_bytes"][-1] >= rep["edge_bytes"][-1]:
+                raise SmokeFailure(f"phase 18 {run.label}: against the replicated run: forward "
+                                   f"{errs}, loss rel {loss_rel}, edge bytes "
+                                   f"{r0['edge_bytes'][-1]} / {rep['edge_bytes'][-1]}")
         fused_ref = run.first == "fused" and len(graphs) == 1
         if fused_ref:
             (loss, repro, norm), launches = counted_launches(
@@ -4252,7 +4347,9 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
                                        f"launched {got}, the single-rank eager step {want}")
         first = r0["values"][0]
         info = dict(ms=r0["ms"], setup_s=r0["setup_s"], launches_per_step=r0["launches"][-1],
-                    allreduce_ms=r0.get("allreduce_ms"), grad_bytes=r0.get("grad_bytes"))
+                    allreduce_ms=r0.get("allreduce_ms"), grad_bytes=r0.get("grad_bytes"),
+                    table_sharding=sharded, edge_calls=r0["edge_calls"],
+                    edge_bytes=r0["edge_bytes"], edge_ms=r0["edge_ms"])
         if run.first == "fused":
             loss_g, repro_g, n_valid, norm_g = first
             if n_valid != len(run.scenes) or abs(loss_g - total) > 1e-4 * abs(total) or \
@@ -4268,7 +4365,7 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
             if abs(first[0] - total) > 1e-5 * abs(total):
                 raise SmokeFailure(f"phase 18 {run.label}: step-1 loss {first[0]!r} against the "
                                    f"single-rank {total!r}")
-            if run.label.startswith("flagship"):
+            if run.label in (FLAGSHIP_REPLICATED, FLAGSHIP_SHARDED):
                 # phase 5's rule, per tensor, taken twice (the mesh path and the
                 # single-rank path each against float64), plus its ties' most
                 p5 = record["train"]["dense"]
@@ -4353,7 +4450,9 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
               f"{run.steps} steps; ms per step {steps_ms}"
               f"{'' if r0.get('allreduce_ms') is None else f'; the gradient all-reduce alone ' + format(r0['allreduce_ms'], '.1f') + ' ms for ' + format(r0['grad_bytes'] / 2**20, '.1f') + ' MiB'}; "
               f"launches per rank per step {r0['launches'][-1]} (the single-rank eager step's); "
-              f"later losses {got_later} (single-rank {later}) ok")
+              f"through the edge group per step {r0['edge_calls'][-1]} all-reduces, "
+              f"{r0['edge_bytes'][-1]} bytes, {r0['edge_ms'][-1]:.1f} ms; later losses "
+              f"{got_later} (single-rank {later}) ok")
         summary[run.label] = info
         ref.close()
         del ref, graphs, grads
@@ -4363,8 +4462,13 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
     record["mesh"]["single_rank_eager_ms"] = record["train"]["dense"]["median_ms"]
     print(f"phase 18: the single-rank eager flagship step on the dense scene (phase 5, this "
           f"run) {record['train']['dense']['median_ms']:.3f} ms against the [1, 2] mesh's "
-          f"{statistics.median(summary['flagship [1, 2]']['ms'][1:]):.3f} ms")
-    mesh_cli_run(record)
+          f"{statistics.median(summary[FLAGSHIP_REPLICATED]['ms'][1:]):.3f} ms over replicated "
+          f"tables, {statistics.median(summary[FLAGSHIP_SHARDED]['ms'][1:]):.3f} ms "
+          f"table-sharded")
+    for ts in (False, None):
+        mesh_cli_run(ts, record)
+    for shape in ("[2,1]", "[1,2]"):
+        mesh_msl_run(shape, record)
     record["mesh_phase_s"] = time.perf_counter() - t_phase
     print(f"phase 18 (multi-device training on a mesh of ranks): {record['mesh_phase_s']:.1f} s")
 
@@ -4372,47 +4476,106 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
 MESH_GRAD_EPS = 5e-6  # x the largest gradient: cancelling sums' noise, both float32 paths
 
 
-def mesh_cli_run(record):
-    """(e) ``single-scene-optim`` under [1, 2] on the synthetic GASFM conf:
-    exit 0, one tree, a finite final our_repro. Into chiprun_out/phase18/."""
+def mesh_cli_run(ts, record):
+    """``single-scene-optim`` under [1, 2] on the synthetic GASFM conf with
+    ``parallel.table_sharding`` ``ts`` (False: replicated tables; None:
+    unset, table-sharded): exit 0, one tree, a finite final our_repro. Into
+    chiprun_out/phase18/ (emptied before the first)."""
     import os
     import shutil
 
     from gasfm_tpu_torch.main import main as cli_main
 
+    name = "cli" if ts is None else "cli_replicated"
+    kind = "table-sharded" if ts is None else "replicated tables"
     out_dir = ROOT / "chiprun_out" / "phase18"
-    if out_dir.exists():
+    if ts is False and out_dir.exists():
         shutil.rmtree(out_dir)
-    out_dir.mkdir(parents=True)
+    out_dir.mkdir(parents=True, exist_ok=True)
     before = os.environ.get("GASFM_RESULTS_PATH")
-    os.environ["GASFM_RESULTS_PATH"] = str(out_dir / "results")
+    os.environ["GASFM_RESULTS_PATH"] = str(out_dir / name)
     t0 = time.perf_counter()
     try:
-        with stdout_to(out_dir / "cli.log"):
+        with stdout_to(out_dir / f"{name}.log"):
             rc = cli_main(["single-scene-optim", "--conf", "synth/optim_synth_gasfm.conf",
                            "--exp-dir", "mesh", "--external-params", "train.n_epochs=3",
-                           "eval.eval_interval=3", "parallel.mesh_shape=[1,2]",
-                           "parallel.table_sharding=false"])
+                           "eval.eval_interval=3", "parallel.mesh_shape=[1,2]"]
+                          + ([] if ts is None else ["parallel.table_sharding=false"]))
     finally:
         if before is None:
             os.environ.pop("GASFM_RESULTS_PATH", None)
         else:
             os.environ["GASFM_RESULTS_PATH"] = before
     wall = time.perf_counter() - t0
-    root = out_dir / "results"
+    root = out_dir / name
     exp = root / "mesh"
     csv = exp / "final_train_errors_OPTIMIZATION.csv"
     if rc != 0 or os.listdir(root) != ["mesh"] or not csv.exists():
-        raise SmokeFailure(f"phase 18 CLI: rc {rc}, tree {sorted(os.listdir(root))}")
+        raise SmokeFailure(f"phase 18 CLI ({kind}): rc {rc}, tree {sorted(os.listdir(root))}")
     header, row = [line.split(",") for line in csv.read_text().splitlines()[:2]]
     repro = float(row[header.index("our_repro")])
     scenes = os.listdir(exp / "OPTIMIZATION")
     if len(scenes) != 1 or not math.isfinite(repro) or len(os.listdir(exp / "tb")) != 1:
-        raise SmokeFailure(f"phase 18 CLI: scenes {scenes}, our_repro {repro}")
+        raise SmokeFailure(f"phase 18 CLI ({kind}): scenes {scenes}, our_repro {repro}")
     shutil.rmtree(exp / "code", ignore_errors=True)
-    print(f"phase 18 CLI under [1, 2] (synth/optim_synth_gasfm.conf, 3 epochs): exit 0 in "
-          f"{wall:.1f} s, one tree, final our_repro {repro:.4f}")
-    record["mesh_cli"] = dict(seconds=wall, our_repro=repro)
+    print(f"phase 18 CLI under [1, 2], {kind} (synth/optim_synth_gasfm.conf, 3 epochs): exit 0 "
+          f"in {wall:.1f} s, one tree, final our_repro {repro:.4f}")
+    record.setdefault("mesh_cli", {})[kind] = dict(seconds=wall, our_repro=repro)
+
+
+MSL_MESH_TABLES = ("final_train_errors", "final_val_errors", "final_test_errors",
+                   "best_val_errors", "final_train_errors_FINE_TUNE_from_final",
+                   "final_train_errors_SHORT_OPTIMIZATION")
+
+
+def mesh_msl_run(shape, record):
+    """``multi-scene-learning`` on the synthetic GASFM conf under ``shape``
+    ("[2,1]": groups of two sampled scenes per step and grouped evaluations;
+    "[1,2]": table-sharded) for 3 epochs in batches of two, fine-tuning 1:
+    exit 0, one tree, finite errors in every table. Into
+    chiprun_out/phase18/."""
+    import os
+    import shutil
+
+    from gasfm_tpu_torch.main import main as cli_main
+
+    name = "msl" + shape.strip("[]").replace(",", "x")
+    out_dir = ROOT / "chiprun_out" / "phase18"
+    root = out_dir / name
+    before = os.environ.get("GASFM_RESULTS_PATH")
+    os.environ["GASFM_RESULTS_PATH"] = str(root)
+    t0 = time.perf_counter()
+    try:
+        with stdout_to(out_dir / f"{name}.log"):
+            rc = cli_main(["multi-scene-learning", "--conf", "synth/learning_synth_gasfm.conf",
+                           "--exp-dir", "mesh", "--external-params", "train.n_epochs=3",
+                           "eval.eval_interval=3", "train.finetune_n_epochs=1",
+                           "dataset.batch_size=2", f"parallel.mesh_shape={shape}"])
+    finally:
+        if before is None:
+            os.environ.pop("GASFM_RESULTS_PATH", None)
+        else:
+            os.environ["GASFM_RESULTS_PATH"] = before
+    wall = time.perf_counter() - t0
+    exp = root / "mesh"
+    if rc != 0 or sorted(os.listdir(root)) != ["mesh"]:
+        raise SmokeFailure(f"phase 18 learning CLI under {shape}: rc {rc}")
+    errors = {}
+    for table in MSL_MESH_TABLES:
+        path = exp / f"{table}.csv"
+        if not path.exists():
+            raise SmokeFailure(f"phase 18 learning CLI under {shape}: no {table}.csv")
+        rows = [line.split(",") for line in path.read_text().splitlines()]
+        cols = [rows[0].index(c) for c in ("our_repro", "t_err_mean", "R_err_mean")]
+        vals = [float(row[c]) for row in rows[1:] for c in cols]
+        if not vals or not all(math.isfinite(v) for v in vals):
+            raise SmokeFailure(f"phase 18 learning CLI under {shape}: {table} {vals}")
+        errors[table] = vals[0]
+    shutil.rmtree(exp / "code", ignore_errors=True)
+    print(f"phase 18 learning CLI under {shape} (synth/learning_synth_gasfm.conf, 3 epochs in "
+          f"batches of two, fine-tuning 1): exit 0 in {wall:.1f} s, one tree, finite errors; "
+          f"our_repro of the first row {({k: round(v, 3) for k, v in errors.items()})}")
+    record.setdefault("mesh_msl", {})[shape] = dict(seconds=wall, our_repro=errors)
 
 
 def main() -> int:
@@ -4675,8 +4838,8 @@ def main() -> int:
     if mixed_launches["adam_update"] == 0:
         raise SmokeFailure("adam_update was never launched on the mixed-precision path")
 
-    # ---- phase 18: multi-device training, scene data parallelism and edge
-    # partitioning over replicated tables, with ranks that share the card
+    # ---- phase 18: multi-device training, scene data parallelism, edge
+    # partitioning and table sharding, with ranks that share the card
     mesh_phase(dev, counters, record, L, {**scenes, "wide": wide["wide"]})
 
     # ---- phase 13: the record

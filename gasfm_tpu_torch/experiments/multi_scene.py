@@ -11,6 +11,10 @@ port loads them into the training session's model in place, so that the
 evaluation scenes' recorded forwards replay; and fine-tuning loads the
 given weights into the same model before each test scene, whose session is
 closed before the next begins: one session holds the device at a time.
+
+On a mesh (the CLI launches the ranks; the training session is a mesh
+session) every rank runs these drivers with the same conf and seeds: every
+rank trains, evaluates and fine-tunes, only rank 0 writes.
 """
 
 from __future__ import annotations
@@ -86,7 +90,8 @@ def train_model(conf, session: TrainingSession, train_set: ScenesDataSet, eval_d
             test_loader=eval_data_loaders["test_loader"], rng=rng)
     finally:
         train_loader.close()
-    write_results(conf, train_stats.round(3), file_name="train_stats")
+    if session.is_writer:
+        write_results(conf, train_stats.round(3), file_name="train_stats")
     return trained, train_stats
 
 
@@ -115,16 +120,19 @@ def eval_model(conf, session: TrainingSession, weights: Mapping[str, torch.Tenso
             crash_on_scene_exhausting_memory=not no_crash, rng=rng)
 
     results = {}
+    writer = session.is_writer  # on a mesh rank 0's tables; the others' are None
     for loader_key, ph, name in (("train_loader_for_eval", Phases.TRAINING, "train_errors"),
                                  ("validation_loader", Phases.VALIDATION, "val_errors"),
                                  ("test_loader", Phases.TEST, "test_errors")):
         errors = evaluate(data_loaders[loader_key], ph, outlier_injection_rate, outlier_ids)
-        write_results(conf, errors.round(3), file_name=filename_prefix + name,
-                      additional_identifiers=outlier_ids)
+        if writer:
+            write_results(conf, errors.round(3), file_name=filename_prefix + name,
+                          additional_identifiers=outlier_ids)
         results[name] = errors
         if outlier_injection_rate is not None:
-            write_results(conf, evaluate(data_loaders[loader_key], ph, None, []).round(3),
-                          file_name=filename_prefix + name)
+            errors = evaluate(data_loaders[loader_key], ph, None, [])
+            if writer:
+                write_results(conf, errors.round(3), file_name=filename_prefix + name)
     return results
 
 
@@ -132,10 +140,12 @@ def optimization_all_test_scenes(conf, model: torch.nn.Module,
                                  weights: Mapping[str, torch.Tensor], phase: Phases,
                                  additional_identifier: Optional[str] = None,
                                  rng: Optional[np.random.Generator] = None,
-                                 device: Optional[Union[str, torch.device]] = None) -> Dict:
+                                 device: Optional[Union[str, torch.device]] = None,
+                                 mesh=None) -> Dict:
     """Fine-tune (or short-optimize) every test scene from ``weights``,
     loaded into ``model`` before each, in a single-scene session per scene
-    (reference multiple_scenes_learning.py:102-136). The conf's fine-tune
+    (on ``mesh``, this rank's, a mesh session; reference
+    multiple_scenes_learning.py:102-136). The conf's fine-tune
     overrides, as the JAX package applies them: ``train.finetune_n_epochs``,
     ``train.finetune_lr`` with a constant schedule after
     ``train.finetune_lr_warmup_n_steps``, the dump intervals, and
@@ -169,6 +179,6 @@ def optimization_all_test_scenes(conf, model: torch.nn.Module,
         model.load_state_dict(dict(weights))  # in place, onto the model's device
         results[scene] = train_model_single_scene(
             conf_test, model, phase, additional_identifier=additional_identifier,
-            crash_on_scene_exhausting_memory=not no_crash, rng=rng, device=device)
+            crash_on_scene_exhausting_memory=not no_crash, rng=rng, device=device, mesh=mesh)
         gc.collect()
     return results

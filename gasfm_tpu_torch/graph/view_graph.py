@@ -29,7 +29,13 @@ the counterpart of the JAX package's ``_EDGE_FIELDS`` /
 a contiguous range of the point-major edges, with CSR offsets over all the
 scene's points and cameras and every split recomputed for its own edges,
 while the tables (``Ns``, ``Ps_gt``), the validity masks and each segment's
-count (``pt_count`` / ``cam_count``) stay the whole scene's.
+count (``pt_count`` / ``cam_count``) stay the whole scene's. Each shard
+also knows, on the host, its place in the scene's point table
+(:class:`TableShard`, the counterpart of the JAX package's
+``compute_owned_points``, ``gasfm_tpu/parallel/edge_sharding.py:82-108``,
+which finds it inside the trace with a ``ppermute`` of window ids): its
+first and last touched point, whether a neighbour shard shares each, and
+the range of points it owns. Table sharding reads it.
 """
 
 from __future__ import annotations
@@ -47,6 +53,55 @@ from gasfm_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
+class TableShard:
+    """An edge shard's place in its scene's point table (host ints).
+
+    The shard's point-major edges touch the contiguous points ``[first,
+    last]``; only ``first`` can also have edges on the shard to the left
+    (``shared_left``) and only ``last`` on the shard to the right
+    (``shared_right``). Point p belongs to the shard whose edge range holds
+    ``pt_ptr[p]``, so every point has exactly one owner, a point without
+    edges too (the last shard owns position E): the shard owns
+    ``[own_lo, own_hi)``. The boundary exchange holds only while no point's
+    edges touch more than two shards (``check_table_shard_contract``)."""
+
+    shard: int
+    n_shards: int
+    first: int
+    last: int
+    shared_left: bool
+    shared_right: bool
+    own_lo: int
+    own_hi: int
+
+
+def point_spans(pt_ptr: np.ndarray, n_shards: int) -> np.ndarray:
+    """(n,) the number of edge shards (:func:`edge_shard_range`) that each
+    point's edges touch, 0 for a point without edges."""
+    ptr = np.asarray(pt_ptr, dtype=np.int64)
+    per = max(-(-int(ptr[-1]) // n_shards), 1)
+    deg = ptr[1:] - ptr[:-1]
+    return np.where(deg > 0, (ptr[1:] - 1) // per - ptr[:-1] // per + 1, 0)
+
+
+def table_shard(pt_ptr: np.ndarray, pt_idx: np.ndarray, shard: int, n_shards: int) -> TableShard:
+    """The :class:`TableShard` of edge shard ``shard`` of ``n_shards`` of a
+    whole scene with point CSR offsets ``pt_ptr`` and edge points ``pt_idx``
+    (numpy, on the host: no collective)."""
+    E = int(pt_ptr[-1])
+    lo, hi = edge_shard_range(E, shard, n_shards)
+    starts = np.asarray(pt_ptr[:-1], dtype=np.int64)
+    n = starts.shape[0]
+    own_lo = int(np.searchsorted(starts, lo, side="left"))
+    own_hi = n if shard == n_shards - 1 else int(np.searchsorted(starts, hi, side="left"))
+    first, last = int(pt_idx[lo]), int(pt_idx[hi - 1])
+    return TableShard(shard=shard, n_shards=n_shards, first=first, last=last,
+                      shared_left=bool(lo > 0 and pt_idx[lo - 1] == first),
+                      shared_right=bool(hi < E and pt_idx[hi] == last),
+                      own_lo=own_lo, own_hi=own_hi)
+
+
+@dataclasses.dataclass(frozen=True)
 class ViewGraph:
     """Bipartite camera x point graph over the valid observations."""
 
@@ -59,11 +114,13 @@ class ViewGraph:
     cam_valid: torch.Tensor  # (m,) bool — >= MIN_N_POINTS_PER_VIEW observations
     pt_valid: torch.Tensor  # (n,) bool — >= MIN_N_VIEWS_PER_POINT observations
     # an edge shard's (shard_host_graph), else the defaults: the whole
-    # scene's number of edges, the scene's index of the shard's first edge
-    # and the scene's (cam_idx, pt_idx), numpy on the host
+    # scene's number of edges, the scene's index of the shard's first edge,
+    # the scene's (cam_idx, pt_idx), numpy on the host, and the shard's
+    # place in the point table
     scene_num_edges: Optional[int] = None
     edge_offset: int = 0
     scene_ids: Optional[tuple] = dataclasses.field(default=None, compare=False)
+    table_shard: Optional[TableShard] = None
 
     @property
     def num_cams(self) -> int:
@@ -236,13 +293,19 @@ class HostSceneGraph:
     gt_depths: Optional[np.ndarray]
     splits: dict  # {(side, rows, long_above): {name: int32 array}}
     # an edge shard's (shard_host_graph): the scene's float32 counts per
-    # point and camera, its number of edges, the shard's first edge and the
-    # scene's (cam_idx, pt_idx)
+    # point and camera, its number of edges, the shard's first edge, the
+    # scene's (cam_idx, pt_idx) and the shard's place in the point table
     pt_count: Optional[np.ndarray] = None
     cam_count: Optional[np.ndarray] = None
     scene_edges: Optional[int] = None
     edge_offset: int = 0
     scene_ids: Optional[tuple] = None
+    table_shard: Optional[TableShard] = None
+
+    def scene_edge_ids(self):
+        """(camera, point) of each of the whole scene's edges, as
+        :meth:`ViewGraph.scene_edge_ids` gives them."""
+        return (self.cam_idx, self.pt_idx) if self.scene_ids is None else self.scene_ids
 
 
 def _splits(pt_ptr: np.ndarray, cam_ptr: np.ndarray) -> dict:
@@ -271,8 +334,8 @@ def shard_host_graph(host: HostSceneGraph, shard: int, n_shards: int) -> HostSce
     """Edge shard ``shard`` of ``n_shards`` of a whole scene's host graph
     (:func:`edge_shard_range`): its edges' rows, point CSR offsets over all
     n points, the camera permutation and offsets of its edges over all m
-    cameras, its splits; the scene's tables, validity masks and counts.
-    One shard of one is the scene itself."""
+    cameras, its splits, its :class:`TableShard`; the scene's tables,
+    validity masks and counts. One shard of one is the scene itself."""
     if host.scene_edges is not None:
         raise ValueError("shard_host_graph takes a whole scene's graph, not a shard")
     if n_shards == 1:
@@ -292,7 +355,8 @@ def shard_host_graph(host: HostSceneGraph, shard: int, n_shards: int) -> HostSce
         gt_depths=None if host.gt_depths is None else host.gt_depths[lo:hi],
         splits=_splits(pt_ptr, cam_ptr), pt_count=_counts(host.pt_ptr),
         cam_count=_counts(host.cam_ptr), scene_edges=E, edge_offset=lo,
-        scene_ids=(host.cam_idx, host.pt_idx))
+        scene_ids=(host.cam_idx, host.pt_idx),
+        table_shard=table_shard(host.pt_ptr, host.pt_idx, shard, n_shards))
 
 
 def build_host_scene_graph(M: np.ndarray, Ns: np.ndarray, Ps_gt: np.ndarray,
@@ -346,7 +410,7 @@ def upload(host: HostSceneGraph, device: Optional[Union[str, torch.device]] = No
                       pt_ptr=t(host.pt_ptr), cam_perm=t(host.cam_perm), cam_ptr=t(host.cam_ptr),
                       cam_valid=t(host.cam_valid), pt_valid=t(host.pt_valid),
                       scene_num_edges=host.scene_edges, edge_offset=host.edge_offset,
-                      scene_ids=host.scene_ids)
+                      scene_ids=host.scene_ids, table_shard=host.table_shard)
     graph.__dict__["_host_ptr"] = {"pt": host.pt_ptr, "cam": host.cam_ptr}
     if host.scene_edges is not None:  # an edge shard: the scene's counts, not its CSR's
         graph.__dict__.update(pt_count=t(host.pt_count), cam_count=t(host.cam_count))

@@ -43,16 +43,17 @@ f32 master (``train.adam_mu_dtype``, ``train.adam_nu_dtype``,
 as the JAX package's do).
 
 A conf with a ``parallel.mesh_shape = [n_data, n_edge]`` of more than one
-position and ``parallel.table_sharding = false`` runs single-scene
-optimization on a mesh: ``main`` launches ``n_data * n_edge`` ranks itself
-(``parallel.run_ranks``: spawned processes on a gloo process group, sharing
-the cards round robin, or on the CPU with ``--device cpu``), every rank runs
-the same loop on its edge shard, and only rank 0 prints, writes the tree and
-runs BA. An option the port has not ported yet raises
-``NotImplementedError`` naming the slice that lifts it, rather than run
-something other than the conf asks for: table sharding (an ``n_edge > 1``
-mesh with ``parallel.table_sharding`` null or true), multi-scene learning
-under a mesh, and ``parallel.distributed``.
+position runs either subcommand on a mesh: ``main`` launches ``n_data *
+n_edge`` ranks itself (``parallel.run_ranks``: spawned processes on a gloo
+process group, sharing the cards round robin, or on the CPU with ``--device
+cpu``), every rank runs the same drivers with the same conf and seeds on
+its edge shard (with ``parallel.table_sharding`` null or true, and more
+than one edge shard, over a point table sharded between the ranks), and
+only rank 0 prints, writes the tree and runs BA. Multi-scene learning
+trains on groups of sampled scenes (one per data slot), evaluates in
+groups, and every rank fine-tunes and short-optimizes each test scene on
+the mesh. ``parallel.distributed`` raises ``NotImplementedError``
+(multi-host, not ported yet).
 """
 
 from __future__ import annotations
@@ -176,22 +177,64 @@ def init_model(conf, pretrained_model_path: Optional[str] = None
     return model, n_params
 
 
-def _mesh_rank(mesh, conf, pretrained: Optional[str]) -> int:
-    """One rank of a mesh run of single-scene optimization: the seeded
-    model (rank 0's weights reach every rank when its session is made),
-    trained on this rank's edge shard; only rank 0 prints and writes."""
+def _mesh_rank(mesh, conf, args, pretrained: Optional[str]) -> int:
+    """One rank of a mesh run: the seeded model (rank 0's weights reach
+    every rank when its session is made), the subcommand's drivers on this
+    rank's shard; only rank 0 prints and writes."""
     import sys
-
-    from gasfm_tpu_torch.experiments import train_model_single_scene
-    from gasfm_tpu_torch.utils.phases import Phases
 
     if not mesh.is_writer:
         sys.stdout = open(os.devnull, "w")
     rng = seed_from_conf(conf)
     model, _ = init_model(conf, pretrained)
-    train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=mesh.device,
-                             mesh=mesh)
+    if args.mode == "single_scene_optim":
+        from gasfm_tpu_torch.experiments import train_model_single_scene
+        from gasfm_tpu_torch.utils.phases import Phases
+
+        train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=mesh.device,
+                                 mesh=mesh)
+    else:
+        learn(conf, args, model, rng, mesh.device, mesh)
     return 0
+
+
+def learn(conf, args, model, rng: np.random.Generator, device, mesh=None) -> None:
+    """Multi-scene learning: TRAINING -> the final and best weights'
+    evaluations -> FINE_TUNE of every test scene from each -> SHORT_OPTIMIZATION
+    from fresh weights, as ``args``' skip flags allow; on ``mesh`` (this
+    rank's) every phase runs on the mesh."""
+    from gasfm_tpu_torch.experiments import (create_eval_dataloaders, eval_model,
+                                             optimization_all_test_scenes, train_model)
+    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    datasets, eval_loaders = create_eval_dataloaders(conf, rng=rng)
+    session = TrainingSession.from_conf(conf, model, device=device, mesh=mesh)
+    if not args.skip_training:
+        trained, _ = train_model(conf, session, datasets["train_set"], eval_loaders,
+                                 Phases.TRAINING, rng=rng)
+    else:
+        weights = session.weights()
+        trained = {"final_model": weights, "best_model": weights}
+    eval_model(conf, session, trained["final_model"], eval_loaders, -1, "final_", rng=rng)
+    if "best_model" in trained:
+        eval_model(conf, session, trained["best_model"], eval_loaders, None, "best_", rng=rng)
+    session.close()  # one session on the device at a time
+    del session
+    gc.collect()
+
+    def fine_tune(weights, phase, identifier=None):
+        optimization_all_test_scenes(conf, model, weights, phase,
+                                     additional_identifier=identifier, rng=rng, device=device,
+                                     mesh=mesh)
+
+    if not args.skip_fine_tuning and not args.skip_fine_tuning_from_final:
+        fine_tune(trained["final_model"], Phases.FINE_TUNE, "from_final")
+    if ("best_model" in trained and not args.skip_fine_tuning
+            and not args.skip_fine_tuning_from_best):
+        fine_tune(trained["best_model"], Phases.FINE_TUNE, "from_best")
+    if not args.skip_short_optim:
+        fine_tune(init_model(conf)[0].state_dict(), Phases.SHORT_OPTIMIZATION)
 
 
 def main(argv=None) -> int:
@@ -203,16 +246,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     conf, rng = init_exp(args)
     mesh_shape = mesh_shape_from_conf(conf)
-    if mesh_shape is not None and args.mode != "single_scene_optim":
-        raise NotImplementedError(
-            f"multi-scene-learning on parallel.mesh_shape = {list(mesh_shape)}: learning over a "
-            f"mesh (the sampled groups through fused_group_step, the grouped evaluations) comes "
-            f"with slice 8's table sharding and is not ported yet")
 
-    from gasfm_tpu_torch.experiments import (create_eval_dataloaders, eval_model,
-                                             optimization_all_test_scenes, train_model,
-                                             train_model_single_scene)
-    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.experiments import train_model_single_scene
     from gasfm_tpu_torch.utils.observability import log_code
     from gasfm_tpu_torch.utils.paths import path_to_exp
     from gasfm_tpu_torch.utils.phases import Phases
@@ -231,40 +266,12 @@ def main(argv=None) -> int:
             shutil.rmtree(exp_path)
     log_code(conf)
     if mesh_shape is not None:  # the ranks take it from here, each with this conf
-        run_ranks(_mesh_rank, *mesh_shape, args=(conf, pretrained), device=device.type)
+        run_ranks(_mesh_rank, *mesh_shape, args=(conf, args, pretrained), device=device.type)
         return 0
     if args.mode == "single_scene_optim":
         train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=device)
         return 0
-
-    # multi-scene learning: TRAINING -> final / best evaluations -> FINE_TUNE
-    # from the final and the best weights -> SHORT_OPTIMIZATION from fresh ones
-    datasets, eval_loaders = create_eval_dataloaders(conf, rng=rng)
-    session = TrainingSession.from_conf(conf, model, device=device)
-    if not args.skip_training:
-        trained, _ = train_model(conf, session, datasets["train_set"], eval_loaders,
-                                 Phases.TRAINING, rng=rng)
-    else:
-        weights = session.weights()
-        trained = {"final_model": weights, "best_model": weights}
-    eval_model(conf, session, trained["final_model"], eval_loaders, -1, "final_", rng=rng)
-    if "best_model" in trained:
-        eval_model(conf, session, trained["best_model"], eval_loaders, None, "best_", rng=rng)
-    session.close()  # one session on the device at a time
-    del session
-    gc.collect()
-
-    if not args.skip_fine_tuning and not args.skip_fine_tuning_from_final:
-        optimization_all_test_scenes(conf, model, trained["final_model"], Phases.FINE_TUNE,
-                                     additional_identifier="from_final", rng=rng, device=device)
-    if ("best_model" in trained and not args.skip_fine_tuning
-            and not args.skip_fine_tuning_from_best):
-        optimization_all_test_scenes(conf, model, trained["best_model"], Phases.FINE_TUNE,
-                                     additional_identifier="from_best", rng=rng, device=device)
-    if not args.skip_short_optim:
-        fresh = init_model(conf)[0].state_dict()
-        optimization_all_test_scenes(conf, model, fresh, Phases.SHORT_OPTIMIZATION, rng=rng,
-                                     device=device)
+    learn(conf, args, model, rng, device)
     return 0
 
 

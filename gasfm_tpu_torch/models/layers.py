@@ -36,7 +36,11 @@ the aggregations) and :func:`~gasfm_tpu_torch.ops.segment.edge_mean` (the
 DPESFM global mean and mean-centering, the JAX package's ``masked_mean``).
 The view->global and point->global pools reduce the tables, which every
 rank holds whole, with no collective (the JAX package's ``edge_replicated``,
-``gasfm_tpu/models/layers.py:427-448``).
+``gasfm_tpu/models/layers.py:427-448``). Under table sharding
+(``ops/segment.py`` ``table_sharded``) the point->global pool takes the
+rank's owned point rows and combines its softmax over the edge group
+(``ops/gatv2.py`` ``gatv2_attend_pool_sharded``; the JAX package's
+``layers.py:244-253, 440-446``); the view pool stays local.
 
 Node-level LayerNorms are torch's ``nn.LayerNorm`` (one fused kernel, a
 two-pass variance); the JAX package's flax LayerNorm computes the same
@@ -80,10 +84,11 @@ from gasfm_tpu_torch.ops.edge_update import edge_combine, projection_update
 from gasfm_tpu_torch.ops.gatv2 import (
     gatv2_attend_dual,
     gatv2_attend_pool,
+    gatv2_attend_pool_sharded,
     gatv2_layer_frontend,
     merged_layer_frontend,
 )
-from gasfm_tpu_torch.ops.segment import edge_mean, segment_mean
+from gasfm_tpu_torch.ops.segment import edge_mean, segment_mean, table_shard
 
 LN_EPS = 1e-5  # the edge LayerNorm's epsilon (torch nn.LayerNorm's default)
 
@@ -246,10 +251,13 @@ class GATv2SegmentConv(nn.Module):
         return self.lin_r(query)
 
     def pool(self, x_src: torch.Tensor, row_mask: torch.Tensor,
-             query: Optional[torch.Tensor]) -> torch.Tensor:
-        """Single-node attention pool over the masked rows: (1, H*C)."""
-        out = gatv2_attend_pool(self.lin_l(x_src), self.transform_dst(query, 1),
-                                f32(self.att).reshape(-1), row_mask, self.heads)
+             query: Optional[torch.Tensor], sharded: bool = False) -> torch.Tensor:
+        """Single-node attention pool over the masked rows: (1, H*C). With
+        ``sharded``, the rows are this rank's share of a table sharded over
+        the edge group, the pool the whole table's."""
+        fn = gatv2_attend_pool_sharded if sharded else gatv2_attend_pool
+        out = fn(self.lin_l(x_src), self.transform_dst(query, 1), f32(self.att).reshape(-1),
+                 row_mask, self.heads)
         return out + f32(self.bias)
 
 
@@ -334,10 +342,15 @@ class ViewAndScenePoint2Global(nn.Module):
         if self.stateful:
             q_view = self.norm_and_proj_global2view(prev_global)
             q_pt = self.norm_and_proj_global2scenepoint(prev_global)
-        x = torch.cat([
-            self.graph_conv_view2global.pool(view_features, cam_valid, q_view),
-            self.graph_conv_scenepoint2global.pool(scenepoint_features, pt_valid, q_pt),
-        ], dim=1)
+        shard = table_shard()
+        if shard is None:
+            pt_pooled = self.graph_conv_scenepoint2global.pool(scenepoint_features, pt_valid, q_pt)
+        else:  # the rank's owned points
+            own = slice(shard.own_lo, shard.own_hi)
+            pt_pooled = self.graph_conv_scenepoint2global.pool(
+                scenepoint_features[own], pt_valid[own], q_pt, sharded=True)
+        x = torch.cat([self.graph_conv_view2global.pool(view_features, cam_valid, q_view),
+                       pt_pooled], dim=1)
         if self.proj_view_and_scenepoint2global is not None:
             x = self.proj_view_and_scenepoint2global(x)
         if prev_global is not None:

@@ -35,20 +35,37 @@ take the scene's max and sums through the segment max and sums, which finish
 over the edge group, and the kernels combine the shards' softmax
 (``ops/attn_combine.py``). ``gatv2_attend_pool`` reduces the tables, which
 every rank holds whole: no collective.
+
+Under table sharding (``ops/segment.py`` ``table_sharded``) the point side
+of ``gatv2_attend`` takes its max and sums over the rank's own edges and
+merges its first and last point with the neighbour shards through the
+boundary slab of ``ops/attn_combine.py``, summed over the edge group by the
+interior ``all_sum``, whose transpose gives the exact gradient; so the
+plain versions run the exchange that the kernels' wrappers run (the
+composite serves the camera side, whose table stays whole). Here the port differs from the JAX package, whose XLA path keeps the
+``psum`` of the whole point table under table sharding (only its Pallas
+kernels exchange). The point->global pool takes the rank's owned rows
+(:func:`gatv2_attend_pool_sharded`, the JAX package's, ``gatv2.py:88-114``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from gasfm_tpu_torch.ops.attn_combine import boundary_slab, end_rows, merge_ends, put_ends
 from gasfm_tpu_torch.ops.segment import (
+    all_max,
+    all_sum,
     csr_segment_max,
+    edge_partitioned,
     gather_segments,
     segment_max,
     segment_sum,
+    table_shard,
 )
 from gasfm_tpu_torch.utils.constants import DENSE_MAX_SEGMENTS
 
@@ -107,6 +124,46 @@ def gatv2_attend_pool(
     return (num / den[:, None]).reshape(1, D)
 
 
+def gatv2_attend_pool_sharded(
+    xl: torch.Tensor,  # (E, H*C) this rank's owned rows
+    xr0: torch.Tensor,  # (1, H*C)
+    att: torch.Tensor,  # (H*C,)
+    row_mask: torch.Tensor,  # (E,) valid-source mask of the owned rows
+    heads: int,
+    negative_slope: float = NEGATIVE_SLOPE,
+) -> torch.Tensor:
+    """:func:`gatv2_attend_pool` of a table sharded over the edge group:
+    each rank pools the rows it owns, and the per-head softmax triple
+    combines over the group, one MAX of the detached per-head max and one
+    interior sum of the denominators and numerators. Returns (1, H*C)."""
+    E, D = xl.shape
+    C = D // heads
+    g = leaky_relu(xl + xr0.reshape(1, D), negative_slope)
+    logits = (g * att).reshape(E, heads, C).sum(-1)  # (E, H)
+    logits = logits.masked_fill(~row_mask[:, None], float("-inf"))
+    m = torch.cat([logits.detach(), logits.new_full((1, heads), float("-inf"))]).amax(0)
+    m = all_max(m)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(logits - m).masked_fill(~row_mask[:, None], 0.0)
+    sums = all_sum(torch.cat([p.sum(0), torch.einsum("eh,ehc->hc", p, xl.reshape(E, heads, C))
+                              .reshape(D)]))
+    den = sums[:heads]
+    den = torch.where(den > 0, den, torch.ones_like(den))
+    return (sums[heads:].reshape(heads, C) / den[:, None]).reshape(1, D)
+
+
+def _exchange_points(num: torch.Tensor, m: torch.Tensor, den: torch.Tensor, shard,
+                     heads: int):
+    """The plain versions' boundary exchange: this rank's point sums (num
+    (n, H*C), den (n, H), against the max m) with the first and last point
+    merged with the neighbour shards', the slab through the interior
+    ``all_sum``. Returns (num, den)."""
+    num_e, m_e, den_e = (end_rows(t, shard) for t in (num, m, den))
+    slab = all_sum(boundary_slab(num_e, m_e, den_e, shard))
+    num_e, _, den_e = merge_ends(num_e, m_e, den_e, slab, shard, heads)
+    return put_ends(num, num_e, shard), put_ends(den, den_e, shard)
+
+
 def gatv2_attend(
     xl: torch.Tensor,  # (E, H*C)
     xr: torch.Tensor,  # (S, H*C)
@@ -115,18 +172,27 @@ def gatv2_attend(
     num_segments: int,
     heads: int,
     negative_slope: float = NEGATIVE_SLOPE,
+    side: Optional[str] = None,
 ) -> torch.Tensor:
     """(S, H*C) attention-aggregated source rows per segment, as the JAX
     package's composite path computes it: shifted exponentials, one sum for
-    the numerators and one for the denominators, then ``num / den``."""
+    the numerators and one for the denominators, then ``num / den``. With
+    ``side`` "point" under table sharding, the sums of the rank's edges,
+    exchanged at the shard's boundary (see the module docstring)."""
     E, D = xl.shape
     C = D // heads
+    shard = table_shard() if side == "point" else None
     g = leaky_relu(xl + gather_segments(xr, seg_ids), negative_slope)
     logits = (g * att).reshape(E, heads, C).sum(-1)  # (E, H)
-    m = softmax_shift(logits, seg_ids, num_segments)
-    p = torch.exp(logits - gather_segments(m, seg_ids))  # (E, H)
-    num = segment_sum((p[:, :, None] * xl.reshape(E, heads, C)).reshape(E, D), seg_ids, num_segments)
-    den = segment_sum(p, seg_ids, num_segments)  # (S, H)
+    # a table-sharded point side sums its own edges: no collective here
+    with edge_partitioned(None) if shard is not None else contextlib.nullcontext():
+        m = softmax_shift(logits, seg_ids, num_segments)
+        p = torch.exp(logits - gather_segments(m, seg_ids))  # (E, H)
+        num = segment_sum((p[:, :, None] * xl.reshape(E, heads, C)).reshape(E, D), seg_ids,
+                          num_segments)
+        den = segment_sum(p, seg_ids, num_segments)  # (S, H)
+    if shard is not None:
+        num, den = _exchange_points(num, m, den, shard, heads)
     den = torch.where(den > 0, den, torch.ones_like(den))
     return (num.reshape(num_segments, heads, C) / den[:, :, None]).reshape(num_segments, D)
 

@@ -40,7 +40,10 @@ the rank's edge shard with its residuals written, ``ops/attn_combine.py``
 combines the shards' (out, max, den) over the edge group, and the backward
 sums the output's cotangent over the group before it takes the combined
 residuals. The plain version reaches the group through the segment max and
-sums of ``ops/segment.py``.
+sums of ``ops/segment.py``. Under table sharding (``ops/segment.py``
+``table_sharded``; the JAX package's ``fused_attn.py:579-603``) the point
+side takes the boundary exchange of ``ops/attn_combine.py`` instead, and
+its backward the boundary add; the kernels are the same.
 """
 
 from __future__ import annotations
@@ -49,12 +52,13 @@ import functools
 
 import torch
 
-from gasfm_tpu_torch.ops.attn_combine import combine_attention_shards, sum_cotangents
+from gasfm_tpu_torch.ops.attn_combine import (combine_attention_shards, exchange_cotangents,
+                                              exchange_points, sum_cotangents)
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend
 from gasfm_tpu_torch.ops.kernels import build as kb
 from gasfm_tpu_torch.ops.kernels.fused_dual_attn import head_width
 from gasfm_tpu_torch.ops.kernels.segment_kernels import side_csr, side_ids
-from gasfm_tpu_torch.ops.segment import edge_group
+from gasfm_tpu_torch.ops.segment import edge_group, table_shard
 
 # of csrc/fused_attn.cu: kAttendChunk, the most edges of one point a warp
 # walks; kQuad, short points per warp; kPointWarps, warps per point-side
@@ -90,7 +94,7 @@ def point_split(graph, side):
 def fused_attend_plain(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE):
     """Plain version: the composite segment attention over ``side``."""
     ids, S = side_ids(graph, side)
-    return gatv2_attend(xl, xr, att, ids, S, heads, slope)
+    return gatv2_attend(xl, xr, att, ids, S, heads, slope, side=side)
 
 
 def attend_forward(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE, residuals=False):
@@ -122,9 +126,15 @@ def attend_forward(xl, xr, att, graph, side, heads, slope=NEGATIVE_SLOPE, residu
 
 def attend_combined(xl, xr, att, graph, side, heads, group, slope=NEGATIVE_SLOPE):
     """The forward kernel on this rank's edge shard, combined over the edge
-    ``group``: (out, (m, den), ins), the output and residuals the scene's."""
+    ``group``: (out, (m, den), ins), the output and residuals the scene's
+    (under table sharding the point side's on the points the shard's edges
+    touch)."""
     out, res, ins = attend_forward(xl, xr, att, graph, side, heads, slope, residuals=True)
-    ((out, m, den),) = combine_attention_shards([(out, *res)], group)
+    shard = table_shard() if side == "point" else None
+    if shard is None:
+        ((out, m, den),) = combine_attention_shards([(out, *res)], group)
+    else:
+        (out, m, den), _ = exchange_points((out, *res), shard, group, heads)
     return out, (m, den), ins
 
 
@@ -139,13 +149,16 @@ class _Attend(torch.autograd.Function):
             out, res, ins = attend_combined(xl, xr, att, graph, side, heads, group, slope)
         ctx.save_for_backward(*ins, out, *res)
         ctx.graph, ctx.side, ctx.heads, ctx.slope, ctx.group = graph, side, heads, slope, group
+        ctx.shard = table_shard() if group is not None and side == "point" else None
         ctx.att_shape = att.shape
         return out
 
     @staticmethod
     def backward(ctx, g):
         xl, xr, att, out, m, den = ctx.saved_tensors
-        if ctx.group is not None:
+        if ctx.shard is not None:
+            g, _ = exchange_cotangents(g, ctx.shard, ctx.group)
+        elif ctx.group is not None:
             (g,) = sum_cotangents([g], ctx.group)
         dxl, dxr, datt = fused_attend_bwd(xl, xr, att, out, m, den, g, ctx.graph, ctx.side,
                                           ctx.heads, ctx.slope)

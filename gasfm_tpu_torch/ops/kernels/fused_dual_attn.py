@@ -50,7 +50,12 @@ backward sums the outputs' cotangents over the group first and takes the
 combined residuals, so the kernel gives the rank's exact share of every
 gradient. The frontend's prologue is per edge and needs no collective: the
 frontend reaches the group through the dual core only. The plain versions
-reach it through the segment max and sums of ``ops/segment.py``.
+reach it through the segment max and sums of ``ops/segment.py``. Under
+table sharding (``ops/segment.py`` ``table_sharded``; the JAX package's
+``fused_dual_attn.py:633-682``) the point direction takes the boundary
+exchange of ``ops/attn_combine.py`` instead, packed into the camera
+direction's SUM, and its backward the boundary add in place of the
+cotangent sum. The kernels are the same.
 """
 
 from __future__ import annotations
@@ -60,10 +65,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from gasfm_tpu_torch.ops.attn_combine import combine_attention_shards, sum_cotangents
+from gasfm_tpu_torch.ops.attn_combine import (combine_attention_shards, exchange_cotangents,
+                                              exchange_points, sum_cotangents)
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_relu
 from gasfm_tpu_torch.ops.kernels import build as kb
-from gasfm_tpu_torch.ops.segment import edge_group
+from gasfm_tpu_torch.ops.segment import edge_group, table_shard
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import TILE_BLOCKS_PER_SM, TILE_ROWS
 
 LN_EPS = 1e-5
@@ -153,7 +159,8 @@ def front_bwd_grid(device, E: int, De: int, Dp: int, Dc: int) -> int:
 def fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
                             slope=NEGATIVE_SLOPE):
     """Plain version: two single-direction segment attentions."""
-    out_p = gatv2_attend(xl_p, xr_p, att_p, graph.pt_idx, graph.num_pts, heads, slope)
+    out_p = gatv2_attend(xl_p, xr_p, att_p, graph.pt_idx, graph.num_pts, heads, slope,
+                         side="point")
     out_c = gatv2_attend(xl_c, xr_c, att_c, graph.cam_idx, graph.num_cams, heads, slope)
     return out_p, out_c
 
@@ -205,11 +212,17 @@ def dual_attend_combined(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, gro
                          slope=NEGATIVE_SLOPE):
     """The dual core on this rank's edge shard, combined over the edge
     ``group``: (out_p, out_c, (m_p, den_p, m_c, den_c), ins), every output
-    and residual the scene's."""
+    and residual the scene's (under table sharding the points' on the
+    points the shard's edges touch)."""
     out_p, out_c, res, ins = dual_attend_forward(
         xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope, residuals=True)
-    (out_p, m_p, den_p), (out_c, m_c, den_c) = combine_attention_shards(
-        [(out_p, res[0], res[1]), (out_c, res[2], res[3])], group)
+    shard = table_shard()
+    if shard is None:
+        (out_p, m_p, den_p), (out_c, m_c, den_c) = combine_attention_shards(
+            [(out_p, res[0], res[1]), (out_c, res[2], res[3])], group)
+    else:
+        (out_p, m_p, den_p), ((out_c, m_c, den_c),) = exchange_points(
+            (out_p, res[0], res[1]), shard, group, heads, cameras=[(out_c, res[2], res[3])])
     return out_p, out_c, (m_p, den_p, m_c, den_c), ins
 
 
@@ -225,13 +238,16 @@ class _DualAttend(torch.autograd.Function):
                 xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, group, slope)
         ctx.save_for_backward(*ins, out_p, out_c, *res)
         ctx.graph, ctx.heads, ctx.slope, ctx.group = graph, heads, slope, group
+        ctx.shard = None if group is None else table_shard()
         ctx.att_shapes = (att_p.shape, att_c.shape)
         return out_p, out_c
 
     @staticmethod
     def backward(ctx, g_p, g_c):
         saved = ctx.saved_tensors
-        if ctx.group is not None:
+        if ctx.shard is not None:
+            g_p, (g_c,) = exchange_cotangents(g_p, ctx.shard, ctx.group, [g_c])
+        elif ctx.group is not None:
             g_p, g_c = sum_cotangents([g_p, g_c], ctx.group)
         dxl_p, dxl_c, dxr_p, dxr_c, datt_p, datt_c = fused_dual_attend_bwd(
             *saved, g_p, g_c, ctx.graph, ctx.heads, ctx.slope)

@@ -24,6 +24,18 @@ metrics' sums: the cotangent passes through unchanged), a max with
 :func:`all_max` (no gradient). Then every parameter gradient leaves a
 rank's backward as that rank's partial, and one sum over all ranks makes
 it exact. Outside the context the three are the identity.
+
+Table sharding (:func:`table_sharded` and :func:`table_shard`, the JAX
+package's ``table_sharded`` / ``table_shard_owned`` / ``is_table_sharded``,
+``gasfm_tpu/ops/segment.py:150-179``) narrows that inside an edge-partitioned
+scope: it carries the rank's
+:class:`~gasfm_tpu_torch.graph.view_graph.TableShard` (its boundary points
+and owned points), and the point-side attentions then finish over the edge
+group by exchanging their boundary rows with the neighbour shards
+(``ops/attn_combine.py``) instead of reducing the whole point table, and
+the point->global pool reduces the rank's owned rows. A point table is then
+exact on the rows the rank's edges touch; every other reduction is as
+above.
 """
 
 from __future__ import annotations
@@ -55,6 +67,29 @@ def edge_partitioned(group):
 def edge_group():
     """The process group of the current edge-partitioned scope, or None."""
     return _EDGE_GROUP.get()
+
+
+# The TableShard of the current table-sharded scope, or None: replicated tables.
+_TABLE_SHARD: contextvars.ContextVar = contextvars.ContextVar("gasfm_torch_table_shard",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def table_sharded(shard):
+    """Shard the point table over the edge group in this scope: ``shard``,
+    this rank's :class:`~gasfm_tpu_torch.graph.view_graph.TableShard` (None
+    turns it off). Takes effect inside :func:`edge_partitioned`."""
+    token = _TABLE_SHARD.set(shard)
+    try:
+        yield
+    finally:
+        _TABLE_SHARD.reset(token)
+
+
+def table_shard():
+    """The current scope's TableShard when the point table is sharded over
+    an edge group, else None."""
+    return _TABLE_SHARD.get() if _EDGE_GROUP.get() is not None else None
 
 
 def flat_collective(tensors: Sequence[torch.Tensor], group, op=None,

@@ -4,10 +4,13 @@ torch.distributed (``edge_sharding``) and the launcher of its ranks
 
 from gasfm_tpu_torch.parallel.edge_sharding import (
     Mesh,
+    check_table_shard_contract,
     make_mesh,
     mesh_shape_from_conf,
     pad_scene_group,
+    table_sharding_on,
 )
 from gasfm_tpu_torch.parallel.launch import run_ranks
 
-__all__ = ["Mesh", "make_mesh", "mesh_shape_from_conf", "pad_scene_group", "run_ranks"]
+__all__ = ["Mesh", "check_table_shard_contract", "make_mesh", "mesh_shape_from_conf",
+           "pad_scene_group", "run_ranks", "table_sharding_on"]

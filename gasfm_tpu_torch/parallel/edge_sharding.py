@@ -1,9 +1,8 @@
-"""The (data, edge) mesh on torch.distributed: scene data parallelism and
-edge partitioning over replicated tables.
+"""The (data, edge) mesh on torch.distributed: scene data parallelism, edge
+partitioning, and table sharding.
 
-Counterpart of the JAX package's parallel/edge_sharding.py, steps 1-2 of
-its layout (``parallel.table_sharding = false``): a mesh of ``n_data x
-n_edge`` positions, one process (rank) each. Rank ``r`` takes position
+Counterpart of the JAX package's parallel/edge_sharding.py: a mesh of
+``n_data x n_edge`` positions, one process (rank) each. Rank ``r`` takes position
 ``(r // n_edge, r % n_edge)``, the layout of ``make_mesh``'s
 ``reshape(n_data, n_edge)`` (``edge_sharding.py:163``):
 
@@ -12,8 +11,20 @@ n_edge`` positions, one process (rank) each. Rank ``r`` takes position
   slots of weight 0, :func:`pad_scene_group`);
 - edge shard ``r % n_edge``: the contiguous range of the scene's
   point-major edges that the rank holds
-  (``graph.view_graph.shard_host_graph``); every table stays whole on every
-  rank.
+  (``graph.view_graph.shard_host_graph``).
+
+With ``parallel.table_sharding = false`` every table stays whole on every
+rank (replicated tables). Table sharding, the JAX default on an edge axis
+(null: on when ``n_edge > 1``, :func:`table_sharding_on`; the JAX package's
+``_table_shard_ctx``, :286-299), keeps the camera and global tables whole
+but shards the point table: a rank's point aggregations are exact on the
+points its edges touch, the shards exchange only their boundary points'
+rows (``ops/attn_combine.py``), the point->global pool reduces each rank's
+owned points, and the point table that leaves the model (``pts3D``) is put
+together by one masked sum over the edge group (:func:`sum_owned_points`,
+the JAX package's ``_combine_table_outputs``, :302-316). The exchange needs
+every point's edges on at most two neighbouring shards
+(:func:`check_table_shard_contract`).
 
 Three process groups: the edge group (the ranks of one data slot: the
 reductions over a scene's edges, ``ops/segment.py`` ``edge_partitioned``),
@@ -25,10 +36,8 @@ CPU and CUDA tensors alike (through host memory for CUDA): the ranks may
 share one card, where NCCL refuses two ranks on one device.
 
 What the JAX package runs and the port does not yet raises
-``NotImplementedError`` naming the slice that lifts it
-(:func:`mesh_shape_from_conf`): table sharding (an ``n_edge > 1`` mesh with
-``parallel.table_sharding`` null or true, the JAX default there), and
-multi-host ``parallel.distributed``.
+``NotImplementedError`` (:func:`mesh_shape_from_conf`): multi-host
+``parallel.distributed``.
 """
 
 from __future__ import annotations
@@ -36,12 +45,10 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from gasfm_tpu_torch.ops.segment import flat_collective
-
-TABLE_SHARDING_SLICE = ("table sharding (slice 8, step 3: the owned-point mask and the "
-                        "neighbour exchange of boundary windows) is not ported yet")
 
 
 @dataclasses.dataclass
@@ -102,6 +109,30 @@ class Mesh:
         whose range this rank filled: the scene's whole output)."""
         return flat_collective([x], self.edge_group)[0] if self.n_edge > 1 else x.detach().clone()
 
+    def from_writer(self, value: float) -> float:
+        """Rank 0's ``value`` on every rank (a host metric that only rank 0
+        computes, such as the validation metric)."""
+        t = torch.tensor([value], dtype=torch.float64, device=self.device)
+        return float(flat_collective([t], None, src=0)[0])
+
+    def any_over_world(self, flags: Sequence[bool]) -> List[bool]:
+        """Each of ``flags`` true on any rank, on every rank: one all-reduce
+        MAX."""
+        import torch.distributed as dist
+
+        t = torch.tensor([int(f) for f in flags], dtype=torch.int64)
+        return [bool(v) for v in flat_collective([t], None, dist.ReduceOp.MAX)[0].tolist()]
+
+    def assert_same(self, digest: int, what: str) -> None:
+        """Raise on every rank unless every rank's ``digest`` (an integer
+        below 2**62) is the same: one all-reduce MAX of (digest, -digest)."""
+        import torch.distributed as dist
+
+        t = torch.tensor([digest, -digest], dtype=torch.int64)
+        hi, neg_lo = flat_collective([t], None, dist.ReduceOp.MAX)[0].tolist()
+        if hi != -neg_lo:
+            raise RuntimeError(f"the ranks of the mesh disagree on {what}")
+
 
 def _by_dtype(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
     groups: dict = {}
@@ -144,14 +175,13 @@ def mesh_shape_from_conf(conf) -> Optional[Tuple[int, int]]:
     """``parallel.mesh_shape = [n_data, n_edge]`` (the JAX package's
     ``mesh_from_conf``, ``edge_sharding.py:251``): None when unset or of one
     position. Raises ``NotImplementedError`` for what the port does not run
-    yet: ``parallel.distributed.enabled`` (multi-host) and, with ``n_edge >
-    1``, ``parallel.table_sharding`` null or true (the JAX package's default
-    there turns table sharding on, ``train/loop.py:100-105``; replicated
-    tables would be another layout than the conf asks for)."""
+    yet: ``parallel.distributed.enabled`` (multi-host). Whether the mesh
+    shards its point table is ``parallel.table_sharding``
+    (:func:`table_sharding_on`)."""
     if conf.get_bool("parallel.distributed.enabled", default=False):
         raise NotImplementedError(
             "parallel.distributed.enabled: multi-host execution (one process group across "
-            "hosts, slice 8 after table sharding) is not ported yet")
+            "hosts) is not ported yet")
     shape = conf.get_list("parallel.mesh_shape", default=None)
     if shape is None:
         return None
@@ -162,12 +192,50 @@ def mesh_shape_from_conf(conf) -> Optional[Tuple[int, int]]:
         raise ValueError(f"parallel.mesh_shape = {shape}: both sizes must be >= 1")
     if n_data * n_edge <= 1:
         return None
-    if n_edge > 1 and conf.get_bool("parallel.table_sharding", default=None) is not False:
-        raise NotImplementedError(
-            f"parallel.mesh_shape = {shape} with parallel.table_sharding null or true: "
-            f"{TABLE_SHARDING_SLICE}; set parallel.table_sharding = false for replicated "
-            f"tables")
     return n_data, n_edge
+
+
+def table_sharding_on(setting: Optional[bool], n_edge: int) -> bool:
+    """Whether a mesh of ``n_edge`` edge shards shards the point table under
+    ``parallel.table_sharding = setting``: null means on when ``n_edge > 1``
+    (the JAX package's default, ``_table_shard_ctx``); with one edge shard
+    there is nothing to shard."""
+    return n_edge > 1 and setting is not False
+
+
+def check_table_shard_contract(pt_ptr: np.ndarray, n_edge: int) -> None:
+    """The boundary exchange's contract on a whole scene (point CSR offsets
+    ``pt_ptr``, on the host; the JAX package's
+    ``check_table_shard_contract``, :111-160, per window there, per point
+    here): every edge shard gets an edge, and no point's edges touch more
+    than two shards, since the exchange reaches the neighbours only. Raises
+    ``ValueError`` otherwise."""
+    from gasfm_tpu_torch.graph.view_graph import point_spans
+
+    if n_edge <= 1:
+        return
+    E = int(pt_ptr[-1])
+    per = -(-E // n_edge) if E else 0
+    if E == 0 or (n_edge - 1) * per >= E:
+        raise ValueError(f"table sharding span<=2 contract: a scene of {E} edges leaves an edge "
+                         f"shard of {n_edge} without an edge; use fewer edge shards or a larger "
+                         f"scene")
+    spans = point_spans(pt_ptr, n_edge)
+    if spans.max(initial=0) > 2:
+        p = int(np.argmax(spans))
+        raise ValueError(f"table sharding span<=2 contract violated: point {p}'s "
+                         f"{int(pt_ptr[p + 1] - pt_ptr[p])} edges touch {int(spans[p])} of "
+                         f"{n_edge} edge shards ({per} edges each); the boundary exchange only "
+                         f"reaches neighbour shards. Use fewer edge shards or a larger scene")
+
+
+def sum_owned_points(pts3D: torch.Tensor, shard, group) -> torch.Tensor:
+    """A table-sharded rank's (4, n) point predictions made whole: its owned
+    columns kept, the others zero, summed over the edge ``group`` (each
+    column owned by one rank)."""
+    own = torch.zeros_like(pts3D)
+    own[:, shard.own_lo:shard.own_hi] = pts3D[:, shard.own_lo:shard.own_hi]
+    return flat_collective([own], group)[0]
 
 
 def pad_scene_group(scenes: Sequence, n_data: int) -> Tuple[list, List[float]]:

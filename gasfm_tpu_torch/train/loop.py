@@ -65,12 +65,16 @@ has just launched. In multi-scene learning the samples' host work (sampling,
 augmentation, validity, outliers, the graph's host half) runs on a prefetch
 thread; the upload runs on the caller's.
 
-Under a mesh (``parallel.mesh_shape = [n_data, n_edge]`` with
-``parallel.table_sharding = false``; ``gasfm_tpu_torch/parallel``) one
-session runs on each rank, eagerly, and every call is collective: every rank
-makes it, on the same scenes. The session holds the rank's edge shard of each
-scene (``scene_graph``); rank 0's weights are broadcast to every rank when
-the session is made. ``fused_group_step(scenes)`` trains on a group of at
+Under a mesh (``parallel.mesh_shape = [n_data, n_edge]``;
+``gasfm_tpu_torch/parallel``) one session runs on each rank, eagerly, and
+every call is collective: every rank makes it, on the same scenes. The
+session holds the rank's edge shard of each scene (``scene_graph``); rank
+0's weights are broadcast to every rank when the session is made. With
+table sharding (``parallel.table_sharding``, null: on when ``n_edge > 1``)
+its forwards and backwards run under the rank's ``TableShard`` too
+(``ops/segment.py`` ``table_sharded``; the JAX package's
+``_table_shard_ctx``), each scene's graph checked against the boundary
+exchange's contract when it is made. ``fused_group_step(scenes)`` trains on a group of at
 most ``n_data`` scenes (data slot d on scene d, a short group's empty slots
 on its last scene with weight 0; the JAX package's ``make_sharded_fused_step``,
 ``parallel/edge_sharding.py:319``): each rank's loss, scaled by its slot's
@@ -81,18 +85,24 @@ stay bitwise equal. ``fused_step(scene)`` is the group of one;
 ``loss_and_grads`` runs one scene the same way and returns the summed
 gradients (``make_sharded_grad_step``, :396), ``update`` is unchanged. The
 predictions of ``forward`` (every slot on one scene) and ``forward_group``
-(each slot on its scene, :517) come back whole on every rank: the tables
-are, and the depth head's per-edge depths are put together over the edge
+(each slot on its scene, :517) come back whole on every rank: the camera
+tables are, the point table under table sharding is put together by one
+masked sum over the edge group (the JAX package's
+``_combine_table_outputs``: per forward and per ``loss_and_grads``, never in
+the fused step, whose ``our_repro`` reads only the points the rank's edges
+touch), and the depth head's per-edge depths are put together over the edge
 group. The drivers run on every rank; only rank 0 (``is_writer``) prints,
 writes files, evaluates the metrics and runs BA.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
 import weakref
+import zlib
 from time import time
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
@@ -105,7 +115,7 @@ from gasfm_tpu_torch.eval.metrics import (compute_core_errors, compute_errors,
 from gasfm_tpu_torch.losses import DirectDepthLoss, ESFMLoss, get_loss_func
 from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
 from gasfm_tpu_torch.models.set_of_set import SetOfSetNet
-from gasfm_tpu_torch.ops.segment import edge_partitioned
+from gasfm_tpu_torch.ops.segment import edge_partitioned, table_sharded
 from gasfm_tpu_torch.train.state import (FLAGSHIP_OPTIM, build_optimizer,
                                          cast_params_for_training, global_norm, optim_from_conf,
                                          restore_checkpoint, save_checkpoint, save_params)
@@ -176,7 +186,8 @@ class _SceneCache:
         self.graphs: Dict[int, Any] = {}
         self.calls: Dict[int, _Calls] = {}
 
-    def graph_of(self, data, device: torch.device, shard: Optional[Tuple[int, int]] = None):
+    def graph_of(self, data, device: torch.device, shard: Optional[Tuple[int, int]] = None,
+                 check: Optional[Callable] = None):
         graph = self.graphs.get(id(data))
         if graph is None:
             if shard is None:
@@ -184,7 +195,10 @@ class _SceneCache:
             else:  # this rank's edge shard of the scene
                 from gasfm_tpu_torch.graph.view_graph import shard_host_graph, upload
 
-                graph = upload(shard_host_graph(data.host_graph(), *shard), device)
+                host = data.host_graph()
+                if check is not None:
+                    check(host)
+                graph = upload(shard_host_graph(host, *shard), device)
             self.graphs[id(data)] = graph
             weakref.finalize(data, _SceneCache._drop_scene, weakref.ref(self), id(data),
                              id(graph))
@@ -225,15 +239,20 @@ class TrainingSession:
     default for a CUDA session, and refused for a CPU one. ``mesh``: this
     rank's :class:`~gasfm_tpu_torch.parallel.Mesh` (see the module
     docstring); a mesh session runs eagerly, and refuses ``capture=True``
-    (the gloo collectives cannot be recorded)."""
+    (the gloo collectives cannot be recorded). ``table_sharding``: the
+    conf's ``parallel.table_sharding`` (null: on when the mesh has more than
+    one edge shard)."""
 
     def __init__(self, model: Union[GraphAttnSfMNet, SetOfSetNet],
                  loss_func: Union[ESFMLoss, DirectDepthLoss],
                  device: Optional[Union[str, torch.device]] = None,
                  optim: Optional[dict] = None, capture: Optional[bool] = None,
-                 mesh=None):
+                 mesh=None, table_sharding: Optional[bool] = None):
+        from gasfm_tpu_torch.parallel import table_sharding_on
+
         self.device = resolve_device(device)
         self.mesh = mesh
+        self.table_sharding = mesh is not None and table_sharding_on(table_sharding, mesh.n_edge)
         if mesh is not None:
             if capture:
                 raise ValueError("capture=True records CUDA graphs; a mesh session's gloo "
@@ -270,9 +289,10 @@ class TrainingSession:
         of more than one position makes a mesh session on ``mesh``, this
         rank's :class:`~gasfm_tpu_torch.parallel.Mesh` of that shape (the
         ranks come from ``parallel.run_ranks``, or from the CLI, which
-        launches them); without ``mesh`` it raises ``ValueError``. What the
-        port does not run yet raises ``NotImplementedError``
-        (``parallel.mesh_shape_from_conf``: table sharding, multi-host)."""
+        launches them); without ``mesh`` it raises ``ValueError``; it shards
+        the point table as ``parallel.table_sharding`` says. What the port
+        does not run yet raises ``NotImplementedError``
+        (``parallel.mesh_shape_from_conf``: multi-host)."""
         from gasfm_tpu_torch.parallel import mesh_shape_from_conf
 
         shape = mesh_shape_from_conf(conf)
@@ -281,7 +301,8 @@ class TrainingSession:
             raise ValueError(f"the conf's mesh {shape} is not the session's {have}: a mesh "
                              f"conf runs on the ranks of parallel.run_ranks (or the CLI)")
         return cls(model, get_loss_func(conf), device=device,
-                   optim=optim_from_conf(conf, milestone_shift), capture=capture, mesh=mesh)
+                   optim=optim_from_conf(conf, milestone_shift), capture=capture, mesh=mesh,
+                   table_sharding=conf.get_bool("parallel.table_sharding", default=None))
 
     @property
     def is_writer(self) -> bool:
@@ -296,9 +317,18 @@ class TrainingSession:
         request and kept while the caller keeps ``data``: the same scene
         object gets the same graph, whose recordings replay. When the caller
         drops ``data`` the graph goes, with every recording that reads it.
-        On a mesh, the rank's edge shard of the scene."""
-        shard = None if self.mesh is None else (self.mesh.edge_shard, self.mesh.n_edge)
-        return self._cache.graph_of(data, self.device, shard)
+        On a mesh, the rank's edge shard of the scene; with table sharding
+        the scene is first checked against the boundary exchange's contract
+        (``parallel.check_table_shard_contract``: raises ``ValueError``)."""
+        shard = check = None
+        if self.mesh is not None:
+            shard = (self.mesh.edge_shard, self.mesh.n_edge)
+        if self.table_sharding:
+            from gasfm_tpu_torch.parallel import check_table_shard_contract
+
+            def check(host):
+                check_table_shard_contract(host.pt_ptr, self.mesh.n_edge)
+        return self._cache.graph_of(data, self.device, shard, check)
 
     def recordings(self) -> List[Tuple[str, Any]]:
         """(kind, scene graph) of every recording the session holds, kind
@@ -366,12 +396,28 @@ class TrainingSession:
         :class:`~gasfm_tpu_torch.data.scene.SceneData` (:meth:`scene_graph`)."""
         return scene if hasattr(scene, "graph") else self.scene_graph(scene)
 
+    @contextlib.contextmanager
+    def _sharded(self, graph):
+        """The scope of a mesh session's forward and backward on the rank's
+        shard ``graph``: the edge group's reductions, and with table
+        sharding the graph's ``TableShard``."""
+        shard = graph.table_shard if self.table_sharding else None
+        with edge_partitioned(self.mesh.edge_scope), table_sharded(shard):
+            yield
+
     def _whole(self, pred: Dict[str, torch.Tensor], graph) -> Dict[str, torch.Tensor]:
-        """A rank's predictions made whole: the depth head's per-edge depths
-        of the edge shard put into the scene's edge order and summed over
-        the edge group (each range filled by one rank); the tables are
-        whole already."""
+        """A rank's predictions made whole: under table sharding the point
+        table's owned columns summed over the edge group
+        (``parallel.edge_sharding.sum_owned_points``); the depth head's
+        per-edge depths of the edge shard put into the scene's edge order
+        and summed over the edge group (each range filled by one rank); the
+        camera tables are whole already."""
         pred = {k: v.detach() for k, v in pred.items()}
+        if "pts3D" in pred and self.table_sharding:
+            from gasfm_tpu_torch.parallel.edge_sharding import sum_owned_points
+
+            pred["pts3D"] = sum_owned_points(pred["pts3D"], graph.table_shard,
+                                             self.mesh.edge_group)
         if "depths" in pred and self.mesh.n_edge > 1:
             d = pred["depths"]
             full = d.new_zeros((graph.scene_edges,))
@@ -382,7 +428,7 @@ class TrainingSession:
     @torch.no_grad()
     def _mesh_forward(self, scene, plain: bool = False) -> Dict[str, torch.Tensor]:
         scene = self._as_graph(scene)
-        with edge_partitioned(self.mesh.edge_scope):
+        with self._sharded(scene.graph):
             pred = self.model(scene.graph, plain=plain)
         return self._whole(pred, scene.graph)
 
@@ -392,13 +438,14 @@ class TrainingSession:
         """The predictions of each of at most ``n_data`` scenes (scene graphs
         of this session, or ``SceneData``), each data slot running its own
         (the JAX package's grouped forward, ``edge_sharding.py:517``): per
-        scene, whole on every rank, shared over the data group. Without a
-        mesh, one ``forward`` per scene."""
+        scene, whole on every rank, shared over the data group; a rank makes
+        the graph of its own slot's scene only. Without a mesh, one
+        ``forward`` per scene."""
         if self.mesh is None:
             return [self.forward(self._as_graph(s), plain) for s in scenes]
         from gasfm_tpu_torch.parallel import pad_scene_group
 
-        slots, _ = pad_scene_group([self._as_graph(s) for s in scenes], self.mesh.n_data)
+        slots, _ = pad_scene_group(list(scenes), self.mesh.n_data)
         own = self.mesh.data_slot
         mine = self._mesh_forward(slots[own], plain)
         if self.mesh.n_data == 1:
@@ -406,14 +453,20 @@ class TrainingSession:
         preds = []
         for i, sc in enumerate(slots[:len(scenes)]):  # scene i from slot i's ranks
             pred = {k: (mine[k] if i == own else torch.zeros(shape, device=self.device))
-                    for k, shape in self._pred_shapes(sc.graph).items()}
+                    for k, shape in self._pred_shapes(sc).items()}
             preds.append({k: self.mesh.sum_over_data(v) for k, v in pred.items()})
         return preds
 
-    def _pred_shapes(self, graph) -> Dict[str, tuple]:
+    def _pred_shapes(self, scene) -> Dict[str, tuple]:
+        """The shapes of a scene's whole predictions, from its graph or, for
+        a ``SceneData``, without making one."""
+        if hasattr(scene, "graph"):
+            m, n, E = scene.graph.num_cams, scene.graph.num_pts, scene.graph.scene_edges
+        else:
+            m, n, E = scene.num_views, scene.num_points, int(scene.valid_pts.sum())
         if self.model.depth_head_enabled:
-            return {"depths": (graph.scene_edges,)}
-        return {"Ps_norm": (graph.num_cams, 3, 4), "pts3D": (4, graph.num_pts)}
+            return {"depths": (E,)}
+        return {"Ps_norm": (m, 3, 4), "pts3D": (4, n)}
 
     @torch.no_grad()
     def loss(self, pred: Dict[str, torch.Tensor], scene, plain: bool = False) -> torch.Tensor:
@@ -488,7 +541,7 @@ class TrainingSession:
         ranks): the forward and backward of its edge shard under the edge
         group's reductions, the loss scaled by the slot's weight before the
         backward (the JAX package's ``loss_func(pred, scene) * w``)."""
-        with edge_partitioned(self.mesh.edge_scope):
+        with self._sharded(scene.graph):
             loss, pred, grads = self._loss_and_grads(scene, plain, weight=float(weight))
         self.mesh.sum_over_world(grads)
         return loss, pred, grads
@@ -603,7 +656,7 @@ class TrainingSession:
         self.optimizer.set_lr()
         loss, pred, grads = self._mesh_loss_and_grads(scene, weight, plain)
         grad_norm = self._update(grads)
-        with torch.no_grad(), edge_partitioned(self.mesh.edge_scope):
+        with torch.no_grad(), self._sharded(scene.graph):
             repro = core_errors_device(pred, scene, plain=plain)["our_repro"] * weight
         sums = self.mesh.sum_over_data(torch.stack([loss, repro, torch.full_like(loss, weight)]))
         self.optimizer.advance_schedule()
@@ -653,7 +706,8 @@ class _HostScalars:
 
 
 def _prepare_batches(train_loader, outlier_injection_rate: Optional[float],
-                     rng: Optional[np.random.Generator], epoch: int, depth: int):
+                     rng: Optional[np.random.Generator], epoch: int, depth: int,
+                     group_slot: Optional[Tuple[int, int]] = None):
     """The loader's batches, each as a list of (scene, the scene the model
     takes, or None for a skipped sample): the validity check, the outlier
     injection (a failed one skips the sample) and the host half of the
@@ -661,7 +715,10 @@ def _prepare_batches(train_loader, outlier_injection_rate: Optional[float],
     with ``depth`` batches in flight (the JAX package's ``_prepare_batches``,
     train/loop.py:313; ``depth`` 0 runs them inline). numpy only: the
     upload is the caller's, on its own thread. The generator's draws stay
-    in one thread, in the loader's order."""
+    in one thread, in the loader's order. With ``group_slot`` (a mesh rank's
+    data slot and the number of slots), a batch of at most that many valid
+    samples is a group of which the rank takes one slot
+    (``pad_scene_group``): only that sample's graph is made."""
     from gasfm_tpu_torch.data.dataset import prefetch_iter
     from gasfm_tpu_torch.data.outliers import inject_outliers
 
@@ -682,8 +739,12 @@ def _prepare_batches(train_loader, outlier_injection_rate: Optional[float],
                               "skipping training sample.")
                         prepared.append((curr_data, None))
                         continue
-                model_data.host_graph()
                 prepared.append((curr_data, model_data))
+            models = [md for _, md in prepared if md is not None]
+            if group_slot is not None and 0 < len(models) <= group_slot[1]:
+                models = [models[min(group_slot[0], len(models) - 1)]]
+            for model_data in models:
+                model_data.host_graph()
             yield prepared
 
     if depth <= 0:
@@ -716,12 +777,24 @@ def epoch_train(
     phase (a single scene's epoch is one batch of the same scene: there it
     runs inline). A batch of one valid sample takes the fused step when the
     conf has both explicit heads, no backprojection metric and no outlier
-    injection (the JAX package's ``device_metrics``); otherwise each valid
+    injection (the JAX package's ``device_metrics``); on a mesh a batch of
+    at most ``n_data`` valid samples takes one ``fused_group_step`` (each
+    data slot one sample; its loss and ``our_repro`` the group's sums), each
+    rank making only its slot's graph (the JAX package's group branch,
+    train/loop.py:446-475, less its condition that the samples share one
+    capacity: the port has no capacity buckets, and where the JAX package
+    falls back to the per-sample path for samples of differing capacities
+    the group step sums the same gradients, so the values agree within
+    rounding); otherwise each valid
     sample takes ``loss_and_grads`` (``our_repro`` on the device with
     ``device_metrics``, else the host metrics the conf asks for, scored
     against the clean observations), their gradients summed
-    (``accumulate``), then one ``update``. A batch without a valid sample
-    steps only the schedule.
+    (``accumulate``), then one ``update`` (on a mesh each sample a group of
+    one, the JAX package's per-sample fallback, :495-520). A batch without
+    a valid sample steps only the schedule. Every rank of a mesh draws the
+    same batches (the loader's per-item seeds from the same generator); in
+    the ``TRAINING`` phase each epoch ends with one small all-reduce that
+    checks that every rank's batches held the same scenes.
 
     A batch's scalars are read, and logged, once the next batch has been
     dispatched. A single scene's epoch is one batch, so the deferral also
@@ -751,7 +824,7 @@ def epoch_train(
         if not pnd.get("carried"):
             train_losses.extend(losses)
             loss_totals["sum"] += batch_loss
-            loss_totals["n"] += n_loss
+            loss_totals["n"] += pnd.get("n_samples", n_loss)  # a group's loss is its sum
         nb = pnd["n_batch"]  # the reference's mean over the full batch
         batch_mean_repro = float(sum(repros)) / nb if (explicit and nb) else 0.0
         batch_mean_repro_backproj = (sum(pnd["backproj"]) / nb) if (calc_backproj and nb) else 0.0
@@ -778,32 +851,45 @@ def epoch_train(
                                   additional_identifiers,
                                   scene=None if phase == Phases.TRAINING else curr_scene_name)
 
+    mesh = session.mesh
+    group_max = 1 if mesh is None else mesh.n_data
     pending = carried
     batch_idx = -1
-    prepared_batches = _prepare_batches(train_loader, outlier_injection_rate, rng, epoch,
-                                        depth=2 if phase == Phases.TRAINING else 0)
+    drawn = 0  # a digest of the scenes the epoch's batches held
+    prepared_batches = _prepare_batches(
+        train_loader, outlier_injection_rate, rng, epoch,
+        depth=2 if phase == Phases.TRAINING else 0,
+        group_slot=(mesh.data_slot, mesh.n_data) if mesh is not None and device_metrics else None)
     for batch_idx, prepared_batch in enumerate(prepared_batches):
-        # the upload, on this thread (a CUDA call from the loader's thread
-        # could break a recording made here)
-        valid = [(curr_data, session.scene_graph(model_data))
+        for curr_data, _ in prepared_batch:
+            drawn = zlib.crc32(f"{curr_data.scene_name}/{curr_data.num_views};".encode(), drawn)
+        valid = [(curr_data, model_data)
                  for curr_data, model_data in prepared_batch if model_data is not None]
         loss_parts: List[Any] = []
         repro_parts: List[Any] = []
         backproj_parts: List[float] = []
         grad_norm = None
+        n_samples = None
         curr_scene_name = scene
         if not valid:
             # no valid sample: the reference still steps its scheduler
             # (train.py:152), not the optimizer
             session.advance_schedule()
-        elif device_metrics and len(valid) == 1:
-            curr_scene_name = valid[0][0].scene_name
-            loss, repro, grad_norm = session.fused_step(valid[0][1])
+        elif device_metrics and len(valid) <= group_max:
+            curr_scene_name = valid[-1][0].scene_name
+            if mesh is None:
+                # the upload, on this thread (a CUDA call from the loader's
+                # thread could break a recording made here)
+                loss, repro, grad_norm = session.fused_step(session.scene_graph(valid[0][1]))
+            else:  # a group: the rank makes its slot's graph only
+                loss, repro, _, grad_norm = session.fused_group_step([md for _, md in valid])
+                n_samples = len(valid)
             loss_parts.append(loss)
             repro_parts.append(repro)
         else:
             grads_sum = None
-            for curr_data, scene_graph in valid:
+            for curr_data, model_data in valid:
+                scene_graph = session.scene_graph(model_data)
                 curr_scene_name = curr_data.scene_name
                 loss, pred, grads = session.loss_and_grads(scene_graph)
                 if device_metrics:
@@ -838,8 +924,12 @@ def epoch_train(
             "scene_name": curr_scene_name,
             "lr": session.lr_at(n_updates),
         }
+        if n_samples is not None:
+            pending["n_samples"] = n_samples
         n_updates += 1  # the reference steps the scheduler every batch
 
+    if mesh is not None and phase == Phases.TRAINING:
+        mesh.assert_same(drawn, f"the scenes of epoch {epoch}'s batches")
     last = None
     if pending is not None:
         if keep_last:
@@ -895,8 +985,17 @@ def epoch_evaluation(
     ``state_dict``) are copied into the session's model first; None keeps
     its current ones. A scene that runs the device out of memory gets a row
     of NaNs unless ``crash_on_scene_exhausting_memory``. Returns the rows
-    with their ``Mean`` row. On a mesh every rank runs the forwards (they
-    are collective) and only rank 0 the rest; the others return None."""
+    with their ``Mean`` row. The scenes go through ``forward_group`` in
+    groups of one, or on a mesh of ``n_data``, each data slot on its own
+    scene (the JAX package's grouped evaluation, train/loop.py:648-720): a
+    group is made when its last scene is drawn, a rank makes its own slot's
+    graph only, before the clock starts, and ``Inference time`` is the
+    group's time over its scenes. On a mesh every rank runs the forwards
+    (they are collective) and only rank 0 the rest; the others return
+    None. There a scene whose preparation runs a rank out of memory gets
+    its row of NaNs on every rank (one all-reduce per group agrees on them),
+    while a forward that runs out of memory raises: the other ranks are
+    inside its all-reduces."""
     from gasfm_tpu_torch.data.outliers import inject_outliers
 
     additional_identifiers = list(additional_identifiers or [])
@@ -905,8 +1004,8 @@ def epoch_evaluation(
     if weights is not None:
         session.load_weights(weights)
 
-    def _post(curr_data, scene_graph, pred, pred_time):
-        pred_np = predictions_to_host(pred, curr_data, scene_graph.graph)
+    def _post(curr_data, graph, pred, pred_time):
+        pred_np = predictions_to_host(pred, curr_data, graph)
         outputs = prepare_predictions(curr_data, pred_np, conf, bundle_adjustment)
         errors = compute_errors(outputs, conf, bundle_adjustment)
         errors["Inference time"] = pred_time
@@ -927,32 +1026,85 @@ def epoch_evaluation(
                 )
         return errors
 
-    errors_list = []
+    def _dummy(curr_data):
+        errors = get_dummy_errors(conf, bundle_adjustment)
+        errors["Inference time"] = float("nan")
+        errors["Scene"] = curr_data.scene_name
+        return errors
+
+    def _tolerate(e: BaseException, curr_data) -> None:
+        if not _is_oom_error(e) or crash_on_scene_exhausting_memory:
+            raise e
+        print(f"Ran out of memory when evaluating on {curr_data.scene_name}.")
+
+    def _model_data(curr_data):
+        if outlier_injection_rate is None:
+            return curr_data
+        injected = inject_outliers(curr_data, outlier_injection_rate, rng=rng)
+        assert injected is not None
+        return injected
+
+    mesh = session.mesh
+    n_slots, own = (1, 0) if mesh is None else (mesh.n_data, mesh.data_slot)
+
+    def _rows(group):  # [(scene, the scene the model takes)] -> their rows
+        # the rank's own slot's graph, made before the clock starts (a short
+        # group's padding slots repeat its last scene); on a mesh the ranks
+        # agree through one all-reduce on the scenes that failed here, which
+        # get their dummy rows while the others go on as a smaller group
+        mine = min(own, len(group) - 1)
+        scenes, failed = [md for _, md in group], [False] * len(group)
+        try:
+            scenes[mine] = session.scene_graph(scenes[mine])
+        except Exception as e:  # noqa: BLE001 - the reference's OOM tolerance
+            _tolerate(e, group[mine][0])
+            failed[mine] = True
+        if mesh is not None:
+            failed = mesh.any_over_world(failed)
+        if any(failed):
+            rest = iter(_rows([g for g, f in zip(group, failed) if not f]) if not all(failed)
+                        else ())
+            return [_dummy(c) if f else next(rest) for (c, _), f in zip(group, failed)]
+        try:
+            _sync(session.device)
+            begin = time()
+            preds = session.forward_group(scenes)
+            _sync(session.device)
+        except Exception as e:  # noqa: BLE001 - the reference's OOM tolerance
+            if mesh is not None:  # collective: the other ranks are inside its all-reduces
+                raise
+            _tolerate(e, group[0][0])
+            return [_dummy(group[0][0])]
+        pred_time = (time() - begin) / len(group)
+        if not session.is_writer:
+            return [None] * len(group)
+        rows = []
+        try:
+            for (curr_data, model_data), scene, pred in zip(group, scenes, preds):
+                graph = (scene.graph if hasattr(scene, "graph") else
+                         model_data.host_graph() if "depths" in pred else None)
+                rows.append(_post(curr_data, graph, pred, pred_time))
+        except Exception as e:  # noqa: BLE001 - the reference's OOM tolerance
+            _tolerate(e, group[len(rows)][0])
+            rows += [_dummy(curr_data) for curr_data, _ in group[len(rows):]]
+        return rows
+
+    errors_list, group = [], []
     for j, batch_data in enumerate(data_loader):
         if log_memory_consumption:
             print(f"Scene batch {j + 1}/{len(data_loader)}.")
         for curr_data in batch_data:
             try:
-                model_data = curr_data
-                if outlier_injection_rate is not None:
-                    model_data = inject_outliers(curr_data, outlier_injection_rate, rng=rng)
-                    assert model_data is not None
-                scene_graph = session.scene_graph(model_data)
-                _sync(session.device)
-                begin = time()
-                pred = session.forward(scene_graph)
-                _sync(session.device)
-                if not session.is_writer:
-                    continue
-                errors = _post(curr_data, scene_graph, pred, time() - begin)
+                group.append((curr_data, _model_data(curr_data)))
             except Exception as e:  # noqa: BLE001 - the reference's OOM tolerance
-                if not _is_oom_error(e) or crash_on_scene_exhausting_memory:
-                    raise
-                print(f"Ran out of memory when evaluating on {curr_data.scene_name}.")
-                errors = get_dummy_errors(conf, bundle_adjustment)
-                errors["Inference time"] = float("nan")
-                errors["Scene"] = curr_data.scene_name
-            errors_list.append(errors)
+                _tolerate(e, curr_data)
+                errors_list.append(_dummy(curr_data))
+                continue
+            if len(group) == n_slots:
+                errors_list += _rows(group)
+                group = []
+    if group:
+        errors_list += _rows(group)
     return eval_errors_list2df(errors_list) if session.is_writer else None
 
 
@@ -1153,8 +1305,13 @@ def train(
     final_validation_metric = float("nan")
     begin_time = time()
 
-    def track_best(epoch: int, validation_errors: Table) -> float:
-        metric = aggregate_val_metric(validation_errors, metric_column=validation_metric)
+    def track_best(epoch: int, validation_errors: Optional[Table]) -> float:
+        # on a mesh rank 0 alone has the table: every rank takes its metric,
+        # and keeps its own copy of the weights, bitwise rank 0's
+        metric = (aggregate_val_metric(validation_errors, metric_column=validation_metric)
+                  if writer else float("nan"))
+        if session.mesh is not None:
+            metric = session.mesh.from_writer(metric)
         if metric < best["metric"]:
             best.update(metric=metric, epoch=epoch, weights=session.weights())
             if epoch >= 0:

@@ -1,5 +1,7 @@
 """The port's mesh (``parallel.mesh_shape = [n_data, n_edge]``, replicated
-tables) on the CPU, against the JAX package.
+tables: ``parallel.table_sharding = false``) on the CPU, against the JAX
+package. Table sharding, the default on an edge axis, and multi-scene
+learning on a mesh are held in tests/test_torch_port_table_sharding.py.
 
 The ranks are gloo processes spawned by the port's own launcher
 (``gasfm_tpu_torch.parallel.run_ranks``); they run
@@ -29,9 +31,11 @@ ranks (the ``[2, 2]`` mesh) and the CLI under ``[1, 2]``.
   through ``TrainingSession.from_conf`` and ``fused_group_step`` against the
   JAX package's ``make_sharded_fused_step`` on the conftest's 8-device CPU
   mesh (tests/test_parallel.py's tolerances).
-- What stays raising: table sharding null or true, multi-scene learning on a
-  mesh, ``parallel.distributed``, a recorded mesh session, a mesh conf
-  without the ranks.
+- What stays raising: ``parallel.distributed``, a recorded mesh session, a
+  mesh conf without the ranks. Table sharding null or true, which raised
+  before the port ran it, now gives the mesh's shape
+  (``test_mesh_shape_from_conf``); multi-scene learning on a mesh, which
+  raised too, runs (tests/test_torch_port_table_sharding.py's CLI test).
 - The CLI: ``single-scene-optim`` under ``[1, 2]`` for 2 epochs writes one
   tree.
 """
@@ -146,7 +150,7 @@ def case_of(name, n_scenes):
     depth = loss == "depth"
     return dict(model=(kind, kw), state={k: v.numpy() for k, v in model.state_dict().items()},
                 loss=(loss, loss_kw), optim=OPTIM, steps=STEPS, fused=not depth,
-                scenes=[scene(3 + i, depth) for i in range(n_scenes)])
+                scenes=[scene(3 + i, depth) for i in range(n_scenes)], table_sharding=False)
 
 
 def padded_case():
@@ -487,9 +491,7 @@ def mesh_conf(extra):
     return ConfigFactory.parse_string(f"parallel {{ {extra} }}")
 
 
-@pytest.mark.parametrize("extra", ["mesh_shape = [1, 2]", "mesh_shape = [2, 2]",
-                                   "mesh_shape = [1, 2], table_sharding = true",
-                                   "mesh_shape = [1, 1], distributed { enabled = true }"])
+@pytest.mark.parametrize("extra", ["mesh_shape = [1, 1], distributed { enabled = true }"])
 def test_unported_layouts_raise(extra):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         mesh_shape_from_conf(mesh_conf(extra))
@@ -497,7 +499,10 @@ def test_unported_layouts_raise(extra):
 
 @pytest.mark.parametrize("extra, want", [
     ("mesh_shape = [1, 2], table_sharding = false", (1, 2)),
-    ("mesh_shape = [2, 1]", (2, 1)), ("mesh_shape = [1, 1]", None), ("", None)])
+    ("mesh_shape = [2, 1]", (2, 1)), ("mesh_shape = [1, 1]", None), ("", None),
+    # table sharding null or true (raising before the port ran it)
+    ("mesh_shape = [1, 2]", (1, 2)), ("mesh_shape = [2, 2]", (2, 2)),
+    ("mesh_shape = [1, 2], table_sharding = true", (1, 2))])
 def test_mesh_shape_from_conf(extra, want):
     assert mesh_shape_from_conf(mesh_conf(extra)) == want
 
@@ -520,15 +525,6 @@ def test_mesh_conf_needs_the_ranks_and_refuses_capture():
     for call in (single.fused_group_step, single.group_loss_and_grads):
         with pytest.raises(ValueError, match="mesh session"):
             call([None])
-
-
-def test_multi_scene_learning_on_a_mesh_raises(tmp_path, monkeypatch):
-    from gasfm_tpu_torch.main import main
-
-    monkeypatch.setenv("GASFM_RESULTS_PATH", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="multi-scene-learning"):
-        main(["multi-scene-learning", "--conf", "synth/learning_synth_gasfm.conf",
-              "--device", "cpu", "--external-params", "parallel.mesh_shape=[2,1]"])
 
 
 def test_cli_single_scene_on_a_mesh_writes_one_tree(runs):

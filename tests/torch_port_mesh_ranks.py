@@ -6,14 +6,18 @@ ranks return with the JAX package's step.
 
 A case is a dict: ``model`` ("gasfm" or "dpesfm", its keyword arguments),
 ``state`` (the initial ``state_dict`` as numpy arrays), ``loss`` ("esfm" or
-"depth", its keyword arguments), ``optim``, optionally ``rank_noise``
+"depth", its keyword arguments), ``optim``, ``table_sharding`` (the
+session's: None, on with more than one edge shard; False, replicated
+tables), optionally ``rank_noise``
 (rank r adds r x it to the weights before its session broadcasts rank
 0's) — or ``conf``, a HOCON string that ``TrainingSession.from_conf``
 takes (with its mesh) — then optionally ``mesh`` ((n_data, n_edge), another
 layout of the same ranks), ``scenes``
 (a group: each a dict of M, Ns, y and depths or None), ``steps`` and
 ``fused`` (the steps after the first through ``fused_group_step``, else
-``group_loss_and_grads`` + ``update``; "all": the first one too). Each rank
+``group_loss_and_grads`` + ``update``; "all": the first one too) and
+``evaluate`` (the index of a scene: :func:`evaluate_failing` after the
+steps). Each rank
 returns, per case: the first step's loss, gradients (by parameter name)
 and predictions, with ``session.loss`` of those predictions (unless
 "all"), with more than one data slot ``forward_group``'s predictions
@@ -81,7 +85,8 @@ def make_session(case, mesh=None, device="cpu"):
     model.load_state_dict(state)
     loss_name, loss_kw = case["loss"]
     return TrainingSession(model, LOSSES[loss_name](**loss_kw), device=device,
-                           optim=case["optim"], mesh=mesh)
+                           optim=case["optim"], mesh=mesh,
+                           table_sharding=case.get("table_sharding"))
 
 
 def run_case(session, case):
@@ -119,6 +124,37 @@ def run_case(session, case):
     return out
 
 
+def evaluate_failing(session, case):
+    """``epoch_evaluation`` of the case's scenes (batches of one, no BA,
+    ``crash_on_scene_exhausting_memory=False``), then again with the graph
+    of scene ``case["evaluate"]`` running the device out of memory on the
+    last rank alone: rank 0's two tables' rows, None on the other ranks."""
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.train.loop import epoch_evaluation
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    conf = load_config("synth/learning_synth_gasfm.conf")
+    datas = [scene_data(d, i) for i, d in enumerate(case["scenes"])]
+
+    def run():
+        table = epoch_evaluation([[d] for d in datas], session, None, conf, 0,
+                                 Phases.VALIDATION, bundle_adjustment=False,
+                                 crash_on_scene_exhausting_memory=False)
+        return None if table is None else table.rows
+
+    clean = run()
+    if session.mesh.rank == session.mesh.size - 1:
+        make = session.scene_graph
+
+        def scene_graph(data):
+            if data is datas[case["evaluate"]]:
+                raise torch.cuda.OutOfMemoryError("out of memory on this rank alone")
+            return make(data)
+
+        session.scene_graph = scene_graph
+    return clean, run()
+
+
 def single_rank(case):
     """The case's group on a single-rank session: per step (the sum of the
     scenes' losses, of their our_repro, the gradient norm), the scenes'
@@ -151,7 +187,10 @@ def run_cases(mesh, cases, references=()):
     results = []
     for case in cases:  # a case's own layout of the same ranks ([2, 1] of [1, 2]'s)
         on = make_mesh(*case["mesh"], mesh.device) if "mesh" in case else mesh
-        results.append(run_case(make_session(case, on, on.device), case))
+        session = make_session(case, on, on.device)
+        results.append(run_case(session, case))
+        if "evaluate" in case:
+            results[-1]["evaluation"] = evaluate_failing(session, case)
     mine = list(references)[mesh.rank::mesh.size]
     refs = {i: single_rank(cases[i]) for i in mine}
     clean = not any(m.split(".")[0] in ("jax", "jaxlib", "gasfm_tpu") for m in sys.modules)

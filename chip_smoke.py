@@ -265,7 +265,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    session side by side: the step-1 loss and gradients bitwise the float32
    session's under (a) and (c); under (b) the loss within rtol 1e-2 and the
    gradients against the plain path in float64 from the same bf16 weights
-   by phase 5's rule with one bf16 rounding (2^-8 x max |ref|) added; 1 +
+   by phase 5's rule with one bf16 rounding (2^-8 x max |ref|) added, the
+   largest error of ``MIXED_PLAIN_RUNS`` plain bf16 runs its yardstick; 1 +
    3 steps captured against eager bitwise (values, weights, master,
    moments, count); port launches per step phase 12b's plus one Adam; ms
    per step captured against the float32 captured step, and the replay's
@@ -307,6 +308,31 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``synth/learning_synth_gasfm.conf`` under [2, 1] and [1, 2], 3 epochs in
    batches of two: exit 0, one tree, finite errors in every table
    (``chiprun_out/phase18/``).
+19. (after phase 18) Multi-host ``parallel.distributed``,
+   ``multihost_phase``: two launcher processes on this machine, standing
+   for two hosts, meet on a TCP store at 127.0.0.1 and a free port
+   (``parallel.Distributed``; process 0's launcher hosts the store), their
+   ranks sharing the card over gloo, each launcher returning its own ranks
+   (global rank ``process_id x local + local rank``): (a) the flagship,
+   table-sharded, under [1, 2], one rank per launcher, from the fresh
+   seeded weights of phase 18's run: step-1 loss and every gradient
+   against phase 18's one-launcher run, per tensor within phase 5's rule
+   taken twice (bitwise equality reported), then 2 more steps, the weights
+   bitwise equal on both ranks after each, launches per rank per step
+   those of the one launcher's, ms per step and the gradient all-reduce
+   alone beside phase 18's; (d) on those ranks, the grouped evaluation
+   forward's reserved bound (``TrainingSession.forward_bytes``) against its
+   measured peak above what was allocated (``torch.cuda.max_memory_allocated``
+   around a second call), within [peak, 2 x peak], and an evaluation with
+   rank 1's reservation failing (faked) giving the scene's row of NaNs on
+   rank 0; then at once (b) GASFM at 2 layers under [2, 2], two local ranks
+   per launcher (global ranks 2 and 3 on process 1), against phase 18's run
+   as phase 18 held it, and (c) ``multi-scene-learning`` on
+   ``synth/learning_synth_gasfm.conf`` under [2, 1] as two ``python -m
+   gasfm_tpu_torch.main`` processes (process ids 0 and 1, each its own
+   results directory): both exit 0, one tree, process 0's, under
+   ``chiprun_out/phase19/``, every table with phase 18's [2, 1] rows,
+   finite, within rtol 5e-3 + atol 1e-3 of them.
 13. A ``kernels`` JSON line (the seventeen TPU kernels' counterparts and
    the Adam kernel, each with its per-call ``ms`` and its burst
    ``burst_ms``; launches from the training path that runs each: GASFM's
@@ -391,7 +417,15 @@ DEPTH_SEEDS = {"gasfm": 2, "dpesfm": 7}
 # enough to fail a rule held to one run (PERF.md). The phase prints the
 # spread where it matters most.
 DEPTH_PLAIN_RUNS = 3
-SEG = "gasfm_tpu/ops/pallas/segment_kernels.py"
+# Phase 17 (b)'s step-1 rule likewise takes the largest error of this many
+# plain bf16 runs: there each run's atomic sums also move which activations
+# round up or down to bf16, so one run's error against float64 spans several
+# times from run to run (the flagship's final point LayerNorm weight:
+# 3.847e-05 in one run, 5.373e-05 in another, against the deterministic
+# kernel path's 2.292e-04, PERF.md). The phase prints the spread where it
+# matters most.
+MIXED_PLAIN_RUNS = 5
+SEG ="gasfm_tpu/ops/pallas/segment_kernels.py"
 # name -> (source in the repo, the TPU kernels' pallas_call it replaces, the
 # training path whose launches the kernels line reports; the "wide" path's
 # kernels report their times on the wide scene, the others on the dense one)
@@ -3733,8 +3767,10 @@ def mixed_precision_phase(dev, scenes, counters, record, L):
       (which phase 5's rule holds against float64); under (b) against the
       plain path run in float64 from the same (bf16) weights by phase 5's
       rule (``param_grad_errors``, ``branch_ties``) with bf16's rounding
-      added: the plain bf16 path is the yardstick (its error carries the
-      roundings of the linears' inputs and of the gradients to bf16), plus
+      added: the plain bf16 path is the yardstick, the largest error of
+      ``MIXED_PLAIN_RUNS`` runs (its error carries the roundings of the
+      linears' inputs and of the gradients to bf16, which its atomic sums
+      move from run to run), plus
       one bf16 rounding of each gradient (2^-8 x its max |ref|), on which
       side of a tie the kernel path may land;
     - 1 + TRAIN_STEPS steps, captured (warm-up, recording, replays) against
@@ -3941,12 +3977,14 @@ def mixed_precision_phase(dev, scenes, counters, record, L):
 def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
     """(b)'s step-1 gradients (bf16) against the plain path run in float64
     from the same bf16 weights, by phase 5's rule with bf16's rounding added
+    and the largest error of ``MIXED_PLAIN_RUNS`` plain runs its yardstick
     (see :func:`mixed_precision_phase`). Returns the line's note."""
     import copy
 
     from gasfm_tpu_torch.train.loop import TrainingSession
 
     _, _, p_grads = eager.loss_and_grads(scene, plain=True)
+    more = [eager.loss_and_grads(scene, plain=True)[2] for _ in range(MIXED_PLAIN_RUNS - 1)]
     ref = TrainingSession(copy.deepcopy(eager.model).double(), eager.loss_func, device=dev,
                           capture=False)
     acts = ActivationBranches()
@@ -3957,22 +3995,28 @@ def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
         r_loss, r_pred, r_grads = ref.loss_and_grads(scene64, plain=True)
     tie, ties = branch_ties(ref, scene64, pred, r_pred, r_grads, acts)
     rounding = [BF16_EPS * float(r.abs().max()) for r in r_grads]
-    errs, G = param_grad_errors(names, [g.float() for g in grads], [g.float() for g in p_grads],
-                                r_grads, GRAD_EPS64, [t + b for t, b in zip(ties, rounding)])
+    errs, G = param_grad_errors(names, [g.float() for g in grads], p_grads, r_grads, GRAD_EPS64,
+                                [t + b for t, b in zip(ties, rounding)], more)
     bad = [t for t in errs if not t[-1]]
     wk = max(errs, key=lambda t: t[1] / max(t[3], 1e-30))
+    # where one plain run's error would bound the kernel path's most tightly
+    tight = max(errs, key=lambda t: t[1] / (GRAD_FACTOR * t[4] + GRAD_RTOL64 * t[3]
+                                            + GRAD_EPS64 * G))
     note = (f"step-1 gradients (bf16, {len(errs)} tensors, G = {G:.4g}) against float64 from the "
             f"same weights: worst relative to its max |ref| {wk[0]} kernel {wk[1]:.3e}, plain "
-            f"{wk[2]:.3e}, max |ref| {wk[3]:.3e}; ties {tie['act_flips']} activations, "
+            f"{wk[2]:.3e} (the largest of {MIXED_PLAIN_RUNS} runs), max |ref| {wk[3]:.3e}; the "
+            f"plain path's error moves run to run, {tight[4]:.3e} to {tight[2]:.3e} on "
+            f"{tight[0]} (kernel path {tight[1]:.3e}); ties {tie['act_flips']} activations, "
             f"{tie['loss_flips']} loss edges; tol kernel err <= {GRAD_FACTOR:g} x plain err + "
             f"{GRAD_RTOL64:g} x max|ref| + {GRAD_EPS64:g} x G + ties + 2^-8 x max|ref| "
             f"{'ok' if not bad else 'FAIL'}")
     record.setdefault("mixed_b_grads", {}).update(
-        errors=[t[:4] for t in errs], G=G, loss64=float(r_loss), ties=tie)
+        errors=[t[:5] for t in errs], G=G, loss64=float(r_loss), ties=tie,
+        plain_runs=MIXED_PLAIN_RUNS)
     if bad:
         raise SmokeFailure(f"mixed b: step-1 gradients out of tolerance: "
                            f"{[t[:4] for t in bad[:8]]}")
-    del ref, r_grads, r_pred, p_grads
+    del ref, r_grads, r_pred, p_grads, more
     return note
 
 # ---------------------------------------------------------------------------
@@ -4224,6 +4268,21 @@ def mesh_grad_errors(got, ref, scale_rule):
     return out
 
 
+def flagship_grad_rule(record, names):
+    """Phase 5's rule for the flagship's step-1 gradients on the dense
+    scene, per tensor, taken twice (two paths, each against float64), plus
+    its ties' most: ``allowed(k, scale)`` for parameter ``names[k]``."""
+    p5 = record["train"]["dense"]
+    G = p5["step1_grad_G"]
+    tie = record["train"].get("dense_ties", {}).get("most", 0.0)
+    rule = {t[0]: GRAD_FACTOR * t[2] + GRAD_RTOL64 * t[3] + GRAD_EPS64 * G
+            for t in p5["step1_grad_vs_float64"]}
+
+    def allowed(k, scale):
+        return 2 * rule[names[k]] + tie
+    return allowed
+
+
 def mesh_phase(dev, counters, record, L, graphs_by_name):
     """Phase 18: the (data, edge) mesh (``parallel.mesh_shape``; table
     sharding, the default with more than one edge shard, and replicated
@@ -4233,7 +4292,8 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
     graphs of ``graphs_by_name``, made at set-up; another scene is made
     here); the table-sharded flagship also against the replicated one; then
     the CLI: single-scene optimization under [1, 2] over replicated tables
-    and table-sharded, multi-scene learning under [2, 1] and [1, 2]."""
+    and table-sharded, multi-scene learning under [2, 1] and [1, 2]. Returns
+    each run's ranks' results by label (phase 19's reference)."""
     from gasfm_tpu_torch.parallel import run_ranks
 
     t_phase = time.perf_counter()
@@ -4366,16 +4426,7 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
                 raise SmokeFailure(f"phase 18 {run.label}: step-1 loss {first[0]!r} against the "
                                    f"single-rank {total!r}")
             if run.label in (FLAGSHIP_REPLICATED, FLAGSHIP_SHARDED):
-                # phase 5's rule, per tensor, taken twice (the mesh path and the
-                # single-rank path each against float64), plus its ties' most
-                p5 = record["train"]["dense"]
-                G = p5["step1_grad_G"]
-                tie = record["train"].get("dense_ties", {}).get("most", 0.0)
-                rule = {t[0]: GRAD_FACTOR * t[2] + GRAD_RTOL64 * t[3] + GRAD_EPS64 * G
-                        for t in p5["step1_grad_vs_float64"]}
-
-                def allowed(k, scale):
-                    return 2 * rule[names[k]] + tie
+                allowed = flagship_grad_rule(record, names)
             else:
                 G = max(float(g.abs().max()) for g in grads)
 
@@ -4471,6 +4522,7 @@ def mesh_phase(dev, counters, record, L, graphs_by_name):
         mesh_msl_run(shape, record)
     record["mesh_phase_s"] = time.perf_counter() - t_phase
     print(f"phase 18 (multi-device training on a mesh of ranks): {record['mesh_phase_s']:.1f} s")
+    return results
 
 
 MESH_GRAD_EPS = 5e-6  # x the largest gradient: cancelling sums' noise, both float32 paths
@@ -4576,6 +4628,393 @@ def mesh_msl_run(shape, record):
           f"batches of two, fine-tuning 1): exit 0 in {wall:.1f} s, one tree, finite errors; "
           f"our_repro of the first row {({k: round(v, 3) for k, v in errors.items()})}")
     record.setdefault("mesh_msl", {})[shape] = dict(seconds=wall, our_repro=errors)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: multi-host parallel.distributed, two launchers that share the card
+# ---------------------------------------------------------------------------
+
+
+MULTIHOST_STEPS = 2  # the flagship's steps after the first
+MULTIHOST_LABELS = {"a": FLAGSHIP_SHARDED, "b": "gasfm [2, 2]"}
+MULTIHOST_TIMEOUT_S = 600
+LAUNCHER = ("import sys; sys.path.insert(0, sys.argv[2]); import chip_smoke; "
+            "sys.exit(chip_smoke.launcher_main(sys.argv[1]))")
+
+
+def multihost_runs(labels):
+    """Phase 18's runs of ``labels``, the flagship's with
+    ``MULTIHOST_STEPS`` steps after its first."""
+    runs = {r.label: r for r in mesh_runs()}
+    return [runs[k]._replace(steps=1 + MULTIHOST_STEPS) if k == FLAGSHIP_SHARDED else runs[k]
+            for k in labels]
+
+
+def multihost_rank(mesh, labels, reservation):
+    """One rank of phase 19 (``parallel.run_ranks``' function on each
+    launcher): ``mesh_rank`` of the runs of ``labels``, the launcher's
+    process id, and with ``reservation`` :func:`reservation_check`."""
+    import os
+
+    runs = multihost_runs(labels)
+    out = mesh_rank(mesh, runs)
+    out["launcher"] = os.getppid()
+    if reservation:
+        out["reservation"] = reservation_check(mesh, runs[0])
+    return out
+
+
+def reservation_check(mesh, run):
+    """The flagship's grouped evaluation forward on the dense scene (the
+    rank's table-sharded shard; ``run``'s model): its peak, the most that
+    ``torch.cuda.max_memory_allocated`` rose above what was allocated
+    before it (a second call: the first builds the graph's tables and the
+    libraries' workspaces), beside ``TrainingSession.forward_bytes``, the
+    bound that the evaluation reserves. Then ``epoch_evaluation`` of the
+    scene (no BA, ``crash_on_scene_exhausting_memory=False``) with the last
+    rank's reservation failing as if the card were full: rank 0's rows
+    (None elsewhere), and the reservations that really ran."""
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.train.loop import epoch_evaluation
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    dev = mesh.device
+    session = mesh_session(run, dev, mesh)
+    data = mesh_scene_data("dense", False)
+    graph = session.scene_graph(data)
+    session.forward_group([graph])
+    torch.cuda.synchronize(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    session.forward_group([graph])
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    bound = session.forward_bytes(graph)
+    reserve, reserved = session.reserve_forward, []
+
+    def reserve_forward(scene):
+        if mesh.rank == mesh.size - 1:
+            raise torch.cuda.OutOfMemoryError("the forward would not fit on this rank (faked)")
+        reserve(scene)
+        reserved.append(session.forward_bytes(scene))
+
+    session.reserve_forward = reserve_forward
+    conf = load_config("synth/learning_synth_gasfm.conf")
+    table = epoch_evaluation([[data]], session, None, conf, 0, Phases.VALIDATION,
+                             bundle_adjustment=False, crash_on_scene_exhausting_memory=False)
+    g = graph.graph
+    out = dict(peak=peak, bound=bound, reserved=reserved, edges=g.num_edges, points=g.num_pts,
+               cams=g.num_cams, rows=None if table is None else table.rows)
+    session.close()
+    del session, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def launcher_main(call_path):
+    """One launcher process of phase 19: ``run_ranks`` on the card of the
+    call in ``call_path`` (the name of this module's rank function, the
+    mesh, its arguments, the host's ``Distributed``); its ranks' results,
+    or its error's text, into ``call_path`` + ".out"."""
+    from gasfm_tpu_torch.parallel import run_ranks
+
+    name, shape, args, spec = torch.load(call_path, weights_only=False)
+    try:
+        out = ("ok", run_ranks(globals()[name], *shape, args=args, device="cuda",
+                               distributed=spec))
+    except Exception as e:  # noqa: BLE001 - the phase reports the error's text
+        out = ("error", str(e))
+    torch.save(out, call_path + ".out")
+    return 0 if out[0] == "ok" else 1
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env(**extra):
+    import os
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    env.update(extra)
+    return env
+
+
+def start_processes(commands, out_dir, name):
+    """``commands`` (argument lists, each with its environment's extra
+    variables) started from the repo's root at once, each logging to
+    ``out_dir/<name><i>.log``."""
+    procs = []
+    for i, (cmd, extra) in enumerate(commands):
+        log = open(out_dir / f"{name}{i}.log", "w")
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=child_env(**extra), stdout=log,
+                                      stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def wait_processes(procs, label):
+    """The processes' exit codes, all of them stopped if one outlives
+    ``MULTIHOST_TIMEOUT_S``."""
+    deadline = time.monotonic() + MULTIHOST_TIMEOUT_S
+    try:
+        return [p.wait(timeout=max(1.0, deadline - time.monotonic())) for p in procs]
+    except subprocess.TimeoutExpired:
+        raise SmokeFailure(f"phase 19 {label}: a process ran past {MULTIHOST_TIMEOUT_S} s") \
+            from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def start_launchers(key, shape, reservation, out_dir):
+    """The two launcher processes of run ``key`` on ``shape`` (process ids
+    0 and 1, meeting at 127.0.0.1 and a free port): (processes, call
+    paths)."""
+    from gasfm_tpu_torch.parallel import Distributed
+
+    port = free_port()
+    paths, commands = [], []
+    for pid in range(2):
+        path = out_dir / f"{key}{pid}.pt"
+        torch.save(("multihost_rank", shape, ([MULTIHOST_LABELS[key]], reservation),
+                    Distributed("127.0.0.1", port, 2, pid)), path)
+        paths.append(path)
+        commands.append(([sys.executable, "-c", LAUNCHER, str(path), str(ROOT)], {}))
+    return start_processes(commands, out_dir, f"launcher_{key}"), paths
+
+
+def launcher_results(key, procs, paths):
+    """Both launchers' ranks' results, in global rank order, after checking
+    that each exited 0 with its own ranks (launcher ``pid`` runs global
+    ranks ``pid x local`` onwards)."""
+    import os
+
+    rcs = wait_processes(procs, key)
+    ranks = []
+    for pid, (rc, path) in enumerate(zip(rcs, paths)):
+        out = Path(f"{path}.out")
+        status, res = (torch.load(out, weights_only=False) if out.exists()
+                       else ("error", "no result"))
+        os.remove(path)
+        if out.exists():
+            os.remove(out)
+        if rc != 0 or status != "ok":
+            raise SmokeFailure(f"phase 19 ({key}): launcher {pid} exit {rc}: {str(res)[-4000:]}")
+        ranks += res
+    local = len(ranks) // 2
+    layout = [(r["rank"], r["launcher"]) for r in ranks]
+    if [r for r, _ in layout] != list(range(len(ranks))) or \
+            len({lau for _, lau in layout[:local]}) != 1 or \
+            len({lau for _, lau in layout}) != 2:
+        raise SmokeFailure(f"phase 19 ({key}): ranks and launchers {layout}")
+    for r in ranks:
+        if r["backend"] != "gloo" or not r["device"].startswith("cuda"):
+            raise SmokeFailure(f"phase 19 ({key}): rank {r['rank']} on {r['backend']} "
+                               f"{r['device']}")
+    return ranks
+
+
+def multihost_msl_start(out_dir):
+    """``multi-scene-learning`` on the synthetic GASFM conf under [2, 1] as
+    two CLI processes, process ids 0 and 1, with phase 18's settings;
+    process 0 into ``out_dir/msl2x1``, process 1 into a directory of its
+    own, which it must leave unmade."""
+    port = free_port()
+    commands = []
+    for pid, results in enumerate(("msl2x1", "msl2x1_process1")):
+        commands.append((
+            [sys.executable, "-m", "gasfm_tpu_torch.main", "multi-scene-learning", "--conf",
+             "synth/learning_synth_gasfm.conf", "--exp-dir", "mesh", "--external-params",
+             "train.n_epochs=3", "eval.eval_interval=3", "train.finetune_n_epochs=1",
+             "dataset.batch_size=2", "parallel.mesh_shape=[2,1]",
+             "parallel.distributed.enabled=true",
+             f'parallel.distributed.coordinator_address="127.0.0.1:{port}"',
+             "parallel.distributed.num_processes=2", f"parallel.distributed.process_id={pid}"],
+            {"GASFM_RESULTS_PATH": str(out_dir / results)}))
+    return start_processes(commands, out_dir, "msl2x1_process")
+
+
+def csv_rows(path):
+    """A results CSV's rows by scene: the first column's name to the
+    errors that phase 18 compares."""
+    lines = [line.split(",") for line in path.read_text().splitlines()]
+    cols = [lines[0].index(c) for c in ("our_repro", "t_err_mean", "R_err_mean")]
+    return {row[0]: [float(row[c]) for c in cols] for row in lines[1:]}
+
+
+def multihost_msl_check(procs, out_dir, record):
+    """Both CLI processes exit 0; one tree, process 0's; every table's
+    rows those of phase 18's [2, 1] run, finite, within the grouped
+    evaluation's bounds (rtol 5e-3, atol 1e-3)."""
+    import os
+    import shutil
+
+    rcs = wait_processes(procs, "(c)")
+    root = out_dir / "msl2x1"
+    if rcs != [0, 0] or sorted(os.listdir(root)) != ["mesh"] or \
+            (out_dir / "msl2x1_process1").exists():
+        raise SmokeFailure(f"phase 19 (c): exit codes {rcs}, trees "
+                           f"{sorted(p.name for p in out_dir.iterdir() if p.is_dir())}")
+    worst = 0.0
+    for table in MSL_MESH_TABLES:
+        got = csv_rows(root / "mesh" / f"{table}.csv")
+        want = csv_rows(ROOT / "chiprun_out" / "phase18" / "msl2x1" / "mesh" / f"{table}.csv")
+        if list(got) != list(want):
+            raise SmokeFailure(f"phase 19 (c): {table} rows {list(got)} against phase 18's "
+                               f"{list(want)}")
+        for scene, vals in got.items():
+            for a, b in zip(vals, want[scene]):
+                if not math.isfinite(a) or abs(a - b) > 1e-3 + 5e-3 * abs(b):
+                    raise SmokeFailure(f"phase 19 (c): {table} {scene} {vals} against phase "
+                                       f"18's {want[scene]}")
+                worst = max(worst, abs(a - b) / max(abs(b), 1e-12))
+    shutil.rmtree(root / "mesh" / "code", ignore_errors=True)
+    record["c"] = dict(tables=len(MSL_MESH_TABLES), worst_rel=worst)
+    print(f"phase 19 (c) multi-scene learning under [2, 1] as two CLI processes "
+          f"(synth/learning_synth_gasfm.conf, phase 18's settings): both exit 0, one tree, "
+          f"process 0's; {len(MSL_MESH_TABLES)} tables with phase 18's rows, finite, largest "
+          f"relative difference {worst:.2e} ok")
+
+
+def multihost_phase(dev, record, mesh_results):
+    """Phase 19: multi-host ``parallel.distributed``, two launcher
+    processes on this machine meeting on a TCP store at 127.0.0.1 and a
+    free port, their ranks sharing the card over gloo: (a) the flagship
+    table-sharded under [1, 2], one rank per launcher, against phase 18's
+    one-launcher run (step-1 loss and gradients, then 2 steps, the weights
+    bitwise equal on both ranks after each, launches per step, ms per step
+    and the gradient all-reduce), and (d) its grouped evaluation forward's
+    reserved bound against the measured peak, a reservation failure faked
+    on rank 1; then at once (b) GASFM at 2 layers under [2, 2], two local
+    ranks per launcher, against phase 18's, and (c) ``multi-scene-learning``
+    under [2, 1] as two CLI processes against phase 18's."""
+    from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "phase19"
+    if out_dir.exists():
+        import shutil
+
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    summary = {}
+    t0 = time.perf_counter()
+    ranks_a = launcher_results("a", *start_launchers("a", (1, 2), True, out_dir))
+    print(f"phase 19 (a): two launchers of one rank each, spawned, run and joined in "
+          f"{time.perf_counter() - t0:.1f} s; " + "; ".join(
+              f"rank {r['rank']} (launcher pid {r['launcher']}) {r['backend']} on {r['device']}"
+              for r in ranks_a))
+    t0 = time.perf_counter()
+    procs_b = start_launchers("b", (2, 2), False, out_dir)
+    procs_c = multihost_msl_start(out_dir)
+
+    # (a) against phase 18's one-launcher run of the same mesh
+    run = multihost_runs([FLAGSHIP_SHARDED])[0]
+    names = [k for k, p in GraphAttnSfMNet(**run.model[1]).named_parameters() if p.requires_grad]
+    got = [r["runs"][FLAGSHIP_SHARDED] for r in ranks_a]
+    want = mesh_results[FLAGSHIP_SHARDED]
+    g0, w0 = got[0], want[0]
+    for r in got[1:]:
+        if r["digests"] != g0["digests"]:
+            raise SmokeFailure("phase 19 (a): weights differ between the launchers' ranks")
+    loss, ref_loss = g0["values"][0][0], w0["values"][0][0]
+    errs = mesh_grad_errors(g0["grads"], w0["grads"], flagship_grad_rule(record, names))
+    bad = [e for e in errs if e[1] > e[3] or not e[4]]
+    bitwise = sum(torch.equal(a, b) for a, b in zip(g0["grads"], w0["grads"]))
+    worst = max(errs, key=lambda e: e[1] / max(e[3], 1e-30))
+    launches = [r["launches"] == w["launches"][:len(r["launches"])] for r, w in zip(got, want)]
+    print(f"phase 19 (a) {FLAGSHIP_SHARDED} on two launchers: step-1 loss {loss!r} against the "
+          f"one launcher's {ref_loss!r} ({'bitwise' if loss == ref_loss else 'differs'}); "
+          f"{len(errs)} gradients against the one launcher's, {bitwise} bitwise equal, the "
+          f"closest to its bound (phase 5's rule taken twice) {names[worst[0]]}: max |err| "
+          f"{worst[1]:.3e}, allowed {worst[3]:.3e} {'ok' if not bad else 'FAIL'}")
+    if bad or abs(loss - ref_loss) > 1e-5 * abs(ref_loss) or not all(launches):
+        raise SmokeFailure(f"phase 19 (a): loss {loss} / {ref_loss}, gradients "
+                           f"{[(names[e[0]], e[1], e[3]) for e in bad[:8]]}, launches as the "
+                           f"one launcher's {launches}")
+    ms, ref_ms = [round(t, 1) for t in g0["ms"]], [round(t, 1) for t in w0["ms"]]
+    print(f"phase 19 (a): weights equal on both ranks after each of {len(g0['ms'])} steps; "
+          f"launches per rank per step those of the one launcher's {g0['launches'][-1]}; ms "
+          f"per step {ms} against the one launcher's {ref_ms}; the gradient all-reduce alone "
+          f"{g0['allreduce_ms']:.1f} ms against {w0['allreduce_ms']:.1f} ms for "
+          f"{g0['grad_bytes'] / 2**20:.1f} MiB; later losses "
+          f"{[v[0] for v in g0['values'][1:]]}")
+    summary["a"] = dict(loss=loss, one_launcher_loss=ref_loss, grads_bitwise=bitwise,
+                        grads=len(errs), grad_worst=(names[worst[0]], worst[1], worst[3]),
+                        ms=g0["ms"], one_launcher_ms=w0["ms"], allreduce_ms=g0["allreduce_ms"],
+                        one_launcher_allreduce_ms=w0["allreduce_ms"],
+                        launches_per_step=g0["launches"][-1])
+
+    # (d) the reservation before a mesh's grouped evaluation forward
+    res = [r["reservation"] for r in ranks_a]
+    rows = res[0]["rows"]
+    numbers = [] if rows is None else [v for v in rows[0][1].values() if isinstance(v, float)]
+    nan_row = len(rows or ()) == 2 and bool(numbers) and all(math.isnan(v) for v in numbers)
+    within = [r["peak"] <= r["bound"] <= 2 * r["peak"] for r in res]
+    for k, r in enumerate(res):
+        print(f"phase 19 (d) rank {k}: the flagship's grouped evaluation forward on the dense "
+              f"scene's shard ({r['edges']} edges, {r['points']} points, {r['cams']} cameras): "
+              f"peak {r['peak'] / 2**20:.1f} MiB above what was allocated, the reserved bound "
+              f"{r['bound'] / 2**20:.1f} MiB ({r['bound'] / r['peak']:.2f} x) "
+              f"{'ok' if within[k] else 'FAIL'}")
+    print(f"phase 19 (d): rank 1's reservation failing (faked), rank 0's reserved "
+          f"{[round(b / 2**20, 1) for b in res[0]['reserved']]} MiB and passed: rank 0's rows "
+          f"{[name for name, _ in rows] if rows else rows}, the scene's row "
+          f"{'all NaN' if nan_row else 'NOT all NaN'}; rank 1 "
+          f"{'None' if res[1]['rows'] is None else 'a table'}")
+    if not all(within) or not nan_row or res[1]["rows"] is not None or \
+            res[0]["reserved"] != [res[0]["bound"]]:
+        raise SmokeFailure(f"phase 19 (d): bounds within [peak, 2 x peak] {within}, the agreed "
+                           f"dummy row {nan_row}")
+    summary["d"] = [dict(peak=r["peak"], bound=r["bound"], edges=r["edges"], points=r["points"],
+                         cams=r["cams"]) for r in res]
+
+    # (b) [2, 2], two local ranks per launcher, against phase 18's
+    ranks_b = launcher_results("b", *procs_b)
+    label = MULTIHOST_LABELS["b"]
+    got = [r["runs"][label] for r in ranks_b]
+    want = mesh_results[label]
+    g0, w0 = got[0], want[0]
+    for r in got[1:]:
+        if r["digests"] != g0["digests"]:
+            raise SmokeFailure("phase 19 (b): weights differ between the launchers' ranks")
+    first, ref_first = g0["values"][0], w0["values"][0]
+    G = max(float(m.abs().max()) for m in w0["mu"])
+    errs = mesh_grad_errors(g0["mu"], w0["mu"], lambda k, scale: 1e-4 * scale + MESH_GRAD_EPS * G)
+    bad = [e for e in errs if e[1] > e[3] or not e[4]]
+    bitwise = sum(torch.equal(a, b) for a, b in zip(g0["mu"], w0["mu"]))
+    close = first[2] == ref_first[2] and all(
+        abs(a - b) <= 1e-4 * abs(b) for a, b in zip(first, ref_first))
+    launches = all(r["launches"] == w["launches"] for r, w in zip(got, want))
+    print(f"phase 19 (b) {label} on two launchers of two local ranks (global ranks "
+          f"{[r['rank'] for r in ranks_b[:2]]} on process 0, {[r['rank'] for r in ranks_b[2:]]} on "
+          f"process 1), spawned, run and joined in {time.perf_counter() - t0:.1f} s: (loss, "
+          f"our_repro, n_valid, grad_norm) {first} against the one launcher's {ref_first} "
+          f"({'bitwise' if first == ref_first else 'differs'}); {len(errs)} first moments, "
+          f"{bitwise} bitwise equal; weights equal on all 4 ranks; launches as the one "
+          f"launcher's {'ok' if close and not bad and launches else 'FAIL'}")
+    if not close or bad or not launches:
+        raise SmokeFailure(f"phase 19 (b): {first} / {ref_first}, first moments "
+                           f"{[(e[0], e[1], e[3]) for e in bad[:8]]}, launches {launches}")
+    summary["b"] = dict(first=first, one_launcher_first=ref_first, mu_bitwise=bitwise,
+                        mu=len(errs), ms=g0["ms"], one_launcher_ms=w0["ms"])
+
+    # (c) the CLI on two processes
+    multihost_msl_check(procs_c, out_dir, summary)
+    record["multihost"] = summary
+    record["multihost_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 19 (multi-host parallel.distributed, two launchers): "
+          f"{record['multihost_phase_s']:.1f} s")
+
 
 
 def main() -> int:
@@ -4840,7 +5279,11 @@ def main() -> int:
 
     # ---- phase 18: multi-device training, scene data parallelism, edge
     # partitioning and table sharding, with ranks that share the card
-    mesh_phase(dev, counters, record, L, {**scenes, "wide": wide["wide"]})
+    mesh_results = mesh_phase(dev, counters, record, L, {**scenes, "wide": wide["wide"]})
+
+    # ---- phase 19: multi-host parallel.distributed, two launchers on this
+    # machine meeting on a TCP store, their ranks sharing the card
+    multihost_phase(dev, record, mesh_results)
 
     # ---- phase 13: the record
     kernels = []

@@ -52,8 +52,20 @@ than one edge shard, over a point table sharded between the ranks), and
 only rank 0 prints, writes the tree and runs BA. Multi-scene learning
 trains on groups of sampled scenes (one per data slot), evaluates in
 groups, and every rank fine-tunes and short-optimizes each test scene on
-the mesh. ``parallel.distributed`` raises ``NotImplementedError``
-(multi-host, not ported yet).
+the mesh. With ``parallel.distributed`` enabled the mesh spans hosts: the
+user starts one CLI per host, each with the same conf but its own
+``parallel.distributed.process_id`` (and the same ``coordinator_address``,
+process 0's host and a free port, and ``num_processes``), as the JAX
+package's CLI is run; each launches its ``n_data * n_edge /
+num_processes`` local ranks (``parallel.run_ranks``), the ranks of every
+host meet on a TCP store at the coordinator, and only process 0 wipes the
+experiment (``--overwrite-exp``) and snapshots the code, as only global rank
+0 prints and writes::
+
+    python -m gasfm_tpu_torch.main multi-scene-learning --conf synth/learning_synth_gasfm.conf \
+        --external-params 'parallel.mesh_shape=[2,1]' parallel.distributed.enabled=true \
+        'parallel.distributed.coordinator_address="host0:29500"' \
+        parallel.distributed.num_processes=2 parallel.distributed.process_id=0
 """
 
 from __future__ import annotations
@@ -239,13 +251,16 @@ def learn(conf, args, model, rng: np.random.Generator, device, mesh=None) -> Non
 
 def main(argv=None) -> int:
     """Run the CLI (see the module docstring). Returns 0."""
-    from gasfm_tpu_torch.parallel import mesh_shape_from_conf, run_ranks
+    from gasfm_tpu_torch.parallel import distributed_from_conf, mesh_shape_from_conf, run_ranks
     from gasfm_tpu_torch.utils.device import resolve_device
 
     args = parse_args(argv)
     device = resolve_device(args.device)
     conf, rng = init_exp(args)
     mesh_shape = mesh_shape_from_conf(conf)
+    distributed = distributed_from_conf(conf)
+    # on a shared file system another host's wipe would delete process 0's tree
+    writer = distributed is None or distributed.process_id == 0
 
     from gasfm_tpu_torch.experiments import train_model_single_scene
     from gasfm_tpu_torch.utils.observability import log_code
@@ -260,13 +275,15 @@ def main(argv=None) -> int:
         model, _ = init_model(conf, pretrained)
     if args.count_model_params_and_die:
         return 0
-    if args.overwrite_exp:
+    if args.overwrite_exp and writer:
         exp_path = path_to_exp(conf, create=False)
         if os.path.exists(exp_path):
             shutil.rmtree(exp_path)
-    log_code(conf)
+    if writer:
+        log_code(conf)
     if mesh_shape is not None:  # the ranks take it from here, each with this conf
-        run_ranks(_mesh_rank, *mesh_shape, args=(conf, args, pretrained), device=device.type)
+        run_ranks(_mesh_rank, *mesh_shape, args=(conf, args, pretrained), device=device.type,
+                  distributed=distributed)
         return 0
     if args.mode == "single_scene_optim":
         train_model_single_scene(conf, model, Phases.OPTIMIZATION, rng=rng, device=device)

@@ -57,6 +57,7 @@ from gasfm_tpu_torch.models.layers import (
     GraphAttnGlobalFeatureUpdate,
     GraphAttnLayer,
     MLPStack,
+    default_agg_width,
     init_parameters,
 )
 from gasfm_tpu_torch.utils.constants import DENSE_MAX_SEGMENTS
@@ -113,6 +114,16 @@ class GraphAttnSfMNet(nn.Module):
 
         self.embed = EmbeddingLayer(pos_emb_n_freq, 2, post_embed_proj_dim=-1)
         d_emb = self.embed.d_out
+        agg_p = n_feat_proj2scenepoint_agg or default_agg_width(n_feat_proj, n_heads)
+        agg_c = n_feat_proj2view_agg or default_agg_width(n_feat_proj, n_heads)
+        # the widest row of the forward's per-edge, per-point, per-view and
+        # global activations: the edge stream (with the init skip beside it),
+        # the aggregations' source rows and the depth head's; the node
+        # features and their aggregations' rows
+        self.activation_widths = (
+            max(n_feat_proj + d_emb, agg_p, agg_c, depth_head_n_feat if depth_head_enabled else 0),
+            max(n_feat_scenepoint, agg_p, n_feat_scenepoint2global_agg or 0),
+            max(n_feat_view, agg_c, n_feat_view2global_agg or 0), n_feat_global)
         common = dict(
             n_feat_proj2scenepoint_agg=n_feat_proj2scenepoint_agg,
             n_feat_proj2view_agg=n_feat_proj2view_agg,

@@ -63,6 +63,9 @@ class SetOfSetNet(nn.Module):
         self.calibrated = calibrated
         self.rot_representation = rot_representation
         self.normalize_output = normalize_output
+        # the widest per-edge, per-point, per-view and global activation
+        self.activation_widths = (max(num_features, depth_head_n_feat if depth_head_enabled
+                                      else 0), num_features, num_features, num_features)
 
         self.embed = EmbeddingLayer(pos_emb_n_freq, 2, post_embed_proj_dim=None)
         self.equivariant_blocks = nn.ModuleList([

@@ -35,9 +35,14 @@ Every collective is an ``all_reduce`` or a ``broadcast``, which gloo runs on
 CPU and CUDA tensors alike (through host memory for CUDA): the ranks may
 share one card, where NCCL refuses two ranks on one device.
 
-What the JAX package runs and the port does not yet raises
-``NotImplementedError`` (:func:`mesh_shape_from_conf`): multi-host
-``parallel.distributed``.
+Multi-host ``parallel.distributed`` (:func:`distributed_from_conf`, the
+counterpart of the JAX package's ``initialize_distributed``, :212): one
+launcher per host, each with its ``process_id``, launches ``n_data * n_edge
+/ num_processes`` local ranks; the global rank is ``process_id x local +
+local rank``, the JAX package's process-major device order, so the layout
+above, the groups and the writer (global rank 0) keep their meaning. The
+ranks of every launcher meet on a TCP store at ``coordinator_address``,
+which process 0's launcher hosts (``launch.run_ranks``).
 """
 
 from __future__ import annotations
@@ -174,14 +179,9 @@ def make_mesh(n_data: int, n_edge: int, device: torch.device) -> Mesh:
 def mesh_shape_from_conf(conf) -> Optional[Tuple[int, int]]:
     """``parallel.mesh_shape = [n_data, n_edge]`` (the JAX package's
     ``mesh_from_conf``, ``edge_sharding.py:251``): None when unset or of one
-    position. Raises ``NotImplementedError`` for what the port does not run
-    yet: ``parallel.distributed.enabled`` (multi-host). Whether the mesh
-    shards its point table is ``parallel.table_sharding``
-    (:func:`table_sharding_on`)."""
-    if conf.get_bool("parallel.distributed.enabled", default=False):
-        raise NotImplementedError(
-            "parallel.distributed.enabled: multi-host execution (one process group across "
-            "hosts) is not ported yet")
+    position. Whether the mesh shards its point table is
+    ``parallel.table_sharding`` (:func:`table_sharding_on`); whether its
+    ranks span hosts, ``parallel.distributed`` (:func:`distributed_from_conf`)."""
     shape = conf.get_list("parallel.mesh_shape", default=None)
     if shape is None:
         return None
@@ -193,6 +193,60 @@ def mesh_shape_from_conf(conf) -> Optional[Tuple[int, int]]:
     if n_data * n_edge <= 1:
         return None
     return n_data, n_edge
+
+
+@dataclasses.dataclass(frozen=True)
+class Distributed:
+    """One host's place in a multi-host mesh (``parallel.distributed``):
+    the TCP store's ``host`` and ``port`` (process 0's launcher hosts it),
+    the number of launcher processes and this one's id."""
+
+    host: str
+    port: int
+    num_processes: int
+    process_id: int
+
+    def local_ranks(self, world: int) -> range:
+        """The global ranks of this process's launcher in a mesh of
+        ``world`` ranks: ``process_id x local`` onwards, ``local = world /
+        num_processes``."""
+        local = world // self.num_processes
+        return range(self.process_id * local, (self.process_id + 1) * local)
+
+
+def distributed_from_conf(conf) -> Optional[Distributed]:
+    """``parallel.distributed.{enabled, coordinator_address ("host:port"),
+    num_processes, process_id}``: None unless enabled, else this process's
+    :class:`Distributed` (the port's counterpart of the JAX package's
+    ``initialize_distributed``, ``edge_sharding.py:212``, which starts the
+    JAX runtime with them). Where the JAX package detects a missing key
+    from a TPU pod's or a cluster's metadata, which has no counterpart
+    here, a missing key raises ``ValueError`` naming it; so does a mesh
+    (:func:`mesh_shape_from_conf`) of one position, or of a number of ranks
+    that ``num_processes`` does not divide (each process launches as many
+    ranks)."""
+    if not conf.get_bool("parallel.distributed.enabled", default=False):
+        return None
+    values = {k: conf.get(f"parallel.distributed.{k}", default=None)
+              for k in ("coordinator_address", "num_processes", "process_id")}
+    for k, v in values.items():
+        if v is None:
+            raise ValueError(f"parallel.distributed.enabled: parallel.distributed.{k} is not "
+                             f"set (the port does not detect it from a cluster's metadata)")
+    host, _, port = str(values["coordinator_address"]).rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"parallel.distributed.coordinator_address must be \"host:port\", got "
+                         f"{values['coordinator_address']!r}")
+    n_proc, pid = int(values["num_processes"]), int(values["process_id"])
+    if n_proc < 1 or not 0 <= pid < n_proc:
+        raise ValueError(f"parallel.distributed: process_id {pid} of num_processes {n_proc}")
+    shape = mesh_shape_from_conf(conf)
+    world = 1 if shape is None else shape[0] * shape[1]
+    if shape is None or world % n_proc:
+        raise ValueError(f"parallel.distributed.num_processes = {n_proc} must divide the "
+                         f"ranks of parallel.mesh_shape ({world}), a mesh of more than one "
+                         f"position: each process launches as many ranks")
+    return Distributed(host=host, port=int(port), num_processes=n_proc, process_id=pid)
 
 
 def table_sharding_on(setting: Optional[bool], n_edge: int) -> bool:

@@ -19,10 +19,12 @@ row: ``segment_max``, ``scatter_reduce_``, ``frontend_prologue``,
 Each measurement profiles ``--calls`` back-to-back calls of one function
 and nothing else, after a warm-up, and divides the summed device time of
 every kernel in the window by the calls: so a function of several launches
-is counted whole. A window that caught fewer CUDA events than calls is
-taken again, up to WINDOWS times, and then that row is reported as not
-measured (with the events each window caught), never as a time of 0, and
-the script exits non-zero after the last row. Each row also carries a digest of
+is counted whole. A window counts once a second one caught the same
+events of every kernel and none caught more (the profiler drops events
+now and then); otherwise it is taken again, up to WINDOWS times, and then
+that row is reported as not measured (with the events each window
+caught), never as a time of 0 or a part of one, and the script exits
+non-zero after the last row. Each row also carries a digest of
 the function's outputs (SHA-1 of their bytes), so two trees' rows show
 whether they compute the same bits. The layer step runs at the flagship's
 interior shapes (en (E, 32), skip2 (E, 2), res (E, 32), W (32, 34), both
@@ -111,13 +113,18 @@ WINDOWS = 10
 
 def device_ms_per_call(fn, calls):
     """(device ms per call summed over every kernel in the window, {kernel
-    name: (launches, device ms) per call}). Every call launches at least one
-    kernel, so a window in which the profiler caught fewer CUDA events than
-    calls is taken again, up to WINDOWS times in all; then it raises: an
-    empty window is not a time of 0."""
+    name: (launches, device ms) per call}). A window counts once a second
+    window caught the same events of every kernel and no window caught more
+    of any: the profiler drops some or all of a window's events now and then
+    (``WINDOWS``), and a window that kept only some of them would report too
+    little time. Every call launches at least one kernel, so a window with
+    fewer CUDA events than calls never counts. Windows are taken again up to
+    WINDOWS times in all; then it raises: an incomplete window is not a
+    time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    seen = []  # per window: {kernel name: CUDA events}
     for _ in range(WINDOWS):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -129,14 +136,19 @@ def device_ms_per_call(fn, calls):
                 k = names[evt.name.split("(")[0][:70]]
                 k[0] += 1
                 k[1] += evt.time_range.elapsed_us()
-        if sum(n for n, _ in names.values()) >= calls:
+        counts = {k: n for k, (n, _) in names.items()}
+        seen.append(counts)
+        most = {k: max(c.get(k, 0) for c in seen) for c in seen for k in c}
+        if sum(counts.values()) >= calls and counts == most and seen.count(counts) >= 2:
             total = sum(us for _, us in names.values())
             return total / calls / 1e3, {k: (n / calls, round(us / calls / 1e3, 4))
                                          for k, (n, us) in names.items()}
-        print(f"  device_ms_per_call: a window of {calls} calls caught "
-              f"{ {k: n for k, (n, _) in names.items()} } CUDA events", flush=True)
+        if sum(counts.values()) < calls or counts != most:
+            print(f"  device_ms_per_call: a window of {calls} calls caught {counts} CUDA events "
+                  f"(the most of each kernel in any window: {most})", flush=True)
     raise RuntimeError(f"device_ms_per_call: {WINDOWS} profiler windows of {calls} calls each "
-                       "caught fewer CUDA events than calls")
+                       "caught fewer CUDA events than calls, or no two of them the most events "
+                       "of every kernel")
 
 
 def digest(out) -> str:

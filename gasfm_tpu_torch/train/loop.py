@@ -289,10 +289,9 @@ class TrainingSession:
         of more than one position makes a mesh session on ``mesh``, this
         rank's :class:`~gasfm_tpu_torch.parallel.Mesh` of that shape (the
         ranks come from ``parallel.run_ranks``, or from the CLI, which
-        launches them); without ``mesh`` it raises ``ValueError``; it shards
-        the point table as ``parallel.table_sharding`` says. What the port
-        does not run yet raises ``NotImplementedError``
-        (``parallel.mesh_shape_from_conf``: multi-host)."""
+        launches them, one launcher per host under ``parallel.distributed``);
+        without ``mesh`` it raises ``ValueError``; it shards the point table
+        as ``parallel.table_sharding`` says."""
         from gasfm_tpu_torch.parallel import mesh_shape_from_conf
 
         shape = mesh_shape_from_conf(conf)
@@ -303,6 +302,20 @@ class TrainingSession:
         return cls(model, get_loss_func(conf), device=device,
                    optim=optim_from_conf(conf, milestone_shift), capture=capture, mesh=mesh,
                    table_sharding=conf.get_bool("parallel.table_sharding", default=None))
+
+    def forward_bytes(self, scene) -> int:
+        """An upper bound of the device memory that the evaluation forward
+        of a scene graph of this session (on a mesh, of the rank's shard)
+        allocates beyond what is allocated before it
+        (:func:`forward_bytes_bound`)."""
+        return forward_bytes_bound(self.model, scene.graph)
+
+    def reserve_forward(self, scene) -> None:
+        """Allocate :meth:`forward_bytes` on the session's device and free it
+        back to the caching allocator, where the forward finds it: raises
+        the device's out-of-memory error when the forward would not fit."""
+        block = torch.empty(self.forward_bytes(scene), dtype=torch.uint8, device=self.device)
+        del block
 
     @property
     def is_writer(self) -> bool:
@@ -667,6 +680,37 @@ class TrainingSession:
 # The drivers: one epoch of training, one evaluation pass, the controller
 # ---------------------------------------------------------------------------
 
+# Rows of the widest activation that a no-grad forward holds at once, per
+# edge of the scene (or the rank's edge shard) by path, and per node. The
+# merged path's layer step holds the previous stream, its residual and the
+# init skip, then writes the new stream, its normalized copy and both
+# aggregations' source rows: 7, and 1 for an operand the kernel's
+# validation copies. The unfused path's composites (gathers of the node
+# rows per edge, logits, the concatenated update input) and DPESFM's
+# set-of-sets layers (the block's input, the edge linear, the combine, the
+# mean-centered and rectified copies) stay within the doubled 16 and the 8.
+# A node holds its previous and new features, their aggregation and query
+# rows, the finish MLP's LayerNorm and hidden rows and the update's table
+# rows, not all as wide as the widest: 8.
+FORWARD_EDGE_ROWS = {"merged": 8, "unfused": 16, "dpesfm": 8}
+FORWARD_NODE_ROWS = 8
+
+
+def forward_bytes_bound(model: Union[GraphAttnSfMNet, SetOfSetNet], graph) -> int:
+    """An upper bound of the float32 activations that ``model``'s no-grad
+    forward of ``graph`` holds at once: ``FORWARD_EDGE_ROWS`` of the path's
+    rows of the widest per-edge activation per edge, ``FORWARD_NODE_ROWS``
+    of the widest per-point, per-view and global one per node
+    (``model.activation_widths``). On a mesh ``graph`` is the rank's
+    shard, whose edges are its own and whose tables are whole."""
+    w_edge, w_point, w_view, w_global = model.activation_widths
+    path = ("dpesfm" if isinstance(model, SetOfSetNet) else
+            "merged" if model.merged_path(graph) else "unfused")
+    rows = (FORWARD_EDGE_ROWS[path] * graph.num_edges * w_edge
+            + FORWARD_NODE_ROWS * (graph.num_pts * w_point + graph.num_cams * w_view + w_global))
+    return 4 * rows
+
+
 def _is_oom_error(e: BaseException) -> bool:
     """A device out-of-memory error (the JAX package's reads XLA's
     RESOURCE_EXHAUSTED; train/loop.py:59)."""
@@ -993,9 +1037,14 @@ def epoch_evaluation(
     group's time over its scenes. On a mesh every rank runs the forwards
     (they are collective) and only rank 0 the rest; the others return
     None. There a scene whose preparation runs a rank out of memory gets
-    its row of NaNs on every rank (one all-reduce per group agrees on them),
-    while a forward that runs out of memory raises: the other ranks are
-    inside its all-reduces."""
+    its row of NaNs on every rank. Unless ``crash_on_scene_exhausting_memory``,
+    each rank also reserves, before the group's forward, an upper bound of
+    its slot's forward (``TrainingSession.reserve_forward``), and a group
+    that would not fit on some rank gets its rows of NaNs on every rank (the
+    JAX package's dummy rows of a grouped forward that ran out of memory,
+    train/loop.py:697-716): one all-reduce per group agrees on both. A
+    forward that still runs out of memory after its reservation raises: the
+    other ranks are inside its all-reduces."""
     from gasfm_tpu_torch.data.outliers import inject_outliers
 
     additional_identifiers = list(additional_identifiers or [])
@@ -1049,22 +1098,34 @@ def epoch_evaluation(
 
     def _rows(group):  # [(scene, the scene the model takes)] -> their rows
         # the rank's own slot's graph, made before the clock starts (a short
-        # group's padding slots repeat its last scene); on a mesh the ranks
-        # agree through one all-reduce on the scenes that failed here, which
-        # get their dummy rows while the others go on as a smaller group
+        # group's padding slots repeat its last scene), and on a mesh the
+        # reservation of its forward; the ranks agree through one all-reduce
+        # on the scenes that failed here, which get their dummy rows while
+        # the others go on as a smaller group, and on a forward that would
+        # not fit, whose group gets its dummy rows
         mine = min(own, len(group) - 1)
-        scenes, failed = [md for _, md in group], [False] * len(group)
+        scenes, failed, unfit = [md for _, md in group], [False] * len(group), False
         try:
             scenes[mine] = session.scene_graph(scenes[mine])
         except Exception as e:  # noqa: BLE001 - the reference's OOM tolerance
             _tolerate(e, group[mine][0])
             failed[mine] = True
         if mesh is not None:
-            failed = mesh.any_over_world(failed)
+            if not crash_on_scene_exhausting_memory and not failed[mine]:
+                try:
+                    session.reserve_forward(scenes[mine])
+                except torch.cuda.OutOfMemoryError:
+                    unfit = True
+            *failed, unfit = mesh.any_over_world(failed + [unfit])
         if any(failed):
             rest = iter(_rows([g for g, f in zip(group, failed) if not f]) if not all(failed)
                         else ())
             return [_dummy(c) if f else next(rest) for (c, _), f in zip(group, failed)]
+        if unfit:
+            if session.is_writer:
+                for curr_data, _ in group:
+                    print(f"Ran out of memory when evaluating on {curr_data.scene_name}.")
+            return [_dummy(c) for c, _ in group]
         try:
             _sync(session.device)
             begin = time()

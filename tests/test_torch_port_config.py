@@ -266,15 +266,15 @@ def test_clip_mode_from_conf(mode, th):
 def test_options_not_ported_raise(option):
     """A mesh conf (table-sharded by default, ported) makes its session on
     its rank's mesh only: without one ``from_conf`` raises ValueError naming
-    the launcher. Multi-host ``parallel.distributed``, not ported, raises
-    NotImplementedError with it."""
+    the launcher. So does one with multi-host ``parallel.distributed``
+    (ported too: one launcher per host makes the ranks)."""
     conf = load_config("synth/optim_synth_gasfm.conf", external_params=[option], validate=False)
     model, _ = init_model(conf)
     with pytest.raises(ValueError, match="run_ranks"):
         TrainingSession.from_conf(conf, model, device="cpu")
     conf = load_config("synth/optim_synth_gasfm.conf", validate=False,
                        external_params=[option, "parallel.distributed.enabled=true"])
-    with pytest.raises(NotImplementedError, match="parallel.distributed"):
+    with pytest.raises(ValueError, match="run_ranks"):
         TrainingSession.from_conf(conf, model, device="cpu")
 
 

@@ -31,7 +31,10 @@ ranks (the ``[2, 2]`` mesh) and the CLI under ``[1, 2]``.
   through ``TrainingSession.from_conf`` and ``fused_group_step`` against the
   JAX package's ``make_sharded_fused_step`` on the conftest's 8-device CPU
   mesh (tests/test_parallel.py's tolerances).
-- What stays raising: ``parallel.distributed``, a recorded mesh session, a
+- ``parallel.distributed`` read into this host's spec, a missing key or a
+  mesh that ``num_processes`` does not divide raising (the launchers
+  themselves run in tests/test_torch_port_multihost.py). What stays
+  raising: a recorded mesh session, a
   mesh conf without the ranks. Table sharding null or true, which raised
   before the port ran it, now gives the mesh's shape
   (``test_mesh_shape_from_conf``); multi-scene learning on a mesh, which
@@ -65,7 +68,8 @@ import torch_port_mesh_ranks as R
 from gasfm_tpu_torch.config import ConfigFactory
 from gasfm_tpu_torch.graph.view_graph import build_host_scene_graph, shard_host_graph, upload
 from gasfm_tpu_torch.losses import DEPTH_LOSS, DPESFM_LOSS, FLAGSHIP_LOSS, ESFMLoss
-from gasfm_tpu_torch.parallel import mesh_shape_from_conf, pad_scene_group, run_ranks
+from gasfm_tpu_torch.parallel import (Distributed, distributed_from_conf, mesh_shape_from_conf,
+                                      pad_scene_group, run_ranks)
 
 OPTIM = dict(lr=1e-3, main_scheduler="constant", grad_clip_mode=None)
 STEPS = 4  # the first step, then three
@@ -483,7 +487,7 @@ def test_predictions_whole_on_every_rank(runs, name):
 
 
 # ---------------------------------------------------------------------------
-# what stays raising
+# the conf's layouts, and what stays raising
 # ---------------------------------------------------------------------------
 
 
@@ -491,10 +495,31 @@ def mesh_conf(extra):
     return ConfigFactory.parse_string(f"parallel {{ {extra} }}")
 
 
-@pytest.mark.parametrize("extra", ["mesh_shape = [1, 1], distributed { enabled = true }"])
-def test_unported_layouts_raise(extra):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        mesh_shape_from_conf(mesh_conf(extra))
+DISTRIBUTED = ('distributed { enabled = true, coordinator_address = "127.0.0.1:29500", '
+               'num_processes = 2, process_id = 1 }')
+
+
+@pytest.mark.parametrize("shape, block, want", [
+    # a whole block: this host's spec
+    ((1, 2), DISTRIBUTED, Distributed("127.0.0.1", 29500, 2, 1)),
+    # each missing key, named (no cluster metadata to detect it from)
+    *[((2, 2), DISTRIBUTED.replace(k, "unused_" + k), k)
+      for k in ("coordinator_address", "num_processes", "process_id")],
+    # num_processes must divide the mesh's ranks; a mesh of one position
+    ((1, 3), DISTRIBUTED, "must divide"), ((1, 1), DISTRIBUTED, "must divide"),
+    # disabled or absent: today's result
+    ((1, 2), "distributed { enabled = false, process_id = 7 }", None), ((1, 2), "", None)])
+def test_distributed_from_conf(shape, block, want):
+    """``parallel.distributed`` read as the JAX package's
+    ``initialize_distributed`` reads it (the launchers themselves run in
+    tests/test_torch_port_multihost.py); the mesh's shape stands as it is."""
+    conf = mesh_conf(f"mesh_shape = {list(shape)}, {block}")
+    assert mesh_shape_from_conf(conf) == (shape if shape != (1, 1) else None)
+    if isinstance(want, str):
+        with pytest.raises(ValueError, match=want):
+            distributed_from_conf(conf)
+    else:
+        assert distributed_from_conf(conf) == want
 
 
 @pytest.mark.parametrize("extra, want", [

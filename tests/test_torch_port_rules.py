@@ -184,3 +184,39 @@ def test_kernel_device_time_raises_on_a_window_without_cuda_events(monkeypatch):
     with pytest.raises(RuntimeError, match="fewer CUDA events than calls"):
         kdt.device_ms_per_call(lambda: calls.append(1), 4)
     assert len(calls) == 3 + kdt.WINDOWS * 4  # the warm-up, then every window
+
+
+@pytest.mark.parametrize("dropped", ["one kernel", "some events"])
+def test_kernel_device_time_takes_no_window_that_dropped_events(monkeypatch, dropped):
+    """A profiler window that kept only some of its kernel events (here the
+    first of three: all of one kernel's, or a few of each) still holds at
+    least one event per call; ``device_ms_per_call`` takes its time only
+    from a window whose events a second window matched, none more."""
+    import types
+
+    from gasfm_tpu_torch.tools import kernel_device_time as kdt
+
+    calls, per_call = 4, {"main": 2.0, "merge": 1.0}  # us per launch
+    first = ({"main": calls} if dropped == "one kernel" else {"main": calls - 1, "merge": 2})
+    windows = iter([first, *[{k: calls for k in per_call}] * 2])
+
+    class Window:
+        def __enter__(self):
+            self.counts = next(windows)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [types.SimpleNamespace(device_type=kdt.DeviceType.CUDA, name=f"{k}(args)",
+                                          time_range=types.SimpleNamespace(
+                                              elapsed_us=lambda k=k: per_call[k]))
+                    for k, n in self.counts.items() for _ in range(n)]
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(kdt, "profile", lambda **kw: Window())
+    ms, names = kdt.device_ms_per_call(lambda: None, calls)
+    assert ms == pytest.approx(3.0 / 1e3)
+    assert names == {"main": (1.0, 0.002), "merge": (1.0, 0.001)}
+    assert next(windows, None) is None  # the third window was the first to count

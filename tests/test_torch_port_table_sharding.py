@@ -32,6 +32,11 @@ another layout of the same ranks) and the CLI under ``[2, 1]``.
   ranks from the same weights (the port's init carried by the converter).
 - ``parallel.table_sharding = true`` on ``[2, 1]``: bitwise the same run as
   ``false`` (one edge shard: nothing to shard).
+- The grouped evaluation on ``[2, 1]`` under
+  ``crash_on_scene_exhausting_memory=False``, a failure faked on rank 1
+  alone: a graph that runs out of memory gets its scene's row of NaNs, a
+  forward whose reservation runs out of memory its group's rows, on every
+  rank, and the run goes on.
 - The CLI: ``multi-scene-learning`` under ``[2, 1]`` (batches of two sampled
   scenes: one ``fused_group_step`` per batch, grouped evaluations) for 2
   epochs writes one tree; its first epoch's losses match the single-rank
@@ -462,6 +467,27 @@ def test_grouped_evaluation_agrees_on_a_scene_out_of_memory(runs):
     for c in cols:
         assert failing["scene0"][c] == clean["scene0"][c], c
         assert np.isnan(failing["scene1"][c]), c
+
+
+def test_grouped_evaluation_agrees_on_a_forward_that_would_not_fit(runs):
+    """``epoch_evaluation`` on [2, 1] of four scenes (two groups of two)
+    under ``crash_on_scene_exhausting_memory=False``, with the reservation
+    of the last scene's forward running out of memory on rank 1 alone: the
+    ranks agree before the forward, the second group's scenes get their
+    rows of NaNs, and the first group's rows are those of the run without
+    the failure."""
+    _, results, _ = runs.get("1x2")
+    clean, failing = (dict(rows) for rows in results[0]["2x1_False"]["unfit"])
+    assert all(res["2x1_False"]["unfit"] == (None, None) for res in results[1:])
+    scenes = ["scene0", "scene1", "scene2", "scene3"]
+    assert list(failing) == list(clean) == scenes + ["Mean"]
+    cols = [c for c in clean["scene0"] if c != "Inference time"]
+    assert np.isfinite([clean[s][c] for s in scenes for c in cols]).all()
+    for c in cols:
+        for s in scenes[:2]:
+            assert failing[s][c] == clean[s][c], (s, c)
+        for s in scenes[2:]:
+            assert np.isnan(failing[s][c]), (s, c)
 
 
 # ---------------------------------------------------------------------------

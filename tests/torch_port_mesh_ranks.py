@@ -16,8 +16,8 @@ layout of the same ranks), ``scenes``
 (a group: each a dict of M, Ns, y and depths or None), ``steps`` and
 ``fused`` (the steps after the first through ``fused_group_step``, else
 ``group_loss_and_grads`` + ``update``; "all": the first one too) and
-``evaluate`` (the index of a scene: :func:`evaluate_failing` after the
-steps). Each rank
+``evaluate`` (the index of a scene: :func:`evaluate_failing` and
+:func:`evaluate_unfit` after the steps). Each rank
 returns, per case: the first step's loss, gradients (by parameter name)
 and predictions, with ``session.loss`` of those predictions (unless
 "all"), with more than one data slot ``forward_group``'s predictions
@@ -155,6 +155,39 @@ def evaluate_failing(session, case):
     return clean, run()
 
 
+def evaluate_unfit(session, case):
+    """``epoch_evaluation`` of the case's scenes twice over (scene0 to
+    scene3 on [2, 1]: two groups; no BA, ``crash_on_scene_exhausting_memory=False``),
+    then again with the reservation of the last scene's forward
+    (``TrainingSession.reserve_forward``) running the device out of memory
+    on the last rank alone: rank 0's two tables' rows, None on the other
+    ranks."""
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.train.loop import epoch_evaluation
+    from gasfm_tpu_torch.utils.phases import Phases
+
+    conf = load_config("synth/learning_synth_gasfm.conf")
+    datas = [scene_data(d, i) for i, d in enumerate(case["scenes"] * 2)]
+
+    def run():
+        table = epoch_evaluation([[d] for d in datas], session, None, conf, 0,
+                                 Phases.VALIDATION, bundle_adjustment=False,
+                                 crash_on_scene_exhausting_memory=False)
+        return None if table is None else table.rows
+
+    clean = run()
+    if session.mesh.rank == session.mesh.size - 1:
+        reserve, last = session.reserve_forward, session.scene_graph(datas[-1])
+
+        def reserve_forward(scene):
+            if scene is last:
+                raise torch.cuda.OutOfMemoryError("the forward would not fit on this rank")
+            return reserve(scene)
+
+        session.reserve_forward = reserve_forward
+    return clean, run()
+
+
 def single_rank(case):
     """The case's group on a single-rank session: per step (the sum of the
     scenes' losses, of their our_repro, the gradient norm), the scenes'
@@ -191,7 +224,54 @@ def run_cases(mesh, cases, references=()):
         results.append(run_case(session, case))
         if "evaluate" in case:
             results[-1]["evaluation"] = evaluate_failing(session, case)
+            results[-1]["unfit"] = evaluate_unfit(session, case)
     mine = list(references)[mesh.rank::mesh.size]
     refs = {i: single_rank(cases[i]) for i in mine}
     clean = not any(m.split(".")[0] in ("jax", "jaxlib", "gasfm_tpu") for m in sys.modules)
     return results, refs, clean
+
+
+# ---------------------------------------------------------------------------
+# multi-host: launcher processes of their own (tests/test_torch_port_multihost.py)
+# ---------------------------------------------------------------------------
+
+
+def layout(mesh):
+    """A rank's place: its global rank, data slot, edge shard and the
+    process id of the launcher that spawned it."""
+    import os
+
+    return dict(rank=mesh.rank, data_slot=mesh.data_slot, edge_shard=mesh.edge_shard,
+                launcher=os.getppid())
+
+
+def multihost_cases(mesh, cases):
+    """A rank's :func:`layout` and its results of every case
+    (:func:`run_cases`)."""
+    return layout(mesh), run_cases(mesh, cases)[0]
+
+
+def raise_on(mesh, rank):
+    """Rank ``rank`` raises; the others wait for it in an all-reduce over
+    the world."""
+    import torch.distributed as dist
+
+    if mesh.rank == rank:
+        raise ValueError(f"rank {rank} fails on purpose")
+    dist.all_reduce(torch.zeros(1))
+    return mesh.rank
+
+
+def launcher_main(call_path):
+    """One launcher process: ``run_ranks`` of the call in ``call_path``
+    (fn, n_data, n_edge, args, the host's ``Distributed``) on the CPU; its
+    ranks' results, or its error's text, into ``call_path`` + ".out"."""
+    from gasfm_tpu_torch.parallel import run_ranks
+
+    fn, n_data, n_edge, args, spec = torch.load(call_path, weights_only=False)
+    try:
+        out = ("ok", run_ranks(fn, n_data, n_edge, args=args, device="cpu", distributed=spec))
+    except Exception as e:  # noqa: BLE001 - the test reads the error's text
+        out = ("error", str(e))
+    torch.save(out, call_path + ".out")
+    return 0 if out[0] == "ok" else 1

@@ -333,6 +333,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    results directory): both exit 0, one tree, process 0's, under
    ``chiprun_out/phase19/``, every table with phase 18's [2, 1] rows,
    finite, within rtol 5e-3 + atol 1e-3 of them.
+20. (after phase 19) The JAX package's activation-memory options. (a)
+   ``memory_kernel_phase``: the bf16 forms of the six edge-tile kernels
+   (#3, #4, #5, #6, #9, #10: bf16 stream rows loaded upcast, float32 math,
+   stored rounded) against their plain versions on the same bf16 inputs,
+   on the dense and power-law scenes and the hub-camera graph: float32
+   outputs at the kernels' tolerances (backward: the backward checks'),
+   bf16 outputs within one bf16 ulp of the larger magnitude more, the
+   share of elements that differ printed; each launched twice, bitwise;
+   device ms per launch (``torch.profiler``) beside the f32 form's on the
+   same values and each beside its bound (bf16 rows at 2 bytes). (b)-(e)
+   ``memory_options_phase``: the flagship (``gasfm/optim_euc_gasfm.conf``)
+   under ``compile.stream_dtype=bf16`` and under the JAX README's fast
+   configuration (with bf16 Adam moments), the depth flagship under bf16
+   streams (both: the largest recomputed logit above the forward's max,
+   failing past the backward's shift margin), ``model.remat_layers`` on
+   the power-law scene (step-1 loss and gradients bitwise without it,
+   eager and captured) and the CLI with both keys; see the function.
 13. A ``kernels`` JSON line (the seventeen TPU kernels' counterparts and
    the Adam kernel, each with its per-call ``ms`` and its burst
    ``burst_ms``; launches from the training path that runs each: GASFM's
@@ -341,7 +358,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    segment max, whose times are the wide scene's, the depth flagship for
    the projection update, phase 17's (a) run for the Adam kernel, whose
    ``burst_ms`` is its device time from graph replays and ``library_ms``
-   PyTorch's fused f32 Adam's), the nvidia-smi line, and the final
+   PyTorch's fused f32 Adam's; then the bf16 forms of the six edge-tile
+   kernels, ``<name>_bf16``, their numbers phase 20 (a)'s on the dense
+   scene, their launches phase 20 (b)'s flagship (#3-#6) and (c)'s depth
+   flagship (#9, #10)), the nvidia-smi line, and the final
    ``{"ok": true, "device": ...}`` line.
    The full record goes to ``chiprun_out/chip_smoke.json``.
 
@@ -3974,19 +3994,24 @@ def mixed_precision_phase(dev, scenes, counters, record, L):
     return path_launches, kern
 
 
-def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
+def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record, label="mixed b",
+                           plain_runs=MIXED_PLAIN_RUNS):
     """(b)'s step-1 gradients (bf16) against the plain path run in float64
     from the same bf16 weights, by phase 5's rule with bf16's rounding added
-    and the largest error of ``MIXED_PLAIN_RUNS`` plain runs its yardstick
-    (see :func:`mixed_precision_phase`). Returns the line's note."""
+    and the largest error of ``plain_runs`` plain runs its yardstick (see
+    :func:`mixed_precision_phase`); phase 20 holds bf16 streams by the same
+    rule, the float64 run's streams float64 (unrounded). Returns the line's
+    note."""
     import copy
 
     from gasfm_tpu_torch.train.loop import TrainingSession
 
     _, _, p_grads = eager.loss_and_grads(scene, plain=True)
-    more = [eager.loss_and_grads(scene, plain=True)[2] for _ in range(MIXED_PLAIN_RUNS - 1)]
-    ref = TrainingSession(copy.deepcopy(eager.model).double(), eager.loss_func, device=dev,
-                          capture=False)
+    more = [eager.loss_and_grads(scene, plain=True)[2] for _ in range(plain_runs - 1)]
+    ref_model = copy.deepcopy(eager.model).double()
+    if getattr(ref_model, "stream_dtype", None) is not None:
+        ref_model.stream_dtype = torch.float32  # float64 streams: no bf16 rounding
+    ref = TrainingSession(ref_model, eager.loss_func, device=dev, capture=False)
     acts = ActivationBranches()
     with acts.watch("record"):
         eager.loss_and_grads(scene)
@@ -4004,17 +4029,17 @@ def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
                                             + GRAD_EPS64 * G))
     note = (f"step-1 gradients (bf16, {len(errs)} tensors, G = {G:.4g}) against float64 from the "
             f"same weights: worst relative to its max |ref| {wk[0]} kernel {wk[1]:.3e}, plain "
-            f"{wk[2]:.3e} (the largest of {MIXED_PLAIN_RUNS} runs), max |ref| {wk[3]:.3e}; the "
+            f"{wk[2]:.3e} (the largest of {plain_runs} runs), max |ref| {wk[3]:.3e}; the "
             f"plain path's error moves run to run, {tight[4]:.3e} to {tight[2]:.3e} on "
             f"{tight[0]} (kernel path {tight[1]:.3e}); ties {tie['act_flips']} activations, "
             f"{tie['loss_flips']} loss edges; tol kernel err <= {GRAD_FACTOR:g} x plain err + "
             f"{GRAD_RTOL64:g} x max|ref| + {GRAD_EPS64:g} x G + ties + 2^-8 x max|ref| "
             f"{'ok' if not bad else 'FAIL'}")
-    record.setdefault("mixed_b_grads", {}).update(
+    record.setdefault(label.replace(" ", "_") + "_grads", {}).update(
         errors=[t[:5] for t in errs], G=G, loss64=float(r_loss), ties=tie,
-        plain_runs=MIXED_PLAIN_RUNS)
+        plain_runs=plain_runs)
     if bad:
-        raise SmokeFailure(f"mixed b: step-1 gradients out of tolerance: "
+        raise SmokeFailure(f"{label}: step-1 gradients out of tolerance: "
                            f"{[t[:4] for t in bad[:8]]}")
     del ref, r_grads, r_pred, p_grads, more
     return note
@@ -4022,6 +4047,539 @@ def mixed_grads_vs_float64(dev, eager, scene, pred, grads, names, record):
 # ---------------------------------------------------------------------------
 # phase 18: multi-device training on a mesh of ranks that share the card
 # ---------------------------------------------------------------------------
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the JAX package's activation-memory options (bf16 edge streams,
+# compile.stream_dtype; layer rematerialization, model.remat_layers)
+# ---------------------------------------------------------------------------
+
+# The six edge-tile kernels' bf16 forms: kernels-line name -> (the wrapper
+# whose bf16_launches counts them, the training path whose run reports them)
+BF16_FORMS = {
+    "fused_frontend_bf16": ("fused_frontend", "gasfm-bf16"),
+    "fused_frontend_bwd_bf16": ("fused_frontend_bwd", "gasfm-bf16"),
+    "fused_layer_step_bf16": ("fused_layer_step", "gasfm-bf16"),
+    "fused_layer_step_bwd_bf16": ("fused_layer_step_bwd", "gasfm-bf16"),
+    "projection_update_bf16": ("projection_update", "gasfm-depth-bf16"),
+    "projection_update_bwd_bf16": ("projection_update_bwd", "gasfm-depth-bf16"),
+}
+
+
+def bf16_close(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+    """(max |got - want|, within the bound, share of elements that differ) of
+    outputs of which one or both are bf16: within one bf16 ulp of the larger
+    magnitude plus the float32 kernels' tolerance (atol x scale + rtol x
+    |want|: KERNEL_* forward, BWD_* backward); float32 pairs at that
+    tolerance alone."""
+    if got.shape != want.shape:
+        return float("inf"), False, 1.0
+    bf = got.dtype == torch.bfloat16 or want.dtype == torch.bfloat16
+    g, w = got.double(), want.double()
+    if not torch.isfinite(g).all():
+        return float("inf"), False, 1.0
+    err = (g - w).abs()
+    bound = atol * max(1.0, float(w.abs().max())) + rtol * w.abs()
+    if bf:
+        big = torch.maximum(g.abs(), w.abs()).clamp_min(1e-30)
+        bound = bound + torch.exp2(torch.floor(torch.log2(big)) - 7)
+    differ = float((err > 0).double().mean()) if err.numel() else 0.0
+    return float(err.max()) if err.numel() else 0.0, bool((err <= bound).all()), differ
+
+
+def bf16_form_check(results, record, scene_name, name, variant, kernel, plain, outs, io_bytes,
+                    flops, f32_kernel=None, f32_io=None, main=False):
+    """A bf16 form against its plain version on the same bf16 inputs
+    (:func:`bf16_close`; a backward, ``name`` ending in ``_bwd``, at the
+    backward checks' tolerance), launched twice, bitwise; per call ms (CUDA events)
+    of both, and with ``main`` the device ms per launch (``torch.profiler``)
+    of the bf16 form and of the f32 form on the same values upcast
+    (``f32_kernel``, its float32 copies made before it is timed), each
+    beside its bound (bf16 rows counted at 2 bytes)."""
+    from gasfm_tpu_torch.tools.kernel_device_time import device_ms_per_call
+
+    got, want = kernel(), plain()
+    tol = (BWD_RTOL, BWD_ATOL) if name.endswith("_bwd") else (KERNEL_RTOL, KERNEL_ATOL)
+    worst, ok, parts = 0.0, True, []
+    for o, g, w in zip(outs, got, want):
+        if g is None and w is None:
+            continue
+        e, good, differ = bf16_close(g, w, *tol)
+        worst, ok = max(worst, e), ok and good
+        parts.append(f"{o} {e:.3e}{'' if good else ' OUT'} ({100 * differ:.2f}% differ)")
+    if not same_twice(kernel, got):
+        ok = False
+        parts.append("two launches differ")
+    ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    b_ms, b_by = bound_ms(io_bytes, flops)
+    line = (f"kernel {name}[{variant}] {scene_name}: {'ok' if ok else 'FAIL'}; "
+            f"{'; '.join(parts)}; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+    rec = dict(scene=scene_name, name=name, variant=variant, max_abs_err=worst, ok=ok, ms=ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    if main:
+        dev_ms = device_ms_per_call(kernel, 20)[0]
+        f32_ms = device_ms_per_call(f32_kernel, 20)[0]
+        f32_bound = bound_ms(f32_io, flops)[0]
+        line += (f"; device {dev_ms:.4f} ms per call against its bound {b_ms:.4f}, the f32 "
+                 f"form {f32_ms:.4f} against {f32_bound:.4f}")
+        rec.update(device_ms=dev_ms, f32_device_ms=f32_ms, f32_bound_ms=f32_bound)
+    print(line, flush=True)
+    record.setdefault("bf16_variants", []).append(rec)
+    entry = results.setdefault(name, dict(max_abs_err=0.0, ok=True))
+    entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+    entry["ok"] = entry["ok"] and ok
+    if main:
+        entry.update(rec)
+
+
+def memory_kernel_phase(dev, graphs, record):
+    """Phase 20 (a): the bf16 forms of #3, #4, #5, #6, #9 and #10 against
+    their plain versions on the same bf16 inputs, on each of ``graphs``
+    (the dense scene's numbers go to the kernels line): the layer step's
+    interior form (#5; #6 from seeded cotangents), the frontend at the
+    first layer's widths with a float32 stream and its e_norm stored bf16
+    and at De = 32 on a bf16 stream (the layer step's backward recomputes
+    its source rows so), both ways, and the projection update with skip2
+    and res, both ways."""
+    from gasfm_tpu_torch.ops.kernels import fused_dual_attn as fda
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+    from gasfm_tpu_torch.ops.kernels import fused_proj_update as fpu
+
+    gen = torch.Generator(device=dev).manual_seed(2020)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale
+
+    def f32(args):
+        return tuple(t.float() if isinstance(t, torch.Tensor) and t.dtype == bf else t
+                     for t in args)
+
+    results = {}
+    for label, graph in graphs.items():
+        E, n, m, D = graph.num_edges, graph.num_pts, graph.num_cams, 32
+        main = label == "dense"
+        csr = (graph.pt_ptr, graph.cam_ptr, graph.cam_perm)
+        ids = (graph.pt_idx, graph.cam_idx)
+
+        def check(*a, **k):
+            bf16_form_check(results, record, label, *a, **k)
+
+        # #5: the interior layer step's prologue on bf16 [en | skip2] and res
+        en, skip2, res = (torch.relu(rnd(E, 32)).to(bf), separated_pairs(rnd, gen, dev, E).to(bf),
+                          rnd(E, 32).to(bf))
+        tables = (rnd(n, 32), rnd(m, 32), rnd(1, 32))
+        ln = (1.0 + rnd(32, scale=0.2), rnd(32, scale=0.1))
+        lin = (rnd(D, 32, scale=0.2), rnd(D, scale=0.1), rnd(D, 32, scale=0.2), rnd(D, scale=0.1))
+        sa = (en, skip2, res, rnd(32, 34, scale=0.2), rnd(32, scale=0.1), *tables, *ln, *lin)
+        io = nbytes(*sa, *ids) + E * 32 * (2 * 2 + 2 * 4)
+        flops = E * (2 * 34 * 32 + 8 * 32 + 4 * 32 * D)
+        sa32 = f32(sa)
+        check("fused_layer_step", "interior", lambda: fls.layer_step_prologue(*sa, graph),
+              lambda: fls.layer_step_prologue_plain(*sa, graph),
+              ("e_l", "e_norm_next", "xl_p", "xl_c"), io, flops,
+              lambda: fls.layer_step_prologue(*sa32, graph),
+              nbytes(*sa32, *ids) + E * 32 * 4 * 4, main)
+        # #6 from the forward's e_l and seeded cotangents
+        e_l = fls.layer_step_prologue(*sa, graph)[0]
+        ba = (en, skip2, sa[3], e_l, *ln, lin[0], lin[2], graph, rnd(E, D), rnd(E, D),
+              rnd(E, 32).to(bf), rnd(E, 32).to(bf))
+        ba32 = f32(ba)
+        io = nbytes(*ba[:8], *ba[9:], *csr) + E * 2 * (32 + 32 + 2) + 4 * E * 32 * 3
+        check("fused_layer_step_bwd", "interior", lambda: fls.fused_layer_step_bwd(*ba),
+              lambda: fls.layer_step_bwd_plain(*ba),
+              ("d en", "d skip2", "d res", "d w", "d b", "d ps", "d pv", "d ln_scale",
+               "d ln_bias", "d wlp", "d blp", "d wlc", "d blc"), io,
+              E * (4 * D * 32 + 4 * 34 * 32 + 40 * 32),
+              lambda: fls.fused_layer_step_bwd(*ba32),
+              nbytes(*ba32[:8], *ba32[9:], *csr) + E * 4 * (32 + 32 + 2 + 32 * 3), main)
+
+        # #3: a float32 stream with its e_norm stored bf16 (the first layer,
+        # De = 2) and a bf16 stream (De = 32)
+        for variant, e, Dq, en_dtype, main_v in (
+                ("De2_en_bf16", separated_pairs(rnd, gen, dev, E), 4, bf, False),
+                ("De32_bf16", rnd(E, 32).to(bf), 32, None, main)):
+            De = e.shape[1]
+            pa = (e, 1.0 + rnd(De, scale=0.2), rnd(De, scale=0.1), rnd(Dq, De, scale=0.3),
+                  rnd(Dq, scale=0.1), rnd(Dq, De, scale=0.3), rnd(Dq, scale=0.1))
+
+            def plain(pa=pa):
+                v, xp, xc = fda.frontend_prologue_plain(*pa)
+                return v.to(bf), xp, xc
+
+            pa32 = f32(pa)
+            io = nbytes(*pa) + E * (2 * De + 4 * 2 * Dq)
+            check("fused_frontend", variant,
+                  lambda pa=pa, d=en_dtype: fda.frontend_prologue(*pa, en_dtype=d), plain,
+                  ("e_norm", "xl_p", "xl_c"), io, E * (4.0 * De * Dq + 10 * De),
+                  lambda pa32=pa32: fda.frontend_prologue(*pa32),
+                  nbytes(*pa32) + E * 4 * (De + 2 * Dq), main_v)
+            # #4 from seeded cotangents of xl_p, xl_c and the bf16 e_norm
+            g = (rnd(E, Dq), rnd(E, Dq), rnd(E, De).to(bf))
+            fb = (pa[0], pa[1], pa[2], pa[3], pa[5], *g)
+
+            def plain_bwd(pa=pa, g=g):
+                with torch.enable_grad():
+                    leaves = [t.detach().requires_grad_() for t in pa]
+                    v, xp, xc = fda.frontend_prologue_plain(*leaves)
+                    d = torch.autograd.grad([xp, xc, v], leaves, [g[0], g[1], g[2].float()])
+                return d[0], d[1], d[2], d[3], d[4], d[5], d[6]
+
+            fb32 = f32(fb)
+            io = nbytes(*fb) + nbytes(pa[0]) + 4 * (2 * Dq * (De + 1) + 2 * De)
+            check("fused_frontend_bwd", variant, lambda fb=fb: fda.fused_frontend_bwd(*fb),
+                  plain_bwd, ("d e", "d ln_scale", "d ln_bias", "d wlp", "d blp", "d wlc",
+                              "d blc"), io, E * (8.0 * De * Dq + 20 * De),
+                  lambda fb32=fb32: fda.fused_frontend_bwd(*fb32),
+                  nbytes(*fb32) + nbytes(pa32[0]) + 4 * (2 * Dq * (De + 1) + 2 * De),
+                  main_v)
+
+        # #9, #10: the projection update with skip2 and res
+        ua = (en, skip2, res, sa[3], sa[4], *tables, graph)
+        ua32 = f32(ua)
+        io = nbytes(*ua[:8], *ids) + 2 * E * 32
+        check("projection_update", "skip2_res", lambda: (fpu.projection_update_forward(*ua),),
+              lambda: (fpu.projection_update_plain(*ua),), ("e",), io, E * 2 * 34 * 32,
+              lambda: (fpu.projection_update_forward(*ua32),),
+              nbytes(*ua32[:8], *ids) + 4 * E * 32, main)
+        gu = rnd(E, 32).to(bf)
+        bu32 = f32((gu, en, skip2, sa[3]))
+
+        def plain_ubwd():
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in ua[:8]]
+                e = fpu.projection_update_plain(*leaves, graph)
+                d = torch.autograd.grad([e], leaves, [gu])
+            return d[0], d[1], d[3], d[4], d[5], d[6]
+
+        io = nbytes(gu, en, skip2, sa[3], *csr) + E * 2 * (32 + 2) + 4 * (n + m + 35) * 32
+        check("projection_update_bwd", "skip2_res",
+              lambda: fpu.projection_update_bwd(gu, en, skip2, sa[3], graph), plain_ubwd,
+              ("d en", "d skip2", "d w", "d b", "d ps", "d pv"), io, E * 4 * 34 * 32,
+              lambda: fpu.projection_update_bwd(*bu32, graph),
+              nbytes(*bu32, *csr) + E * 4 * 34 + 4 * (n + m + 35) * 32,
+              main)
+    bad = [k for k, r in results.items() if not r["ok"]]
+    if bad:
+        raise SmokeFailure(f"bf16 forms out of tolerance: {bad}")
+    return results
+
+
+MEMORY_CONF = "gasfm/optim_euc_gasfm.conf"
+# (b)'s runs: bf16 streams, and the JAX README's fast configuration (bf16
+# streams and both Adam moments in bf16)
+MEMORY_RUNS = (("streams", ("compile.stream_dtype=bf16",)),
+               ("fast", ("compile.stream_dtype=bf16", "train.adam_mu_dtype=bf16",
+                         "train.adam_nu_dtype=bf16")))
+
+
+def stored_step_launches(per_step):
+    """A bf16-stream step's launches: ``per_step``'s, and one frontend
+    prologue (#3, on the bf16 stream) more per layer step in the backward,
+    which recomputes its source rows from the stored e_l (as the JAX
+    package's backward kernel does, fused_layer_step.py:439-458)."""
+    out = dict(per_step)
+    out["fused_frontend"] = out.get("fused_frontend", 0) + per_step.get("fused_layer_step", 0)
+    return out
+
+
+@contextlib.contextmanager
+def shift_overshoot():
+    """The bf16-stream layer step's backward (``fused_layer_step.py``
+    ``_StoredStep``) recomputes the attention logits from the stored e_l and
+    shifts their softmax by the forward's max plus ``SHIFT_MARGIN``, with
+    exp(min(l - shift, 0)): a logit past the forward's max by more than the
+    margin would get a wrong weight. In this scope each of the step's dual
+    core backward calls appends, per direction, the largest recomputed
+    logit less the forward's max (plain PyTorch beside the kernel; the
+    kernel's launches and operands unchanged). Yields that list."""
+    from gasfm_tpu_torch.ops.gatv2 import leaky_relu
+    from gasfm_tpu_torch.ops.kernels import fused_layer_step as fls
+
+    orig, seen = fls.fused_dual_attend_bwd, []
+
+    def watched(xl_p, xl_c, xr_p, xr_c, att_p, att_c, out_p, out_c, m_p, den_p, m_c, den_c,
+                g_p, g_c, graph, heads, slope):
+        for xl, xr, att, m, ids in ((xl_p, xr_p, att_p, m_p, graph.pt_idx),
+                                    (xl_c, xr_c, att_c, m_c, graph.cam_idx)):
+            ids = ids.long()
+            z = leaky_relu(xl + xr[ids], slope) * att.reshape(-1)
+            logits = z.reshape(z.shape[0], heads, -1).sum(-1)
+            seen.append(float((logits - (m - fls.SHIFT_MARGIN)[ids]).max()))
+        return orig(xl_p, xl_c, xr_p, xr_c, att_p, att_c, out_p, out_c, m_p, den_p, m_c, den_c,
+                    g_p, g_c, graph, heads, slope)
+
+    fls.fused_dual_attend_bwd = watched
+    try:
+        yield seen
+    finally:
+        fls.fused_dual_attend_bwd = orig
+
+
+def overshoot_note(session, scene, label):
+    """One eager loss_and_grads of ``session`` under :func:`shift_overshoot`:
+    the largest overshoot over its layer steps, raising past the margin."""
+    from gasfm_tpu_torch.ops.kernels.fused_layer_step import SHIFT_MARGIN
+
+    with shift_overshoot() as seen:
+        session.loss_and_grads(scene)
+    if not seen:
+        raise SmokeFailure(f"{label}: no bf16 layer step's backward ran")
+    worst = max(seen)
+    if worst > SHIFT_MARGIN:
+        raise SmokeFailure(f"{label}: a recomputed logit passes the forward's max by {worst:.4g}, "
+                           f"more than the backward's shift margin {SHIFT_MARGIN:g}")
+    return (f"recomputed logits at most {worst:.4g} above the forward's max over "
+            f"{len(seen) // 2} layer steps (margin {SHIFT_MARGIN:g})")
+
+
+def activation_peak(session, scene):
+    """(peak bytes above what was allocated before, loss, grads) of an eager
+    loss_and_grads: the step's activation memory."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, pred, grads = session.loss_and_grads(scene)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return peak, float(loss), grads, pred
+
+
+def memory_options_phase(dev, scenes, counters, record, L):
+    """Phase 20 (b)-(e): the JAX package's activation-memory options on the
+    card, through ``TrainingSession.from_conf`` (the counters zeroed just
+    before each run and read just after).
+    (b) The flagship (``MEMORY_CONF``, full width) on the dense scene under
+    ``compile.stream_dtype = bf16``, and under the JAX README's fast
+    configuration (also bf16 Adam moments): step-1 gradients against the
+    plain path in float64 (float32 streams) by phase 17 (b)'s rule, the
+    plain bf16-stream path's largest error of MIXED_PLAIN_RUNS runs its
+    yardstick (the fast run's bitwise the streams run's: the moments act
+    from the first update on); 1 + TRAIN_STEPS steps captured against eager
+    bitwise; launches per step phase 12b's (:func:`stored_step_launches`),
+    every launch of the six kernels their bf16 form; the recomputed
+    logits' overshoot (:func:`overshoot_note`); device ms per replay and
+    the step's activation peak beside the float32 session's.
+    (c) The depth flagship under bf16 streams on the dense scene: the same,
+    its own launches (the only path to #9 / #10).
+    (d) ``model.remat_layers`` on the flagship, power-law scene: step-1
+    loss and gradients bitwise those without it, eager and captured; the
+    launches per step; the activation peak with and without.
+    (e) The single-scene CLI with both keys on the synthetic GASFM conf.
+    Returns the bf16 forms' launches per path."""
+    import copy
+
+    from gasfm_tpu_torch.config import load_config
+    from gasfm_tpu_torch.losses import DEPTH_LOSS
+    from gasfm_tpu_torch.main import init_model
+    from gasfm_tpu_torch.models.gasfm import GraphAttnSfMNet
+    from gasfm_tpu_torch.ops.kernels import adam as A
+    from gasfm_tpu_torch.tools.profile_forward import FLAGSHIP_DEPTH, train_step
+    from gasfm_tpu_torch.train.loop import TrainingSession
+    from gasfm_tpu_torch.train.state import FLAGSHIP_OPTIM
+
+    t_phase = time.perf_counter()
+    dense, power = scenes["dense"], scenes["powerlaw"]
+    counters = dict(counters, adam_update=A.adam_update)
+    model0, n_params = init_model(load_config(MEMORY_CONF))
+
+    def session(ext, capture, model=None):
+        conf = load_config(MEMORY_CONF, external_params=list(ext))
+        if model is None:
+            model = GraphAttnSfMNet.from_conf(conf)
+            model.load_state_dict(model0.state_dict())
+        return TrainingSession.from_conf(conf, model, device=dev, capture=capture)
+
+    def zero():
+        for c in counters.values():
+            c.launches = 0
+            if hasattr(c, "bf16_launches"):
+                c.bf16_launches = 0
+
+    def counted(fn):
+        return counted_launches(counters, fn)
+
+    def bf16_share():
+        return {form: (counters[w].bf16_launches, counters[w].launches)
+                for form, (w, _) in BF16_FORMS.items() if counters[w].launches}
+
+    def profiled_ms(sess, scene, reps=10):
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(3):  # the profiler drops a window's events now and then
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    train_step(sess, scene)
+                torch.cuda.synchronize()
+            total = sum((getattr(e, "device_time_total", 0) or getattr(e, "cuda_time_total", 0))
+                        for e in prof.key_averages()) / 1e3 / reps
+            if total > 0:
+                return total
+        raise SmokeFailure("the profiler caught no device time in 3 windows")
+
+    def steps_side_by_side(label, eager, cap, scene, want):
+        """1 + TRAIN_STEPS steps captured against eager, bitwise (values and
+        every parameter); ``want`` launches at each eager step, the warm-up
+        and the recording, none at a replay."""
+        steps = []
+        for k in range(1 + TRAIN_STEPS):
+            e, de = counted(lambda: [float(v) for v in train_step(eager, scene)])
+            c, dc = counted(lambda: [float(v) for v in train_step(cap, scene)])
+            want_c = want if k < 2 else {}
+            if de != want or dc != want_c:
+                raise SmokeFailure(f"{label}: step {k + 1} launches eager {de}, captured {dc}; "
+                                   f"expected {want} and {want_c}")
+            if e != c or not all(torch.equal(x, y) for x, y in zip(eager.params, cap.params)):
+                raise SmokeFailure(f"{label}: step {k + 1} captured {c} vs eager {e}; bitwise "
+                                   f"required")
+            if not all(map(math.isfinite, c)):
+                raise SmokeFailure(f"{label}: step {k + 1} values {c}")
+            steps.append(c)
+        return steps
+
+    out = {}
+    per_step = {k: v for k, v in per_step_launches(L, backward=True).items() if v}
+    per_call = dict(per_step, **{k: per_step.get(k, 0) + v for k, v in REPRO_LAUNCHES.items()})
+    # ---- the float32 session: its activation peak and device ms per replay
+    f32_peak = activation_peak(session((), False), dense)[0]
+    base = session((), True)
+    for _ in range(2):
+        train_step(base, dense)  # warm-up, recording
+    f32_ms = profiled_ms(base, dense)
+    del base
+    print(f"memory f32: the float32 flagship (dense scene) step's activation peak "
+          f"{f32_peak / 2**20:.1f} MiB, {f32_ms:.3f} device ms per replay", flush=True)
+
+    # ---- (b) bf16 streams, then the fast configuration
+    bf_fwd_bwd = stored_step_launches(per_step)
+    bf_call = stored_step_launches(per_call)
+    first_grads = None
+    for label, ext in MEMORY_RUNS:
+        eager, cap = session(ext, False), session(ext, True)
+        names = [k for k, p in eager.model.named_parameters() if p.requires_grad]
+        zero()
+        (peak, loss, grads, pred), d = counted(lambda: activation_peak(eager, dense))
+        if d != bf_fwd_bwd:
+            raise SmokeFailure(f"memory {label}: loss_and_grads launched {d}, expected "
+                               f"{bf_fwd_bwd}")
+        share = bf16_share()
+        if any(b != n for b, n in share.values()) or set(share) != {
+                k for k, (_, path) in BF16_FORMS.items() if path == "gasfm-bf16"}:
+            raise SmokeFailure(f"memory {label}: bf16 launches of the six {share}")
+        if label == "streams":
+            out["gasfm-bf16"] = {k: b for k, (b, _) in share.items()}
+            note = mixed_grads_vs_float64(dev, eager, dense, pred, grads, names, record,
+                                          label="memory streams")
+            note += "; " + overshoot_note(eager, dense, "memory streams")
+            first_grads = (loss, [g.clone() for g in grads])
+        else:
+            if loss != first_grads[0] or not all(torch.equal(a, b)
+                                                  for a, b in zip(grads, first_grads[1])):
+                raise SmokeFailure(f"memory {label}: step-1 loss / gradients differ from the "
+                                   f"streams run's")
+            note = "step-1 loss and gradients bitwise the streams run's"
+        del grads, pred
+        want = dict(bf_call, **({"adam_update": 1} if label == "fast" else {}))
+        steps = steps_side_by_side(f"memory {label}", eager, cap, dense, want)
+        ms = profiled_ms(cap, dense)
+        record.setdefault("memory", {})[label] = dict(
+            external_params=list(ext), step1_loss=loss, steps=steps, peak_bytes=peak,
+            f32_peak_bytes=f32_peak, device_ms=ms, f32_device_ms=f32_ms, grads=note,
+            launches_per_step=want)
+        print(f"memory {label} ({' '.join(ext)}): flagship dense, {n_params} parameters; step-1 "
+              f"loss {loss!r}; {note}; {1 + TRAIN_STEPS} steps captured vs eager bitwise {steps}; "
+              f"port launches per step {sum(want.values())} (phase 12b's "
+              f"{sum(per_call.values())} + {L} frontend prologues recomputing the layer steps' "
+              f"source rows{' + 1 Adam' if label == 'fast' else ''}), the six kernels' launches "
+              f"all bf16 forms {share}; activation peak {peak / 2**20:.1f} MiB (float32 "
+              f"{f32_peak / 2**20:.1f}, {peak / f32_peak:.3f}x); {ms:.3f} device ms per replay "
+              f"(float32 {f32_ms:.3f}) ok", flush=True)
+        del eager, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- (c) the depth flagship under bf16 streams
+    Ld = len(model0.equivariant_blocks)
+    depth_want = stored_step_launches({k: v for k, v in depth_step_launches(Ld, True).items()
+                                       if v})
+
+    def depth_session(stream_dtype, capture):
+        model = GraphAttnSfMNet(**FLAGSHIP_DEPTH, stream_dtype=stream_dtype,
+                                generator=torch.Generator().manual_seed(DEPTH_SEEDS["gasfm"]))
+        return TrainingSession(model, make_loss(DEPTH_LOSS), device=dev, optim=FLAGSHIP_OPTIM,
+                               capture=capture)
+
+    d_f32_peak = activation_peak(depth_session(torch.float32, False), dense)[0]
+    eager, cap = depth_session(torch.bfloat16, False), depth_session(torch.bfloat16, True)
+    names = [k for k, p in eager.model.named_parameters() if p.requires_grad]
+    zero()
+    if not depth_want.get("fused_frontend"):
+        raise SmokeFailure(f"memory depth: launches {depth_want}")
+    (peak, loss, grads, pred), d = counted(lambda: activation_peak(eager, dense))
+    if d != depth_want:
+        raise SmokeFailure(f"memory depth: loss_and_grads launched {d}, expected {depth_want}")
+    share = bf16_share()
+    out["gasfm-depth-bf16"] = {k: b for k, (b, _) in share.items()}
+    note = mixed_grads_vs_float64(dev, eager, dense, pred, grads, names, record,
+                                  label="memory depth", plain_runs=DEPTH_PLAIN_RUNS)
+    note += "; " + overshoot_note(eager, dense, "memory depth")
+    del grads, pred
+    steps = steps_side_by_side("memory depth", eager, cap, dense, depth_want)
+    ms = profiled_ms(cap, dense)
+    record.setdefault("memory", {})["depth"] = dict(step1_loss=loss, steps=steps, peak_bytes=peak,
+                                                    f32_peak_bytes=d_f32_peak, device_ms=ms,
+                                                    grads=note, launches_per_step=depth_want)
+    print(f"memory depth: the depth flagship under bf16 streams, dense scene; step-1 loss "
+          f"{loss!r}; {note}; {1 + TRAIN_STEPS} steps captured vs eager bitwise {steps}; launches "
+          f"per step {sum(depth_want.values())} {depth_want} (bf16 forms of the six: {share}; "
+          f"the widening last layer's frontend runs on the float32 stream); activation peak "
+          f"{peak / 2**20:.1f} MiB (float32 {d_f32_peak / 2**20:.1f}); {ms:.3f} device ms per "
+          f"replay ok", flush=True)
+    del eager, cap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) model.remat_layers on the flagship, power-law scene
+    remat = {}
+    for key, ext in (("plain", ()), ("remat", ("model.remat_layers=true",))):
+        zero()
+        (peak, loss, grads, _), d = counted(lambda: activation_peak(session(ext, False), power))
+        remat[key] = (peak, loss, [g.clone() for g in grads], d)
+        del grads
+    (p0, l0, g0, d0), (p1, l1, g1, d1) = remat["plain"], remat["remat"]
+    if l0 != l1 or not all(torch.equal(a, b) for a, b in zip(g0, g1)):
+        worst = max(float((a - b).abs().max()) for a, b in zip(g0, g1))
+        raise SmokeFailure(f"memory remat: step-1 loss {l1!r} vs {l0!r}, gradients differ by up "
+                           f"to {worst:.3e}; bitwise required")
+    eager, cap = session(("model.remat_layers=true",), False), session(
+        ("model.remat_layers=true",), True)
+    steps = steps_side_by_side("memory remat", eager, cap, power,
+                               dict(d1, **{k: d1.get(k, 0) + v for k, v in REPRO_LAUNCHES.items()}))
+    del eager, cap
+    record.setdefault("memory", {})["remat"] = dict(peak_bytes=p1, plain_peak_bytes=p0,
+                                                    launches=d1, plain_launches=d0, steps=steps)
+    print(f"memory remat: the flagship on the power-law scene with model.remat_layers: step-1 loss "
+          f"and {len(g0)} gradients bitwise those without it; {1 + TRAIN_STEPS} steps captured vs "
+          f"eager bitwise {steps}; launches per loss_and_grads {sum(d1.values())} {d1} (without: "
+          f"{sum(d0.values())}); activation peak {p1 / 2**20:.1f} MiB against "
+          f"{p0 / 2**20:.1f} without ({p1 / p0:.3f}x) ok", flush=True)
+    del g0, g1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (e) the single-scene CLI with both keys
+    out_dir = ROOT / "chiprun_out" / "phase20"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cli_run("synth-gasfm-memory", "synth/optim_synth_gasfm.conf",
+            ("train.n_epochs=20", "eval.eval_interval=10", "compile.stream_dtype=bf16",
+             "model.remat_layers=true"), counters, record, out_dir)
+    record["memory_phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 20 (memory options): {record['memory_phase_s']:.1f} s", flush=True)
+    return out
 
 
 def kernel_counters():
@@ -5285,6 +5843,19 @@ def main() -> int:
     # machine meeting on a TCP store, their ranks sharing the card
     multihost_phase(dev, record, mesh_results)
 
+    # ---- phase 20: the activation-memory options: the six edge-tile
+    # kernels' bf16 forms against their plain versions, then bf16 edge
+    # streams (and the fast configuration), the depth flagship under them,
+    # layer remat and the CLI with both keys
+    with torch.no_grad():
+        per_scene["bf16_forms"] = memory_kernel_phase(
+            dev, {"dense": scenes["dense"].graph, "powerlaw": scenes["powerlaw"].graph,
+                  "hub_camera": hub_camera_graph(scenes["dense"].graph)}, record)
+    bf16_paths = memory_options_phase(dev, scenes, counters, record, L)
+    for name, (_, path) in BF16_FORMS.items():
+        if not bf16_paths[path].get(name):
+            raise SmokeFailure(f"{name} was never launched on the {path} training path")
+
     # ---- phase 13: the record
     kernels = []
     for name, (source, replaces, path) in KERNELS.items():
@@ -5294,6 +5865,14 @@ def main() -> int:
             launches=paths[path][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
             burst_ms=r["burst_ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r.get("library_ms")))
+    for name, (wrapper, path) in BF16_FORMS.items():
+        r = per_scene["bf16_forms"][wrapper]
+        source, replaces, _ = KERNELS[wrapper]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=bf16_paths[path][name], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            device_ms=r["device_ms"], library_ms=None))
     a = adam["a"]  # the JAX bench's configuration, on the (a) path
     kernels.append(dict(
         name="adam_update", route="cuda", source=ADAM_SOURCE, replaces=ADAM_REPLACES,

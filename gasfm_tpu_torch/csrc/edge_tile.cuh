@@ -24,7 +24,18 @@
 // column_sum_kernel (common.cuh) sums the rows in a fixed order. No float
 // atomics, no TF32: float32 FMAs on the CUDA cores, bitwise reproducible on a
 // given card.
+//
+// Edge streams (compile.stream_dtype): every kernel here is a template on the
+// storage type of its edge-stream rows, float or bf16 (__nv_bfloat16). A bf16
+// row is upcast as it is loaded and rounded to nearest even as it is stored
+// (__float2bfloat16_rn); all math, the weights, the tables, the shared tiles
+// and the outputs that are not streams stay float32. The shared layout is
+// the same for both: bf16 rows are converted as they are staged, so their
+// copies are synchronous loads (cp.async copies bytes, it cannot convert),
+// 8 bytes for 4 features where the width allows, 4 for 2, else one by one.
 #pragma once
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 
@@ -35,6 +46,90 @@ constexpr int kTileThreads = 256;    // 8 warps: one thread per (edge, 4 feature
 constexpr int kTileBlocksPerSm = 3;  // persistent blocks per SM
 constexpr int kTileNarrow = 36;      // shared row stride of a stream <= 32 wide
 constexpr int kTileWide = 68;        // of a stream <= 64 wide (16-byte aligned rows)
+
+using bf16 = __nv_bfloat16;
+
+// 4 bf16 (8 bytes) as floats, and 4 floats rounded into 4 bf16.
+__device__ __forceinline__ void bf16x4_to_f32(const uint2 t, float (&v)[4]) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = a.x, v[1] = a.y, v[2] = b.x, v[3] = b.y;
+}
+
+__device__ __forceinline__ uint2 f32_to_bf16x4(float a, float b, float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 t;
+  t.x = *reinterpret_cast<const unsigned*>(&lo);
+  t.y = *reinterpret_cast<const unsigned*>(&hi);
+  return t;
+}
+
+// One stream element stored from float32.
+__device__ __forceinline__ void stream_store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void stream_store(bf16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// load_row4 / store_row4 (common.cuh) of a bf16 stream: one 8-byte access
+// where D % 4 == 0 (the caller keeps the stream 16-byte aligned).
+__device__ __forceinline__ void load_row4(const bf16* __restrict__ src, int D, int e, int c0,
+                                          bool valid, float (&v)[4]) {
+  v[0] = v[1] = v[2] = v[3] = 0.f;
+  if (src == nullptr || !valid || c0 >= D) return;
+  const bf16* p = src + (size_t)e * D + c0;
+  if ((D & 3) == 0) {
+    bf16x4_to_f32(__ldcs(reinterpret_cast<const uint2*>(p)), v);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (c0 + q < D) v[q] = __bfloat162float(p[q]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store_row4(bf16* __restrict__ dst, int D, int e, int c0,
+                                           bool valid, const float (&v)[4]) {
+  if (dst == nullptr || !valid || c0 >= D) return;
+  bf16* p = dst + (size_t)e * D + c0;
+  if ((D & 3) == 0) {
+    *reinterpret_cast<uint2*>(p) = f32_to_bf16x4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (c0 + q < D) p[q] = __float2bfloat16_rn(v[q]);
+    }
+  }
+}
+
+// stage_rows of a bf16 stream: the rows upcast into the float32 tile.
+__device__ __forceinline__ void stage_rows(float* dst, int stride, int col0,
+                                           const bf16* __restrict__ src, int D, int e0, int E) {
+  if (src == nullptr || D == 0) return;
+  const int rows = min(kTileRows, E - e0);
+  const bf16* s0 = src + (size_t)e0 * D;
+  if ((D & 3) == 0) {
+    const int dv = D >> 2;
+    for (int i = threadIdx.x; i < kTileRows * dv; i += kTileThreads) {
+      const int r = i / dv, c = i - r * dv;
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (r < rows) bf16x4_to_f32(__ldcs(reinterpret_cast<const uint2*>(s0) + i), v);
+      float* d = dst + r * stride + col0 + 4 * c;
+      d[0] = v[0], d[1] = v[1], d[2] = v[2], d[3] = v[3];
+    }
+  } else if ((D & 1) == 0) {
+    const int dv = D >> 1;
+    for (int i = threadIdx.x; i < kTileRows * dv; i += kTileThreads) {
+      const int r = i / dv, c = i - r * dv;
+      float2 v = make_float2(0.f, 0.f);
+      if (r < rows) v = __bfloat1622float2(__ldcs(reinterpret_cast<const __nv_bfloat162*>(s0) + i));
+      float* d = dst + r * stride + col0 + 2 * c;
+      d[0] = v.x, d[1] = v.y;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTileRows * D; i += kTileThreads) {
+      const int r = i / D, c = i - r * D;
+      dst[r * stride + col0 + c] = r < rows ? __bfloat162float(s0[i]) : 0.f;
+    }
+  }
+}
 
 // Copy rows [e0, e0 + kTileRows) of the (E, D) stream `src` into columns
 // [col0, col0 + D) of the shared rows dst[r * stride + ...]; rows past E are
@@ -108,6 +203,14 @@ __device__ __forceinline__ void stage_rows_async(float* dst, int stride, int col
   }
 }
 
+// A bf16 stream's rows are staged synchronously (upcast on the way): the
+// caller's commits and waits then cover no copy of them.
+__device__ __forceinline__ void stage_rows_async(float* dst, int stride, int col0,
+                                                 const bf16* __restrict__ src, int D, int e0,
+                                                 int E) {
+  stage_rows(dst, stride, col0, src, D, e0, E);
+}
+
 // Sum over the 32 features of a row held 4 per lane by 8 consecutive lanes
 // (feature 4 (lane % 8) + q), every lane of the 8 receiving it. The tree is
 // group_sum(x, 32)'s butterfly (common.cuh) over one feature per lane:
@@ -154,12 +257,14 @@ struct UpdateBwdRoles {
   }
 };
 
-// Phase 2 for the tile at e0: the sum over j < De in order.
+// Phase 2 for the tile at e0: the sum over j < De in order; d en and d skip2
+// stored as S (float, or bf16 rounded).
+template <class S>
 __device__ __forceinline__ void update_bwd_inputs(const float (*du)[kTileNarrow],
                                                   const float (*w)[kTileWide], int De, int d_in,
                                                   int d2, int rg2, int k2, int e0, int E,
-                                                  float* __restrict__ den_out,
-                                                  float* __restrict__ dskip2) {
+                                                  S* __restrict__ den_out,
+                                                  S* __restrict__ dskip2) {
   const int K = d_in + d2;
   float o[2][4] = {};
   const int ra = 2 * rg2;
@@ -180,16 +285,15 @@ __device__ __forceinline__ void update_bwd_inputs(const float (*du)[kTileNarrow]
     const int e = e0 + ra + h;
     if (e >= E) continue;
     if ((d_in & 3) == 0 && k2 + 3 < d_in) {
-      *reinterpret_cast<float4*>(den_out + (size_t)e * d_in + k2) =
-          make_float4(o[h][0], o[h][1], o[h][2], o[h][3]);
+      store_row4(den_out, d_in, e, k2, true, o[h]);
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         const int k = k2 + q;
         if (k < d_in) {
-          den_out[(size_t)e * d_in + k] = o[h][q];
+          stream_store(den_out + (size_t)e * d_in + k, o[h][q]);
         } else if (k < K) {
-          dskip2[(size_t)e * d2 + (k - d_in)] = o[h][q];
+          stream_store(dskip2 + (size_t)e * d2 + (k - d_in), o[h][q]);
         }
       }
     }
@@ -455,15 +559,20 @@ struct StepRow {
   }
 };
 
+// S: the streams' storage (en, skip2, e_l, the cotangents of en_next and
+// e_l, and d en, d skip2, d res); d_el, the total cotangent that the tables'
+// sums take, stays float32, and with bf16 streams its rounding goes to dres
+// (NULL: not written).
+template <class S>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd_tile_kernel(
-    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
-    const float* __restrict__ w, const float* __restrict__ e_l, int E, int De,
+    const S* __restrict__ en, int d_in, const S* __restrict__ skip2, int d2,
+    const float* __restrict__ w, const S* __restrict__ e_l, int E, int De,
     const float* __restrict__ lng, const float* __restrict__ lnb, int raw, float eps,
     const float* __restrict__ wlp, int Dp, const float* __restrict__ wlc, int Dc,
     const float* __restrict__ dxl_p, const float* __restrict__ dxl_c,
-    const float* __restrict__ den_next, const float* __restrict__ de_l_ext,
-    float* __restrict__ d_el, float* __restrict__ den_out, float* __restrict__ dskip2,
-    float* __restrict__ partials) {
+    const S* __restrict__ den_next, const S* __restrict__ de_l_ext,
+    float* __restrict__ d_el, S* __restrict__ den_out, S* __restrict__ dskip2,
+    S* __restrict__ dres, float* __restrict__ partials) {
   __shared__ __align__(16) StepTileSmem s;
   const int tid = threadIdx.x;
   const int K = d_in + d2, KF = Dp + Dc;
@@ -507,6 +616,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) layer_step_bwd
     linears_ln_bwd4(&s.dx[r1][0], s.wf, KF, s.g, s.b, raw, De, c1, inv, eps, x, dext, dv, dg, db,
                     vo, de);
     store_row4(d_el, De, e1, c1, valid, de);
+    store_row4(dres, De, e1, c1, valid, de);
     *reinterpret_cast<float4*>(&s.v[r1][c1]) =
         valid ? make_float4(vo[0], vo[1], vo[2], vo[3]) : make_float4(0.f, 0.f, 0.f, 0.f);
     *reinterpret_cast<float4*>(&s.du[r1][c1]) =
@@ -586,11 +696,13 @@ struct FrontRow {
   }
 };
 
+// SE: the storage of e and d e; SN: of v's cotangent den (float, or bf16).
+template <class SE, class SN>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) frontend_bwd_tile_kernel(
-    const float* __restrict__ e, const float* __restrict__ den, int E, int De,
+    const SE* __restrict__ e, const SN* __restrict__ den, int E, int De,
     const float* __restrict__ lng, const float* __restrict__ lnb, int raw, float eps,
     const float* __restrict__ wlp, int Dp, const float* __restrict__ wlc, int Dc,
-    const float* __restrict__ dxl_p, const float* __restrict__ dxl_c, float* __restrict__ de,
+    const float* __restrict__ dxl_p, const float* __restrict__ dxl_c, SE* __restrict__ de,
     float* __restrict__ partials) {
   __shared__ __align__(16) FrontBwdSmem s;
   const int tid = threadIdx.x;
@@ -689,6 +801,7 @@ __device__ __forceinline__ void load_row_n(const float* __restrict__ src, int D,
 template <int N>
 __device__ __forceinline__ void store_row_n(float* __restrict__ dst, int D, int e,
                                             const float (&v)[N]) {
+  if (dst == nullptr) return;
   float* p = dst + (size_t)e * D;
   if constexpr (N >= 4) {
     if (D == 4) {
@@ -706,12 +819,61 @@ __device__ __forceinline__ void store_row_n(float* __restrict__ dst, int D, int 
   }
 }
 
-template <int DE, int DQ>
+// load_row_n / store_row_n of a bf16 stream: one 8-byte access where D is 4,
+// 4-byte where D is 2 (a 2-wide bf16 row is 4 bytes: no 16- or 8-byte form).
+template <int N>
+__device__ __forceinline__ void load_row_n(const bf16* __restrict__ src, int D, int e,
+                                           float (&v)[N]) {
+#pragma unroll
+  for (int q = 0; q < N; ++q) v[q] = 0.f;
+  if (src == nullptr) return;
+  const bf16* p = src + (size_t)e * D;
+  if constexpr (N >= 4) {
+    if (D == 4) {
+      float t[4];
+      bf16x4_to_f32(__ldcs(reinterpret_cast<const uint2*>(p)), t);
+      v[0] = t[0], v[1] = t[1], v[2] = t[2], v[3] = t[3];
+      return;
+    }
+  }
+  if (N >= 2 && D == 2) {
+    const float2 t = __bfloat1622float2(__ldcs(reinterpret_cast<const __nv_bfloat162*>(p)));
+    v[0] = t.x, v[1] = t.y;
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    if (q < D) v[q] = __bfloat162float(p[q]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_row_n(bf16* __restrict__ dst, int D, int e,
+                                            const float (&v)[N]) {
+  if (dst == nullptr) return;
+  bf16* p = dst + (size_t)e * D;
+  if constexpr (N >= 4) {
+    if (D == 4) {
+      *reinterpret_cast<uint2*>(p) = f32_to_bf16x4(v[0], v[1], v[2], v[3]);
+      return;
+    }
+  }
+  if (N >= 2 && D == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    if (q < D) p[q] = __float2bfloat16_rn(v[q]);
+  }
+}
+
+template <int DE, int DQ, class SE, class SN>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) frontend_bwd_narrow_kernel(
-    const float* __restrict__ e, const float* __restrict__ den, int E, int De,
+    const SE* __restrict__ e, const SN* __restrict__ den, int E, int De,
     const float* __restrict__ lng, const float* __restrict__ lnb, int raw, float eps,
     const float* __restrict__ wlp, int Dp, const float* __restrict__ wlc, int Dc,
-    const float* __restrict__ dxl_p, const float* __restrict__ dxl_c, float* __restrict__ de,
+    const float* __restrict__ dxl_p, const float* __restrict__ dxl_c, SE* __restrict__ de,
     float* __restrict__ partials) {
   constexpr int NW = kTileThreads / 32;
   // a lane's sums: d Wlp (DQ x DE), d blp, d Wlc, d blc, d ln_scale, d ln_bias
@@ -862,10 +1024,13 @@ struct UpdateBwdSmem {
   float w[32][kTileWide];            // W (De, K)
 };
 
+// S: the streams' storage (g, en, skip2, d en, d skip2). g32 (NULL: not
+// written): g as float32, for the tables' sums of a bf16 g.
+template <class S>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) proj_update_bwd_tile_kernel(
-    const float* __restrict__ g, const float* __restrict__ en, int d_in,
-    const float* __restrict__ skip2, int d2, const float* __restrict__ w, int E, int De,
-    float* __restrict__ den_out, float* __restrict__ dskip2, float* __restrict__ partials) {
+    const S* __restrict__ g, const S* __restrict__ en, int d_in, const S* __restrict__ skip2,
+    int d2, const float* __restrict__ w, int E, int De, S* __restrict__ den_out,
+    S* __restrict__ dskip2, float* __restrict__ g32, float* __restrict__ partials) {
   __shared__ __align__(16) UpdateBwdSmem s;
   const int tid = threadIdx.x;
   const int K = d_in + d2;
@@ -896,6 +1061,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) proj_update_bw
       stage_rows_async(&s.a[buf ^ 1][0][0], kTileWide, d_in, skip2, d2, f0, E);
     }
     cp_async_commit();
+    store_row4(g32, De, e0 + r1, c1, e0 + r1 < E, cur);
     *reinterpret_cast<float4*>(&s.du[r1][c1]) =
         make_float4(cur[0] * 0.25f, cur[1] * 0.25f, cur[2] * 0.25f, cur[3] * 0.25f);
     cp_async_wait<1>();  // this thread's copies of this tile have landed
@@ -972,9 +1138,10 @@ __device__ __forceinline__ void gather_row4(const float* __restrict__ src, int D
   }
 }
 
+template <class S>
 __device__ __forceinline__ void load_step_rows(StepEdgeRows& r, const float* __restrict__ ps,
                                                const float* __restrict__ pv,
-                                               const float* __restrict__ res, int De, int e,
+                                               const S* __restrict__ res, int De, int e,
                                                int p, int c, int c1, bool valid) {
   gather_row4(ps, De, p, c1, valid, r.ps);
   gather_row4(pv, De, c, c1, valid, r.pv);
@@ -1129,15 +1296,19 @@ __device__ __forceinline__ void step_linears4(const float (*v)[kTileNarrow],
   }
 }
 
+// S: the streams' storage (en, skip2, res, e_l, en_next); xl_p, xl_c float32.
+// e_l and en_next are rounded as stored: the LayerNorm and the linears take
+// them in float32.
+template <class S>
 __global__ void __launch_bounds__(kTileThreads, kStepFwdBlocksPerSm) layer_step_fwd_tile_kernel(
-    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
-    const float* __restrict__ res, const float* __restrict__ w, const float* __restrict__ b,
+    const S* __restrict__ en, int d_in, const S* __restrict__ skip2, int d2,
+    const S* __restrict__ res, const float* __restrict__ w, const float* __restrict__ b,
     const float* __restrict__ pg, const float* __restrict__ ps, const float* __restrict__ pv,
     const int* __restrict__ pt_idx, const int* __restrict__ cam_idx, int E, int De,
     const float* __restrict__ lng, const float* __restrict__ lnb, int raw, float eps,
     const float* __restrict__ wlp, const float* __restrict__ blp, int Dp,
     const float* __restrict__ wlc, const float* __restrict__ blc, int Dc,
-    float* __restrict__ e_l, float* __restrict__ en_next, float* __restrict__ xl_p,
+    S* __restrict__ e_l, S* __restrict__ en_next, float* __restrict__ xl_p,
     float* __restrict__ xl_c) {
   __shared__ __align__(16) StepFwdSmem s;
   const int tid = threadIdx.x;
@@ -1258,11 +1429,14 @@ struct FrontFwdSmem {
   float g[32], b[32];                  // the LayerNorm's scale and bias
 };
 
+// SE: the storage of e; SN: of en (float, or bf16 rounded from the float32
+// v that the linears take).
+template <class SE, class SN>
 __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) frontend_fwd_tile_kernel(
-    const float* __restrict__ e, int E, int De, const float* __restrict__ lng,
+    const SE* __restrict__ e, int E, int De, const float* __restrict__ lng,
     const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
     const float* __restrict__ blp, int Dp, const float* __restrict__ wlc,
-    const float* __restrict__ blc, int Dc, float* __restrict__ en, float* __restrict__ xl_p,
+    const float* __restrict__ blc, int Dc, SN* __restrict__ en, float* __restrict__ xl_p,
     float* __restrict__ xl_c) {
   __shared__ __align__(16) FrontFwdSmem s;
   const int tid = threadIdx.x;
@@ -1317,12 +1491,12 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSm) frontend_fwd_t
   cp_async_wait<0>();
 }
 
-template <int DE, int DQ>
+template <int DE, int DQ, class SE, class SN>
 __global__ void __launch_bounds__(kTileThreads) frontend_fwd_narrow_kernel(
-    const float* __restrict__ e, int E, int De, const float* __restrict__ lng,
+    const SE* __restrict__ e, int E, int De, const float* __restrict__ lng,
     const float* __restrict__ lnb, int raw, float eps, const float* __restrict__ wlp,
     const float* __restrict__ blp, int Dp, const float* __restrict__ wlc,
-    const float* __restrict__ blc, int Dc, float* __restrict__ en, float* __restrict__ xl_p,
+    const float* __restrict__ blc, int Dc, SN* __restrict__ en, float* __restrict__ xl_p,
     float* __restrict__ xl_c) {
   const int edge = blockIdx.x * kTileThreads + threadIdx.x;
   if (edge >= E) return;
@@ -1417,9 +1591,10 @@ struct UpdateEdgeRows {
   float gs[4], res[4];
 };
 
+template <class S>
 __device__ __forceinline__ void load_update_rows(UpdateEdgeRows& r, const float* __restrict__ ps,
                                                  const float* __restrict__ pv,
-                                                 const float* __restrict__ res, int De, int e,
+                                                 const S* __restrict__ res, int De, int e,
                                                  int p, int c, int c1, bool valid) {
   float a[4], b[4];
   gather_row4(ps, De, p, c1, valid, a);
@@ -1429,12 +1604,14 @@ __device__ __forceinline__ void load_update_rows(UpdateEdgeRows& r, const float*
   load_row4(res, De, e, c1, valid, r.res);
 }
 
+// S: the streams' storage (en, skip2, res, out; out rounded as stored).
+template <class S>
 __global__ void __launch_bounds__(kTileThreads, kUpdateFwdBlocksPerSm) proj_update_fwd_tile_kernel(
-    const float* __restrict__ en, int d_in, const float* __restrict__ skip2, int d2,
-    const float* __restrict__ res, const float* __restrict__ w, const float* __restrict__ b,
+    const S* __restrict__ en, int d_in, const S* __restrict__ skip2, int d2,
+    const S* __restrict__ res, const float* __restrict__ w, const float* __restrict__ b,
     const float* __restrict__ pg, const float* __restrict__ ps, const float* __restrict__ pv,
     const int* __restrict__ pt_idx, const int* __restrict__ cam_idx, int E, int De,
-    float* __restrict__ out) {
+    S* __restrict__ out) {
   __shared__ __align__(16) UpdateFwdSmem s;
   const int K = d_in + d2, KP = (K + 3) & ~3;
   const int r0 = 2 * (threadIdx.x >> 3), c1 = 4 * (threadIdx.x & 7);  // edges r0, r0 + 1

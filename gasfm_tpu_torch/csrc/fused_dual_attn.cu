@@ -306,21 +306,38 @@ extern "C" int gasfm_dual_attend(
 // (at most kTileBlocksPerSm per SM, at most one per tile) taking 32-edge
 // tiles. e, en, xl_p and xl_c are read and written as 16- or 8-byte vectors
 // where their widths allow and must then be 16-byte aligned.
-extern "C" int gasfm_frontend_prologue(
-    const float* e, int E, int De, const float* lng, const float* lnb, int raw,
-    float eps, const float* wlp, const float* blp, int Dp, const float* wlc,
-    const float* blc, int Dc, float* en, float* xl_p, float* xl_c, int grid,
-    void* stream) {
+// e_bf16 / en_bf16: e, and en, are bf16 streams (en rounded from the float32
+// v that the linears take), else float32; a bf16 e has a bf16 en.
+template <class SE, class SN>
+static void frontend_prologue(const void* e, int E, int De, const float* lng, const float* lnb,
+                              int raw, float eps, const float* wlp, const float* blp, int Dp,
+                              const float* wlc, const float* blc, int Dc, void* en, float* xl_p,
+                              float* xl_c, int grid, cudaStream_t s) {
   using namespace gasfm;
-  cudaStream_t s = (cudaStream_t)stream;
+  const SE* ep = static_cast<const SE*>(e);
+  SN* enp = static_cast<SN*>(en);
+  if (De <= kFrontNarrowDe && Dp <= kFrontNarrowDq && Dc <= kFrontNarrowDq) {
+    frontend_fwd_narrow_kernel<kFrontNarrowDe, kFrontNarrowDq, SE, SN>
+        <<<grid, kTileThreads, 0, s>>>(ep, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc,
+                                       Dc, enp, xl_p, xl_c);
+  } else {
+    frontend_fwd_tile_kernel<SE, SN><<<grid, kTileThreads, 0, s>>>(
+        ep, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, enp, xl_p, xl_c);
+  }
+}
+
+extern "C" int gasfm_frontend_prologue(
+    const void* e, int E, int De, const float* lng, const float* lnb, int raw,
+    float eps, const float* wlp, const float* blp, int Dp, const float* wlc,
+    const float* blc, int Dc, void* en, float* xl_p, float* xl_c, int e_bf16, int en_bf16,
+    int grid, void* stream) {
+  using gasfm::bf16;
   if (E > 0) {
-    if (De <= kFrontNarrowDe && Dp <= kFrontNarrowDq && Dc <= kFrontNarrowDq) {
-      frontend_fwd_narrow_kernel<kFrontNarrowDe, kFrontNarrowDq><<<grid, kTileThreads, 0, s>>>(
-          e, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, en, xl_p, xl_c);
-    } else {
-      frontend_fwd_tile_kernel<<<grid, kTileThreads, 0, s>>>(
-          e, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, en, xl_p, xl_c);
-    }
+    auto run = e_bf16    ? &frontend_prologue<bf16, bf16>
+               : en_bf16 ? &frontend_prologue<float, bf16>
+                         : &frontend_prologue<float, float>;
+    run(e, E, De, lng, lnb, raw, eps, wlp, blp, Dp, wlc, blc, Dc, en, xl_p, xl_c, grid,
+        (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
@@ -376,22 +393,42 @@ extern "C" int gasfm_dual_attend_bwd(
 // the kernel's blocks, at most kTileBlocksPerSm per SM, at most one per
 // span or tile. e, den, dxl_p and dxl_c are read as 16- or 8-byte vectors
 // where their widths allow and must then be 16-byte aligned.
+// e_bf16: e and de are bf16 streams (de rounded); den_bf16: den is (the
+// cotangent of a bf16 en); else float32. A bf16 e has a bf16 den.
+template <class SE, class SN>
+static void frontend_prologue_bwd(const void* e, int E, int De, const float* lng,
+                                  const float* lnb, int raw, float eps, const float* wlp, int Dp,
+                                  const float* wlc, int Dc, const float* dxl_p,
+                                  const float* dxl_c, const void* den, void* de, float* partials,
+                                  int rows, cudaStream_t s) {
+  using namespace gasfm;
+  const SE* ep = static_cast<const SE*>(e);
+  const SN* denp = static_cast<const SN*>(den);
+  SE* dep = static_cast<SE*>(de);
+  if (De <= kFrontNarrowDe && Dp <= kFrontNarrowDq && Dc <= kFrontNarrowDq) {
+    frontend_bwd_narrow_kernel<kFrontNarrowDe, kFrontNarrowDq, SE, SN>
+        <<<rows, kTileThreads, 0, s>>>(ep, denp, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc,
+                                       dxl_p, dxl_c, dep, partials);
+  } else {
+    frontend_bwd_tile_kernel<SE, SN><<<rows, kTileThreads, 0, s>>>(
+        ep, denp, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, dep, partials);
+  }
+}
+
 extern "C" int gasfm_frontend_prologue_bwd(
-    const float* e, int E, int De, const float* lng, const float* lnb, int raw, float eps,
+    const void* e, int E, int De, const float* lng, const float* lnb, int raw, float eps,
     const float* wlp, int Dp, const float* wlc, int Dc, const float* dxl_p,
-    const float* dxl_c, const float* den, float* de, float* partials, float* sums, int grid,
-    void* stream) {
+    const float* dxl_c, const void* den, void* de, float* partials, float* sums, int e_bf16,
+    int den_bf16, int grid, void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = E > 0 ? grid : 0;
   if (rows > 0) {
-    if (De <= kFrontNarrowDe && Dp <= kFrontNarrowDq && Dc <= kFrontNarrowDq) {
-      frontend_bwd_narrow_kernel<kFrontNarrowDe, kFrontNarrowDq><<<rows, kTileThreads, 0, s>>>(
-          e, den, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, de, partials);
-    } else {
-      frontend_bwd_tile_kernel<<<rows, kTileThreads, 0, s>>>(
-          e, den, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, de, partials);
-    }
+    auto run = e_bf16 ? &frontend_prologue_bwd<bf16, bf16>
+                      : den_bf16 ? &frontend_prologue_bwd<float, bf16>
+                                 : &frontend_prologue_bwd<float, float>;
+    run(e, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c, den, de, partials, rows,
+        s);
   }
   launch_column_sum(partials, rows, FrontRow(De, Dp, Dc).len, sums, s);
   return (int)cudaGetLastError();

@@ -58,49 +58,85 @@
 #include "edge_tile.cuh"
 #include "segment.cuh"
 
-// grid: the tile kernel's blocks, at most kStepFwdBlocksPerSm per SM. en,
-// skip2, res, ps, pv and the outputs are read and written as 16-byte vectors
-// where their widths allow and must then be 16-byte aligned.
+// With bf16 set the streams en, skip2, res, e_l and en_next are bf16
+// (compile.stream_dtype = bf16), else float32. grid: the tile kernel's
+// blocks, at most kStepFwdBlocksPerSm per SM. en, skip2, res, ps, pv and the
+// outputs are read and written as 16-byte (bf16: 8-byte) vectors where their
+// widths allow and must then be 16-byte aligned.
+template <class S>
+static void layer_step_prologue(const void* en, int d_in, const void* skip2, int d2,
+                                const void* res, const float* w, const float* b,
+                                const float* pg, const float* ps, const float* pv,
+                                const int* pt_idx, const int* cam_idx, int E, int De,
+                                const float* lng, const float* lnb, int raw, float eps,
+                                const float* wlp, const float* blp, int Dp, const float* wlc,
+                                const float* blc, int Dc, void* e_l, void* en_next,
+                                float* xl_p, float* xl_c, int grid, cudaStream_t s) {
+  using namespace gasfm;
+  layer_step_fwd_tile_kernel<S><<<grid, kTileThreads, 0, s>>>(
+      static_cast<const S*>(en), d_in, static_cast<const S*>(skip2), d2,
+      static_cast<const S*>(res), w, b, pg, ps, pv, pt_idx, cam_idx, E, De, lng, lnb, raw, eps,
+      wlp, blp, Dp, wlc, blc, Dc, static_cast<S*>(e_l), static_cast<S*>(en_next), xl_p, xl_c);
+}
+
 extern "C" int gasfm_layer_step_prologue(
-    const float* en, int d_in, const float* skip2, int d2, const float* res,
+    const void* en, int d_in, const void* skip2, int d2, const void* res,
     const float* w, const float* b, const float* pg, const float* ps, const float* pv,
     const int* pt_idx, const int* cam_idx, int E, int De, const float* lng,
     const float* lnb, int raw, float eps, const float* wlp, const float* blp,
-    int Dp, const float* wlc, const float* blc, int Dc, float* e_l,
-    float* en_next, float* xl_p, float* xl_c, int grid, void* stream) {
-  using namespace gasfm;
+    int Dp, const float* wlc, const float* blc, int Dc, void* e_l,
+    void* en_next, float* xl_p, float* xl_c, int bf16, int grid, void* stream) {
   if (E > 0) {
-    layer_step_fwd_tile_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-        en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, lng, lnb,
-        raw, eps, wlp, blp, Dp, wlc, blc, Dc, e_l, en_next, xl_p, xl_c);
+    auto run = bf16 ? &layer_step_prologue<gasfm::bf16> : &layer_step_prologue<float>;
+    run(en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, lng, lnb, raw, eps,
+        wlp, blp, Dp, wlc, blc, Dc, e_l, en_next, xl_p, xl_c, grid, (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
 
-// d_el (E, De): the total cotangent of e_l (returned as d res); den_out (E,
-// d_in); dskip2 (E, d2) or NULL; dps (n, De); dpv (m, De); den_next and
-// de_l_ext may be NULL (no cotangent). partials (grid, row) scratch, sums
+// d_el (E, De, float32): the total cotangent of e_l (with float32 streams
+// returned as d res); den_out (E, d_in); dskip2 (E, d2) or NULL; dps (n, De);
+// dpv (m, De); den_next and de_l_ext may be NULL (no cotangent). With bf16
+// set the streams en, skip2, e_l, den_next, de_l_ext, den_out and dskip2 are
+// bf16, and dres (E, De, or NULL) takes d_el rounded to bf16. partials (grid, row) scratch, sums
 // (row,): the weight gradients, laid out as StepRow (edge_tile.cuh) says.
 // grid: the tile kernel's blocks, at most kTileBlocksPerSm per SM. split_p /
 // split_c: both CSRs split as the segment sum takes them (segment.cuh;
 // ViewGraph.pt_chunks / cam_chunks, layout SegmentSplit); part_p
 // (n_chunks_p, De) and part_c (n_chunks_c, De) their scratch.
+template <class S>
+static void layer_step_bwd_tiles(const void* en, int d_in, const void* skip2, int d2,
+                                 const float* w, const void* e_l, int E, int De,
+                                 const float* lng, const float* lnb, int raw, float eps,
+                                 const float* wlp, int Dp, const float* wlc, int Dc,
+                                 const float* dxl_p, const float* dxl_c, const void* den_next,
+                                 const void* de_l_ext, float* d_el, void* den_out,
+                                 void* dskip2, void* dres, float* partials, int rows,
+                                 cudaStream_t s) {
+  using namespace gasfm;
+  layer_step_bwd_tile_kernel<S><<<rows, kTileThreads, 0, s>>>(
+      static_cast<const S*>(en), d_in, static_cast<const S*>(skip2), d2, w,
+      static_cast<const S*>(e_l), E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c,
+      static_cast<const S*>(den_next), static_cast<const S*>(de_l_ext), d_el,
+      static_cast<S*>(den_out), static_cast<S*>(dskip2), static_cast<S*>(dres), partials);
+}
+
 extern "C" int gasfm_layer_step_bwd(
-    const float* en, int d_in, const float* skip2, int d2, const float* w, const float* e_l,
+    const void* en, int d_in, const void* skip2, int d2, const float* w, const void* e_l,
     const int* pt_ptr, int n_pts, const int* cam_ptr, const int* cam_perm, int n_cams,
     const int* split_p, int n_long_p, int n_chunks_p, const int* split_c, int n_long_c,
     int n_chunks_c, float* part_p, float* part_c, int E,
     int De, const float* lng, const float* lnb, int raw, float eps, const float* wlp, int Dp,
-    const float* wlc, int Dc, const float* dxl_p, const float* dxl_c, const float* den_next,
-    const float* de_l_ext, float* d_el, float* den_out, float* dskip2, float* dps, float* dpv,
-    float* partials, float* sums, int grid, void* stream) {
+    const float* wlc, int Dc, const float* dxl_p, const float* dxl_c, const void* den_next,
+    const void* de_l_ext, float* d_el, void* den_out, void* dskip2, float* dps, float* dpv,
+    float* partials, float* sums, void* dres, int bf16, int grid, void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = E > 0 ? grid : 0;
   if (rows > 0) {
-    layer_step_bwd_tile_kernel<<<rows, kTileThreads, 0, s>>>(
-        en, d_in, skip2, d2, w, e_l, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c,
-        den_next, de_l_ext, d_el, den_out, dskip2, partials);
+    auto run = bf16 ? &layer_step_bwd_tiles<gasfm::bf16> : &layer_step_bwd_tiles<float>;
+    run(en, d_in, skip2, d2, w, e_l, E, De, lng, lnb, raw, eps, wlp, Dp, wlc, Dc, dxl_p, dxl_c,
+        den_next, de_l_ext, d_el, den_out, dskip2, bf16 ? dres : nullptr, partials, rows, s);
   }
   launch_column_sum(partials, rows, StepRow(De, d_in + d2, Dp, Dc).len, sums, s);
   segment_sum(d_el, De, pt_ptr, nullptr, E, SegmentSplit(split_p, n_long_p, n_chunks_p), n_pts,

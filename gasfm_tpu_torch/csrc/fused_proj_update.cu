@@ -51,15 +51,29 @@
 // blocks, at most kUpdateFwdBlocksPerSm per SM. en, skip2, res, ps, pv and
 // out are read and written as 16-byte vectors where their widths allow and
 // must then be 16-byte aligned.
-extern "C" int gasfm_proj_update(const float* en, int d_in, const float* skip2, int d2,
-                                 const float* res, const float* w, const float* b,
+// With bf16 set en, skip2, res and out are bf16 streams (out rounded), else
+// float32.
+template <class S>
+static void proj_update(const void* en, int d_in, const void* skip2, int d2, const void* res,
+                        const float* w, const float* b, const float* pg, const float* ps,
+                        const float* pv, const int* pt_idx, const int* cam_idx, int E, int De,
+                        void* out, int grid, cudaStream_t s) {
+  using namespace gasfm;
+  proj_update_fwd_tile_kernel<S><<<grid, kTileThreads, 0, s>>>(
+      static_cast<const S*>(en), d_in, static_cast<const S*>(skip2), d2,
+      static_cast<const S*>(res), w, b, pg, ps, pv, pt_idx, cam_idx, E, De,
+      static_cast<S*>(out));
+}
+
+extern "C" int gasfm_proj_update(const void* en, int d_in, const void* skip2, int d2,
+                                 const void* res, const float* w, const float* b,
                                  const float* pg, const float* ps, const float* pv,
                                  const int* pt_idx, const int* cam_idx, int E, int De,
-                                 float* out, int grid, void* stream) {
-  using namespace gasfm;
+                                 void* out, int bf16, int grid, void* stream) {
   if (E > 0) {
-    proj_update_fwd_tile_kernel<<<grid, kTileThreads, 0, (cudaStream_t)stream>>>(
-        en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, out);
+    auto run = bf16 ? &proj_update<gasfm::bf16> : &proj_update<float>;
+    run(en, d_in, skip2, d2, res, w, b, pg, ps, pv, pt_idx, cam_idx, E, De, out, grid,
+        (cudaStream_t)stream);
   }
   return (int)cudaGetLastError();
 }
@@ -71,27 +85,42 @@ extern "C" int gasfm_proj_update(const float* en, int d_in, const float* skip2, 
 // the segment sum takes them (segment.cuh; ViewGraph.pt_chunks /
 // cam_chunks, layout SegmentSplit); part_p (n_chunks_p, De) and part_c
 // (n_chunks_c, De) their scratch. g, en and skip2 are read as 16-byte
-// vectors where their widths allow and must then be 16-byte aligned.
-extern "C" int gasfm_proj_update_bwd(const float* g, const float* en, int d_in,
-                                     const float* skip2, int d2, const float* w,
+// (bf16: 8-byte) vectors where their widths allow and must then be 16-byte
+// aligned. With bf16 set g, en, skip2, den and dskip2 are bf16 streams (den,
+// dskip2 rounded), and the tile kernel writes g upcast to g32 (E, De), which
+// the tables' sums read.
+template <class S>
+static void proj_update_bwd_tiles(const void* g, const void* en, int d_in, const void* skip2,
+                                  int d2, const float* w, int E, int De, void* den,
+                                  void* dskip2, float* g32, float* partials, int rows,
+                                  cudaStream_t s) {
+  using namespace gasfm;
+  proj_update_bwd_tile_kernel<S><<<rows, kTileThreads, 0, s>>>(
+      static_cast<const S*>(g), static_cast<const S*>(en), d_in, static_cast<const S*>(skip2),
+      d2, w, E, De, static_cast<S*>(den), static_cast<S*>(dskip2), g32, partials);
+}
+
+extern "C" int gasfm_proj_update_bwd(const void* g, const void* en, int d_in,
+                                     const void* skip2, int d2, const float* w,
                                      const int* pt_ptr, int n_pts, const int* cam_ptr,
                                      const int* cam_perm, int n_cams, const int* split_p,
                                      int n_long_p, int n_chunks_p, const int* split_c,
                                      int n_long_c, int n_chunks_c, float* part_p, float* part_c,
-                                     int E, int De, float* den, float* dskip2, float* dps,
-                                     float* dpv, float* partials, float* sums, int grid,
-                                     void* stream) {
+                                     int E, int De, void* den, void* dskip2, float* dps,
+                                     float* dpv, float* partials, float* sums, float* g32,
+                                     int bf16, int grid, void* stream) {
   using namespace gasfm;
   cudaStream_t s = (cudaStream_t)stream;
   const int rows = E > 0 ? grid : 0;
   if (rows > 0) {
-    proj_update_bwd_tile_kernel<<<rows, kTileThreads, 0, s>>>(g, en, d_in, skip2, d2, w, E, De,
-                                                              den, dskip2, partials);
+    auto run = bf16 ? &proj_update_bwd_tiles<gasfm::bf16> : &proj_update_bwd_tiles<float>;
+    run(g, en, d_in, skip2, d2, w, E, De, den, dskip2, bf16 ? g32 : nullptr, partials, rows, s);
   }
   launch_column_sum(partials, rows, De * (d_in + d2) + De, sums, s);
-  segment_sum(g, De, pt_ptr, nullptr, E, SegmentSplit(split_p, n_long_p, n_chunks_p), n_pts,
+  const float* gsum = bf16 ? g32 : static_cast<const float*>(g);
+  segment_sum(gsum, De, pt_ptr, nullptr, E, SegmentSplit(split_p, n_long_p, n_chunks_p), n_pts,
               0.25f, dps, part_p, s);
-  segment_sum(g, De, cam_ptr, cam_perm, E, SegmentSplit(split_c, n_long_c, n_chunks_c), n_cams,
-              0.25f, dpv, part_c, s);
+  segment_sum(gsum, De, cam_ptr, cam_perm, E, SegmentSplit(split_c, n_long_c, n_chunks_c),
+              n_cams, 0.25f, dpv, part_c, s);
   return (int)cudaGetLastError();
 }

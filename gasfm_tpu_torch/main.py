@@ -33,10 +33,14 @@ predictions and plots per set and scene, and per test scene the
 fine-tuning's (``FINE_TUNE_from_final``, ``FINE_TUNE_from_best``) and the
 short optimization's trees and ``final_train_errors_<PHASE>[_id]`` tables.
 
-Conf keys the port reads and does not act on: ``compile.*`` (the edge chunk,
-``stream_dtype``, the bucket multiples and growth, ``kernel_precision``,
-``donate_state``, ``dtype``) and ``model.remat_layers``, the JAX package's
-TPU layout and memory devices. bf16 Adam moments and bf16 weights with an
+Conf keys the port reads and does not act on: the rest of ``compile.*``
+(the edge chunk, the bucket multiples and growth, ``kernel_precision``,
+``donate_state``, ``dtype``), the JAX package's TPU layout devices. Its two
+activation-memory options act: ``compile.stream_dtype = "bf16"`` stores the
+merged path's edge streams and their cotangents in bfloat16, and
+``model.remat_layers`` rematerializes each GASFM layer in the backward
+(``GraphAttnSfMNet(stream_dtype=..., remat_layers=...)``, read by
+``conf_kwargs``). bf16 Adam moments and bf16 weights with an
 f32 master (``train.adam_mu_dtype``, ``train.adam_nu_dtype``,
 ``train.param_dtype``) train through the port's Adam kernel
 (``train.state.optim_from_conf``; the weight files then hold bf16 leaves,

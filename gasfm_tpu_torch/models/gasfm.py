@@ -32,6 +32,23 @@ time, so one model serves small and large scenes:
   the points and the composite of gathers, segment max and segment sums for
   the cameras.
 
+Under ``stream_dtype=torch.bfloat16`` (``compile.stream_dtype = "bf16"``,
+the JAX package's ``GASFM_STREAM_DTYPE``) the merged path stores its edge
+streams and their cotangents in bfloat16 where the JAX package's packed
+layout does (``gasfm_tpu/models/gasfm.py:117-121``, ``:160-168``,
+``:217``; ``models/layers.py:775-797``, ``:967-993``; the kernels'
+outputs of the stream's dtype): the init skip and a stream entering a
+merged layer are rounded (to nearest even), the first layer's e_norm,
+skip2 or residual too, and the layer-step, frontend and projection-update
+kernels load bf16 rows, compute in float32 and round what they store. A
+stream leaving the merged path is upcast. The unfused path, DPESFM and the
+depth head's last (widening) layer are untouched by it. With
+``remat_layers`` (``model.remat_layers``, the JAX package's
+``nn.remat(GraphAttnLayer)``) each layer runs under
+``torch.utils.checkpoint`` while autograd records: the backward keeps what
+crosses a layer's boundary and recomputes the rest, its kernels launching
+again.
+
 The packed layout's other gates (its chunk and window shapes) are TPU
 layout devices and do not apply. Head combinations that no loss of the JAX
 package accepts (``gasfm_tpu/losses.py:344-359``) raise
@@ -45,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gasfm_tpu_torch.models.heads import (
     check_heads,
@@ -59,8 +77,22 @@ from gasfm_tpu_torch.models.layers import (
     MLPStack,
     default_agg_width,
     init_parameters,
+    to_stream,
 )
+from gasfm_tpu_torch.ops.kernels.build import upcast
 from gasfm_tpu_torch.utils.constants import DENSE_MAX_SEGMENTS
+
+STREAM_DTYPES = {None: torch.float32, "f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def stream_dtype_from_conf(conf) -> torch.dtype:
+    """``compile.stream_dtype``: null or "f32" float32, "bf16" bfloat16;
+    anything else raises ``ValueError`` (the JAX package asserts,
+    gasfm_tpu/main.py:94)."""
+    name = conf.get_string("compile.stream_dtype", default=None)
+    if name not in STREAM_DTYPES:
+        raise ValueError(f"compile.stream_dtype must be f32|bf16, got {name}")
+    return STREAM_DTYPES[name]
 
 
 class GraphAttnSfMNet(nn.Module):
@@ -96,9 +128,15 @@ class GraphAttnSfMNet(nn.Module):
         view_head_n_hidden_layers: int = 2,
         scenepoint_head_enabled: bool = True,
         scenepoint_head_n_hidden_layers: int = 2,
+        stream_dtype: torch.dtype = torch.float32,
+        remat_layers: bool = False,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
+        if stream_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"stream_dtype must be float32 or bfloat16, got {stream_dtype}")
+        self.stream_dtype = stream_dtype
+        self.remat_layers = remat_layers
         check_heads(depth_head_enabled, view_head_enabled, scenepoint_head_enabled)
         self.num_layers = num_layers
         self.n_feat_proj = n_feat_proj
@@ -160,8 +198,8 @@ class GraphAttnSfMNet(nn.Module):
             self.view_head = MLPStack([n_feat_view] * (1 + view_head_n_hidden_layers) + [out_ch])
             self.scenepoint_head = MLPStack(
                 [n_feat_scenepoint] * (1 + scenepoint_head_n_hidden_layers) + [3])
-        # float32 whatever torch's default dtype is: the slice runs in f32
-        # end to end, and the kernels take float32 only.
+        # float32 whatever torch's default dtype is: the kernels take float32
+        # weights and tables (the edge streams alone may be bf16).
         self.to(torch.float32)
         if generator is not None:
             init_parameters(self, generator)
@@ -171,8 +209,8 @@ class GraphAttnSfMNet(nn.Module):
         """The constructor's keyword arguments from a conf, read as the JAX
         package's ``GraphAttnSfMNet.from_conf`` reads them
         (``gasfm_tpu/models/gasfm.py:293-335``, reference
-        graph_attn_sfm.py:9-41). ``model.remat_layers`` is accepted and
-        ignored: rematerialization is a TPU memory device."""
+        graph_attn_sfm.py:9-41), with ``compile.stream_dtype``
+        (:func:`stream_dtype_from_conf`) and ``model.remat_layers``."""
         return dict(
             num_layers=conf.get_int("model.num_layers"),
             n_heads=conf.get_int("model.n_heads"),
@@ -212,6 +250,8 @@ class GraphAttnSfMNet(nn.Module):
             scenepoint_head_enabled=conf.get_bool("model.scenepoint_head.enabled", default=False),
             scenepoint_head_n_hidden_layers=conf.get_int("model.scenepoint_head.n_hidden_layers",
                                                          default=2),
+            stream_dtype=stream_dtype_from_conf(conf),
+            remat_layers=conf.get_bool("model.remat_layers", default=False),
         )
 
     @classmethod
@@ -261,17 +301,35 @@ class GraphAttnSfMNet(nn.Module):
         the per-edge ``depths`` (E,) in the graph's (point-major) edge order.
         ``plain=True`` runs the kernels' plain PyTorch versions whatever the
         device."""
+        sd = self.stream_dtype
         e = self.embed(graph.uv)
         skip_init = e if self.add_skipconn_from_init_projfeat else None
+        skip_merged = to_stream(skip_init, sd)  # the init skip a merged layer takes
         s = v = g = None
-        for blk, (merged, defer) in zip(self.equivariant_blocks, self.layer_plan(graph)):
-            e, s, v, g = blk(
-                e, graph,
+        remat = self.remat_layers and torch.is_grad_enabled()
+        for i, (blk, (merged, defer)) in enumerate(zip(self.equivariant_blocks,
+                                                       self.layer_plan(graph))):
+            if isinstance(e, torch.Tensor) and not merged:  # an unfused layer: float32
+                e = upcast(e)
+            elif isinstance(e, torch.Tensor) and i > 0:  # a stream entering a merged layer
+                e = to_stream(e, sd)
+            args = (e, graph)
+            kwargs = dict(
                 prev_scenepoint_features=s if self.stateful else None,
                 prev_view_features=v if self.stateful else None,
                 prev_global_features=g if self.stateful else None,
-                skipconn_init_projfeat=skip_init, merged=merged, defer=defer, plain=plain,
+                skipconn_init_projfeat=skip_merged if merged and i > 0 else skip_init,
+                merged=merged, defer=defer, plain=plain, stream_dtype=sd,
             )
+            if remat:
+                # no random numbers in a layer: stashing the RNG state is not
+                # needed, and is illegal while a CUDA graph records
+                e, s, v, g = checkpoint(blk, *args, use_reentrant=False,
+                                        preserve_rng_state=False, **kwargs)
+            else:
+                e, s, v, g = blk(*args, **kwargs)
+        if isinstance(e, torch.Tensor):
+            e = upcast(e)
         if self.depth_head_enabled:
             return {"depths": self.depth_head(e)[:, 0]}
         n_input, m_input, _, _, _ = self.final_global_update(

@@ -88,6 +88,7 @@ from gasfm_tpu_torch.ops.gatv2 import (
     gatv2_layer_frontend,
     merged_layer_frontend,
 )
+from gasfm_tpu_torch.ops.kernels.build import upcast
 from gasfm_tpu_torch.ops.segment import edge_mean, segment_mean, table_shard
 
 LN_EPS = 1e-5  # the edge LayerNorm's epsilon (torch nn.LayerNorm's default)
@@ -109,11 +110,14 @@ class PendingUpdate(NamedTuple):
     pg: torch.Tensor  # (1, De) global linear output
 
 
-def f32(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-    """A bf16 weight upcast to float32, under autograd (its gradient comes
-    back rounded to bf16); any other tensor (a float32 weight, or a float64
-    one of a reference run) as it is."""
-    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
+f32 = upcast  # a bf16 weight upcast to float32 (its gradient comes back rounded)
+
+
+def to_stream(t: Optional[torch.Tensor], dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """An edge stream stored in ``dtype``: rounded to bf16 (to nearest even)
+    under bf16 streams; as it is under float32 streams (also a float64
+    reference run's)."""
+    return t.to(dtype) if t is not None and dtype == torch.bfloat16 else t
 
 
 class _Bf16Dense(torch.autograd.Function):
@@ -423,14 +427,16 @@ class GraphAttnGlobalFeatureUpdate(nn.Module):
                 n_hidden_layers_scenepoint_update)
 
     def forward(self, x_edges, graph, prev_scenepoint_features=None, prev_view_features=None,
-                prev_global_features=None, ln=None, plain=False):
+                prev_global_features=None, ln=None, plain=False, en_dtype=None):
         """``x_edges``: the raw (E, De) stream, or the previous layer's
         :class:`PendingUpdate`. ``ln``: this layer's (scale, bias) edge
         LayerNorm, or None for an aggregation of the stream as it is (the
         final aggregation; an unfused layer without ``use_norm_proj_update``,
-        whose ReLU the caller applied). Returns (s, v, g, e_norm, e_prev):
-        e_prev is the materialized previous update when ``x_edges`` was
-        pending, else None; e_norm is ``x_edges`` itself without ``ln``."""
+        whose ReLU the caller applied). ``en_dtype``: e_norm's stored dtype
+        on a raw stream (the frontend kernel's). Returns (s, v, g, e_norm,
+        e_prev): e_prev is the materialized previous update when ``x_edges``
+        was pending, else None; e_norm is ``x_edges`` itself without ``ln``.
+        A pending update's streams and outputs keep their dtype."""
         agg_p, agg_c = self.proj2scenepoint, self.proj2view
         conv_p, conv_c = agg_p.graph_conv, agg_c.graph_conv
         ln_scale, ln_bias = ln if ln is not None else (None, None)
@@ -447,7 +453,8 @@ class GraphAttnGlobalFeatureUpdate(nn.Module):
             e_prev, en, out_p, out_c = merged_layer_frontend(
                 x_edges, *args, raw_prologue=ln is None, plain=plain)
         elif ln is not None:
-            en, out_p, out_c = gatv2_layer_frontend(x_edges, *args, plain=plain)
+            en, out_p, out_c = gatv2_layer_frontend(x_edges, *args, plain=plain,
+                                                    en_dtype=en_dtype)
         else:  # the JAX package's prepare + gatv2_attend_dual
             en = x_edges
             out_p, out_c = gatv2_attend_dual(conv_p.lin_l(en), conv_c.lin_l(en), *args[7:],
@@ -574,7 +581,13 @@ class GraphAttnLayer(nn.Module):
 
     def forward(self, x_edges, graph, prev_scenepoint_features=None, prev_view_features=None,
                 prev_global_features=None, skipconn_init_projfeat=None, merged=True,
-                defer=True, plain=False):
+                defer=True, plain=False, stream_dtype=torch.float32):
+        """``stream_dtype``: the merged path's stored edge streams
+        (``compile.stream_dtype``). A merged layer stores e_norm, skip2 and
+        res in it, rounding where its input stream is float32 (the first
+        layer's, as the JAX package's first-layer deferral rounds them,
+        models/layers.py:789-793, :975-990); a bf16 stream keeps its dtype
+        through the kernels. The unfused layer ignores it."""
         nodes = (prev_scenepoint_features, prev_view_features, prev_global_features)
         if not merged:
             return self._unfused(x_edges, graph, nodes, skipconn_init_projfeat, plain)
@@ -582,7 +595,8 @@ class GraphAttnLayer(nn.Module):
         assert not (self.n_skip_in and self.skip_projection is not None)
         norm = self.prev_projfeat_norm_layer
         s, v, g, en, e_prev = self.global_feature_update(
-            x_edges, graph, *nodes, ln=(norm.weight, norm.bias), plain=plain)
+            x_edges, graph, *nodes, ln=(norm.weight, norm.bias), plain=plain,
+            en_dtype=stream_dtype)
         raw = x_edges if e_prev is None else e_prev  # this layer's input stream
         update = self.projection_feature_update
         ps, pv, pg = update.tables(s, v, g)
@@ -591,11 +605,12 @@ class GraphAttnLayer(nn.Module):
         res = None
         if self.skip_projection is not None:
             lin = self.skip_projection.lin_proj
-            skip2 = torch.relu(self.residual_skipconn_proj_norm_layer(raw))
+            skip2 = to_stream(torch.relu(self.residual_skipconn_proj_norm_layer(raw)),
+                              stream_dtype)
             w = torch.cat([w, 4.0 * f32(lin.weight)], dim=1)
             b = b + 4.0 * f32(lin.bias)
         elif self.add_residual:
-            res = raw
+            res = to_stream(raw, stream_dtype)
         pending = PendingUpdate(en, skip2, res, w, b, ps, pv, pg)
         if defer:
             return pending, s, v, g

@@ -173,12 +173,16 @@ def gatv2_attend(
     heads: int,
     negative_slope: float = NEGATIVE_SLOPE,
     side: Optional[str] = None,
-) -> torch.Tensor:
+    residuals: bool = False,
+):
     """(S, H*C) attention-aggregated source rows per segment, as the JAX
     package's composite path computes it: shifted exponentials, one sum for
     the numerators and one for the denominators, then ``num / den``. With
     ``side`` "point" under table sharding, the sums of the rank's edges,
-    exchanged at the shard's boundary (see the module docstring)."""
+    exchanged at the shard's boundary (see the module docstring). With
+    ``residuals``: (out, m (S, H), den (S, H)), the softmax shift (0 where a
+    segment is empty) and the denominators (0 there), as the attention
+    kernels write them under autograd."""
     E, D = xl.shape
     C = D // heads
     shard = table_shard() if side == "point" else None
@@ -193,8 +197,9 @@ def gatv2_attend(
         den = segment_sum(p, seg_ids, num_segments)  # (S, H)
     if shard is not None:
         num, den = _exchange_points(num, m, den, shard, heads)
-    den = torch.where(den > 0, den, torch.ones_like(den))
-    return (num.reshape(num_segments, heads, C) / den[:, :, None]).reshape(num_segments, D)
+    safe = torch.where(den > 0, den, torch.ones_like(den))
+    out = (num.reshape(num_segments, heads, C) / safe[:, :, None]).reshape(num_segments, D)
+    return (out, m, den) if residuals else out
 
 
 def gatv2_attend_side(xl, xr, att, graph, side, heads, plain=False):
@@ -252,13 +257,14 @@ def gatv2_attend_dual(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, plain=
 
 def gatv2_layer_frontend(e, ln_scale, ln_bias, eps, wlp, blp, wlc, blc,
                          xr_p, xr_c, att_p, att_c, graph, heads,
-                         raw_prologue=False, plain=False):
+                         raw_prologue=False, plain=False, en_dtype=None):
     """LN + ReLU (skipped under ``raw_prologue``) + both GATv2 source
     linears + both aggregations: the frontend kernel. Returns
     (e_norm, out_pt (n, Dp), out_cam (m, Dc)); under ``raw_prologue`` e_norm
-    is ``e`` itself. Above DENSE_MAX_SEGMENTS cameras, the JAX package's
-    composite instead: the flax-form LayerNorm + ReLU and the linears in
-    PyTorch, then :func:`gatv2_attend_dual`."""
+    is ``e`` itself. ``en_dtype``: e_norm's stored dtype (bf16 for a merged
+    layer under bf16 streams; default e's). Above DENSE_MAX_SEGMENTS
+    cameras, the JAX package's composite instead: the flax-form LayerNorm +
+    ReLU and the linears in PyTorch, then :func:`gatv2_attend_dual`."""
     if graph.num_cams > DENSE_MAX_SEGMENTS:
         en = e if raw_prologue else layer_norm_relu(e, ln_scale, ln_bias, eps)
         out_p, out_c = gatv2_attend_dual(F.linear(en, wlp, blp), F.linear(en, wlc, blc),
@@ -268,7 +274,7 @@ def gatv2_layer_frontend(e, ln_scale, ln_bias, eps, wlp, blp, wlc, blc,
 
     fn = k.fused_frontend_plain if plain else k.fused_frontend
     return fn(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c, att_p, att_c,
-              graph, heads, eps=eps, raw_prologue=raw_prologue)
+              graph, heads, eps=eps, raw_prologue=raw_prologue, en_dtype=en_dtype)
 
 
 def merged_layer_frontend(pending, ln_scale, ln_bias, eps, wlp, blp, wlc, blc,

@@ -26,7 +26,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -148,6 +148,47 @@ def cuda_f32(name: str, t: torch.Tensor, shape=None) -> torch.Tensor:
     ):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
     return t.contiguous()
+
+
+STREAM_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def stream_dtype(*streams) -> torch.dtype:
+    """The storage dtype of a call's edge-stream operands (None entries
+    skipped): float32 or bfloat16 (``compile.stream_dtype``), the same for
+    all of them; raises ``TypeError`` otherwise."""
+    dtypes = {t.dtype for t in streams if t is not None}
+    if len(dtypes) != 1 or not dtypes <= set(STREAM_DTYPES):
+        raise TypeError(f"edge streams: expected float32 CUDA tensors or bfloat16 ones, one "
+                        f"dtype per call, got {dtypes}")
+    return dtypes.pop()
+
+
+def cuda_stream(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None) -> torch.Tensor:
+    """Validate an edge-stream operand: a CUDA tensor of the call's stream
+    dtype (:func:`stream_dtype`), of the given shape; returns it contiguous."""
+    if t.dtype != dtype or dtype not in STREAM_DTYPES or not t.is_cuda:
+        kind = str(dtype).replace("torch.", "")
+        raise TypeError(f"{name}: expected a {kind} CUDA tensor (an edge stream), got "
+                        f"{t.dtype} on {t.device}")
+    if shape is not None and (
+        t.dim() != len(shape) or any(s is not None and s != d for s, d in zip(shape, t.shape))
+    ):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def is_bf16(dtype: torch.dtype) -> int:
+    """The kernels' stream-type flag: 1 for bfloat16 rows, 0 for float32."""
+    return int(dtype == torch.bfloat16)
+
+
+def upcast(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A bf16 tensor (a stream, or a weight under bf16 weights) upcast to
+    float32, under autograd: its cotangent comes back rounded to bf16, as
+    the JAX package's upcast on load gives it. Any other tensor (float32, or
+    float64 in a reference run), or None, as it is."""
+    return t.float() if t is not None and t.dtype == torch.bfloat16 else t
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -40,7 +40,16 @@ The plain version of each backward kernel is autograd through the forward's
 plain version.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
-raises. Each wrapper's ``launches`` attribute counts its kernel launches.
+raises. Each wrapper's ``launches`` attribute counts its kernel launches,
+and the frontend's ``bf16_launches`` those on bf16 streams.
+
+bf16 edge streams (``compile.stream_dtype``): the frontend's prologue takes
+e in float32 or bf16 and stores e_norm in bf16 where asked (``en_dtype``:
+the first merged layer stores its e_norm so, as the JAX package's
+first-layer deferral rounds it, ``models/layers.py:793``; a bf16 e, a
+bf16 e_norm, ``fused_dual_attn.py:987-991``); the source rows stay
+float32. Its backward takes e_norm's cotangent in that dtype and gives d e
+in e's (``:1310-1314``).
 
 Under an edge mesh (``ops/segment.py`` ``edge_partitioned``; the JAX
 package's ``fused_dual_attn.py:598-690``) the dual core runs on the rank's
@@ -69,7 +78,7 @@ from gasfm_tpu_torch.ops.attn_combine import (combine_attention_shards, exchange
                                               exchange_points, sum_cotangents)
 from gasfm_tpu_torch.ops.gatv2 import NEGATIVE_SLOPE, gatv2_attend, layer_norm_relu
 from gasfm_tpu_torch.ops.kernels import build as kb
-from gasfm_tpu_torch.ops.segment import edge_group, table_shard
+from gasfm_tpu_torch.ops.segment import edge_group, edge_partitioned, table_shard
 from gasfm_tpu_torch.ops.kernels.fused_proj_update import TILE_BLOCKS_PER_SM, TILE_ROWS
 
 LN_EPS = 1e-5
@@ -91,9 +100,9 @@ _SIGNATURES = {
     "gasfm_dual_attend_bwd": (_P,) * 18 + (_I, _I, _P) + (_I,) * 8 + (_F,) + (_P,) * 8
     + (_I, _P),
     "gasfm_frontend_prologue": (_P, _I, _I, _P, _P, _I, _F, _P, _P, _I, _P, _P, _I, _P, _P,
-                                _P, _I, _P),
+                                _P, _I, _I, _I, _P),
     "gasfm_frontend_prologue_bwd": (_P, _I, _I, _P, _P, _I, _F, _P, _I, _P, _I) + (_P,) * 6
-    + (_I, _P),
+    + (_I, _I, _I, _P),
 }
 
 
@@ -226,6 +235,82 @@ def dual_attend_combined(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, gro
     return out_p, out_c, (m_p, den_p, m_c, den_c), ins
 
 
+def dual_attend_residuals(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
+                          slope=NEGATIVE_SLOPE, plain=False):
+    """Both directions with their residuals: (out_p, out_c, (m_p, den_p,
+    m_c, den_c)), combined over the edge group under an edge mesh (the
+    scene's outputs and residuals). ``plain``: the plain versions, else the
+    kernel (CUDA tensors)."""
+    group = edge_group()
+    if not plain:
+        if group is None:
+            return dual_attend_forward(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads,
+                                       slope, residuals=True)[:3]
+        return dual_attend_combined(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, group,
+                                    slope)[:3]
+    with edge_partitioned(None):  # the rank's own edges; combined below
+        pt = gatv2_attend(xl_p, xr_p, att_p, graph.pt_idx, graph.num_pts, heads, slope,
+                          residuals=True)
+        cam = gatv2_attend(xl_c, xr_c, att_c, graph.cam_idx, graph.num_cams, heads, slope,
+                           residuals=True)
+    shard = None if group is None else table_shard()
+    if shard is not None:
+        pt, (cam,) = exchange_points(pt, shard, group, heads, cameras=[cam])
+    elif group is not None:
+        pt, cam = combine_attention_shards([pt, cam], group)
+    return pt[0], cam[0], (pt[1], pt[2], cam[1], cam[2])
+
+
+def attend_bwd_plain(xl, xr, att, out, m, den, g, seg_ids, num_segments, heads,
+                     slope=NEGATIVE_SLOPE):
+    """Plain version of one direction of the dual core's backward, the
+    kernel's formulas (csrc/attend_split.cuh): alpha = exp(min(l - m, 0)) /
+    den with the forward's m and den, dl = alpha (g . (xl - out)) per head,
+    d xl = alpha g + dz, d xr the segment sums of dz, d att the sum of dl
+    gz. At the forward's own xl this is autograd's gradient; at rows
+    recomputed from a stored stream it is the JAX package's backward kernel's
+    (``fused_layer_step.py:466-511``). Returns (dxl, dxr, datt (D,))."""
+    E, D = xl.shape
+    C = D // heads
+    s = seg_ids.long()
+    z = xl + xr[s]
+    gz = F.leaky_relu(z, slope)
+    logits = (gz * att.reshape(D)).reshape(E, heads, C).sum(-1)
+    inv = torch.where(den > 0, 1.0 / den.clamp_min(1e-38), torch.zeros_like(den))
+    alpha = torch.exp(torch.clamp(logits - m[s], max=0.0)) * inv[s]  # (E, H)
+    gs = g.reshape(-1, heads, C)[s]  # (E, H, C)
+    dl = alpha * (gs * (xl.reshape(E, heads, C) - out.reshape(-1, heads, C)[s])).sum(-1)
+    dz = (dl[:, :, None] * att.reshape(1, heads, C)).reshape(E, D) * torch.where(
+        z >= 0, torch.ones_like(z), torch.full_like(z, slope))
+    dxl = (alpha[:, :, None] * gs).reshape(E, D) + dz
+    dxr = xl.new_zeros((num_segments, D)).index_add_(0, s, dz)
+    datt = (dl[:, :, None] * gz.reshape(E, heads, C)).sum(0).reshape(D)
+    return dxl, dxr, datt
+
+
+def dual_attend_bwd_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c, out_p, out_c,
+                          m_p, den_p, m_c, den_c, g_p, g_c, graph, heads,
+                          slope=NEGATIVE_SLOPE):
+    """Plain version of :func:`fused_dual_attend_bwd`, the same operands and
+    results (:func:`attend_bwd_plain` per direction)."""
+    dxl_p, dxr_p, datt_p = attend_bwd_plain(xl_p, xr_p, att_p, out_p, m_p, den_p, g_p,
+                                            graph.pt_idx, graph.num_pts, heads, slope)
+    dxl_c, dxr_c, datt_c = attend_bwd_plain(xl_c, xr_c, att_c, out_c, m_c, den_c, g_c,
+                                            graph.cam_idx, graph.num_cams, heads, slope)
+    return dxl_p, dxl_c, dxr_p, dxr_c, datt_p, datt_c
+
+
+def exchange_dual_cotangents(g_p, g_c, group, shard):
+    """The outputs' cotangents at the dual core's backward entry under an
+    edge mesh: summed over the edge group, or under table sharding the
+    points' boundary rows added; as they are without a mesh."""
+    if shard is not None:
+        g_p, (g_c,) = exchange_cotangents(g_p, shard, group, [g_c])
+    elif group is not None:
+        g_p, g_c = sum_cotangents([g_p, g_c], group)
+    return g_p, g_c
+
+
 class _DualAttend(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope):
@@ -245,10 +330,7 @@ class _DualAttend(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_p, g_c):
         saved = ctx.saved_tensors
-        if ctx.shard is not None:
-            g_p, (g_c,) = exchange_cotangents(g_p, ctx.shard, ctx.group, [g_c])
-        elif ctx.group is not None:
-            g_p, g_c = sum_cotangents([g_p, g_c], ctx.group)
+        g_p, g_c = exchange_dual_cotangents(g_p, g_c, ctx.group, ctx.shard)
         dxl_p, dxl_c, dxr_p, dxr_c, datt_p, datt_c = fused_dual_attend_bwd(
             *saved, g_p, g_c, ctx.graph, ctx.heads, ctx.slope)
         return (dxl_p, dxl_c, dxr_p, dxr_c, datt_p.reshape(ctx.att_shapes[0]),
@@ -332,31 +414,51 @@ fused_dual_attend_bwd.launches = 0
 def frontend_prologue_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
                             raw_prologue=False):
     """Plain version of the per-edge prologue: (en = relu(LN(e)) or e under
-    raw, xl_p, xl_c)."""
+    raw, xl_p, xl_c), in float32 from a bf16 ``e`` upcast."""
+    e = kb.upcast(e)
     en = e if raw_prologue else layer_norm_relu(e, ln_scale, ln_bias, eps)
     return en, F.linear(en, wlp, blp), F.linear(en, wlc, blc)
 
 
+def en_dtype_of(e, en_dtype=None) -> torch.dtype:
+    """The stored dtype of the frontend's e_norm: ``en_dtype`` (the model's
+    stream dtype) or e's own; a bf16 e gives a bf16 e_norm."""
+    dtype = en_dtype or e.dtype
+    if e.dtype == torch.bfloat16 and dtype != torch.bfloat16:
+        raise TypeError(f"fused_frontend: a bf16 edge stream stores its e_norm in bf16, "
+                        f"not {dtype}")
+    return dtype
+
+
 def fused_frontend_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
                          att_p, att_c, graph, heads, eps=LN_EPS,
-                         raw_prologue=False, slope=NEGATIVE_SLOPE):
-    """Plain version: LN + ReLU, the two source linears, the dual core."""
+                         raw_prologue=False, slope=NEGATIVE_SLOPE, en_dtype=None):
+    """Plain version: LN + ReLU, the two source linears, the dual core. The
+    linears take e_norm in float32; e_norm is returned rounded to bf16 where
+    it is stored so (:func:`en_dtype_of`)."""
     en, xl_p, xl_c = frontend_prologue_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps,
                                              raw_prologue)
     out_p, out_c = fused_dual_attend_plain(xl_p, xl_c, xr_p, xr_c, att_p, att_c,
                                            graph, heads, slope)
+    if raw_prologue:
+        return e, out_p, out_c
+    if en_dtype_of(e, en_dtype) == torch.bfloat16:
+        en = en.to(torch.bfloat16)
     return en, out_p, out_c
 
 
 def frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
-                      raw_prologue=False):
+                      raw_prologue=False, en_dtype=None, want_en=True):
     """Launch the per-edge prologue (CUDA tensors). Returns (en, xl_p, xl_c);
-    under ``raw_prologue`` en is ``e``."""
+    under ``raw_prologue`` en is ``e``, without ``want_en`` None (not
+    written). e is float32 or bf16; en is stored in :func:`en_dtype_of`
+    (rounded in the kernel)."""
     E, De = e.shape
     Dp, Dc = wlp.shape[0], wlc.shape[0]
     if De > 32 or Dp > 32 or Dc > 32:
         raise ValueError(f"fused_frontend: widths De={De}, Dp={Dp}, Dc={Dc} must be <= 32")
-    e = kb.aligned(kb.cuda_f32("e", e, (E, De)))
+    e = kb.aligned(kb.cuda_stream("e", e, kb.stream_dtype(e), (E, De)))
+    en_dtype = en_dtype_of(e, en_dtype)
     if not raw_prologue:
         ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
         ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
@@ -365,17 +467,19 @@ def frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps=LN_EPS,
     wlc = kb.cuda_f32("wlc", wlc, (Dc, De))
     blc = kb.cuda_f32("blc", blc, (Dc,))
     dev = e.device
-    en = e if raw_prologue else torch.empty_like(e)
+    en = e if raw_prologue else (torch.empty((E, De), dtype=en_dtype, device=dev) if want_en
+                                 else None)
     xl_p, xl_c = kb.f32_empty((E, Dp), dev), kb.f32_empty((E, Dc), dev)
     p = kb.ptr
     code = _entry("gasfm_frontend_prologue")(
         p(e), E, De, p(None if raw_prologue else ln_scale), p(None if raw_prologue else ln_bias),
         int(raw_prologue), float(eps), p(wlp), p(blp), Dp, p(wlc), p(blc), Dc,
-        p(None if raw_prologue else en), p(xl_p), p(xl_c),
-        front_fwd_grid(dev, E, De, Dp, Dc), kb.stream(dev),
+        p(None if raw_prologue else en), p(xl_p), p(xl_c), kb.is_bf16(e.dtype),
+        kb.is_bf16(en_dtype), front_fwd_grid(dev, E, De, Dp, Dc), kb.stream(dev),
     )
     kb.check(code, "fused_frontend")
     fused_frontend.launches += 1
+    fused_frontend.bf16_launches += kb.is_bf16(en_dtype)
     return en, xl_p, xl_c
 
 
@@ -384,8 +488,9 @@ class _FrontendPrologue(torch.autograd.Function):
     xl_c) under ``raw`` (en is then the input itself, outside the Function)."""
 
     @staticmethod
-    def forward(ctx, e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw):
-        en, xl_p, xl_c = frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw)
+    def forward(ctx, e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw, en_dtype):
+        en, xl_p, xl_c = frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps, raw,
+                                           en_dtype)
         ctx.save_for_backward(e, ln_scale, ln_bias, wlp, wlc)
         ctx.eps, ctx.raw = eps, raw
         return (xl_p, xl_c) if raw else (en, xl_p, xl_c)
@@ -397,33 +502,37 @@ class _FrontendPrologue(torch.autograd.Function):
         de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc = fused_frontend_bwd(
             e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den, eps=ctx.eps,
             raw_prologue=ctx.raw)
-        return de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc, None, None
+        return de, dln_scale, dln_bias, dwlp, dblp, dwlc, dblc, None, None, None
 
 
 def fused_frontend(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
                    att_p, att_c, graph, heads, eps=LN_EPS, raw_prologue=False,
-                   slope=NEGATIVE_SLOPE):
-    """e (E, De) raw edge features; ln_scale/ln_bias (De,) (ignored under
-    ``raw_prologue``); wlp (Dp, De), blp (Dp,), wlc (Dc, De), blc (Dc,) the
-    source linears in torch layout; the rest as in :func:`fused_dual_attend`.
-    Returns (e_norm = relu(LN(e)) or e under raw, out_pt, out_cam)."""
+                   slope=NEGATIVE_SLOPE, en_dtype=None):
+    """e (E, De) raw edge features (float32, or a bf16 stream); ln_scale/
+    ln_bias (De,) (ignored under ``raw_prologue``); wlp (Dp, De), blp (Dp,),
+    wlc (Dc, De), blc (Dc,) the source linears in torch layout; the rest as
+    in :func:`fused_dual_attend`. ``en_dtype``: e_norm's stored dtype
+    (:func:`en_dtype_of`; the linears take it unrounded). Returns (e_norm =
+    relu(LN(e)) or e under raw, out_pt, out_cam)."""
     if e.device.type == "cpu":
         return fused_frontend_plain(e, ln_scale, ln_bias, wlp, blp, wlc, blc, xr_p, xr_c,
-                                    att_p, att_c, graph, heads, eps, raw_prologue, slope)
+                                    att_p, att_c, graph, heads, eps, raw_prologue, slope,
+                                    en_dtype)
     if e.shape[0] != graph.num_edges:
         raise ValueError(f"fused_frontend: {e.shape[0]} edge rows for {graph.num_edges} edges")
     if kb.needs_grad(e, ln_scale, ln_bias, wlp, blp, wlc, blc):
         outs = _FrontendPrologue.apply(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps,
-                                       raw_prologue)
+                                       raw_prologue, en_dtype)
         en, xl_p, xl_c = (e, *outs) if raw_prologue else outs
     else:
         en, xl_p, xl_c = frontend_prologue(e, ln_scale, ln_bias, wlp, blp, wlc, blc, eps,
-                                           raw_prologue)
+                                           raw_prologue, en_dtype)
     out_p, out_c = fused_dual_attend(xl_p, xl_c, xr_p, xr_c, att_p, att_c, graph, heads, slope)
     return en, out_p, out_c
 
 
 fused_frontend.launches = 0
+fused_frontend.bf16_launches = 0  # of them, launches on bf16 streams (a bf16 e or e_norm)
 
 
 def fused_frontend_bwd(e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den=None, en=None,
@@ -435,14 +544,17 @@ def fused_frontend_bwd(e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den=None, e
     e_norm, is not read: the kernel recomputes it from e with the
     LayerNorm's statistics, which its backward needs anyway. Returns (de,
     dln_scale, dln_bias, dwlp, dblp, dwlc, dblc); the LayerNorm's are None
-    under ``raw_prologue``. Its plain version is autograd through
+    under ``raw_prologue``; de is in e's dtype (float32, or bf16 rounded from
+    the float32 sums), and den, where given, in e_norm's stored dtype
+    (:func:`en_dtype_of`). Its plain version is autograd through
     :func:`fused_frontend_plain`."""
     E, De = e.shape
     Dp, Dc = wlp.shape[0], wlc.shape[0]
     if max(De, Dp, Dc) > 32:
         raise ValueError(f"fused_frontend_bwd: widths De={De}, Dp={Dp}, Dc={Dc} must be <= 32")
     al = kb.aligned
-    e = al(kb.cuda_f32("e", e, (E, De)))
+    e = al(kb.cuda_stream("e", e, kb.stream_dtype(e), (E, De)))
+    den_dtype = e.dtype if den is None else en_dtype_of(e, kb.stream_dtype(den))
     if not raw_prologue:
         ln_scale = kb.cuda_f32("ln_scale", ln_scale, (De,))
         ln_bias = kb.cuda_f32("ln_bias", ln_bias, (De,))
@@ -451,20 +563,22 @@ def fused_frontend_bwd(e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den=None, e
     dxl_p = al(kb.cuda_f32("dxl_p", dxl_p, (E, Dp)))
     dxl_c = al(kb.cuda_f32("dxl_c", dxl_c, (E, Dc)))
     if den is not None:
-        den = al(kb.cuda_f32("den", den, (E, De)))
+        den = al(kb.cuda_stream("den", den, den_dtype, (E, De)))
     dev = e.device
     grid = front_bwd_grid(dev, E, De, Dp, Dc)
     row = front_sums_len(De, Dp, Dc)
-    de = kb.f32_empty((E, De), dev)
+    de = torch.empty((E, De), dtype=e.dtype, device=dev)
     partials, sums = kb.f32_empty((grid, row), dev), kb.f32_empty((row,), dev)
     p = kb.ptr
     code = _entry("gasfm_frontend_prologue_bwd")(
         p(e), E, De, p(None if raw_prologue else ln_scale), p(None if raw_prologue else ln_bias),
         int(raw_prologue), float(eps), p(wlp), Dp, p(wlc), Dc, p(dxl_p), p(dxl_c), p(den),
-        p(de), p(partials), p(sums), grid, kb.stream(dev),
+        p(de), p(partials), p(sums), kb.is_bf16(e.dtype), kb.is_bf16(den_dtype), grid,
+        kb.stream(dev),
     )
     kb.check(code, "fused_frontend_bwd")
     fused_frontend_bwd.launches += 1
+    fused_frontend_bwd.bf16_launches += kb.is_bf16(den_dtype)
     dwlp, dblp, dwlc, dblc, dg, db = split_front_sums(sums, De, Dp, Dc)
     if raw_prologue:
         dg = db = None
@@ -472,3 +586,4 @@ def fused_frontend_bwd(e, ln_scale, ln_bias, wlp, wlc, dxl_p, dxl_c, den=None, e
 
 
 fused_frontend_bwd.launches = 0
+fused_frontend_bwd.bf16_launches = 0

@@ -279,18 +279,39 @@ def test_options_not_ported_raise(option):
 
 
 def test_tpu_devices_are_accepted_and_ignored():
-    """compile.* and model.remat_layers: the session is the one without
+    """The TPU layout keys of compile.*: the session is the one without
     them; f32 dtypes and a one-device mesh are accepted."""
-    extra = ["compile.chunk=512", "compile.stream_dtype=bf16", "compile.kernel_precision=bf16",
+    extra = ["compile.chunk=512", "compile.kernel_precision=bf16",
              "compile.donate_state=true", "compile.view_bucket_multiple=16",
-             "model.remat_layers=true", "train.adam_mu_dtype=f32",
-             "parallel.mesh_shape=[1, 1]"]
+             "train.adam_mu_dtype=f32", "parallel.mesh_shape=[1, 1]"]
     plain = load_config("synth/optim_synth_gasfm.conf")
     conf = load_config("synth/optim_synth_gasfm.conf", external_params=extra)
     assert GraphAttnSfMNet.conf_kwargs(conf) == GraphAttnSfMNet.conf_kwargs(plain)
     assert optim_from_conf(conf) == optim_from_conf(plain)
     session = TrainingSession.from_conf(conf, init_model(conf)[0], device="cpu")
     assert isinstance(session.loss_func, ESFMLoss) and not session.capture
+
+
+@pytest.mark.parametrize("extra, want", [
+    ([], (torch.float32, False)),
+    (["compile.stream_dtype=f32"], (torch.float32, False)),
+    (["compile.stream_dtype=bf16", "model.remat_layers=true"], (torch.bfloat16, True)),
+])
+def test_memory_options_reach_the_model(extra, want):
+    """compile.stream_dtype and model.remat_layers: read into the model by
+    conf_kwargs and init_model, through the session built from the conf."""
+    conf = load_config("synth/optim_synth_gasfm.conf", external_params=extra)
+    kw = GraphAttnSfMNet.conf_kwargs(conf)
+    assert (kw["stream_dtype"], kw["remat_layers"]) == want
+    session = TrainingSession.from_conf(conf, init_model(conf)[0], device="cpu")
+    assert (session.model.stream_dtype, session.model.remat_layers) == want
+
+
+def test_unknown_stream_dtype_raises():
+    conf = load_config("synth/optim_synth_gasfm.conf",
+                       external_params=["compile.stream_dtype=fp16"])
+    with pytest.raises(ValueError, match="stream_dtype"):
+        GraphAttnSfMNet.conf_kwargs(conf)
 
 
 # ---------------------------------------------------------------------------

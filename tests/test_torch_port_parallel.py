@@ -110,9 +110,10 @@ JAX_MODELS = {"gasfm": (JaxGraphAttnSfMNet, "graph_attn_sfm.GraphAttnSfMNet"),
               "dpesfm": (JaxSetOfSetNet, "set_of_set.SetOfSetNet")}
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 # the two-rank spawn's cases beyond CASES, by the CASES model each runs:
-# DPESFM's group of two on [2, 1], and bf16 weights on [1, 2] from weights
-# that differ between the ranks
-EXTRA = {"dpesfm_2x1": "dpesfm", "bf16": "dpesfm"}
+# DPESFM's group of two on [2, 1], bf16 weights on [1, 2] from weights
+# that differ between the ranks, and the merged GASFM under bf16 edge
+# streams (compile.stream_dtype = bf16) on [1, 2]
+EXTRA = {"dpesfm_2x1": "dpesfm", "bf16": "dpesfm", "stream_bf16": "merged"}
 
 # tests/test_parallel.py's model, with the port's conf keys, for the padded group
 PADDED_CONF = """
@@ -187,6 +188,9 @@ class _Runs:
         self.cases["1x2"]["dpesfm_2x1"] = dict(case_of("dpesfm", 2), mesh=(2, 1))
         self.cases["1x2"]["bf16"] = dict(case_of("dpesfm", 1),
                                          optim=dict(OPTIM, param_dtype="bf16"), rank_noise=0.01)
+        merged = case_of("merged", 1)
+        self.cases["1x2"]["stream_bf16"] = dict(
+            merged, model=("gasfm", dict(merged["model"][1], stream_dtype=torch.bfloat16)))
         self.cases["2x2"]["padded"], self.extra = padded_case()
         self.pool = concurrent.futures.ThreadPoolExecutor(1)
         self.futures = {mesh: self.pool.submit(self._spawn, mesh) for mesh in MESHES}
@@ -460,9 +464,24 @@ def test_bf16_mesh_starts_from_rank0_weights(runs):
     later_steps_match_single_rank(runs, "1x2", "bf16", rtol=BF16_RTOL)
 
 
+def test_bf16_streams_mesh_matches_single_rank(runs):
+    """The merged GASFM under bf16 edge streams on [1, 2] (each edge shard's
+    streams bf16 through the same kernels' plain versions) against the
+    single-rank port: the first loss rtol 2e-5, the later steps (loss,
+    our_repro, scenes, gradient norm) BF16_RTOL: the shards sum the softmax
+    and the tables in another order, and a stream value at a bf16 tie may
+    round to the other neighbour."""
+    _, results, refs, _ = runs.get("1x2")
+    want = refs["stream_bf16"]["steps"]
+    for res in results:
+        np.testing.assert_allclose(res["stream_bf16"]["loss"], want[0][0], rtol=2e-5)
+    later_steps_match_single_rank(runs, "1x2", "stream_bf16", rtol=BF16_RTOL)
+
+
 @pytest.mark.parametrize("mesh, name", [(mesh, name) for mesh in sorted(MESHES)
                                         for name in sorted(CASES)]
-                         + [("2x2", "padded"), ("1x2", "dpesfm_2x1"), ("1x2", "bf16")])
+                         + [("2x2", "padded"), ("1x2", "dpesfm_2x1"), ("1x2", "bf16"),
+                            ("1x2", "stream_bf16")])
 def test_weights_bitwise_equal_across_ranks(runs, mesh, name):
     cases, results, _, _ = runs.get(mesh)
     digests = [res[name]["digests"] for res in results]
